@@ -1,0 +1,217 @@
+"""Shared neural building blocks of the PyTorch port.
+
+Port of ``flash_diffusion_tpu/models/layers.py``. Modules carry diffusers
+state-dict names, so a port ``state_dict()`` goes through the JAX package's
+``utils/hf.py`` importers unchanged. Convolutions run channel-first (NCHW);
+token sequences are [B, S, C] with S in h-major order, the order of the JAX
+package's ``reshape(b, h*w, c)`` of NHWC. Attention goes through
+``ops.dot_product_attention`` (the flash kernels), LayerNorm through
+``ops.layer_norm`` (the LayerNorm kernel); GroupNorm keeps the JAX
+numerics in plain PyTorch. Linear layers are plain ``nn.Linear``: the JAX
+``LoraDense`` LoRA side path is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import dot_product_attention, group_norm, layer_norm
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers ``Timesteps`` with the SD
+    settings: max period 10000, flip_sin_to_cos=True, freq_shift=0), fp32 [B, dim]."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device
+    )
+    emb = torch.exp(exponent / half)[None, :] * timesteps.float()[:, None]
+    emb = torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedMLP(nn.Module):
+    """linear → SiLU → linear time-embedding MLP (diffusers TimestepEmbedding)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, out_dim)
+        self.linear_2 = nn.Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over [B, C, ...] with fp32 statistics and optional fused SiLU."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 act: Optional[str] = None):
+        super().__init__()
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, act=self.act)
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm over the last dim through the LayerNorm kernel."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)
+
+
+class ResnetBlock2D(nn.Module):
+    """GN→SiLU→conv3x3 →(+time)→ GN→SiLU→conv3x3 (+skip 1x1 when widening)."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
+                 groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels, groups, eps, act="silu")
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_channels) if temb_dim else None
+        self.norm2 = GroupNorm(out_channels, groups, eps, act="silu")
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (
+            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        )
+
+    def forward(self, x, temb=None):
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest ×2 upsampling, then a 3×3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class Attention(nn.Module):
+    """Multi-head attention (self or cross) over token sequences [B, S, C]."""
+
+    def __init__(self, query_dim: int, num_heads: int, context_dim: Optional[int] = None,
+                 qkv_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        context_dim = context_dim or query_dim
+        self.to_q = nn.Linear(query_dim, query_dim, bias=qkv_bias)
+        self.to_k = nn.Linear(context_dim, query_dim, bias=qkv_bias)
+        self.to_v = nn.Linear(context_dim, query_dim, bias=qkv_bias)
+        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+
+    def forward(self, x, context=None):
+        context = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        b, sq, c = q.shape
+        h = self.num_heads
+        q = q.reshape(b, sq, h, c // h)
+        k = k.reshape(b, context.shape[1], h, c // h)
+        v = v.reshape(b, context.shape[1], h, c // h)
+        out = dot_product_attention(q, k, v)
+        return self.to_out[0](out.reshape(b, sq, c))
+
+
+def _gate_gelu(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's per-dtype GEGLU gate: tanh-gelu in bf16, exact
+    (erf) gelu otherwise (``flash_diffusion_tpu/models/layers.py:424``)."""
+    if x.dtype == torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        x, gate = self.proj(x).chunk(2, dim=-1)
+        return x * _gate_gelu(gate)
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU MLP: proj to 2·inner, gelu-gate, project back (diffusers ``ff.net``)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+
+    def forward(self, x):
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN→self-attn →LN→cross-attn →LN→GEGLU FF, all residual."""
+
+    def __init__(self, dim: int, num_heads: int, context_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = Attention(dim, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = Attention(dim, num_heads, context_dim=context_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context=context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """diffusers Transformer2DModel for SD1.5 UNets: GN → 1×1 conv ``proj_in``
+    → one transformer block over the h-major tokens → 1×1 conv ``proj_out``."""
+
+    def __init__(self, channels: int, num_heads: int, context_dim: int, groups: int = 32):
+        super().__init__()
+        self.norm = GroupNorm(channels, groups, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(channels, num_heads, context_dim)]
+        )
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x, context):
+        b, c, hh, ww = x.shape
+        h = self.proj_in(self.norm(x))
+        h = h.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # tokens, h-major
+        for block in self.transformer_blocks:
+            h = block(h, context)
+        return self.proj_out(h.transpose(1, 2).reshape(b, c, hh, ww)) + x

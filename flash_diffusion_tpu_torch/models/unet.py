@@ -1,0 +1,184 @@
+"""UNet denoiser (SD1.5 family) of the PyTorch port.
+
+Port of ``flash_diffusion_tpu/models/unet.py`` with diffusers
+``UNet2DConditionModel`` module names, so ``state_dict()`` keys match the
+published checkpoints and ``utils/hf.py::import_unet``. The public layout is
+the JAX package's: ``forward(sample [B, H, W, C], timestep [B], conditioning)``
+returns fp32 [B, H, W, C]; inside, convolutions run channel-first. The
+compute dtype is the parameters' dtype (cast the module with ``.to``).
+
+Covers the SD1.5 architecture: ``CrossAttnDownBlock2D``/``DownBlock2D``
+levels with one transformer block each and a cross-attention mid block.
+Not ported yet: SDXL's projection class embedding, linear projections and
+deeper transformer stacks; ``remat``, adapter residuals, ``return_features``
+and the ``concat`` conditioning.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import field
+from typing import Dict, List
+
+import torch
+import torch.nn as nn
+
+from ..config import BaseConfig
+from .layers import (
+    Downsample2D,
+    GroupNorm,
+    ResnetBlock2D,
+    SpatialTransformer,
+    TimestepEmbedMLP,
+    Upsample2D,
+    timestep_embedding,
+)
+
+
+@dataclasses.dataclass
+class UNetConfig(BaseConfig):
+    """The JAX ``UNetConfig`` fields that SD1.5 uses."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: List[int] = field(default_factory=lambda: [320, 640, 1280, 1280])
+    down_block_types: List[str] = field(
+        default_factory=lambda: ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"]
+    )
+    layers_per_block: int = 2
+    num_heads: List[int] = field(default_factory=lambda: [8, 8, 8, 8])
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+
+    def __post_init__(self):
+        super().__post_init__()
+        n = len(self.block_out_channels)
+        if isinstance(self.num_heads, int):
+            self.num_heads = [self.num_heads] * n
+        if len(self.down_block_types) != n or len(self.num_heads) != n:
+            raise ValueError("down_block_types and num_heads need one entry per level")
+        unknown = set(self.down_block_types) - {"CrossAttnDownBlock2D", "DownBlock2D"}
+        if unknown:
+            raise ValueError(f"block types not ported yet: {sorted(unknown)}")
+
+
+def sd15_unet_config(**overrides) -> UNetConfig:
+    """Stable Diffusion 1.5 UNet architecture."""
+    base = dict(
+        block_out_channels=[320, 640, 1280, 1280],
+        down_block_types=["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+        layers_per_block=2,
+        num_heads=[8, 8, 8, 8],
+        cross_attention_dim=768,
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
+class _Block(nn.Module):
+    """One diffusers down/mid/up block: resnets, optional attentions and
+    an optional resampler."""
+
+    def __init__(self, resnets, attentions=None, sampler=None, sampler_name="downsamplers"):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = nn.ModuleList(attentions) if attentions else None
+        if sampler is not None:
+            setattr(self, sampler_name, nn.ModuleList([sampler]))
+
+
+class UNet2DCondition(nn.Module):
+    """The denoiser. ``forward(sample [B,H,W,C], timestep [B], conditioning)``."""
+
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        self.config = cfg = config
+        g = cfg.norm_num_groups
+        b0 = cfg.block_out_channels[0]
+        temb_dim = b0 * 4
+        n = len(cfg.block_out_channels)
+
+        def attn(lvl, ch):
+            return SpatialTransformer(ch, cfg.num_heads[lvl], cfg.cross_attention_dim, g)
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.time_embedding = TimestepEmbedMLP(b0, temb_dim)
+
+        # channel bookkeeping of the skip stack, as the JAX forward builds it
+        skips = [b0]
+        ch_in = b0
+        self.down_blocks = nn.ModuleList()
+        for lvl, btype in enumerate(cfg.down_block_types):
+            ch = cfg.block_out_channels[lvl]
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock2D(ch_in, ch, temb_dim, g))
+                if btype == "CrossAttnDownBlock2D":
+                    attns.append(attn(lvl, ch))
+                ch_in = ch
+                skips.append(ch)
+            sampler = Downsample2D(ch) if lvl < n - 1 else None
+            if sampler is not None:
+                skips.append(ch)
+            self.down_blocks.append(_Block(resnets, attns, sampler))
+
+        ch = cfg.block_out_channels[-1]
+        self.mid_block = _Block(
+            [ResnetBlock2D(ch, ch, temb_dim, g), ResnetBlock2D(ch, ch, temb_dim, g)],
+            [attn(n - 1, ch)],
+        )
+
+        self.up_blocks = nn.ModuleList()
+        for lvl in reversed(range(n)):
+            ch = cfg.block_out_channels[lvl]
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block + 1):
+                resnets.append(ResnetBlock2D(ch_in + skips.pop(), ch, temb_dim, g))
+                if cfg.down_block_types[lvl] == "CrossAttnDownBlock2D":
+                    attns.append(attn(lvl, ch))
+                ch_in = ch
+            sampler = Upsample2D(ch) if lvl > 0 else None
+            self.up_blocks.append(_Block(resnets, attns, sampler, "upsamplers"))
+
+        self.conv_norm_out = GroupNorm(b0, g, act="silu")
+        self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
+
+    def forward(
+        self,
+        sample: torch.Tensor,
+        timestep: torch.Tensor,
+        conditioning: Dict[str, Dict[str, torch.Tensor]],
+    ) -> torch.Tensor:
+        """``conditioning["cond"]["crossattn"]``: the text context [B, T, C]."""
+        dtype = self.conv_in.weight.dtype
+        context = conditioning["cond"]["crossattn"].to(dtype)
+        timestep = torch.as_tensor(timestep, device=sample.device).reshape(-1)
+        temb = timestep_embedding(timestep, self.config.block_out_channels[0])
+        temb = self.time_embedding(temb.to(dtype))
+
+        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        skips = [h]
+        for block in self.down_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                if block.attentions is not None:
+                    h = block.attentions[j](h, context)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, context)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                if block.attentions is not None:
+                    h = block.attentions[j](h, context)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+
+        out = self.conv_out(self.conv_norm_out(h))
+        return out.float().permute(0, 2, 3, 1).contiguous()

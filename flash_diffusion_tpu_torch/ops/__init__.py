@@ -1,0 +1,6 @@
+"""Ops of the PyTorch port: attention and normalization with their kernels."""
+
+from .attention import dot_product_attention, flash_attention_bhsd
+from .norms import group_norm, layer_norm
+
+__all__ = ["dot_product_attention", "flash_attention_bhsd", "group_norm", "layer_norm"]

@@ -1,0 +1,197 @@
+"""Attention ops: the hand-written flash-attention forward and its plain version.
+
+Port of ``flash_diffusion_tpu/ops/attention.py`` (inference forward only).
+``dot_product_attention`` keeps the JAX signature and layout ([B, S, H, D])
+and semantics: ``scale`` defaults to 1/sqrt(D), an additive ``bias`` forces
+the plain path (the causal CLIP mask), and ``kv_valid`` masks KV positions at
+or beyond it to -1e30. Bias-free calls go through ``flash_attention_bhsd``,
+which relayouts nothing itself and takes [B*H, S, D]:
+
+- on a CUDA tensor it launches one of two kernels or raises; it never
+  falls back;
+- on a CPU tensor it runs ``attention_bhsd_reference``, the plain PyTorch
+  version of the same function.
+
+Dispatch (``attention_plan``):
+
+- ``flash_fwd_oneshot`` (``csrc/attention.cu``, the port of
+  ``_flash_fwd_oneshot_kernel``): the whole padded KV of one (batch*head) in
+  shared memory, whenever that tile set fits the 227 KB a block can have at
+  a q tile of 64, 32 or 16 rows. At SD1.5 shapes: every cross-attention
+  (KV = 77) and the 64- and 256-token self-attention (D = 160; 256 keys
+  only at a 16-row q tile).
+- ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
+  ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
+  accumulator in registers, for D <= 512. At SD1.5 shapes: the 1024- and
+  4096-token self-attention and the VAE's D = 512 mid-attention.
+
+The JAX rule (padded KV <= 1024 is one-shot, ``attention.py:569``) does not
+carry over: 1024 keys at D = 80 are 426 KB of K and V here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import kernels
+
+_NEG_INF = -1e30
+_SMEM_LIMIT = 232448  # dynamic shared memory one H100 block can have
+_WARPS = 4
+
+# Launch counts of the kernels, raised by one per launch (never on the
+# plain path). Reset them by assigning 0.
+LAUNCHES = {"flash_fwd_oneshot": 0, "flash_fwd_stream": 0}
+_STREAM_MAX_D = 512  # head dims the streaming kernel is built for
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _align128(n: int) -> int:
+    return _round_up(n, 128)
+
+
+def smem_bytes(bq: int, kvp: int, dp: int) -> int:
+    """Shared memory of one block of the one-shot kernel; mirrors ``Layout``
+    in csrc/attention.cu."""
+    ld_qkv, ld_s, ld_p = dp + 8, kvp + 4, kvp + 8
+    total = _align128(bq * ld_qkv * 2) + 2 * _align128(kvp * ld_qkv * 2)
+    total += _align128(bq * ld_s * 4) + _align128(bq * ld_p * 2)
+    total += _align128(_WARPS * 16 * 16 * 4)
+    return total + 2 * _align128(bq * 4)
+
+
+def attention_plan(kv_len: int, d: int) -> Tuple[str, int]:
+    """(kernel, q tile rows) for ``kv_len`` valid keys at head dim ``d``.
+
+    The one-shot kernel takes a q tile of 64, 32 or 16 rows, the largest
+    whose tile set fits; the streaming kernel has fixed tiles."""
+    dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
+    for bq in (64, 32, 16):
+        if smem_bytes(bq, kvp, dp) <= _SMEM_LIMIT:
+            return "flash_fwd_oneshot", bq
+    if d <= _STREAM_MAX_D:
+        return "flash_fwd_stream", 64
+    raise ValueError(f"head dim {d} too large for the attention kernels")
+
+
+def attention_bhsd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernels: fp32 softmax over q·kᵀ·scale.
+
+    Returns (out [BH, Sq, D] in q's dtype, lse [BH, Sq] fp32)."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if kv_valid is not None and kv_valid < k.shape[1]:
+        s[..., kv_valid:] = _NEG_INF
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", p, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _check_cuda_inputs(q, k, v, kv_len):
+    if q.device.type != "cuda":
+        raise ValueError(f"the attention kernels run on CUDA tensors, got {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"the attention kernels take bf16, got {name} {t.dtype}")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [BH, S, D] tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    bh, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if d % 8:
+        raise ValueError(f"head dim {d} must be a multiple of 8")
+    if not 1 <= kv_len <= k.shape[1]:
+        raise ValueError(f"kv_valid {kv_len} outside [1, {k.shape[1]}]")
+    if bh > 65535:
+        raise ValueError(f"B*H = {bh} exceeds the grid's y limit")
+
+
+def flash_attention_bhsd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash forward over [BH, S, D]: (out [BH, Sq, D], lse [BH, Sq] fp32).
+
+    CPU tensors take the plain version; CUDA tensors launch a kernel."""
+    if q.device.type == "cpu":
+        return attention_bhsd_reference(q, k, v, scale, kv_valid)
+    kv_len = k.shape[1] if kv_valid is None else kv_valid
+    _check_cuda_inputs(q, k, v, kv_len)
+    bh, sq, d = q.shape
+    kind, bq = attention_plan(kv_len, d)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lib = kernels.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            bh, sq, k.shape[1], d, kv_len, float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "flash_fwd_oneshot":
+            err = lib.fdt_flash_fwd_oneshot(*args, bq, _round_up(kv_len, 16), stream)
+        else:
+            err = lib.fdt_flash_fwd_stream_mma(*args, stream)
+    kernels.check(err, kind)
+    LAUNCHES[kind] += 1
+    return out, lse
+
+
+def reference_attention(q, k, v, bias=None, scale=1.0, kv_valid=None):
+    """Plain [B, S, H, D] attention (fp32 softmax), as the JAX ``_xla_attention``.
+
+    Used for biased calls (the causal CLIP mask)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if kv_valid is not None and kv_valid < k.shape[1]:
+        s[..., kv_valid:] = _NEG_INF
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _to_bhsd(x: torch.Tensor) -> torch.Tensor:
+    b, s, h, d = x.shape
+    # at b == 1 the reshape is a strided view, not a copy
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def _from_bhsd(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    bh, s, d = x.shape
+    return x.reshape(b, h, s, d).transpose(1, 2)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Multi-head attention. q: [B, Sq, H, D]; k/v: [B, Skv, H, D] → [B, Sq, H, D].
+
+    ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; every
+    other call takes ``flash_attention_bhsd``."""
+    b, _, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if kv_valid is not None and kv_valid >= k.shape[1]:
+        kv_valid = None
+    if bias is not None:
+        return reference_attention(q, k, v, bias, scale, kv_valid)
+    out, _ = flash_attention_bhsd(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), scale, kv_valid)
+    return _from_bhsd(out, b, h)

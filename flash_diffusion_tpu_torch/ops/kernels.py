@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+cold build takes seconds). The library lands in ``build/kernels/`` at the
+checkout's root, named by a hash of the sources and the flags, so a second
+process or a rerun skips ``nvcc``. Nothing here runs at import time: the
+first kernel launch builds and loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# filled by the build: library path, seconds spent in nvcc (0 when cached),
+# and nvcc's output (ptxas register / shared-memory / spill report)
+BUILD_INFO: dict = {}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fdt_attn_smem_bytes": [_I, _I, _I],
+    "fdt_flash_fwd_oneshot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "fdt_flash_fwd_stream_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfdt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    path = library_path()
+    if path.exists():
+        BUILD_INFO.update(path=str(path), seconds=0.0, log="(cached)")
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    BUILD_INFO.update(path=str(path), seconds=seconds, log=proc.stdout + proc.stderr)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero CUDA error code returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")

@@ -1,0 +1,136 @@
+"""Few-step text-to-image sampling with the PyTorch port: build_pipeline and CLI.
+
+    python -m flash_diffusion_tpu_torch.sample --prompt "A raccoon reading a book" \
+        --steps 4 --out sample.png [--weights-root /weights/sd15]
+
+``build_pipeline("sd15", device=...)`` is the port's counterpart of the sd15
+branch of ``examples/sample.py::build_pipeline``: CLIP-L conditioning (its
+last hidden state), the LCM schedule, the SD1.5 UNet and the SD VAE decoder,
+in bf16 (CLIP in fp32, as the JAX package runs it). Weights are random,
+made from ``seed``, unless ``weights_root`` holds a local diffusers layout
+(``unet/``, ``vae/``, ``text_encoder/`` safetensors), whose keys the port's
+modules carry as they are. The tokenizer contract is the JAX example's: a
+local CLIP tokenizer under ``weights_root/tokenizer`` if present, else
+deterministic zero ids.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+import torch
+
+from .models import AutoencoderKL, UNet2DCondition, sd15_unet_config, sd_vae_config
+from .models.embedders import ClipEmbedder, ClipEmbedderConfig, ConditionerWrapper
+from .pipelines import FlashPipeline
+
+
+def clip_tokenizer(root: str, max_length: int = 77, key: str = "text_ids"):
+    """Local CLIP tokenizer if ``root/tokenizer`` exists, else zero ids."""
+    tok_dir = os.path.join(root, "tokenizer")
+    if os.path.isdir(tok_dir):
+        from transformers import CLIPTokenizerFast
+
+        tok = CLIPTokenizerFast.from_pretrained(tok_dir)
+
+        def tokenizer_fn(texts):
+            out = tok(texts, padding="max_length", max_length=max_length,
+                      truncation=True, return_tensors="np")
+            return {key: out["input_ids"]}
+
+        return tokenizer_fn
+    print("WARNING: no local tokenizer — using zero token ids", file=sys.stderr)
+    return lambda texts: {key: np.zeros((len(texts), max_length), np.int64)}
+
+
+def _load_local(module: torch.nn.Module, path: str, keep=lambda k: True) -> None:
+    """Load a diffusers/transformers safetensors file, if present, by its own keys."""
+    if os.path.exists(path):
+        from safetensors.torch import load_file
+
+        module.load_state_dict({k: v for k, v in load_file(path).items() if keep(k)})
+
+
+def build_pipeline(model: str = "sd15", weights_root: str = "",
+                   device: str | torch.device = "cuda", seed: int = 0) -> FlashPipeline:
+    """Build the SD1.5 pipeline on ``device``: UNet and VAE in bf16, CLIP in fp32.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` to False: fp32 convolutions would
+    otherwise run in TF32 by default, and the fp32 CLIP tower is held to
+    fp32 numerics."""
+    if model != "sd15":
+        raise ValueError(f"model {model!r} is not ported yet (only 'sd15')")
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # random init on the device itself, from a private RNG stream
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        with device:
+            unet = UNet2DCondition(sd15_unet_config())
+            vae = AutoencoderKL(sd_vae_config())
+            clip = ClipEmbedder(ClipEmbedderConfig(input_key="text"))
+    if weights_root:
+        _load_local(unet, os.path.join(weights_root, "unet/diffusion_pytorch_model.safetensors"))
+        _load_local(
+            vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"),
+            keep=lambda k: k.startswith(("decoder.", "post_quant_conv.")),
+        )
+        _load_local(
+            clip.module, os.path.join(weights_root, "text_encoder/model.safetensors"),
+            keep=lambda k: not k.endswith("position_ids"),
+        )
+    return FlashPipeline(
+        unet.to(torch.bfloat16).eval(), ConditionerWrapper([clip]).eval(),
+        vae.to(torch.bfloat16).eval(), clip_tokenizer(weights_root),
+    )
+
+
+def save_png(path: str, images: np.ndarray) -> None:
+    """Save [B, H, W, 3] images in [-1, 1] side by side as an 8-bit PNG."""
+    grid = np.concatenate(list(images), axis=1)
+    pix = np.clip((grid + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
+    h, w, _ = pix.shape
+    raw = b"".join(b"\x00" + pix[i].tobytes() for i in range(h))
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw)))
+        f.write(chunk(b"IEND", b""))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="sd15", choices=["sd15"])
+    ap.add_argument("--weights-root", default="")
+    ap.add_argument("--prompt", action="append", required=True)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--guidance-scale", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default="sample.png")
+    args = ap.parse_args()
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available")
+    pipe = build_pipeline(args.model, args.weights_root, device=args.device, seed=args.seed)
+    images = pipe.generate(
+        args.prompt, num_inference_steps=args.steps,
+        guidance_scale=args.guidance_scale, seed=args.seed,
+    )
+    save_png(args.out, images.cpu().numpy())
+    print("saved", args.out)
+
+
+if __name__ == "__main__":
+    main()

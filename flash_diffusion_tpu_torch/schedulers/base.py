@@ -1,0 +1,103 @@
+"""Shared diffusion-schedule machinery for the PyTorch port.
+
+Mirrors ``flash_diffusion_tpu/schedulers/base.py``: host-side coefficient
+tables are built once in numpy (float64, then rounded to float32 exactly as
+the JAX package stores them), and ``step`` functions are plain functions of
+tensors indexed by the step position ``i``. Stochastic steps take their noise
+from an explicit ``torch.Generator`` or from a tensor the caller passes in,
+so tests can hand both packages the same noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def make_betas(
+    num_train_timesteps: int = 1000,
+    beta_schedule: str = "linear",
+    beta_start: float = 0.0001,
+    beta_end: float = 0.02,
+) -> np.ndarray:
+    """Beta schedule table (diffusers' ``betas_for_alpha_bar`` family)."""
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    if beta_schedule == "scaled_linear":
+        return (
+            np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64)
+            ** 2
+        )
+    if beta_schedule == "squaredcos_cap_v2":
+        def alpha_bar(t):
+            return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+
+        ts = np.arange(num_train_timesteps, dtype=np.float64)
+        betas = 1.0 - alpha_bar((ts + 1) / num_train_timesteps) / alpha_bar(
+            ts / num_train_timesteps
+        )
+        return np.minimum(betas, 0.999)
+    raise ValueError(f"Unknown beta_schedule {beta_schedule!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """Static scheduler hyperparameters (the JAX package's fields and defaults)."""
+
+    num_train_timesteps: int = 1000
+    beta_schedule: str = "scaled_linear"  # SD family default
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    prediction_type: str = "epsilon"  # epsilon | v_prediction | sample
+    timestep_spacing: str = "trailing"
+    steps_offset: int = 0
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    # LCM specific
+    timestep_scaling: float = 10.0
+    sigma_data: float = 0.5
+    original_inference_steps: int = 50  # LCM origin-grid density (diffusers)
+
+
+def training_tables(config: SchedulerConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(alphas_cumprod, sqrt_acp, sqrt_one_minus_acp) over all T train steps."""
+    betas = make_betas(
+        config.num_train_timesteps,
+        config.beta_schedule,
+        config.beta_start,
+        config.beta_end,
+    )
+    alphas_cumprod = np.cumprod(1.0 - betas)
+    return alphas_cumprod, np.sqrt(alphas_cumprod), np.sqrt(1.0 - alphas_cumprod)
+
+
+def predicted_x0(
+    model_output: torch.Tensor,
+    sample: torch.Tensor,
+    sqrt_acp_t,
+    sqrt_1macp_t,
+    prediction_type: str,
+) -> torch.Tensor:
+    """x̂₀ from a model output under the given parameterization."""
+    if prediction_type == "epsilon":
+        return (sample - sqrt_1macp_t * model_output) / sqrt_acp_t
+    if prediction_type == "v_prediction":
+        return sqrt_acp_t * sample - sqrt_1macp_t * model_output
+    if prediction_type == "sample":
+        return model_output
+    raise ValueError(f"Unknown prediction_type {prediction_type!r}")
+
+
+def step_noise(
+    sample: torch.Tensor, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """One ``sample``-shaped standard normal draw for a stochastic step.
+
+    The generator must live on ``sample``'s device (``torch.randn`` draws
+    on the generator's device)."""
+    return torch.randn(
+        sample.shape, generator=generator, device=sample.device, dtype=sample.dtype
+    )

@@ -1,0 +1,5 @@
+"""Utilities of the PyTorch port."""
+
+from .convert import clip_text_from_jax, unet_from_jax, vae_from_jax
+
+__all__ = ["clip_text_from_jax", "unet_from_jax", "vae_from_jax"]

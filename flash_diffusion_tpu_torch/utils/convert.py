@@ -1,0 +1,168 @@
+"""JAX parameter trees → port state dicts.
+
+Each converter takes the JAX package's param tree (nested dicts of numpy
+arrays, with or without the outer ``{"params": ...}``) and returns a port
+``state_dict`` of torch tensors. Each is the exact inverse of the JAX
+package's importer from diffusers/transformers names
+(``flash_diffusion_tpu/utils/hf.py``: ``import_unet``, ``import_vae``,
+``import_clip_text``), whose layout rules it undoes:
+
+- flax Dense kernel [in, out] → torch Linear weight [out, in];
+- flax Conv kernel [kh, kw, I, O] → torch Conv2d weight [O, I, kh, kw];
+- norm ``scale`` → ``weight``;
+- SD1.5 ``proj_in``/``proj_out`` Dense [C, C] → 1×1 conv [C, C, 1, 1].
+
+They cover the SD1.5 UNet, the SD VAE's decode half and CLIP-L, the
+modules the port has.
+
+Imports no JAX: the tree arrives as numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _unwrap(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return tree["params"] if "params" in tree else tree
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(sd: StateDict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv(sd: StateDict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _norm(sd: StateDict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _proj_in_out(sd: StateDict, key: str, p) -> None:
+    """SD1.5's 1×1-conv ``proj_in``/``proj_out`` from a JAX Dense."""
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _resnet(sd: StateDict, key: str, p) -> None:
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _conv(sd, f"{key}.conv1", p["conv1"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+    _conv(sd, f"{key}.conv2", p["conv2"])
+    if "time_emb_proj" in p:
+        _lin(sd, f"{key}.time_emb_proj", p["time_emb_proj"])
+    if "conv_shortcut" in p:
+        _conv(sd, f"{key}.conv_shortcut", p["conv_shortcut"])
+
+
+def _attention(sd: StateDict, key: str, p) -> None:
+    for name in ("to_q", "to_k", "to_v"):
+        _lin(sd, f"{key}.{name}", p[name])
+    _lin(sd, f"{key}.to_out.0", p["to_out"])
+
+
+def _spatial_transformer(sd: StateDict, key: str, p) -> None:
+    _norm(sd, f"{key}.norm", p["norm"])
+    _proj_in_out(sd, f"{key}.proj_in", p["proj_in"])
+    _proj_in_out(sd, f"{key}.proj_out", p["proj_out"])
+    blk, tkey = p["blocks_0"], f"{key}.transformer_blocks.0"
+    for i in ("1", "2"):
+        _norm(sd, f"{tkey}.norm{i}", blk[f"norm{i}"])
+        _attention(sd, f"{tkey}.attn{i}", blk[f"attn{i}"])
+    _norm(sd, f"{tkey}.norm3", blk["norm3"])
+    _lin(sd, f"{tkey}.ff.net.0.proj", blk["ff"]["proj_in"])
+    _lin(sd, f"{tkey}.ff.net.2", blk["ff"]["proj_out"])
+
+
+def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``UNet2DCondition`` params → port ``UNet2DCondition`` state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    _lin(sd, "time_embedding.linear_1", p["time_embedding"]["linear_1"])
+    _lin(sd, "time_embedding.linear_2", p["time_embedding"]["linear_2"])
+    n = len(config.block_out_channels)
+    for lvl in range(n):
+        for j in range(config.layers_per_block):
+            _resnet(sd, f"down_blocks.{lvl}.resnets.{j}", p[f"down_{lvl}_resnet_{j}"])
+            if f"down_{lvl}_attn_{j}" in p:
+                _spatial_transformer(
+                    sd, f"down_blocks.{lvl}.attentions.{j}", p[f"down_{lvl}_attn_{j}"]
+                )
+        if lvl < n - 1:
+            _conv(sd, f"down_blocks.{lvl}.downsamplers.0.conv", p[f"down_{lvl}_downsample"]["conv"])
+    _resnet(sd, "mid_block.resnets.0", p["mid_resnet_0"])
+    _resnet(sd, "mid_block.resnets.1", p["mid_resnet_1"])
+    _spatial_transformer(sd, "mid_block.attentions.0", p["mid_attn"])
+    for ui, lvl in enumerate(reversed(range(n))):
+        for j in range(config.layers_per_block + 1):
+            _resnet(sd, f"up_blocks.{ui}.resnets.{j}", p[f"up_{lvl}_resnet_{j}"])
+            if f"up_{lvl}_attn_{j}" in p:
+                _spatial_transformer(
+                    sd, f"up_blocks.{ui}.attentions.{j}", p[f"up_{lvl}_attn_{j}"]
+                )
+        if lvl > 0:
+            _conv(sd, f"up_blocks.{ui}.upsamplers.0.conv", p[f"up_{lvl}_upsample"]["conv"])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``AutoencoderKL`` params → port ``AutoencoderKL`` (decode) state dict.
+
+    The encoder and ``quant_conv`` are not part of the port yet and are skipped."""
+    p = _unwrap(params)
+    dec = p["decoder"]
+    sd: StateDict = {}
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    _resnet(sd, "decoder.mid_block.resnets.0", dec["mid_resnet_0"])
+    _resnet(sd, "decoder.mid_block.resnets.1", dec["mid_resnet_1"])
+    key = "decoder.mid_block.attentions.0"
+    _norm(sd, f"{key}.group_norm", dec["mid_attn"]["group_norm"])
+    _attention(sd, key, dec["mid_attn"]["attention"])
+    n = len(config.block_out_channels)
+    for ui, lvl in enumerate(reversed(range(n))):
+        for j in range(config.layers_per_block + 1):
+            _resnet(sd, f"decoder.up_blocks.{ui}.resnets.{j}", dec[f"up_{lvl}_resnet_{j}"])
+        if ui < n - 1:
+            _conv(sd, f"decoder.up_blocks.{ui}.upsamplers.0.conv", dec[f"up_{lvl}_upsample"])
+    _norm(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    _conv(sd, "post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def clip_text_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``CLIPTextModel`` params → port ``CLIPTextModel`` state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {
+        "text_model.embeddings.token_embedding.weight": _t(p["token_embedding"]),
+        "text_model.embeddings.position_embedding.weight": _t(p["position_embedding"]),
+        "text_model.final_layer_norm.weight": _t(p["final_ln_scale"]),
+        "text_model.final_layer_norm.bias": _t(p["final_ln_bias"]),
+    }
+    for i in range(config.num_layers):
+        lp, k = p[f"layer_{i}"], f"text_model.encoder.layers.{i}"
+        for ln in ("1", "2"):
+            sd[f"{k}.layer_norm{ln}.weight"] = _t(lp[f"ln{ln}_scale"])
+            sd[f"{k}.layer_norm{ln}.bias"] = _t(lp[f"ln{ln}_bias"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(sd, f"{k}.self_attn.{name}", lp[name])
+        _lin(sd, f"{k}.mlp.fc1", lp["fc1"])
+        _lin(sd, f"{k}.mlp.fc2", lp["fc2"])
+    return sd
