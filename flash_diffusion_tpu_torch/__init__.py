@@ -3,8 +3,9 @@
 A second package beside the JAX one, for one NVIDIA H100 (Hopper, sm_90a).
 It mirrors the JAX package's module names; every Pallas kernel on a ported
 path is a hand-written CUDA kernel under ``csrc/``, built at first use.
-Ported so far: SD1.5 4-step text-to-image sampling (CLIP-L → LCM → UNet →
-VAE decode). Imports ``torch`` and never ``jax``.
+Ported so far: 4-step text-to-image sampling of SD1.5 at 512² and SDXL at
+1024² (CLIP-L, and for SDXL OpenCLIP-bigG and size conditioning → LCM →
+UNet → VAE decode). Imports ``torch`` and never ``jax``.
 """
 
 from .pipelines import FlashPipeline

@@ -1,7 +1,7 @@
-"""Model bodies of the PyTorch port (SD1.5 text-to-image slice)."""
+"""Model bodies of the PyTorch port (SD1.5 and SDXL text-to-image slices)."""
 
-from .text_encoders import CLIPTextConfig, CLIPTextModel, clip_l_config
-from .unet import UNet2DCondition, UNetConfig, sd15_unet_config
+from .text_encoders import CLIPTextConfig, CLIPTextModel, clip_g_config, clip_l_config
+from .unet import UNet2DCondition, UNetConfig, sd15_unet_config, sdxl_unet_config
 from .vae import AutoencoderKL, AutoencoderKLConfig, sd_vae_config
 
 __all__ = [
@@ -11,7 +11,9 @@ __all__ = [
     "CLIPTextModel",
     "UNet2DCondition",
     "UNetConfig",
+    "clip_g_config",
     "clip_l_config",
     "sd15_unet_config",
     "sd_vae_config",
+    "sdxl_unet_config",
 ]

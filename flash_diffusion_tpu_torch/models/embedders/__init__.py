@@ -1,6 +1,7 @@
-"""Conditioners of the PyTorch port (CLIP text so far)."""
+"""Conditioners of the PyTorch port: CLIP text and SDXL's size embeddings."""
 
 from .base import BaseConditionerConfig, Conditioner
+from .misc import TimestepsEmbedder, TimestepsEmbedderConfig
 from .text import ClipEmbedder, ClipEmbedderConfig
 from .wrapper import KEY2CATDIM, ConditionerWrapper
 
@@ -11,4 +12,6 @@ __all__ = [
     "ClipEmbedderConfig",
     "Conditioner",
     "ConditionerWrapper",
+    "TimestepsEmbedder",
+    "TimestepsEmbedderConfig",
 ]

@@ -23,15 +23,24 @@ import torch.nn.functional as F
 from ..ops import dot_product_attention, group_norm, layer_norm
 
 
-def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sinusoidal timestep embedding (diffusers ``Timesteps`` with the SD
-    settings: max period 10000, flip_sin_to_cos=True, freq_shift=0), fp32 [B, dim]."""
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    max_period: float = 10000.0,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding, diffusers ``Timesteps`` semantics (SD
+    family default: flip_sin_to_cos=True, freq_shift=0), fp32 [B, dim]."""
     half = dim // 2
-    exponent = -math.log(10000.0) * torch.arange(
+    exponent = -math.log(max_period) * torch.arange(
         half, dtype=torch.float32, device=timesteps.device
     )
-    emb = torch.exp(exponent / half)[None, :] * timesteps.float()[:, None]
-    emb = torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = scale * (torch.exp(exponent)[None, :] * timesteps.float()[:, None])
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
@@ -196,22 +205,36 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """diffusers Transformer2DModel for SD1.5 UNets: GN → 1×1 conv ``proj_in``
-    → one transformer block over the h-major tokens → 1×1 conv ``proj_out``."""
+    """diffusers Transformer2DModel for UNets: GN → ``proj_in`` → ``depth``
+    transformer blocks over the h-major tokens → ``proj_out``.
 
-    def __init__(self, channels: int, num_heads: int, context_dim: int, groups: int = 32):
+    ``proj_in``/``proj_out`` are 1×1 convs (SD1.5) or, with
+    ``use_linear_projection``, ``nn.Linear`` layers over the tokens (SDXL);
+    the same map either way, as the JAX ``Dense`` on both."""
+
+    def __init__(self, channels: int, num_heads: int, context_dim: int, groups: int = 32,
+                 depth: int = 1, use_linear_projection: bool = False):
         super().__init__()
+        self.linear = use_linear_projection
+        proj = (lambda: nn.Linear(channels, channels)) if self.linear else (
+            lambda: nn.Conv2d(channels, channels, 1))
         self.norm = GroupNorm(channels, groups, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, num_heads, context_dim)]
+            [BasicTransformerBlock(channels, num_heads, context_dim) for _ in range(depth)]
         )
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x))
-        h = h.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # tokens, h-major
+        to_tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # h-major
+        to_image = lambda t: t.transpose(1, 2).reshape(b, c, hh, ww)
+        if self.linear:
+            h = self.proj_in(to_tokens(self.norm(x)))
+        else:
+            h = to_tokens(self.proj_in(self.norm(x)))
         for block in self.transformer_blocks:
             h = block(h, context)
-        return self.proj_out(h.transpose(1, 2).reshape(b, c, hh, ww)) + x
+        if self.linear:
+            return x + to_image(self.proj_out(h))  # x first: the sum keeps x's NCHW layout
+        return self.proj_out(to_image(h)) + x

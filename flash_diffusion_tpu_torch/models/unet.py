@@ -1,4 +1,4 @@
-"""UNet denoiser (SD1.5 family) of the PyTorch port.
+"""UNet denoiser (SD1.5 and SDXL) of the PyTorch port.
 
 Port of ``flash_diffusion_tpu/models/unet.py`` with diffusers
 ``UNet2DConditionModel`` module names, so ``state_dict()`` keys match the
@@ -7,18 +7,22 @@ the JAX package's: ``forward(sample [B, H, W, C], timestep [B], conditioning)``
 returns fp32 [B, H, W, C]; inside, convolutions run channel-first. The
 compute dtype is the parameters' dtype (cast the module with ``.to``).
 
-Covers the SD1.5 architecture: ``CrossAttnDownBlock2D``/``DownBlock2D``
-levels with one transformer block each and a cross-attention mid block.
-Not ported yet: SDXL's projection class embedding, linear projections and
-deeper transformer stacks; ``remat``, adapter residuals, ``return_features``
-and the ``concat`` conditioning.
+Covers SD1.5 and SDXL: ``CrossAttnDownBlock2D``/``DownBlock2D`` levels with
+``transformer_layers_per_block`` transformer blocks each (SDXL: none at
+level 0, 2 at level 1, 10 at level 2 and in the mid block), 1×1-conv or
+linear (``use_linear_projection``) ``proj_in``/``proj_out``, and SDXL's
+projection class embedding: ``conditioning["cond"]["vector"]`` goes through
+``add_embedding`` (the diffusers SDXL name; JAX ``class_embedding``) and is
+added to the time embedding. Not ported yet: ``AttnDownBlock2D``,
+``remat``, adapter residuals, ``return_features`` and the ``concat``
+conditioning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -37,7 +41,9 @@ from .layers import (
 
 @dataclasses.dataclass
 class UNetConfig(BaseConfig):
-    """The JAX ``UNetConfig`` fields that SD1.5 uses."""
+    """The JAX ``UNetConfig`` fields that SD1.5 and SDXL use, and
+    ``use_linear_projection`` (the layout of the checkpoints' ``proj_in``/
+    ``proj_out``; the JAX package keeps a Dense for both)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -46,20 +52,32 @@ class UNetConfig(BaseConfig):
         default_factory=lambda: ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"]
     )
     layers_per_block: int = 2
+    transformer_layers_per_block: List[int] = field(default_factory=lambda: [1, 1, 1, 1])
     num_heads: List[int] = field(default_factory=lambda: [8, 8, 8, 8])
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
+    class_embed_type: Optional[str] = None  # None | "projection"
+    projection_class_embeddings_input_dim: Optional[int] = None
+    use_linear_projection: bool = False
 
     def __post_init__(self):
         super().__post_init__()
         n = len(self.block_out_channels)
+        if isinstance(self.transformer_layers_per_block, int):
+            self.transformer_layers_per_block = [self.transformer_layers_per_block] * n
         if isinstance(self.num_heads, int):
             self.num_heads = [self.num_heads] * n
         if len(self.down_block_types) != n or len(self.num_heads) != n:
             raise ValueError("down_block_types and num_heads need one entry per level")
+        if len(self.transformer_layers_per_block) < n:  # the mid block takes the last, as in JAX
+            raise ValueError("transformer_layers_per_block needs an entry per level")
         unknown = set(self.down_block_types) - {"CrossAttnDownBlock2D", "DownBlock2D"}
         if unknown:
             raise ValueError(f"block types not ported yet: {sorted(unknown)}")
+        if self.class_embed_type not in (None, "projection"):
+            raise ValueError(f"class_embed_type {self.class_embed_type!r} not ported yet")
+        if self.class_embed_type and not self.projection_class_embeddings_input_dim:
+            raise ValueError("class_embed_type='projection' needs projection_class_embeddings_input_dim")
 
 
 def sd15_unet_config(**overrides) -> UNetConfig:
@@ -70,6 +88,25 @@ def sd15_unet_config(**overrides) -> UNetConfig:
         layers_per_block=2,
         num_heads=[8, 8, 8, 8],
         cross_attention_dim=768,
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
+def sdxl_unet_config(**overrides) -> UNetConfig:
+    """SDXL base UNet architecture: the vector conditioning (pooled CLIP-G
+    text embedding and size embeddings, 2816 wide) through the projection
+    class embedding, linear projections as in the published checkpoint."""
+    base = dict(
+        block_out_channels=[320, 640, 1280],
+        down_block_types=["DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"],
+        layers_per_block=2,
+        transformer_layers_per_block=[1, 2, 10],
+        num_heads=[5, 10, 20],
+        cross_attention_dim=2048,
+        class_embed_type="projection",
+        projection_class_embeddings_input_dim=2816,
+        use_linear_projection=True,
     )
     base.update(overrides)
     return UNetConfig(**base)
@@ -98,11 +135,17 @@ class UNet2DCondition(nn.Module):
         temb_dim = b0 * 4
         n = len(cfg.block_out_channels)
 
-        def attn(lvl, ch):
-            return SpatialTransformer(ch, cfg.num_heads[lvl], cfg.cross_attention_dim, g)
+        def attn(lvl, ch, depth=None):
+            return SpatialTransformer(
+                ch, cfg.num_heads[lvl], cfg.cross_attention_dim, g,
+                depth=depth or cfg.transformer_layers_per_block[lvl],
+                use_linear_projection=cfg.use_linear_projection,
+            )
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(b0, temb_dim)
+        if cfg.class_embed_type == "projection":
+            self.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb_dim)
 
         # channel bookkeeping of the skip stack, as the JAX forward builds it
         skips = [b0]
@@ -125,7 +168,7 @@ class UNet2DCondition(nn.Module):
         ch = cfg.block_out_channels[-1]
         self.mid_block = _Block(
             [ResnetBlock2D(ch, ch, temb_dim, g), ResnetBlock2D(ch, ch, temb_dim, g)],
-            [attn(n - 1, ch)],
+            [attn(n - 1, ch, depth=cfg.transformer_layers_per_block[-1])],
         )
 
         self.up_blocks = nn.ModuleList()
@@ -149,12 +192,17 @@ class UNet2DCondition(nn.Module):
         timestep: torch.Tensor,
         conditioning: Dict[str, Dict[str, torch.Tensor]],
     ) -> torch.Tensor:
-        """``conditioning["cond"]["crossattn"]``: the text context [B, T, C]."""
+        """``conditioning["cond"]["crossattn"]``: the text context [B, T, C];
+        ``conditioning["cond"]["vector"]`` (SDXL): [B, 2816], added to the
+        time embedding through ``add_embedding``."""
         dtype = self.conv_in.weight.dtype
-        context = conditioning["cond"]["crossattn"].to(dtype)
+        cond = conditioning["cond"]
+        context = cond["crossattn"].to(dtype)
         timestep = torch.as_tensor(timestep, device=sample.device).reshape(-1)
         temb = timestep_embedding(timestep, self.config.block_out_channels[0])
         temb = self.time_embedding(temb.to(dtype))
+        if hasattr(self, "add_embedding") and cond.get("vector") is not None:
+            temb = temb + self.add_embedding(cond["vector"].to(dtype))
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [h]

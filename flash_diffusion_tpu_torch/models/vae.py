@@ -3,9 +3,10 @@
 Port of ``flash_diffusion_tpu/models/vae.py`` with diffusers
 ``AutoencoderKL`` module names (``decoder.*``, ``post_quant_conv``), so the
 keys match the published checkpoints. ``decode_latents`` takes NHWC latents
-and returns fp32 NHWC images, as in JAX. The mid-block attention is
-single-head with D = C (512 at full width), which runs on the streaming
-flash kernel. Not ported yet: the encoder, ``quant_conv``, the SD3
+and returns fp32 NHWC images, as in JAX. SD1.5 and SDXL share the
+architecture and differ in ``scaling_factor``. The mid-block attention is
+single-head with D = C (512 at full width; 16384 tokens at 1024²), which
+runs on the streaming flash kernel. Not ported yet: the encoder, ``quant_conv``, the SD3
 shift/scale variant and tiled decode.
 """
 

@@ -1,29 +1,36 @@
-"""Attention ops: the hand-written flash-attention forward and its plain version.
+"""Attention ops: the hand-written flash-attention forwards and their plain versions.
 
 Port of ``flash_diffusion_tpu/ops/attention.py`` (inference forward only).
 ``dot_product_attention`` keeps the JAX signature and layout ([B, S, H, D])
 and semantics: ``scale`` defaults to 1/sqrt(D), an additive ``bias`` forces
 the plain path (the causal CLIP mask), and ``kv_valid`` masks KV positions at
-or beyond it to -1e30. Bias-free calls go through ``flash_attention_bhsd``,
-which relayouts nothing itself and takes [B*H, S, D]:
+or beyond it to -1e30. Bias-free calls go to a kernel wrapper:
 
-- on a CUDA tensor it launches one of two kernels or raises; it never
-  falls back;
-- on a CPU tensor it runs ``attention_bhsd_reference``, the plain PyTorch
-  version of the same function.
+- on a CUDA tensor it launches a kernel or raises; it never falls back;
+- on a CPU tensor it runs the plain PyTorch version of the same function.
 
-Dispatch (``attention_plan``):
+Dispatch, as the JAX ``_attn_primal`` does it:
 
-- ``flash_fwd_oneshot`` (``csrc/attention.cu``, the port of
-  ``_flash_fwd_oneshot_kernel``): the whole padded KV of one (batch*head) in
-  shared memory, whenever that tile set fits the 227 KB a block can have at
-  a q tile of 64, 32 or 16 rows. At SD1.5 shapes: every cross-attention
-  (KV = 77) and the 64- and 256-token self-attention (D = 160; 256 keys
-  only at a 16-row q tile).
-- ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
-  ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
-  accumulator in registers, for D <= 512. At SD1.5 shapes: the 1024- and
-  4096-token self-attention and the VAE's D = 512 mid-attention.
+- ``flash_fwd_oneshot_packed`` (``csrc/attention_packed.cu``, the port of
+  ``_flash_fwd_oneshot_packed_kernel``) through ``flash_attention_packed``
+  on the projection-native [B, S, H·D] layout (a free reshape, no head
+  transposes), for calls without ``kv_valid`` that ``packed_cross_eligible``
+  takes: head dim 64 or 128, at least 2 heads, KV ≤ 256 once padded to
+  128. At SDXL shapes: every cross-attention over the 77 text tokens. The
+  JAX A/B switches of this path (``FLASH_TPU_ATTN_PACKED_CROSS``,
+  ``_ANY_D``, ``FLASH_TPU_PACKED_CROSS_KV_MAX``) are TPU probes, not ported.
+- every other call through ``flash_attention_bhsd`` on [B*H, S, D], which
+  picks by ``attention_plan``:
+  - ``flash_fwd_oneshot`` (``csrc/attention.cu``, the port of
+    ``_flash_fwd_oneshot_kernel``): the whole padded KV of one (batch*head)
+    in shared memory, whenever that tile set fits the 227 KB a block can
+    have at a q tile of 64, 32 or 16 rows. At SD1.5 shapes: every
+    cross-attention (KV = 77) and the 64- and 256-token self-attention
+    (D = 160; 256 keys only at a 16-row q tile).
+  - ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
+    ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
+    accumulator in registers, for D <= 512. At SD1.5 and SDXL shapes: the
+    1024- and 4096-token self-attention and the VAE's D = 512 mid-attention.
 
 The JAX rule (padded KV <= 1024 is one-shot, ``attention.py:569``) does not
 carry over: 1024 keys at D = 80 are 426 KB of K and V here.
@@ -44,8 +51,11 @@ _WARPS = 4
 
 # Launch counts of the kernels, raised by one per launch (never on the
 # plain path). Reset them by assigning 0.
-LAUNCHES = {"flash_fwd_oneshot": 0, "flash_fwd_stream": 0}
+LAUNCHES = {"flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0}
 _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
+_PACKED_D = (64, 128)  # head dims the packed kernel is built for
+_PACKED_KV_MAX = 256  # the JAX default of FLASH_TPU_PACKED_CROSS_KV_MAX
+_PACKED_BQ = 64  # q rows of one packed block
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,6 +159,80 @@ def flash_attention_bhsd(
     return out, lse
 
 
+def packed_cross_eligible(q4: torch.Tensor, kv_len: int) -> bool:
+    """Whether a [B, Sq, H, D] call over ``kv_len`` keys takes the packed
+    kernel: the JAX ``_packed_cross_eligible`` at its defaults."""
+    _, _, h, d = q4.shape
+    return h >= 2 and d in _PACKED_D and _align128(kv_len) <= _PACKED_KV_MAX
+
+
+def packed_smem_bytes(d: int, kvp: int) -> int:
+    """Shared memory of one packed block (64 q rows and the padded KV of one
+    head); mirrors csrc/attention_packed.cu."""
+    return (_PACKED_BQ + 2 * kvp) * (d + 8) * 2
+
+
+def attention_packed_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+) -> torch.Tensor:
+    """Plain version of the packed kernel on [B, S, H·D]: per head, fp32
+    softmax over q·kᵀ·scale, p cast to v's dtype before p·v, divided by the
+    fp32 row sum. Returns [B, Sq, H·D] in q's dtype."""
+    b, sq, hd = q.shape
+    d = hd // num_heads
+    heads = lambda x: x.reshape(b, x.shape[1], num_heads, d).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1).transpose(1, 2)[..., None]  # [B, Sq, H, 1]
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), heads(v)) / l
+    return out.reshape(b, sq, hd).to(q.dtype)
+
+
+def _check_packed_inputs(q, k, v, num_heads):
+    if q.device.type != "cuda":
+        raise ValueError(f"the attention kernels run on CUDA tensors, got {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"the attention kernels take bf16, got {name} {t.dtype}")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [B, S, H*D] tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, _, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if num_heads < 1 or hd % num_heads or hd // num_heads not in _PACKED_D:
+        raise ValueError(f"the packed kernel takes head dims {_PACKED_D}, got {hd} / {num_heads} heads")
+    if packed_smem_bytes(hd // num_heads, _round_up(k.shape[1], 16)) > _SMEM_LIMIT:
+        raise ValueError(f"KV {k.shape[1]} does not fit the packed kernel's shared memory")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} outside the grid's z range")
+
+
+def flash_attention_packed(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+) -> torch.Tensor:
+    """Packed one-shot forward: q [B, Sq, H·D], k/v [B, KV, H·D] → [B, Sq, H·D].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return attention_packed_reference(q, k, v, num_heads, scale)
+    _check_packed_inputs(q, k, v, num_heads)
+    b, sq, hd = q.shape
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        err = lib.fdt_flash_fwd_oneshot_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
+            num_heads, hd // num_heads, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    kernels.check(err, "flash_fwd_oneshot_packed")
+    LAUNCHES["flash_fwd_oneshot_packed"] += 1
+    return out
+
+
 def reference_attention(q, k, v, bias=None, scale=1.0, kv_valid=None):
     """Plain [B, S, H, D] attention (fp32 softmax), as the JAX ``_xla_attention``.
 
@@ -184,14 +268,19 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Multi-head attention. q: [B, Sq, H, D]; k/v: [B, Skv, H, D] → [B, Sq, H, D].
 
-    ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; every
-    other call takes ``flash_attention_bhsd``."""
-    b, _, h, d = q.shape
+    ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; calls
+    without ``kv_valid`` that ``packed_cross_eligible`` takes go to
+    ``flash_attention_packed``; every other call to ``flash_attention_bhsd``."""
+    b, sq, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if kv_valid is not None and kv_valid >= k.shape[1]:
         kv_valid = None
     if bias is not None:
         return reference_attention(q, k, v, bias, scale, kv_valid)
+    if kv_valid is None and packed_cross_eligible(q, k.shape[1]):
+        packed = lambda x: x.reshape(b, x.shape[1], h * d).contiguous()  # free for projections
+        out = flash_attention_packed(packed(q), packed(k), packed(v), h, scale)
+        return out.reshape(b, sq, h, d)
     out, _ = flash_attention_bhsd(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), scale, kv_valid)
     return _from_bhsd(out, b, h)

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source compiles with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-cold build takes seconds). The library lands in ``build/kernels/`` at the
-checkout's root, named by a hash of the sources and the flags, so a second
-process or a rerun skips ``nvcc``. Nothing here runs at import time: the
-first kernel launch builds and loads.
+Every ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a cold
+build takes seconds). The library lands in ``build/kernels/`` at the
+checkout's root, named by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so a second process or a rerun skips
+``nvcc``. Nothing here runs at import time: the first kernel launch builds
+and loads.
 """
 
 from __future__ import annotations
@@ -23,11 +25,8 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -41,11 +40,17 @@ _SIGNATURES = {
     "fdt_flash_fwd_oneshot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "fdt_flash_fwd_stream_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "fdt_packed_smem_bytes": [_I, _I],
+    "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -60,30 +65,41 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfdt_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
+    """Compile the sources unless a library of the same hash exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     path = library_path()
     if path.exists():
         BUILD_INFO.update(path=str(path), seconds=0.0, log="(cached)")
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
-    BUILD_INFO.update(path=str(path), seconds=seconds, log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        logs = [(p.communicate()[0], p.returncode) for _, p in procs]  # waits for every one
+        log = "".join(out for out, _ in logs)
+        if any(rc != 0 for _, rc in logs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *(o for o, _ in procs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    BUILD_INFO.update(path=str(path), seconds=time.perf_counter() - t0, log=log)
     return path
 
 

@@ -7,9 +7,10 @@ default: 4 steps, guidance 0 (no CFG doubling). Randomness comes from an
 explicit ``torch.Generator`` seeded by ``seed``; tests inject ``latents``
 and the per-step ``noise`` instead. The stages run in ``record_function`` spans
 (``fdt.encode``, ``fdt.denoise``, ``fdt.decode``) that ``profiling.py``
-reads. Not ported yet: LoRA loading, int8 quantization, tensor-parallel
-placement, ``size_cond_fn``, ``decode_chunk``, per-sample seeds and
-pre-tokenized batches as prompts.
+reads. ``size_cond_fn`` (SDXL) adds the size conditions of a batch to the
+conditioner's inputs, for the negative prompts too. Not ported yet: LoRA
+loading, int8 quantization, tensor-parallel placement, ``decode_chunk``,
+per-sample seeds and pre-tokenized batches as prompts.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class FlashPipeline:
       vae: ``AutoencoderKL`` (``decode_latents``).
       tokenizer_fn: callable(list[str]) -> dict of id arrays (host-side).
       latent_shape: (H, W, C) latent dims of the default resolution.
+
+    Attribute ``size_cond_fn``: None, or callable(n, height_px, width_px) ->
+    dict of [n, k] arrays that ``generate`` adds to the conditioner's inputs
+    (SDXL's original size, crop and target size).
     """
 
     def __init__(
@@ -52,6 +57,7 @@ class FlashPipeline:
         self.sched_config = SchedulerConfig()
         self.latent_shape = tuple(latent_shape)
         self.vae_scale_factor = vae_scale_factor
+        self.size_cond_fn = None
         self.device = next(denoiser.parameters()).device
 
     def _embed(self, batch_inputs, ucg_keys=None):
@@ -87,14 +93,20 @@ class FlashPipeline:
             if height <= 0 or width <= 0 or height % align or width % align:
                 raise ValueError(f"height/width must be positive multiples of {align}")
             lshape = (height // f, width // f, self.latent_shape[-1])
+        h_px, w_px = lshape[0] * self.vae_scale_factor, lshape[1] * self.vae_scale_factor
+        if self.size_cond_fn is not None:
+            batch_inputs.update(self.size_cond_fn(batch, h_px, w_px))
 
         do_cfg = guidance_scale not in (0.0, 1.0)
         with record_function("fdt.encode"):
             cond = self._embed(batch_inputs)
             if do_cfg:
                 if negative_prompts is not None:
-                    uncond = self._embed(dict(self.tokenizer_fn(list(negative_prompts))))
-                else:
+                    neg = dict(self.tokenizer_fn(list(negative_prompts)))
+                    if self.size_cond_fn is not None:  # ucg drops text, not geometry
+                        neg.update(self.size_cond_fn(len(negative_prompts), h_px, w_px))
+                    uncond = self._embed(neg)
+                else:  # every conditioner zeroed, the size embeddings included
                     uncond = self._embed(batch_inputs, ucg_keys=self.conditioner.input_keys())
                 cond = {"cond": {
                     k: torch.cat([v, uncond["cond"][k]]) for k, v in cond["cond"].items()

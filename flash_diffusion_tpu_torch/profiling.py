@@ -1,9 +1,10 @@
-"""Profile one warm SD1.5 ``generate`` on the card: time by stage and by kernel.
+"""Profile one warm ``generate`` on the card: time by stage and by kernel.
 
-    python -m flash_diffusion_tpu_torch.profiling [--batch 4] [--trace trace.json]
+    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl] [--batch 4] [--trace trace.json]
 
-Builds the pipeline as ``sample.build_pipeline("sd15")`` does (random bf16
-weights), runs ``generate`` once to warm up, then once under
+Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
+weights; SD1.5 at 512², SDXL at 1024²), runs ``generate`` once to warm up,
+then once under
 ``torch.profiler``. Prints the wall time, the device's busy share (summed
 kernel time over wall time; the port runs on one stream), each stage's host
 time and device busy time (``fdt.encode``, ``fdt.denoise``, ``fdt.decode``:
@@ -20,7 +21,7 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .sample import build_pipeline
+from .sample import MODELS, build_pipeline
 
 _PROMPTS = ["a photograph of an astronaut riding a horse"]
 
@@ -41,12 +42,13 @@ def _category(name: str) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="sd15", choices=MODELS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
-    pipe = build_pipeline("sd15", device="cuda")
+    pipe = build_pipeline(args.model, device="cuda")
     prompts = (_PROMPTS * args.batch)[: args.batch]
     pipe.generate(prompts)
     torch.cuda.synchronize()
@@ -72,7 +74,7 @@ def main():
         if e.self_device_time_total > 0 and on_device(e) and not e.key.startswith("fdt.")
     ]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}: batch {args.batch}, 4 steps, "
+    print(f"{torch.cuda.get_device_name(0)}: {args.model}, batch {args.batch}, 4 steps, "
           f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for e in events:
         if e.key.startswith("fdt.") and not on_device(e):

@@ -10,10 +10,12 @@ package's importer from diffusers/transformers names
 - flax Dense kernel [in, out] → torch Linear weight [out, in];
 - flax Conv kernel [kh, kw, I, O] → torch Conv2d weight [O, I, kh, kw];
 - norm ``scale`` → ``weight``;
-- SD1.5 ``proj_in``/``proj_out`` Dense [C, C] → 1×1 conv [C, C, 1, 1].
+- ``proj_in``/``proj_out`` Dense [C, C] → 1×1 conv [C, C, 1, 1] (SD1.5) or
+  Linear [C, C] (SDXL, ``use_linear_projection``);
+- the UNet's ``class_embedding`` → ``add_embedding`` (SDXL's diffusers name).
 
-They cover the SD1.5 UNet, the SD VAE's decode half and CLIP-L, the
-modules the port has.
+They cover the SD1.5 and SDXL UNets, the SD VAE's decode half and the
+CLIP-L and OpenCLIP-bigG text towers, the modules the port has.
 
 Imports no JAX: the tree arrives as numpy.
 """
@@ -52,10 +54,11 @@ def _norm(sd: StateDict, key: str, p) -> None:
     sd[f"{key}.bias"] = _t(p["bias"])
 
 
-def _proj_in_out(sd: StateDict, key: str, p) -> None:
-    """SD1.5's 1×1-conv ``proj_in``/``proj_out`` from a JAX Dense."""
-    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
-    sd[f"{key}.bias"] = _t(p["bias"])
+def _proj_in_out(sd: StateDict, key: str, p, linear: bool) -> None:
+    """``proj_in``/``proj_out`` from a JAX Dense: a Linear, or SD1.5's 1×1 conv."""
+    _lin(sd, key, p)
+    if not linear:
+        sd[f"{key}.weight"] = sd[f"{key}.weight"][:, :, None, None]
 
 
 def _resnet(sd: StateDict, key: str, p) -> None:
@@ -75,17 +78,19 @@ def _attention(sd: StateDict, key: str, p) -> None:
     _lin(sd, f"{key}.to_out.0", p["to_out"])
 
 
-def _spatial_transformer(sd: StateDict, key: str, p) -> None:
+def _spatial_transformer(sd: StateDict, key: str, p, linear: bool) -> None:
     _norm(sd, f"{key}.norm", p["norm"])
-    _proj_in_out(sd, f"{key}.proj_in", p["proj_in"])
-    _proj_in_out(sd, f"{key}.proj_out", p["proj_out"])
-    blk, tkey = p["blocks_0"], f"{key}.transformer_blocks.0"
-    for i in ("1", "2"):
-        _norm(sd, f"{tkey}.norm{i}", blk[f"norm{i}"])
-        _attention(sd, f"{tkey}.attn{i}", blk[f"attn{i}"])
-    _norm(sd, f"{tkey}.norm3", blk["norm3"])
-    _lin(sd, f"{tkey}.ff.net.0.proj", blk["ff"]["proj_in"])
-    _lin(sd, f"{tkey}.ff.net.2", blk["ff"]["proj_out"])
+    _proj_in_out(sd, f"{key}.proj_in", p["proj_in"], linear)
+    _proj_in_out(sd, f"{key}.proj_out", p["proj_out"], linear)
+    depth = sum(1 for name in p if name.startswith("blocks_"))
+    for k in range(depth):
+        blk, tkey = p[f"blocks_{k}"], f"{key}.transformer_blocks.{k}"
+        for i in ("1", "2"):
+            _norm(sd, f"{tkey}.norm{i}", blk[f"norm{i}"])
+            _attention(sd, f"{tkey}.attn{i}", blk[f"attn{i}"])
+        _norm(sd, f"{tkey}.norm3", blk["norm3"])
+        _lin(sd, f"{tkey}.ff.net.0.proj", blk["ff"]["proj_in"])
+        _lin(sd, f"{tkey}.ff.net.2", blk["ff"]["proj_out"])
 
 
 def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
@@ -95,25 +100,29 @@ def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
     _conv(sd, "conv_in", p["conv_in"])
     _lin(sd, "time_embedding.linear_1", p["time_embedding"]["linear_1"])
     _lin(sd, "time_embedding.linear_2", p["time_embedding"]["linear_2"])
+    if "class_embedding" in p:
+        _lin(sd, "add_embedding.linear_1", p["class_embedding"]["linear_1"])
+        _lin(sd, "add_embedding.linear_2", p["class_embedding"]["linear_2"])
+    linear = config.use_linear_projection
     n = len(config.block_out_channels)
     for lvl in range(n):
         for j in range(config.layers_per_block):
             _resnet(sd, f"down_blocks.{lvl}.resnets.{j}", p[f"down_{lvl}_resnet_{j}"])
             if f"down_{lvl}_attn_{j}" in p:
                 _spatial_transformer(
-                    sd, f"down_blocks.{lvl}.attentions.{j}", p[f"down_{lvl}_attn_{j}"]
+                    sd, f"down_blocks.{lvl}.attentions.{j}", p[f"down_{lvl}_attn_{j}"], linear
                 )
         if lvl < n - 1:
             _conv(sd, f"down_blocks.{lvl}.downsamplers.0.conv", p[f"down_{lvl}_downsample"]["conv"])
     _resnet(sd, "mid_block.resnets.0", p["mid_resnet_0"])
     _resnet(sd, "mid_block.resnets.1", p["mid_resnet_1"])
-    _spatial_transformer(sd, "mid_block.attentions.0", p["mid_attn"])
+    _spatial_transformer(sd, "mid_block.attentions.0", p["mid_attn"], linear)
     for ui, lvl in enumerate(reversed(range(n))):
         for j in range(config.layers_per_block + 1):
             _resnet(sd, f"up_blocks.{ui}.resnets.{j}", p[f"up_{lvl}_resnet_{j}"])
             if f"up_{lvl}_attn_{j}" in p:
                 _spatial_transformer(
-                    sd, f"up_blocks.{ui}.attentions.{j}", p[f"up_{lvl}_attn_{j}"]
+                    sd, f"up_blocks.{ui}.attentions.{j}", p[f"up_{lvl}_attn_{j}"], linear
                 )
         if lvl > 0:
             _conv(sd, f"up_blocks.{ui}.upsamplers.0.conv", p[f"up_{lvl}_upsample"]["conv"])
@@ -165,4 +174,6 @@ def clip_text_from_jax(params: Dict[str, Any], config) -> StateDict:
             _lin(sd, f"{k}.self_attn.{name}", lp[name])
         _lin(sd, f"{k}.mlp.fc1", lp["fc1"])
         _lin(sd, f"{k}.mlp.fc2", lp["fc2"])
+    if "text_projection" in p:
+        _lin(sd, "text_projection", p["text_projection"])
     return sd

@@ -1,13 +1,14 @@
 """Parity of the PyTorch port's models with the JAX package.
 
-Tiny SD1.5-shaped configs are initialised in JAX, their params perturbed
+Tiny SD1.5- and SDXL-shaped configs are initialised in JAX, their params perturbed
 (so no bias or norm parameter sits at its trivial init), carried to the
 port through ``flash_diffusion_tpu_torch/utils/convert.py``, and both
 forwards run in fp32 on the same numpy inputs. Tolerance 1e-4 absolute:
 fp32 on both sides, the same math with sums in another order, through a
-few dozen layers. The full-size SD1.5 UNet, VAE and CLIP-L port state dicts,
-built on the meta device, are held against the published checkpoints'
-key/shape manifests in ``tests/manifests/``.
+few dozen layers. The full-size SD1.5 and SDXL UNets, the VAE and the
+CLIP-L and OpenCLIP-bigG port state dicts, built on the meta device, are
+held against the published checkpoints' key/shape manifests in
+``tests/manifests/``.
 """
 
 import os
@@ -23,9 +24,17 @@ from flash_diffusion_tpu_torch.models import (
     CLIPTextModel,
     UNet2DCondition,
     UNetConfig,
+    clip_g_config,
     clip_l_config,
     sd15_unet_config,
     sd_vae_config,
+    sdxl_unet_config,
+)
+from flash_diffusion_tpu_torch.models.embedders import (
+    ClipEmbedder,
+    ClipEmbedderConfig,
+    TimestepsEmbedder,
+    TimestepsEmbedderConfig,
 )
 from flash_diffusion_tpu_torch.utils import clip_text_from_jax, unet_from_jax, vae_from_jax
 
@@ -34,6 +43,7 @@ try:  # the JAX reference; absent where only the port is installed
     import jax.numpy as jnp
 
     from flash_diffusion_tpu import models as jm
+    from flash_diffusion_tpu.models import embedders as jemb
     from flash_diffusion_tpu.models import text_encoders as jte
     from flash_diffusion_tpu.utils import hf
 except ImportError:
@@ -51,6 +61,16 @@ UNET_KW = dict(
 VAE_KW = dict(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=8)
 CLIP_KW = dict(vocab_size=100, hidden_size=32, intermediate_size=64, num_layers=2,
                num_heads=2, max_positions=16, eos_token_id=99)
+# SDXL-shaped: DownBlock2D first, transformer depths [1, 2] (the mid block
+# takes the last), D = 64 heads (the packed path), vector conditioning
+# through the projection class embedding; the port's linear projections
+SDXL_UNET_KW = dict(
+    in_channels=4, out_channels=4, block_out_channels=[32, 128],
+    down_block_types=["DownBlock2D", "CrossAttnDownBlock2D"], layers_per_block=1,
+    transformer_layers_per_block=[1, 2], num_heads=[1, 2], cross_attention_dim=32,
+    norm_num_groups=8, class_embed_type="projection", projection_class_embeddings_input_dim=24,
+)
+CLIP_G_KW = dict(CLIP_KW, num_layers=3, hidden_act="gelu", projection_dim=24)
 
 
 @pytest.fixture
@@ -119,6 +139,51 @@ def test_unet_matches_jax(jax_ref):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
+def jax_sdxl_unet():
+    net = jm.UNet2DCondition(jm.UNetConfig(**SDXL_UNET_KW))
+    cond = {"cond": {"crossattn": jnp.zeros((1, 8, 32)), "vector": jnp.zeros((1, 24))}}
+    params = jax.jit(net.init)(jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)), cond)
+    return net, perturbed(params, 4)
+
+
+def test_sdxl_unet_matches_jax(jax_ref):
+    net, params = jax_sdxl_unet()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    vec = rng.standard_normal((2, 24)).astype(np.float32)
+    t = np.array([999, 259], np.int32)
+    want = jax.jit(net.apply)(
+        params, jnp.asarray(x), jnp.asarray(t),
+        {"cond": {"crossattn": jnp.asarray(ctx), "vector": jnp.asarray(vec)}},
+    )
+    cfg = UNetConfig(**SDXL_UNET_KW, use_linear_projection=True)
+    unet = port(UNet2DCondition(cfg), unet_from_jax(params, cfg))
+    assert unet.down_blocks[0].attentions is None and len(unet.mid_block.attentions[0].transformer_blocks) == 2
+    assert isinstance(unet.down_blocks[1].attentions[0].proj_in, torch.nn.Linear)
+    with torch.no_grad():
+        got = unet(torch.from_numpy(x), torch.from_numpy(t),
+                   {"cond": {"crossattn": torch.from_numpy(ctx), "vector": torch.from_numpy(vec)}})
+    assert got.shape == (2, 16, 16, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+def test_sdxl_unet_state_dict_round_trips_through_import_unet(jax_ref):
+    """port state dict (linear projections, depth 2, ``add_embedding``) →
+    JAX ``import_unet`` (which reads ``add_embedding`` into
+    ``class_embedding``) → ``unet_from_jax`` → the same tensors."""
+    cfg = UNetConfig(**SDXL_UNET_KW, use_linear_projection=True)
+    torch.manual_seed(1)
+    sd = UNet2DCondition(cfg).state_dict()
+    assert "add_embedding.linear_1.weight" in sd
+    imported = hf.import_unet({k: v.numpy() for k, v in sd.items()}, jm.UNetConfig(**SDXL_UNET_KW))
+    assert "class_embedding" in imported["params"]
+    back = unet_from_jax(imported, cfg)
+    assert back.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+
+
 def test_unet_state_dict_round_trips_through_import_unet(jax_ref):
     """port state dict → JAX ``import_unet`` → ``unet_from_jax`` → the same tensors."""
     cfg = UNetConfig(**UNET_KW)
@@ -160,6 +225,65 @@ def test_clip_text_matches_jax(jax_ref):
     )
 
 
+def test_clip_g_text_matches_jax(jax_ref):
+    """Exact-gelu MLP and the text projection: the penultimate layer's
+    output (what SDXL takes), the pooled output and its projection."""
+    net = jte.CLIPTextModel(jte.CLIPTextConfig(**CLIP_G_KW))
+    params = perturbed(net.init(jax.random.PRNGKey(5), jnp.zeros((1, 16), jnp.int32)), 6)
+    ids = np.random.default_rng(5).integers(0, 99, (2, 16)).astype(np.int32)
+    ids[0, 3], ids[1, 12] = 99, 99
+    want = net.apply(params, jnp.asarray(ids))
+    cfg = CLIPTextConfig(**CLIP_G_KW)
+    clip = port(CLIPTextModel(cfg), clip_text_from_jax(params, cfg))
+    with torch.no_grad():
+        got = clip(torch.from_numpy(ids).long())
+    assert got["text_embeds"].shape == (2, 24)
+    for name, g, w in (
+        ("hidden_states[-2]", got["hidden_states"][-2], want["hidden_states"][-2]),
+        ("pooled_output", got["pooled_output"], want["pooled_output"]),
+        ("text_embeds", got["text_embeds"], want["text_embeds"]),
+        ("last_hidden_state", got["last_hidden_state"], want["last_hidden_state"]),
+    ):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("num_channels,flip,shift", [(256, True, 0.0), (8, False, 1.0), (7, True, 0.0)])
+@pytest.mark.parametrize("rank", [1, 2])
+def test_timesteps_embedder_matches_jax(jax_ref, num_channels, flip, shift, rank):
+    """[B, k] (or [B]) scalars → [B, k·num_channels], odd widths padded.
+    Tolerance: the frequencies exp(−log(10⁴)·i/half) from XLA's and from
+    PyTorch's exp differ by up to an fp32 ulp (2⁻²³ relative), which moves
+    the sinusoid's argument by up to |t|·2⁻²³ = 4.9e-4 at t = 4096."""
+    key = "original_size_as_tuple"
+    x = np.array([[1024.0, 768.0], [512.0, 0.0], [13.0, 4096.0]], np.float32)
+    x = x if rank == 2 else x[:, 0]
+    kw = dict(input_key=key, num_channels=num_channels, flip_sin_to_cos=flip, downscale_freq_shift=shift)
+    want = jemb.TimestepsEmbedder(jemb.TimestepsEmbedderConfig(**kw))({}, {key: x})["vector"]
+    got = TimestepsEmbedder(TimestepsEmbedderConfig(**kw))({key: x})["vector"]
+    assert got.shape == (3, (2 if rank == 2 else 1) * num_channels)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=4096 * 2**-23, rtol=0)
+
+
+@pytest.mark.parametrize("layer,layer_idx,pooled,projection", [
+    ("last", None, False, False), ("pooled", None, True, False),
+    ("hidden", -2, True, True), ("hidden", 1, False, False),
+])
+def test_clip_embedder_selections_match_jax(jax_ref, layer, layer_idx, pooled, projection):
+    kw = dict(input_key="text", text_embedder_config=dict(CLIP_KW, hidden_act="gelu"), layer=layer,
+              layer_idx=layer_idx, always_return_pooled=pooled, use_projection=projection)
+    jclip = jemb.ClipEmbedder(jemb.ClipEmbedderConfig(**kw))
+    batch = {"text_ids": np.random.default_rng(6).integers(0, 100, (2, 16)).astype(np.int32)}
+    params = perturbed(jclip.init(jax.random.PRNGKey(6), batch), 7)
+    want = jclip.embed(params, batch)
+    clip = ClipEmbedder(ClipEmbedderConfig(**kw))
+    port(clip.module, clip_text_from_jax(params, clip.encoder_config))
+    with torch.no_grad():
+        got = clip.embed(batch)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-4, rtol=0, err_msg=k)
+
+
 def load_manifest(name):
     required, optional = {}, {}
     with open(os.path.join(MANIFEST_DIR, f"{name}.txt")) as f:
@@ -174,6 +298,8 @@ def load_manifest(name):
     ("sd15_unet", lambda: UNet2DCondition(sd15_unet_config()), None),
     ("sd_vae", lambda: AutoencoderKL(sd_vae_config()), ("decoder.", "post_quant_conv.")),
     ("clip_vit_l", lambda: CLIPTextModel(clip_l_config()), None),
+    ("sdxl_unet", lambda: UNet2DCondition(sdxl_unet_config()), None),
+    ("clip_bigg_proj", lambda: CLIPTextModel(clip_g_config()), None),
 ])
 def test_full_size_state_dict_matches_manifest(name, build, prefixes):
     """Key for key and shape for shape, against the published checkpoint

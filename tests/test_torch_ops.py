@@ -4,14 +4,18 @@ On the CPU the port's wrappers run their plain versions; these are held
 against the JAX Pallas kernels run in interpret mode (``tests/conftest.py``
 sets ``FLASH_TPU_PALLAS_INTERPRET=1``) and against the JAX plain paths, in
 fp32 on both sides with the same numpy inputs. Tolerances: 1e-5 absolute
-for attention and GroupNorm (fp32, same math, sums in another order),
-2e-5 for LayerNorm (E[x²] − E[x]² cancels a few more bits at unit scale).
+for attention (the per-head and the packed [B, S, H·D] forms) and GroupNorm
+(fp32, same math, sums in another order), 2e-5 for LayerNorm (E[x²] − E[x]²
+cancels a few more bits at unit scale).
 
 Tests marked ``cuda`` hold each CUDA kernel against its plain version on
 the card and skip without one. The machine with the card has no JAX, so
 they run there without the repo's conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
 """
+
+import json
+import sys
 
 import numpy as np
 import pytest
@@ -101,6 +105,61 @@ def test_dot_product_attention_with_bias_matches_jax(jax_ref):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
+# (b, sq, h, d, kv): the packed one-shot kernel's cases (77 text tokens,
+# KV at the 256 limit, ragged Sq and KV)
+PACKED_CASES = [(2, 260, 4, 64, 77), (1, 33, 2, 128, 256), (2, 70, 4, 64, 200)]
+
+
+@pytest.mark.parametrize("b,sq,h,d,kv", PACKED_CASES)
+def test_attention_packed_matches_jax_packed_kernel(jax_ref, b, sq, h, d, kv):
+    """The plain version of the packed kernel vs JAX ``_flash_fwd_packed``
+    (its one-shot Pallas kernel, in interpret mode) on [B, S, H·D]."""
+    rng = np.random.default_rng(b * 100 + sq + kv)
+    q, k, v = _randn(rng, b, sq, h, d), _randn(rng, b, kv, h, d), _randn(rng, b, kv, h, d)
+    scale = 1.0 / np.sqrt(d)
+    want = jattn._flash_fwd_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    flat = lambda a: torch.from_numpy(a).reshape(a.shape[0], a.shape[1], h * d)
+    got = tattn.flash_attention_packed(flat(q), flat(k), flat(v), h, scale)
+    assert got.shape == (b, sq, h * d)
+    np.testing.assert_allclose(got.reshape(b, sq, h, d).numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+# (b, sq, h, d, kv, kv_valid): eligible (SDXL cross-attention at both levels,
+# D = 128, KV 256) and not (D = 40, KV 1024, one head, kv_valid set)
+PACKED_DISPATCH = [
+    (2, 4096, 10, 64, 77, None), (2, 1024, 20, 64, 77, None), (1, 33, 8, 128, 256, None),
+    (2, 64, 8, 40, 77, None), (2, 64, 10, 64, 1024, None), (2, 64, 1, 64, 77, None),
+    (2, 64, 4, 64, 96, 77),
+]
+
+
+@pytest.mark.parametrize("b,sq,h,d,kv,kv_valid", PACKED_DISPATCH)
+def test_packed_dispatch_matches_jax(jax_ref, monkeypatch, b, sq, h, d, kv, kv_valid):
+    """``packed_cross_eligible`` agrees with JAX ``_packed_cross_eligible``,
+    and ``dot_product_attention`` sends exactly those calls (and none with
+    ``kv_valid``) to the packed path, as ``_attn_primal`` does."""
+    q = np.zeros((b, sq, h, d), np.float32)
+    want = kv_valid is None and jattn._packed_cross_eligible(q, kv)
+    assert (kv_valid is None and tattn.packed_cross_eligible(torch.from_numpy(q), kv)) == want
+    calls = []
+    real = tattn.flash_attention_packed
+    monkeypatch.setattr(tattn, "flash_attention_packed",
+                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    kv_t = torch.zeros(1, kv, h, d)
+    tattn.dot_product_attention(torch.zeros(1, 2, h, d), kv_t, kv_t, kv_valid=kv_valid)
+    assert bool(calls) == want
+
+
+def test_dot_product_attention_packed_path_matches_jax(jax_ref):
+    """A packed-eligible [B, S, H, D] call (D = 64, 2 heads, 77 keys)
+    through both packages' dispatch, the JAX side on its Pallas kernels."""
+    rng = np.random.default_rng(9)
+    q, k, v = _randn(rng, 2, 50, 2, 64), _randn(rng, 2, 77, 2, 64), _randn(rng, 2, 77, 2, 64)
+    want = jattn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=True)
+    got = tattn.dot_product_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
 # C = 128 and 256 take the JAX Pallas kernel under interpret; C = 96 its jnp path
 @pytest.mark.parametrize("c", [128, 256, 96])
 @pytest.mark.parametrize("affine", [True, False])
@@ -144,7 +203,15 @@ SD15_ATTENTION = [
 ]
 
 
-@pytest.mark.parametrize("kv,d,kernel", SD15_ATTENTION)
+# The SDXL calls at 1024² that take flash_attention_bhsd (batch folded into BH)
+SDXL_ATTENTION = [
+    (4096, 64, "flash_fwd_stream"),  # level-1 self-attention
+    (1024, 64, "flash_fwd_stream"),  # level-2 and mid self-attention (one-shot tiles: 295 KB)
+    (16384, 512, "flash_fwd_stream"),  # VAE mid-block
+]
+
+
+@pytest.mark.parametrize("kv,d,kernel", SD15_ATTENTION + SDXL_ATTENTION)
 def test_attention_plan_at_sd15_shapes(kv, d, kernel):
     kind, bq = tattn.attention_plan(kv, d)
     assert kind == kernel and bq % 16 == 0
@@ -156,6 +223,8 @@ def test_cpu_calls_take_the_plain_path_and_launch_nothing():
     before = dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES)
     x = torch.randn(2, 16, 2, 8)
     tattn.dot_product_attention(x, x, x)
+    y = torch.randn(2, 16, 2, 64)  # packed-eligible
+    tattn.dot_product_attention(y, y, y)
     tnorms.layer_norm(torch.randn(4, 32))
     assert (dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES)) == before
 
@@ -165,8 +234,93 @@ def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty(2, 16, 8, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention_bhsd(x, x, x, 1.0)
+    p = torch.empty(2, 16, 128, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention_packed(p, p, p, 2, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         tnorms.layer_norm(torch.empty(4, 8, device="meta"))
+
+
+@pytest.mark.parametrize("d,kv", [(64, 77), (64, 256), (128, 77), (128, 256)])
+def test_packed_tiles_fit_a_block(d, kv):
+    """Every shape ``packed_cross_eligible`` takes fits one block's shared memory."""
+    assert tattn.packed_cross_eligible(torch.empty(1, 1, 2, d), kv)
+    assert tattn.packed_smem_bytes(d, -(-kv // 16) * 16) <= tattn._SMEM_LIMIT
+
+
+FAKE_NVCC = """#!{python}
+import json, os, sys, time
+args = sys.argv[1:]
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(json.dumps([time.time(), args]) + "\\n")
+if "-c" in args:
+    time.sleep(0.3)  # long enough that sequential compiles would not overlap
+    if any(a.endswith("bad.cu") for a in args):
+        print("bad.cu(1): error: expected a declaration")
+        sys.exit(2)
+    print("ptxas info    : Used 32 registers")
+with open(args[args.index("-o") + 1], "w") as f:
+    f.write("binary")
+"""
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    """``ops/kernels.py`` pointed at a scratch source tree and build
+    directory, with a stand-in ``nvcc`` that logs its arguments."""
+    from flash_diffusion_tpu_torch.ops import kernels
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    (csrc / "tiles.cuh").write_text("// shared\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    log = tmp_path / "nvcc.log"
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", build)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "BUILD_INFO", {})
+    return kernels, csrc, log
+
+
+def test_kernel_build_compiles_each_source_at_once_then_links(fake_toolchain):
+    kernels, csrc, log = fake_toolchain
+    path = kernels.build()
+    assert path.exists() and path == kernels.library_path() and path.parent == kernels.BUILD_DIR
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    compiles = [(t, a) for t, a in calls if "-c" in a]
+    assert sorted(a[a.index("-c") + 1] for _, a in compiles) == [str(csrc / n) for n in ("a.cu", "b.cu", "c.cu")]
+    assert all("-gencode" in a and "arch=compute_90a,code=sm_90a" in a for _, a in compiles)
+    # started together: every compile began before the first one ended (each takes 0.3 s)
+    starts = [t for t, _ in compiles]
+    assert max(starts) - min(starts) < 0.25
+    (_, link), = [(t, a) for t, a in calls if "-shared" in a]
+    assert sorted(x for x in link if x.endswith(".o")) == sorted(a[a.index("-o") + 1] for _, a in compiles)
+    assert kernels.BUILD_INFO["log"].count("Used 32 registers") == 3
+    assert list(kernels.BUILD_DIR.iterdir()) == [path]  # objects and temporaries cleaned up
+    n = len(calls)
+    assert kernels.build() == path and len(log.read_text().splitlines()) == n  # cached by hash
+
+
+def test_kernel_library_name_follows_sources_and_headers(fake_toolchain):
+    kernels, csrc, _ = fake_toolchain
+    first = kernels.library_path()
+    (csrc / "tiles.cuh").write_text("// shared, changed\n")
+    second = kernels.library_path()
+    (csrc / "b.cu").write_text("// b, changed\n")
+    assert len({first, second, kernels.library_path()}) == 3
+
+
+def test_kernel_build_failure_raises_with_the_compiler_output(fake_toolchain):
+    kernels, csrc, _ = fake_toolchain
+    (csrc / "bad.cu").write_text("oops\n")
+    with pytest.raises(RuntimeError, match="expected a declaration"):
+        kernels.build()
+    assert not kernels.library_path().exists()
 
 
 # ---------------------------------------------------------------- on the card
@@ -225,9 +379,55 @@ def test_dot_product_attention_on_card_matches_cpu(cuda, b, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,kv,h,d", [
+    (4, 4096, 77, 10, 64), (4, 1024, 77, 20, 64), (1, 4000, 77, 10, 64),
+    (2, 1000, 200, 20, 64), (1, 33, 256, 8, 128), (2, 1024, 77, 8, 128),
+    (8, 100, 77, 20, 64), (3, 130, 16, 4, 64), (2, 70, 250, 2, 128),
+])
+def test_packed_kernel_matches_plain_on_card(cuda, b, sq, kv, h, d):
+    """bf16 kernel vs the plain version on the same inputs in fp32, batch 1
+    and ragged Sq/KV included. Tolerance: bf16 rounding of p and of the
+    output, |out| < 4 → 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda).to(torch.bfloat16)
+               for s in (sq, kv, kv))
+    n = tattn.LAUNCHES["flash_fwd_oneshot_packed"]
+    out = tattn.flash_attention_packed(q, k, v, h, d ** -0.5)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_fwd_oneshot_packed"] == n + 1
+    want = tattn.attention_packed_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
+    assert (out.float() - want).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_dot_product_attention_packed_on_card_matches_cpu(cuda, b):
+    """The [B, S, H, D] ⇄ [B, S, H·D] reshape around the packed kernel from
+    the projections' layout, batch 1 included, against the plain path on
+    the CPU (bf16 tolerance)."""
+    g = torch.Generator().manual_seed(4)
+    lin = torch.nn.Linear(640, 640, bias=False)
+    x, ctx = torch.randn(b, 300, 640, generator=g), torch.randn(b, 77, 640, generator=g)
+    q = lin(x).detach().reshape(b, 300, 10, 64).to(torch.bfloat16)
+    k, v = (lin(ctx).detach().reshape(b, 77, 10, 64).to(torch.bfloat16) for _ in range(2))
+    want = tattn.dot_product_attention(q.float(), k.float(), v.float())
+    n = tattn.LAUNCHES["flash_fwd_oneshot_packed"]
+    got = tattn.dot_product_attention(q.to(cuda), k.to(cuda), v.to(cuda)).float().cpu()
+    assert tattn.LAUNCHES["flash_fwd_oneshot_packed"] == n + 1
+    assert (got - want).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     x = torch.randn(2, 16, 8, device=cuda)
     with pytest.raises(ValueError):
         tattn.flash_attention_bhsd(x, x, x, 1.0)  # fp32
+    p = torch.randn(2, 16, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tattn.flash_attention_packed(p, p, p, 4, 1.0)  # head dim 48
+    with pytest.raises(ValueError):
+        tattn.flash_attention_packed(p, p[:, :, :128], p[:, :, :128], 3, 1.0)  # K/V width
+    with pytest.raises(ValueError):
+        tattn.flash_attention_packed(p.float(), p.float(), p.float(), 3, 1.0)  # fp32
     with pytest.raises(ValueError):
         tnorms.layer_norm(torch.randn(8, 16, device=cuda).t())  # not contiguous

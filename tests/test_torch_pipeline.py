@@ -1,6 +1,8 @@
-"""The port's whole SD1.5 slice against the JAX ``FlashPipeline.generate``.
+"""The port's whole SD1.5 and SDXL slices against the JAX ``FlashPipeline.generate``.
 
-Tiny CLIP → 4 LCM steps of a tiny SD1.5-shaped UNet → tiny VAE decode, with
+Tiny CLIP → 4 LCM steps of a tiny SD1.5-shaped UNet → tiny VAE decode (and
+the SDXL stack: two CLIP towers, the size embeddings through
+``size_cond_fn``, an SDXL-shaped UNet with vector conditioning), with
 the same weights (JAX params carried by ``utils/convert.py``) and the same
 randomness: the initial latents and the per-step LCM noise are drawn with
 ``jax.random`` exactly as ``flash_diffusion_tpu/pipelines.py`` draws them
@@ -29,7 +31,10 @@ from flash_diffusion_tpu_torch.models.embedders import (
     ClipEmbedder,
     ClipEmbedderConfig,
     ConditionerWrapper,
+    TimestepsEmbedder,
+    TimestepsEmbedderConfig,
 )
+from flash_diffusion_tpu_torch.sample import SIZE_KEYS, size_cond_fn
 from flash_diffusion_tpu_torch.schedulers import SchedulerConfig, lcm
 from flash_diffusion_tpu_torch.utils import clip_text_from_jax, unet_from_jax, vae_from_jax
 
@@ -57,6 +62,27 @@ VAE_KW = dict(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=8
 CLIP_KW = dict(vocab_size=100, hidden_size=32, intermediate_size=64, num_layers=2,
                num_heads=2, max_positions=16, eos_token_id=99)
 LATENT = (8, 8, 4)
+
+
+# SDXL-shaped: DownBlock2D first, depths [1, 2], D = 64 heads, crossattn =
+# CLIP-L-like 32 + CLIP-G-like 32, vector = G's projection 24 + 3 sizes × 8
+SDXL_UNET_KW = dict(
+    in_channels=4, out_channels=4, block_out_channels=[32, 128],
+    down_block_types=["DownBlock2D", "CrossAttnDownBlock2D"], layers_per_block=1,
+    transformer_layers_per_block=[1, 2], num_heads=[1, 2], cross_attention_dim=64,
+    norm_num_groups=8, class_embed_type="projection", projection_class_embeddings_input_dim=72,
+)
+SIZE_CHANNELS = 8
+
+
+def sdxl_conditioner_kw():
+    """ClipEmbedderConfig kwargs of the two towers, as the sdxl branch of
+    ``examples/sample.py`` sets them, at tiny widths."""
+    clip_l = dict(input_key="text", layer="hidden", layer_idx=-2, text_embedder_config=CLIP_KW)
+    clip_g = dict(input_key="text", layer="hidden", layer_idx=-2, always_return_pooled=True,
+                  use_projection=True,
+                  text_embedder_config=dict(CLIP_KW, num_layers=3, hidden_act="gelu", projection_dim=24))
+    return clip_l, clip_g
 
 
 @pytest.fixture
@@ -125,6 +151,52 @@ def port_pipeline(uparams, vparams, cparams):
     )
 
 
+@pytest.fixture(scope="module")
+def jax_sdxl_pipeline():
+    """The tiny SDXL stack in JAX and its (perturbed) params, built once."""
+    if jax is None:
+        pytest.skip("needs the JAX reference package")
+    unet = jm.UNet2DCondition(jm.UNetConfig(**SDXL_UNET_KW))
+    uparams = perturbed(jax.jit(unet.init)(
+        jax.random.PRNGKey(4), jnp.zeros((1, *LATENT)), jnp.zeros((1,)),
+        {"cond": {"crossattn": jnp.zeros((1, 16, 64)), "vector": jnp.zeros((1, 72))}},
+    ), 5)
+    vae = jm.AutoencoderKL(jm.AutoencoderKLConfig(**VAE_KW, scaling_factor=0.13025))
+    vparams = perturbed(jax.jit(vae.init)(jax.random.PRNGKey(5), jnp.zeros((1, 16, 16, 3))), 6)
+    towers = [jemb.ClipEmbedder(jemb.ClipEmbedderConfig(**kw)) for kw in sdxl_conditioner_kw()]
+    ids = {"text_ids": jnp.zeros((1, 16), jnp.int32)}
+    cparams = [perturbed(t.init(jax.random.PRNGKey(6 + i), ids), 7 + i) for i, t in enumerate(towers)]
+    sizes = [jemb.TimestepsEmbedder(jemb.TimestepsEmbedderConfig(input_key=k, num_channels=SIZE_CHANNELS))
+             for k in SIZE_KEYS]
+    pipe = JFlashPipeline(
+        unet, uparams, conditioner=jemb.ConditionerWrapper([*towers, *sizes]),
+        conditioner_params=[*cparams, {}, {}, {}], vae=vae, vae_params=vparams,
+        tokenizer_fn=tokenizer_fn, latent_shape=LATENT, vae_scale_factor=2,
+    )
+    pipe.size_cond_fn = size_cond_fn
+    return pipe, uparams, vparams, cparams
+
+
+def port_sdxl_pipeline(uparams, vparams, cparams):
+    ucfg = TUNetConfig(**SDXL_UNET_KW, use_linear_projection=True)
+    vcfg = TVAEConfig(**VAE_KW, scaling_factor=0.13025)
+    unet = UNet2DCondition(ucfg)
+    unet.load_state_dict(unet_from_jax(uparams, ucfg))
+    vae = AutoencoderKL(vcfg)
+    vae.load_state_dict(vae_from_jax(vparams, vcfg))
+    towers = [ClipEmbedder(ClipEmbedderConfig(**kw)) for kw in sdxl_conditioner_kw()]
+    for tower, params in zip(towers, cparams):
+        tower.module.load_state_dict(clip_text_from_jax(params, tower.encoder_config))
+    sizes = [TimestepsEmbedder(TimestepsEmbedderConfig(input_key=k, num_channels=SIZE_CHANNELS))
+             for k in SIZE_KEYS]
+    pipe = FlashPipeline(
+        unet.eval(), ConditionerWrapper([*towers, *sizes]).eval(), vae.eval(), tokenizer_fn,
+        latent_shape=LATENT, vae_scale_factor=2,
+    )
+    pipe.size_cond_fn = size_cond_fn
+    return pipe
+
+
 def jax_draws(seed, batch, steps):
     """The latents and per-step noise ``FlashPipeline.generate`` draws for a scalar seed."""
     rng, kz = jax.random.split(jax.random.PRNGKey(seed))
@@ -151,6 +223,36 @@ def test_slice_matches_jax_generate(jax_pipeline, guidance_scale):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("guidance_scale,negative", [(0.0, None), (2.0, ["blurry", "dark"]), (2.0, None)])
+def test_sdxl_slice_matches_jax_generate(jax_sdxl_pipeline, guidance_scale, negative):
+    """guidance 0 (the published setting); 2.0 with negative prompts, whose
+    branch gets the size conditions too; 2.0 without, where ucg zeroes every
+    conditioner, the size embeddings included."""
+    jpipe, uparams, vparams, cparams = jax_sdxl_pipeline
+    prompts = ["a raccoon reading a book", "an astronaut"]
+    kw = dict(num_inference_steps=4, guidance_scale=guidance_scale, negative_prompts=negative)
+    want = np.asarray(jpipe.generate(prompts, seed=4, **kw))
+    latents, noise = jax_draws(4, len(prompts), 4)
+    got = port_sdxl_pipeline(uparams, vparams, cparams).generate(
+        prompts, latents=latents, noise=noise, **kw)
+    assert got.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_size_cond_fn_feeds_the_vector():
+    """The size conditions reach the UNet's vector: a different target size
+    changes the images, and the vector is 24 + 3·2·8 wide."""
+    pipe = tiny_sdxl_port_pipeline()
+    seen = []
+    embed = pipe._embed
+    pipe._embed = lambda *a, **kw: seen.append(embed(*a, **kw)) or seen[-1]
+    a = pipe.generate(["x"], seed=1)
+    assert seen[0]["cond"]["vector"].shape == (1, 72)
+    assert seen[0]["cond"]["crossattn"].shape == (1, 16, 64)
+    pipe.size_cond_fn = lambda n, h, w: size_cond_fn(n, 2 * h, w)
+    assert not torch.equal(a, pipe.generate(["x"], seed=1))
+
+
 def test_lcm_schedule_matches_jax(jax_ref):
     from flash_diffusion_tpu.schedulers import lcm as jlcm
     from flash_diffusion_tpu.schedulers.base import SchedulerConfig as JSchedulerConfig
@@ -171,6 +273,21 @@ def tiny_port_pipeline(device="cpu", dtype=torch.float32):
         AutoencoderKL(TVAEConfig(**VAE_KW)).to(device, dtype).eval(),
         tokenizer_fn, latent_shape=LATENT, vae_scale_factor=2,
     )
+
+
+def tiny_sdxl_port_pipeline(device="cpu", dtype=torch.float32):
+    torch.manual_seed(1)
+    towers = [ClipEmbedder(ClipEmbedderConfig(**kw)) for kw in sdxl_conditioner_kw()]
+    sizes = [TimestepsEmbedder(TimestepsEmbedderConfig(input_key=k, num_channels=SIZE_CHANNELS))
+             for k in SIZE_KEYS]
+    pipe = FlashPipeline(
+        UNet2DCondition(TUNetConfig(**SDXL_UNET_KW, use_linear_projection=True)).to(device, dtype).eval(),
+        ConditionerWrapper([*towers, *sizes]).to(device).eval(),
+        AutoencoderKL(TVAEConfig(**VAE_KW, scaling_factor=0.13025)).to(device, dtype).eval(),
+        tokenizer_fn, latent_shape=LATENT, vae_scale_factor=2,
+    )
+    pipe.size_cond_fn = size_cond_fn
+    return pipe
 
 
 def test_seeded_generate_is_deterministic():
@@ -252,3 +369,25 @@ def test_slice_runs_through_the_kernels_on_card(cuda):
     torch.cuda.synchronize()
     assert images.shape == (2, 16, 16, 3) and torch.isfinite(images).all()
     assert attention.LAUNCHES["flash_fwd_oneshot"] > 0 and norms.LAUNCHES["layer_norm"] > 0
+
+
+@pytest.mark.cuda
+def test_sdxl_slice_runs_through_the_kernels_on_card(cuda):
+    """The tiny SDXL slice in bf16 on the card: finite images, the packed
+    kernel launched for the D = 64 attention calls, and the bf16 images
+    within a relative L2 error of 0.1 of the fp32 slice on the CPU."""
+    from flash_diffusion_tpu_torch.ops import attention, norms
+
+    ref = tiny_sdxl_port_pipeline()
+    pipe = tiny_sdxl_port_pipeline(cuda, torch.bfloat16)
+    for d in (attention.LAUNCHES, norms.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    g = torch.Generator().manual_seed(0)
+    latents, noise = torch.randn(2, *LATENT, generator=g), [torch.randn(2, *LATENT, generator=g) for _ in range(4)]
+    images = pipe.generate(["a", "b"], latents=latents, noise=noise).cpu()
+    torch.cuda.synchronize()
+    assert images.shape == (2, 16, 16, 3) and torch.isfinite(images).all()
+    assert attention.LAUNCHES["flash_fwd_oneshot_packed"] > 0 and norms.LAUNCHES["layer_norm"] > 0
+    want = ref.generate(["a", "b"], latents=latents, noise=noise)
+    assert ((images - want).norm() / want.norm()).item() < 0.1
