@@ -3,18 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, 4-step text-to-image sampling of SD1.5 at
-512² and of SDXL at 1024², at full width and depth with random bf16 weights
-made from a seed, and fails unless every phase passes:
+Drives the port's three main paths at full width and depth with random
+weights made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and
+of SDXL at 1024², and the Flash distillation step of SD1.5 at 512². It fails
+unless every phase passes:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
    per source, all at once; timed);
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
-   version at every shape either path gives it (bf16 kernel vs the plain
+   version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
-   against the stated tolerance, and kernel vs plain device time (CUDA
-   events around 10 queued calls, median of 5 runs);
+   against the stated tolerance; at the paths' shapes also the kernel's,
+   the plain version's and the PyTorch library call's device time (CUDA
+   events around 10 queued calls, median of 5 runs) and the bound: the
+   larger of the bytes the function moves over 3.35 TB/s and its operations
+   (as the JAX ``pl.CostEstimate`` counts them) over 989 TFLOP/s in bf16
+   (67 TFLOP/s fp32 for LayerNorm). The library calls are yardsticks only:
+   ``F.scaled_dot_product_attention`` (forward for K1, K2, K4; its backward,
+   ``torch.autograd.grad`` with ``retain_graph``, for K6–K8) and
+   ``F.layer_norm`` for K3. The backward kernels (K6+K7 or K8, routed by
+   ``attention_bwd_plan``) are held in fp32 against
+   ``attention_bwd_reference`` for dq, dk and dv, each to the forward's out
+   tolerance times max(1, max|grad|); K6 and K7 are also timed alone;
 3. SD1.5 path: ``build_pipeline("sd15", device="cuda")`` then ``generate``
    of 4 prompts × 4 steps, guidance 0, 512²: the output must be
    [4, 512, 512, 3] and finite, and the launch counts of K1–K3, reset just
@@ -31,17 +42,42 @@ made from a seed, and fails unless every phase passes:
 4b. SDXL reference at 128² on one prompt, as phase 4: both CLIP outputs
    (crossattn and vector) to a relative L2 of 1e-4, the images to 0.1. The
    fp32 CPU copy is built from the modules' state dicts, parameter by
-   parameter.
+   parameter;
+5. training, after the serving pipelines are freed: ``build_trainer("sd15",
+   device="cuda")`` with ``flash_sd.yaml`` (K = 32, LPIPS distill, DMD,
+   hinge GAN, rank-128 LoRA, ``remat`` on) and ``NUM_ITERATIONS_PER_K`` set
+   so that every step falls in stage 1 (distill 1.0, DMD 0.3, adversarial
+   0.1), then ``fit`` on synthetic batches of 4 at 512²: 1 warm and 3 timed
+   steps. Every loss finite; every LoRA B factor and the discriminator
+   changed; teacher, VAE and CLIP bit-identical; the launch counts of K1,
+   K2, K3, K6, K7 and K8, reset just before, grown (the forward kernels'
+   counts include the recompute of ``remat`` and of the checkpointed LPIPS
+   decode in the backward). Warm s/step (median), images/s and peak memory
+   (the stage breakdown is ``flash_diffusion_tpu_torch.profiling --train``);
+5b. training reference at 256² (K = [4], ``LPIPS_CROP`` 16, no
+   discriminator stage, batch 2, non-zero LoRA B; 256² is the least size
+   whose 4×4 mid features the discriminator's 4×4 head takes; at 128²
+   they are 2×2): one ``losses`` and
+   backward on the card in bf16 against an fp32 CPU copy built from the
+   state dicts, on the same staged batch and the same draws: the distill,
+   DMD and D losses each to a relative error of 0.05, the discriminator's
+   outputs to a relative L2 of 0.05, the LoRA and discriminator gradients to
+   a relative L2 of 0.1, the VAE encode to 0.1. Printed beside, ungated: the
+   LoRA gradients' error of each scaled G term alone, and of the student's
+   own backward (the gradient of a fixed random projection of its output).
 
 The second-to-last line of output is the card's name and power limit; the
-line before it lists the kernels as JSON (``launches``: the count over both
-paths' runs, ``launches_by_path`` each; ``ms``/``plain_ms``: sums over the
-paths' shapes); the last line is ``{"ok": true, "device": {...}}``. Without
-CUDA, or without the port beside this file, it exits non-zero and prints no
-result.
+line before it lists the kernels as JSON (``launches``: the count over the
+paths' runs, ``launches_by_path`` each; ``ms``, ``plain_ms``,
+``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
+bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
+are those of the whole backward, dq, dk and dv); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the port beside
+this file, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -49,6 +85,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 # (bh, sq, skv, d, kv_valid) of every kernel attention call at batch 4,
 # guidance 0, 512² (8 heads: BH = 32), plus ragged cases
@@ -100,6 +137,32 @@ LAYER_NORM_SHAPES_XL = [
     (4 * 77, 1280, torch.float32),
     (4 * 77, 768, torch.float32),
 ]
+# (bh, sq, kv, d, kv_valid) of the attention backward of one training step
+# at batch 4, 512² (8 heads): the student's (BH 32) and the GAN branch's
+# teacher down path and mid block at 2B (BH 64), self-attention per level
+# and cross-attention over the 77 text tokens; and the VAE decoder's
+# single-head mid-attention under the LPIPS loss. Ragged: Sq off the tile,
+# KV 200, kv_valid < KV, batch 1 (BH 8; VAE BH 1)
+BWD_LEVELS = [
+    (4096, 4096, 40), (1024, 1024, 80), (256, 256, 160), (64, 64, 160),
+    (4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160),
+]
+BWD_SHAPES = [(bh, sq, kv, d, None) for bh in (32, 64) for sq, kv, d in BWD_LEVELS]
+BWD_SHAPES.append((4, 4096, 4096, 512, None))
+BWD_RAGGED = [
+    (32, 4000, 77, 40, None), (64, 1000, 200, 80, 150), (8, 4096, 4096, 40, 3001),
+    (8, 4000, 77, 40, 70), (1, 700, 4096, 512, 3000), (64, 300, 2000, 160, 1999),
+]
+# the training phase: every step in stage 1 of flash_sd.yaml's four
+TRAIN_OVERRIDES = {"NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
+# the training reference at 256²: one stage, at stage 1's loss scales
+TRAIN_REF_OVERRIDES = {
+    "IMAGE_SIZE": 256, "K": [4], "NUM_ITERATIONS_PER_K": [10], "MODE_PROBS": [[0.25] * 4],
+    "LPIPS_CROP": 16, "DISTILL_LOSS_SCALE": 1.0, "DMD_LOSS_SCALE": 0.3, "ADVERSARIAL_LOSS_SCALE": 0.1,
+}
+TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
+# H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
+HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S = 3.35e12, 989e12, 67e12
 # tolerances, kernel (bf16) vs plain (fp32): attention out is rounded to
 # bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2); lse is fp32
 # from exact bf16 products (5e-3); LayerNorm in bf16 differs by the output's
@@ -141,6 +204,42 @@ def median_ms(fn, reps: int = 5, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def library_ms(make):
+    """Device time of a PyTorch library call (a yardstick, never on the
+    port's path): ``make()`` sets it up and returns the call. None, with the
+    reason printed, where the library cannot run it at this shape."""
+    try:
+        return median_ms(make())
+    except RuntimeError as e:
+        print(f"  library call unavailable here: {str(e).splitlines()[0][:160]}")
+        torch.cuda.empty_cache()
+        return None
+
+
+def bound(ops: float, nbytes: float, ops_per_s: float = BF16_OPS_PER_S):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def new_row(route, source, replaces):
+    return dict(route=route, source=source, replaces=replaces, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                library_ms=0.0, bound_ms=0.0, bound_by={"bytes": 0.0, "operations": 0.0})
+
+
+def add_times(r, ms, plain, library, bnd):
+    """Adds one main-path shape's times to a kernel's row."""
+    r["ms"] += ms
+    r["plain_ms"] += plain
+    r["library_ms"] = None if library is None or r["library_ms"] is None else r["library_ms"] + library
+    r["bound_ms"] += bnd[0]
+    r["bound_by"][bnd[1]] += bnd[0]
+
+
+def fmt_ms(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
 def check_attention(attention, results):
     g = torch.Generator(device="cuda").manual_seed(0)
     for bh, sq, skv, d, kv_valid in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_RAGGED:
@@ -157,16 +256,22 @@ def check_attention(attention, results):
         del ref_out, ref_lse
         ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
         plain = median_ms(lambda: attention.attention_bhsd_reference(q, k, v, scale, kv_valid))
+        main = (bh, sq, skv, d, kv_valid) in ATTENTION_SHAPES + ATTENTION_SHAPES_XL
+        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v
+            library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale))
+            bnd = bound(4 * bh * sq * skv * d, 2 * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq)
+            times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
         print(f"attention {kind:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} "
               f"kv_valid={kv_valid}: max|out err| {err:.3e} (tol {ATTN_OUT_TOL}) "
-              f"max|lse err| {lse_err:.3e} (tol {ATTN_LSE_TOL}); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"max|lse err| {lse_err:.3e} (tol {ATTN_LSE_TOL}); {times}")
         if not (err <= ATTN_OUT_TOL and lse_err <= ATTN_LSE_TOL):
             raise AssertionError(f"attention kernel disagrees with its plain version at {(bh, sq, skv, d, kv_valid)}")
         r = results[kind]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (bh, sq, skv, d, kv_valid) in ATTENTION_SHAPES + ATTENTION_SHAPES_XL:
-            r["ms"] += ms
-            r["plain_ms"] += plain
+        if main:
+            add_times(r, ms, plain, library, bnd)
 
 
 def check_packed(attention, results):
@@ -182,15 +287,22 @@ def check_packed(attention, results):
         del ref
         ms = median_ms(lambda: attention.flash_attention_packed(q, k, v, h, scale))
         plain = median_ms(lambda: attention.attention_packed_reference(q, k, v, h, scale))
+        main = (b, sq, kv, h, d) in PACKED_SHAPES
+        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if main:  # q, k, v, out in bf16 (no lse)
+            heads = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
+            library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), scale=scale))
+            bnd = bound(4 * b * h * sq * kv * d, 2 * b * (2 * sq + 2 * kv) * h * d)
+            times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
         print(f"attention flash_fwd_oneshot_packed b={b} sq={sq:4d} kv={kv:3d} h={h:2d} d={d:3d}: "
-              f"max|out err| {err:.3e} (tol {ATTN_OUT_TOL}); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"max|out err| {err:.3e} (tol {ATTN_OUT_TOL}); {times}")
         if not err <= ATTN_OUT_TOL:
             raise AssertionError(f"packed attention kernel disagrees with its plain version at {(b, sq, kv, h, d)}")
         r = results["flash_fwd_oneshot_packed"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (b, sq, kv, h, d) in PACKED_SHAPES:
-            r["ms"] += ms
-            r["plain_ms"] += plain
+        if main:
+            add_times(r, ms, plain, library, bnd)
 
 
 def check_layer_norm(norms, results):
@@ -204,15 +316,112 @@ def check_layer_norm(norms, results):
         err = (y.float() - norms.layer_norm_reference(x.float(), w.float(), b.float())).abs().max().item()
         ms = median_ms(lambda: norms.layer_norm(x, w, b))
         plain = median_ms(lambda: norms.layer_norm_reference(x, w, b))
+        main = (rows, c, dtype) in LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL
+        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if main:  # x and y, weight and bias; Σx, Σx², centre, scale, affine: 7 fp32 ops an element
+            library = library_ms(lambda: lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+            bnd = bound(7 * rows * c, (2 * rows * c + 2 * c) * x.element_size(), FP32_OPS_PER_S)
+            times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
         print(f"layer_norm rows={rows:5d} C={c:4d} {str(dtype):14s}: max|err| {err:.3e} "
-              f"(tol {LN_TOL[dtype]:.3e}); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"(tol {LN_TOL[dtype]:.3e}); {times}")
         if not err <= LN_TOL[dtype]:
             raise AssertionError(f"LayerNorm kernel disagrees with its plain version at {(rows, c, dtype)}")
         r = results["layer_norm"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (rows, c, dtype) in LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL:
-            r["ms"] += ms
-            r["plain_ms"] += plain
+        if main:
+            add_times(r, ms, plain, library, bnd)
+
+
+def pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid):
+    """K6 and K7 each alone, launched as ``flash_attention_bwd_bhsd``
+    launches them (and not counted), for their separate times."""
+    bh, sq, d = q.shape
+    kv_len = kv_valid or k.shape[1]
+    _, bq, bkv, dc = attention.attention_bwd_plan(kv_len, d)
+    lib = kernels.library()
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dims = (bh, sq, k.shape[1], d, kv_len, float(scale), bq, bkv, dc)
+    ins = lambda: tuple(t.data_ptr() for t in (q, k, v, do, lse, delta))
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    dkv = lambda: kernels.check(lib.fdt_flash_bwd_dkv(*ins(), dk.data_ptr(), dv.data_ptr(), *dims, stream()),
+                                "flash_bwd_dkv")
+    dqk = lambda: kernels.check(lib.fdt_flash_bwd_dq(*ins(), dq.data_ptr(), *dims, stream()), "flash_bwd_dq")
+    return dkv, dqk
+
+
+def sdpa_backward(q, k, v, do, scale):
+    """The library yardstick of the backward: ``F.scaled_dot_product_attention``
+    on [1, BH, S, D], its dq, dk, dv by ``torch.autograd.grad``."""
+    qq, kk, vv = (t[None].detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), do[None], retain_graph=True)
+
+
+def check_attention_bwd(attention, kernels, results):
+    """K6+K7 and K8 against ``attention_bwd_reference`` in fp32; at the
+    training step's shapes also their times, the plain version's, the
+    library's and the bound. Operations as the JAX ``pl.CostEstimate``
+    counts them: 10·BH·Sq·KV·D for K8, 5·BH·Sq·KV·D each for K6 and K7.
+    Bytes: K8's wrapper reads q, k, v, o, dO, lse and writes dq, dk, dv; K6
+    reads q, dO, k, v, lse, Δ and writes dk, dv; K7 the same, writing dq."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for shape in BWD_SHAPES + BWD_RAGGED:
+        bh, sq, skv, d, kv_valid = shape
+        q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
+                       for s in (sq, skv, skv, sq))
+        scale = d ** -0.5
+        kv_len = kv_valid or skv
+        route = attention.attention_bwd_plan(kv_len, d)[0]
+        o, lse = attention.flash_attention_bhsd(q, k, v, scale, kv_valid)
+        grads = attention.flash_attention_bwd_bhsd(q, k, v, o, lse, do, scale, kv_valid)
+        torch.cuda.synchronize()
+        err, mag = [0.0] * 3, [0.0] * 3
+        step = max(1, 2 ** 26 // (sq * skv))  # the fp32 reference, a few GiB at a time
+        for i in range(0, bh, step):
+            sl = slice(i, i + step)
+            ref = attention.attention_bwd_reference(
+                *(t[sl].float() for t in (q, k, v, o)), lse[sl], do[sl].float(), scale, kv_valid)
+            for j, (got, want) in enumerate(zip(grads, ref)):
+                err[j] = max(err[j], (got[sl].float() - want).abs().max().item())
+                mag[j] = max(mag[j], want.abs().max().item())
+            del ref
+        del grads
+        tol = [ATTN_OUT_TOL * max(1.0, m) for m in mag]
+        ms = median_ms(lambda: attention.flash_attention_bwd_bhsd(q, k, v, o, lse, do, scale, kv_valid))
+        main = shape in BWD_SHAPES
+        times = f"kernel {ms:.4f} ms"
+        if main:
+            plain = median_ms(lambda: attention.attention_bwd_reference(q, k, v, o, lse, do, scale, kv_valid))
+            library = library_ms(lambda: sdpa_backward(q, k, v, do, scale))
+            work = bh * sq * kv_len * d
+            times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms"
+            if route == "flash_bwd_oneshot":
+                bnd = bound(10 * work, 2 * bh * (4 * sq + 4 * skv) * d + 4 * bh * sq)
+                times += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+                add_times(results[route], ms, plain, library, bnd)
+            else:
+                dkv, dqk = pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid)
+                ms_dkv, ms_dq = median_ms(dkv), median_ms(dqk)
+                b_dkv = bound(5 * work, 2 * bh * (2 * sq + 4 * skv) * d + 8 * bh * sq)
+                b_dq = bound(5 * work, 2 * bh * (3 * sq + 2 * skv) * d + 8 * bh * sq)
+                times += (f"; K6 alone {ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} ms, {b_dkv[1]}), "
+                          f"K7 alone {ms_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]})")
+                add_times(results["flash_bwd_dkv"], ms_dkv, plain, library, b_dkv)
+                add_times(results["flash_bwd_dq"], ms_dq, plain, library, b_dq)
+        print(f"attention backward {route:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} kv_valid={kv_valid}: "
+              f"max|err| dq {err[0]:.3e} dk {err[1]:.3e} dv {err[2]:.3e} (tol {tol[0]:.3e} {tol[1]:.3e} "
+              f"{tol[2]:.3e}: {ATTN_OUT_TOL} x max(1, max|grad|)); {times}")
+        if not all(e <= t for e, t in zip(err, tol)):
+            raise AssertionError(f"attention backward disagrees with its plain version at {shape}")
+        if route == "flash_bwd_oneshot":
+            rows = [(results[route], max(err))]
+        else:
+            rows = [(results["flash_bwd_dkv"], max(err[1:])), (results["flash_bwd_dq"], err[0])]
+        for r, e in rows:
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
 
 
 def reset(counters):
@@ -301,6 +510,166 @@ def run_path(pipe, model, hw, counters, card, required):
     return launches
 
 
+def snapshot(modules):
+    return [t.detach().clone() for m in modules for t in m.state_dict().values()]
+
+
+def run_training(counters, card, required):
+    """Phase 5: ``build_trainer("sd15")`` then ``fit`` on synthetic batches
+    of 4 at 512², 1 warm step and 3 timed ones, all in stage 1; counts reset
+    just before the first step and read after the last."""
+    from flash_diffusion_tpu_torch.train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+
+    t0 = time.perf_counter()
+    trainer = build_trainer("sd15", device="cuda", seed=0, config={**load_config(DEFAULT_CONFIG), **TRAIN_OVERRIDES})
+    model = trainer.model
+    print(f"build_trainer('sd15'): {time.perf_counter() - t0:.2f} s; LoRA {len(trainer.lora)} pairs, "
+          f"{sum(t.numel() for ab in trainer.lora.values() for t in ab.values())} parameters")
+    frozen_modules = (model.teacher_module, model.vae, model.conditioner)
+    frozen = snapshot(frozen_modules)
+    lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
+    disc = snapshot([model.discriminator])
+    data = synthetic_batches(4, 512, seed=0)
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        aux = trainer.fit(data, max_steps=trainer.step + 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        losses = {k: float(v) for k, v in aux.items()}
+        stage = model.stage_for_iteration(trainer.step)
+        print(f"train step {trainer.step} (stage {stage}): {dt:.3f} s; " + ", ".join(
+            f"{k} {v:.5g}" for k, v in losses.items()))
+        if stage != 1 or not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"training step {trainer.step}: stage {stage}, losses {losses}")
+        return dt
+
+    reset(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_step()  # warm
+    timed = [one_step() for _ in range(3)]
+    launches = {k: n for d in counters for k, n in d.items()}
+    print(f"training launches over 4 steps {launches} (the forward kernels' counts include the "
+          f"recompute of remat and of the checkpointed LPIPS decode in the backward)")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the training path never launched {missing}")
+    if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
+        raise AssertionError("a LoRA B factor did not change")
+    if all(torch.equal(a, b) for a, b in zip(disc, snapshot([model.discriminator]))):
+        raise AssertionError("the discriminator did not change")
+    if not all(torch.equal(a, b) for a, b in zip(frozen, snapshot(frozen_modules))):
+        raise AssertionError("a frozen module (teacher, VAE or CLIP) changed")
+    per_step = statistics.median(timed)
+    print(f"sd15 Flash distillation 512² batch 4 on {card}: warm {per_step:.4f} s/step (median of "
+          f"{[round(dt, 4) for dt in timed]}), {4 / per_step:.3f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float() if x.is_floating_point() else x.cpu()
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+def num(v) -> float:
+    return float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
+
+
+def rel_l2(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+def check_training_reference():
+    """Phase 5b: one ``losses`` and backward of the SD1.5 trainer at 256²
+    on the card (bf16, kernels) vs an fp32 copy on the CPU (plain paths)
+    with its state dicts, on the same staged batch and draws."""
+    from flash_diffusion_tpu_torch.train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+
+    cfg = {**load_config(DEFAULT_CONFIG), **TRAIN_REF_OVERRIDES}
+    dev = build_trainer("sd15", device="cuda", seed=0, config=cfg)
+    ref = build_trainer("sd15", device="cpu", seed=0, config=cfg)  # bf16 until its probe has run
+    g = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator"):
+            getattr(ref.model, name).load_state_dict(getattr(dev.model, name).state_dict())
+        for name, ab in dev.lora.items():
+            ab["b"].normal_(0.0, TRAIN_REF_LORA_B_STD, generator=g)
+            for k in ("a", "b"):
+                ref.lora[name][k].copy_(ab[k])
+    size = cfg["IMAGE_SIZE"]
+    batch = next(synthetic_batches(2, size, seed=5))
+    noise = torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda")
+    staged = dev.stage_batch(batch)
+    draws = dev.model.draw(dev.generator, 0, staged["__z"])
+    lora = lambda tr: [f for ab in tr.lora.values() for f in ab.values()]
+    flat = lambda gs: torch.cat([gr.detach().float().cpu().reshape(-1) for gr in gs])
+    # the student's own backward: LoRA gradients of <student(x), w>, on the
+    # card, then on the CPU in bf16 (plain paths) and in fp32
+    x, w = (torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda") for _ in range(2))
+    args = (x, torch.full((2,), 500, device="cuda"), staged["__conds"][1], w)
+
+    def probe(tr, x, t, cond, w):
+        out = tr.model._student_forward(x, t, cond).float()
+        return flat(torch.autograd.grad((out * w).sum(), lora(tr), materialize_grads=True))
+
+    probes = [probe(dev, *args), probe(ref, *to_cpu(args))]
+    ref.model.teacher_module.float()  # the student shares these parameters
+    ref.model.vae.float()
+    probes.append(probe(ref, *to_cpu(args)))
+    with torch.no_grad():
+        image = torch.as_tensor(batch["image"])
+        z_dev = dev.model._encode({"image": image.cuda()}, noise)
+        z_ref = ref.model._encode({"image": image}, noise.cpu())
+    d_out = {id(dev): [], id(ref): []}  # the discriminator's three calls: fake (G), fake (D), real
+    hooks = [tr.model.discriminator.register_forward_hook(
+        lambda _m, _i, out, key=id(tr): d_out[key].append(out.detach().float().cpu())) for tr in (dev, ref)]
+    mcfg = ref.model.config
+    scales = {"loss/distill": mcfg.distill_loss_scale[0], "loss/dmd": mcfg.dmd_loss_scale[0],
+              "loss/gan_g": mcfg.adversarial_loss_scale[0]}
+    results = []
+    for tr, args in ((dev, (staged, draws, 0)), (ref, (to_cpu(staged), to_cpu(draws), 0))):
+        total, aux = tr.model.losses(*args)
+        terms = {k: flat(torch.autograd.grad(sc * aux[k], lora(tr), retain_graph=True, materialize_grads=True))
+                 for k, sc in scales.items()}
+        total.backward()
+        results.append((aux, terms))
+    for h in hooks:
+        h.remove()
+    (aux, terms), (ref_aux, ref_terms) = results
+    grads = lambda ps: flat([p.grad for p in ps])
+    rel = lambda k: abs(num(aux[k]) - num(ref_aux[k])) / abs(num(ref_aux[k]))
+    errs = {
+        "loss/distill": rel("loss/distill"),
+        "loss/dmd": rel("loss/dmd"),
+        "loss/gan_d": rel("loss/gan_d"),
+        "disc outputs": rel_l2(torch.cat(d_out[id(dev)]), torch.cat(d_out[id(ref)])),
+        "lora grads": rel_l2(grads(lora(dev)), grads(lora(ref))),
+        "disc grads": rel_l2(grads(dev.model.discriminator.parameters()),
+                             grads(ref.model.discriminator.parameters())),
+        "vae encode": rel_l2(z_dev.cpu(), z_ref),
+    }
+    tols = {"loss/distill": 0.05, "loss/dmd": 0.05, "loss/gan_d": 0.05, "disc outputs": 0.05,
+            "lora grads": 0.1, "disc grads": 0.1, "vae encode": 0.1}
+    print(f"sd15 training reference at {size}², batch 2, start index {draws['start_idx']} of K = 4: card "
+          + ", ".join(f"{k} {num(v):.5g}" for k, v in aux.items()) + "; CPU fp32 "
+          + ", ".join(f"{k} {num(v):.5g}" for k, v in ref_aux.items()) + "; errors (tol) "
+          + ", ".join(f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items()))
+    print("  LoRA gradients by scaled G term, rel L2 err (|grad| fp32): " + ", ".join(
+        f"{k} {rel_l2(terms[k], ref_terms[k]):.3e} ({ref_terms[k].norm().item():.4g})" for k in scales)
+          + f"; the student's own backward against CPU fp32: card bf16 {rel_l2(probes[0], probes[2]):.3e}, "
+          f"CPU bf16 (plain paths, no kernels) {rel_l2(probes[1], probes[2]):.3e}")
+    if not all(math.isfinite(e) and e <= tols[k] for k, e in errs.items()):
+        raise AssertionError("the card's training step disagrees with the fp32 reference on a small input")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
@@ -319,7 +688,7 @@ def main():
     entry = ""
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
-            name = re.search(r"(?<=\d)(flash_fwd_\w+?_kernel|layer_norm_kernel)(I\w+?E)?E", line)
+            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel)(I\w+?E)?E", line)
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
         elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
@@ -332,24 +701,36 @@ def main():
         kvp = -(-kv // 16) * 16
         if lib.fdt_packed_smem_bytes(d, kvp) != attention.packed_smem_bytes(d, kvp):
             raise AssertionError(f"packed shared-memory plan and kernel layout disagree at kv={kv} d={d}")
+    for _, _, kv, d, kv_valid in BWD_SHAPES + BWD_RAGGED:  # so do the backward plans
+        route, bq, bkv, dc = attention.attention_bwd_plan(kv_valid or kv, d)
+        dp = -(-d // 16) * 16
+        layouts = ([(bq, bkv, dp, bkv, dc, 2, attention._BWD_SCRATCH)] if route == "flash_bwd_oneshot"
+                   else [(bq, bkv, dp, bkv, dc, 2, 0), (bq, bkv, dp, bq, dc, 1, 0)])
+        for args in layouts:
+            if lib.fdt_flash_bwd_smem_bytes(*args) != attention.bwd_smem_bytes(*args):
+                raise AssertionError(f"backward shared-memory plan and kernel layout disagree at {args}")
 
-    # phase 2: kernels vs plain at the main paths' shapes
     results = {
-        "flash_fwd_oneshot": dict(route="cuda", source="flash_diffusion_tpu_torch/csrc/attention.cu",
-                                  replaces="flash_diffusion_tpu/ops/attention.py:171"),
-        "flash_fwd_stream": dict(route="cuda", source="flash_diffusion_tpu_torch/csrc/flash_fwd_mma.cu",
-                                 replaces="flash_diffusion_tpu/ops/attention.py:85"),
-        "layer_norm": dict(route="cuda", source="flash_diffusion_tpu_torch/csrc/layer_norm.cu",
-                           replaces="flash_diffusion_tpu/ops/norms.py:317"),
-        "flash_fwd_oneshot_packed": dict(
-            route="cuda", source="flash_diffusion_tpu_torch/csrc/attention_packed.cu",
-            replaces="flash_diffusion_tpu/ops/attention.py:292"),
+        "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",
+                                     "flash_diffusion_tpu/ops/attention.py:171"),
+        "flash_fwd_stream": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_mma.cu",
+                                    "flash_diffusion_tpu/ops/attention.py:85"),
+        "layer_norm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/layer_norm.cu",
+                              "flash_diffusion_tpu/ops/norms.py:317"),
+        "flash_fwd_oneshot_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention_packed.cu",
+                                            "flash_diffusion_tpu/ops/attention.py:292"),
+        "flash_bwd_dkv": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd.cu",
+                                 "flash_diffusion_tpu/ops/attention.py:635"),
+        "flash_bwd_dq": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd.cu",
+                                "flash_diffusion_tpu/ops/attention.py:703"),
+        "flash_bwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd_oneshot.cu",
+                                     "flash_diffusion_tpu/ops/attention.py:769"),
     }
-    for r in results.values():
-        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    # phase 2: kernels vs plain at the main paths' shapes
     check_attention(attention, results)
     check_packed(attention, results)
     check_layer_norm(norms, results)
+    check_attention_bwd(attention, kernels, results)
     torch.cuda.empty_cache()
 
     # phases 3 and 4: the SD1.5 path through the user's entry point, then
@@ -367,10 +748,21 @@ def main():
     by_path["sdxl"] = run_path(pipe, "sdxl", 1024, counters, card,
                                ("flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed"))
     check_reference(pipe, "sdxl")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # phases 5 and 5b: the training step through the user's entry point,
+    # then its agreement with the fp32 plain reference on a small input
+    by_path["train"] = run_training(counters, card, (
+        "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq",
+        "flash_bwd_oneshot"))
+    torch.cuda.empty_cache()
+    check_training_reference()
 
     for name, r in results.items():
         r["launches"] = sum(n[name] for n in by_path.values())
         r["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
+        r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
     print(json.dumps({"kernels": [{"name": n, **r} for n, r in results.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,317 @@
+"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5).
+
+Port of ``flash_diffusion_tpu/distill/flash.py:52-519`` (``losses`` and
+its parts). One loss computation per step, as in JAX: the teacher's K-step
+CFG rollout (cond and uncond folded into one 2B-batched forward per step)
+from a host-side start index, the student's one-step prediction, the
+distill loss (LPIPS through a checkpointed decode), DMD, and both GAN losses
+from one shared computation, summed as loss_G + loss_D so that one backward
+updates the LoRA factors and the discriminator (``distill/losses.py``).
+
+The student is the teacher's modules plus the LoRA side path
+(``lora.shared_copy`` + ``lora.attach_lora``, built by ``attach_lora``
+below): no merged weights. The teacher rollout and the DMD forwards run
+under ``torch.no_grad()``.
+
+Randomness: ``jax.random`` and ``torch.Generator`` never agree, so every
+random draw of ``losses`` comes from one ``draws`` dict (``draw`` fills it
+from a generator on the device; the tests fill it from JAX keys split as
+``losses`` splits them):
+
+- ``start_idx`` (host int), ``noise`` [B, h, w, C] and ``guidance`` (a
+  uniform in [0, 1), scaled to the stage's guidance range);
+- ``rollout_noise``: the DDPM posterior noise of each rollout step, in
+  order from ``start_idx``;
+- ``dmd_t`` [B], ``dmd_noise`` and ``dmd_guidance`` (uniform);
+- ``gan_idx`` [B] (into ``gan_timesteps``) and ``gan_noise``.
+
+Batch convention: ``image`` [B, H, W, 3] in [-1, 1] (NHWC, as JAX) and
+``text_ids``; the pre-staged ``__z`` (the VAE encode) and ``__conds`` (the
+three conditioner passes) entries are used when present, as in JAX.
+``record_function`` spans (``fdt.train.*``) mark the stages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import field
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from ..config import BaseConfig
+from ..lora import LoraTree, attach_lora, lora_is_dense_only, shared_copy
+from ..schedulers import REGISTRY, SchedulerConfig, add_noise, training_tables
+from .common import boundary_scalings, predicted_x0_eps, sample_start_index, stage_index, timestep_pdf
+from .losses import center_crop, dmd_loss, gan_losses, huber_loss, l1_loss, l2_loss
+
+
+@dataclasses.dataclass
+class FlashDiffusionConfig(BaseConfig):
+    """The JAX ``FlashDiffusionConfig`` fields that the simultaneous SD1.5
+    step reads; per-stage values broadcast from scalars."""
+
+    input_key: str = "image"
+    K: List[int] = field(default_factory=lambda: [32, 32, 32, 32])
+    num_iterations_per_K: List[int] = field(default_factory=lambda: [5000] * 4)
+    guidance_scale_min: Union[float, List[float]] = 3.0
+    guidance_scale_max: Union[float, List[float]] = 7.0
+    distill_loss_type: str = "l2"  # l2 | l1 | lpips | huber
+    ucg_keys: List[str] = field(default_factory=lambda: ["text"])
+    timestep_distribution: str = "mixture"  # gaussian | uniform | mixture
+    mixture_num_components: Union[int, List[int]] = 4
+    mixture_var: Union[float, List[float]] = 0.5
+    use_dmd_loss: bool = False
+    dmd_loss_scale: Union[float, List[float]] = 1.0
+    distill_loss_scale: Union[float, List[float]] = 1.0
+    adversarial_loss_scale: Union[float, List[float]] = 1.0
+    gan_loss_type: str = "hinge"  # hinge | vanilla | non-saturating | wgan | lsgan
+    mode_probs: Optional[List[List[float]]] = None
+    use_teacher_as_real: bool = False
+    use_empty_prompt: bool = False
+    gan_timesteps: List[int] = field(default_factory=lambda: [10, 250, 500, 750])
+    sigma_data: float = 0.5
+    timestep_scaling: float = 10.0
+    lpips_crop: int = 64
+
+    def __post_init__(self):
+        super().__post_init__()
+        n = len(self.K)
+        bc = lambda v: [v] * n if isinstance(v, (int, float)) else list(v)
+        self.guidance_scale_min = bc(self.guidance_scale_min)
+        self.guidance_scale_max = bc(self.guidance_scale_max)
+        self.mixture_num_components = bc(self.mixture_num_components)
+        self.mixture_var = bc(self.mixture_var)
+        self.distill_loss_scale = bc(self.distill_loss_scale)
+        self.dmd_loss_scale = bc(self.dmd_loss_scale)
+        self.adversarial_loss_scale = bc(self.adversarial_loss_scale)
+        if self.mode_probs is None:
+            self.mode_probs = [[1.0 / m] * m for m in self.mixture_num_components]
+        if len(self.num_iterations_per_K) != n or len(self.mode_probs) != n:
+            raise ValueError("num_iterations_per_K and mode_probs need one entry per stage")
+        for i in range(n):
+            if len(self.mode_probs[i]) != self.mixture_num_components[i]:
+                raise ValueError(f"mode_probs[{i}] needs mixture_num_components[{i}] entries")
+
+
+def _cat(a: Dict, b: Dict) -> Dict:
+    return {"cond": {k: torch.cat([v, b["cond"][k]]) for k, v in a["cond"].items()}}
+
+
+class FlashDiffusion:
+    """Holds the modules and the per-stage tables; ``losses`` is the step's
+    loss computation. ``attach_lora`` makes the student."""
+
+    def __init__(
+        self,
+        config: FlashDiffusionConfig,
+        teacher_module,  # UNet2DCondition: (sample, t, cond, return_features)
+        scheduler_config: Optional[SchedulerConfig] = None,
+        teacher_scheduler: str = "DDPMScheduler",
+        sampling_scheduler: str = "LCMScheduler",
+        vae=None,  # AutoencoderKL
+        conditioner=None,  # ConditionerWrapper
+        discriminator=None,  # ConvDiscriminator
+        lpips=None,  # LPIPS
+        lora_scaling: float = 1.0,
+    ):
+        self.config = config
+        self.teacher_module = teacher_module
+        self.student_module = None
+        self.lora_scaling = lora_scaling
+        self.vae, self.conditioner = vae, conditioner
+        self.discriminator, self.lpips = discriminator, lpips
+        self.use_adversarial_loss = discriminator is not None
+        self.sched_config = scheduler_config or SchedulerConfig()
+        self.teacher_sched_mod = REGISTRY[teacher_scheduler]
+        self.sampling_sched_mod = REGISTRY[sampling_scheduler]
+        self._sched_stochastic = teacher_scheduler == "DDPMScheduler"
+        acp, sqrt_acp, sqrt_1macp = training_tables(self.sched_config)
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        self.alphas_cumprod, self.sqrt_acp, self.sqrt_1macp = f32(acp), f32(sqrt_acp), f32(sqrt_1macp)
+        self.stage_schedules = [
+            self.teacher_sched_mod.set_timesteps(self.sched_config, k) for k in config.K
+        ]
+        self.stage_pdfs = [
+            timestep_pdf(config.timestep_distribution, config.K[s], config.mixture_num_components[s],
+                         config.mixture_var[s], config.mode_probs[s])
+            for s in range(len(config.K))
+        ]
+
+    def attach_lora(self, lora: LoraTree) -> None:
+        """The student: the teacher's modules, shared, with ``lora`` attached
+        (dense pairs only: the side path, as JAX takes for such trees)."""
+        if not lora_is_dense_only(lora):
+            raise ValueError("the port's LoRA trees are dense-only (1×1 convs included)")
+        self.student_module = attach_lora(shared_copy(self.teacher_module), lora, self.lora_scaling)
+
+    def stage_for_iteration(self, iter_step: int) -> int:
+        return stage_index(iter_step, self.config.num_iterations_per_K)
+
+    # ------------------------------------------------------------------
+    def draw(self, generator: torch.Generator, stage: int, latent: torch.Tensor) -> Dict[str, Any]:
+        """Every random draw of one ``losses`` call, from ``generator`` (on
+        the latents' device), shaped after ``latent`` [B, h, w, C]."""
+        dev, shape, b = latent.device, latent.shape, latent.shape[0]
+        normal = lambda: torch.randn(shape, generator=generator, device=dev, dtype=latent.dtype)
+        uniform = lambda: torch.rand((), generator=generator, device=dev)
+        start = sample_start_index(self.stage_pdfs[stage], generator)
+        draws = {"start_idx": start, "noise": normal(), "guidance": uniform()}
+        n_roll = self.config.K[stage] - start if self._sched_stochastic else 0
+        draws["rollout_noise"] = [normal() for _ in range(n_roll)]
+        t = self.sched_config.num_train_timesteps
+        draws.update(dmd_t=torch.randint(0, t, (b,), generator=generator, device=dev),
+                     dmd_noise=normal(), dmd_guidance=uniform())
+        draws.update(gan_idx=torch.randint(0, len(self.config.gan_timesteps), (b,),
+                                           generator=generator, device=dev),
+                     gan_noise=normal())
+        return draws
+
+    def _guidance(self, u: torch.Tensor, stage: int) -> torch.Tensor:
+        cfg = self.config
+        lo, hi = cfg.guidance_scale_min[stage], cfg.guidance_scale_max[stage]
+        return u.float() * (hi - lo) + lo
+
+    def _student_forward(self, x, t, cond):
+        return self.student_module(x, t, cond)
+
+    def _conditionings(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+        """(cond, student_cond, uncond), as the JAX ``_conditionings``."""
+        if self.conditioner is None:
+            return None, None, None
+        cfg = self.config
+        cond = self.conditioner(batch, set_ucg_rate_zero=True)
+        student_cond = self.conditioner(batch, generator=generator)
+        if cfg.use_empty_prompt and any(f"{k}_empty_ids" in batch for k in cfg.ucg_keys):
+            ub = dict(batch)
+            for k in cfg.ucg_keys:
+                if f"{k}_empty_ids" in batch:
+                    ub[f"{k}_ids"] = batch[f"{k}_empty_ids"]
+            uncond = self.conditioner(ub, set_ucg_rate_zero=True)
+        else:
+            uncond = self.conditioner(batch, ucg_keys=cfg.ucg_keys)
+        return cond, student_cond, uncond
+
+    @torch.no_grad()
+    def _encode(self, batch: Dict[str, Any], noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = batch[self.config.input_key]
+        if self.vae is None:
+            return torch.as_tensor(x).float()
+        return self.vae.encode(x, noise)
+
+    @torch.no_grad()
+    def _teacher_rollout(self, noisy, start_idx: int, cond, uncond, guidance, stage: int, step_noise):
+        """The K-step CFG rollout from position ``start_idx``, 2B-batched."""
+        sched, mod = self.stage_schedules[stage], self.teacher_sched_mod
+        cond2 = _cat(cond, uncond) if cond is not None else None
+        sample, b = noisy, noisy.shape[0]
+        for n, i in enumerate(range(start_idx, self.config.K[stage])):
+            t2 = torch.full((2 * b,), sched.timesteps[i], device=sample.device, dtype=torch.long)
+            inp = mod.scale_model_input(sched, sample, i)
+            pred_c, pred_u = self.teacher_module(torch.cat([inp, inp]), t2, cond2).chunk(2)
+            pred = guidance * pred_c + (1.0 - guidance) * pred_u
+            sample = mod.step(sched, pred, i, sample, noise=step_noise[n] if self._sched_stochastic else None)
+        return sample
+
+    def _distill_loss(self, student_output, teacher_output):
+        cfg = self.config
+        if cfg.distill_loss_type == "l2":
+            return l2_loss(student_output, teacher_output)
+        if cfg.distill_loss_type == "l1":
+            return l1_loss(student_output, teacher_output)
+        if cfg.distill_loss_type == "huber":
+            return huber_loss(student_output, teacher_output)
+        if cfg.distill_loss_type == "lpips":
+            s = center_crop(student_output, cfg.lpips_crop)
+            t = center_crop(teacher_output, cfg.lpips_crop)
+
+            # checkpointed: the decoder and VGG activations are recomputed in
+            # the backward instead of held across the step
+            def lp(s_, t_):
+                dec_s = torch.clamp(self.vae.decode_latents(s_), -1, 1)
+                dec_t = torch.clamp(self.vae.decode_latents(t_), -1, 1)
+                return self.lpips(dec_s, dec_t).mean()
+
+            return checkpoint(lp, s, t, use_reentrant=False)
+        raise ValueError(cfg.distill_loss_type)
+
+    def _dmd(self, student_output, cond, student_cond, uncond, stage: int, draws):
+        """DMD: re-noise the student output at a random t, query the teacher
+        (CFG) and the student without gradients, score difference."""
+        t = draws["dmd_t"]
+        sched = self.stage_schedules[stage]
+        # noisy reaches the loss only through detached terms: no gradient
+        noisy = add_noise(sched, student_output.detach(), draws["dmd_noise"], t)
+        with torch.no_grad():
+            cond2 = _cat(cond, uncond) if cond is not None else None
+            real_c, real_u = self.teacher_module(torch.cat([noisy, noisy]), torch.cat([t, t]), cond2).chunk(2)
+            fake = self._student_forward(noisy, t, student_cond)
+        g = self._guidance(draws["dmd_guidance"], stage)
+        real = g * real_c + (1.0 - g) * real_u
+        pred_x0 = predicted_x0_eps(real, t, noisy, self.sqrt_acp, self.sqrt_1macp, student_output.detach())
+        return dmd_loss(student_output, real, fake, pred_x0, self.alphas_cumprod.to(t.device)[t], weighted=True)
+
+    def _gan(self, z, student_output, teacher_output, cond, draws):
+        """GAN branch: noise fake and real at the fixed timesteps, tap the
+        teacher's mid features on the 2B batch, both losses at once."""
+        cfg = self.config
+        sel = torch.tensor(cfg.gan_timesteps, device=z.device)
+        ts = sel[draws["gan_idx"]]
+        noise = draws["gan_noise"]
+        real = teacher_output if cfg.use_teacher_as_real else z
+        sched = self.stage_schedules[0]
+        both = torch.cat([add_noise(sched, student_output, noise, ts), add_noise(sched, real, noise, ts)])
+        cond2 = _cat(cond, cond) if cond is not None else None
+        _, feats = self.teacher_module(both, torch.cat([ts, ts]), cond2, return_features=True)
+        f_fake, f_real = feats.chunk(2)
+        return gan_losses(self.discriminator, f_fake, f_real, cfg.gan_loss_type)
+
+    # ------------------------------------------------------------------
+    def losses(self, batch: Dict[str, Any], draws: Dict[str, Any], stage: int):
+        """(loss_G + loss_D, aux): one backward of the total updates both
+        the LoRA factors and the discriminator."""
+        cfg = self.config
+        sched = self.stage_schedules[stage]
+        z = batch.get("__z")
+        if z is None:
+            z = self._encode(batch, draws.get("vae_noise"))
+        pre = batch.get("__conds")
+        cond, student_cond, uncond = pre if pre is not None else self._conditionings(batch)
+
+        b = z.shape[0]
+        start_idx = int(draws["start_idx"])
+        start_t = sched.timesteps[start_idx]
+        t_b = torch.full((b,), start_t, device=z.device, dtype=torch.long)
+        noise = draws["noise"]
+        noisy_init = noise * sched.init_noise_sigma if start_idx == 0 else add_noise(sched, z, noise, t_b)
+        noisy_in = self.teacher_sched_mod.scale_model_input(sched, noisy_init, start_idx)
+        with record_function("fdt.train.student"):
+            student_pred = self._student_forward(noisy_in, t_b, student_cond)
+        c_skip, c_out = boundary_scalings(t_b, cfg.sigma_data, cfg.timestep_scaling)
+        student_x0 = predicted_x0_eps(student_pred, t_b, noisy_init, self.sqrt_acp, self.sqrt_1macp, z)
+        student_output = c_skip.reshape(-1, 1, 1, 1) * noisy_init + c_out.reshape(-1, 1, 1, 1) * student_x0
+
+        g = self._guidance(draws["guidance"], stage)
+        with record_function("fdt.train.rollout"):
+            teacher_output = self._teacher_rollout(
+                noisy_init.detach(), start_idx, cond, uncond, g, stage, draws["rollout_noise"])
+        with record_function("fdt.train.distill"):
+            distill = self._distill_loss(student_output, teacher_output)
+        loss_g = distill * cfg.distill_loss_scale[stage]
+        aux = {"loss/distill": distill, "start_timestep": start_t, "guidance": g}
+        if cfg.use_dmd_loss:
+            with record_function("fdt.train.dmd"):
+                dmd = self._dmd(student_output, cond, student_cond, uncond, stage, draws)
+            loss_g = loss_g + dmd * cfg.dmd_loss_scale[stage]
+            aux["loss/dmd"] = dmd
+        loss_d = torch.zeros((), device=z.device)
+        if self.use_adversarial_loss:
+            with record_function("fdt.train.gan"):
+                loss_g_adv, loss_d = self._gan(z, student_output, teacher_output, cond, draws)
+            loss_g = loss_g + cfg.adversarial_loss_scale[stage] * loss_g_adv
+            aux["loss/gan_g"] = loss_g_adv
+            aux["loss/gan_d"] = loss_d
+        aux["loss/generator"] = loss_g
+        return loss_g + loss_d, aux

@@ -7,8 +7,12 @@ token sequences are [B, S, C] with S in h-major order, the order of the JAX
 package's ``reshape(b, h*w, c)`` of NHWC. Attention goes through
 ``ops.dot_product_attention`` (the flash kernels), LayerNorm through
 ``ops.layer_norm`` (the LayerNorm kernel); GroupNorm keeps the JAX
-numerics in plain PyTorch. Linear layers are plain ``nn.Linear``: the JAX
-``LoraDense`` LoRA side path is not ported yet.
+numerics in plain PyTorch. The projections the JAX package builds as
+``LoraDense`` (attention ``to_q``/``to_k``/``to_v``/``to_out.0``, the
+GEGLU feed-forward's two, and the spatial transformers' ``proj_in``/
+``proj_out``, SD1.5's 1×1 convs included) go through ``lora_dense``, which
+adds the LoRA side path ``(x·A)·B`` when a factor pair is attached to the
+layer (``lora.attach_lora``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,34 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import dot_product_attention, group_norm, layer_norm
+
+
+def lora_dense(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], lora=None,
+) -> torch.Tensor:
+    """``x·Wᵀ (+ bias)`` over the last dim, plus the LoRA side path of the JAX
+    ``LoraDense`` when ``lora`` = (A [in, r], B [r, out], scaling) is given:
+    ``y = x·Wᵀ + (x·A)·(scaling·B) + bias`` in that order, with A and B cast
+    to the compute dtype (x's). ``weight`` is [out, in] (a 1×1 conv's
+    [out, in, 1, 1] is read as that)."""
+    weight = weight.reshape(weight.shape[0], weight.shape[1])
+    if lora is None:
+        return F.linear(x, weight, bias)
+    a, b, scaling = lora
+    y = F.linear(x, weight)
+    b = b * scaling if scaling != 1.0 else b
+    y = y + (x @ a.to(y.dtype)) @ b.to(y.dtype)
+    return y if bias is None else y + bias
+
+
+class LoraLinear(nn.Linear):
+    """``nn.Linear`` (same parameters and state-dict keys) whose forward is
+    ``lora_dense``: ``self.lora`` holds an attached factor pair, or None."""
+
+    lora = None
+
+    def forward(self, x):
+        return lora_dense(x, self.weight, self.bias, self.lora)
 
 
 def timestep_embedding(
@@ -138,10 +170,10 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         context_dim = context_dim or query_dim
-        self.to_q = nn.Linear(query_dim, query_dim, bias=qkv_bias)
-        self.to_k = nn.Linear(context_dim, query_dim, bias=qkv_bias)
-        self.to_v = nn.Linear(context_dim, query_dim, bias=qkv_bias)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.to_q = LoraLinear(query_dim, query_dim, bias=qkv_bias)
+        self.to_k = LoraLinear(context_dim, query_dim, bias=qkv_bias)
+        self.to_v = LoraLinear(context_dim, query_dim, bias=qkv_bias)
+        self.to_out = nn.ModuleList([LoraLinear(query_dim, query_dim)])
 
     def forward(self, x, context=None):
         context = x if context is None else context
@@ -166,7 +198,7 @@ def _gate_gelu(x: torch.Tensor) -> torch.Tensor:
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = LoraLinear(dim, inner * 2)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
@@ -178,7 +210,7 @@ class GEGLUFeedForward(nn.Module):
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), LoraLinear(dim * mult, dim)])
 
     def forward(self, x):
         for layer in self.net:
@@ -208,15 +240,14 @@ class SpatialTransformer(nn.Module):
     """diffusers Transformer2DModel for UNets: GN → ``proj_in`` → ``depth``
     transformer blocks over the h-major tokens → ``proj_out``.
 
-    ``proj_in``/``proj_out`` are 1×1 convs (SD1.5) or, with
-    ``use_linear_projection``, ``nn.Linear`` layers over the tokens (SDXL);
-    the same map either way, as the JAX ``Dense`` on both."""
+    ``proj_in``/``proj_out`` are 1×1 convs (SD1.5, the checkpoint's layout)
+    or, with ``use_linear_projection``, linear layers (SDXL); either way they
+    run as the JAX ``LoraDense`` on the tokens, through ``lora_dense``."""
 
     def __init__(self, channels: int, num_heads: int, context_dim: int, groups: int = 32,
                  depth: int = 1, use_linear_projection: bool = False):
         super().__init__()
-        self.linear = use_linear_projection
-        proj = (lambda: nn.Linear(channels, channels)) if self.linear else (
+        proj = (lambda: LoraLinear(channels, channels)) if use_linear_projection else (
             lambda: nn.Conv2d(channels, channels, 1))
         self.norm = GroupNorm(channels, groups, eps=1e-6)
         self.proj_in = proj()
@@ -229,12 +260,8 @@ class SpatialTransformer(nn.Module):
         b, c, hh, ww = x.shape
         to_tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # h-major
         to_image = lambda t: t.transpose(1, 2).reshape(b, c, hh, ww)
-        if self.linear:
-            h = self.proj_in(to_tokens(self.norm(x)))
-        else:
-            h = to_tokens(self.proj_in(self.norm(x)))
+        dense = lambda layer, t: lora_dense(t, layer.weight, layer.bias, getattr(layer, "lora", None))
+        h = dense(self.proj_in, to_tokens(self.norm(x)))
         for block in self.transformer_blocks:
             h = block(h, context)
-        if self.linear:
-            return x + to_image(self.proj_out(h))  # x first: the sum keeps x's NCHW layout
-        return self.proj_out(to_image(h)) + x
+        return x + to_image(dense(self.proj_out, h))  # x first: the sum keeps x's NCHW layout

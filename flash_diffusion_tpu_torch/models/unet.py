@@ -13,9 +13,12 @@ level 0, 2 at level 1, 10 at level 2 and in the mid block), 1×1-conv or
 linear (``use_linear_projection``) ``proj_in``/``proj_out``, and SDXL's
 projection class embedding: ``conditioning["cond"]["vector"]`` goes through
 ``add_embedding`` (the diffusers SDXL name; JAX ``class_embedding``) and is
-added to the time embedding. Not ported yet: ``AttnDownBlock2D``,
-``remat``, adapter residuals, ``return_features`` and the ``concat``
-conditioning.
+added to the time embedding. ``return_features=True`` also returns the
+mid block's output (the GAN's tap), and ``config.remat`` recomputes each
+resnet and spatial transformer in the backward (``torch.utils.checkpoint``,
+non-reentrant; the JAX ``nn.remat`` of the same blocks) whenever autograd
+records. Not ported yet: ``AttnDownBlock2D``, adapter residuals and the
+``concat`` conditioning.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
 from .layers import (
@@ -59,6 +63,7 @@ class UNetConfig(BaseConfig):
     class_embed_type: Optional[str] = None  # None | "projection"
     projection_class_embeddings_input_dim: Optional[int] = None
     use_linear_projection: bool = False
+    remat: bool = False
 
     def __post_init__(self):
         super().__post_init__()
@@ -186,15 +191,23 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(b0, g, act="silu")
         self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
 
+    def _block(self, block: nn.Module, *args):
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(
         self,
         sample: torch.Tensor,
         timestep: torch.Tensor,
         conditioning: Dict[str, Dict[str, torch.Tensor]],
-    ) -> torch.Tensor:
+        return_features: bool = False,
+    ):
         """``conditioning["cond"]["crossattn"]``: the text context [B, T, C];
         ``conditioning["cond"]["vector"]`` (SDXL): [B, 2816], added to the
-        time embedding through ``add_embedding``."""
+        time embedding through ``add_embedding``. Returns fp32 [B, H, W, C],
+        or (that, the mid block's output [B, h, w, C] in the compute dtype,
+        the JAX layout) with ``return_features``."""
         dtype = self.conv_in.weight.dtype
         cond = conditioning["cond"]
         context = cond["crossattn"].to(dtype)
@@ -208,25 +221,26 @@ class UNet2DCondition(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = self._block(resnet, h, temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, context)
+                    h = self._block(block.attentions[j], h, context)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
-        h = self.mid_block.resnets[1](h, temb)
+        h = self._block(self.mid_block.resnets[0], h, temb)
+        h = self._block(self.mid_block.attentions[0], h, context)
+        h = self._block(self.mid_block.resnets[1], h, temb)
+        mid_features = h.permute(0, 2, 3, 1)
 
         for block in self.up_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                h = self._block(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, context)
+                    h = self._block(block.attentions[j], h, context)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 
-        out = self.conv_out(self.conv_norm_out(h))
-        return out.float().permute(0, 2, 3, 1).contiguous()
+        out = self.conv_out(self.conv_norm_out(h)).float().permute(0, 2, 3, 1).contiguous()
+        return (out, mid_features) if return_features else out

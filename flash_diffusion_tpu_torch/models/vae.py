@@ -1,13 +1,14 @@
-"""AutoencoderKL (the SD-family VAE) of the PyTorch port: the decode path.
+"""AutoencoderKL (the SD-family VAE) of the PyTorch port.
 
 Port of ``flash_diffusion_tpu/models/vae.py`` with diffusers
-``AutoencoderKL`` module names (``decoder.*``, ``post_quant_conv``), so the
-keys match the published checkpoints. ``decode_latents`` takes NHWC latents
-and returns fp32 NHWC images, as in JAX. SD1.5 and SDXL share the
+``AutoencoderKL`` module names (``encoder.*``, ``quant_conv``,
+``decoder.*``, ``post_quant_conv``), so the keys match the published
+checkpoints. ``encode`` takes NHWC images and ``decode_latents`` NHWC
+latents, and both return fp32 NHWC, as in JAX. SD1.5 and SDXL share the
 architecture and differ in ``scaling_factor``. The mid-block attention is
 single-head with D = C (512 at full width; 16384 tokens at 1024²), which
-runs on the streaming flash kernel. Not ported yet: the encoder, ``quant_conv``, the SD3
-shift/scale variant and tiled decode.
+runs on the streaming flash kernels. Not ported yet: the SD3 shift/scale
+variant and tiled decode.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import BaseConfig
 from .layers import Attention, GroupNorm, ResnetBlock2D, Upsample2D
@@ -25,8 +27,9 @@ from .layers import Attention, GroupNorm, ResnetBlock2D, Upsample2D
 
 @dataclasses.dataclass
 class AutoencoderKLConfig(BaseConfig):
-    """The JAX ``AutoencoderKLConfig`` fields the SD decoder uses."""
+    """The JAX ``AutoencoderKLConfig`` fields the SD VAE uses."""
 
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: List[int] = field(default_factory=lambda: [128, 256, 512, 512])
@@ -76,6 +79,57 @@ class _MidBlock(nn.Module):
         return self.resnets[1](self.attentions[0](self.resnets[0](h)))
 
 
+class _Downsample(nn.Module):
+    """The diffusers VAE downsample: an asymmetric (0, 1) pad, then a
+    stride-2 3×3 conv without padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, resnets, downsample: Optional[nn.Module]):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+
+
+class Encoder(nn.Module):
+    """Image [B, 3, H, W] → moments [B, 2·latent, H/8, W/8], channel-first."""
+
+    def __init__(self, config: AutoencoderKLConfig):
+        super().__init__()
+        cfg = config
+        g = cfg.norm_num_groups
+        n = len(cfg.block_out_channels)
+        ch = cfg.block_out_channels[0]
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch, 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        for lvl, out_ch in enumerate(cfg.block_out_channels):
+            resnets = []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps=1e-6))
+                ch = out_ch
+            self.down_blocks.append(_DownBlock(resnets, _Downsample(ch) if lvl < n - 1 else None))
+        self.mid_block = _MidBlock(ch, g)
+        self.conv_norm_out = GroupNorm(ch, g, eps=1e-6, act="silu")
+        self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            for resnet in block.resnets:
+                h = resnet(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+        return self.conv_out(self.conv_norm_out(self.mid_block(h)))
+
+
 class Decoder(nn.Module):
     """Latent [B, C, h, w] → image [B, 3, 8h, 8w], channel-first."""
 
@@ -109,13 +163,33 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The VAE's decode half: ``post_quant_conv`` and ``decoder``."""
+    """The VAE: ``encoder`` and ``quant_conv``, ``post_quant_conv`` and ``decoder``."""
 
     def __init__(self, config: AutoencoderKLConfig):
         super().__init__()
         self.config = config
+        lat = config.latent_channels
+        self.encoder = Encoder(config)
+        self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.decoder = Decoder(config)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        self.post_quant_conv = nn.Conv2d(lat, lat, 1)
+
+    def moments(self, x: torch.Tensor):
+        """(mean, logvar clipped to [-30, 20]) of NHWC images, NHWC, in the
+        compute dtype."""
+        dtype = self.encoder.conv_in.weight.dtype
+        m = self.quant_conv(self.encoder(x.to(dtype).permute(0, 3, 1, 2)))
+        mean, logvar = m.permute(0, 2, 3, 1).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Posterior sample mean + exp(logvar / 2)·noise (the mode when
+        ``noise`` is None), times ``scaling_factor``: fp32 NHWC latents.
+        ``noise`` ([B, H/8, W/8, latent]) stands for the JAX ``rng`` draw."""
+        mean, logvar = self.moments(x)
+        if noise is not None:
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+        return mean.float() * self.config.scaling_factor
 
     def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
         """Un-scale and decode NHWC latents; returns fp32 NHWC images."""

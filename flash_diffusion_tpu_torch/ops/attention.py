@@ -1,6 +1,6 @@
-"""Attention ops: the hand-written flash-attention forwards and their plain versions.
+"""Attention ops: the hand-written flash-attention kernels and their plain versions.
 
-Port of ``flash_diffusion_tpu/ops/attention.py`` (inference forward only).
+Port of ``flash_diffusion_tpu/ops/attention.py`` (forward and backward).
 ``dot_product_attention`` keeps the JAX signature and layout ([B, S, H, D])
 and semantics: ``scale`` defaults to 1/sqrt(D), an additive ``bias`` forces
 the plain path (the causal CLIP mask), and ``kv_valid`` masks KV positions at
@@ -34,10 +34,32 @@ Dispatch, as the JAX ``_attn_primal`` does it:
 
 The JAX rule (padded KV <= 1024 is one-shot, ``attention.py:569``) does not
 carry over: 1024 keys at D = 80 are 426 KB of K and V here.
+
+Under a gradient (any of q, k, v requires grad) ``dot_product_attention``
+goes through ``FlashAttention``, an autograd Function that mirrors the JAX
+``_pallas_attention_vjp``: its forward is the [BH, S, D] path above (never
+the packed kernel) and saves q, k, v, out and lse as laid out for the
+kernels; its backward is ``flash_attention_bwd_bhsd``, which picks by
+``attention_bwd_plan``:
+
+- ``flash_bwd_oneshot`` (``csrc/flash_bwd_oneshot.cu``, the port of
+  ``_flash_bwd_oneshot_kernel``): the head's whole KV and fp32 dK/dV sums in
+  one block's shared memory, whenever that fits at a q tile of 64 or 32
+  rows. At SD1.5 shapes: every cross-attention (KV = 77) and the mid
+  block's 64-token self-attention.
+- ``flash_bwd_dkv`` then ``flash_bwd_dq`` (``csrc/flash_bwd.cu``, the ports
+  of ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``): the
+  streaming pair, for everything else; at SD1.5 shapes the 256-, 1024- and
+  4096-token self-attention and the VAE's D = 512 mid-block.
+
+The JAX route (``_use_oneshot_bwd``: a 14 MiB VMEM budget) does not carry
+over to 227 KB of shared memory. Under ``torch.utils.checkpoint`` the
+forward runs again in the backward, and its kernels count a launch again.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -51,7 +73,10 @@ _WARPS = 4
 
 # Launch counts of the kernels, raised by one per launch (never on the
 # plain path). Reset them by assigning 0.
-LAUNCHES = {"flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0}
+LAUNCHES = {
+    "flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0,
+    "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_oneshot": 0,
+}
 _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
 _PACKED_D = (64, 128)  # head dims the packed kernel is built for
 _PACKED_KV_MAX = 256  # the JAX default of FLASH_TPU_PACKED_CROSS_KV_MAX
@@ -96,14 +121,16 @@ def attention_bhsd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernels: fp32 softmax over q·kᵀ·scale.
 
-    Returns (out [BH, Sq, D] in q's dtype, lse [BH, Sq] fp32)."""
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    Returns (out [BH, Sq, D] in q's dtype, lse [BH, Sq] fp32; fp64 for
+    fp64 inputs)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) * scale
     if kv_valid is not None and kv_valid < k.shape[1]:
         s[..., kv_valid:] = _NEG_INF
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bqk,bkd->bqd", p, v.float()) / l
+    out = torch.einsum("bqk,bkd->bqd", p, v.to(acc)) / l
     return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
@@ -233,6 +260,118 @@ def flash_attention_packed(
     return out
 
 
+_BWD_WARPS = 8  # warps of one backward block (csrc/bwd_tiles.cuh kWarps)
+_BWD_SCRATCH = _BWD_WARPS * 16 * 16 * 4  # the one-shot kernel's dq staging tiles
+_BWD_BLOCKS_PER_SM = 2  # one-shot blocks to aim for
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_smem_bytes(bq: int, bkv: int, dp: int, acc_rows: int, dc: int, n_acc: int,
+                   scratch: int = 0) -> int:
+    """Shared memory of one backward block; mirrors ``BwdLayout`` in
+    csrc/bwd_tiles.cuh."""
+    ld_x, ld_s, ld_p = dp + 8, bkv + 4, bkv + 8
+    total = 2 * _align128(bq * ld_x * 2) + 2 * _align128(bkv * ld_x * 2) + 2 * _align128(bq * 4)
+    total += 2 * _align128(bq * ld_s * 4) + 2 * _align128(bq * ld_p * 2)
+    return total + n_acc * _align128(acc_rows * dc * 4) + _align128(scratch)
+
+
+def attention_bwd_plan(kv_len: int, d: int) -> Tuple[str, int, int, int]:
+    """(route, q tile rows, kv tile rows, output column chunk) of the
+    backward for ``kv_len`` valid keys at head dim ``d``.
+
+    ``flash_bwd_oneshot`` when the head's padded KV, its fp32 dK and dV and a
+    q tile of 64 or 32 rows fit one block (kv tile = the padded KV, columns
+    whole); else the ``flash_bwd_pair`` K6 + K7 with square tiles of 64, 32
+    or 16 rows and the widest column chunk (a divisor of the padded D) whose
+    layout fits."""
+    dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
+    for bq in (64, 32):
+        if bwd_smem_bytes(bq, kvp, dp, kvp, dp, 2, _BWD_SCRATCH) <= _SMEM_LIMIT:
+            return "flash_bwd_oneshot", bq, kvp, dp
+    chunks = [dp] + [c for c in (256, 128, 64, 32, 16) if c < dp and dp % c == 0]
+    for b in (64, 32, 16):
+        for dc in chunks:
+            if bwd_smem_bytes(b, b, dp, b, dc, 2) <= _SMEM_LIMIT:  # K6's; K7 holds one accumulator
+                return "flash_bwd_pair", b, b, dc
+    raise ValueError(f"head dim {d} too large for the attention backward kernels")
+
+
+def attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float, kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels, with their rounding points:
+    p = exp(s·scale − lse) and Δ = rowsum(dO∘O) in fp32 (fp64 for fp64
+    inputs), dv = pᵀ·dO and dk = dsᵀ·q·scale and dq = ds·k·scale with p and
+    ds = p∘(dO·vᵀ − Δ) rounded to q's dtype first; keys ≥ ``kv_valid`` get
+    −1e30. Returns (dq, dk, dv) in the inputs' dtypes."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if kv_valid is not None and kv_valid < k.shape[1]:
+        s[..., kv_valid:] = _NEG_INF
+    p = torch.exp(s - lse.to(acc)[..., None])
+    delta = (dof * o.to(acc)).sum(-1)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).to(acc), dof)
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta[..., None])
+    ds = ds.to(q.dtype).to(acc)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_bhsd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float, kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward over [BH, S, D]: (dq, dk, dv) from the forward's
+    inputs, its out and lse, and the cotangent ``do`` of out.
+
+    CPU tensors take the plain version; CUDA tensors launch K8, or K6 then
+    K7, as ``attention_bwd_plan`` says."""
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, o, lse, do, scale, kv_valid)
+    kv_len = k.shape[1] if kv_valid is None else kv_valid
+    _check_cuda_inputs(q, k, v, kv_len)
+    bh, sq, d = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous bf16 [BH, Sq, D] tensor on {q.device}")
+    if lse.shape != (bh, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous fp32 [BH, Sq] tensor")
+    delta = (do.float() * o.float()).sum(-1)  # Δ: a plain reduction, as in JAX (XLA there)
+    route, bq, bkv, dc = attention_bwd_plan(kv_len, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = kernels.library()
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dims = (bh, sq, k.shape[1], d, kv_len, float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "flash_bwd_oneshot":
+            q_tiles = -(-sq // bq)
+            target = _BWD_BLOCKS_PER_SM * _sm_count(q.device.index)
+            per_split = -(-q_tiles // max(1, min(q_tiles, -(-target // bh))))
+            nsplit = -(-q_tiles // per_split)
+            ws = torch.empty(2 * nsplit * bh * bkv * dc, dtype=torch.float32, device=q.device)
+            err = lib.fdt_flash_bwd_oneshot(*ins, dq.data_ptr(), ws.data_ptr(), dk.data_ptr(),
+                                            dv.data_ptr(), *dims, bq, bkv, nsplit, per_split, stream)
+            kernels.check(err, route)
+            LAUNCHES[route] += 1
+        else:
+            err = lib.fdt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, bq, bkv, dc, stream)
+            kernels.check(err, "flash_bwd_dkv")
+            LAUNCHES["flash_bwd_dkv"] += 1
+            err = lib.fdt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, bq, bkv, dc, stream)
+            kernels.check(err, "flash_bwd_dq")
+            LAUNCHES["flash_bwd_dq"] += 1
+    return dq, dk, dv
+
+
 def reference_attention(q, k, v, bias=None, scale=1.0, kv_valid=None):
     """Plain [B, S, H, D] attention (fp32 softmax), as the JAX ``_xla_attention``.
 
@@ -257,6 +396,28 @@ def _from_bhsd(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     return x.reshape(b, h, s, d).transpose(1, 2)
 
 
+class FlashAttention(torch.autograd.Function):
+    """[B, S, H, D] attention with the flash backward (the JAX
+    ``_pallas_attention_vjp``): the forward saves the [BH, S, D] tensors it
+    made and the lse, so that the backward relays nothing out again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, kv_valid: Optional[int]):
+        b, _, h, _ = q.shape
+        qt, kt, vt = _to_bhsd(q), _to_bhsd(k), _to_bhsd(v)
+        out, lse = flash_attention_bhsd(qt, kt, vt, scale, kv_valid)
+        ctx.save_for_backward(qt, kt, vt, out, lse)
+        ctx.scale, ctx.kv_valid, ctx.heads = scale, kv_valid, h
+        return _from_bhsd(out, b, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        qt, kt, vt, out, lse = ctx.saved_tensors
+        b, h = g.shape[0], ctx.heads
+        dq, dk, dv = flash_attention_bwd_bhsd(qt, kt, vt, out, lse, _to_bhsd(g), ctx.scale, ctx.kv_valid)
+        return _from_bhsd(dq, b, h), _from_bhsd(dk, b, h), _from_bhsd(dv, b, h), None, None
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -268,9 +429,11 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Multi-head attention. q: [B, Sq, H, D]; k/v: [B, Skv, H, D] → [B, Sq, H, D].
 
-    ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; calls
-    without ``kv_valid`` that ``packed_cross_eligible`` takes go to
-    ``flash_attention_packed``; every other call to ``flash_attention_bhsd``."""
+    ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; under a
+    gradient every other call goes through ``FlashAttention``; without one,
+    calls without ``kv_valid`` that ``packed_cross_eligible`` takes go to
+    ``flash_attention_packed`` and every other call to
+    ``flash_attention_bhsd``."""
     b, sq, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -278,6 +441,8 @@ def dot_product_attention(
         kv_valid = None
     if bias is not None:
         return reference_attention(q, k, v, bias, scale, kv_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale, kv_valid)
     if kv_valid is None and packed_cross_eligible(q, k.shape[1]):
         packed = lambda x: x.reshape(b, x.shape[1], h * d).contiguous()  # free for projections
         out = flash_attention_packed(packed(q), packed(k), packed(v), h, scale)

@@ -5,7 +5,10 @@ tensor launches the kernel of ``csrc/layer_norm.cu`` (the port of the Pallas
 ``_ln_fwd_kernel``) for every width and row count, or raises; on a CPU
 tensor it runs ``layer_norm_reference``, the plain PyTorch version of the
 kernel's math (fp32 statistics with var = max(E[x²] − E[x]², 0), normalize
-and affine in fp32, one cast on store). ``group_norm`` is plain PyTorch with
+and affine in fp32, one cast on store). Under a gradient it goes through
+``LayerNormFunction``, whose forward is that same dispatch and whose
+backward is ``layer_norm_backward``, the plain closed-form VJP of the JAX
+``_ln_bwd_math`` (JAX has no Pallas LayerNorm backward either). ``group_norm`` is plain PyTorch with
 the JAX package's numerics: fp32 Σx and Σx² per channel, folded per group
 into one per-channel scale and shift in the input dtype, optional fused SiLU.
 It works on channel-first tensors ([B, C, *spatial]), the layout the port's
@@ -14,7 +17,7 @@ convolutions run in.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,15 +35,17 @@ def layer_norm_reference(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Plain version of the LayerNorm kernel, over the last dim."""
-    xf = x.float()
+    """Plain version of the LayerNorm kernel, over the last dim (fp32 math;
+    fp64 for fp64 inputs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if weight is not None:
-        y = y * weight.float()
+        y = y * weight.to(acc)
     if bias is not None:
-        y = y + bias.float()
+        y = y + bias.to(acc)
     return y.to(x.dtype)
 
 
@@ -59,6 +64,50 @@ def _check_cuda_inputs(x, weight, bias):
             raise ValueError("weight and bias must share one dtype, bf16 or fp32")
 
 
+def layer_norm_backward(
+    x: torch.Tensor, weight: Optional[torch.Tensor], dy: torch.Tensor, eps: float,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Closed-form LayerNorm VJP (the JAX ``_ln_bwd_math``): (dx in x's
+    dtype, and with ``weight`` the fp32 sums dweight = Σ dy·x̂ and dbias = Σ dy
+    over the rows)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dyf = x.to(acc), dy.to(acc)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dyh = dyf * weight.to(acc) if weight is not None else dyf
+    m1 = dyh.mean(dim=-1, keepdim=True)
+    m2 = (dyh * xhat).mean(dim=-1, keepdim=True)
+    dx = (inv * (dyh - m1 - xhat * m2)).to(x.dtype)
+    if weight is None:
+        return dx, None, None
+    rows = tuple(range(x.dim() - 1))
+    return dx, (dyf * xhat).sum(dim=rows), dyf.sum(dim=rows)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm whose forward is the kernel (the plain version on the CPU)
+    and whose backward is ``layer_norm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        ctx.save_for_backward(x, weight)
+        ctx.eps, ctx.bias_dtype = eps, None if bias is None else bias.dtype
+        return _layer_norm_forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw, _ = layer_norm_backward(x, weight, dy, ctx.eps)
+        _, need_w, need_b, _ = ctx.needs_input_grad
+        db = None
+        if need_b:  # Σ dy over the rows, in fp32 as in JAX
+            acc = torch.promote_types(dy.dtype, torch.float32)
+            db = dy.to(acc).sum(dim=tuple(range(dy.dim() - 1))).to(ctx.bias_dtype)
+        return dx, dw.to(weight.dtype) if need_w else None, db, None
+
+
 def layer_norm(
     x: torch.Tensor,
     weight: Optional[torch.Tensor] = None,
@@ -67,7 +116,15 @@ def layer_norm(
 ) -> torch.Tensor:
     """LayerNorm over the last dim, fp32 statistics, optional affine.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel; under
+    a gradient either goes through ``LayerNormFunction``."""
+    params = [t for t in (x, weight, bias) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in params):
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    return _layer_norm_forward(x, weight, bias, eps)
+
+
+def _layer_norm_forward(x, weight, bias, eps):
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps)
     _check_cuda_inputs(x, weight, bias)

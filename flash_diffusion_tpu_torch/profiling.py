@@ -1,15 +1,19 @@
-"""Profile one warm ``generate`` on the card: time by stage and by kernel.
+"""Profile one warm ``generate``, or one warm training step, on the card:
+time by stage and by kernel.
 
     python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl] [--batch 4] [--trace trace.json]
+    python -m flash_diffusion_tpu_torch.profiling --train [--batch 4]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
 weights; SD1.5 at 512², SDXL at 1024²), runs ``generate`` once to warm up,
-then once under
-``torch.profiler``. Prints the wall time, the device's busy share (summed
-kernel time over wall time; the port runs on one stream), each stage's host
-time and device busy time (``fdt.encode``, ``fdt.denoise``, ``fdt.decode``:
-the ``record_function`` spans of ``FlashPipeline.generate``), and the
-kernels with the most device time.
+then once under ``torch.profiler``; with ``--train``, the SD1.5 trainer as
+``train.build_trainer("sd15")`` builds it (``flash_sd.yaml``, every step in
+stage 1) and one ``fit`` step on a synthetic 512² batch instead. Prints the
+wall time, the device's busy share (summed kernel time over wall time; the
+port runs on one stream), each stage's host time and device busy time (the
+``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
+of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
+the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ _PROMPTS = ["a photograph of an astronaut riding a horse"]
 def _category(name: str) -> str:
     low = name.lower()
     for key, cat in (
-        ("flash_fwd", "attention kernels"), ("layer_norm_kernel", "layer_norm kernel"),
+        ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
+        ("layer_norm_kernel", "layer_norm kernel"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
         ("reduce", "reduction"), ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -44,44 +49,63 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="sd15", choices=MODELS)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--train", action="store_true", help="profile a training step of sd15 instead")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
-    pipe = build_pipeline(args.model, device="cuda")
-    prompts = (_PROMPTS * args.batch)[: args.batch]
-    pipe.generate(prompts)
+    if args.train:
+        from .train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+
+        cfg = {**load_config(DEFAULT_CONFIG), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
+        trainer = build_trainer("sd15", device="cuda", config=cfg)
+        data = synthetic_batches(args.batch, 512)
+        run = lambda: trainer.fit(data, max_steps=trainer.step + 1)
+        what = f"sd15 training step, batch {args.batch}, 512²"
+    else:
+        pipe = build_pipeline(args.model, device="cuda")
+        prompts = (_PROMPTS * args.batch)[: args.batch]
+        run = lambda: pipe.generate(prompts)
+        what = f"{args.model}, batch {args.batch}, 4 steps"
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate(prompts)
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    if args.train:
+        what += f" (start timestep {out['start_timestep']})"
 
     on_device = lambda e: str(e.device_type).endswith("CUDA")
-    # Stage device time: the kernels that start inside the stage span's
-    # device-side copy. Summing the kernels the profiler links to the span
+    # Stage device time: the kernels that start inside the stage's window,
+    # from its span's device-side start to the next span's (the last one's
+    # to its own end). Summing the kernels the profiler links to the span
     # would miss the port's own kernels, which launch through ctypes, not
-    # through a PyTorch op.
+    # through a PyTorch op, and those launched from another thread (the
+    # backward's, from autograd's).
     timeline = [e for e in prof.events() if on_device(e)]
     device_spans = {e.name: e.time_range for e in timeline if e.name.startswith("fdt.")}
     launches = [e.time_range for e in timeline if not e.name.startswith("fdt.")]
+    order = sorted(device_spans, key=lambda name: device_spans[name].start)
+    windows = {name: (device_spans[name].start, device_spans[nxt].start if nxt else device_spans[name].end)
+               for name, nxt in zip(order, order[1:] + [None])}
     events = prof.key_averages()
     kernels = [
         e for e in events
         if e.self_device_time_total > 0 and on_device(e) and not e.key.startswith("fdt.")
     ]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}: {args.model}, batch {args.batch}, 4 steps, "
+    print(f"{torch.cuda.get_device_name(0)}: {what}, "
           f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for e in events:
         if e.key.startswith("fdt.") and not on_device(e):
-            span = device_spans[e.key]
-            stage_ms = sum(k.elapsed_us() for k in launches if span.start <= k.start < span.end) / 1e3
-            print(f"  stage {e.key:12s} host {e.cpu_time_total / 1e3:9.2f} ms, "
-                  f"device busy {stage_ms:9.2f} ms of a {span.elapsed_us() / 1e3:9.2f} ms span")
+            lo, hi = windows[e.key]
+            stage_ms = sum(k.elapsed_us() for k in launches if lo <= k.start < hi) / 1e3
+            print(f"  stage {e.key:21s} host {e.cpu_time_total / 1e3:9.2f} ms, "
+                  f"device busy {stage_ms:9.2f} ms of a {(hi - lo) / 1e3:9.2f} ms span")
     cats = defaultdict(float)
     for e in kernels:
         cats[_category(e.key)] += e.self_device_time_total / 1e3

@@ -134,10 +134,7 @@ def build_pipeline(model: str = "sd15", weights_root: str = "",
             unet, vae, conditioners, towers, size_fn = build_modules(model)
     if weights_root:
         _load_local(unet, os.path.join(weights_root, "unet/diffusion_pytorch_model.safetensors"))
-        _load_local(
-            vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"),
-            keep=lambda k: k.startswith(("decoder.", "post_quant_conv.")),
-        )
+        _load_local(vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"))
         for path, tower in towers:
             _load_local(tower.module, os.path.join(weights_root, path),
                         keep=lambda k: not k.endswith("position_ids"))

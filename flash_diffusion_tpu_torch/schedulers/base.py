@@ -62,6 +62,23 @@ class SchedulerConfig:
     original_inference_steps: int = 50  # LCM origin-grid density (diffusers)
 
 
+def spaced_timesteps(
+    num_train_timesteps: int,
+    num_inference_steps: int,
+    spacing: str = "trailing",
+    steps_offset: int = 0,
+) -> np.ndarray:
+    """Inference timestep selection (descending), diffusers semantics."""
+    t, n = num_train_timesteps, num_inference_steps
+    if spacing == "linspace":
+        return np.linspace(0, t - 1, n).round()[::-1].astype(np.int64)
+    if spacing == "leading":
+        return (np.arange(0, n) * (t // n)).round()[::-1].astype(np.int64) + steps_offset
+    if spacing == "trailing":
+        return np.arange(t, 0, -t / n).round().astype(np.int64) - 1
+    raise ValueError(f"Unknown timestep spacing {spacing!r}")
+
+
 def training_tables(config: SchedulerConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(alphas_cumprod, sqrt_acp, sqrt_one_minus_acp) over all T train steps."""
     betas = make_betas(
@@ -72,6 +89,17 @@ def training_tables(config: SchedulerConfig) -> Tuple[np.ndarray, np.ndarray, np
     )
     alphas_cumprod = np.cumprod(1.0 - betas)
     return alphas_cumprod, np.sqrt(alphas_cumprod), np.sqrt(1.0 - alphas_cumprod)
+
+
+def add_noise(
+    schedule, sample: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor
+) -> torch.Tensor:
+    """Forward noising q(x_t | x_0) = sqrt(ᾱ_t)·x0 + sqrt(1 − ᾱ_t)·noise, from
+    the schedule's fp32 ``alphas_cumprod`` table, per-sample ``timesteps``
+    broadcast over the trailing dims."""
+    acp = schedule.alphas_cumprod.to(sample.device)[timesteps.to(sample.device)]
+    shape = acp.shape + (1,) * (sample.dim() - acp.dim())
+    return torch.sqrt(acp).reshape(shape) * sample + torch.sqrt(1.0 - acp).reshape(shape) * noise.to(sample.dtype)
 
 
 def predicted_x0(

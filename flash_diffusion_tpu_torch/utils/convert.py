@@ -14,14 +14,16 @@ package's importer from diffusers/transformers names
   Linear [C, C] (SDXL, ``use_linear_projection``);
 - the UNet's ``class_embedding`` → ``add_embedding`` (SDXL's diffusers name).
 
-They cover the SD1.5 and SDXL UNets, the SD VAE's decode half and the
-CLIP-L and OpenCLIP-bigG text towers, the modules the port has.
+They cover the SD1.5 and SDXL UNets, the SD VAE, the CLIP-L and
+OpenCLIP-bigG text towers, and for training the LoRA tree, the conv
+discriminator and LPIPS (whose JAX param names are the port's).
 
 Imports no JAX: the tree arrives as numpy.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -131,20 +133,31 @@ def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
     return sd
 
 
-def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
-    """JAX ``AutoencoderKL`` params → port ``AutoencoderKL`` (decode) state dict.
+def _vae_mid(sd: StateDict, key: str, p) -> None:
+    _resnet(sd, f"{key}.mid_block.resnets.0", p["mid_resnet_0"])
+    _resnet(sd, f"{key}.mid_block.resnets.1", p["mid_resnet_1"])
+    _norm(sd, f"{key}.mid_block.attentions.0.group_norm", p["mid_attn"]["group_norm"])
+    _attention(sd, f"{key}.mid_block.attentions.0", p["mid_attn"]["attention"])
 
-    The encoder and ``quant_conv`` are not part of the port yet and are skipped."""
+
+def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``AutoencoderKL`` params → port ``AutoencoderKL`` state dict."""
     p = _unwrap(params)
-    dec = p["decoder"]
+    enc, dec = p["encoder"], p["decoder"]
     sd: StateDict = {}
-    _conv(sd, "decoder.conv_in", dec["conv_in"])
-    _resnet(sd, "decoder.mid_block.resnets.0", dec["mid_resnet_0"])
-    _resnet(sd, "decoder.mid_block.resnets.1", dec["mid_resnet_1"])
-    key = "decoder.mid_block.attentions.0"
-    _norm(sd, f"{key}.group_norm", dec["mid_attn"]["group_norm"])
-    _attention(sd, key, dec["mid_attn"]["attention"])
     n = len(config.block_out_channels)
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    for lvl in range(n):
+        for j in range(config.layers_per_block):
+            _resnet(sd, f"encoder.down_blocks.{lvl}.resnets.{j}", enc[f"down_{lvl}_resnet_{j}"])
+        if lvl < n - 1:
+            _conv(sd, f"encoder.down_blocks.{lvl}.downsamplers.0.conv", enc[f"down_{lvl}_downsample"])
+    _vae_mid(sd, "encoder", enc)
+    _norm(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    _conv(sd, "quant_conv", p["quant_conv"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    _vae_mid(sd, "decoder", dec)
     for ui, lvl in enumerate(reversed(range(n))):
         for j in range(config.layers_per_block + 1):
             _resnet(sd, f"decoder.up_blocks.{ui}.resnets.{j}", dec[f"up_{lvl}_resnet_{j}"])
@@ -176,4 +189,78 @@ def clip_text_from_jax(params: Dict[str, Any], config) -> StateDict:
         _lin(sd, f"{k}.mlp.fc2", lp["fc2"])
     if "text_projection" in p:
         _lin(sd, "text_projection", p["text_projection"])
+    return sd
+
+
+# JAX module scopes inside a spatial transformer → the port's module names
+_LORA_LEAVES = {"to_out": "to_out.0", "ff/proj_in": "ff.net.0.proj", "ff/proj_out": "ff.net.2"}
+
+
+def lora_path_to_port(path: str, config) -> str:
+    """A JAX ``lora_paths`` entry of the UNet (``[params/]down_0_attn_0/
+    blocks_0/attn1/to_q/kernel``) → the port module name
+    (``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q``)."""
+    parts = path.split("/")
+    if parts[0] == "params":
+        parts = parts[1:]
+    if parts[-1] != "kernel":
+        raise ValueError(f"not a kernel path: {path}")
+    top, rest = parts[0], parts[1:-1]
+    n = len(config.block_out_channels)
+    m = re.fullmatch(r"(down|up)_(\d+)_attn_(\d+)", top)
+    if m:
+        lvl, j = int(m.group(2)), int(m.group(3))
+        block = f"down_blocks.{lvl}" if m.group(1) == "down" else f"up_blocks.{n - 1 - lvl}"
+        prefix = f"{block}.attentions.{j}"
+    elif top == "mid_attn":
+        prefix = "mid_block.attentions.0"
+    else:
+        raise ValueError(f"no LoRA target in {path}")
+    if rest[0].startswith("blocks_"):
+        inner = "/".join(rest[1:])
+        for jax_name, name in _LORA_LEAVES.items():
+            if inner == jax_name or inner.endswith("/" + jax_name):
+                inner = inner[: -len(jax_name)] + name
+        return f"{prefix}.transformer_blocks.{rest[0][len('blocks_'):]}.{inner.replace('/', '.')}"
+    return f"{prefix}.{'.'.join(rest)}"
+
+
+def lora_from_jax(lora: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX ``init_lora`` tree of the UNet → the port's ``{module name:
+    {"a": [in, r], "b": [r, out]}}`` (the same layouts)."""
+    out = {}
+
+    def walk(tree, path):
+        if "a" in tree and "b" in tree and not isinstance(tree["a"], dict):
+            out[lora_path_to_port("/".join(path), config)] = {"a": _t(tree["a"]), "b": _t(tree["b"])}
+            return
+        for k, v in tree.items():
+            walk(v, path + [k])
+
+    walk(lora, [])
+    return out
+
+
+def discriminator_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``ConvDiscriminator`` params → port state dict (bias-free convs)."""
+    p = _unwrap(params)
+    conv = lambda k: _t(np.asarray(p[k]["kernel"]).transpose(3, 2, 0, 1))
+    sd: StateDict = {"conv_out.weight": conv("conv_out")}
+    for i in range(config.num_stages):
+        sd[f"conv_{i}.weight"] = conv(f"conv_{i}")
+        if i > 0:
+            sd[f"gn_{i}_scale"] = _t(p[f"gn_{i}_scale"])
+            sd[f"gn_{i}_bias"] = _t(p[f"gn_{i}_bias"])
+    return sd
+
+
+def lpips_from_jax(params: Dict[str, Any]) -> StateDict:
+    """JAX ``LPIPS`` params → port state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    for name, conv in p["vgg"].items():
+        _conv(sd, f"vgg.{name}", conv)
+    for name, lin in p.items():
+        if name.startswith("lin_"):
+            sd[f"{name}.weight"] = _t(np.asarray(lin["kernel"]).transpose(3, 2, 0, 1))
     return sd

@@ -296,14 +296,13 @@ def load_manifest(name):
 
 @pytest.mark.parametrize("name,build,prefixes", [
     ("sd15_unet", lambda: UNet2DCondition(sd15_unet_config()), None),
-    ("sd_vae", lambda: AutoencoderKL(sd_vae_config()), ("decoder.", "post_quant_conv.")),
+    ("sd_vae", lambda: AutoencoderKL(sd_vae_config()), None),
     ("clip_vit_l", lambda: CLIPTextModel(clip_l_config()), None),
     ("sdxl_unet", lambda: UNet2DCondition(sdxl_unet_config()), None),
     ("clip_bigg_proj", lambda: CLIPTextModel(clip_g_config()), None),
 ])
 def test_full_size_state_dict_matches_manifest(name, build, prefixes):
-    """Key for key and shape for shape, against the published checkpoint
-    (the VAE's decode half: the encoder is not ported yet)."""
+    """Key for key and shape for shape, against the published checkpoint."""
     required, optional = load_manifest(name)
     if prefixes:
         required = {k: s for k, s in required.items() if k.startswith(prefixes)}

@@ -323,6 +323,121 @@ def test_kernel_build_failure_raises_with_the_compiler_output(fake_toolchain):
     assert not kernels.library_path().exists()
 
 
+# (bh, sq, kv, d, kv_valid, pair): the K8 route (cross-attention over 77 keys,
+# the 64-token self-attention at D = 160) and, with JAX forced off its
+# one-shot backward at 128-row blocks, the K6 + K7 route, kv_valid included
+BWD_CASES = [
+    (2, 200, 77, 40, None, False), (2, 64, 64, 160, None, False),
+    (2, 300, 260, 40, None, True), (2, 300, 260, 40, 200, True),
+]
+
+
+@pytest.mark.parametrize("bh,sq,kv,d,kv_valid,pair", BWD_CASES)
+def test_attention_bwd_reference_matches_jax_flash_bwd(jax_ref, monkeypatch, bh, sq, kv, d, kv_valid, pair):
+    """The plain version of K6–K8 vs JAX ``_flash_bwd_bhsd`` (its Pallas
+    kernels in interpret mode), fp32 on both sides, from the same forward's
+    out and lse. Tolerance 1e-4: the same products summed in another order."""
+    rng = np.random.default_rng(bh * 100 + sq + kv)
+    q, k, v = (_randn(rng, bh, s, d) for s in (sq, kv, kv))
+    do = _randn(rng, bh, sq, d)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = jattn._flash_fwd_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, kv_valid=kv_valid)
+    kw = {}
+    if pair:
+        monkeypatch.setattr(jattn, "_ONESHOT_BWD_MAX", 0)
+        kw = dict(block_q=128, block_kv=128)
+    want = jattn._flash_bwd_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse, jnp.asarray(do),
+                                 scale, kv_valid=kv_valid, **kw)
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    got = tattn.flash_attention_bwd_bhsd(t(q), t(k), t(v), t(o), t(lse)[:, 0], t(do), scale, kv_valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kv_valid", [None, 6])
+def test_attention_function_gradcheck(kv_valid):
+    """``FlashAttention`` (forward and plain backward) in fp64 on the CPU."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, s, 2, 8, generator=g, dtype=torch.float64, requires_grad=True)
+               for s in (7, 9, 9))
+    out = tattn.dot_product_attention(q, k, v, kv_valid=kv_valid)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.autograd.gradcheck(lambda *x: tattn.dot_product_attention(*x, kv_valid=kv_valid), (q, k, v))
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_function_gradcheck(affine):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 5, 16, generator=g, dtype=torch.float64, requires_grad=True)
+    w, b = ((torch.randn(16, generator=g, dtype=torch.float64) + 1).requires_grad_(), 
+            torch.randn(16, generator=g, dtype=torch.float64).requires_grad_()) if affine else (None, None)
+    args = (x, w, b) if affine else (x,)
+    assert type(tnorms.layer_norm(*args).grad_fn).__name__ == "LayerNormFunctionBackward"
+    assert torch.autograd.gradcheck(lambda *a: tnorms.layer_norm(*a), args)
+
+
+@pytest.mark.parametrize("kv_valid", [None, 60])
+def test_attention_grads_match_jax_grad(jax_ref, kv_valid):
+    """Grads of q, k, v through ``dot_product_attention`` vs ``jax.grad`` of
+    the JAX one on its Pallas forward and backward, fp32, tolerance 1e-4."""
+    import jax
+
+    rng = np.random.default_rng(12)
+    q, k, v = _randn(rng, 2, 45, 2, 40), _randn(rng, 2, 77, 2, 40), _randn(rng, 2, 77, 2, 40)
+    w = _randn(rng, 2, 45, 2, 40)
+    loss = lambda q_, k_, v_: jnp.sum(
+        jattn.dot_product_attention(q_, k_, v_, use_pallas=True, kv_valid=kv_valid) * w)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (tattn.dot_product_attention(tq, tk, tv, kv_valid=kv_valid) * torch.from_numpy(w)).sum().backward()
+    for g, ww in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ww), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("c", [128, 96])
+def test_layer_norm_grads_match_jax_grad(jax_ref, c):
+    """dx, dweight, dbias vs ``jax.grad`` of the JAX ``layer_norm`` (its
+    Pallas custom VJP at C = 128, its plain path at C = 96). Tolerance 1e-4."""
+    import jax
+
+    rng = np.random.default_rng(c + 1)
+    x = _randn(rng, 3, 16, c, scale=2.0) + 0.5
+    wt, b, up = 1.0 + _randn(rng, c, scale=0.1), _randn(rng, c, scale=0.1), _randn(rng, 3, 16, c)
+    loss = lambda x_, w_, b_: jnp.sum(jnorms.layer_norm(x_, w_, b_, eps=1e-5) * up)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, wt, b))
+    (tnorms.layer_norm(tx, tw, tb, eps=1e-5) * torch.from_numpy(up)).sum().backward()
+    for g, ww in zip((tx.grad, tw.grad, tb.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ww), atol=1e-4, rtol=0)
+
+
+# Every SD1.5 training backward (kv, head dim) and the route the plan must give it
+SD15_BWD = [
+    (4096, 40, "flash_bwd_pair"), (1024, 80, "flash_bwd_pair"), (256, 160, "flash_bwd_pair"),
+    (64, 160, "flash_bwd_oneshot"), (77, 40, "flash_bwd_oneshot"), (77, 80, "flash_bwd_oneshot"),
+    (77, 160, "flash_bwd_oneshot"), (4096, 512, "flash_bwd_pair"),
+]
+
+
+@pytest.mark.parametrize("kv,d,route", SD15_BWD)
+def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
+    """Every KV = 77 cross-attention reaches K8; each plan's layout fits a block."""
+    got, bq, bkv, dc = tattn.attention_bwd_plan(kv, d)
+    dp = -(-d // 16) * 16
+    assert got == route and bq % 16 == 0 and bkv % 16 == 0 and dp % dc == 0
+    if route == "flash_bwd_oneshot":
+        need = tattn.bwd_smem_bytes(bq, bkv, dp, bkv, dp, 2, tattn._BWD_SCRATCH)
+    else:
+        need = tattn.bwd_smem_bytes(bq, bkv, dp, bkv, dc, 2)
+    assert need <= tattn._SMEM_LIMIT
+
+
+def test_bwd_wrapper_refuses_devices_without_a_kernel():
+    x = torch.empty(2, 16, 8, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention_bwd_bhsd(x, x, x, x, torch.empty(2, 16, device="meta"), x, 1.0)
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,sq,skv,d,kv_valid", [
@@ -431,3 +546,58 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         tattn.flash_attention_packed(p.float(), p.float(), p.float(), 3, 1.0)  # fp32
     with pytest.raises(ValueError):
         tnorms.layer_norm(torch.randn(8, 16, device=cuda).t())  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,d,kv_valid", [
+    (4, 512, 512, 40, None), (4, 300, 77, 40, None), (2, 200, 77, 80, 70), (1, 130, 77, 160, None),
+    (2, 64, 64, 160, None), (2, 256, 256, 160, None), (1, 1000, 1024, 80, 900), (2, 128, 128, 512, 100),
+    (1, 4000, 77, 40, None), (3, 300, 260, 40, 200),
+])
+def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
+    """K6+K7 or K8 (bf16) vs the plain backward in fp32 on the same inputs,
+    batch 1 and ragged Sq/KV included. Tolerance: the forward's 2e-2 times
+    max(1, max|grad|) (p, ds and the outputs are rounded to bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv))
+    do = torch.randn(bh, sq, d, generator=g, device=cuda).to(torch.bfloat16)
+    o, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
+    route = tattn.attention_bwd_plan(kv_valid or skv, d)[0]
+    keys = ("flash_bwd_oneshot",) if route == "flash_bwd_oneshot" else ("flash_bwd_dkv", "flash_bwd_dq")
+    n = [tattn.LAUNCHES[kk] for kk in keys]
+    got = tattn.flash_attention_bwd_bhsd(q, k, v, o, lse, do, d ** -0.5, kv_valid)
+    torch.cuda.synchronize()
+    assert [tattn.LAUNCHES[kk] for kk in keys] == [m + 1 for m in n]
+    want = tattn.attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                         d ** -0.5, kv_valid)
+    for a, b in zip(got, want):
+        assert (a.float() - b).abs().max().item() <= 2e-2 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,kv", [(1, 3, 300, 77), (2, 2, 64, 64), (2, 1, 128, 128)])
+def test_grads_on_card_carry_grad_fn_and_match_cpu(cuda, b, h, sq, kv):
+    """The autograd fault of the serving-only port: on the card,
+    ``dot_product_attention`` and ``layer_norm`` outputs carry a
+    ``grad_fn`` and their gradients match the CPU path's (bf16 tolerance:
+    2e-2 times max(1, max|grad|))."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(b, s, h, 40, generator=gen) for s in (sq, kv, kv))
+    up = torch.randn(b, sq, h, 40, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tattn.dot_product_attention(*leaves).backward(up)
+    dev = [t.to(cuda, torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    out = tattn.dot_product_attention(*dev)
+    assert out.grad_fn is not None
+    out.backward(up.to(cuda, torch.bfloat16))
+    for a, d in zip(leaves, dev):
+        assert (a.grad - d.grad.float().cpu()).abs().max().item() <= 2e-2 * max(1.0, a.grad.abs().max().item())
+    x, w = torch.randn(b * sq, 320, generator=gen), 1 + 0.1 * torch.randn(320, generator=gen)
+    dy = torch.randn(b * sq, 320, generator=gen)
+    xc = x.clone().requires_grad_()
+    tnorms.layer_norm(xc, w, torch.zeros(320)).backward(dy)
+    xd = x.to(cuda, torch.bfloat16).requires_grad_()
+    y = tnorms.layer_norm(xd, w.to(cuda, torch.bfloat16), torch.zeros(320, device=cuda, dtype=torch.bfloat16))
+    assert y.grad_fn is not None
+    y.backward(dy.to(cuda, torch.bfloat16))
+    assert (xc.grad - xd.grad.float().cpu()).abs().max().item() <= 2e-2 * max(1.0, xc.grad.abs().max().item())
