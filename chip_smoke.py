@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width and depth with random
+Drives the port's four main paths at full width and depth with random
 weights made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and
-of SDXL at 1024², and the Flash distillation step of SD1.5 at 512². It fails
-unless every phase passes:
+of SDXL at 1024², the Flash distillation step of SD1.5 at 512², and SDXL
+1024² served over HTTP in int8 W8A8 with a merged LoRA. It fails unless
+every phase passes:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -22,7 +23,10 @@ unless every phase passes:
    (67 TFLOP/s fp32 for LayerNorm). The library calls are yardsticks only:
    ``F.scaled_dot_product_attention`` (forward for K1, K2, K4; its backward,
    ``torch.autograd.grad`` with ``retain_graph``, for K6–K8) and
-   ``F.layer_norm`` for K3. The backward kernels (K6+K7 or K8, routed by
+   ``F.layer_norm`` for K3, ``torch._int_mm`` and the same dequant for the
+   int8 GEMM (K11, whose bound counts int8 operations at 1979 TOP/s and whose
+   int32 sums are checked equal to the plain version's, its bf16 output to
+   one ulp). The backward kernels (K6+K7 or K8, routed by
    ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv, each to the forward's out
    tolerance times max(1, max|grad|); K6 and K7 are also timed alone;
@@ -64,7 +68,28 @@ unless every phase passes:
    outputs to a relative L2 of 0.05, the LoRA and discriminator gradients to
    a relative L2 of 0.1, the VAE encode to 0.1. Printed beside, ungated: the
    LoRA gradients' error of each scaled G term alone, and of the student's
-   own backward (the gradient of a fixed random projection of its output).
+   own backward (the gradient of a fixed random projection of its output);
+6. int8 serving, after the training pipelines are freed: ``build_pipeline(
+   "sdxl", device="cuda")``, a random rank-64 LoRA over the default targets
+   written as a PEFT file and loaded through ``pipe.lora_loader``, then
+   ``quantize("int8")`` (722 layers) and ``InferenceServer`` on an
+   ephemeral localhost port (``max_batch`` 4, ``batch_sizes`` (1, 4),
+   prewarm) in a thread. 8 concurrent clients each send 8 ``POST
+   /generate`` at 1024² (``format: json``), one after the other (a closed
+   loop: 64 requests, 16 dispatches of 4): each response must decode to a
+   1024×1024 RGB PNG; ``/healthz``, ``/loras`` and ``/metrics``
+   (``batch_occupancy`` 1.0) are checked, and the int8 GEMM kernel's
+   launches, reset just before, must be 2888 per batch-4 dispatch (722
+   products × 4 steps), with K2, K3 and K4 launched too. Then warm s/batch
+   (median of 3 ``generate`` calls), images/s, the 64 requests' latency
+   p50/p95 (the server's, and the clients' with PNG and HTTP) and peak
+   memory;
+6b. the same int8 pipeline at 128² on one prompt against its fp32 CPU copy
+   with the same int8 weights (the plain paths), as phases 4/4b; and one
+   request's image alone against the same request in a batch of 4
+   (per-request seeds), to a relative L2 of 0.1: bf16 rounding differs with
+   the batch shape, and the int8 codes that flip under it pass the change
+   on (a wrong noise chain gives ~1.4).
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -76,13 +101,19 @@ are those of the whole backward, dq, dk and dv); the last line is
 this file, it exits non-zero and prints no result.
 """
 
+import base64
 import json
 import math
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -161,8 +192,28 @@ TRAIN_REF_OVERRIDES = {
     "LPIPS_CROP": 16, "DISTILL_LOSS_SCALE": 1.0, "DMD_LOSS_SCALE": 0.3, "ADVERSARIAL_LOSS_SCALE": 0.1,
 }
 TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
+# [M, K, N] of every int8 product of SDXL 1024² at batch 4, guidance 0:
+# at the 64² level q/k/v/out, attn2 q/out and proj_in/proj_out, the
+# cross-attention k/v over the 77 text tokens, ff.net.0.proj, ff.net.2;
+# then the same at the 32² level and the mid block
+INT8_SHAPES = [
+    (16384, 640, 640), (308, 2048, 640), (16384, 640, 5120), (16384, 2560, 640),
+    (4096, 1280, 1280), (308, 2048, 1280), (4096, 1280, 10240), (4096, 5120, 1280),
+]
+# (M, K, N, bias + gelu): batch 1's k/v (M = 77), ragged M and N, the
+# epilogue with bias and tanh-gelu, K not a multiple of the 64-byte step
+INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10240, True),
+              (300, 96, 130, True)]
+# phase 6: the LoRA (B ~ N(0, 0.01) changes the attention and feed-forward
+# weights by ~14%), the batcher's linger window (long enough for the 4
+# clients a dispatch answers to send their next requests), and the load: 8
+# clients in a closed loop, 8 requests each, so that p95 is a percentile of
+# 64 latencies (the 61st) and not the slowest of a few
+SERVE_LORA_RANK, SERVE_LORA_B_STD, SERVE_LINGER_MS = 64, 0.01, 1000.0
+SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
+SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
-HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S = 3.35e12, 989e12, 67e12
+HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
 # tolerances, kernel (bf16) vs plain (fp32): attention out is rounded to
 # bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2); lse is fp32
 # from exact bf16 products (5e-3); LayerNorm in bf16 differs by the output's
@@ -332,6 +383,59 @@ def check_layer_norm(norms, results):
             add_times(r, ms, plain, library, bnd)
 
 
+def within_bf16_ulp(got, want, floor=0.0) -> bool:
+    """|got − want| ≤ one bf16 ulp of ``want`` (or ``floor``, where larger)."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w), torch.ldexp(torch.ones_like(w), e - 8))
+    return bool(((got.float() - w).abs() <= torch.clamp(ulp, min=floor)).all())
+
+
+def check_int8_gemm(gemm, results):
+    """K11 at every int8 shape of the SDXL path and the extra cases: its
+    int32 sums (the raw-sums epilogue) equal the plain version's; its bf16
+    output within one ulp of the plain version's (the epilogue runs in the
+    same fp32 order, so exactly equal without gelu; with tanh-gelu, 1e-6
+    absolute where 1 + tanh(u) cancels in the negative tail). At the path's
+    shapes also kernel, plain, library and bound times. Bound: 2·M·K·N int8
+    operations at 1979 TOP/s, or xq, wq, the two scales read and the bf16
+    output written once at 3.35 TB/s."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for m, k, n, epilogue in [(*s, False) for s in INT8_SHAPES] + INT8_EXTRA:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        sx = torch.rand(m, generator=g, device="cuda") * 1e-3 + 1e-5
+        sw = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-5
+        bias, act = (torch.randn(n, generator=g, device="cuda"), "gelu") if epilogue else (None, None)
+        sums = gemm.int8_gemm(xq, None, wq, None, out_dtype=torch.int32)
+        y = gemm.int8_gemm(xq, sx, wq, sw, bias, act)
+        torch.cuda.synchronize()
+        ref = gemm.int8_gemm_reference(xq, sx, wq, sw, bias, act)
+        sums_equal = torch.equal(sums, gemm.int8_sums_reference(xq, wq))
+        close = within_bf16_ulp(y, ref, 1e-6 if act else 0.0)
+        err = (y.float() - ref.float()).abs().max().item()
+        ms = median_ms(lambda: gemm.int8_gemm(xq, sx, wq, sw, bias, act))
+        main = (m, k, n) in INT8_SHAPES and not epilogue
+        times = f"kernel {ms:.4f} ms"
+        if main:
+            plain = median_ms(lambda: gemm.int8_gemm_reference(xq, sx, wq, sw))
+            library = library_ms(lambda: lambda: (torch._int_mm(xq, wq.t()).float() * sx[:, None] * sw).to(
+                torch.bfloat16))
+            bnd = bound(2 * m * k * n, m * k + k * n + 4 * (m + n) + 2 * m * n, INT8_OPS_PER_S)
+            times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+        print(f"int8_gemm M={m:5d} K={k:4d} N={n:5d}{' bias+gelu' if epilogue else ''}: int32 sums equal "
+              f"{sums_equal}; bf16 max|err| {err:.3e} (within one ulp{' or 1e-6' if act else ''}: {close}); "
+              f"{times}")
+        if not (sums_equal and close):
+            raise AssertionError(f"int8 GEMM kernel disagrees with its plain version at {(m, k, n, epilogue)}")
+        r = results["int8_gemm"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            add_times(r, ms, plain, library, bnd)
+        del xq, wq, sums, y, ref
+        torch.cuda.empty_cache()
+
+
 def pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid):
     """K6 and K7 each alone, launched as ``flash_attention_bwd_bhsd``
     launches them (and not counted), for their separate times."""
@@ -430,20 +534,23 @@ def reset(counters):
             d[k] = 0
 
 
-def cpu_fp32_copy(module: torch.nn.Module, meta_module: torch.nn.Module) -> torch.nn.Module:
+def cpu_fp32_copy(state, meta_module: torch.nn.Module) -> torch.nn.Module:
     """``meta_module`` (the same architecture, built on the meta device) on
-    the CPU in fp32 with ``module``'s weights, copied tensor by tensor so
+    the CPU with the weights of ``state``, a state dict: float tensors as
+    fp32, int8 weights and their scales as they are, tensor by tensor, so
     that the host holds one fp32 copy and the card no second one."""
+    from flash_diffusion_tpu_torch.quant import apply_weights
+
     meta_module.to_empty(device="cpu")
-    target = meta_module.state_dict()
-    for k, v in module.state_dict().items():
-        target[k].copy_(v)
-    return meta_module.float().eval()
+    apply_weights(meta_module, {k: v.cpu().float() if v.is_floating_point() else v.cpu()
+                                for k, v in state.items()})
+    return meta_module.eval()
 
 
-def check_reference(pipe, model: str):
+def check_reference(pipe, model: str, label: str = ""):
     """The pipeline's own modules at 128² on one prompt: bf16 on the card
-    through the kernels vs an fp32 copy on the CPU through the plain paths."""
+    through the kernels vs an fp32 copy on the CPU through the plain paths
+    (with the pipeline's served weights: int8 ones in int8 mode)."""
     from flash_diffusion_tpu_torch import FlashPipeline
     from flash_diffusion_tpu_torch.models.embedders import ConditionerWrapper
     from flash_diffusion_tpu_torch.sample import build_modules
@@ -453,9 +560,9 @@ def check_reference(pipe, model: str):
     with torch.device("meta"):
         unet, vae, conditioners, _, _ = build_modules(model)
     ref = FlashPipeline(
-        cpu_fp32_copy(pipe.denoiser, unet),
-        cpu_fp32_copy(pipe.conditioner, ConditionerWrapper(conditioners)),
-        cpu_fp32_copy(pipe.vae, vae), pipe.tokenizer_fn, pipe.latent_shape,
+        cpu_fp32_copy(pipe.state, unet),
+        cpu_fp32_copy(pipe.conditioner.state_dict(), ConditionerWrapper(conditioners)),
+        cpu_fp32_copy(pipe.vae.state_dict(), vae), pipe.tokenizer_fn, pipe.latent_shape,
     )
     ref.size_cond_fn = pipe.size_cond_fn
     g = torch.Generator().manual_seed(7)
@@ -471,11 +578,11 @@ def check_reference(pipe, model: str):
     want = ref.generate(PROMPTS[:1], latents=latents, noise=noise, height=128, width=128)
     img_err = ((got - want).norm() / want.norm()).item()
     errs = ", ".join(f"{k} {e:.3e}" for k, e in clip_errs.items())
-    print(f"{model} reference at 128², 1 prompt: CLIP (fp32 on the card) rel L2 err {errs} (tol 1e-4); "
+    print(f"{label or model} reference at 128², 1 prompt: CLIP (fp32 on the card) rel L2 err {errs} (tol 1e-4); "
           f"images (bf16 on the card vs fp32 on the CPU) rel L2 err {img_err:.3e} (tol 0.1), "
           f"max|err| {(got - want).abs().max().item():.3e}")
     if not (max(clip_errs.values()) <= 1e-4 and img_err <= 0.1 and torch.isfinite(got).all()):
-        raise AssertionError(f"the card's {model} slice disagrees with the fp32 reference on a small input")
+        raise AssertionError(f"the card's {label or model} slice disagrees with the fp32 reference on a small input")
 
 
 def run_path(pipe, model, hw, counters, card, required):
@@ -508,6 +615,145 @@ def run_path(pipe, model, hw, counters, card, required):
           f"{4 / per_batch:.3f} images/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"image range [{images.min().item():.3f}, {images.max().item():.3f}]")
     return launches
+
+
+def png_pixels(png: bytes):
+    """(width, height, RGB rows) of a PNG from the port's writer (8-bit RGB,
+    one IDAT, filter 0 on every row)."""
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    width, height, depth, color = struct.unpack(">IIBB", png[16:26])
+    at = png.index(b"IDAT")
+    raw = zlib.decompress(png[at + 4: at + 4 + struct.unpack(">I", png[at - 4: at])[0]])
+    if (depth, color) != (8, 2) or len(raw) != height * (1 + 3 * width):
+        raise AssertionError(f"not an 8-bit RGB PNG of {width}x{height}")
+    return width, height
+
+
+def write_peft(path: str, tree) -> str:
+    """A PEFT adapter file of a port LoRA tree (A as [r, in], B as [out, r])."""
+    from safetensors.torch import save_file
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_file({f"unet.{name}.lora_{x}.weight": ab[leaf].t().contiguous().cpu()
+               for name, ab in tree.items() for x, leaf in (("A", "a"), ("B", "b"))}, path)
+    return path
+
+
+def run_int8_serving(counters, card, required):
+    """Phase 6: SDXL 1024² int8 with a merged LoRA behind ``InferenceServer``:
+    8 clients in a closed loop of HTTP requests, counts reset just before
+    and read after. Returns (launches, the pipeline)."""
+    from flash_diffusion_tpu_torch.lora import init_lora
+    from flash_diffusion_tpu_torch.ops import gemm
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.serving import InferenceServer, ServingConfig
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline("sdxl", device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tree = init_lora(pipe.denoiser, SERVE_LORA_RANK, g, device="cuda")
+    for ab in tree.values():
+        ab["b"].normal_(0.0, SERVE_LORA_B_STD, generator=g)
+    path = write_peft(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                                   "lora.safetensors"), tree)
+    n_lora = len(tree)
+    del tree
+    t1 = time.perf_counter()
+    pipe.load_lora(*pipe.lora_loader(path))
+    pipe.quantize("int8")
+    torch.cuda.synchronize()
+    n_int8 = sum(t.dtype == torch.int8 for t in pipe.state.values())
+    print(f"sdxl int8: build {t1 - t0:.2f} s, LoRA load (PEFT file, rank {SERVE_LORA_RANK}, "
+          f"{n_lora} layers) + merge + quantize {time.perf_counter() - t1:.2f} s; "
+          f"{n_int8} int8 layers; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n_int8 != SERVE_INT8_LAYERS:
+        raise AssertionError(f"quantize('int8') made {n_int8} int8 layers, not {SERVE_INT8_LAYERS}")
+    server = InferenceServer(pipe, ServingConfig(port=0, max_batch=4, linger_ms=SERVE_LINGER_MS,
+                                                 batch_sizes=(1, 4), prewarm=True))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        if not server.ready.wait(600):
+            raise AssertionError("the server did not come up")
+        url = f"http://127.0.0.1:{server.address[1]}"
+        get = lambda p: json.loads(urllib.request.urlopen(url + p, timeout=60).read())
+        n_req = SERVE_CLIENTS * SERVE_REQUESTS_PER_CLIENT
+        replies, client_s = [None] * n_req, [None] * n_req
+
+        def client(c):
+            for i in range(c * SERVE_REQUESTS_PER_CLIENT, (c + 1) * SERVE_REQUESTS_PER_CLIENT):
+                body = json.dumps({"prompt": PROMPTS[i % 4], "seed": i, "format": "json"}).encode()
+                req = urllib.request.Request(url + "/generate", data=body, method="POST")
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    replies[i] = json.loads(r.read())
+                client_s[i] = time.perf_counter() - t
+
+        reset(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        wall = time.perf_counter() - t0
+        launches = {k: n for d in counters for k, n in d.items()}
+        metrics, health, loras = get("/metrics"), get("/healthz"), get("/loras")
+    finally:
+        server.shutdown()
+        thread.join(60)
+    print(f"sdxl int8 serving: {SERVE_CLIENTS} clients × {SERVE_REQUESTS_PER_CLIENT} requests in {wall:.3f} s; "
+          f"launches {launches}; /metrics {metrics}; /healthz {health}; /loras {loras}")
+    sizes = [png_pixels(base64.b64decode(p)) for r in replies if r for p in r["images_png_b64"]]
+    if sizes != [(1024, 1024)] * n_req:
+        raise AssertionError(f"expected {n_req} RGB PNGs of 1024x1024, got {len(sizes)}: {set(sizes)}")
+    if (metrics["requests"], metrics["images_generated"], metrics["batches_dispatched"], metrics["errors"],
+            metrics["batch_occupancy"]) != (n_req, n_req, n_req // 4, 0, 1.0):
+        raise AssertionError(f"unexpected /metrics {metrics}")
+    if not health["ok"] or list(loras["adapters"]) != ["default"]:
+        raise AssertionError(f"unexpected /healthz {health} or /loras {loras}")
+    per_dispatch = SERVE_INT8_LAYERS * 4
+    if launches["int8_gemm"] != per_dispatch * metrics["batches_dispatched"]:
+        raise AssertionError(f"int8 GEMM launched {launches['int8_gemm']} times, not {per_dispatch} per "
+                             f"batch-4 dispatch")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the int8 serving path never launched {missing}")
+    lat = sorted(client_s)
+    q = lambda p: lat[min(n_req - 1, int(p * n_req))]
+    warm = []
+    for seed in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate(PROMPTS, seed=[4 * seed + j for j in range(4)])
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    per_batch = statistics.median(warm)
+    print(f"sdxl int8 + LoRA 1024² 4-NFE batch 4 on {card}: warm {per_batch:.4f} s/batch (median of {warm}), "
+          f"{4 / per_batch:.3f} images/s; {wall / metrics['batches_dispatched']:.4f} s per dispatch under the "
+          f"server; request latency over {n_req} requests ({SERVE_CLIENTS} clients in a closed loop): server p50 "
+          f"{metrics['latency_p50_s']} s, p95 {metrics['latency_p95_s']} s; client (with PNG and HTTP) p50 "
+          f"{q(0.5):.4f} s, p95 {q(0.95):.4f} s, min {lat[0]:.4f} s, max {lat[-1]:.4f} s; "
+          f"int8 GEMM launches per batch-4 dispatch "
+          f"{launches['int8_gemm'] // metrics['batches_dispatched']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, pipe
+
+
+def check_batch_invariance(pipe):
+    """Phase 6b's second half: a request alone and in a batch of 4 (each
+    sample's own seed), at 128²."""
+    alone = pipe.generate(PROMPTS[1:2], seed=[21], height=128, width=128)
+    batch = pipe.generate(PROMPTS, seed=[20, 21, 22, 23], height=128, width=128)
+    err = rel_l2(alone[0].float().cpu(), batch[1].float().cpu())
+    other = rel_l2(batch[0].float().cpu(), batch[1].float().cpu())
+    print(f"sdxl int8 at 128²: request alone vs slot 1 of a batch of 4, rel L2 {err:.3e} (tol 0.1; another "
+          f"seed's image differs by {other:.3e})")
+    if not err <= 0.1:
+        raise AssertionError("a request's image depends on its batch")
 
 
 def snapshot(modules):
@@ -673,7 +919,7 @@ def check_training_reference():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
-    from flash_diffusion_tpu_torch.ops import attention, kernels, norms
+    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
     from flash_diffusion_tpu_torch.sample import build_pipeline
 
     # phase 1: device and build
@@ -688,7 +934,8 @@ def main():
     entry = ""
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
-            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel)(I\w+?E)?E", line)
+            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel)(I\w+?E)?E",
+                             line)
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
         elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
@@ -725,17 +972,20 @@ def main():
                                 "flash_diffusion_tpu/ops/attention.py:703"),
         "flash_bwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd_oneshot.cu",
                                      "flash_diffusion_tpu/ops/attention.py:769"),
+        "int8_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/int8_gemm.cu",
+                             "flash_diffusion_tpu/ops/gemm.py:171"),
     }
     # phase 2: kernels vs plain at the main paths' shapes
     check_attention(attention, results)
     check_packed(attention, results)
     check_layer_norm(norms, results)
     check_attention_bwd(attention, kernels, results)
+    check_int8_gemm(gemm, results)
     torch.cuda.empty_cache()
 
     # phases 3 and 4: the SD1.5 path through the user's entry point, then
     # its agreement with the fp32 plain reference on a small input
-    counters = (attention.LAUNCHES, norms.LAUNCHES)
+    counters = (attention.LAUNCHES, norms.LAUNCHES, gemm.LAUNCHES)
     pipe = build_pipeline("sd15", device="cuda", seed=0)
     by_path = {"sd15": run_path(pipe, "sd15", 512, counters, card,
                                 ("flash_fwd_oneshot", "flash_fwd_stream", "layer_norm"))}
@@ -758,6 +1008,16 @@ def main():
         "flash_bwd_oneshot"))
     torch.cuda.empty_cache()
     check_training_reference()
+    torch.cuda.empty_cache()
+
+    # phases 6 and 6b: SDXL served over HTTP in int8 with a merged LoRA,
+    # then its agreement with the fp32 plain reference and batch invariance
+    by_path["sdxl_int8_serve"], pipe = run_int8_serving(counters, card, (
+        "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "int8_gemm"))
+    check_reference(pipe, "sdxl", "sdxl int8 + LoRA")
+    check_batch_invariance(pipe)
+    del pipe
+    torch.cuda.empty_cache()
 
     for name, r in results.items():
         r["launches"] = sum(n[name] for n in by_path.values())

@@ -5,7 +5,9 @@ It mirrors the JAX package's module names; every Pallas kernel on a ported
 path is a hand-written CUDA kernel under ``csrc/``, built at first use.
 Ported so far: 4-step text-to-image sampling of SD1.5 at 512² and SDXL at
 1024² (CLIP-L, and for SDXL OpenCLIP-bigG and size conditioning → LCM →
-UNet → VAE decode). Imports ``torch`` and never ``jax``.
+UNet → VAE decode), the SD1.5 distillation step, and serving
+(``serving.py``, ``serve.py``) with LoRA hot swap and the int8 W8A8 mode
+(``quant.py``). Imports ``torch`` and never ``jax``.
 """
 
 from .pipelines import FlashPipeline

@@ -17,7 +17,11 @@ Gradients reach A and B only when the base weights are frozen.
 SD1.5's ``proj_in``/``proj_out`` are 1×1 convolutions in the port (the
 checkpoint's layout) but ``LoraDense`` layers in JAX: they are dense pairs
 here too, so the LoRA tree is dense-only and always takes the side path,
-as the JAX one does (``flash.py:226-231``). PEFT/kohya export waits.
+as the JAX one does (``flash.py:226-231``). ``from_peft`` and
+``load_peft_safetensors`` (``lora.py:172``, ``:332``) read a PEFT adapter
+(``unet.<module>.lora_A.weight`` [r, in], ``lora_B.weight`` [out, r]) into
+such a tree: the port's module names are PEFT's, so no name map is needed.
+PEFT export and kohya wait.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import copy
 import itertools
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -103,3 +107,37 @@ def merge_lora(state: Dict[str, torch.Tensor], lora: LoraTree, scaling: float = 
         delta = (ab["a"].float() @ ab["b"].float()).t() * scaling
         out[f"{name}.weight"] = (w.float() + delta.reshape(w.shape)).to(w.dtype)
     return out
+
+
+def from_peft(tensors: Dict[str, torch.Tensor], alpha: Optional[float] = None) -> Tuple[LoraTree, float]:
+    """PEFT tensors of a UNet adapter → (LoRA tree, scaling):
+    ``unet.{module}.lora_A.weight`` [r, in] becomes ``a`` [in, r] and
+    ``lora_B.weight`` [out, r] ``b`` [r, out], in fp32; the scaling is
+    alpha / rank (1 without ``alpha``). Only dense pairs: a conv LoRA (4-D
+    ``lora_A``) is not ported yet."""
+    lora: LoraTree = {}
+    rank = None
+    for key, t in tensors.items():
+        if not key.startswith("unet."):
+            continue
+        stem = key[len("unet."):]
+        for suffix, leaf in ((".lora_A.weight", "a"), (".lora_B.weight", "b")):
+            if stem.endswith(suffix):
+                break
+        else:
+            continue
+        if t.dim() != 2:
+            raise ValueError(f"{key}: only dense (2-D) LoRA pairs are ported, got shape {tuple(t.shape)}")
+        lora.setdefault(stem[: -len(suffix)], {})[leaf] = t.float().t().contiguous()
+        if leaf == "a":
+            rank = t.shape[0]
+    if rank is None:
+        raise ValueError("No LoRA tensors found under prefix 'unet'")
+    return lora, lora_scaling(rank, alpha)
+
+
+def load_peft_safetensors(path: str, alpha: Optional[float] = None) -> Tuple[LoraTree, float]:
+    """``from_peft`` of a PEFT ``.safetensors`` file (on the CPU)."""
+    from safetensors.torch import load_file
+
+    return from_peft(load_file(path), alpha)

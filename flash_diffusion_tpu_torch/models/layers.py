@@ -12,7 +12,10 @@ numerics in plain PyTorch. The projections the JAX package builds as
 GEGLU feed-forward's two, and the spatial transformers' ``proj_in``/
 ``proj_out``, SD1.5's 1×1 convs included) go through ``lora_dense``, which
 adds the LoRA side path ``(x·A)·B`` when a factor pair is attached to the
-layer (``lora.attach_lora``).
+layer (``lora.attach_lora``), and takes the W8A8 int8 branch of the JAX
+``LoraDense`` (``flash_diffusion_tpu/models/layers.py:90-104``) when the
+layer's weight is int8 (``quant.quantize_dense``): the product on the int8
+GEMM kernel, then the side path, then the bias in the output dtype.
 """
 
 from __future__ import annotations
@@ -25,24 +28,40 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import dot_product_attention, group_norm, layer_norm
+from ..quant import SCALE_KEY, int8_matmul
 
 
 def lora_dense(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], lora=None,
+    weight_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x·Wᵀ (+ bias)`` over the last dim, plus the LoRA side path of the JAX
     ``LoraDense`` when ``lora`` = (A [in, r], B [r, out], scaling) is given:
     ``y = x·Wᵀ + (x·A)·(scaling·B) + bias`` in that order, with A and B cast
     to the compute dtype (x's). ``weight`` is [out, in] (a 1×1 conv's
-    [out, in, 1, 1] is read as that)."""
+    [out, in, 1, 1] is read as that). An int8 ``weight`` with its fp32
+    ``weight_scale`` [out] takes ``quant.int8_matmul`` for ``x·Wᵀ``; x
+    arrives in the compute dtype (the UNet casts its inputs), and the bias
+    is added in the output dtype after the product, not in the kernel's
+    epilogue, as JAX adds it."""
     weight = weight.reshape(weight.shape[0], weight.shape[1])
-    if lora is None:
+    if weight.dtype == torch.int8:
+        y = int8_matmul(x, weight, weight_scale)
+    elif lora is None:
         return F.linear(x, weight, bias)
-    a, b, scaling = lora
-    y = F.linear(x, weight)
-    b = b * scaling if scaling != 1.0 else b
-    y = y + (x @ a.to(y.dtype)) @ b.to(y.dtype)
-    return y if bias is None else y + bias
+    else:
+        y = F.linear(x, weight)
+    if lora is not None:
+        a, b, scaling = lora
+        b = b * scaling if scaling != 1.0 else b
+        y = y + (x @ a.to(y.dtype)) @ b.to(y.dtype)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``lora_dense`` with a layer's weight, bias, LoRA pair and int8 scale."""
+    return lora_dense(x, layer.weight, layer.bias, getattr(layer, "lora", None),
+                      getattr(layer, SCALE_KEY, None))
 
 
 class LoraLinear(nn.Linear):
@@ -52,7 +71,7 @@ class LoraLinear(nn.Linear):
     lora = None
 
     def forward(self, x):
-        return lora_dense(x, self.weight, self.bias, self.lora)
+        return _dense(self, x)
 
 
 def timestep_embedding(
@@ -260,8 +279,7 @@ class SpatialTransformer(nn.Module):
         b, c, hh, ww = x.shape
         to_tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # h-major
         to_image = lambda t: t.transpose(1, 2).reshape(b, c, hh, ww)
-        dense = lambda layer, t: lora_dense(t, layer.weight, layer.bias, getattr(layer, "lora", None))
-        h = dense(self.proj_in, to_tokens(self.norm(x)))
+        h = _dense(self.proj_in, to_tokens(self.norm(x)))
         for block in self.transformer_blocks:
             h = block(h, context)
-        return x + to_image(dense(self.proj_out, h))  # x first: the sum keeps x's NCHW layout
+        return x + to_image(_dense(self.proj_out, h))  # x first: the sum keeps x's NCHW layout

@@ -1,12 +1,14 @@
 """Profile one warm ``generate``, or one warm training step, on the card:
 time by stage and by kernel.
 
-    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl] [--batch 4] [--trace trace.json]
+    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl] [--batch 4] [--int8] [--trace trace.json]
     python -m flash_diffusion_tpu_torch.profiling --train [--batch 4]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
-weights; SD1.5 at 512², SDXL at 1024²), runs ``generate`` once to warm up,
-then once under ``torch.profiler``; with ``--train``, the SD1.5 trainer as
+weights; SD1.5 at 512², SDXL at 1024²; with ``--int8`` switched to the W8A8
+int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
+``bench.py --int8``), runs ``generate`` once to warm up, then once under
+``torch.profiler``; with ``--train``, the SD1.5 trainer as
 ``train.build_trainer("sd15")`` builds it (``flash_sd.yaml``, every step in
 stage 1) and one ``fit`` step on a synthetic 512² batch instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the
@@ -34,7 +36,7 @@ def _category(name: str) -> str:
     low = name.lower()
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
-        ("layer_norm_kernel", "layer_norm kernel"),
+        ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
         ("reduce", "reduction"), ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -49,6 +51,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="sd15", choices=MODELS)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--int8", action="store_true", help="serve in the W8A8 int8 mode")
     ap.add_argument("--train", action="store_true", help="profile a training step of sd15 instead")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
@@ -64,9 +67,11 @@ def main():
         what = f"sd15 training step, batch {args.batch}, 512²"
     else:
         pipe = build_pipeline(args.model, device="cuda")
+        if args.int8:
+            pipe.quantize("int8")
         prompts = (_PROMPTS * args.batch)[: args.batch]
         run = lambda: pipe.generate(prompts)
-        what = f"{args.model}, batch {args.batch}, 4 steps"
+        what = f"{args.model}{' int8' if args.int8 else ''}, batch {args.batch}, 4 steps"
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

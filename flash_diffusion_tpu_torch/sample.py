@@ -49,6 +49,7 @@ from .models.embedders import (
     TimestepsEmbedder,
     TimestepsEmbedderConfig,
 )
+from .lora import load_peft_safetensors
 from .pipelines import FlashPipeline
 
 MODELS = ("sd15", "sdxl")
@@ -116,9 +117,12 @@ def build_modules(model: str):
 
 
 def build_pipeline(model: str = "sd15", weights_root: str = "",
-                   device: str | torch.device = "cuda", seed: int = 0) -> FlashPipeline:
+                   device: str | torch.device = "cuda", seed: int = 0,
+                   lora: str | None = None, lora_scale: float = 1.0) -> FlashPipeline:
     """Build the ``sd15`` or ``sdxl`` pipeline on ``device``: UNet and VAE in
-    bf16, the CLIP towers in fp32.
+    bf16, the CLIP towers in fp32. ``lora``: a PEFT ``.safetensors`` adapter
+    to merge (``lora.load_peft_safetensors``; its scaling times
+    ``lora_scale``); ``pipe.lora_loader`` reads such files for serving.
 
     Sets ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False: fp32 convolutions would
@@ -144,13 +148,17 @@ def build_pipeline(model: str = "sd15", weights_root: str = "",
         latent_shape=(128, 128, 4) if model == "sdxl" else (64, 64, 4),
     )
     pipe.size_cond_fn = size_fn
+    pipe.lora_loader = load_peft_safetensors
+    if lora:
+        tree, scaling = pipe.lora_loader(lora)
+        pipe.load_lora(tree, scaling * lora_scale)
+        print(f"loaded LoRA {lora} (scaling {scaling * lora_scale})")
     return pipe
 
 
-def save_png(path: str, images: np.ndarray) -> None:
-    """Save [B, H, W, 3] images in [-1, 1] side by side as an 8-bit PNG."""
-    grid = np.concatenate(list(images), axis=1)
-    pix = np.clip((grid + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
+def png_bytes(pix: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``pix`` [H, W, 3] uint8 (stdlib only: zlib, one
+    IDAT, filter type 0 on every row)."""
     h, w, _ = pix.shape
     raw = b"".join(b"\x00" + pix[i].tobytes() for i in range(h))
 
@@ -158,11 +166,16 @@ def save_png(path: str, images: np.ndarray) -> None:
         return struct.pack(">I", len(data)) + tag + data + struct.pack(
             ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def save_png(path: str, images: np.ndarray) -> None:
+    """Save [B, H, W, 3] images in [-1, 1] side by side as an 8-bit PNG."""
+    grid = np.concatenate(list(images), axis=1)
+    pix = np.clip((grid + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw)))
-        f.write(chunk(b"IEND", b""))
+        f.write(png_bytes(pix))
 
 
 def main():

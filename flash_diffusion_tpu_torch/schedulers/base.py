@@ -119,13 +119,19 @@ def predicted_x0(
     raise ValueError(f"Unknown prediction_type {prediction_type!r}")
 
 
-def step_noise(
-    sample: torch.Tensor, generator: Optional[torch.Generator] = None
-) -> torch.Tensor:
+def step_noise(sample: torch.Tensor, generator=None) -> torch.Tensor:
     """One ``sample``-shaped standard normal draw for a stochastic step.
 
-    The generator must live on ``sample``'s device (``torch.randn`` draws
-    on the generator's device)."""
+    ``generator`` is one ``torch.Generator`` (one batch-shaped draw), or a
+    sequence of one per sample: then sample j's noise is drawn from its own
+    generator at ``sample.shape[1:]``, so it never depends on its slot or on
+    the (padded) batch size (``flash_diffusion_tpu/schedulers/base.py:193``,
+    JAX's per-sample key batch). Generators live on ``sample``'s device."""
+    if isinstance(generator, (list, tuple)):
+        return torch.stack([
+            torch.randn(sample.shape[1:], generator=g, device=sample.device, dtype=sample.dtype)
+            for g in generator
+        ])
     return torch.randn(
         sample.shape, generator=generator, device=sample.device, dtype=sample.dtype
     )

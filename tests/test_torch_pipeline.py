@@ -341,12 +341,16 @@ def test_save_png_writes_the_images_side_by_side(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with JAX absent from sys.modules."""
+    """Every module of the port (the serving and int8 ones included) imports
+    with JAX absent from sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import flash_diffusion_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "new = {'quant', 'serving', 'serve', 'ops.gemm'}\n"
+        "assert new <= {n[len(p.__name__) + 1:] for n in names}, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'flash_diffusion_tpu.')))\n"
         "assert not bad, bad\n"
     )
