@@ -1,8 +1,8 @@
-"""Conditioners of the PyTorch port: CLIP text and SDXL's size embeddings."""
+"""Conditioners of the PyTorch port: CLIP and T5 text, SDXL's size embeddings, raw vectors."""
 
 from .base import BaseConditionerConfig, Conditioner
-from .misc import TimestepsEmbedder, TimestepsEmbedderConfig
-from .text import ClipEmbedder, ClipEmbedderConfig
+from .misc import RawVectorEmbedder, RawVectorEmbedderConfig, TimestepsEmbedder, TimestepsEmbedderConfig
+from .text import ClipEmbedder, ClipEmbedderConfig, T5TextEmbedder, T5TextEmbedderConfig
 from .wrapper import KEY2CATDIM, ConditionerWrapper
 
 __all__ = [
@@ -12,6 +12,10 @@ __all__ = [
     "ClipEmbedderConfig",
     "Conditioner",
     "ConditionerWrapper",
+    "RawVectorEmbedder",
+    "RawVectorEmbedderConfig",
+    "T5TextEmbedder",
+    "T5TextEmbedderConfig",
     "TimestepsEmbedder",
     "TimestepsEmbedderConfig",
 ]

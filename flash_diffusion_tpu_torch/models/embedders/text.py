@@ -1,8 +1,9 @@
-"""CLIP text conditioner of the PyTorch port.
+"""Text conditioners of the PyTorch port: CLIP and T5.
 
-Port of ``flash_diffusion_tpu/models/embedders/text.py::ClipEmbedder``.
-Tokenization stays host-side: the embedder reads integer token ids from
-``batch[f"{input_key}_ids"]``. The T5 embedder is not ported yet.
+Port of ``flash_diffusion_tpu/models/embedders/text.py::ClipEmbedder`` and
+``T5TextEmbedder``. Tokenization stays host-side: an embedder reads integer
+token ids from ``batch[f"{input_key}_ids"]`` (and T5 its padding mask from
+``batch[f"{input_key}_mask"]``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..text_encoders import CLIPTextConfig, CLIPTextModel
+from ..text_encoders import CLIPTextConfig, CLIPTextModel, T5Config, T5Encoder
 from .base import BaseConditionerConfig, Conditioner
 
 
@@ -63,3 +64,39 @@ class ClipEmbedder(Conditioner):
         if cfg.always_return_pooled:
             result["vector"] = out["text_embeds"] if cfg.use_projection else out["pooled_output"]
         return result
+
+
+@dataclasses.dataclass
+class T5TextEmbedderConfig(BaseConditionerConfig):
+    text_embedder_config: Optional[dict] = None  # T5Config kwargs
+    max_length: int = 120  # Pixart uses 120 T5 tokens
+    return_attention_mask: bool = True
+
+
+class T5TextEmbedder(Conditioner):
+    """T5 conditioner: crossattn ← the encoder's output; it also surfaces the
+    padding mask (all ones when the batch has none) as the
+    ``attention_mask`` conditioning, which Pixart's cross-attention reads.
+    ``force_zero`` zeroes the embedding but never the mask."""
+
+    def __init__(self, config: T5TextEmbedderConfig):
+        super().__init__(config)
+        self.encoder_config = T5Config(**(config.text_embedder_config or {}))
+        self.module = T5Encoder(self.encoder_config)
+        self.ids_key = f"{config.input_key}_ids"
+        self.mask_key = f"{config.input_key}_mask"
+
+    def embed(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        device = self.module.shared.weight.device
+        ids = torch.as_tensor(batch[self.ids_key], dtype=torch.long, device=device)
+        mask = batch.get(self.mask_key)
+        mask = torch.ones_like(ids) if mask is None else torch.as_tensor(mask, device=device)
+        out = {"crossattn": self.module(ids, mask)}
+        if self.config.return_attention_mask:
+            out["attention_mask"] = mask
+        return out
+
+    def forward(self, batch: Dict[str, Any], force_zero: float = 0.0) -> Dict[str, torch.Tensor]:
+        out = self.embed(batch)
+        out["crossattn"] = out["crossattn"] * (1.0 - float(force_zero))
+        return out

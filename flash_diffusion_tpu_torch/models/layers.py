@@ -5,9 +5,10 @@ state-dict names, so a port ``state_dict()`` goes through the JAX package's
 ``utils/hf.py`` importers unchanged. Convolutions run channel-first (NCHW);
 token sequences are [B, S, C] with S in h-major order, the order of the JAX
 package's ``reshape(b, h*w, c)`` of NHWC. Attention goes through
-``ops.dot_product_attention`` (the flash kernels), LayerNorm through
-``ops.layer_norm`` (the LayerNorm kernel); GroupNorm keeps the JAX
-numerics in plain PyTorch. The projections the JAX package builds as
+``ops.dot_product_attention`` (the flash kernels; a biased call takes the
+plain path), LayerNorm through ``ops.layer_norm`` (the LayerNorm kernel),
+GroupNorm through ``ops.group_norm`` (the GroupNorm statistics and apply
+kernels, with the JAX numerics). The projections the JAX package builds as
 ``LoraDense`` (attention ``to_q``/``to_k``/``to_v``/``to_out.0``, the
 GEGLU feed-forward's two, and the spatial transformers' ``proj_in``/
 ``proj_out``, SD1.5's 1×1 convs included) go through ``lora_dense``, which
@@ -194,7 +195,9 @@ class Attention(nn.Module):
         self.to_v = LoraLinear(context_dim, query_dim, bias=qkv_bias)
         self.to_out = nn.ModuleList([LoraLinear(query_dim, query_dim)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, bias=None):
+        """``bias``: an additive logits bias broadcastable to [B, H, Sq, Skv]
+        (Pixart's cross-attention mask), which takes the plain path."""
         context = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
         b, sq, c = q.shape
@@ -202,7 +205,7 @@ class Attention(nn.Module):
         q = q.reshape(b, sq, h, c // h)
         k = k.reshape(b, context.shape[1], h, c // h)
         v = v.reshape(b, context.shape[1], h, c // h)
-        out = dot_product_attention(q, k, v)
+        out = dot_product_attention(q, k, v, bias=bias)
         return self.to_out[0](out.reshape(b, sq, c))
 
 

@@ -1,18 +1,23 @@
-"""CLIP text encoders of the PyTorch port.
+"""Text encoders of the PyTorch port: CLIP and the T5 encoder.
 
-Port of ``flash_diffusion_tpu/models/text_encoders.py::CLIPTextModel`` with
-transformers ``CLIPTextModel(WithProjection)`` module names
-(``text_model.*``, top-level ``text_projection``), so the keys match the
-published checkpoints and ``utils/hf.py::import_clip_text``. The causal
-mask is an additive bias, so attention takes the plain path, as in JAX; the
-LayerNorms take the LayerNorm kernel on the card. CLIP-L (quick-gelu) and
-OpenCLIP-bigG (exact gelu, text projection) for SD1.5 and SDXL; the T5
-encoder is not ported yet.
+Port of ``flash_diffusion_tpu/models/text_encoders.py``: ``CLIPTextModel``
+with transformers ``CLIPTextModel(WithProjection)`` module names
+(``text_model.*``, top-level ``text_projection``), and ``T5Encoder`` with
+transformers ``T5EncoderModel`` names (``shared``, ``encoder.block.*``,
+``encoder.final_layer_norm``), so the keys match the published checkpoints
+and ``utils/hf.py::import_clip_text``/``import_t5_encoder``. CLIP's causal
+mask and T5's relative-position bias (plus its padding mask) are additive
+biases, so their attention takes the plain path, as in JAX; CLIP's
+LayerNorms take the LayerNorm kernel on the card, T5's RMS norms are plain.
+CLIP-L (quick-gelu) and OpenCLIP-bigG (exact gelu, text projection) for
+SD1.5 and SDXL; T5-v1.1-XXL (unscaled attention, gated tanh-gelu MLP) for
+Pixart-α.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -158,3 +163,153 @@ class CLIPTextModel(nn.Module):
             "pooled_output": pooled,
             "text_embeds": self.text_projection(pooled) if hasattr(self, "text_projection") else None,
         }
+
+
+# --------------------------------------------------------------------------
+# T5 encoder
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class T5Config(BaseConfig):
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_ff: int = 10240
+    d_kv: int = 64
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_buckets: int = 32
+    relative_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+
+
+def t5_xxl_config(**overrides) -> T5Config:
+    """T5-v1.1-XXL encoder (Pixart / SD3 text encoder 3)."""
+    return T5Config(**overrides)
+
+
+def _t5_rel_bucket(rel_pos: torch.Tensor, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """Bidirectional T5 relative-position bucketing, in the JAX package's
+    fp32 arithmetic (``text_encoders.py::_t5_rel_bucket``)."""
+    num_buckets //= 2
+    ret = (rel_pos > 0).long() * num_buckets
+    n = rel_pos.abs()
+    max_exact = num_buckets // 2
+    val_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-9)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).long()
+    val_large = torch.clamp(val_large, max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, val_large)
+
+
+def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5's RMS norm: fp32 statistics and scale, cast back to x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+class _T5Norm(nn.Module):
+    def __init__(self, d: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d))
+
+    def forward(self, x):
+        return _rms(x, self.weight, self.eps)
+
+
+class _T5Attention(nn.Module):
+    """Unscaled multi-head self-attention (the scale is folded into T5's
+    initialization); block 0 also holds the shared relative-position bias."""
+
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        inner = cfg.num_heads * cfg.d_kv
+        self.heads, self.d_kv = cfg.num_heads, cfg.d_kv
+        self.q, self.k = nn.Linear(cfg.d_model, inner, bias=False), nn.Linear(cfg.d_model, inner, bias=False)
+        self.v, self.o = nn.Linear(cfg.d_model, inner, bias=False), nn.Linear(inner, cfg.d_model, bias=False)
+        if has_bias:
+            self.relative_attention_bias = nn.Embedding(cfg.relative_buckets, cfg.num_heads)
+
+    def forward(self, x, bias):
+        b, s, _ = x.shape
+        split = lambda t: t.reshape(b, s, self.heads, self.d_kv)
+        out = dot_product_attention(split(self.q(x)), split(self.k(x)), split(self.v(x)), bias=bias, scale=1.0)
+        return self.o(out.reshape(b, s, self.heads * self.d_kv))
+
+
+class _T5SelfAttentionLayer(nn.Module):
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        self.SelfAttention = _T5Attention(cfg, has_bias)
+        self.layer_norm = _T5Norm(cfg.d_model, cfg.layer_norm_eps)
+
+    def forward(self, x, bias):
+        return x + self.SelfAttention(self.layer_norm(x), bias)
+
+
+class _T5GatedGelu(nn.Module):
+    """T5 v1.1 feed-forward: tanh-gelu(wi_0·x) ∘ (wi_1·x), then wo."""
+
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+
+    def forward(self, x):
+        return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
+
+
+class _T5FFLayer(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.DenseReluDense = _T5GatedGelu(cfg)
+        self.layer_norm = _T5Norm(cfg.d_model, cfg.layer_norm_eps)
+
+    def forward(self, x):
+        return x + self.DenseReluDense(self.layer_norm(x))
+
+
+class _T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, has_bias: bool):
+        super().__init__()
+        self.layer = nn.ModuleList([_T5SelfAttentionLayer(cfg, has_bias), _T5FFLayer(cfg)])
+
+    def forward(self, x, bias):
+        return self.layer[1](self.layer[0](x, bias))
+
+
+class _T5Stack(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.block = nn.ModuleList([_T5Block(cfg, i == 0) for i in range(cfg.num_layers)])
+        self.final_layer_norm = _T5Norm(cfg.d_model, cfg.layer_norm_eps)
+
+
+class T5Encoder(nn.Module):
+    """T5 encoder: token ids [B, S] (and the padding mask [B, S], > 0 where
+    valid) → the final RMS-normed hidden states [B, S, d_model]. The
+    relative-position buckets are computed on the CPU (one [S, S] table), so
+    they do not depend on the device's log."""
+
+    def __init__(self, config: T5Config):
+        super().__init__()
+        self.config = config
+        self.shared = nn.Embedding(config.vocab_size, config.d_model)  # N(0, 1), the JAX initializer
+        self.encoder = _T5Stack(config)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None):
+        cfg = self.config
+        s = input_ids.shape[1]
+        x = self.shared(input_ids)
+        pos = torch.arange(s)
+        buckets = _t5_rel_bucket(pos[None, :] - pos[:, None], cfg.relative_buckets, cfg.relative_max_distance)
+        rel_emb = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
+        bias = rel_emb[buckets.to(rel_emb.device)].permute(2, 0, 1)[None].float()  # [1, H, S, S]
+        if attention_mask is not None:
+            bias = bias + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9)
+        for block in self.encoder.block:
+            x = block(x, bias)
+        return self.encoder.final_layer_norm(x)

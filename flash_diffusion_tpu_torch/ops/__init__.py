@@ -2,7 +2,7 @@
 
 from .attention import dot_product_attention, flash_attention_bhsd, flash_attention_packed
 from .gemm import int8_gemm
-from .norms import group_norm, layer_norm
+from .norms import group_norm, layer_norm, modulate
 
 __all__ = [
     "dot_product_attention",
@@ -11,4 +11,5 @@ __all__ = [
     "group_norm",
     "int8_gemm",
     "layer_norm",
+    "modulate",
 ]

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "fdt_flash_bwd_oneshot": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "fdt_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
+    "fdt_group_norm_stats": [_P] * 5 + [_I] * 7 + [_P],
+    "fdt_group_norm_apply": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

@@ -1,11 +1,11 @@
 """Profile one warm ``generate``, or one warm training step, on the card:
 time by stage and by kernel.
 
-    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl] [--batch 4] [--int8] [--trace trace.json]
+    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart] [--batch 4] [--int8] [--trace trace.json]
     python -m flash_diffusion_tpu_torch.profiling --train [--batch 4]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
-weights; SD1.5 at 512², SDXL at 1024²; with ``--int8`` switched to the W8A8
+weights; SD1.5 at 512², SDXL and Pixart-α at 1024²; with ``--int8`` switched to the W8A8
 int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``bench.py --int8``), runs ``generate`` once to warm up, then once under
 ``torch.profiler``; with ``--train``, the SD1.5 trainer as
@@ -37,6 +37,7 @@ def _category(name: str) -> str:
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
         ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
+        ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
         ("reduce", "reduction"), ("elementwise", "elementwise"), ("vectorized", "elementwise"),

@@ -5,7 +5,8 @@ arrays, with or without the outer ``{"params": ...}``) and returns a port
 ``state_dict`` of torch tensors. Each is the exact inverse of the JAX
 package's importer from diffusers/transformers names
 (``flash_diffusion_tpu/utils/hf.py``: ``import_unet``, ``import_vae``,
-``import_clip_text``), whose layout rules it undoes:
+``import_clip_text``, ``import_t5_encoder``, ``import_pixart_dit``), whose
+layout rules it undoes:
 
 - flax Dense kernel [in, out] → torch Linear weight [out, in];
 - flax Conv kernel [kh, kw, I, O] → torch Conv2d weight [O, I, kh, kw];
@@ -14,8 +15,9 @@ package's importer from diffusers/transformers names
   Linear [C, C] (SDXL, ``use_linear_projection``);
 - the UNet's ``class_embedding`` → ``add_embedding`` (SDXL's diffusers name).
 
-They cover the SD1.5 and SDXL UNets, the SD VAE, the CLIP-L and
-OpenCLIP-bigG text towers, and for training the LoRA tree, the conv
+They cover the SD1.5 and SDXL UNets, the Pixart DiT (its per-chunk vector
+MLPs as ``adaln_single.emb.vector_embedders.<i>``), the SD VAE, the CLIP-L,
+OpenCLIP-bigG and T5 text towers, and for training the LoRA tree, the conv
 discriminator and LPIPS (whose JAX param names are the port's).
 
 Imports no JAX: the tree arrives as numpy.
@@ -189,6 +191,50 @@ def clip_text_from_jax(params: Dict[str, Any], config) -> StateDict:
         _lin(sd, f"{k}.mlp.fc2", lp["fc2"])
     if "text_projection" in p:
         _lin(sd, "text_projection", p["text_projection"])
+    return sd
+
+
+def t5_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``T5Encoder`` params → port ``T5Encoder`` state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {
+        "shared.weight": _t(p["token_embedding"]),
+        "encoder.final_layer_norm.weight": _t(p["final_ln_scale"]),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": _t(p["relative_attention_bias"]),
+    }
+    for i in range(config.num_layers):
+        lp, k = p[f"layer_{i}"], f"encoder.block.{i}.layer"
+        sd[f"{k}.0.layer_norm.weight"] = _t(lp["ln1_scale"])
+        for name in ("q", "k", "v", "o"):
+            _lin(sd, f"{k}.0.SelfAttention.{name}", lp[name])
+        sd[f"{k}.1.layer_norm.weight"] = _t(lp["ln2_scale"])
+        for name in ("wi_0", "wi_1", "wo"):
+            _lin(sd, f"{k}.1.DenseReluDense.{name}", lp[name])
+    return sd
+
+
+def dit_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``DiT`` params → port ``DiT`` state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {"scale_shift_table": _t(p["scale_shift_table_out"])}
+    _conv(sd, "pos_embed.proj", p["pos_embed_proj"])
+    _lin(sd, "proj_out", p["proj_out"])
+    for i in ("1", "2"):
+        _lin(sd, f"caption_projection.linear_{i}", p[f"caption_projection_{i}"])
+    ada = p["adaln_single"]
+    for i in ("1", "2"):
+        _lin(sd, f"adaln_single.emb.timestep_embedder.linear_{i}", ada["timestep_embedder"][f"linear_{i}"])
+    _lin(sd, "adaln_single.linear", ada["linear"])
+    for j in range(config.num_vector_embeds):
+        for i in ("1", "2"):
+            _lin(sd, f"adaln_single.emb.vector_embedders.{j}.linear_{i}", ada[f"vector_embedder_{j}"][f"linear_{i}"])
+    for b in range(config.depth):
+        bp, k = p[f"block_{b}"], f"transformer_blocks.{b}"
+        sd[f"{k}.scale_shift_table"] = _t(bp["scale_shift_table"])
+        _attention(sd, f"{k}.attn1", bp["attn1"])
+        _attention(sd, f"{k}.attn2", bp["attn2"])
+        _lin(sd, f"{k}.ff.net.0.proj", bp["ff_in"])
+        _lin(sd, f"{k}.ff.net.2", bp["ff_out"])
     return sd
 
 

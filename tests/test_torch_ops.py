@@ -189,6 +189,61 @@ def test_group_norm_matches_jax(jax_ref, act):
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b,n,c", [(1, 64 * 64, 128), (2, 16 * 16, 64), (3, 8 * 8, 32)])
+def test_group_norm_stats_reference_matches_jax_pallas_stats(jax_ref, b, n, c):
+    """The plain version of the statistics kernel against JAX
+    ``_gn_stats_pallas`` (interpret mode) on the same tensor, NCHW here and
+    the [B·N, C] NHWC view there. Tolerance 1e-6 relative to Σ|x| and Σx²:
+    fp32 sums of the same values in another order."""
+    rng = np.random.default_rng(b * n + c)
+    x = _randn(rng, b, n, c, scale=2.0) + 0.3
+    ws, wss = jnorms._gn_stats_pallas(jnp.asarray(x.reshape(b * n, c)), b)
+    s, ss = tnorms.group_norm_stats_reference(torch.from_numpy(x).permute(0, 2, 1).reshape(b, c, 8, n // 8))
+    mag = np.abs(x).sum(axis=1)
+    np.testing.assert_array_less(np.abs(s.numpy() - np.asarray(ws)), 1e-6 * mag + 1e-30)
+    np.testing.assert_allclose(ss.numpy(), np.asarray(wss), rtol=1e-6, atol=0)
+
+
+def test_group_norm_function_matches_jax_gn_p(jax_ref, monkeypatch):
+    """The port's ``group_norm`` forward and ``GroupNormFunction`` VJP (dx,
+    dscale, dbias) against JAX ``group_norm`` on its Pallas statistics path
+    (``FLASH_TPU_GN_PALLAS=1``: batch 1, C = 128, N = 64², interpret mode)
+    and ``jax.vjp``. Tolerance 1e-5 absolute: fp32, the same closed form."""
+    import jax
+
+    monkeypatch.setenv("FLASH_TPU_GN_PALLAS", "1")
+    rng = np.random.default_rng(12)
+    x = _randn(rng, 1, 64, 64, 128, scale=2.0) + 0.3
+    w, b = 1.0 + _randn(rng, 128, scale=0.1), _randn(rng, 128, scale=0.1)
+    dy = _randn(rng, 1, 64, 64, 128)
+    assert jnorms._gn_eligible(jnp.asarray(x), 32)
+    for act in (None, "silu"):
+        want, vjp = jax.vjp(lambda x_, w_, b_: jnorms.group_norm(x_, 32, w_, b_, act=act),
+                            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+        jdx, jdw, jdb = vjp(jnp.asarray(dy))
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2).clone().requires_grad_()
+        wt, bt = torch.from_numpy(w).requires_grad_(), torch.from_numpy(b).requires_grad_()
+        got = tnorms.group_norm(xt, 32, wt, bt, act=act)
+        assert got.grad_fn is not None
+        got.backward(torch.from_numpy(dy).permute(0, 3, 1, 2))
+        np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jdx), atol=1e-5, rtol=0)
+        # dscale and dbias sum 4096 positions: 1e-5 relative to their size
+        for got_g, want_g in ((wt.grad, jdw), (bt.grad, jdb)):
+            want_g = np.asarray(want_g)
+            np.testing.assert_allclose(got_g.numpy(), want_g, atol=1e-5 * np.abs(want_g).max(), rtol=0)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_function_gradcheck(act):
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 8, 3, 5, generator=g, dtype=torch.float64).requires_grad_()
+    w = (1 + 0.1 * torch.randn(8, generator=g, dtype=torch.float64)).requires_grad_()
+    b = (0.1 * torch.randn(8, generator=g, dtype=torch.float64)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda x_, w_, b_: tnorms.group_norm(x_, 4, w_, b_, 1e-5, act=act),
+                                    (x, w, b))
+
+
 # Every SD1.5 attention call at 512² (batch folded into BH): kv, head dim,
 # and the kernel the plan must give it
 SD15_ATTENTION = [
@@ -226,6 +281,7 @@ def test_cpu_calls_take_the_plain_path_and_launch_nothing():
     y = torch.randn(2, 16, 2, 64)  # packed-eligible
     tattn.dot_product_attention(y, y, y)
     tnorms.layer_norm(torch.randn(4, 32))
+    tnorms.group_norm(torch.randn(2, 16, 4, 4), 4, torch.ones(16), torch.zeros(16), act="silu")
     assert (dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES)) == before
 
 
@@ -239,6 +295,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tattn.flash_attention_packed(p, p, p, 2, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         tnorms.layer_norm(torch.empty(4, 8, device="meta"))
+    g = torch.empty(2, 8, 4, 4, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorms.group_norm_stats(g)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorms.group_norm_apply(g, g[:, :, 0, 0], g[:, :, 0, 0])
 
 
 @pytest.mark.parametrize("d,kv", [(64, 77), (64, 256), (128, 77), (128, 256)])
@@ -601,3 +662,114 @@ def test_grads_on_card_carry_grad_fn_and_match_cpu(cuda, b, h, sq, kv):
     assert y.grad_fn is not None
     y.backward(dy.to(cuda, torch.bfloat16))
     assert (xc.grad - xd.grad.float().cpu()).abs().max().item() <= 2e-2 * max(1.0, xc.grad.abs().max().item())
+
+
+# every GroupNorm shape of the card's paths (batch 1 here: the kernel's work
+# per sample does not depend on the batch) and ragged ones: SD1.5 and SDXL
+# UNet levels, the VAE decoder at 1024² (its largest), N off the 16-byte
+# step, N of one element per row, fp32 (the discriminator); in both layouts
+# the kernels take: contiguous NCHW and channels-last (the port's
+# convolutions run channels-last), where C·2 bytes off the 16-byte step
+# (C = 36) takes the scalar loads
+GN_CARD_CASES = [
+    ((1, 320, 64, 64), torch.bfloat16, False), ((1, 1280, 8, 8), torch.bfloat16, False),
+    ((1, 640, 64, 64), torch.bfloat16, False), ((1, 128, 1024, 1024), torch.bfloat16, False),
+    ((3, 96, 37, 29), torch.bfloat16, False), ((2, 64, 4099, 1), torch.bfloat16, False),
+    ((2, 32, 1, 1), torch.bfloat16, False), ((2, 512, 8, 8), torch.float32, False),
+    ((2, 96, 37, 29), torch.float32, False),
+    ((1, 320, 64, 64), torch.bfloat16, True), ((1, 1280, 8, 8), torch.bfloat16, True),
+    ((1, 128, 1024, 1024), torch.bfloat16, True), ((3, 96, 37, 29), torch.bfloat16, True),
+    ((2, 36, 5, 7), torch.bfloat16, True), ((2, 512, 8, 8), torch.float32, True),
+    ((2, 36, 37, 29), torch.float32, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,channels_last", GN_CARD_CASES)
+def test_group_norm_kernels_match_plain_on_card(cuda, shape, dtype, channels_last):
+    """The statistics kernel against the plain version in fp64 (Σx to 1e-5
+    of Σ|x|, Σx² to 1e-5 relative: fp32 sums in another order), and the
+    apply kernel bit-equal to the plain version on the same inputs (the same
+    roundings: x·w, then + shift, in x's dtype, then SiLU in fp32), its
+    output in x's layout."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last)
+    n = dict(tnorms.LAUNCHES)
+    s, ss = tnorms.group_norm_stats(x)
+    torch.cuda.synchronize()
+    x64 = x.double().reshape(shape[0], shape[1], -1)
+    assert (s.double() - x64.sum(-1)).abs().le(1e-5 * x64.abs().sum(-1)).all()
+    assert (ss.double() - (x64 * x64).sum(-1)).abs().le(1e-5 * (x64 * x64).sum(-1)).all()
+    w = (1 + 0.1 * torch.randn(shape[:2], generator=g, device=cuda)).to(dtype)
+    shift = (0.1 * torch.randn(shape[:2], generator=g, device=cuda)).to(dtype)
+    for act in (None, "silu"):
+        got = tnorms.group_norm_apply(x, w, shift, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tnorms.group_norm_apply_reference(x, w, shift, act))
+        assert got.stride() == x.stride()
+    assert tnorms.LAUNCHES["group_norm_stats"] == n["group_norm_stats"] + 1
+    assert tnorms.LAUNCHES["group_norm_apply"] == n["group_norm_apply"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 320, 64, 64), (4, 1280, 8, 8), (4, 128, 256, 256), (4, 96, 37, 29)])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_group_norm_stats_batch_invariant_on_card(cuda, shape, channels_last):
+    """K9 gives a sample the same bits alone, in a batch of 4 at any slot,
+    and from run to run (a fixed split of N, fixed reduction orders, no
+    atomics); so does the whole ``group_norm``. A slice of a channels-last
+    batch is channels-last, as the sample alone is on the path."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last)
+    s, ss = tnorms.group_norm_stats(x)
+    again = tnorms.group_norm_stats(x)
+    assert torch.equal(s, again[0]) and torch.equal(ss, again[1])
+    wt, bt = torch.ones(shape[1], device=cuda, dtype=torch.bfloat16), torch.zeros(shape[1], device=cuda,
+                                                                               dtype=torch.bfloat16)
+    y = tnorms.group_norm(x, 32, wt, bt, act="silu")
+    for i in range(shape[0]):
+        si, ssi = tnorms.group_norm_stats(x[i:i + 1])
+        assert torch.equal(si[0], s[i]) and torch.equal(ssi[0], ss[i])
+        assert torch.equal(tnorms.group_norm(x[i:i + 1], 32, wt, bt, act="silu")[0], y[i])
+
+
+@pytest.mark.cuda
+def test_group_norm_grads_on_card_match_cpu(cuda):
+    """Under a gradient ``group_norm`` on the card goes through
+    ``GroupNormFunction`` (K9 forward): its output carries a ``grad_fn`` and
+    dx, dscale, dbias match the fp32 CPU path (fp32 on both: 1e-4 of the
+    largest gradient)."""
+    gen = torch.Generator().manual_seed(9)
+    x, dy = torch.randn(2, 64, 16, 16, generator=gen), torch.randn(2, 64, 16, 16, generator=gen)
+    w, b = 1 + 0.1 * torch.randn(64, generator=gen), 0.1 * torch.randn(64, generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (x, w, b)]
+        out = tnorms.group_norm(leaves[0], 8, leaves[1], leaves[2], act="silu")
+        assert out.grad_fn is not None
+        out.backward(dy.to(dev))
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, d in zip(*grads):
+        assert (a - d).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+def test_attention_d72_on_card_matches_cpu(cuda, b):
+    """Pixart's self-attention: 16 heads of D = 72 (zero-padded to 80 in
+    the streaming kernel) over 4096 tokens, through the [B, S, 16, 72] ⇄
+    [BH, S, 72] relayout, batch 1 included, against the plain version in
+    fp32 (bf16 tolerance, |out| < 4: 2e-2)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(b, 4096, 16, 72, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    assert tattn.attention_plan(4096, 72)[0] == "flash_fwd_stream"
+    n = tattn.LAUNCHES["flash_fwd_stream"]
+    got = tattn.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_fwd_stream"] == n + 1
+    want = tattn.reference_attention(q.float(), k.float(), v.float(), scale=72 ** -0.5)
+    assert (got.float() - want).abs().max().item() < 2e-2

@@ -341,17 +341,38 @@ def test_save_png_writes_the_images_side_by_side(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the serving and int8 ones included) imports
-    with JAX absent from sys.modules."""
+    """No module of the port imports JAX, flax or the JAX package: none of
+    ``flash_diffusion_tpu_torch/**/*.py`` names them in an import statement
+    (read with ``ast``), and every module (the Pixart, serving and int8 ones
+    included) imports in a subprocess where importing them raises."""
+    import ast
+
+    pkg = os.path.join(REPO, "flash_diffusion_tpu_torch")
+    banned = lambda name: name.split(".")[0] in ("jax", "jaxlib", "flax", "flash_diffusion_tpu")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    assert len(files) > 40
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level else [])
+            assert not any(banned(n) for n in names), (path, names)
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'flash_diffusion_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import flash_diffusion_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "new = {'quant', 'serving', 'serve', 'ops.gemm'}\n"
+        "new = {'quant', 'serving', 'serve', 'ops.gemm', 'models.dit', 'models.text_encoders',\n"
+        "       'models.embedders.text', 'models.embedders.misc'}\n"
         "assert new <= {n[len(p.__name__) + 1:] for n in names}, names\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'flash_diffusion_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'flash_diffusion_tpu'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -431,3 +431,53 @@ def test_int8_request_served_on_card(cuda):
     got = torch.tensor(out["images"][0])
     assert torch.isfinite(got).all()
     assert torch.equal(got, pipe.generate(["fox"], seed=[3])[0].cpu())
+
+
+@pytest.mark.cuda
+def test_port_ops_batch_invariant_on_card(cuda):
+    """The port's own ops give slot 1 of a batch of 4 the bits it gets
+    alone: GroupNorm (statistics and apply kernels, fold), LayerNorm, the
+    streaming, one-shot and packed attention kernels, and the int8 product
+    (per-token codes, K11) at SDXL's 128² shapes. What remains of the
+    batch dependence is cuDNN's and cuBLAS's (``FlashPipeline.generate``)."""
+    from flash_diffusion_tpu_torch.models.layers import lora_dense
+    from flash_diffusion_tpu_torch.ops import dot_product_attention, group_norm, layer_norm
+    from flash_diffusion_tpu_torch.quant import quantize_weight
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf = lambda *shape: torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    w, b = bf(320), bf(320)
+    wq, ws = quantize_weight(bf(640, 640))
+    bias = bf(640)
+    cases = [  # (op, its batch-4 inputs)
+        (lambda x: group_norm(x, 32, w, b, 1e-5, act="silu"), (bf(4, 320, 16, 16),)),
+        (lambda x: group_norm(x, 32, w, b, 1e-5, act="silu"),
+         (bf(4, 320, 16, 16).to(memory_format=torch.channels_last),)),
+        (lambda x: layer_norm(x, w, b), (bf(4, 64, 320),)),
+        (lambda x: dot_product_attention(x, x, x), (bf(4, 1024, 10, 64),)),  # streaming
+        (lambda x: dot_product_attention(x, x, x), (bf(4, 64, 20, 64),)),  # one-shot
+        (lambda x, c: dot_product_attention(x, c, c), (bf(4, 256, 10, 64), bf(4, 77, 10, 64))),  # packed
+        (lambda x: lora_dense(x, wq, bias, None, ws), (bf(4, 64, 640),)),  # int8
+    ]
+    for op, inputs in cases:
+        assert torch.equal(op(*inputs)[1], op(*(t[1:2] for t in inputs))[0])
+
+
+@pytest.mark.cuda
+def test_request_alone_vs_batched_within_contract_on_card(cuda):
+    """The measured contract of ``FlashPipeline.generate``: SDXL at 128²
+    with per-sample seeds, a request alone against slot 1 of a batch of 4,
+    differs only by cuDNN/cuBLAS's batch-size-dependent algorithms: rel. L2
+    ≤ 1.5e-2 in bf16 and in int8 (H100: 9.2e-3 and 9.8e-3), where another
+    seed's image differs by ~1.3."""
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+
+    pipe = build_pipeline("sdxl", device=cuda, seed=0)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            pipe.quantize("int8")
+        alone = pipe.generate(["a raccoon"], seed=[21], height=128, width=128)
+        batch = pipe.generate(["a cat", "a raccoon", "a dog", "a fox"], seed=[20, 21, 22, 23], height=128, width=128)
+        assert rel(batch[1], alone[0]) <= 1.5e-2, mode
+        assert rel(batch[0], batch[1]) > 0.5
