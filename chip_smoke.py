@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths at full width and depth with random
-weights made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and
-of SDXL at 1024², the Flash distillation step of SD1.5 at 512², SDXL 1024²
-served over HTTP in int8 W8A8 with a merged LoRA, and 4-step sampling of
-Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
+Drives the port's main paths at full width and depth with random weights
+made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and of
+SDXL at 1024² (also in the JAX package's two opt-in kernel modes), the
+Flash distillation step of SD1.5 at 512², SDXL 1024² served over HTTP in
+int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
+(T5-XXL, the DiT). It fails unless every phase passes:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -22,7 +23,8 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
    (as the JAX ``pl.CostEstimate`` counts them) over 989 TFLOP/s in bf16
    (67 TFLOP/s fp32 for LayerNorm). The library calls are yardsticks only:
    ``F.scaled_dot_product_attention`` (forward for K1, K2, K4; its backward,
-   ``torch.autograd.grad`` with ``retain_graph``, for K6–K8) and
+   ``torch.autograd.grad`` with ``retain_graph``, for K6–K8; for K5 on the
+   [B, H, S, D] views of the packed tensors) and
    ``F.layer_norm`` for K3, ``torch._int_mm`` and the same dequant for the
    int8 GEMM (K11, whose bound counts int8 operations at 1979 TOP/s and whose
    int32 sums are checked equal to the plain version's, its bf16 output to
@@ -34,7 +36,15 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
    also runs at Pixart's D = 72. The backward kernels (K6+K7 or K8, routed by
    ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv, each to the forward's out
-   tolerance times max(1, max|grad|); K6 and K7 are also timed alone;
+   tolerance times max(1, max|grad|); K6 and K7 are also timed alone. K5
+   (the packed streaming attention) at SDXL's self-attention shapes and
+   ragged ones, to its own tolerance (4e-3 + 2^-8 of max|out| and a mean
+   signed error within 5e-4; the ragged cases offset v by +1 so that keys
+   past KV leaking into the softmax would show); K10 and K12 (the feed-forward's
+   down-projection GEMMs) at SDXL's two feed-forward shapes, ragged M and
+   K10's dW shapes, to 2^-7 of max|y| (library yardsticks ``F.linear``;
+   for K12, which no one PyTorch call computes, the unfused gate then
+   ``F.linear``);
 3. SD1.5 path: ``build_pipeline("sd15", device="cuda")`` then ``generate``
    of 4 prompts × 4 steps, guidance 0, 512²: the output must be
    [4, 512, 512, 3] and finite, and the launch counts of K1–K3 and of the
@@ -53,6 +63,17 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
    (crossattn and vector) to a relative L2 of 1e-4, the images to 0.1. The
    fp32 CPU copy is built from the modules' state dicts, parameter by
    parameter;
+3c. the same SDXL pipeline in the JAX package's opt-in kernel modes, each
+   through ``generate`` as in 3b (same seeds): (A)
+   ``FLASH_TPU_ATTN_PACKED=1 FLASH_TPU_FFN_FUSED=1``, (B)
+   ``FLASH_TPU_FFN_DOWN_GEMM=1``. The launch counts, reset just before,
+   must be exact (A: K12 280, K5 280, K10 0, K2 1; B: K10 280, K12 0, K5
+   0) and the images within a relative L2 of 5e-2 of the default mode's;
+   warm s/batch, images/s and peak memory beside 3b's;
+4c. each mode at 512² (the least size where all three kernels run), one
+   prompt, one step, on the card against the fp32 CPU copy under the same
+   switches (the plain versions): images to 0.1, the mode's kernels
+   launched;
 5. training, after the serving pipelines are freed: ``build_trainer("sd15",
    device="cuda")`` with ``flash_sd.yaml`` (K = 32, LPIPS distill, DMD,
    hinge GAN, rank-128 LoRA, ``remat`` on) and ``NUM_ITERATIONS_PER_K`` set
@@ -111,7 +132,8 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
-paths' runs, ``launches_by_path`` each; ``ms``, ``plain_ms``,
+paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
+``sdxl_packed_fused`` and ``sdxl_down_gemm``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -120,6 +142,7 @@ this file, it exits non-zero and prints no result.
 """
 
 import base64
+import contextlib
 import json
 import math
 import os
@@ -173,6 +196,26 @@ PACKED_RAGGED = [
     (2, 1024, 77, 8, 128), (1, 4000, 256, 8, 128), (1, 4096, 77, 10, 64),
     (8, 1024, 77, 20, 64),
 ]
+# (b, sq, kv, h, d) of the packed streaming kernel (K5) under
+# FLASH_TPU_ATTN_PACKED=1: SDXL's self-attention at level 1 and at level 2 /
+# mid (batch 4), plus ragged cases (Sq off the tile, KV = 4000 and off the
+# tile, batch 1, D = 128). On the ragged cases v is offset by
+# PACKED_STREAM_V_OFFSET, so that a zero-filled key past KV that leaked into
+# the softmax (its score 0, not -1e30) would pull every row's output towards
+# 0: by 0.5% (KV 4000) to 3.3% (KV 1030) of |out| ~ 1
+PACKED_STREAM_SHAPES = [(4, 4096, 4096, 10, 64), (4, 1024, 1024, 20, 64)]
+PACKED_STREAM_RAGGED = [(4, 4000, 4000, 10, 64), (1, 4096, 4096, 10, 64), (1, 1000, 1030, 20, 64),
+                        (2, 700, 1500, 8, 128)]
+PACKED_STREAM_V_OFFSET = 1.0
+# [M, K, N] of SDXL's feed-forward down projection at batch 4, 1024² (level
+# 1: 640 channels over 4096 tokens; level 2 and mid: 1280 over 1024): K12
+# under FLASH_TPU_FFN_FUSED=1 (on [a | g] of [M, 2K]), K10 under
+# FLASH_TPU_FFN_DOWN_GEMM=1; ragged: batch 1, M off the 128-row tile (odd
+# too), the unit tests' shape; and K10's dW = xᵀ·dy of a backward at those
+# shapes ([K, M] · [N, M]ᵀ)
+FFN_SHAPES = [(16384, 2560, 640), (4096, 5120, 1280)]
+FFN_RAGGED = [(4096, 2560, 640), (1024, 5120, 1280), (4001, 2560, 640), (1032, 2048, 128)]
+FFN_DW_SHAPES = [(2560, 16384, 640), (5120, 4096, 1280)]
 # (rows, C, dtype): UNet norm1/2/3 at each level, CLIP-L (fp32), plus ragged
 LAYER_NORM_SHAPES = [
     (4 * 4096, 320, torch.bfloat16),
@@ -257,6 +300,17 @@ HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e1
 # from exact bf16 products (5e-3); LayerNorm in bf16 differs by the output's
 # one rounding (|y| < 8: 1/32), in fp32 by summation order (1e-4)
 ATTN_OUT_TOL, ATTN_LSE_TOL = 2e-2, 5e-3
+# K5 vs the plain version in fp32, held tighter than ATTN_OUT_TOL (a typical
+# |out| is ~0.03 at 4096 unit-normal keys; measured max|err| 1.2e-3):
+# max|err| within PACKED_STREAM_TOL + 2^-8·max|ref| (the output's own
+# rounding is 2^-9 of |out|), and the mean signed error within
+# PACKED_STREAM_BIAS_TOL: rounding to nearest has no bias, while leaked
+# padded keys shift the v-offset ragged cases by -5e-3 or more
+PACKED_STREAM_TOL, PACKED_STREAM_BIAS_TOL = 4e-3, 5e-4
+# K10 and K12 (bf16 out) vs the plain version in fp32: max|err| within
+# 2^-7 of max|ref| (the output's rounding is half an ulp, 2^-9 of |y|, and
+# K12 also rounds h to bf16; a 2x margin)
+GEMM_TOL = 2 ** -7
 LN_TOL = {torch.bfloat16: 1 / 32, torch.float32: 1e-4}
 # GroupNorm statistics (fp32 sums in another order than the fp64 plain
 # version): Σx to GN_STATS_TOL of Σ|x|, Σx² to GN_STATS_TOL relative
@@ -265,6 +319,19 @@ GN_STATS_TOL = 1e-5
 # batch-size-dependent algorithms (measured on an H100: 9.2e-3 in bf16,
 # 9.8e-3 in int8; the contract of FlashPipeline.generate)
 BATCH_INVARIANCE_TOL = 1.5e-2
+# phases 3c and 4c: the JAX package's opt-in kernel modes of SDXL, as (path,
+# switches, the exact launches of a batch-4, 4-step 1024² generate: 70
+# feed-forwards and 70 self-attentions a UNet call, the VAE's one K2 call)
+SWITCHES = ("FLASH_TPU_ATTN_PACKED", "FLASH_TPU_FFN_FUSED", "FLASH_TPU_FFN_DOWN_GEMM")
+SDXL_MODES = [
+    ("sdxl_packed_fused", {"FLASH_TPU_ATTN_PACKED": "1", "FLASH_TPU_FFN_FUSED": "1"},
+     {"geglu_gemm": 280, "flash_fwd_packed": 280, "gemm": 0, "flash_fwd_stream": 1}),
+    ("sdxl_down_gemm", {"FLASH_TPU_FFN_DOWN_GEMM": "1"}, {"gemm": 280, "geglu_gemm": 0, "flash_fwd_packed": 0}),
+]
+# a mode's images vs the default mode's (same seeds): tanh-gelu rounded
+# once, other sums and roundings (the default's own batch-size spread is
+# 9.2e-3)
+MODE_IMAGE_TOL = 5e-2
 PROMPTS = [
     "a photograph of an astronaut riding a horse",
     "a raccoon reading a book in a library",
@@ -370,35 +437,101 @@ def check_attention(attention, results):
             add_times(r, ms, plain, library, bnd)
 
 
-def check_packed(attention, results):
-    g = torch.Generator(device="cuda").manual_seed(2)
-    for b, sq, kv, h, d in PACKED_SHAPES + PACKED_RAGGED:
+def check_packed(attention, results, name, shapes, ragged, seed):
+    """A packed kernel (K4 ``flash_fwd_oneshot_packed``, K5
+    ``flash_fwd_packed``) against the packed plain version (the function of
+    both) in fp32: K4 to ATTN_OUT_TOL, K5 to its own tolerances and on
+    v-offset ragged cases; at the paths' shapes also its times, the
+    library's (``F.scaled_dot_product_attention`` on the [B, H, S, D] views
+    of the same tensors, no copy) and the bound: q, k, v, out in bf16 once
+    (no lse); q·kᵀ and p·v, 4·B·H·Sq·KV·D operations."""
+    stream = name == "flash_fwd_packed"
+    kernel = attention.flash_attention_packed_stream if stream else attention.flash_attention_packed
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for b, sq, kv, h, d in shapes + ragged:
+        main = (b, sq, kv, h, d) in shapes
         q, k, v = (torch.randn(b, s, h * d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, kv, kv))
+        if stream and not main:
+            v = v + PACKED_STREAM_V_OFFSET
         scale = d ** -0.5
-        out = attention.flash_attention_packed(q, k, v, h, scale)
+        out = kernel(q, k, v, h, scale)
         torch.cuda.synchronize()
         ref = attention.attention_packed_reference(q.float(), k.float(), v.float(), h, scale)
-        err = (out.float() - ref).abs().max().item()
-        del ref
-        ms = median_ms(lambda: attention.flash_attention_packed(q, k, v, h, scale))
+        diff = out.float() - ref
+        err, bias = diff.abs().max().item(), diff.mean().item()
+        tol = PACKED_STREAM_TOL + 2 ** -8 * ref.abs().max().item() if stream else ATTN_OUT_TOL
+        del ref, diff
+        ms = median_ms(lambda: kernel(q, k, v, h, scale))
         plain = median_ms(lambda: attention.attention_packed_reference(q, k, v, h, scale))
-        main = (b, sq, kv, h, d) in PACKED_SHAPES
         times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if main:  # q, k, v, out in bf16 (no lse)
+        if main:
             heads = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
             library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v), scale=scale))
             bnd = bound(4 * b * h * sq * kv * d, 2 * b * (2 * sq + 2 * kv) * h * d)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        print(f"attention flash_fwd_oneshot_packed b={b} sq={sq:4d} kv={kv:3d} h={h:2d} d={d:3d}: "
-              f"max|out err| {err:.3e} (tol {ATTN_OUT_TOL}); {times}")
-        if not err <= ATTN_OUT_TOL:
-            raise AssertionError(f"packed attention kernel disagrees with its plain version at {(b, sq, kv, h, d)}")
-        r = results["flash_fwd_oneshot_packed"]
+        checks = f"max|out err| {err:.3e} (tol {tol:.3e})"
+        if stream:
+            checks += f", mean err {bias:.3e} (tol {PACKED_STREAM_BIAS_TOL})"
+        print(f"attention {name} b={b} sq={sq:4d} kv={kv:4d} h={h:2d} d={d:3d}"
+              f"{f' v+{PACKED_STREAM_V_OFFSET:g}' if stream and not main else ''}: {checks}; {times}")
+        if not (err <= tol and (not stream or abs(bias) <= PACKED_STREAM_BIAS_TOL)):
+            raise AssertionError(f"{name} kernel disagrees with its plain version at {(b, sq, kv, h, d)}")
+        r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
             add_times(r, ms, plain, library, bnd)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+
+def check_ffn_gemm(gemm, results):
+    """K12 and K10 against their plain versions in fp32 (GEMM_TOL), and the
+    plain version on the kernel's own bf16 inputs (its rounding contract;
+    printed); K10 also at its dW shapes. At SDXL's shapes also the times,
+    the library's (K10: ``F.linear(x, W, b)``; K12: no one PyTorch call
+    computes it, so the unfused ``F.linear(a * F.gelu(g, "tanh"), W, b)``)
+    and the bound: 2·M·K·N operations, or x (K12: a and g), W, b read and y
+    written once in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(True, s) for s in FFN_SHAPES + FFN_RAGGED] + [(False, s) for s in FFN_SHAPES + FFN_RAGGED + FFN_DW_SHAPES]
+    for geglu, (m, k, n) in cases:
+        name = "geglu_gemm" if geglu else "gemm"
+        kernel = gemm.geglu_gemm if geglu else gemm.gemm
+        plain_fn = gemm.geglu_down_proj_reference if geglu else gemm.down_proj_gemm_reference
+        x = torch.randn(m, 2 * k if geglu else k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn(n, generator=g, device="cuda")).to(torch.bfloat16)
+        y = kernel(x, w, b)
+        torch.cuda.synchronize()
+        ref = plain_fn(x.float(), w.float(), b.float())
+        err, tol = (y.float() - ref).abs().max().item(), GEMM_TOL * ref.abs().max().item()
+        contract = (y.float() - plain_fn(x, w, b).float()).abs().max().item()
+        del ref
+        ms = median_ms(lambda: kernel(x, w, b))
+        main = (m, k, n) in FFN_SHAPES
+        times = f"kernel {ms:.4f} ms"
+        if main:
+            plain = median_ms(lambda: plain_fn(x, w, b))
+            if geglu:
+                library = library_ms(lambda: lambda: F.linear(
+                    x[:, :k] * F.gelu(x[:, k:], approximate="tanh"), w, b))
+            else:
+                library = library_ms(lambda: lambda: F.linear(x, w, b))
+            bnd = bound(2 * m * k * n, 2 * (x.numel() + w.numel() + n + m * n))
+            times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+        what = "dW " if (m, k, n) in FFN_DW_SHAPES else ""
+        print(f"{name:10s} {what}M={m:5d} K={k:5d} N={n:4d}: max|err| vs fp32 {err:.3e} (tol {tol:.3e}), "
+              f"vs the plain version in bf16 {contract:.3e}; {times}")
+        if not err <= tol:
+            raise AssertionError(f"{name} kernel disagrees with its plain version at {(m, k, n)}")
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            add_times(r, ms, plain, library, bnd)
+        del x, w, b, y
+        torch.cuda.empty_cache()
 
 
 def check_layer_norm(norms, results):
@@ -675,10 +808,9 @@ def cpu_fp32_copy(state, meta_module: torch.nn.Module) -> torch.nn.Module:
     return meta_module.eval()
 
 
-def check_reference(pipe, model: str, label: str = ""):
-    """The pipeline's own modules at 128² on one prompt: bf16 on the card
-    through the kernels vs an fp32 copy on the CPU through the plain paths
-    (with the pipeline's served weights: int8 ones in int8 mode)."""
+def cpu_reference(pipe, model: str):
+    """The pipeline's modules as an fp32 copy on the CPU (the plain paths),
+    with the pipeline's served weights (int8 ones in int8 mode)."""
     from flash_diffusion_tpu_torch import FlashPipeline
     from flash_diffusion_tpu_torch.models.embedders import ConditionerWrapper
     from flash_diffusion_tpu_torch.sample import build_modules
@@ -693,6 +825,13 @@ def check_reference(pipe, model: str, label: str = ""):
         cpu_fp32_copy(pipe.vae.state_dict(), vae), pipe.tokenizer_fn, pipe.latent_shape,
     )
     ref.size_cond_fn = pipe.size_cond_fn
+    return ref
+
+
+def check_reference(pipe, model: str, label: str = ""):
+    """The pipeline's own modules at 128² on one prompt: bf16 on the card
+    through the kernels vs ``cpu_reference``."""
+    ref = cpu_reference(pipe, model)
     g = torch.Generator().manual_seed(7)
     latents = torch.randn(1, 16, 16, 4, generator=g)
     noise = [torch.randn(1, 16, 16, 4, generator=g) for _ in range(4)]
@@ -713,9 +852,38 @@ def check_reference(pipe, model: str, label: str = ""):
         raise AssertionError(f"the card's {label or model} slice disagrees with the fp32 reference on a small input")
 
 
+def check_mode_references(pipe, counters):
+    """Phase 4c: each of ``SDXL_MODES`` at 512² (the least size whose
+    640-channel level has 1024 tokens, M = 1024: all three kernels run), one
+    prompt, one step (to bound the CPU's time), on the card against the
+    fp32 CPU copy under the same switches (the plain versions), same
+    latents and noise: images within 0.1, as 4b, and the mode's kernels
+    launched on the card."""
+    ref = cpu_reference(pipe, "sdxl")
+    g = torch.Generator().manual_seed(12)
+    latents = torch.randn(1, 64, 64, 4, generator=g)
+    noise = [torch.randn(1, 64, 64, 4, generator=g)]
+    kw = dict(latents=latents, noise=noise, num_inference_steps=1, height=512, width=512)
+    for path, env, exact in SDXL_MODES:
+        with switches(env):
+            reset(counters)
+            got = pipe.generate(PROMPTS[:1], **kw).cpu()
+            torch.cuda.synchronize()
+            launches = {k: n for d in counters for k, n in d.items()}
+            want = ref.generate(PROMPTS[:1], **kw)
+        err = rel_l2(got, want)
+        ran = {k: launches[k] for k, n in exact.items() if n}
+        print(f"sdxl {path} reference at 512², 1 prompt, 1 step: images (bf16 on the card vs fp32 on the CPU, "
+              f"same switches) rel L2 err {err:.3e} (tol 0.1), max|err| {(got - want).abs().max().item():.3e}; "
+              f"the mode's kernels on the card {ran}")
+        if not (err <= 0.1 and torch.isfinite(got).all() and all(ran.values())):
+            raise AssertionError(f"the card's sdxl {path} mode disagrees with the fp32 reference at 512²")
+
+
 def run_path(pipe, model, hw, counters, card, required):
     """One main path through ``generate``: counts reset just before and read
-    just after, the launched kernels checked, then warm s/batch."""
+    just after, the launched kernels checked, then warm s/batch. Returns
+    (launches, the images of the first run)."""
     reset(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -742,7 +910,43 @@ def run_path(pipe, model, hw, counters, card, required):
     print(f"{model} {hw}² 4-NFE batch 4 on {card}: warm {per_batch:.4f} s/batch (median of {warm}), "
           f"{4 / per_batch:.3f} images/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"image range [{images.min().item():.3f}, {images.max().item():.3f}]")
-    return launches
+    return launches, images
+
+
+@contextlib.contextmanager
+def switches(env):
+    """The JAX package's kernel switches set to ``env`` (the others unset)
+    inside the block, as they were after it."""
+    saved = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def run_modes(pipe, default_images, counters, card):
+    """Phase 3c: SDXL 1024² ``generate`` in each of ``SDXL_MODES`` on the
+    pipeline of phase 3b, through ``run_path`` (counts reset just before,
+    warm s/batch after): the launch counts exact, the images within
+    MODE_IMAGE_TOL of the default mode's. Returns {path: launches}."""
+    by_path = {}
+    for path, env, exact in SDXL_MODES:
+        with switches(env):
+            launches, images = run_path(pipe, f"sdxl {path}", 1024, counters, card, [k for k, n in exact.items() if n])
+        err = rel_l2(images, default_images)
+        wrong = {k: launches[k] for k, n in exact.items() if launches[k] != n}
+        print(f"sdxl {path} ({' '.join(f'{k}={v}' for k, v in env.items())}): images vs the default mode's, rel "
+              f"L2 {err:.3e} (tol {MODE_IMAGE_TOL}); launch counts {'exact' if not wrong else wrong} "
+              f"(expected {exact})")
+        if wrong or not err <= MODE_IMAGE_TOL:
+            raise AssertionError(f"the sdxl {path} mode launched {wrong} or its images differ by {err:.3e}")
+        by_path[path] = launches
+        del images
+    return by_path
 
 
 def png_pixels(png: bytes):
@@ -1112,6 +1316,8 @@ def check_training_reference():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
+    for k in SWITCHES:  # each phase sets the modes it drives; the others run the port's defaults
+        os.environ.pop(k, None)
     from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
     from flash_diffusion_tpu_torch.sample import build_pipeline
 
@@ -1128,7 +1334,7 @@ def main():
     entry = ""
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
-            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|"
+            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|ffn_gemm_kernel|"
                              r"gn_(?:stats_partial|stats_final|apply)_kernel)(I\w+?E)?E", line)
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
         elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
@@ -1160,14 +1366,19 @@ def main():
                               "flash_diffusion_tpu/ops/norms.py:317"),
         "flash_fwd_oneshot_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention_packed.cu",
                                             "flash_diffusion_tpu/ops/attention.py:292"),
+        "flash_fwd_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_packed.cu",
+                                    "flash_diffusion_tpu/ops/attention.py:223"),
         "flash_bwd_dkv": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd.cu",
                                  "flash_diffusion_tpu/ops/attention.py:635"),
         "flash_bwd_dq": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd.cu",
                                 "flash_diffusion_tpu/ops/attention.py:703"),
         "flash_bwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd_oneshot.cu",
                                      "flash_diffusion_tpu/ops/attention.py:769"),
+        "gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/ffn_gemm.cu", "flash_diffusion_tpu/ops/gemm.py:36"),
         "int8_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/int8_gemm.cu",
                              "flash_diffusion_tpu/ops/gemm.py:171"),
+        "geglu_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/ffn_gemm.cu",
+                              "flash_diffusion_tpu/ops/gemm.py:271"),
         "group_norm_stats": new_row("cuda", "flash_diffusion_tpu_torch/csrc/group_norm.cu",
                                     "flash_diffusion_tpu/ops/norms.py:40"),
         # the port's own fused normalize pass: no TPU kernel (JAX leaves
@@ -1177,11 +1388,13 @@ def main():
     }
     # phase 2: kernels vs plain at the main paths' shapes
     check_attention(attention, results)
-    check_packed(attention, results)
+    check_packed(attention, results, "flash_fwd_oneshot_packed", PACKED_SHAPES, PACKED_RAGGED, 2)
+    check_packed(attention, results, "flash_fwd_packed", PACKED_STREAM_SHAPES, PACKED_STREAM_RAGGED, 10)
     check_layer_norm(norms, results)
     check_group_norm(norms, results)
     check_attention_bwd(attention, kernels, results)
     check_int8_gemm(gemm, results)
+    check_ffn_gemm(gemm, results)
     torch.cuda.empty_cache()
 
     # phases 3 and 4: the SD1.5 path through the user's entry point, then
@@ -1190,16 +1403,21 @@ def main():
     gn = ("group_norm_stats", "group_norm_apply")
     pipe = build_pipeline("sd15", device="cuda", seed=0)
     by_path = {"sd15": run_path(pipe, "sd15", 512, counters, card,
-                                ("flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", *gn))}
+                                ("flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", *gn))[0]}
     check_reference(pipe, "sd15")
     del pipe
     torch.cuda.empty_cache()
 
-    # phases 3b and 4b: the SDXL path, then its reference
+    # phases 3b and 4b: the SDXL path, then its reference; 3c and 4c: the
+    # same pipeline in the JAX package's opt-in kernel modes (K5 and K12,
+    # then K10), then their references
     pipe = build_pipeline("sdxl", device="cuda", seed=0)
-    by_path["sdxl"] = run_path(pipe, "sdxl", 1024, counters, card,
-                               ("flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", *gn))
+    by_path["sdxl"], images = run_path(pipe, "sdxl", 1024, counters, card,
+                                       ("flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", *gn))
     check_reference(pipe, "sdxl")
+    by_path.update(run_modes(pipe, images, counters, card))
+    del images
+    check_mode_references(pipe, counters)
     del pipe
     torch.cuda.empty_cache()
 
@@ -1225,7 +1443,7 @@ def main():
     # references: T5 at full width and 2 layers, the DiT and VAE at full
     # size at 128² on the same T5 output
     pipe = build_pipeline("pixart", device="cuda", seed=0)
-    by_path["pixart"] = run_path(pipe, "pixart", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))
+    by_path["pixart"] = run_path(pipe, "pixart", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))[0]
     check_pixart_reference(pipe)
     del pipe
     torch.cuda.empty_cache()

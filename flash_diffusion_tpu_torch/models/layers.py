@@ -17,11 +17,20 @@ layer (``lora.attach_lora``), and takes the W8A8 int8 branch of the JAX
 ``LoraDense`` (``flash_diffusion_tpu/models/layers.py:90-104``) when the
 layer's weight is int8 (``quant.quantize_dense``): the product on the int8
 GEMM kernel, then the side path, then the bias in the output dtype.
+
+The GEGLU feed-forward reads the JAX package's two opt-in switches at call
+time (default ``"0"``, as there; ``layers.py:458-476``):
+``FLASH_TPU_FFN_FUSED=1`` sends a bf16 up-projection output straight to
+``ops.geglu_down_proj`` (K12) with ``proj_out``'s weight (an int8 one
+dequantized in fp32, then cast), and ``FLASH_TPU_FFN_DOWN_GEMM=1`` sends
+the gated product of a float ``proj_out`` to ``ops.down_proj_gemm`` (K10).
+Both add a LoRA pair of ``proj_out`` after the product, bias included.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -29,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import dot_product_attention, group_norm, layer_norm
+from ..ops.gemm import down_proj_gemm, geglu_down_proj, geglu_h
 from ..quant import SCALE_KEY, int8_matmul
 
 
@@ -52,11 +62,17 @@ def lora_dense(
         return F.linear(x, weight, bias)
     else:
         y = F.linear(x, weight)
-    if lora is not None:
-        a, b, scaling = lora
-        b = b * scaling if scaling != 1.0 else b
-        y = y + (x @ a.to(y.dtype)) @ b.to(y.dtype)
+    y = _lora_side(x, y, lora)
     return y if bias is None else y + bias.to(y.dtype)
+
+
+def _lora_side(x: torch.Tensor, y: torch.Tensor, lora) -> torch.Tensor:
+    """y + (x·A)·(scaling·B) in y's dtype, or y when ``lora`` is None."""
+    if lora is None:
+        return y
+    a, b, scaling = lora
+    b = b * scaling if scaling != 1.0 else b
+    return y + (x @ a.to(y.dtype)) @ b.to(y.dtype)
 
 
 def _dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -218,26 +234,38 @@ def _gate_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class GEGLU(nn.Module):
+    """The up projection to [value | gate] (diffusers ``ff.net.0``); the
+    feed-forward applies the gate."""
+
     def __init__(self, dim: int, inner: int):
         super().__init__()
         self.proj = LoraLinear(dim, inner * 2)
 
-    def forward(self, x):
-        x, gate = self.proj(x).chunk(2, dim=-1)
-        return x * _gate_gelu(gate)
-
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU MLP: proj to 2·inner, gelu-gate, project back (diffusers ``ff.net``)."""
+    """GEGLU MLP: proj to 2·inner, gelu-gate, project back (diffusers
+    ``ff.net``), with the JAX package's fused down-projection modes (module
+    docstring). Under either switch the parameters are the same."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), LoraLinear(dim * mult, dim)])
 
     def forward(self, x):
-        for layer in self.net:
-            x = layer(x)
-        return x
+        out = self.net[2]
+        lora = getattr(out, "lora", None)
+        x2k = self.net[0].proj(x)
+        if os.environ.get("FLASH_TPU_FFN_FUSED", "0") == "1" and x2k.dtype == torch.bfloat16:
+            w = out.weight
+            if w.dtype == torch.int8:  # dequantized on the fly, as JAX does (not K11)
+                w = w.float() * getattr(out, SCALE_KEY)[:, None]
+            y = geglu_down_proj(x2k, w.to(x2k.dtype), out.bias.to(x2k.dtype))
+            return _lora_side(geglu_h(x2k), y, lora) if lora is not None else y
+        a, gate = x2k.chunk(2, dim=-1)
+        h = a * _gate_gelu(gate)
+        if os.environ.get("FLASH_TPU_FFN_DOWN_GEMM", "0") == "1" and out.weight.dtype != torch.int8:
+            return _lora_side(h, down_proj_gemm(h, out.weight, out.bias), lora)  # the bias in K10's epilogue
+        return out(h)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -19,6 +19,16 @@ Dispatch, as the JAX ``_attn_primal`` does it:
   128. At SDXL shapes: every cross-attention over the 77 text tokens. The
   JAX A/B switches of this path (``FLASH_TPU_ATTN_PACKED_CROSS``,
   ``_ANY_D``, ``FLASH_TPU_PACKED_CROSS_KV_MAX``) are TPU probes, not ported.
+- ``flash_fwd_packed`` (``csrc/flash_fwd_packed.cu``, the port of
+  ``_flash_fwd_packed_kernel``) through ``flash_attention_packed_stream``
+  on the same layout, for every other call without ``kv_valid`` that
+  ``packed_eligible`` takes: ``FLASH_TPU_ATTN_PACKED=1`` (read at call
+  time, default ``"0"``, as in JAX), head dim 64 or 128, at least 2 heads.
+  At SDXL shapes under the switch: the 4096- and 1024-token
+  self-attention. One departure from JAX: its 1024-token call (padded KV ≤
+  ``_ONESHOT_KV_MAX``) asks for the packed one-shot kernel, whose block
+  its VMEM model rejects at H·D = 1280, and falls back to the per-head
+  kernels; the port has no such limit and streams it here.
 - every other call through ``flash_attention_bhsd`` on [B*H, S, D], which
   picks by ``attention_plan``:
   - ``flash_fwd_oneshot`` (``csrc/attention.cu``, the port of
@@ -30,7 +40,8 @@ Dispatch, as the JAX ``_attn_primal`` does it:
   - ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
     ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
     accumulator in registers, for D <= 512. At SD1.5 and SDXL shapes: the
-    1024- and 4096-token self-attention and the VAE's D = 512 mid-attention.
+    1024- and 4096-token self-attention (without the switch) and the VAE's
+    D = 512 mid-attention.
 
 The JAX rule (padded KV <= 1024 is one-shot, ``attention.py:569``) does not
 carry over: 1024 keys at D = 80 are 426 KB of K and V here.
@@ -38,8 +49,8 @@ carry over: 1024 keys at D = 80 are 426 KB of K and V here.
 Under a gradient (any of q, k, v requires grad) ``dot_product_attention``
 goes through ``FlashAttention``, an autograd Function that mirrors the JAX
 ``_pallas_attention_vjp``: its forward is the [BH, S, D] path above (never
-the packed kernel) and saves q, k, v, out and lse as laid out for the
-kernels; its backward is ``flash_attention_bwd_bhsd``, which picks by
+a packed kernel, switch or not) and saves q, k, v, out and lse as laid out
+for the kernels; its backward is ``flash_attention_bwd_bhsd``, which picks by
 ``attention_bwd_plan``:
 
 - ``flash_bwd_oneshot`` (``csrc/flash_bwd_oneshot.cu``, the port of
@@ -61,6 +72,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -74,11 +86,11 @@ _WARPS = 4
 # Launch counts of the kernels, raised by one per launch (never on the
 # plain path). Reset them by assigning 0.
 LAUNCHES = {
-    "flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0,
+    "flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0, "flash_fwd_packed": 0,
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_oneshot": 0,
 }
 _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
-_PACKED_D = (64, 128)  # head dims the packed kernel is built for
+_PACKED_D = (64, 128)  # head dims the packed kernels are built for
 _PACKED_KV_MAX = 256  # the JAX default of FLASH_TPU_PACKED_CROSS_KV_MAX
 _PACKED_BQ = 64  # q rows of one packed block
 
@@ -232,10 +244,22 @@ def _check_packed_inputs(q, k, v, num_heads):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if num_heads < 1 or hd % num_heads or hd // num_heads not in _PACKED_D:
         raise ValueError(f"the packed kernel takes head dims {_PACKED_D}, got {hd} / {num_heads} heads")
-    if packed_smem_bytes(hd // num_heads, _round_up(k.shape[1], 16)) > _SMEM_LIMIT:
-        raise ValueError(f"KV {k.shape[1]} does not fit the packed kernel's shared memory")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} outside the grid's z range")
+
+
+def _launch_packed(name, q, k, v, num_heads, scale):
+    """Launches the packed kernel ``name`` on checked CUDA inputs."""
+    b, sq, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = getattr(kernels.library(), f"fdt_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
+            num_heads, hd // num_heads, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    kernels.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def flash_attention_packed(
@@ -247,17 +271,31 @@ def flash_attention_packed(
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, scale)
     _check_packed_inputs(q, k, v, num_heads)
-    b, sq, hd = q.shape
-    out = torch.empty_like(q)
-    lib = kernels.library()
-    with torch.cuda.device(q.device):
-        err = lib.fdt_flash_fwd_oneshot_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
-            num_heads, hd // num_heads, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    kernels.check(err, "flash_fwd_oneshot_packed")
-    LAUNCHES["flash_fwd_oneshot_packed"] += 1
-    return out
+    if packed_smem_bytes(q.shape[2] // num_heads, _round_up(k.shape[1], 16)) > _SMEM_LIMIT:
+        raise ValueError(f"KV {k.shape[1]} does not fit the packed kernel's shared memory")
+    return _launch_packed("flash_fwd_oneshot_packed", q, k, v, num_heads, scale)
+
+
+def packed_eligible(q4: torch.Tensor) -> bool:
+    """Whether a [B, Sq, H, D] call without ``kv_valid`` takes the packed
+    streaming kernel: the JAX ``_packed_eligible`` (``FLASH_TPU_ATTN_PACKED``
+    read at call time, off by default; its ``_ANY_D`` probe not ported)."""
+    _, _, h, d = q4.shape
+    return os.environ.get("FLASH_TPU_ATTN_PACKED", "0") == "1" and h >= 2 and d in _PACKED_D
+
+
+def flash_attention_packed_stream(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+) -> torch.Tensor:
+    """Packed streaming forward: q [B, Sq, H·D], k/v [B, KV, H·D] → [B, Sq, H·D],
+    any KV. The function is that of ``flash_attention_packed``, so both
+    share the plain version.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return attention_packed_reference(q, k, v, num_heads, scale)
+    _check_packed_inputs(q, k, v, num_heads)
+    return _launch_packed("flash_fwd_packed", q, k, v, num_heads, scale)
 
 
 _BWD_WARPS = 8  # warps of one backward block (csrc/bwd_tiles.cuh kWarps)
@@ -432,7 +470,8 @@ def dot_product_attention(
     ``bias`` (broadcastable to [B, H, Sq, Skv]) takes the plain path; under a
     gradient every other call goes through ``FlashAttention``; without one,
     calls without ``kv_valid`` that ``packed_cross_eligible`` takes go to
-    ``flash_attention_packed`` and every other call to
+    ``flash_attention_packed``, those that ``packed_eligible`` takes to
+    ``flash_attention_packed_stream``, and every other call to
     ``flash_attention_bhsd``."""
     b, sq, h, d = q.shape
     if scale is None:
@@ -443,9 +482,11 @@ def dot_product_attention(
         return reference_attention(q, k, v, bias, scale, kv_valid)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, scale, kv_valid)
-    if kv_valid is None and packed_cross_eligible(q, k.shape[1]):
+    if kv_valid is None:
         packed = lambda x: x.reshape(b, x.shape[1], h * d).contiguous()  # free for projections
-        out = flash_attention_packed(packed(q), packed(k), packed(v), h, scale)
-        return out.reshape(b, sq, h, d)
+        if packed_cross_eligible(q, k.shape[1]):
+            return flash_attention_packed(packed(q), packed(k), packed(v), h, scale).reshape(b, sq, h, d)
+        if packed_eligible(q):
+            return flash_attention_packed_stream(packed(q), packed(k), packed(v), h, scale).reshape(b, sq, h, d)
     out, _ = flash_attention_bhsd(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), scale, kv_valid)
     return _from_bhsd(out, b, h)

@@ -1,11 +1,44 @@
-"""GEMM ops: the hand-written W8A8 int8 GEMM and its plain version.
+"""GEMM ops: the hand-written feed-forward GEMMs (K10, K12) and W8A8 int8
+GEMM (K11), and their plain versions.
 
-Port of ``flash_diffusion_tpu/ops/gemm.py`` ``int8_gemm`` (:226, the
-Pallas ``_int8_gemm_kernel`` at :171): ``y = act(float(xq·wqᵀ) · sx · sw +
-bias)`` over int8 operands with exact int32 sums, the per-token scale
-``sx`` and the per-channel scale ``sw`` applied to the fp32 value, then the
-bias, then tanh-gelu if ``act == "gelu"``, then one cast. ``wq`` is
-[N, K], the ``nn.Linear`` layout (JAX keeps [K, N]).
+Port of ``flash_diffusion_tpu/ops/gemm.py``. Every kernel wrapper takes its
+plain version for a tensor on the CPU; on a CUDA tensor it launches its
+kernel or raises, and never falls back.
+
+The down-projection family (``csrc/ffn_gemm.cu``, one template):
+
+- ``down_proj_gemm(x, w, b)`` (JAX ``down_proj_gemm``, :402): y = x·Wᵀ + b
+  through ``DownProjGemmFunction`` → ``gemm``, the port of ``_gemm_kernel``
+  (K10; fp32 accumulator, the bias added in fp32 in the epilogue, one
+  cast), for the shapes ``gemm_eligible`` takes and x's dtype equal to W's;
+  every other call takes the unfused ops (x·Wᵀ, then + b in y's dtype), as
+  JAX's does: routing by shape, not a fallback on failure. On the card K10
+  is built for bf16: an fp32 call that JAX would send to K10 raises.
+- ``geglu_down_proj(x2k, w, b)`` (JAX :374): y = (a · gelu_tanh(g))·Wᵀ + b
+  with x2k = [a | g] along the last dim, through ``GegluGemmFunction`` →
+  ``geglu_gemm``, the port of ``_geglu_gemm_kernel`` (K12), for bf16 calls
+  that ``gemm_eligible`` takes; every other call takes the unfused ops.
+  Rounding contract of K12 and its plain version: h = a · gelu_tanh(g) is
+  computed in fp32 from the bf16 inputs and rounded once to bf16, the MMA
+  operand; the product accumulates in fp32, b (rounded to x's dtype first)
+  is added in fp32, and y is rounded once. JAX in interpret mode rounds its
+  bf16 elementwise ops one by one, so the tests hold the two to a
+  tolerance.
+
+``gemm_eligible`` is JAX's shape family (:108-124: K ≥ 2N, K ≥ 2048,
+128 ≤ N ≤ 2048, N and K multiples of 128, M ≥ 1024, M % 8 == 0). JAX also
+asks its TPU VMEM model (``_pick_blocks``, ``_pick_blocks_geglu``) for a
+block, which it never refuses inside that family (at N ≤ 2048 the 8-row,
+128-deep block takes 0.6 MB of the 8 MB), so the port drops it. The
+backward mirrors the JAX custom VJPs in plain PyTorch, with dW = xᵀ·dy of
+K10 on the kernel again where ``gemm_eligible(K, M, N)`` holds.
+
+The int8 GEMM: ``int8_gemm`` (:226, the Pallas ``_int8_gemm_kernel`` at
+:171): ``y = act(float(xq·wqᵀ) · sx · sw + bias)`` over int8 operands with
+exact int32 sums, the per-token scale ``sx`` and the per-channel scale
+``sw`` applied to the fp32 value, then the bias, then tanh-gelu if ``act ==
+"gelu"``, then one cast. ``wq`` is [N, K], the ``nn.Linear`` layout (JAX
+keeps [K, N]).
 
 - On a CUDA tensor ``int8_gemm`` launches the kernel of
   ``csrc/int8_gemm.cu`` for every shape with K % 32 == 0, or raises; it
@@ -29,9 +62,9 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Launch count of the int8 GEMM kernel, raised by one per launch (never on
-# the plain path). Reset it by assigning 0.
-LAUNCHES = {"int8_gemm": 0}
+# Launch counts of the kernels, raised by one per launch (never on the plain
+# path). Reset them by assigning 0.
+LAUNCHES = {"int8_gemm": 0, "gemm": 0, "geglu_gemm": 0}
 _OUT_KINDS = {torch.bfloat16: 0, torch.int32: 1}
 
 
@@ -111,3 +144,154 @@ def int8_gemm(
     kernels.check(err, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1
     return out
+
+
+def gemm_eligible(m: int, k: int, n: int) -> bool:
+    """The JAX down-projection family (deep contraction into a narrow
+    output) that K10 and K12 take; see the module docstring."""
+    return (k >= 2 * n and k >= 2048 and 128 <= n <= 2048 and n % 128 == 0 and k % 128 == 0
+            and m >= 1024 and m % 8 == 0)
+
+
+def geglu_h(x2k: torch.Tensor) -> torch.Tensor:
+    """a · gelu_tanh(g) with [a | g] = x2k, in x2k's dtype: the JAX
+    ``_geglu_h`` (the unfused ops, and the backward's recompute)."""
+    a, g = x2k.chunk(2, dim=-1)
+    return a * F.gelu(g, approximate="tanh")
+
+
+def down_proj_gemm_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10: x [M, K] · w [N, K]ᵀ accumulated in fp32 (fp64
+    for fp64 inputs), + bias [N] in that type, one cast to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (x.to(acc) @ w.to(acc).t() + bias.to(acc)).to(x.dtype)
+
+
+def geglu_down_proj_reference(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12 on x2k = [a | g] [M, 2K], with its rounding
+    contract: h = a · gelu_tanh(g) in fp32, rounded once to x2k's dtype,
+    then K10's product and epilogue."""
+    acc = torch.promote_types(x2k.dtype, torch.float32)
+    a, g = x2k.to(acc).chunk(2, dim=-1)
+    return down_proj_gemm_reference((a * F.gelu(g, approximate="tanh")).to(x2k.dtype), w, bias)
+
+
+def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool) -> torch.Tensor:
+    name = "geglu_gemm" if geglu else "gemm"
+    if x.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on CUDA tensors, got {x.device}")
+    for label, t in (("x", x), ("w", w), ("bias", bias)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{'K12' if geglu else 'K10'} is built for bf16, got {label} {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != x.device:
+            raise ValueError(f"{label} must be a contiguous, 16-byte aligned tensor on {x.device}")
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"the {name} kernel takes 2-D x and w, got {tuple(x.shape)} and {tuple(w.shape)}")
+    (m, kx), (n, k) = x.shape, w.shape
+    if kx != (2 * k if geglu else k) or bias.shape != (n,) or k % 64 or n % 2:
+        raise ValueError(f"the {name} kernel needs x [M, {'2K' if geglu else 'K'}], w [N, K], bias [N] "
+                         f"with K % 64 == 0 and N even, got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(bias.shape)}")
+    out = torch.empty(m, n, device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        err = kernels.library().fdt_ffn_gemm(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, int(geglu),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    kernels.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K10: [M, N] = x [M, K] · w [N, K]ᵀ + bias [N]. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (bf16)."""
+    if x.device.type == "cpu":
+        return down_proj_gemm_reference(x, w, bias)
+    return _ffn_gemm(x, w, bias, geglu=False)
+
+
+def geglu_gemm(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K12: [M, N] = (a · gelu_tanh(g)) · w [N, K]ᵀ + bias [N] with
+    x2k = [a | g] [M, 2K]. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16)."""
+    if x2k.device.type == "cpu":
+        return geglu_down_proj_reference(x2k, w, bias)
+    return _ffn_gemm(x2k, w, bias, geglu=True)
+
+
+class DownProjGemmFunction(torch.autograd.Function):
+    """K10 with the JAX ``_gemm_p`` custom VJP: dx = dy·W (a library
+    product), dW = xᵀ·dy through K10 again when ``gemm_eligible(K, M, N)``
+    holds, db = Σdy in fp32. dW and db only when asked (LoRA training
+    freezes W)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, bias):
+        ctx.save_for_backward(x2, w)
+        return gemm(x2, w, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        (m, k), n = x2.shape, dy.shape[1]
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy @ w).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            if gemm_eligible(k, m, n):
+                zeros = torch.zeros(n, dtype=dy.dtype, device=dy.device)
+                dw = gemm(x2.t().contiguous(), dy.t().contiguous(), zeros).t().to(w.dtype)
+            else:
+                dw = (dy.t() @ x2).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = dy.float().sum(0).to(dy.dtype)
+        return dx, dw, db
+
+
+class GegluGemmFunction(torch.autograd.Function):
+    """K12 with the JAX ``_geglu_p`` custom VJP, in plain PyTorch: dh = dy·W,
+    h recomputed and dh taken back through the gate to dx2k, dW = hᵀ·dy,
+    db = Σdy in fp32."""
+
+    @staticmethod
+    def forward(ctx, x2k, w, bias):
+        ctx.save_for_backward(x2k, w)
+        return geglu_gemm(x2k, w, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2k, w = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x2k.detach().requires_grad_()
+            h = geglu_h(x)
+        dh = (dy @ w).to(h.dtype)
+        (dx2k,) = torch.autograd.grad(h, x, dh)
+        dw = (dy.t() @ h.detach()).to(w.dtype)
+        db = dy.float().sum(0).to(dy.dtype)
+        return dx2k, dw, db
+
+
+def down_proj_gemm(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """y = x [..., K] · w [N, K]ᵀ (+ bias [N]): K10 for the shapes
+    ``gemm_eligible`` takes when x's dtype is w's, else the unfused ops."""
+    k, n = x.shape[-1], w.shape[0]
+    m = x.numel() // k
+    if gemm_eligible(m, k, n) and x.dtype == w.dtype:
+        b = torch.zeros(n, dtype=x.dtype, device=x.device) if bias is None else bias.to(x.dtype)
+        return DownProjGemmFunction.apply(x.reshape(m, k), w, b).reshape(*x.shape[:-1], n)
+    y = F.linear(x, w)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def geglu_down_proj(x2k: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """y = (a · gelu_tanh(g)) · w [N, K]ᵀ (+ bias [N]) with x2k = [a | g]
+    [..., 2K]: K12 for bf16 calls that ``gemm_eligible`` takes, else the
+    unfused ops."""
+    n, k = w.shape
+    m = x2k.numel() // (2 * k)
+    if x2k.dtype == torch.bfloat16 and w.dtype == x2k.dtype and gemm_eligible(m, k, n):
+        b = torch.zeros(n, dtype=x2k.dtype, device=x2k.device) if bias is None else bias.to(x2k.dtype)
+        return GegluGemmFunction.apply(x2k.reshape(m, 2 * k), w, b).reshape(*x2k.shape[:-1], n)
+    y = F.linear(geglu_h(x2k), w)
+    return y if bias is None else y + bias.to(y.dtype)

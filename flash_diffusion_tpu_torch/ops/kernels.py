@@ -42,11 +42,13 @@ _SIGNATURES = {
     "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "fdt_packed_smem_bytes": [_I, _I],
     "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fdt_flash_fwd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_bwd_smem_bytes": [_I] * 7,
     "fdt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "fdt_flash_bwd_oneshot": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "fdt_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
+    "fdt_ffn_gemm": [_P] * 4 + [_I] * 4 + [_P],
     "fdt_group_norm_stats": [_P] * 5 + [_I] * 7 + [_P],
     "fdt_group_norm_apply": [_P] * 4 + [_I] * 7 + [_P],
 }

@@ -169,9 +169,10 @@ class FlashPipeline:
 
         Batch invariance, the port's contract. With per-sample seeds a
         sample's latent, its step noise and every op of the port's own
-        (the GroupNorm, LayerNorm, attention and int8 GEMM kernels, the
-        per-token int8 codes, the scheduler) give it the same bits at any
-        batch size or slot. cuDNN's convolutions and cuBLAS's bf16 GEMMs
+        (the GroupNorm, LayerNorm, attention, int8 GEMM and feed-forward
+        GEMM kernels, the per-token int8 codes, the scheduler) give it the
+        same bits at any batch size or slot. cuDNN's convolutions and
+        cuBLAS's bf16 GEMMs
         pick their algorithms by batch size and so sum in another order:
         on an H100 (SDXL at 128², one request alone against slot 1 of a
         batch of 4) single ops differ by up to 3.6e-5 (convolutions: the

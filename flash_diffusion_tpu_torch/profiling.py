@@ -15,12 +15,16 @@ wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
 of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
-the kernels with the most device time.
+the kernels with the most device time. The JAX package's kernel switches
+(``FLASH_TPU_ATTN_PACKED``, ``FLASH_TPU_FFN_FUSED``,
+``FLASH_TPU_FFN_DOWN_GEMM``) are read from the environment, as everywhere
+in the port, and printed beside the result.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from collections import defaultdict
 
@@ -37,6 +41,7 @@ def _category(name: str) -> str:
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
         ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
+        ("ffn_gemm_kernel", "ffn gemm kernels"),
         ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
@@ -73,6 +78,9 @@ def main():
         prompts = (_PROMPTS * args.batch)[: args.batch]
         run = lambda: pipe.generate(prompts)
         what = f"{args.model}{' int8' if args.int8 else ''}, batch {args.batch}, 4 steps"
+        on = [k for k in ("FLASH_TPU_ATTN_PACKED", "FLASH_TPU_FFN_FUSED", "FLASH_TPU_FFN_DOWN_GEMM")
+              if os.environ.get(k, "0") == "1"]
+        what += f", switches {' '.join(f'{k}=1' for k in on) or 'none'}"
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

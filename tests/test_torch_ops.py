@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from flash_diffusion_tpu_torch.ops import attention as tattn
+from flash_diffusion_tpu_torch.ops import gemm as tgemm
 from flash_diffusion_tpu_torch.ops import norms as tnorms
 
 try:  # the JAX reference; absent where only the port is installed
@@ -274,15 +275,20 @@ def test_attention_plan_at_sd15_shapes(kv, d, kernel):
         assert tattn.smem_bytes(bq, -(-kv // 16) * 16, -(-d // 16) * 16) <= tattn._SMEM_LIMIT
 
 
-def test_cpu_calls_take_the_plain_path_and_launch_nothing():
-    before = dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES)
+def test_cpu_calls_take_the_plain_path_and_launch_nothing(monkeypatch):
+    before = dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES), dict(tgemm.LAUNCHES)
     x = torch.randn(2, 16, 2, 8)
     tattn.dot_product_attention(x, x, x)
     y = torch.randn(2, 16, 2, 64)  # packed-eligible
     tattn.dot_product_attention(y, y, y)
+    monkeypatch.setenv("FLASH_TPU_ATTN_PACKED", "1")  # the packed streaming route
+    tattn.dot_product_attention(torch.randn(1, 300, 2, 64), torch.randn(1, 300, 2, 64), torch.randn(1, 300, 2, 64))
     tnorms.layer_norm(torch.randn(4, 32))
     tnorms.group_norm(torch.randn(2, 16, 4, 4), 4, torch.ones(16), torch.zeros(16), act="silu")
-    assert (dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES)) == before
+    w = torch.randn(128, 2048).bfloat16()
+    tgemm.down_proj_gemm(torch.randn(1024, 2048).bfloat16(), w, None)  # K10's route
+    tgemm.geglu_down_proj(torch.randn(1024, 4096).bfloat16(), w, None)  # K12's
+    assert (dict(tattn.LAUNCHES), dict(tnorms.LAUNCHES), dict(tgemm.LAUNCHES)) == before
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -293,6 +299,13 @@ def test_wrappers_refuse_devices_without_a_kernel():
     p = torch.empty(2, 16, 128, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention_packed(p, p, p, 2, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention_packed_stream(p, p, p, 2, 1.0)
+    w = torch.empty(128, 128, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgemm.gemm(p[0], w, w[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tgemm.geglu_gemm(p[0], w[:, :64], w[0])
     with pytest.raises(ValueError, match="CUDA"):
         tnorms.layer_norm(torch.empty(4, 8, device="meta"))
     g = torch.empty(2, 8, 4, 4, device="meta", dtype=torch.bfloat16)

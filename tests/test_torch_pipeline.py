@@ -46,6 +46,7 @@ try:  # the JAX reference; absent where only the port is installed
     from flash_diffusion_tpu.models import embedders as jemb
     from flash_diffusion_tpu.pipelines import FlashPipeline as JFlashPipeline
     from flash_diffusion_tpu.schedulers.base import split_step_key, step_noise
+    from flash_diffusion_tpu.utils import hf
 except ImportError:
     jax = None
 
@@ -152,33 +153,46 @@ def port_pipeline(uparams, vparams, cparams):
 
 
 @pytest.fixture(scope="module")
-def jax_sdxl_pipeline():
-    """The tiny SDXL stack in JAX and its (perturbed) params, built once."""
+def jax_sdxl_parts():
+    """The tiny SDXL stack's JAX VAE and text towers and their (perturbed)
+    params, built once."""
     if jax is None:
         pytest.skip("needs the JAX reference package")
-    unet = jm.UNet2DCondition(jm.UNetConfig(**SDXL_UNET_KW))
-    uparams = perturbed(jax.jit(unet.init)(
-        jax.random.PRNGKey(4), jnp.zeros((1, *LATENT)), jnp.zeros((1,)),
-        {"cond": {"crossattn": jnp.zeros((1, 16, 64)), "vector": jnp.zeros((1, 72))}},
-    ), 5)
     vae = jm.AutoencoderKL(jm.AutoencoderKLConfig(**VAE_KW, scaling_factor=0.13025))
     vparams = perturbed(jax.jit(vae.init)(jax.random.PRNGKey(5), jnp.zeros((1, 16, 16, 3))), 6)
     towers = [jemb.ClipEmbedder(jemb.ClipEmbedderConfig(**kw)) for kw in sdxl_conditioner_kw()]
     ids = {"text_ids": jnp.zeros((1, 16), jnp.int32)}
     cparams = [perturbed(t.init(jax.random.PRNGKey(6 + i), ids), 7 + i) for i, t in enumerate(towers)]
+    return vae, vparams, towers, cparams
+
+
+@pytest.fixture(scope="module")
+def jax_sdxl_pipeline(jax_sdxl_parts):
+    """The tiny SDXL stack in JAX and its (perturbed) params, built once."""
+    unet = jm.UNet2DCondition(jm.UNetConfig(**SDXL_UNET_KW))
+    uparams = perturbed(jax.jit(unet.init)(
+        jax.random.PRNGKey(4), jnp.zeros((1, *LATENT)), jnp.zeros((1,)),
+        {"cond": {"crossattn": jnp.zeros((1, 16, 64)), "vector": jnp.zeros((1, 72))}},
+    ), 5)
+    return jax_sdxl_stack(jax_sdxl_parts, unet, uparams, LATENT)
+
+
+def jax_sdxl_stack(parts, unet, uparams, latent):
+    """(the JAX SDXL pipeline of a UNet, its UNet, VAE and text-tower params)."""
+    vae, vparams, towers, cparams = parts
     sizes = [jemb.TimestepsEmbedder(jemb.TimestepsEmbedderConfig(input_key=k, num_channels=SIZE_CHANNELS))
              for k in SIZE_KEYS]
     pipe = JFlashPipeline(
         unet, uparams, conditioner=jemb.ConditionerWrapper([*towers, *sizes]),
         conditioner_params=[*cparams, {}, {}, {}], vae=vae, vae_params=vparams,
-        tokenizer_fn=tokenizer_fn, latent_shape=LATENT, vae_scale_factor=2,
+        tokenizer_fn=tokenizer_fn, latent_shape=latent, vae_scale_factor=2,
     )
     pipe.size_cond_fn = size_cond_fn
     return pipe, uparams, vparams, cparams
 
 
-def port_sdxl_pipeline(uparams, vparams, cparams):
-    ucfg = TUNetConfig(**SDXL_UNET_KW, use_linear_projection=True)
+def port_sdxl_pipeline(uparams, vparams, cparams, unet_kw=SDXL_UNET_KW, latent=LATENT):
+    ucfg = TUNetConfig(**unet_kw, use_linear_projection=True)
     vcfg = TVAEConfig(**VAE_KW, scaling_factor=0.13025)
     unet = UNet2DCondition(ucfg)
     unet.load_state_dict(unet_from_jax(uparams, ucfg))
@@ -191,16 +205,16 @@ def port_sdxl_pipeline(uparams, vparams, cparams):
              for k in SIZE_KEYS]
     pipe = FlashPipeline(
         unet.eval(), ConditionerWrapper([*towers, *sizes]).eval(), vae.eval(), tokenizer_fn,
-        latent_shape=LATENT, vae_scale_factor=2,
+        latent_shape=latent, vae_scale_factor=2,
     )
     pipe.size_cond_fn = size_cond_fn
     return pipe
 
 
-def jax_draws(seed, batch, steps):
+def jax_draws(seed, batch, steps, latent=LATENT):
     """The latents and per-step noise ``FlashPipeline.generate`` draws for a scalar seed."""
     rng, kz = jax.random.split(jax.random.PRNGKey(seed))
-    latents = jax.random.normal(kz, (batch, *LATENT))
+    latents = jax.random.normal(kz, (batch, *latent))
     noise, key = [], rng
     for _ in range(steps):
         key, sub = split_step_key(key)
@@ -236,6 +250,60 @@ def test_sdxl_slice_matches_jax_generate(jax_sdxl_pipeline, guidance_scale, nega
     got = port_sdxl_pipeline(uparams, vparams, cparams).generate(
         prompts, latents=latents, noise=noise, **kw)
     assert got.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+# SDXL-shaped with one 512-channel level of 8 heads of 64 over a 36×36
+# latent: 1296 tokens, past the 1024 keys JAX's one-shot kernels take, so
+# that under FLASH_TPU_ATTN_PACKED=1 its self-attention streams (K5), and
+# the feed-forward's down projection, [1296, 2048] -> 512, is in JAX's GEMM
+# family (K10 under FLASH_TPU_FFN_DOWN_GEMM=1)
+MODE_UNET_KW = dict(SDXL_UNET_KW, block_out_channels=[512], down_block_types=["CrossAttnDownBlock2D"],
+                    transformer_layers_per_block=[1], num_heads=[8])
+MODE_LATENT = (36, 36, 4)
+
+
+def test_sdxl_slice_in_kernel_modes_matches_jax(jax_sdxl_parts, monkeypatch):
+    """The slice under ``FLASH_TPU_ATTN_PACKED=1 FLASH_TPU_FFN_DOWN_GEMM=1``
+    (both apply in fp32) against JAX's ``generate`` under the same
+    switches, one step, batch 1, fp32: the JAX side provably on its K5 and
+    K10 (a spy on ``pl.pallas_call``; its models' attention asked for
+    Pallas, which the CPU would not pick), the port on theirs."""
+    from jax.experimental import pallas as pl
+
+    from flash_diffusion_tpu.models import layers as jlayers
+    from flash_diffusion_tpu.ops import attention as jattn
+    from flash_diffusion_tpu_torch.ops import attention as tattn
+    from flash_diffusion_tpu_torch.ops import gemm as tgemm
+
+    for k, v in (("FLASH_TPU_ATTN_PACKED", "1"), ("FLASH_TPU_FFN_DOWN_GEMM", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("FLASH_TPU_FFN_FUSED", raising=False)
+    monkeypatch.setattr(jlayers, "dot_product_attention", lambda *a, **kw: jattn.dot_product_attention(
+        *a, use_pallas=True, **kw))
+    called, real_call = [], pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call", lambda kernel, *a, **kw: called.append(
+        getattr(kernel, "func", kernel).__name__) or real_call(kernel, *a, **kw))
+    for module, name in ((tattn, "flash_attention_packed_stream"), (tgemm, "gemm")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _n=name, _f=real: called.append(_n) or _f(*a))
+
+    # the UNet's params from the port's initialisation through import_unet
+    # (a JAX init would compile for ~10 s at width 512)
+    torch.manual_seed(4)
+    sd = UNet2DCondition(TUNetConfig(**MODE_UNET_KW, use_linear_projection=True)).state_dict()
+    uparams = perturbed(hf.import_unet({k: v.numpy() for k, v in sd.items()}, jm.UNetConfig(**MODE_UNET_KW)), 5)
+    jpipe, uparams, vparams, cparams = jax_sdxl_stack(
+        jax_sdxl_parts, jm.UNet2DCondition(jm.UNetConfig(**MODE_UNET_KW)), uparams, MODE_LATENT)
+    want = np.asarray(jpipe.generate(["a raccoon reading a book"], num_inference_steps=1, seed=6))
+    latents, noise = jax_draws(6, 1, 1, MODE_LATENT)
+    got = port_sdxl_pipeline(uparams, vparams, cparams, MODE_UNET_KW, MODE_LATENT).generate(
+        ["a raccoon reading a book"], num_inference_steps=1, latents=latents, noise=noise)
+    # one UNet call: 4 transformer blocks (down, mid, two up), traced once by JAX's jit
+    assert {n: called.count(n) for n in ("_flash_fwd_packed_kernel", "_gemm_kernel",
+                                         "flash_attention_packed_stream", "gemm")} == {
+        "_flash_fwd_packed_kernel": 4, "_gemm_kernel": 4, "flash_attention_packed_stream": 4, "gemm": 4}
+    assert got.shape == (1, 72, 72, 3)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
 
 

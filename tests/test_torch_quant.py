@@ -50,6 +50,7 @@ from test_torch_pipeline import (
     LATENT,
     SDXL_UNET_KW,
     jax_draws,
+    jax_sdxl_parts,  # noqa: F401  (a fixture jax_sdxl_pipeline uses)
     jax_sdxl_pipeline,  # noqa: F401  (a fixture)
     port_sdxl_pipeline,
     tiny_port_pipeline,
