@@ -363,6 +363,46 @@ def attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The gate of the backward kernels against the plain version in fp32 on the
+# same bf16 inputs, for each of dq, dk, dv: max|err| ≤ BWD_TOL_FLOOR +
+# BWD_TOL_REL·max|ref| and ‖err‖₂ ≤ BWD_REL_L2_TOL·‖ref‖₂; and the dk, dv rows
+# at or past ``kv_valid`` exactly 0. At unit-normal inputs a gradient's rms
+# is ≈ 0.03 and its max ≈ 0.3, so an absolute 2e-2 (the forward's) would
+# pass a kernel off by several percent or one that leaks masked keys.
+BWD_TOL_FLOOR, BWD_TOL_REL, BWD_REL_L2_TOL = 4e-3, 2 ** -6, 1e-2
+
+
+def attention_bwd_errors(got, want, kv_valid: Optional[int] = None) -> list:
+    """What ``attention_bwd_gate`` reads, for each of (dq, dk, dv) of ``got``
+    against ``want``: max|err|, max|ref|, Σerr², Σref² and the non-zero
+    entries of dk, dv at rows ≥ ``kv_valid``. Stats of slices of the batch
+    add up with ``merge_bwd_errors``."""
+    stats = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        e = g.double() - w.double()
+        tail = g[:, kv_valid:] if i and kv_valid is not None else g[:, :0]
+        stats.append({"max_err": e.abs().max().item(), "max_ref": w.abs().max().item(),
+                      "sq_err": (e * e).sum().item(), "sq_ref": w.double().square().sum().item(),
+                      "tail_nonzero": int(torch.count_nonzero(tail))})
+    return stats
+
+
+def merge_bwd_errors(a: list, b: list) -> list:
+    return [{k: max(x[k], y[k]) if k.startswith("max") else x[k] + y[k] for k in x} for x, y in zip(a, b)]
+
+
+def attention_bwd_gate(stats: list) -> Tuple[bool, str]:
+    """(pass, report) of the gate above on ``attention_bwd_errors``' stats."""
+    ok, parts = True, []
+    for name, s in zip(("dq", "dk", "dv"), stats):
+        tol = BWD_TOL_FLOOR + BWD_TOL_REL * s["max_ref"]
+        rel = math.sqrt(s["sq_err"] / s["sq_ref"]) if s["sq_ref"] else math.sqrt(s["sq_err"])
+        ok &= s["max_err"] <= tol and rel <= BWD_REL_L2_TOL and s["tail_nonzero"] == 0
+        parts.append(f"{name} max|err| {s['max_err']:.3e} (tol {tol:.3e}) rel L2 {rel:.3e}"
+                     + (f" tail≠0 {s['tail_nonzero']}" if name != "dq" else ""))
+    return ok, "; ".join(parts) + f" (rel L2 tol {BWD_REL_L2_TOL})"
+
+
 def flash_attention_bwd_bhsd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, scale: float, kv_valid: Optional[int] = None,

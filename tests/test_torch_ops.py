@@ -506,6 +506,44 @@ def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
     assert need <= tattn._SMEM_LIMIT
 
 
+def _plain_bwd_variant(q, k, v, o, lse, do, scale, kv_valid, fault):
+    """``attention_bwd_reference`` in q's dtype, or a copy of it with one
+    ``fault``: the key mask dropped, Δ dropped, or dv × 1.03."""
+    if fault is None:
+        return tattn.attention_bwd_reference(q, k, v, o, lse, do, scale, kv_valid)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if fault != "mask dropped":
+        s[..., kv_valid:] = -1e30
+    p = torch.exp(s - lse[..., None])
+    delta = (dof * o.float()).sum(-1) if fault != "delta dropped" else torch.zeros_like(lse)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(), dof) * (1.03 if fault == "dv x 1.03" else 1.0)
+    ds = (p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta[..., None])).to(q.dtype).float()
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", [None, "mask dropped", "delta dropped", "dv x 1.03"])
+def test_attention_bwd_gate_passes_the_plain_backward_and_catches_faults(fault):
+    """The gate of the backward kernels, on the CPU: the plain backward in
+    bf16 (the kernels' rounding points) against itself in fp32 passes; a
+    copy with the key mask dropped, with Δ dropped, or with dv × 1.03 fails.
+    Ragged: keys at or past ``kv_valid`` are k × 3 and v + 1."""
+    g = torch.Generator().manual_seed(11)
+    bh, sq, kv, d, kv_valid = 2, 100, 80, 40, 50
+    q, k, v, do = (torch.randn(bh, s, d, generator=g).to(torch.bfloat16) for s in (sq, kv, kv, sq))
+    k[:, kv_valid:] *= 3
+    v[:, kv_valid:] += 1
+    scale = d ** -0.5
+    o, lse = tattn.attention_bhsd_reference(q, k, v, scale, kv_valid)
+    want = tattn.attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale,
+                                         kv_valid)
+    got = _plain_bwd_variant(q, k, v, o, lse, do, scale, kv_valid, fault)
+    ok, report = tattn.attention_bwd_gate(tattn.attention_bwd_errors(got, want, kv_valid))
+    assert ok == (fault is None), report
+
+
 def test_bwd_wrapper_refuses_devices_without_a_kernel():
     x = torch.empty(2, 16, 8, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -630,11 +668,15 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
 ])
 def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
     """K6+K7 or K8 (bf16) vs the plain backward in fp32 on the same inputs,
-    batch 1 and ragged Sq/KV included. Tolerance: the forward's 2e-2 times
-    max(1, max|grad|) (p, ds and the outputs are rounded to bf16)."""
+    batch 1 and ragged Sq/KV included, held to ``attention_bwd_gate``; keys
+    at or past ``kv_valid`` are k × 3 and v + 1, and the dk, dv rows there
+    must be exactly 0."""
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv))
     do = torch.randn(bh, sq, d, generator=g, device=cuda).to(torch.bfloat16)
+    if kv_valid is not None:
+        k[:, kv_valid:] *= 3
+        v[:, kv_valid:] += 1
     o, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
     route = tattn.attention_bwd_plan(kv_valid or skv, d)[0]
     keys = ("flash_bwd_oneshot",) if route == "flash_bwd_oneshot" else ("flash_bwd_dkv", "flash_bwd_dq")
@@ -644,8 +686,8 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_vali
     assert [tattn.LAUNCHES[kk] for kk in keys] == [m + 1 for m in n]
     want = tattn.attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
                                          d ** -0.5, kv_valid)
-    for a, b in zip(got, want):
-        assert (a.float() - b).abs().max().item() <= 2e-2 * max(1.0, b.abs().max().item())
+    ok, report = tattn.attention_bwd_gate(tattn.attention_bwd_errors(got, want, kv_valid))
+    assert ok, report
 
 
 @pytest.mark.cuda
