@@ -28,8 +28,9 @@ ROOT = Path(__file__).resolve().parent
 KERNEL = "csrc/flash_bwd.cu"
 # (name, [(text in KERNEL, its replacement, occurrences)])
 MUTANTS = [
-    ("P mask removed", [("sq - q0, kv_len - kv0, scale);", "sq - q0, bkv, scale);", 2)]),
-    ("dV x 1.03", [("dv[at] = __float2bfloat16(acc_v[idx]);", "dv[at] = __float2bfloat16(acc_v[idx] * 1.03f);", 1)]),
+    ("P mask removed", [("key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};", "key_ok[2] = {true, true};", 1),
+                        ("key_ok = c + (e & 1) < kv_len;", "key_ok = true;", 1)]),
+    ("dV x 1.03", [("store_rows(dv + at, acc_v, 1.0f,", "store_rows(dv + at, acc_v, 1.03f,", 1)]),
 ]
 
 

@@ -145,6 +145,7 @@ this file, it exits non-zero and prints no result.
 
 import base64
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -704,11 +705,10 @@ def pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid):
     launches them (and not counted), for their separate times."""
     bh, sq, d = q.shape
     kv_len = kv_valid or k.shape[1]
-    _, bq, bkv, dc = attention.attention_bwd_plan(kv_len, d)
     lib = kernels.library()
     delta = (do.float() * o.float()).sum(-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dims = (bh, sq, k.shape[1], d, kv_len, float(scale), bq, bkv, dc)
+    dims = (bh, sq, k.shape[1], d, kv_len, float(scale))
     ins = lambda: tuple(t.data_ptr() for t in (q, k, v, do, lse, delta))
     stream = lambda: torch.cuda.current_stream().cuda_stream
     dkv = lambda: kernels.check(lib.fdt_flash_bwd_dkv(*ins(), dk.data_ptr(), dv.data_ptr(), *dims, stream()),
@@ -1348,7 +1348,7 @@ def main():
     lib = kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc {kernels.BUILD_INFO['seconds']:.2f} s "
           f"-> {kernels.BUILD_INFO['path']}")
-    entry = ""
+    entry, spill_report = "", []
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
             name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|ffn_gemm_kernel|"
@@ -1356,6 +1356,8 @@ def main():
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
         elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+            if "spill" in line and not re.search(r" 0 bytes spill stores, 0 bytes spill loads", line):
+                spill_report.append(f"{entry}: {line.strip()}")
     for _, _, kv, d, _ in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART:  # the one-shot plan mirrors the kernel's layout
         kind, bq = attention.attention_plan(kv, d)
         kvp, dp = -(-kv // 16) * 16, -(-d // 16) * 16
@@ -1366,13 +1368,21 @@ def main():
         if lib.fdt_packed_smem_bytes(d, kvp) != attention.packed_smem_bytes(d, kvp):
             raise AssertionError(f"packed shared-memory plan and kernel layout disagree at kv={kv} d={d}")
     for _, _, kv, d, kv_valid in BWD_SHAPES + BWD_RAGGED:  # so do the backward plans
-        route, bq, bkv, dc = attention.attention_bwd_plan(kv_valid or kv, d)
-        dp = -(-d // 16) * 16
-        layouts = ([(bq, bkv, dp, bkv, dc, 2, attention._BWD_SCRATCH)] if route == "flash_bwd_oneshot"
-                   else [(bq, bkv, dp, bkv, dc, 2, 0), (bq, bkv, dp, bq, dc, 1, 0)])
-        for args in layouts:
+        route, tiles = attention.attention_bwd_plan(kv_valid or kv, d)
+        if route == "flash_bwd_oneshot":
+            bq, kvp, dp = tiles
+            args = (bq, kvp, dp, kvp, dp, 2, attention._BWD_SCRATCH)
             if lib.fdt_flash_bwd_smem_bytes(*args) != attention.bwd_smem_bytes(*args):
                 raise AssertionError(f"backward shared-memory plan and kernel layout disagree at {args}")
+    for d in range(8, 513, 8):  # the pair's tiles, at every head dim it takes
+        for which, want in enumerate(attention.bwd_pair_tiles(d)):
+            got = (ctypes.c_int * 6)()
+            kernels.check(lib.fdt_flash_bwd_pair_tiles(which, d, got), "fdt_flash_bwd_pair_tiles")
+            if tuple(got) != tuple(want):
+                raise AssertionError(f"K{6 + which} tiles at d={d}: kernel {tuple(got)}, plan {tuple(want)}")
+    spills = [line for line in spill_report if "flash_bwd_dkv" in line or "flash_bwd_dq" in line]
+    if spills:
+        raise AssertionError(f"K6/K7 instantiations spill registers: {spills}")
 
     results = {
         "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",

@@ -1,14 +1,13 @@
-// Block-level tile helpers shared by the flash-attention backward kernels
-// (flash_bwd.cu: K6 dK/dV and K7 dQ; flash_bwd_oneshot.cu: K8).
+// Block-level tile helpers of the one-shot flash-attention backward
+// (flash_bwd_oneshot.cu: K8); the streaming pair K6/K7 (flash_bwd.cu) keeps
+// its tiles in registers and uses mma_tiles.cuh instead.
 //
 // Every tile lives in shared memory; products are warp-level bf16 MMAs
 // (nvcuda::wmma 16x16x16, fp32 accumulate) that read their operands from
-// shared memory and, for the sums that run over many tiles (dK, dV, dQ),
-// load and store their fp32 accumulators there too, so that no accumulator
-// width is bounded by registers (the VAE's D = 512 included). Scores are
-// kept in the [q, kv] orientation in all three kernels; the transposed
-// products (P^T.dO, dS^T.Q) read P and dS as column-major A fragments, so
-// nothing is transposed in memory.
+// shared memory and, for the sums over the q tiles (dK, dV), load and store
+// their fp32 accumulators there too. Scores are kept in the [q, kv]
+// orientation; the transposed products (P^T.dO, dS^T.Q) read P and dS as
+// column-major A fragments, so nothing is transposed in memory.
 //
 // Shared-memory layout: every buffer starts on a 128-byte boundary. The
 // Python planner (ops/attention.py bwd_smem_bytes) mirrors this arithmetic.

@@ -1,205 +1,475 @@
 // Streaming flash-attention backward for Hopper (sm_90a): K6 (dK, dV) and
 // K7 (dQ), from the forward's lse and delta = rowsum(dO * O).
 //
-// Replaces the Pallas TPU kernels flash_diffusion_tpu/ops/attention.py
-// _flash_bwd_dkv_kernel (K6) and _flash_bwd_dq_kernel (K7), both called
-// from _flash_bwd_bhsd. Same math and rounding points:
+// Replaces the Pallas TPU kernels flash_diffusion_tpu/ops/attention.py:635
+// _flash_bwd_dkv_kernel (K6) and :703 _flash_bwd_dq_kernel (K7), both
+// called from _flash_bwd_bhsd (:888-975). Same math and rounding points as
+// they and attention_bwd_reference (ops/attention.py) have:
 //   S = Q.K^T (fp32), P = exp(S * scale - lse) (fp32; keys >= kv_len give
 //   P = 0 exactly), dP = dO.V^T (fp32), dS = P * (dP - delta) (fp32);
 //   dV = P^T(bf16).dO, dK = dS^T(bf16).Q * scale, dQ = dS(bf16).K * scale,
 //   each summed in fp32 and rounded to bf16 once, on store.
-// SD1.5 training sends them the 1024- and 4096-token self-attention of the
-// UNet (D = 80, 40) and of the VAE decoder's single-head D = 512 mid-block
-// (the LPIPS loss differentiates the decode); everything whose KV fits one
-// block takes the one-shot K8 (flash_bwd_oneshot.cu).
+// SD1.5 training sends them the UNet's 256-, 1024- and 4096-token
+// self-attention (D = 160, 80, 40) and the VAE decoder's single-head
+// D = 512 mid-block (the LPIPS loss differentiates the decode); everything
+// whose KV fits one block takes the one-shot K8 (flash_bwd_oneshot.cu).
 //
-// What bounds it on this card: the tensor cores, and before them shared
-// memory. K6 recomputes S and dP per (kv tile, q tile) and does two more
-// products (P^T.dO, dS^T.Q); K7 recomputes S and dP again and does dS.K:
-// seven products of 2.Sq.KV.D where the work needs five, as on the TPU. A
-// block holds its resident tiles (K6: a kv tile of K and V; K7: a q tile of
-// Q, dO, lse, delta) and walks the other side's tiles; the sum over that
-// walk stays in the block (fp32 accumulators in shared memory), so there
-// are no atomics and the result is deterministic. The TPU carried the same
-// sum across sequential grid steps in VMEM scratch.
+// What bounds it on this card: the tensor cores' issue rate and the
+// shared-memory reads that feed them. Per (q, kv) pair K6 does four
+// products of 2.D (S, dP, dV, dK) and K7 three (S, dP, dQ): 14.BH.Sq.KV.D
+// operations where JAX's pl.CostEstimate counts 5 for each kernel.
 //
-// Design points:
-//   - wmma 16x16x16 products from shared memory, block-wide barriers
-//     between phases (load, S and dP, softmax gradient, accumulate); no
-//     cp.async pipelining, TMA or wgmma yet: later work.
-//   - D is zero-padded to DP = round_up(D, 16); rows past Sq or kv_len are
-//     zero-filled and their P set to 0.
-//   - The accumulators' output columns can be split across blocks (grid.z,
-//     chunks of dc columns): at D = 512 a kv tile's fp32 dK and dV would not
-//     fit 227 KB at any useful tile size. Each chunk's block recomputes S and
-//     dP over the full D. The host (ops/attention.py attention_bwd_plan)
-//     picks the tiles and dc so that the layout fits.
+// Design (FlashAttention-2's, in mma.sync):
+//   - A block owns a band of resident rows and streams the other side's
+//     tiles: K6 holds 64 (or 32) kv rows of K and V and walks q tiles of Q,
+//     dO, lse and delta; K7 holds 64 (or 32) q rows of Q and dO and walks
+//     kv tiles of K and V. Each warp owns 16 resident rows.
+//   - K6 works in the transposed orientation, as the JAX kernel does
+//     (attention.py:669-700): a warp computes S^T = K.Q^T and dP^T = V.dO^T
+//     for its 16 kv rows (mma.sync m16n8k16, bf16 in, fp32 accumulate,
+//     ldmatrix from shared memory). The accumulator fragments, once
+//     exponentiated, masked and packed to bf16, are exactly the A fragments
+//     of dV += P^T.dO and dK += dS^T.Q (the trick of K2,
+//     flash_fwd_mma.cu), so S, dP, P and dS never leave registers. K7 does
+//     the same in the [q, kv] orientation: dS in registers is the A
+//     operand of dQ += dS.K. The B operands of the accumulating products
+//     (dO, Q; K) are read with ldmatrix.trans, never transposed in memory.
+//   - dK and dV (K6) and dQ (K7) are fp32 register accumulators for the
+//     block's whole life, stored once.
+//   - The streamed tiles go through a ring of two stages filled by
+//     cp.async (zero-fill for rows past Sq or kv_len and columns past D):
+//     tile j + 1 loads behind tile j's products, and each tile costs one
+//     block barrier.
+//   - D is zero-padded to DP: a multiple of 16 up to 128, 160 up to 160, a
+//     multiple of 64 above (the kernels are templated on DP; pair_dp).
+//     Where a warp's accumulators would not fit its registers (DP = 160 in
+//     K6, DP > 160), two warps share each 16-row band and split its output
+//     columns, each computing the band's scores itself; above 160 K6 also
+//     splits the output columns across two blocks (grid z), each
+//     recomputing S and dP over the full D. The tiles (PairCfg) keep every
+//     instantiation at 0 spill bytes and within 227 KB of shared memory;
+//     ops/attention.py bwd_pair_tiles mirrors them.
+//   - No atomics, and no split that follows B or the batch slot, so the
+//     outputs are bit-equal run to run and alone vs batched. That is why
+//     dQ stays a separate kernel that recomputes S and dP (seven products
+//     where five would do): FlashAttention-2 and -3 add dQ across kv blocks
+//     with fp32 atomics, whose order changes from run to run. The TPU
+//     carried the same sums across sequential grid steps in VMEM.
+//   - Not yet: wgmma, TMA and mbarriers (the card's road to its full
+//     tensor-core rate); later work.
 
-#include "bwd_tiles.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
-using namespace fdt_bwd;
+using namespace fdt;
 
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The padded head dim of the pair for head dim d (d % 8 == 0, d <= 512).
+constexpr int pair_dp(int d) {
+  return d <= 128 ? (d + 15) / 16 * 16 : d <= 160 ? 160 : (d + 63) / 64 * 64;
+}
+
+// Tiles of K6 (KERNEL 0: kv rows resident, q tiles streamed) and K7
+// (KERNEL 1: q rows resident, kv tiles streamed) at padded head dim DP.
+// Registers a thread: K6 about kWC (dK, dV) + kStream (S^T, dP^T), K7 about
+// kWC / 2 (dQ) + kStream (S, dP), plus addresses; each at most ~160.
+template <int DP, int KERNEL>
+struct PairCfg {
+  static constexpr int kWB = KERNEL == 0 ? (DP <= 128 ? 1 : 2) : (DP <= 160 ? 1 : 2);  // warps a band
+  static constexpr int kStream = KERNEL == 0 ? (DP <= 96 || DP == 160 ? 64 : 32) : (DP <= 128 ? 64 : 32);
+  static constexpr int kDC = KERNEL == 0 && DP > 160 ? DP / 2 : DP;  // output columns of a block
+  static constexpr int kRows = 16 * kWarps / kWB;                   // resident rows of a block
+  static constexpr int kWC = kDC / kWB;                             // output columns of a warp
+  static constexpr int kLD = DP + 8;                                // shared row stride (bf16)
+  // shared memory: two resident [kRows, kLD] tiles, then two stages of two
+  // streamed [kStream, kLD] tiles (K6: and the q rows' lse and delta)
+  static constexpr int kResBytes = 2 * kRows * kLD * 2;
+  static constexpr int kTileBytes = kStream * kLD * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes + (KERNEL == 0 ? 2 * kStream * 4 : 0);
+  static constexpr int kSmemBytes = kResBytes + 2 * kStageBytes;
+  static_assert(kWC % 16 == 0 && DP % kDC == 0 && kStream % 16 == 0, "tile shape");
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+};
+
+// Rows [row0, row0 + NROWS) of a row-major [*, d] bf16 matrix into a
+// [NROWS, DP] shared tile of stride DP + 8, by cp.async; rows >= valid and
+// columns >= d become zeros. d % 8 == 0 and a 16-byte aligned source (the
+// host checks).
+template <int DP, int NROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int valid, int d) {
+  constexpr int kChunks = DP / 8;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < NROWS * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const int gr = row0 + r;
+    const bool ok = gr < valid && c < d;
+    cp_async16(dst + r * (DP + 8) + c, ok ? src + (size_t)gr * d + c : src, ok);
+  }
+}
+
+// dst[r] = src[row0 + r] for r < N, 0 past valid, by cp.async.
+template <int N>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int valid) {
+  for (int r = threadIdx.x; r < N; r += kThreads) {
+    const bool ok = row0 + r < valid;
+    cp_async4(dst + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// sa = A1.B1^T and sb = A2.B2^T for one warp: A1, A2 its 16 resident rows
+// (row stride DP + 8), B1, B2 the NS * 8 rows of a streamed tile, summed
+// over DP. Element e of n-tile nt of a result is row lane/4 (+8 for e >= 2),
+// column nt*8 + 2*(lane%4) + (e&1).
+template <int DP, int NS>
+__device__ __forceinline__ void scores(float (&sa)[NS][4], float (&sb)[NS][4], const bf16* a1,
+                                       const bf16* a2, const bf16* b1, const bf16* b2, int lane) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sa[i][e] = sb[i][e] = 0.0f;
+  }
+  const int arow = (lane % 16) * LD + (lane / 16) * 8;
+  const int brow = ((lane / 16) * 8 + (lane % 8)) * LD + ((lane / 8) % 2) * 8;
+#pragma unroll 4
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t x[4], y[4];
+    ldmatrix_x4(x, a1 + arow + kk * 16);
+    ldmatrix_x4(y, a2 + arow + kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < NS; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b1 + nt * 8 * LD + brow + kk * 16);
+      mma16816(sa[nt], x, b[0], b[1]);
+      mma16816(sa[nt + 1], x, b[2], b[3]);
+      ldmatrix_x4(b, b2 + nt * 8 * LD + brow + kk * 16);
+      mma16816(sb[nt], y, b[0], b[1]);
+      mma16816(sb[nt + 1], y, b[2], b[3]);
+    }
+  }
+}
+
+// acc[16, NW * 8] += A.X for one warp: A [16, NS * 8] in registers (the
+// packed bf16 fragments of scores(), k-step kc in a[kc]), X the NS * 8 rows
+// of a streamed tile from column x on (row stride DP + 8), read with
+// ldmatrix.trans.
+template <int DP, int NS, int NW>
+__device__ __forceinline__ void accumulate(float (&acc)[NW][4], const uint32_t (&a)[NS / 2][4],
+                                           const bf16* x, int lane) {
+  constexpr int LD = DP + 8;
+  const int xrow = (((lane / 8) % 2) * 8 + (lane % 8)) * LD + (lane / 16) * 8;
+#pragma unroll
+  for (int kc = 0; kc < NS / 2; ++kc) {
+#pragma unroll
+    for (int nd = 0; nd < NW; nd += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, x + kc * 16 * LD + xrow + nd * 8);
+      mma16816(acc[nd], a[kc], b[0], b[1]);
+      mma16816(acc[nd + 1], a[kc], b[2], b[3]);
+    }
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void zero(float (&acc)[NW][4]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+}
+
+// Rows row0 (+8) and columns col0 + nd*8 + 2*(lane%4) of acc * mul, as
+// bf16, into a row-major [rows, d] matrix; rows >= rows and columns >= d
+// are skipped.
+template <int NW>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NW][4], float mul, int row0,
+                                           int rows, int col0, int d, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < NW; ++nd) {
+    const int col = col0 + nd * 8 + 2 * (lane % 4);
+    if (col >= d) continue;  // d % 8 == 0: a pair is inside d or past it
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < rows)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * d + col) =
+            __floats2bfloat162_rn(acc[nd][2 * h] * mul, acc[nd][2 * h + 1] * mul);
+    }
+  }
+}
+
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv, int d,
-                     int dp, int kv_len, float scale, int bq, int bkv, int dc) {
+                     int kv_len, float scale) {
+  typedef PairCfg<DP, 0> C;
+  constexpr int LD = C::kLD;
+  constexpr int BS = C::kStream;
+  constexpr int NS = BS / 8;
+  constexpr int NW = C::kWC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L(bq, bkv, dp, bkv, dc, 2, 0);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.off_q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L.off_do);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.off_k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_v);
-  float* lse_s = reinterpret_cast<float*>(smem + L.off_lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L.off_delta);
-  float* ss = reinterpret_cast<float*>(smem + L.off_s);
-  float* dps = reinterpret_cast<float*>(smem + L.off_dp);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.off_p);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L.off_ds);
-  float* acc_k = reinterpret_cast<float*>(smem + L.off_acc);
-  float* acc_v = acc_k + align128(L.acc_floats * 4) / 4;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + C::kRows * LD;
+  unsigned char* ring = smem + C::kResBytes;  // stage s: q [BS, LD], dO [BS, LD], lse [BS], delta [BS]
 
   const size_t bh = blockIdx.y;
-  const int kv0 = blockIdx.x * bkv;
-  const int c0 = blockIdx.z * dc;
-  zero_floats(acc_k, L.acc_floats);
-  zero_floats(acc_v, L.acc_floats);
+  const int kv0 = blockIdx.x * C::kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int band = warp / C::kWB;
+  const int cw = blockIdx.z * C::kDC + (warp % C::kWB) * C::kWC;  // first output column
+  const int r0 = kv0 + band * 16 + lane / 4;                       // this thread's kv rows r0, r0 + 8
+  float acc_k[NW][4], acc_v[NW][4];
+  zero(acc_k);
+  zero(acc_v);
   if (kv0 < kv_len) {
-    load_rows(ks, L.ld_x, k + bh * skv * d, kv0, bkv, kv_len, d, dp);
-    load_rows(vs, L.ld_x, v + bh * skv * d, kv0, bkv, kv_len, d, dp);
-    for (int q0 = 0; q0 < sq; q0 += bq) {
-      load_rows(qs, L.ld_x, q + bh * sq * d, q0, bq, sq, d, dp);
-      load_rows(dos, L.ld_x, dout + bh * sq * d, q0, bq, sq, d, dp);
-      load_vec(lse_s, lse + bh * sq, q0, bq, sq);
-      load_vec(delta_s, delta + bh * sq, q0, bq, sq);
-      __syncthreads();
-      mma_tiles<false, true>(ss, L.ld_s, qs, L.ld_x, ks, L.ld_x, bq, bkv, dp, false);
-      mma_tiles<false, true>(dps, L.ld_s, dos, L.ld_x, vs, L.ld_x, bq, bkv, dp, false);
-      __syncthreads();
-      softmax_grad(L, ss, dps, ps, dss, lse_s, delta_s, bq, bkv, sq - q0, kv_len - kv0, scale);
-      __syncthreads();
-      // dV += P^T.dO and dK += dS^T.Q over this block's dc columns
-      mma_tiles<true, false>(acc_v, dc, ps, L.ld_p, dos + c0, L.ld_x, bkv, dc, bq, true);
-      mma_tiles<true, false>(acc_k, dc, dss, L.ld_p, qs + c0, L.ld_x, bkv, dc, bq, true);
-      __syncthreads();
+    const bf16* qh = q + bh * sq * d;
+    const bf16* doh = dout + bh * sq * d;
+    auto load_stage = [&](int s, int q0) {
+      unsigned char* p = ring + s * C::kStageBytes;
+      load_tile<DP, BS>(reinterpret_cast<bf16*>(p), qh, q0, sq, d);
+      load_tile<DP, BS>(reinterpret_cast<bf16*>(p + C::kTileBytes), doh, q0, sq, d);
+      load_vec<BS>(reinterpret_cast<float*>(p + 2 * C::kTileBytes), lse + bh * sq, q0, sq);
+      load_vec<BS>(reinterpret_cast<float*>(p + 2 * C::kTileBytes) + BS, delta + bh * sq, q0, sq);
+    };
+    load_tile<DP, C::kRows>(ks, k + bh * skv * d, kv0, kv_len, d);
+    load_tile<DP, C::kRows>(vs, v + bh * skv * d, kv0, kv_len, d);
+    load_stage(0, 0);
+    cp_async_commit();
+    const float scale_log2 = scale * kLog2e;
+    // the key mask: P = 0 for kv rows at or past kv_len
+    const bool key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};
+    const int n_tiles = (sq + BS - 1) / BS;
+    for (int j = 0; j < n_tiles; ++j) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile j landed everywhere; every warp is done with tile j - 1's stage
+      if (j + 1 < n_tiles) {
+        load_stage((j + 1) & 1, (j + 1) * BS);
+        cp_async_commit();
+      }
+      const unsigned char* p = ring + (j & 1) * C::kStageBytes;
+      const bf16* qt = reinterpret_cast<const bf16*>(p);
+      const bf16* dot = reinterpret_cast<const bf16*>(p + C::kTileBytes);
+      const float* lse_t = reinterpret_cast<const float*>(p + 2 * C::kTileBytes);
+      const float* delta_t = lse_t + BS;
+
+      float st[NS][4], dpt[NS][4];  // S^T and dP^T of this warp's 16 kv rows x BS q
+      scores<DP, NS>(st, dpt, ks + band * 16 * LD, vs + band * 16 * LD, qt, dot, lane);
+      uint32_t pa[NS / 2][4], dsa[NS / 2][4];  // P^T and dS^T, bf16 A fragments
+      const int q0 = j * BS;
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        const int c = nt * 8 + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + c);
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool q_ok = q0 + c + (e & 1) < sq;
+          const float lv = (e & 1) ? l2.y : l2.x;
+          const float dl = (e & 1) ? d2.y : d2.x;
+          pv[e] = key_ok[e >> 1] && q_ok ? fast_exp2(st[nt][e] * scale_log2 - lv * kLog2e) : 0.0f;
+          dsv[e] = pv[e] * (dpt[nt][e] - dl);
+        }
+        pa[nt / 2][(nt & 1) * 2] = pack_bf16(pv[0], pv[1]);
+        pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        dsa[nt / 2][(nt & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+        dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+      accumulate<DP, NS, NW>(acc_v, pa, dot + cw, lane);  // dV += P^T.dO
+      accumulate<DP, NS, NW>(acc_k, dsa, qt + cw, lane);  // dK += dS^T.Q
     }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < bkv * dc; idx += kThreads) {
-    const int r = idx / dc;
-    const int c = idx - r * dc;
-    const int gr = kv0 + r;
-    const int gc = c0 + c;
-    if (gr < skv && gc < d) {
-      const size_t at = (bh * skv + gr) * d + gc;
-      dk[at] = __float2bfloat16(acc_k[idx] * scale);
-      dv[at] = __float2bfloat16(acc_v[idx]);
-    }
-  }
+  const size_t at = bh * skv * d;
+  store_rows(dk + at, acc_k, scale, r0, skv, cw, d, lane);
+  store_rows(dv + at, acc_v, 1.0f, r0, skv, cw, d, lane);
 }
 
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int sq, int skv, int d, int dp, int kv_len,
-                    float scale, int bq, int bkv, int dc) {
+                    bf16* __restrict__ dq, int sq, int skv, int d, int kv_len, float scale) {
+  typedef PairCfg<DP, 1> C;
+  constexpr int LD = C::kLD;
+  constexpr int BS = C::kStream;
+  constexpr int NS = BS / 8;
+  constexpr int NW = C::kWC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L(bq, bkv, dp, bq, dc, 1, 0);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.off_q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L.off_do);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.off_k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_v);
-  float* lse_s = reinterpret_cast<float*>(smem + L.off_lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L.off_delta);
-  float* ss = reinterpret_cast<float*>(smem + L.off_s);
-  float* dps = reinterpret_cast<float*>(smem + L.off_dp);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.off_p);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L.off_ds);
-  float* acc = reinterpret_cast<float*>(smem + L.off_acc);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + C::kRows * LD;
+  bf16* ring = reinterpret_cast<bf16*>(smem + C::kResBytes);  // stage s: k [BS, LD], v [BS, LD]
 
   const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
-  const int c0 = blockIdx.z * dc;
-  zero_floats(acc, L.acc_floats);
-  load_rows(qs, L.ld_x, q + bh * sq * d, q0, bq, sq, d, dp);
-  load_rows(dos, L.ld_x, dout + bh * sq * d, q0, bq, sq, d, dp);
-  load_vec(lse_s, lse + bh * sq, q0, bq, sq);
-  load_vec(delta_s, delta + bh * sq, q0, bq, sq);
-  for (int kv0 = 0; kv0 < kv_len; kv0 += bkv) {
-    load_rows(ks, L.ld_x, k + bh * skv * d, kv0, bkv, kv_len, d, dp);
-    load_rows(vs, L.ld_x, v + bh * skv * d, kv0, bkv, kv_len, d, dp);
-    __syncthreads();
-    mma_tiles<false, true>(ss, L.ld_s, qs, L.ld_x, ks, L.ld_x, bq, bkv, dp, false);
-    mma_tiles<false, true>(dps, L.ld_s, dos, L.ld_x, vs, L.ld_x, bq, bkv, dp, false);
-    __syncthreads();
-    softmax_grad(L, ss, dps, ps, dss, lse_s, delta_s, bq, bkv, sq - q0, kv_len - kv0, scale);
-    __syncthreads();
-    // dQ += dS.K over this block's dc columns
-    mma_tiles<false, false>(acc, dc, dss, L.ld_p, ks + c0, L.ld_x, bq, dc, bkv, true);
-    __syncthreads();
+  const int q0 = blockIdx.x * C::kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int band = warp / C::kWB;
+  const int cw = blockIdx.z * C::kDC + (warp % C::kWB) * C::kWC;
+  const int r0 = q0 + band * 16 + lane / 4;  // this thread's q rows r0, r0 + 8
+  const bf16* kh = k + bh * skv * d;
+  const bf16* vh = v + bh * skv * d;
+  auto load_stage = [&](int s, int kv0) {
+    load_tile<DP, BS>(ring + s * (C::kStageBytes / 2), kh, kv0, kv_len, d);
+    load_tile<DP, BS>(ring + s * (C::kStageBytes / 2) + BS * LD, vh, kv0, kv_len, d);
+  };
+  load_tile<DP, C::kRows>(qs, q + bh * sq * d, q0, sq, d);
+  load_tile<DP, C::kRows>(dos, dout + bh * sq * d, q0, sq, d);
+  load_stage(0, 0);
+  cp_async_commit();
+  const float scale_log2 = scale * kLog2e;
+  float lse_l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = r0 + 8 * h < sq;
+    lse_l2[h] = ok ? lse[bh * sq + r0 + 8 * h] * kLog2e : 0.0f;
+    dl[h] = ok ? delta[bh * sq + r0 + 8 * h] : 0.0f;
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < bq * dc; idx += kThreads) {
-    const int r = idx / dc;
-    const int c = idx - r * dc;
-    const int gr = q0 + r;
-    const int gc = c0 + c;
-    if (gr < sq && gc < d) dq[(bh * sq + gr) * d + gc] = __float2bfloat16(acc[idx] * scale);
+  float acc[NW][4];
+  zero(acc);
+  const int n_tiles = (kv_len + BS - 1) / BS;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed everywhere; every warp is done with tile j - 1's stage
+    if (j + 1 < n_tiles) {
+      load_stage((j + 1) & 1, (j + 1) * BS);
+      cp_async_commit();
+    }
+    const bf16* kt = ring + (j & 1) * (C::kStageBytes / 2);
+    const bf16* vt = kt + BS * LD;
+
+    float s[NS][4], dp[NS][4];  // S and dP of this warp's 16 q rows x BS kv
+    scores<DP, NS>(s, dp, qs + band * 16 * LD, dos + band * 16 * LD, kt, vt, lane);
+    uint32_t dsa[NS / 2][4];  // dS, bf16 A fragments
+    const int kv0 = j * BS;
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      const int c = kv0 + nt * 8 + 2 * (lane % 4);
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // the key mask: P = 0 for keys at or past kv_len
+        const bool key_ok = c + (e & 1) < kv_len;
+        const float pv = key_ok ? fast_exp2(s[nt][e] * scale_log2 - lse_l2[e >> 1]) : 0.0f;
+        dsv[e] = pv * (dp[nt][e] - dl[e >> 1]);
+      }
+      dsa[nt / 2][(nt & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+      dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+    accumulate<DP, NS, NW>(acc, dsa, kt + cw, lane);  // dQ += dS.K
   }
+  store_rows(dq + bh * sq * d, acc, scale, r0, sq, cw, d, lane);
 }
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *out0, *out1;
+  int bh, sq, skv, d, kv_len;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DP, int KERNEL>
+int launch(const Args& a) {
+  typedef PairCfg<DP, KERNEL> C;
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+  const float *lse = static_cast<const float*>(a.lse), *delta = static_cast<const float*>(a.delta);
+  dim3 grid(((KERNEL == 0 ? a.skv : a.sq) + C::kRows - 1) / C::kRows, a.bh, DP / C::kDC);
+  cudaError_t err;
+  if constexpr (KERNEL == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_kernel<DP><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.skv,
+        a.d, a.kv_len, a.scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_kernel<DP><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), a.sq, a.skv, a.d, a.kv_len, a.scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles of PairCfg<DP, KERNEL> into out[6].
+template <int DP, int KERNEL>
+int tiles(int* out) {
+  typedef PairCfg<DP, KERNEL> C;
+  const int t[6] = {DP, C::kRows, C::kStream, C::kDC, C::kWB, C::kSmemBytes};
+  for (int i = 0; i < 6; ++i) out[i] = t[i];
+  return 0;
+}
+
+// Returns F<DP, KERNEL>(args...) for the padded head dim DP of d; falls
+// through where d is not a head dim of the pair.
+#define FDT_PAIR_DISPATCH(F, KERNEL, d, ...)                         \
+  switch ((d) % 8 || (d) < 8 || (d) > 512 ? 0 : pair_dp(d)) {        \
+    case 16: return F<16, KERNEL>(__VA_ARGS__);                      \
+    case 32: return F<32, KERNEL>(__VA_ARGS__);                      \
+    case 48: return F<48, KERNEL>(__VA_ARGS__);                      \
+    case 64: return F<64, KERNEL>(__VA_ARGS__);                      \
+    case 80: return F<80, KERNEL>(__VA_ARGS__);                      \
+    case 96: return F<96, KERNEL>(__VA_ARGS__);                      \
+    case 112: return F<112, KERNEL>(__VA_ARGS__);                    \
+    case 128: return F<128, KERNEL>(__VA_ARGS__);                    \
+    case 160: return F<160, KERNEL>(__VA_ARGS__);                    \
+    case 192: return F<192, KERNEL>(__VA_ARGS__);                    \
+    case 256: return F<256, KERNEL>(__VA_ARGS__);                    \
+    case 320: return F<320, KERNEL>(__VA_ARGS__);                    \
+    case 384: return F<384, KERNEL>(__VA_ARGS__);                    \
+    case 448: return F<448, KERNEL>(__VA_ARGS__);                    \
+    case 512: return F<512, KERNEL>(__VA_ARGS__);                    \
+    default: break;                                                  \
+  }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory of one backward block (all three kernels).
-int fdt_flash_bwd_smem_bytes(int bq, int bkv, int dp, int acc_rows, int dc, int n_acc,
-                             int scratch) {
-  return BwdLayout(bq, bkv, dp, acc_rows, dc, n_acc, scratch).bytes;
+// The tiles of K6 (which = 0) or K7 (which = 1) at head dim d into out[6]:
+// padded D, resident rows of a block, rows of a streamed tile, output
+// columns of a block, warps a 16-row band, dynamic shared memory (bytes).
+// Returns 0, or cudaErrorInvalidValue for a head dim the pair does not take.
+int fdt_flash_bwd_pair_tiles(int which, int d, int* out) {
+  if (which == 0) {
+    FDT_PAIR_DISPATCH(tiles, 0, d, out)
+  } else {
+    FDT_PAIR_DISPATCH(tiles, 1, d, out)
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K6: dk, dv [bh, skv, d] bf16 from q, dout [bh, sq, d], k, v [bh, skv, d]
-// bf16 and lse, delta [bh, sq] fp32. Tiles bq x bkv (multiples of 16),
-// output columns in chunks of dc (dc divides round_up(d, 16)). Returns the
-// CUDA error code of the launch (0 on success).
+// bf16 and lse, delta [bh, sq] fp32; rows of dk, dv at or past kv_len are
+// zeros. d % 8 == 0, d <= 512. Returns the CUDA error code of the launch
+// (0 on success).
 int fdt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-                      int skv, int d, int kv_len, float scale, int bq, int bkv, int dc,
-                      void* stream) {
-  const int dp = (d + 15) / 16 * 16;
-  const int bytes = BwdLayout(bq, bkv, dp, bkv, dc, 2, 0).bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((skv + bkv - 1) / bkv, bh, dp / dc);
-  flash_bwd_dkv_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv,
-      d, dp, kv_len, scale, bq, bkv, dc);
-  return static_cast<int>(cudaGetLastError());
+                      int skv, int d, int kv_len, float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, bh, sq, skv, d, kv_len, scale,
+               static_cast<cudaStream_t>(stream)};
+  FDT_PAIR_DISPATCH(launch, 0, d, a)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K7: dq [bh, sq, d] bf16 from the same inputs and tiles as K6.
+// K7: dq [bh, sq, d] bf16 from the same inputs as K6.
 int fdt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int bh, int sq, int skv, int d,
-                     int kv_len, float scale, int bq, int bkv, int dc, void* stream) {
-  const int dp = (d + 15) / 16 * 16;
-  const int bytes = BwdLayout(bq, bkv, dp, bq, dc, 1, 0).bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + bq - 1) / bq, bh, dp / dc);
-  flash_bwd_dq_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), sq, skv, d, dp, kv_len, scale,
-      bq, bkv, dc);
-  return static_cast<int>(cudaGetLastError());
+                     int kv_len, float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, sq, skv, d, kv_len, scale,
+               static_cast<cudaStream_t>(stream)};
+  FDT_PAIR_DISPATCH(launch, 1, d, a)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

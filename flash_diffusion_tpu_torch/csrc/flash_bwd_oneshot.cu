@@ -158,6 +158,13 @@ __global__ void flash_bwd_oneshot_reduce_kernel(const float* __restrict__ ws,
 
 extern "C" {
 
+// Bytes of dynamic shared memory of one K8 block (BwdLayout); the planner
+// (ops/attention.py bwd_smem_bytes) mirrors it.
+int fdt_flash_bwd_smem_bytes(int bq, int bkv, int dp, int acc_rows, int dc, int n_acc,
+                             int scratch) {
+  return BwdLayout(bq, bkv, dp, acc_rows, dc, n_acc, scratch).bytes;
+}
+
 // K8: dq [bh, sq, d], dk, dv [bh, skv, d] bf16 from q, dout [bh, sq, d],
 // k, v [bh, skv, d] bf16 and lse, delta [bh, sq] fp32; kvp = round_up(
 // kv_len, 16) keys per block, q tiles of bq rows, Sq split over nsplit

@@ -1,5 +1,5 @@
-// Warp-level tile helpers shared by the mma.sync attention kernels
-// (flash_fwd_mma.cu, attention_packed.cu): cp.async 16-byte copies with
+// Warp-level tile helpers shared by the mma.sync kernels (the attention
+// forward and backward, the GEMMs): cp.async 16- and 4-byte copies with
 // zero-fill, ldmatrix fragment loads, the bf16 m16n8k16 MMA with fp32
 // accumulate, and a base-2 exponential.
 //
@@ -26,6 +26,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// 4-byte async copy (one fp32); valid = false writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

@@ -73,7 +73,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -318,25 +318,50 @@ def bwd_smem_bytes(bq: int, bkv: int, dp: int, acc_rows: int, dc: int, n_acc: in
     return total + n_acc * _align128(acc_rows * dc * 4) + _align128(scratch)
 
 
-def attention_bwd_plan(kv_len: int, d: int) -> Tuple[str, int, int, int]:
-    """(route, q tile rows, kv tile rows, output column chunk) of the
-    backward for ``kv_len`` valid keys at head dim ``d``.
+class PairTiles(NamedTuple):
+    """The tiles of one kernel of the streaming pair (K6 or K7)."""
 
-    ``flash_bwd_oneshot`` when the head's padded KV, its fp32 dK and dV and a
-    q tile of 64 or 32 rows fit one block (kv tile = the padded KV, columns
-    whole); else the ``flash_bwd_pair`` K6 + K7 with square tiles of 64, 32
-    or 16 rows and the widest column chunk (a divisor of the padded D) whose
-    layout fits."""
+    dp: int  # padded head dim
+    rows: int  # resident rows of a block: K6 kv rows, K7 q rows
+    stream: int  # rows of a streamed tile: K6 q rows, K7 kv rows
+    dc: int  # output columns of a block (grid z = dp // dc)
+    wb: int  # warps on one 16-row band, each with dc // wb of its output columns
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+_PAIR_WARPS = 4  # warps of a K6 or K7 block (csrc/flash_bwd.cu kWarps)
+
+
+def bwd_pair_tiles(d: int) -> Tuple[PairTiles, PairTiles]:
+    """K6's and K7's tiles at head dim ``d`` (d % 8 == 0, d ≤ 512); mirrors
+    ``pair_dp`` and ``PairCfg`` in csrc/flash_bwd.cu: D padded to a multiple
+    of 16 up to 128, to 160 up to 160, to a multiple of 64 above; the tiles
+    that keep each kernel's register accumulators unspilled."""
+    if d % 8 or not 8 <= d <= _STREAM_MAX_D:
+        raise ValueError(f"head dim {d} outside the attention backward kernels' (a multiple of 8 up to 512)")
+    dp = _round_up(d, 16) if d <= 128 else 160 if d <= 160 else _round_up(d, 64)
+    k6_wb = 1 if dp <= 128 else 2
+    k6 = (k6_wb, 64 if dp <= 96 or dp == 160 else 32, dp if dp <= 160 else dp // 2, 2 * _PAIR_WARPS)
+    k7 = (1 if dp <= 160 else 2, 64 if dp <= 128 else 32, dp, 0)
+    tiles = []
+    for wb, stream, dc, stat_bytes_per_row in (k6, k7):  # K6's stages also hold lse and Δ (fp32)
+        rows, ld = 16 * _PAIR_WARPS // wb, dp + 8
+        stage = 2 * stream * ld * 2 + stream * stat_bytes_per_row
+        tiles.append(PairTiles(dp, rows, stream, dc, wb, 2 * rows * ld * 2 + 2 * stage))
+    return tiles[0], tiles[1]
+
+
+def attention_bwd_plan(kv_len: int, d: int) -> Tuple[str, tuple]:
+    """(route, tiles) of the backward for ``kv_len`` valid keys at head dim ``d``.
+
+    ``flash_bwd_oneshot`` with (q tile rows, padded KV, padded D) when the
+    head's padded KV, its fp32 dK and dV and a q tile of 64 or 32 rows fit
+    one block; else the ``flash_bwd_pair`` K6 + K7 with ``bwd_pair_tiles(d)``."""
     dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
     for bq in (64, 32):
         if bwd_smem_bytes(bq, kvp, dp, kvp, dp, 2, _BWD_SCRATCH) <= _SMEM_LIMIT:
-            return "flash_bwd_oneshot", bq, kvp, dp
-    chunks = [dp] + [c for c in (256, 128, 64, 32, 16) if c < dp and dp % c == 0]
-    for b in (64, 32, 16):
-        for dc in chunks:
-            if bwd_smem_bytes(b, b, dp, b, dc, 2) <= _SMEM_LIMIT:  # K6's; K7 holds one accumulator
-                return "flash_bwd_pair", b, b, dc
-    raise ValueError(f"head dim {d} too large for the attention backward kernels")
+            return "flash_bwd_oneshot", (bq, kvp, dp)
+    return "flash_bwd_pair", bwd_pair_tiles(d)
 
 
 def attention_bwd_reference(
@@ -423,7 +448,7 @@ def flash_attention_bwd_bhsd(
     if lse.shape != (bh, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 [BH, Sq] tensor")
     delta = (do.float() * o.float()).sum(-1)  # Δ: a plain reduction, as in JAX (XLA there)
-    route, bq, bkv, dc = attention_bwd_plan(kv_len, d)
+    route, tiles = attention_bwd_plan(kv_len, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library()
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
@@ -431,6 +456,7 @@ def flash_attention_bwd_bhsd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "flash_bwd_oneshot":
+            bq, bkv, dc = tiles
             q_tiles = -(-sq // bq)
             target = _BWD_BLOCKS_PER_SM * _sm_count(q.device.index)
             per_split = -(-q_tiles // max(1, min(q_tiles, -(-target // bh))))
@@ -441,10 +467,10 @@ def flash_attention_bwd_bhsd(
             kernels.check(err, route)
             LAUNCHES[route] += 1
         else:
-            err = lib.fdt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, bq, bkv, dc, stream)
+            err = lib.fdt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream)
             kernels.check(err, "flash_bwd_dkv")
             LAUNCHES["flash_bwd_dkv"] += 1
-            err = lib.fdt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, bq, bkv, dc, stream)
+            err = lib.fdt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, stream)
             kernels.check(err, "flash_bwd_dq")
             LAUNCHES["flash_bwd_dq"] += 1
     return dq, dk, dv

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_fwd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_bwd_smem_bytes": [_I] * 7,
-    "fdt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
-    "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+    "fdt_flash_bwd_pair_tiles": [_I, _I, _P],
+    "fdt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F] + [_P],
+    "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_P],
     "fdt_flash_bwd_oneshot": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "fdt_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "fdt_ffn_gemm": [_P] * 4 + [_I] * 4 + [_P],

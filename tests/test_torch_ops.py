@@ -496,14 +496,32 @@ SD15_BWD = [
 @pytest.mark.parametrize("kv,d,route", SD15_BWD)
 def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
     """Every KV = 77 cross-attention reaches K8; each plan's layout fits a block."""
-    got, bq, bkv, dc = tattn.attention_bwd_plan(kv, d)
-    dp = -(-d // 16) * 16
-    assert got == route and bq % 16 == 0 and bkv % 16 == 0 and dp % dc == 0
+    got, tiles = tattn.attention_bwd_plan(kv, d)
+    assert got == route
     if route == "flash_bwd_oneshot":
-        need = tattn.bwd_smem_bytes(bq, bkv, dp, bkv, dp, 2, tattn._BWD_SCRATCH)
+        bq, kvp, dp = tiles
+        assert bq % 16 == 0 and kvp % 16 == 0 and dp == -(-d // 16) * 16
+        assert tattn.bwd_smem_bytes(bq, kvp, dp, kvp, dp, 2, tattn._BWD_SCRATCH) <= tattn._SMEM_LIMIT
     else:
-        need = tattn.bwd_smem_bytes(bq, bkv, dp, bkv, dc, 2)
-    assert need <= tattn._SMEM_LIMIT
+        assert tiles == tattn.bwd_pair_tiles(d)
+        assert all(t.smem <= tattn._SMEM_LIMIT for t in tiles)
+
+
+def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
+    """K6 and K7 take every D % 8 == 0 up to 512 at a tile set that fits a
+    block: D padded (up to 160 to a multiple of 16, or 160; above, of 64),
+    16-row bands split into whole 16-column pairs of n-tiles, streamed tiles
+    of 16-row k-steps; D above 512 or off the 8-step raises."""
+    for d in range(8, 513, 8):
+        route, tiles = tattn.attention_bwd_plan(4096, d)
+        assert route == "flash_bwd_pair"
+        for t in tiles:
+            assert d <= t.dp < d + 64 and t.dp % 16 == 0 and t.dp % t.dc == 0
+            assert (t.dc // t.wb) % 16 == 0 and t.stream % 16 == 0 and t.rows * t.wb == 64
+            assert t.smem <= tattn._SMEM_LIMIT
+    for d in (520, 44):
+        with pytest.raises(ValueError):
+            tattn.attention_bwd_plan(4096, d)
 
 
 def _plain_bwd_variant(q, k, v, o, lse, do, scale, kv_valid, fault):
@@ -688,6 +706,24 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_vali
                                          d ** -0.5, kv_valid)
     ok, report = tattn.attention_bwd_gate(tattn.attention_bwd_errors(got, want, kv_valid))
     assert ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,d,kv_valid", [(1000, 1024, 80, None), (300, 2000, 160, 1999), (300, 700, 512, 600)])
+def test_attention_bwd_pair_bit_equal_run_to_run_and_batched_on_card(cuda, sq, skv, d, kv_valid):
+    """K6 and K7 use no atomics and no split that follows BH: their outputs
+    are ``torch.equal`` from run to run, and a head alone equals the same
+    head in slot 1 of a batch of 4."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (torch.randn(4, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv, sq))
+    assert tattn.attention_bwd_plan(kv_valid or skv, d)[0] == "flash_bwd_pair"
+    o, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
+    run = lambda *t: tattn.flash_attention_bwd_bhsd(*t, d ** -0.5, kv_valid)
+    first, again = run(q, k, v, o, lse, do), run(q, k, v, o, lse, do)
+    alone = run(*(t[1:2].contiguous() for t in (q, k, v, o, lse, do)))
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, alone):
+        assert torch.equal(a, b) and torch.equal(a[1:2], c)
 
 
 @pytest.mark.cuda
