@@ -45,8 +45,8 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    past KV leaking into the softmax would show); K10 and K12 (the feed-forward's
    down-projection GEMMs) at SDXL's two feed-forward shapes, ragged M and
    K10's dW shapes, to 2^-7 of max|y| (library yardsticks ``F.linear``;
-   for K12, which no one PyTorch call computes, the unfused gate then
-   ``F.linear``);
+   ``torch.mm`` for dW = xᵀ·dy; for K12, which no one PyTorch call
+   computes, the unfused gate then ``F.linear``);
 3. SD1.5 path: ``build_pipeline("sd15", device="cuda")`` then ``generate``
    of 4 prompts × 4 steps, guidance 0, 512²: the output must be
    [4, 512, 512, 3] and finite, and the launch counts of K1–K3 and of the
@@ -514,17 +514,20 @@ def check_ffn_gemm(gemm, results):
         del ref
         ms = median_ms(lambda: kernel(x, w, b))
         main = (m, k, n) in FFN_SHAPES
+        dw = not geglu and (m, k, n) in FFN_DW_SHAPES
         times = f"kernel {ms:.4f} ms"
-        if main:
+        if main or dw:
             plain = median_ms(lambda: plain_fn(x, w, b))
             if geglu:
                 library = library_ms(lambda: lambda: F.linear(
                     x[:, :k] * F.gelu(x[:, k:], approximate="tanh"), w, b))
+            elif dw:  # dW = xᵀ·dy as one product (x here is xᵀ, w is dyᵀ)
+                library = library_ms(lambda: lambda: torch.mm(x, w.t()))
             else:
                 library = library_ms(lambda: lambda: F.linear(x, w, b))
             bnd = bound(2 * m * k * n, 2 * (x.numel() + w.numel() + n + m * n))
             times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        what = "dW " if (m, k, n) in FFN_DW_SHAPES else ""
+        what = "dW " if dw else ""
         print(f"{name:10s} {what}M={m:5d} K={k:5d} N={n:4d}: max|err| vs fp32 {err:.3e} (tol {tol:.3e}), "
               f"vs the plain version in bf16 {contract:.3e}; {times}")
         if not err <= tol:
@@ -1376,7 +1379,7 @@ def main():
                 raise AssertionError(f"backward shared-memory plan and kernel layout disagree at {args}")
     for d in range(8, 513, 8):  # the pair's tiles, at every head dim it takes
         for which, want in enumerate(attention.bwd_pair_tiles(d)):
-            got = (ctypes.c_int * 6)()
+            got = (ctypes.c_int * 7)()
             kernels.check(lib.fdt_flash_bwd_pair_tiles(which, d, got), "fdt_flash_bwd_pair_tiles")
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K{6 + which} tiles at d={d}: kernel {tuple(got)}, plan {tuple(want)}")

@@ -14,58 +14,60 @@
 // D = 512 mid-block (the LPIPS loss differentiates the decode); everything
 // whose KV fits one block takes the one-shot K8 (flash_bwd_oneshot.cu).
 //
-// What bounds it on this card: the tensor cores' issue rate and the
-// shared-memory reads that feed them. Per (q, kv) pair K6 does four
-// products of 2.D (S, dP, dV, dK) and K7 three (S, dP, dQ): 14.BH.Sq.KV.D
-// operations where JAX's pl.CostEstimate counts 5 for each kernel.
+// What bounds it on this card: the tensor cores, then the exponentials and
+// the streamed tiles between them. Per (q, kv) pair K6 does four products
+// of 2.D (S, dP, dV, dK) and K7 three (S, dP, dQ): 14.BH.Sq.KV.D operations
+// where JAX's pl.CostEstimate counts 5 for each kernel.
 //
-// Design (FlashAttention-2's, in mma.sync):
-//   - A block owns a band of resident rows and streams the other side's
-//     tiles: K6 holds 64 (or 32) kv rows of K and V and walks q tiles of Q,
-//     dO, lse and delta; K7 holds 64 (or 32) q rows of Q and dO and walks
-//     kv tiles of K and V. Each warp owns 16 resident rows.
+// Design:
+//   - A block owns resident rows and streams the other side's tiles: K6
+//     holds kv rows of K and V and walks q tiles of Q, dO, lse and delta;
+//     K7 holds q rows of Q and dO and walks kv tiles of K and V.
 //   - K6 works in the transposed orientation, as the JAX kernel does
-//     (attention.py:669-700): a warp computes S^T = K.Q^T and dP^T = V.dO^T
-//     for its 16 kv rows (mma.sync m16n8k16, bf16 in, fp32 accumulate,
-//     ldmatrix from shared memory). The accumulator fragments, once
-//     exponentiated, masked and packed to bf16, are exactly the A fragments
-//     of dV += P^T.dO and dK += dS^T.Q (the trick of K2,
-//     flash_fwd_mma.cu), so S, dP, P and dS never leave registers. K7 does
-//     the same in the [q, kv] orientation: dS in registers is the A
-//     operand of dQ += dS.K. The B operands of the accumulating products
-//     (dO, Q; K) are read with ldmatrix.trans, never transposed in memory.
+//     (attention.py:669-700): S^T = K.Q^T and dP^T = V.dO^T for its kv rows.
+//     Their fp32 accumulator fragments, once exponentiated, masked and
+//     packed to bf16, are exactly the A fragments of dV += P^T.dO and
+//     dK += dS^T.Q (the trick of K2, flash_fwd_mma.cu), so S, dP, P and dS
+//     never leave registers. K7 does the same in the [q, kv] orientation:
+//     dS in registers is the A operand of dQ += dS.K. The B operands of the
+//     accumulating products (dO, Q; K) are the same shared tiles read
+//     MN-major, never transposed in memory.
+//   - The products are wgmma (wgmma.cuh) up to D = 128: two warpgroups a
+//     block, each on 64 resident rows, both reading each streamed tile (half
+//     the streamed bytes a product of one warpgroup a block). S and dP are
+//     shared-memory x shared-memory products; the accumulating ones take A
+//     from registers. Above D = 128, where a warpgroup's accumulators would
+//     not fit its registers, mma.sync m16n8k16 fed by ldmatrix, four warps
+//     of 16 rows; at D = 160 in K6 and above 160, two warps share each band
+//     and split its output columns (each computing the band's scores
+//     itself), and above 160 K6 also splits the columns across two blocks
+//     (grid z), each recomputing S and dP over the full D.
 //   - dK and dV (K6) and dQ (K7) are fp32 register accumulators for the
 //     block's whole life, stored once.
-//   - The streamed tiles go through a ring of two stages filled by
-//     cp.async (zero-fill for rows past Sq or kv_len and columns past D):
-//     tile j + 1 loads behind tile j's products, and each tile costs one
-//     block barrier.
-//   - D is zero-padded to DP: a multiple of 16 up to 128, 160 up to 160, a
-//     multiple of 64 above (the kernels are templated on DP; pair_dp).
-//     Where a warp's accumulators would not fit its registers (DP = 160 in
-//     K6, DP > 160), two warps share each 16-row band and split its output
-//     columns, each computing the band's scores itself; above 160 K6 also
-//     splits the output columns across two blocks (grid z), each
-//     recomputing S and dP over the full D. The tiles (PairCfg) keep every
-//     instantiation at 0 spill bytes and within 227 KB of shared memory;
-//     ops/attention.py bwd_pair_tiles mirrors them.
+//   - The tiles are filled by TMA (one box of 16 columns by the tile's rows
+//     per 16-column block, 32-byte swizzled: each row read is one 32-byte
+//     sector) into a ring of two stages, each completing on its mbarrier:
+//     tile j + 1 loads behind tile j's products, and a tile costs one block
+//     barrier. Rows past Sq or kv_len and columns past D arrive as zeros (D
+//     is padded to DP: a multiple of 16 up to 128, 160 up to 160, of 64
+//     above; the kernels are templated on DP). PairCfg keeps every
+//     instantiation at 0 spill bytes and inside 227 KB of shared memory;
+//     ops/attention.py bwd_pair_tiles mirrors it.
 //   - No atomics, and no split that follows B or the batch slot, so the
 //     outputs are bit-equal run to run and alone vs batched. That is why
 //     dQ stays a separate kernel that recomputes S and dP (seven products
 //     where five would do): FlashAttention-2 and -3 add dQ across kv blocks
 //     with fp32 atomics, whose order changes from run to run. The TPU
 //     carried the same sums across sequential grid steps in VMEM.
-//   - Not yet: wgmma, TMA and mbarriers (the card's road to its full
-//     tensor-core rate); later work.
 
-#include "mma_tiles.cuh"
+#include <cuda.h>  // CUtensorMap (the driver entry point is looked up at run time)
+
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace fdt;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The padded head dim of the pair for head dim d (d % 8 == 0, d <= 512).
@@ -79,98 +81,186 @@ constexpr int pair_dp(int d) {
 // kWC / 2 (dQ) + kStream (S, dP), plus addresses; each at most ~160.
 template <int DP, int KERNEL>
 struct PairCfg {
+  // the products: wgmma where a warpgroup owns 64 whole rows (two
+  // warpgroups a block, which halves the streamed bytes a product), else
+  // mma.sync with four warps
+  static constexpr bool kWgmma = DP <= 128;
+  static constexpr int kGroups = kWgmma ? 2 : 1;  // warpgroups of a block
+  static constexpr int kWarps = 4 * kGroups;
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kWB = KERNEL == 0 ? (DP <= 128 ? 1 : 2) : (DP <= 160 ? 1 : 2);  // warps a band
   static constexpr int kStream = KERNEL == 0 ? (DP <= 96 || DP == 160 ? 64 : 32) : (DP <= 128 ? 64 : 32);
   static constexpr int kDC = KERNEL == 0 && DP > 160 ? DP / 2 : DP;  // output columns of a block
   static constexpr int kRows = 16 * kWarps / kWB;                   // resident rows of a block
   static constexpr int kWC = kDC / kWB;                             // output columns of a warp
-  static constexpr int kLD = DP + 8;                                // shared row stride (bf16)
-  // shared memory: two resident [kRows, kLD] tiles, then two stages of two
-  // streamed [kStream, kLD] tiles (K6: and the q rows' lse and delta)
-  static constexpr int kResBytes = 2 * kRows * kLD * 2;
-  static constexpr int kTileBytes = kStream * kLD * 2;
-  static constexpr int kStageBytes = 2 * kTileBytes + (KERNEL == 0 ? 2 * kStream * 4 : 0);
-  static constexpr int kSmemBytes = kResBytes + 2 * kStageBytes;
+  // shared memory (the 32-byte-swizzled layout below): two resident
+  // [kRows, DP] tiles, two stages of two streamed [kStream, DP] tiles, K6's
+  // lse and delta of each stage's q rows, then the stages' two mbarriers
+  static constexpr int kResBytes = kRows * DP * 2;
+  static constexpr int kTileBytes = kStream * DP * 2;
+  static constexpr int kStatOffset = 2 * kResBytes + 4 * kTileBytes;
+  static constexpr int kBarOffset = kStatOffset + (KERNEL == 0 ? 2 * 2 * kStream * 4 : 0);
+  static constexpr int kSmemBytes = kBarOffset + 16;
   static_assert(kWC % 16 == 0 && DP % kDC == 0 && kStream % 16 == 0, "tile shape");
+  static_assert(!kWgmma || kWB == 1, "a wgmma warpgroup owns 64 whole rows");
+  static_assert(kResBytes % 1024 == 0 && kTileBytes % 1024 == 0, "swizzle atoms stay aligned");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
-// Rows [row0, row0 + NROWS) of a row-major [*, d] bf16 matrix into a
-// [NROWS, DP] shared tile of stride DP + 8, by cp.async; rows >= valid and
-// columns >= d become zeros. d % 8 == 0 and a 16-byte aligned source (the
-// host checks).
-template <int DP, int NROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int valid, int d) {
-  constexpr int kChunks = DP / 8;
+// ---- shared-memory tiles: 16-column blocks of R rows of 32 bytes, each
+// 32-byte row's two 16-byte halves swapped on rows 4..7 of every 8 (the
+// 32-byte swizzle of TMA and wgmma). Byte offset of element (r, c) of an
+// [R, DP] tile: (c / 16) * 32R + 32r + (((c / 8) ^ (r / 4)) & 1) * 16 +
+// (c % 8) * 2. The reads of 8 rows x 16 bytes (ldmatrix, wgmma) hit every
+// bank once, and a tile is both a K-major operand (S = K.Q^T) and an
+// MN-major one (dV += P^T.dO).
+
+__device__ __forceinline__ const bf16* at_byte(const bf16* tile, int bytes) {
+  return reinterpret_cast<const bf16*>(reinterpret_cast<const unsigned char*>(tile) + bytes);
+}
+
+// A descriptor of a 32-byte-swizzled operand (wgmma.cuh smem_desc):
+// K-major, 8-row groups 256 bytes apart; or MN-major, 16-column blocks
+// 32R bytes apart along N and 8-row groups 256 bytes apart along K.
+__device__ __forceinline__ uint64_t desc_k(const bf16* p) { return smem_desc(p, 16, 256) | (3ull << 62); }
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, int rows) {
+  return smem_desc(p, 32 * rows, 256) | (3ull << 62);
+}
+
+// ---- the ring: TMA into that layout, completion on mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of the given parity to complete; a copy that never
+// lands (some seconds of polling) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1 << 22)) __trap();
+  }
+}
+
+// Rows [row0, row0 + R) of head bh of a [BH, rows, d] bf16 tensor into an
+// [R, DP] tile, one TMA box of 16 columns by R rows per block; rows past the
+// map's row count and columns past d arrive as zeros. Completes on bar. One
+// thread issues it.
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int row0, int bh, uint64_t* bar) {
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < NROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < valid && c < d;
-    cp_async16(dst + r * (DP + 8) + c, ok ? src + (size_t)gr * d + c : src, ok);
+  for (int cb = 0; cb < DP / 16; ++cb) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst + cb * 16 * R)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(cb * 16), "r"(row0), "r"(bh), "r"(smem_addr(bar))
+        : "memory");
   }
 }
 
 // dst[r] = src[row0 + r] for r < N, 0 past valid, by cp.async.
-template <int N>
+template <int N, int THREADS>
 __device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int valid) {
-  for (int r = threadIdx.x; r < N; r += kThreads) {
+  for (int r = threadIdx.x; r < N; r += THREADS) {
     const bool ok = row0 + r < valid;
     cp_async4(dst + r, ok ? src + row0 + r : src, ok);
   }
 }
 
-// sa = A1.B1^T and sb = A2.B2^T for one warp: A1, A2 its 16 resident rows
-// (row stride DP + 8), B1, B2 the NS * 8 rows of a streamed tile, summed
-// over DP. Element e of n-tile nt of a result is row lane/4 (+8 for e >= 2),
-// column nt*8 + 2*(lane%4) + (e&1).
-template <int DP, int NS>
+// ---- the products
+
+// sa = A1.B1^T and sb = A2.B2^T: A1, A2 rows a0.. of two resident [RA, DP]
+// tiles (the band's 16 with mma.sync, the warpgroup's 64 with wgmma); B1,
+// B2 two streamed [NS * 8, DP] tiles; summed over DP. Element e of n-tile
+// nt of a result is row lane/4 (+8 for e >= 2) of the warp's 16, column
+// nt*8 + 2*(lane%4) + (e&1).
+template <bool WG, int DP, int RA, int NS>
 __device__ __forceinline__ void scores(float (&sa)[NS][4], float (&sb)[NS][4], const bf16* a1,
-                                       const bf16* a2, const bf16* b1, const bf16* b2, int lane) {
-  constexpr int LD = DP + 8;
+                                       const bf16* a2, int a0, const bf16* b1, const bf16* b2, int lane) {
+  constexpr int RB = NS * 8;
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) sa[i][e] = sb[i][e] = 0.0f;
   }
-  const int arow = (lane % 16) * LD + (lane / 16) * 8;
-  const int brow = ((lane / 16) * 8 + (lane % 8)) * LD + ((lane / 8) % 2) * 8;
-#pragma unroll 4
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t x[4], y[4];
-    ldmatrix_x4(x, a1 + arow + kk * 16);
-    ldmatrix_x4(y, a2 + arow + kk * 16);
+  if constexpr (WG) {
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b1 + nt * 8 * LD + brow + kk * 16);
-      mma16816(sa[nt], x, b[0], b[1]);
-      mma16816(sa[nt + 1], x, b[2], b[3]);
-      ldmatrix_x4(b, b2 + nt * 8 * LD + brow + kk * 16);
-      mma16816(sb[nt], y, b[0], b[1]);
-      mma16816(sb[nt + 1], y, b[2], b[3]);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t db1 = desc_k(at_byte(b1, kk * 32 * RB)), db2 = desc_k(at_byte(b2, kk * 32 * RB));
+      wgmma_ss(sa, desc_k(at_byte(a1, kk * 32 * RA + a0 * 32)), db1);
+      wgmma_ss(sb, desc_k(at_byte(a2, kk * 32 * RA + a0 * 32)), db2);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    // lane -> row a0 + lane%16, half lane/16; B: row nt*8 + (lane/16)*8 + lane%8, half (lane/8)%2
+    const int arow = (a0 + lane % 16) * 32 + (((lane / 16) ^ ((lane % 16) >> 2)) & 1) * 16;
+    const int brow = ((lane / 16) * 8 + lane % 8) * 32 + ((((lane / 8) % 2) ^ ((lane % 8) >> 2)) & 1) * 16;
+#pragma unroll 4
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t x[4], y[4];
+      ldmatrix_x4(x, at_byte(a1, kk * 32 * RA + arow));
+      ldmatrix_x4(y, at_byte(a2, kk * 32 * RA + arow));
+#pragma unroll
+      for (int nt = 0; nt < NS; nt += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, at_byte(b1, kk * 32 * RB + nt * 256 + brow));
+        mma16816(sa[nt], x, b[0], b[1]);
+        mma16816(sa[nt + 1], x, b[2], b[3]);
+        ldmatrix_x4(b, at_byte(b2, kk * 32 * RB + nt * 256 + brow));
+        mma16816(sb[nt], y, b[0], b[1]);
+        mma16816(sb[nt + 1], y, b[2], b[3]);
+      }
     }
   }
 }
 
-// acc[16, NW * 8] += A.X for one warp: A [16, NS * 8] in registers (the
-// packed bf16 fragments of scores(), k-step kc in a[kc]), X the NS * 8 rows
-// of a streamed tile from column x on (row stride DP + 8), read with
-// ldmatrix.trans.
-template <int DP, int NS, int NW>
-__device__ __forceinline__ void accumulate(float (&acc)[NW][4], const uint32_t (&a)[NS / 2][4],
-                                           const bf16* x, int lane) {
-  constexpr int LD = DP + 8;
-  const int xrow = (((lane / 8) % 2) * 8 + (lane % 8)) * LD + (lane / 16) * 8;
+// acc1 += A1.X1 and acc2 += A2.X2 (acc2 and X2 only where N2): A1, A2
+// [16 or 64, NS * 8] in registers (the packed bf16 fragments of scores(),
+// k-step kc in a[kc]), X1, X2 streamed [NS * 8, DP] tiles from column col0
+// (a multiple of 16) on, read MN-major (wgmma) or with ldmatrix.trans.
+template <bool WG, int NS, int NW, bool N2>
+__device__ __forceinline__ void accumulate(float (&acc1)[NW][4], const uint32_t (&a1)[NS / 2][4], const bf16* x1,
+                                           float (&acc2)[NW][4], const uint32_t (&a2)[NS / 2][4], const bf16* x2,
+                                           int col0, int lane) {
+  constexpr int RB = NS * 8;
+  const int c0 = (col0 / 16) * 32 * RB;
+  if constexpr (WG) {
+    wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < NS / 2; ++kc) {
+    for (int kc = 0; kc < NS / 2; ++kc) {
+      wgmma_rs(acc1, a1[kc], desc_mn(at_byte(x1, c0 + kc * 512), RB));
+      if constexpr (N2) wgmma_rs(acc2, a2[kc], desc_mn(at_byte(x2, c0 + kc * 512), RB));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    // lane -> row kc*16 + ((lane/8)%2)*8 + lane%8, half lane/16 of block col0/16 + nd/2
+    const int xrow = c0 + (((lane / 8) % 2) * 8 + lane % 8) * 32 + (((lane / 16) ^ ((lane % 8) >> 2)) & 1) * 16;
 #pragma unroll
-    for (int nd = 0; nd < NW; nd += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, x + kc * 16 * LD + xrow + nd * 8);
-      mma16816(acc[nd], a[kc], b[0], b[1]);
-      mma16816(acc[nd + 1], a[kc], b[2], b[3]);
+    for (int kc = 0; kc < NS / 2; ++kc) {
+#pragma unroll
+      for (int nd = 0; nd < NW; nd += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, at_byte(x1, kc * 512 + (nd / 2) * 32 * RB + xrow));
+        mma16816(acc1[nd], a1[kc], b[0], b[1]);
+        mma16816(acc1[nd + 1], a1[kc], b[2], b[3]);
+        if constexpr (N2) {
+          ldmatrix_x4_trans(b, at_byte(x2, kc * 512 + (nd / 2) * 32 * RB + xrow));
+          mma16816(acc2[nd], a2[kc], b[0], b[1]);
+          mma16816(acc2[nd + 1], a2[kc], b[2], b[3]);
+        }
+      }
     }
   }
 }
@@ -201,24 +291,30 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NW][4],
   }
 }
 
+// The maps of q and dO ([BH, Sq, D]; rows past Sq read as zeros) and of k and
+// v ([BH, Skv, D] read up to kv_len; keys past it read as zeros), each with
+// its kernel's box rows.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv, int d,
-                     int kv_len, float scale) {
+__global__ void __launch_bounds__(PairCfg<DP, 0>::kThreads)
+flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     int sq, int skv, int d, int kv_len, float scale) {
   typedef PairCfg<DP, 0> C;
-  constexpr int LD = C::kLD;
   constexpr int BS = C::kStream;
   constexpr int NS = BS / 8;
   constexpr int NW = C::kWC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + C::kRows * LD;
-  unsigned char* ring = smem + C::kResBytes;  // stage s: q [BS, LD], dO [BS, LD], lse [BS], delta [BS]
+  bf16* vs = reinterpret_cast<bf16*>(smem + C::kResBytes);
+  unsigned char* ring = smem + 2 * C::kResBytes;  // stage s: q, dO [BS, DP]
+  float* stats = reinterpret_cast<float*>(smem + C::kStatOffset);  // stage s: lse [BS], delta [BS]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
 
-  const size_t bh = blockIdx.y;
+  const int bh = blockIdx.y;
   const int kv0 = blockIdx.x * C::kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -229,38 +325,47 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   zero(acc_k);
   zero(acc_v);
   if (kv0 < kv_len) {
-    const bf16* qh = q + bh * sq * d;
-    const bf16* doh = dout + bh * sq * d;
-    auto load_stage = [&](int s, int q0) {
-      unsigned char* p = ring + s * C::kStageBytes;
-      load_tile<DP, BS>(reinterpret_cast<bf16*>(p), qh, q0, sq, d);
-      load_tile<DP, BS>(reinterpret_cast<bf16*>(p + C::kTileBytes), doh, q0, sq, d);
-      load_vec<BS>(reinterpret_cast<float*>(p + 2 * C::kTileBytes), lse + bh * sq, q0, sq);
-      load_vec<BS>(reinterpret_cast<float*>(p + 2 * C::kTileBytes) + BS, delta + bh * sq, q0, sq);
+    // one thread issues the tiles (and expects `extra` more bytes); every
+    // thread its share of lse and delta
+    auto load_stage = [&](int s, int q0, int extra) {
+      unsigned char* p = ring + s * 2 * C::kTileBytes;
+      if (threadIdx.x == 0) {
+        mbar_expect(bar + s, 2 * C::kTileBytes + extra);
+        tma_tile<DP, BS>(reinterpret_cast<bf16*>(p), &maps.q, q0, bh, bar + s);
+        tma_tile<DP, BS>(reinterpret_cast<bf16*>(p + C::kTileBytes), &maps.dout, q0, bh, bar + s);
+      }
+      load_vec<BS, C::kThreads>(stats + s * 2 * BS, lse + (size_t)bh * sq, q0, sq);
+      load_vec<BS, C::kThreads>(stats + s * 2 * BS + BS, delta + (size_t)bh * sq, q0, sq);
+      cp_async_commit();
     };
-    load_tile<DP, C::kRows>(ks, k + bh * skv * d, kv0, kv_len, d);
-    load_tile<DP, C::kRows>(vs, v + bh * skv * d, kv0, kv_len, d);
-    load_stage(0, 0);
-    cp_async_commit();
+    if (threadIdx.x == 0) {
+      mbar_init(bar);
+      mbar_init(bar + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    load_stage(0, 0, 2 * C::kResBytes);
+    if (threadIdx.x == 0) {  // the resident tiles land on stage 0's barrier
+      tma_tile<DP, C::kRows>(ks, &maps.k, kv0, bh, bar);
+      tma_tile<DP, C::kRows>(vs, &maps.v, kv0, bh, bar);
+    }
     const float scale_log2 = scale * kLog2e;
     // the key mask: P = 0 for kv rows at or past kv_len
     const bool key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};
     const int n_tiles = (sq + BS - 1) / BS;
     for (int j = 0; j < n_tiles; ++j) {
+      mbar_wait(bar + (j & 1), (j >> 1) & 1);
       cp_async_wait<0>();
       __syncthreads();  // tile j landed everywhere; every warp is done with tile j - 1's stage
-      if (j + 1 < n_tiles) {
-        load_stage((j + 1) & 1, (j + 1) * BS);
-        cp_async_commit();
-      }
-      const unsigned char* p = ring + (j & 1) * C::kStageBytes;
-      const bf16* qt = reinterpret_cast<const bf16*>(p);
-      const bf16* dot = reinterpret_cast<const bf16*>(p + C::kTileBytes);
-      const float* lse_t = reinterpret_cast<const float*>(p + 2 * C::kTileBytes);
+      if (j + 1 < n_tiles) load_stage((j + 1) & 1, (j + 1) * BS, 0);
+      const bf16* qt = reinterpret_cast<const bf16*>(ring + (j & 1) * 2 * C::kTileBytes);
+      const bf16* dot = qt + BS * DP;
+      const float* lse_t = stats + (j & 1) * 2 * BS;
       const float* delta_t = lse_t + BS;
 
       float st[NS][4], dpt[NS][4];  // S^T and dP^T of this warp's 16 kv rows x BS q
-      scores<DP, NS>(st, dpt, ks + band * 16 * LD, vs + band * 16 * LD, qt, dot, lane);
+      scores<C::kWgmma, DP, C::kRows, NS>(st, dpt, ks, vs, C::kWgmma ? (warp / 4) * 64 : band * 16, qt, dot,
+                                          lane);
       uint32_t pa[NS / 2][4], dsa[NS / 2][4];  // P^T and dS^T, bf16 A fragments
       const int q0 = j * BS;
 #pragma unroll
@@ -282,71 +387,74 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dsa[nt / 2][(nt & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
         dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
       }
-      accumulate<DP, NS, NW>(acc_v, pa, dot + cw, lane);  // dV += P^T.dO
-      accumulate<DP, NS, NW>(acc_k, dsa, qt + cw, lane);  // dK += dS^T.Q
+      // dV += P^T.dO, dK += dS^T.Q
+      accumulate<C::kWgmma, NS, NW, true>(acc_v, pa, dot, acc_k, dsa, qt, cw, lane);
     }
   }
-  const size_t at = bh * skv * d;
+  const size_t at = (size_t)bh * skv * d;
   store_rows(dk + at, acc_k, scale, r0, skv, cw, d, lane);
   store_rows(dv + at, acc_v, 1.0f, r0, skv, cw, d, lane);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int sq, int skv, int d, int kv_len, float scale) {
+__global__ void __launch_bounds__(PairCfg<DP, 1>::kThreads)
+flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int d, int kv_len,
+                    float scale) {
   typedef PairCfg<DP, 1> C;
-  constexpr int LD = C::kLD;
   constexpr int BS = C::kStream;
   constexpr int NS = BS / 8;
   constexpr int NW = C::kWC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + C::kRows * LD;
-  bf16* ring = reinterpret_cast<bf16*>(smem + C::kResBytes);  // stage s: k [BS, LD], v [BS, LD]
+  bf16* dos = reinterpret_cast<bf16*>(smem + C::kResBytes);
+  unsigned char* ring = smem + 2 * C::kResBytes;  // stage s: k, v [BS, DP]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
 
-  const size_t bh = blockIdx.y;
+  const int bh = blockIdx.y;
   const int q0 = blockIdx.x * C::kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int band = warp / C::kWB;
   const int cw = blockIdx.z * C::kDC + (warp % C::kWB) * C::kWC;
   const int r0 = q0 + band * 16 + lane / 4;  // this thread's q rows r0, r0 + 8
-  const bf16* kh = k + bh * skv * d;
-  const bf16* vh = v + bh * skv * d;
-  auto load_stage = [&](int s, int kv0) {
-    load_tile<DP, BS>(ring + s * (C::kStageBytes / 2), kh, kv0, kv_len, d);
-    load_tile<DP, BS>(ring + s * (C::kStageBytes / 2) + BS * LD, vh, kv0, kv_len, d);
+  auto load_stage = [&](int s, int kv0, int extra) {  // one thread; `extra` more bytes expected
+    unsigned char* p = ring + s * 2 * C::kTileBytes;
+    mbar_expect(bar + s, 2 * C::kTileBytes + extra);
+    tma_tile<DP, BS>(reinterpret_cast<bf16*>(p), &maps.k, kv0, bh, bar + s);
+    tma_tile<DP, BS>(reinterpret_cast<bf16*>(p + C::kTileBytes), &maps.v, kv0, bh, bar + s);
   };
-  load_tile<DP, C::kRows>(qs, q + bh * sq * d, q0, sq, d);
-  load_tile<DP, C::kRows>(dos, dout + bh * sq * d, q0, sq, d);
-  load_stage(0, 0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the resident tiles land on stage 0's barrier
+    load_stage(0, 0, 2 * C::kResBytes);
+    tma_tile<DP, C::kRows>(qs, &maps.q, q0, bh, bar);
+    tma_tile<DP, C::kRows>(dos, &maps.dout, q0, bh, bar);
+  }
   const float scale_log2 = scale * kLog2e;
   float lse_l2[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = r0 + 8 * h < sq;
-    lse_l2[h] = ok ? lse[bh * sq + r0 + 8 * h] * kLog2e : 0.0f;
-    dl[h] = ok ? delta[bh * sq + r0 + 8 * h] : 0.0f;
+    lse_l2[h] = ok ? lse[(size_t)bh * sq + r0 + 8 * h] * kLog2e : 0.0f;
+    dl[h] = ok ? delta[(size_t)bh * sq + r0 + 8 * h] : 0.0f;
   }
   float acc[NW][4];
   zero(acc);
   const int n_tiles = (kv_len + BS - 1) / BS;
   for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile j landed everywhere; every warp is done with tile j - 1's stage
-    if (j + 1 < n_tiles) {
-      load_stage((j + 1) & 1, (j + 1) * BS);
-      cp_async_commit();
-    }
-    const bf16* kt = ring + (j & 1) * (C::kStageBytes / 2);
-    const bf16* vt = kt + BS * LD;
+    mbar_wait(bar + (j & 1), (j >> 1) & 1);
+    __syncthreads();  // every warp is done with tile j - 1's stage
+    if (threadIdx.x == 0 && j + 1 < n_tiles) load_stage((j + 1) & 1, (j + 1) * BS, 0);
+    const bf16* kt = reinterpret_cast<const bf16*>(ring + (j & 1) * 2 * C::kTileBytes);
+    const bf16* vt = kt + BS * DP;
 
     float s[NS][4], dp[NS][4];  // S and dP of this warp's 16 q rows x BS kv
-    scores<DP, NS>(s, dp, qs + band * 16 * LD, dos + band * 16 * LD, kt, vt, lane);
+    scores<C::kWgmma, DP, C::kRows, NS>(s, dp, qs, dos, C::kWgmma ? (warp / 4) * 64 : band * 16, kt, vt, lane);
     uint32_t dsa[NS / 2][4];  // dS, bf16 A fragments
     const int kv0 = j * BS;
 #pragma unroll
@@ -363,9 +471,44 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dsa[nt / 2][(nt & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
       dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
     }
-    accumulate<DP, NS, NW>(acc, dsa, kt + cw, lane);  // dQ += dS.K
+    accumulate<C::kWgmma, NS, NW, false>(acc, dsa, kt, acc, dsa, kt, cw, lane);  // dQ += dS.K
   }
-  store_rows(dq + bh * sq * d, acc, scale, r0, sq, cw, d, lane);
+  store_rows(dq + (size_t)bh * sq * d, acc, scale, r0, sq, cw, d, lane);
+}
+
+// cuTensorMapEncodeTiled, from the driver at run time (no link to libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of rows [0, rows) of each head of a [bh, stride_rows, d] bf16
+// tensor, in boxes of 16 columns by box_rows rows, 32-byte swizzled;
+// false on failure.
+bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int stride_rows, int d, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)stride_rows * d * 2};
+  const cuuint32_t box[3] = {16, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Args {
@@ -379,8 +522,13 @@ struct Args {
 template <int DP, int KERNEL>
 int launch(const Args& a) {
   typedef PairCfg<DP, KERNEL> C;
-  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+  const int q_box = KERNEL == 0 ? C::kStream : C::kRows, kv_box = KERNEL == 0 ? C::kRows : C::kStream;
+  Maps maps;
+  if (!(make_map(&maps.q, a.q, a.bh, a.sq, a.sq, a.d, q_box) &&
+        make_map(&maps.dout, a.dout, a.bh, a.sq, a.sq, a.d, q_box) &&
+        make_map(&maps.k, a.k, a.bh, a.kv_len, a.skv, a.d, kv_box) &&
+        make_map(&maps.v, a.v, a.bh, a.kv_len, a.skv, a.d, kv_box)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float *lse = static_cast<const float*>(a.lse), *delta = static_cast<const float*>(a.delta);
   dim3 grid(((KERNEL == 0 ? a.skv : a.sq) + C::kRows - 1) / C::kRows, a.bh, DP / C::kDC);
   cudaError_t err;
@@ -388,25 +536,25 @@ int launch(const Args& a) {
     err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_kernel<DP><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.skv,
-        a.d, a.kv_len, a.scale);
+    flash_bwd_dkv_kernel<DP><<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+        maps, lse, delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.skv, a.d, a.kv_len,
+        a.scale);
   } else {
     err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_kernel<DP><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), a.sq, a.skv, a.d, a.kv_len, a.scale);
+    flash_bwd_dq_kernel<DP><<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+        maps, lse, delta, static_cast<bf16*>(a.out0), a.sq, a.d, a.kv_len, a.scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiles of PairCfg<DP, KERNEL> into out[6].
+// The tiles of PairCfg<DP, KERNEL> into out[7].
 template <int DP, int KERNEL>
 int tiles(int* out) {
   typedef PairCfg<DP, KERNEL> C;
-  const int t[6] = {DP, C::kRows, C::kStream, C::kDC, C::kWB, C::kSmemBytes};
-  for (int i = 0; i < 6; ++i) out[i] = t[i];
+  const int t[7] = {DP, C::kRows, C::kStream, C::kDC, C::kWB, C::kWgmma, C::kSmemBytes};
+  for (int i = 0; i < 7; ++i) out[i] = t[i];
   return 0;
 }
 
@@ -436,9 +584,10 @@ int tiles(int* out) {
 
 extern "C" {
 
-// The tiles of K6 (which = 0) or K7 (which = 1) at head dim d into out[6]:
+// The tiles of K6 (which = 0) or K7 (which = 1) at head dim d into out[7]:
 // padded D, resident rows of a block, rows of a streamed tile, output
-// columns of a block, warps a 16-row band, dynamic shared memory (bytes).
+// columns of a block, warps a 16-row band, 1 for wgmma (0: mma.sync),
+// dynamic shared memory (bytes).
 // Returns 0, or cudaErrorInvalidValue for a head dim the pair does not take.
 int fdt_flash_bwd_pair_tiles(int which, int d, int* out) {
   if (which == 0) {

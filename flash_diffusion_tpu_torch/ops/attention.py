@@ -326,28 +326,29 @@ class PairTiles(NamedTuple):
     stream: int  # rows of a streamed tile: K6 q rows, K7 kv rows
     dc: int  # output columns of a block (grid z = dp // dc)
     wb: int  # warps on one 16-row band, each with dc // wb of its output columns
+    wgmma: int  # 1: wgmma, two warpgroups of 64 rows; 0: mma.sync, four warps
     smem: int  # dynamic shared memory of a block, bytes
-
-
-_PAIR_WARPS = 4  # warps of a K6 or K7 block (csrc/flash_bwd.cu kWarps)
 
 
 def bwd_pair_tiles(d: int) -> Tuple[PairTiles, PairTiles]:
     """K6's and K7's tiles at head dim ``d`` (d % 8 == 0, d ≤ 512); mirrors
     ``pair_dp`` and ``PairCfg`` in csrc/flash_bwd.cu: D padded to a multiple
     of 16 up to 128, to 160 up to 160, to a multiple of 64 above; the tiles
-    that keep each kernel's register accumulators unspilled."""
+    that keep each kernel's register accumulators unspilled; wgmma with 8
+    warps up to D = 128, mma.sync with 4 above. Shared memory: two resident
+    [rows, dp] bf16 tiles, two stages of two streamed [stream, dp] tiles,
+    K6's fp32 lse and Δ of each stage's q rows, two 8-byte mbarriers."""
     if d % 8 or not 8 <= d <= _STREAM_MAX_D:
         raise ValueError(f"head dim {d} outside the attention backward kernels' (a multiple of 8 up to 512)")
     dp = _round_up(d, 16) if d <= 128 else 160 if d <= 160 else _round_up(d, 64)
-    k6_wb = 1 if dp <= 128 else 2
-    k6 = (k6_wb, 64 if dp <= 96 or dp == 160 else 32, dp if dp <= 160 else dp // 2, 2 * _PAIR_WARPS)
+    k6 = (1 if dp <= 128 else 2, 64 if dp <= 96 or dp == 160 else 32, dp if dp <= 160 else dp // 2, 8)
     k7 = (1 if dp <= 160 else 2, 64 if dp <= 128 else 32, dp, 0)
     tiles = []
-    for wb, stream, dc, stat_bytes_per_row in (k6, k7):  # K6's stages also hold lse and Δ (fp32)
-        rows, ld = 16 * _PAIR_WARPS // wb, dp + 8
-        stage = 2 * stream * ld * 2 + stream * stat_bytes_per_row
-        tiles.append(PairTiles(dp, rows, stream, dc, wb, 2 * rows * ld * 2 + 2 * stage))
+    for wb, stream, dc, stat_bytes_per_row in (k6, k7):
+        warps = 8 if dp <= 128 else 4
+        rows = 16 * warps // wb
+        stage = 2 * stream * dp * 2 + stream * stat_bytes_per_row
+        tiles.append(PairTiles(dp, rows, stream, dc, wb, int(dp <= 128), 2 * rows * dp * 2 + 2 * stage + 16))
     return tiles[0], tiles[1]
 
 

@@ -15,10 +15,11 @@ wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
 of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
-the kernels with the most device time. The JAX package's kernel switches
-(``FLASH_TPU_ATTN_PACKED``, ``FLASH_TPU_FFN_FUSED``,
-``FLASH_TPU_FFN_DOWN_GEMM``) are read from the environment, as everywhere
-in the port, and printed beside the result.
+the kernels with the most device time (with ``--train``, also the
+streaming attention backward's K6 + K7 and their share). The JAX
+package's kernel switches (``FLASH_TPU_ATTN_PACKED``,
+``FLASH_TPU_FFN_FUSED``, ``FLASH_TPU_FFN_DOWN_GEMM``) are read from the
+environment, as everywhere in the port, and printed beside the result.
 """
 
 from __future__ import annotations
@@ -125,6 +126,11 @@ def main():
         cats[_category(e.key)] += e.self_device_time_total / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:20s} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time)")
+    pair = [e for e in kernels if "flash_bwd_dkv" in e.key or "flash_bwd_dq" in e.key]
+    if pair:  # the streaming attention backward, K6 + K7
+        ms = sum(e.self_device_time_total for e in pair) / 1e3
+        print(f"  attention backward pair (K6 + K7) {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time), "
+              f"{sum(e.count for e in pair)} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 

@@ -510,14 +510,15 @@ def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
 def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
     """K6 and K7 take every D % 8 == 0 up to 512 at a tile set that fits a
     block: D padded (up to 160 to a multiple of 16, or 160; above, of 64),
-    16-row bands split into whole 16-column pairs of n-tiles, streamed tiles
-    of 16-row k-steps; D above 512 or off the 8-step raises."""
+    16-row bands split into whole 16-column blocks, streamed tiles of 16-row
+    k-steps, wgmma (two warpgroups of 64 rows) up to D = 128; D above 512
+    or off the 8-step raises."""
     for d in range(8, 513, 8):
         route, tiles = tattn.attention_bwd_plan(4096, d)
         assert route == "flash_bwd_pair"
         for t in tiles:
             assert d <= t.dp < d + 64 and t.dp % 16 == 0 and t.dp % t.dc == 0
-            assert (t.dc // t.wb) % 16 == 0 and t.stream % 16 == 0 and t.rows * t.wb == 64
+            assert (t.dc // t.wb) % 16 == 0 and t.stream % 16 == 0 and t.rows * t.wb == (128 if t.wgmma else 64)
             assert t.smem <= tattn._SMEM_LIMIT
     for d in (520, 44):
         with pytest.raises(ValueError):
