@@ -12,7 +12,10 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
-   per source, all at once; timed);
+   per source, all at once; timed), with ptxas' register report; the
+   attention kernels' shared-memory plans against the kernels' own
+   arithmetic (K6/K7's tiles at every head dim they take), and no K6/K7
+   instantiation may spill;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
@@ -1352,6 +1355,8 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc {kernels.BUILD_INFO['seconds']:.2f} s "
           f"-> {kernels.BUILD_INFO['path']}")
     entry, spill_report = "", []
+    if kernels.BUILD_INFO["log"] == "(cached)":
+        print("  no ptxas report: the library was built before this run (delete build/kernels to see it)")
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
             name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|ffn_gemm_kernel|"

@@ -310,8 +310,8 @@ def _sm_count(index: int) -> int:
 
 def bwd_smem_bytes(bq: int, bkv: int, dp: int, acc_rows: int, dc: int, n_acc: int,
                    scratch: int = 0) -> int:
-    """Shared memory of one backward block; mirrors ``BwdLayout`` in
-    csrc/bwd_tiles.cuh."""
+    """Shared memory of one K8 (one-shot backward) block; mirrors
+    ``BwdLayout`` in csrc/bwd_tiles.cuh."""
     ld_x, ld_s, ld_p = dp + 8, bkv + 4, bkv + 8
     total = 2 * _align128(bq * ld_x * 2) + 2 * _align128(bkv * ld_x * 2) + 2 * _align128(bq * 4)
     total += 2 * _align128(bq * ld_s * 4) + 2 * _align128(bq * ld_p * 2)
@@ -343,9 +343,8 @@ def bwd_pair_tiles(d: int) -> Tuple[PairTiles, PairTiles]:
     dp = _round_up(d, 16) if d <= 128 else 160 if d <= 160 else _round_up(d, 64)
     k6 = (1 if dp <= 128 else 2, 64 if dp <= 96 or dp == 160 else 32, dp if dp <= 160 else dp // 2, 8)
     k7 = (1 if dp <= 160 else 2, 64 if dp <= 128 else 32, dp, 0)
-    tiles = []
+    warps, tiles = 8 if dp <= 128 else 4, []
     for wb, stream, dc, stat_bytes_per_row in (k6, k7):
-        warps = 8 if dp <= 128 else 4
         rows = 16 * warps // wb
         stage = 2 * stream * dp * 2 + stream * stat_bytes_per_row
         tiles.append(PairTiles(dp, rows, stream, dc, wb, int(dp <= 128), 2 * rows * dp * 2 + 2 * stage + 16))
