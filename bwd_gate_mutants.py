@@ -13,8 +13,9 @@ with one fault written into ``csrc/flash_bwd.cu`` (K6 and K7):
 - ``dV x 1.03``: K6 scales dV by 1.03 on store.
 
 Passes (exit 0) when the port passes every case and each copy fails at
-least one. Each run's full output goes to ``chiprun_out/bwd_gate_<n>.log``;
-the summary is printed. Needs a CUDA card and nvcc.
+least one. Each run's full output goes to ``build/bwd_gate/<n>.log`` (the
+checkout's git-ignored build directory); the summary is printed. Needs a
+CUDA card and nvcc.
 """
 
 import argparse
@@ -74,8 +75,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("bwd_gate_mutants: needs an NVIDIA GPU")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    out_dir = ROOT / "build" / "bwd_gate"
+    out_dir.mkdir(parents=True, exist_ok=True)
     verdicts = []
     with tempfile.TemporaryDirectory() as tmp:
         variants = [("as built", ROOT)] + [
@@ -83,7 +84,7 @@ def main() -> None:
         for i, (name, root) in enumerate(variants):
             run = subprocess.run([sys.executable, __file__, "--child", str(root)], capture_output=True,
                                  text=True, cwd=ROOT)
-            (out_dir / f"bwd_gate_{i}.log").write_text(run.stdout + run.stderr)
+            (out_dir / f"{i}.log").write_text(run.stdout + run.stderr)
             lines = run.stdout.splitlines()
             verdict = next((l for l in lines if l.startswith("GATE: ")), None)
             print(f"== {name} (rc {run.returncode}): {verdict}")

@@ -60,7 +60,8 @@
 //     with fp32 atomics, whose order changes from run to run. The TPU
 //     carried the same sums across sequential grid steps in VMEM.
 
-#include <cuda.h>  // CUtensorMap (the driver entry point is looked up at run time)
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types (looked up at run time)
+#include <dlfcn.h>
 
 #include "wgmma.cuh"
 
@@ -154,7 +155,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 // Rows [row0, row0 + R) of head bh of a [BH, rows, d] bf16 tensor into an
 // [R, DP] tile, one TMA box of 16 columns by R rows per block; rows past the
 // map's row count and columns past d arrive as zeros. Completes on bar. One
-// thread issues it.
+// thread starts it.
 template <int DP, int R>
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int row0, int bh, uint64_t* bar) {
 #pragma unroll 4
@@ -325,8 +326,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
   zero(acc_k);
   zero(acc_v);
   if (kv0 < kv_len) {
-    // one thread issues the tiles (and expects `extra` more bytes); every
-    // thread its share of lse and delta
+    // one thread starts the tiles' copies (and expects `extra` more bytes);
+    // every thread copies its share of lse and delta
     auto load_stage = [&](int s, int q0, int extra) {
       unsigned char* p = ring + s * 2 * C::kTileBytes;
       if (threadIdx.x == 0) {
@@ -476,7 +477,8 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
   store_rows(dq + (size_t)bh * sq * d, acc, scale, r0, sq, cw, d, lane);
 }
 
-// cuTensorMapEncodeTiled, from the driver at run time (no link to libcuda).
+// cuTensorMapEncodeTiled, found at run time in libcuda (which the CUDA
+// runtime has loaded), so that the library needs no link to it.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -484,14 +486,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW);
+    if (libcuda != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(libcuda, "cuTensorMapEncodeTiled"));
   }
   return fn;
 }

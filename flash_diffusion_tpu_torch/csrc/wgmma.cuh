@@ -1,5 +1,5 @@
 // Warpgroup matrix multiply (wgmma, sm_90a) for the attention backward
-// pair (flash_bwd.cu): bf16 in, fp32 accumulate, m64nNk16, issued by the
+// pair (flash_bwd.cu): bf16 in, fp32 accumulate, m64nNk16, started by the
 // four warps of a warpgroup together and run asynchronously.
 //
 // Shared-memory operands are tiles in the "core matrix" layout without
