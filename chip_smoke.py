@@ -14,8 +14,8 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
    per source, all at once; timed), with ptxas' register report; the
    attention kernels' shared-memory plans against the kernels' own
-   arithmetic (K6/K7's tiles at every head dim they take), and no K6/K7
-   instantiation may spill;
+   arithmetic (K6/K7's tiles at every head dim they take), and no K1, K6,
+   K7 or K8 instantiation may spill;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
@@ -36,7 +36,12 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    bit-equal for a sample alone and in its batch and from run to run; the
    port's apply kernel (x·ŵ + b̂, SiLU) to one bf16 ulp; their library
    yardsticks are ``torch.var_mean`` and ``F.silu(F.group_norm(...))``. K2
-   also runs at Pixart's D = 72. The backward kernels (K6+K7 or K8, routed by
+   also runs at Pixart's D = 72. K1 (the one-shot forward) is held to
+   ``attention_fwd_gate`` (max|out err| within 4e-3 + 2^-8 of max|out|, a
+   mean signed error within 5e-4, lse within 5e-3) on cases whose keys past
+   ``kv_valid`` are k × 3 and v + 1, and on a 77-key case with v + 1 at
+   every key (a zero padding row that leaked would show); K2 to 2e-2, with
+   the new gate's verdict printed. The backward kernels (K6+K7 or K8, routed by
    ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv by ``attention_bwd_gate``
    (max|err| within 4e-3 + 2^-6 of max|grad|, relative L2 within 1e-2, and
@@ -182,6 +187,10 @@ ATTENTION_RAGGED = [
     (32, 1000, 1024, 80, 900), (32, 4000, 77, 40, 70), (4, 700, 4096, 512, 3000),
     (32, 4000, 4096, 40, 4001), (32, 300, 2000, 160, 1999),
 ]
+# v + 1 at every key (kv_valid None): a zero-filled padding row past KV (77
+# keys padded to 80) that leaked into the softmax would pull every row's
+# output towards 0 by ~2%
+ATTENTION_V_SHIFTED = [(32, 4000, 77, 40, None)]
 # SDXL at batch 4, 1024²: the self-attention (10 heads at level 1, 20 at
 # level 2 and mid; D = 64) and the VAE mid-block over 128² latents' 16384
 # tokens
@@ -301,9 +310,10 @@ SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
-# tolerances, kernel (bf16) vs plain (fp32): attention out is rounded to
-# bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2); lse is fp32
-# from exact bf16 products (5e-3); LayerNorm in bf16 differs by the output's
+# tolerances, kernel (bf16) vs plain (fp32): K2's and K4's attention out is
+# rounded to bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2; K1
+# is held to ops/attention.py attention_fwd_gate); lse is fp32 from exact
+# bf16 products (5e-3); LayerNorm in bf16 differs by the output's
 # one rounding (|y| < 8: 1/32), in fp32 by summation order (1e-4)
 ATTN_OUT_TOL, ATTN_LSE_TOL = 2e-2, 5e-3
 # K5 vs the plain version in fp32, held tighter than ATTN_OUT_TOL (a typical
@@ -409,38 +419,67 @@ def fmt_ms(x):
     return "n/a" if x is None else f"{x:.4f}"
 
 
-def check_attention(attention, results):
+def check_attention(attention, results, timed=True):
+    """K1 (``flash_fwd_oneshot``) and K2 (``flash_fwd_stream``) against the
+    plain version in fp32 on the same bf16 inputs, every case printed, then
+    a raise listing the failures. K1 is held to ``attention_fwd_gate``
+    (max|out err| ≤ 4e-3 + 2⁻⁸·max|ref|, |mean err| ≤ 5e-4, max|lse err| ≤
+    5e-3); K2 to ATTN_OUT_TOL and ATTN_LSE_TOL, with the new gate's verdict
+    printed beside. On the ragged cases the keys at or past ``kv_valid`` are
+    k × 3 and v + 1, and ATTENTION_V_SHIFTED adds 1 to every v, so that a
+    masked key, or a zero-filled padding row past KV, leaking into the
+    softmax shows as a mean error. With ``timed``, the kernel's and the plain
+    version's times, and at the paths' shapes the library's and the bound."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    for bh, sq, skv, d, kv_valid in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_RAGGED:
+    failed = []
+    for shape in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_RAGGED + ATTENTION_V_SHIFTED:
+        bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, skv, skv))
+        if kv_valid is not None:
+            k[:, kv_valid:] *= 3
+            v[:, kv_valid:] += 1
+        if shape in ATTENTION_V_SHIFTED:
+            v += 1
         scale = d ** -0.5
         kind = attention.attention_plan(kv_valid or skv, d)[0]
         out, lse = attention.flash_attention_bhsd(q, k, v, scale, kv_valid)
         torch.cuda.synchronize()
         ref_out, ref_lse = attention.attention_bhsd_reference(
             q.float(), k.float(), v.float(), scale, kv_valid)
-        err = (out.float() - ref_out).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
+        stats = attention.attention_fwd_errors(out, lse, ref_out, ref_lse)
         del ref_out, ref_lse
-        ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
-        plain = median_ms(lambda: attention.attention_bhsd_reference(q, k, v, scale, kv_valid))
-        main = (bh, sq, skv, d, kv_valid) in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART
-        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v
+        gate_ok, report = attention.attention_fwd_gate(stats)
+        err, lse_err = stats["max_err"], stats["lse_err"]
+        if kind == "flash_fwd_oneshot":
+            ok, checks = gate_ok, f"{'pass' if gate_ok else 'FAIL'}: {report}"
+        else:
+            ok = err <= ATTN_OUT_TOL and lse_err <= ATTN_LSE_TOL
+            checks = (f"{'pass' if ok else 'FAIL'}: max|out err| {err:.3e} (tol {ATTN_OUT_TOL}) max|lse err| "
+                      f"{lse_err:.3e} (tol {ATTN_LSE_TOL}); the forward gate would {'pass' if gate_ok else 'FAIL'}: "
+                      f"{report}")
+        main = shape in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART
+        times = ""
+        if timed:
+            ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
+            plain = median_ms(lambda: attention.attention_bhsd_reference(q, k, v, scale, kv_valid))
+            times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if timed and main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v
             library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale))
             bnd = bound(4 * bh * sq * skv * d, 2 * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        print(f"attention {kind:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} "
-              f"kv_valid={kv_valid}: max|out err| {err:.3e} (tol {ATTN_OUT_TOL}) "
-              f"max|lse err| {lse_err:.3e} (tol {ATTN_LSE_TOL}); {times}")
-        if not (err <= ATTN_OUT_TOL and lse_err <= ATTN_LSE_TOL):
-            raise AssertionError(f"attention kernel disagrees with its plain version at {(bh, sq, skv, d, kv_valid)}")
+            add_times(results[kind], ms, plain, library, bnd)
+        print(f"attention {kind:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} kv_valid={kv_valid}"
+              f"{' (k x3, v +1 past it)' if kv_valid else ''}{' (v +1)' if shape in ATTENTION_V_SHIFTED else ''}: "
+              f"{checks}{times}")
+        if not ok:
+            failed.append(shape)
         r = results[kind]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
-            add_times(r, ms, plain, library, bnd)
+        del q, k, v, out, lse
+    if failed:
+        raise AssertionError(f"attention kernel disagrees with its plain version at {failed}")
 
 
 def check_packed(attention, results, name, shapes, ragged, seed):
@@ -1388,9 +1427,10 @@ def main():
             kernels.check(lib.fdt_flash_bwd_pair_tiles(which, d, got), "fdt_flash_bwd_pair_tiles")
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K{6 + which} tiles at d={d}: kernel {tuple(got)}, plan {tuple(want)}")
-    spills = [line for line in spill_report if "flash_bwd_dkv" in line or "flash_bwd_dq" in line]
+    spills = [line for line in spill_report if any(
+        k in line for k in ("flash_fwd_oneshot_kernel", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_oneshot_kernel"))]
     if spills:
-        raise AssertionError(f"K6/K7 instantiations spill registers: {spills}")
+        raise AssertionError(f"K1/K6/K7/K8 instantiations spill registers: {spills}")
 
     results = {
         "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",

@@ -146,6 +146,32 @@ def attention_bhsd_reference(
     return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
+# The gate of the one-shot forward kernel against the plain version in fp32
+# on the same bf16 inputs: max|out err| ≤ FWD_TOL_FLOOR + FWD_TOL_REL·max|ref|
+# (the output's own rounding is 2⁻⁹ of |out|), the mean signed error within
+# FWD_BIAS_TOL (rounding to nearest has no bias; a key that leaks into the
+# softmax pulls every row of a v + 1 case the same way), and max|lse err| ≤
+# FWD_LSE_TOL. A typical |out| is 0.03–0.3, so an absolute 2e-2 would pass a
+# kernel off by several percent or one that leaks masked keys.
+FWD_TOL_FLOOR, FWD_TOL_REL, FWD_BIAS_TOL, FWD_LSE_TOL = 4e-3, 2 ** -8, 5e-4, 5e-3
+
+
+def attention_fwd_errors(out, lse, ref_out, ref_lse) -> dict:
+    """What ``attention_fwd_gate`` reads of (out, lse) against the plain
+    version's (ref_out, ref_lse)."""
+    e = out.double() - ref_out.double()
+    return {"max_err": e.abs().max().item(), "max_ref": ref_out.abs().max().item(),
+            "mean_err": e.mean().item(), "lse_err": (lse.double() - ref_lse.double()).abs().max().item()}
+
+
+def attention_fwd_gate(stats: dict) -> Tuple[bool, str]:
+    """(pass, report) of the gate above on ``attention_fwd_errors``' stats."""
+    tol = FWD_TOL_FLOOR + FWD_TOL_REL * stats["max_ref"]
+    ok = stats["max_err"] <= tol and abs(stats["mean_err"]) <= FWD_BIAS_TOL and stats["lse_err"] <= FWD_LSE_TOL
+    return ok, (f"max|out err| {stats['max_err']:.3e} (tol {tol:.3e}) mean err {stats['mean_err']:.3e} "
+                f"(tol {FWD_BIAS_TOL}) max|lse err| {stats['lse_err']:.3e} (tol {FWD_LSE_TOL})")
+
+
 def _check_cuda_inputs(q, k, v, kv_len):
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernels run on CUDA tensors, got {q.device}")

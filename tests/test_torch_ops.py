@@ -525,6 +525,56 @@ def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
             tattn.attention_bwd_plan(4096, d)
 
 
+def _plain_fwd_variant(q, k, v, scale, kv_valid, fault):
+    """The plain forward at the one-shot kernel's rounding points (p rounded
+    to q's dtype before p·v, the fp32 row sum, out rounded once), or a copy
+    with one ``fault``: the key mask dropped, the KV's zero padding to a
+    multiple of 16 leaked into the softmax (score 0, v 0), or out × 1.01."""
+    kv_len = kv_valid or k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if fault == "padding leaked":
+        pad = -(-kv_len // 16) * 16 - k.shape[1]
+        kf, vf = (torch.cat([t, t.new_zeros(t.shape[0], max(pad, 0), t.shape[2])], 1) for t in (kf, vf))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if fault != "mask dropped":
+        s[..., kv_len:k.shape[1]] = -1e30
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), vf) / l
+    if fault == "out x 1.01":
+        out = out * 1.01
+    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("fault", [None, "mask dropped", "padding leaked", "out x 1.01"])
+def test_attention_fwd_gate_passes_the_plain_forward_and_catches_faults(fault):
+    """The gate of the one-shot forward, on the CPU, on the two kinds of case
+    that the card's checks add: ragged (keys at or past ``kv_valid`` are
+    k × 3 and v + 1) and 77 keys with v + 1 everywhere. The plain forward in
+    bf16 (the kernel's rounding points) against the plain version in fp32
+    passes both; each fault fails at least one."""
+    g = torch.Generator().manual_seed(14)
+    bh, sq, kv, d = 2, 100, 77, 40
+    verdicts = []
+    for kv_valid in (50, None):
+        q, k, v = (torch.randn(bh, s, d, generator=g).to(torch.bfloat16) for s in (sq, kv, kv))
+        if kv_valid is None:
+            v += 1
+        else:
+            k[:, kv_valid:] *= 3
+            v[:, kv_valid:] += 1
+        scale = d ** -0.5
+        want = tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), scale, kv_valid)
+        out, lse = _plain_fwd_variant(q, k, v, scale, kv_valid, fault)
+        ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, *want))
+        verdicts.append((ok, report))
+    if fault is None:
+        assert all(ok for ok, _ in verdicts), verdicts
+    else:
+        assert not all(ok for ok, _ in verdicts), verdicts
+
+
 def _plain_bwd_variant(q, k, v, o, lse, do, scale, kv_valid, fault):
     """``attention_bwd_reference`` in q's dtype, or a copy of it with one
     ``fault``: the key mask dropped, Δ dropped, or dv × 1.03."""
@@ -578,19 +628,28 @@ def test_bwd_wrapper_refuses_devices_without_a_kernel():
     (2, 100, 1500, 200, 1400), (1, 64, 4096, 512, None),
 ])
 def test_attention_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
-    """bf16 kernel vs the plain version on the same inputs in fp32.
-    Tolerance: bf16 rounding of p and of the output, |out| < 4 → 2e-2."""
+    """bf16 kernel vs the plain version on the same inputs in fp32; keys at
+    or past ``kv_valid`` are k × 3 and v + 1. The one-shot kernel (K1) is
+    held to ``attention_fwd_gate``; the streaming one (K2) to bf16 rounding
+    of p and of the output, |out| < 4 → 2e-2, and lse to 5e-3."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda).to(torch.bfloat16)
                for s in (sq, skv, skv))
+    if kv_valid is not None:
+        k[:, kv_valid:] *= 3
+        v[:, kv_valid:] += 1
     kind, _ = tattn.attention_plan(kv_valid or skv, d)
     n = tattn.LAUNCHES[kind]
     out, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES[kind] == n + 1
     ref_out, ref_lse = tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), d ** -0.5, kv_valid)
-    assert (out.float() - ref_out).abs().max().item() < 2e-2
-    assert (lse - ref_lse).abs().max().item() < 5e-3
+    if kind == "flash_fwd_oneshot":
+        ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, ref_out, ref_lse))
+        assert ok, report
+    else:
+        assert (out.float() - ref_out).abs().max().item() < 2e-2
+        assert (lse - ref_lse).abs().max().item() < 5e-3
 
 
 @pytest.mark.cuda
