@@ -38,17 +38,17 @@ CHECKS = {"fwd": "check_attention", "bwd": "check_attention_bwd"}
 # the package, [(text, its replacement, occurrences)])
 MUTANTS = [
     ("K1 key mask removed", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
-     [("const float s = c < kv_len ? srow[c] * scale : kNegInf;",
-       "const float s = true ? srow[c] * scale : kNegInf;", 1)]),
+     [("const float x = c < kv_len ? s[nt][e] * scale_log2 : kNegInf;",
+       "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),
     ("K1 out x 1.01", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
-     [("__float2bfloat16(wscratch[e] / l_s[r])", "__float2bfloat16(wscratch[e] / l_s[r] * 1.01f)", 1)]),
+     [("inv[r] = 1.0f / l[r];", "inv[r] = 1.01f / l[r];", 1)]),
     ("K6/K7 key mask removed", "bwd", ("flash_bwd_pair",), "csrc/flash_bwd.cu",
      [("key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};", "key_ok[2] = {true, true};", 1),
       ("key_ok = c + (e & 1) < kv_len;", "key_ok = true;", 1)]),
     ("K6 dV x 1.03", "bwd", ("flash_bwd_pair",), "csrc/flash_bwd.cu",
      [("store_rows(dv + at, acc_v, 1.0f,", "store_rows(dv + at, acc_v, 1.03f,", 1)]),
-    ("K8 key mask removed", "bwd", ("flash_bwd_oneshot",), "csrc/bwd_tiles.cuh",
-     [("if (r < q_valid && c < kv_valid) pv =", "if (r < q_valid) pv =", 1)]),
+    ("K8 key mask removed", "bwd", ("flash_bwd_oneshot",), "csrc/flash_bwd_oneshot.cu",
+     [("key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};", "key_ok[2] = {true, true};", 1)]),
     ("K8 dV x 1.03", "bwd", ("flash_bwd_oneshot",), "csrc/flash_bwd_oneshot.cu",
      [("dv[idx] = __float2bfloat16(sv);", "dv[idx] = __float2bfloat16(sv * 1.03f);", 1)]),
 ]
