@@ -14,7 +14,8 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
    per source, all at once; timed), with ptxas' register report; the
    attention kernels' shared-memory plans against the kernels' own
-   arithmetic (K6/K7's tiles at every head dim they take), and no K1, K6,
+   arithmetic (K6/K7's tiles at every head dim they take, K8's at every head
+   dim and KV up to 160 and 256), and no K1, K6,
    K7 or K8 instantiation may spill;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
@@ -1414,13 +1415,13 @@ def main():
         kvp = -(-kv // 16) * 16
         if lib.fdt_packed_smem_bytes(d, kvp) != attention.packed_smem_bytes(d, kvp):
             raise AssertionError(f"packed shared-memory plan and kernel layout disagree at kv={kv} d={d}")
-    for _, _, kv, d, kv_valid in BWD_SHAPES + BWD_RAGGED:  # so do the backward plans
-        route, tiles = attention.attention_bwd_plan(kv_valid or kv, d)
-        if route == "flash_bwd_oneshot":
-            bq, kvp, dp = tiles
-            args = (bq, kvp, dp, kvp, dp, 2, attention._BWD_SCRATCH)
-            if lib.fdt_flash_bwd_smem_bytes(*args) != attention.bwd_smem_bytes(*args):
-                raise AssertionError(f"backward shared-memory plan and kernel layout disagree at {args}")
+    for d in range(8, 161, 8):  # K8's tiles, at every head dim and KV it could take
+        for kv in range(1, 257):
+            got = (ctypes.c_int * 4)()
+            err = lib.fdt_flash_bwd_oneshot_tiles(kv, d, got)
+            want = attention.bwd_oneshot_tiles(kv, d)
+            if (err == 0) != (want is not None) or (want is not None and tuple(got) != tuple(want)):
+                raise AssertionError(f"K8 tiles at kv={kv} d={d}: kernel {tuple(got)} (error {err}), plan {want}")
     for d in range(8, 513, 8):  # the pair's tiles, at every head dim it takes
         for which, want in enumerate(attention.bwd_pair_tiles(d)):
             got = (ctypes.c_int * 7)()

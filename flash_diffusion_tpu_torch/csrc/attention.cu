@@ -1,252 +1,286 @@
-// One-shot flash-attention forward for Hopper (sm_90a): bf16 in, fp32
-// softmax, the whole KV of one (batch*head) in shared memory.
+// One-shot flash-attention forward for Hopper (sm_90a): K1, bf16 in, fp32
+// softmax, the whole KV of one (batch*head) resident in shared memory.
 //
-// Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py
-// _flash_fwd_oneshot_kernel (via _flash_fwd_oneshot_bhsd): softmax(q.k^T *
-// scale).v over the whole, zero-padded KV in one pass, exact (no running
-// max); out [BH, Sq, D] (bf16) and the per-row logsumexp lse [BH, Sq]
-// (fp32); KV positions >= kv_len masked to -1e30 before the softmax. SD1.5
-// sends it every cross-attention (77 text tokens) and the 64- and 256-token
-// self-attention. Longer KV streams through flash_fwd_mma.cu.
+// Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py:171
+// _flash_fwd_oneshot_kernel (via _flash_fwd_oneshot_bhsd, :491):
+// softmax(q.k^T * scale).v over the whole, zero-padded KV; out [BH, Sq, D]
+// (bf16) and the per-row logsumexp lse [BH, Sq] (fp32); KV positions >=
+// kv_len masked to -1e30 before the softmax. SD1.5 sends it every
+// cross-attention (77 text tokens) and the 64- and 256-token
+// self-attention. Longer KV streams through flash_fwd_mma.cu (K2).
 //
-// What bounds it on this card: the two matrix products (q.k^T and p.v) and
-// the fp32 softmax over every score; K/V are read once per 16..64 q rows,
-// so device traffic stays below the tensor-core time. The limit of this
-// first version is issue rate: tiles live in shared memory, the products
-// use the warp-level bf16 MMA (nvcuda::wmma 16x16x16, fp32 accumulate), and
-// the softmax runs on plain threads between them, with a block-wide barrier
-// between phases. No TMA, no wgmma: later work.
+// What bounds it on this card: at the UNet's shapes the bytes (q, k, v and
+// out once: 4.BH.(Sq + KV).D against 4.BH.Sq.KV.D operations, 77 keys
+// are far below the card's 295 operations a byte), then the issue of the
+// products and the exps. So the block must not spend its time moving the
+// same K and V again, or moving scores through shared memory:
+//   - Scores in registers. Each warp owns 16 q rows: q.k^T is mma.sync
+//     m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix, and its fp32
+//     accumulator fragments, exponentiated and packed to bf16, are exactly
+//     the A fragments of p.v (the trick of K2, flash_fwd_mma.cu). Scores,
+//     probabilities and the output accumulator never leave registers; the
+//     output is divided by the row sum there and stored as bf16 pairs.
+//   - Where a row's scores and its output fit registers together (up to
+//     128 keys at D <= 80, 80 keys above), the softmax is exact over the
+//     whole row in one pass, as the TPU kernel's is. Past that (256 keys at
+//     D = 160) the warp walks the resident K and V in chunks of that many
+//     keys with a running max and row sum: the same function to rounding.
+//   - K and V of the head are copied into shared memory once per block by
+//     cp.async, in two commit groups: V lands behind the first chunk's
+//     scores and softmax. Only Q, K and V live in shared memory, so the q
+//     tile is not bounded by a score tile: 64 rows (4 warps) wherever the
+//     grid has enough blocks; 32 or 16 rows (2 or 1 warps) where 64-row
+//     tiles would leave most SMs idle (Sq = 64: 32 heads give 32 blocks of
+//     64 rows, 128 of 16). A row's result does not depend on the tile, so
+//     the choice (the host's) changes no bit.
+//   - No block-wide barrier between the products: one after Q and K land,
+//     one after V lands.
 //
 // Design points:
-//   - Head dims 40 and 80 are not multiples of the MMA depth (16). D is
-//     zero-padded to DP = round_up(D, 16) in shared memory; the loader
-//     writes zeros for the padded columns and never reads past a row.
+//   - D is zero-padded to DP = round_up(D, 16) in shared memory (cp.async
+//     with a zero source size writes zeros); nothing is read past a row.
 //   - K and V rows at or beyond kv_len (kv_valid masking, the ragged tail,
 //     the padding to a multiple of 16) are written as zeros and their
-//     scores set to -1e30, so p = exp(-1e30 - m) = 0 exactly and 0 * V adds
-//     nothing. Every shared tile that is read was written first.
-//   - The scale is applied to the fp32 scores (never folded into bf16 q).
-//   - The host picks the q tile (ops/attention.py attention_plan): 64 rows
-//     where the tile set fits 227 KB, else 32 or 16.
-//   - The grid is (ceil(Sq / BQ), B*H): at Sq = 4096 cross-attention with
-//     B*H = 32 and BQ = 64 that is 2048 blocks for 132 SMs.
+//     scores set to -1e30, so p = 0 exactly and never meets garbage V.
+//   - The scale is applied to the fp32 scores, never folded into bf16 q;
+//     the softmax runs in base 2 (scores times scale * log2(e), ex2.approx).
+//   - Head dims up to 160 (the output accumulator of a 16-row band is D / 2
+//     registers a thread); the host routes larger ones to K2.
+//   - The dynamic shared-memory limit is raised once per process and card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using namespace fdt;
+
+constexpr int kMaxThreads = 128;  // at most 4 warps: a 64-row q tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__host__ __device__ inline int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Shared-memory layout, computed identically on the host (to size the
-// launch) and on the device (to carve the buffer). Every buffer starts on a
-// 128-byte boundary, which covers the 32-byte alignment wmma needs. The
-// Python planner in ops/attention.py mirrors this arithmetic.
-struct Layout {
-  int ld_qkv;  // bf16 row stride of the Q, K and V tiles (DP + 8)
-  int ld_s;    // fp32 row stride of the score tile (KVP + 4)
-  int ld_p;    // bf16 row stride of the probability tile (KVP + 8)
-  int off_q, off_k, off_v, off_s, off_p, off_scratch, off_m, off_l;
-  int bytes;
-
-  __host__ __device__ Layout(int bq, int kvp, int dp) {
-    ld_qkv = dp + 8;
-    ld_s = kvp + 4;
-    ld_p = kvp + 8;
-    int off = 0;
-    off_q = off; off += align128(bq * ld_qkv * 2);
-    off_k = off; off += align128(kvp * ld_qkv * 2);
-    off_v = off; off += align128(kvp * ld_qkv * 2);
-    off_s = off; off += align128(bq * ld_s * 4);
-    off_p = off; off += align128(bq * ld_p * 2);
-    off_scratch = off; off += align128(kWarps * 16 * 16 * 4);
-    off_m = off; off += align128(bq * 4);
-    off_l = off; off += align128(bq * 4);
-    bytes = off;
-  }
+// Keys of one chunk: a warp's scores are kChunk / 2 registers a thread,
+// its output accumulator DP / 2.
+template <int DP>
+struct OneshotCfg {
+  static constexpr int kLD = DP + 8;  // shared row stride (16-byte multiple; ldmatrix rows hit every bank)
+  static constexpr int kChunk = DP <= 80 ? 128 : 80;
 };
 
-__device__ inline float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// Bytes of dynamic shared memory of a block: Q [bq, DP], K and V [kvp, DP]
+// in bf16, row stride DP + 8. The planner (ops/attention.py smem_bytes)
+// mirrors it.
+__host__ __device__ inline int smem_bytes(int bq, int kvp, int dp) { return (bq + 2 * kvp) * (dp + 8) * 2; }
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy rows [row0, row0 + nrows) of a row-major [*, d] bf16 matrix into a
-// [nrows, dp] shared tile with row stride ld. Rows >= valid_rows and columns
-// >= d are written as zeros. Needs d % 8 == 0 and a 16-byte aligned source
-// (the host checks both): each thread moves 16 bytes at a time.
-__device__ inline void load_rows(bf16* dst, int ld, const bf16* src, int row0, int nrows,
-                                 int valid_rows, int d, int dp) {
-  const int chunks = dp / 8;
-  for (int idx = threadIdx.x; idx < nrows * chunks; idx += kThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * 8;
+// Rows [row0, row0 + nrows) of a row-major [*, d] matrix into a [nrows, DP]
+// shared tile of row stride DP + 8 by cp.async; rows >= valid_rows and
+// columns >= d become zeros. d % 8 == 0 and a 16-byte aligned source (the
+// host checks both).
+template <int DP>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int nrows, int valid_rows, int d) {
+  constexpr int kChunks = DP / 8;
+  for (int idx = threadIdx.x; idx < nrows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
     const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < valid_rows && c < d) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    const bool valid = gr < valid_rows && c < d;
+    cp_async16(dst + r * (DP + 8) + c, valid ? src + (size_t)gr * d + c : src, valid);
   }
 }
 
-// S[bq, kvp] = Q[bq, dp] . K[kvp, dp]^T in fp32, one 16x16 tile per warp turn.
-__device__ inline void qk_scores(const bf16* qs, const bf16* ks, float* ss, const Layout& L,
-                                 int bq, int kvp, int dp) {
-  const int warp = threadIdx.x / 32;
-  const int tiles_n = kvp / 16;
-  const int tiles = (bq / 16) * tiles_n;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int r0 = (t / tiles_n) * 16;
-    const int c0 = (t % tiles_n) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < dp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, qs + r0 * L.ld_qkv + k0, L.ld_qkv);
-      // K stored [n][k] row-major is K^T [k][n] in column-major order
-      wmma::load_matrix_sync(b, ks + c0 * L.ld_qkv + k0, L.ld_qkv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(ss + r0 * L.ld_s + c0, acc, L.ld_s, wmma::mem_row_major);
-  }
-}
-
-// Softmax over the score tile, one warp per row: scales and masks the
-// scores, writes the bf16 probabilities P = exp(s - m), and leaves the row
-// max m and denominator l = sum(P) (from the fp32 values) for the epilogue.
-__device__ inline void softmax_rows(float* ss, bf16* ps, float* m_s, float* l_s, const Layout& L,
-                                    int bq, int kvp, int kv_len, float scale) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < bq; r += kWarps) {
-    float* srow = ss + r * L.ld_s;
-    bf16* prow = ps + r * L.ld_p;
-    float mx = kNegInf;
-    for (int c = lane; c < kvp; c += 32) {
-      const float s = c < kv_len ? srow[c] * scale : kNegInf;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < kvp; c += 32) {
-      const float p = __expf(srow[c] - mx);
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_s[r] = mx;
-      l_s[r] = sum;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ lse, int sq, int skv, int d, int dp, int kv_len,
-                         float scale, int bq, int kvp) {
+template <int DP>
+__global__ void __launch_bounds__(kMaxThreads)
+flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv, int d, int kv_len,
+                         float scale_log2) {
+  typedef OneshotCfg<DP> C;
+  constexpr int LD = C::kLD;
+  constexpr int KD = DP / 16;           // k-steps of q.k^T
+  constexpr int ND = DP / 8;            // n-tiles of the output
+  constexpr int NT = C::kChunk / 8;     // n-tiles of a chunk's scores
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(bq, kvp, dp);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.off_q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.off_k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_v);
-  float* ss = reinterpret_cast<float*>(smem + L.off_s);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.off_p);
-  float* scratch = reinterpret_cast<float*>(smem + L.off_scratch);
-  float* m_s = reinterpret_cast<float*>(smem + L.off_m);
-  float* l_s = reinterpret_cast<float*>(smem + L.off_l);
+  const int bq = blockDim.x / 2;        // 16 q rows a warp
+  const int kvp = (kv_len + 15) / 16 * 16;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + bq * LD;
+  bf16* vs = ks + kvp * LD;
 
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * bq;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  load_rows(qs, L.ld_qkv, q + bh * sq * d, q0, bq, sq, d, dp);
-  load_rows(ks, L.ld_qkv, k + bh * skv * d, 0, kvp, kv_len, d, dp);
-  load_rows(vs, L.ld_qkv, v + bh * skv * d, 0, kvp, kv_len, d, dp);
-  __syncthreads();
-  qk_scores(qs, ks, ss, L, bq, kvp, dp);
-  __syncthreads();
-  softmax_rows(ss, ps, m_s, l_s, L, bq, kvp, kv_len, scale);
+  // group 0: Q and K; group 1: V, which lands behind the first scores
+  load_rows<DP>(qs, q + bh * sq * d, q0, bq, sq, d);
+  load_rows<DP>(ks, k + bh * skv * d, 0, kvp, kv_len, d);
+  cp_async_commit();
+  load_rows<DP>(vs, v + bh * skv * d, 0, kvp, kv_len, d);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  // out = (P . V) / l, one 16x16 output tile per warp turn, staged through
-  // the warp's own 16x16 fp32 scratch so that rows can be divided by l.
-  bf16* oh = out + bh * sq * d;
-  float* wscratch = scratch + warp * 256;
-  const int tiles_n = dp / 16;
-  const int tiles = (bq / 16) * tiles_n;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int r0 = (t / tiles_n) * 16;
-    const int c0 = (t % tiles_n) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < kvp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, ps + r0 * L.ld_p + k0, L.ld_p);
-      wmma::load_matrix_sync(b, vs + k0 * L.ld_qkv + c0, L.ld_qkv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(wscratch, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = r0 + e / 16;
-      const int c = c0 + e % 16;
-      if (q0 + r < sq && c < d) {
-        oh[(size_t)(q0 + r) * d + c] = __float2bfloat16(wscratch[e] / l_s[r]);
+  const bf16* qrow = qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  float o[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // running max of rows lane/4 and lane/4 + 8
+  float l[2] = {0.0f, 0.0f};        // this thread's partial row sums
+
+  for (int kv0 = 0; kv0 < kvp; kv0 += C::kChunk) {
+    const int nk = min(C::kChunk, kvp - kv0) / 16;  // 16-key steps in this chunk
+
+    // scores s = q . k^T for this warp's 16 rows x the chunk's keys
+    float s[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qrow + kk * 16);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        if (nt / 2 < nk) {
+          uint32_t b[4];
+          ldmatrix_x4(b, ks + (kv0 + nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+          mma16816(s[nt], a, b[0], b[1]);
+          mma16816(s[nt + 1], a, b[2], b[3]);
+        }
       }
     }
-    __syncwarp();
+
+    // the softmax on the fragments: element e of n-tile nt is row lane/4
+    // (+8 for e >= 2), key kv0 + nt*8 + 2*(lane%4) + (e&1); keys at or past
+    // kv_len (also those past the chunk's last step) get -1e30, so p = 0
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = kv0 + nt * 8 + 2 * (lane % 4) + (e & 1);
+        const float x = c < kv_len ? s[nt][e] * scale_log2 : kNegInf;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fast_exp2(m[r] - mx[r]);  // 0 on the first chunk
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[nt][e] - m[e >> 1]);
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+    if (kv0 == 0) {  // every warp takes this branch: V has landed everywhere after it
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // o += p . v: the score fragments of keys 16kc..16kc+15 are the A fragment
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      if (kc < nk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]), pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vs + (kv0 + kc * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + nd * 8 + (lane / 16) * 8);
+          mma16816(o[nd], a, b[0], b[1]);
+          mma16816(o[nd + 1], a, b[2], b[3]);
+        }
+      }
+    }
   }
-  for (int r = threadIdx.x; r < bq; r += kThreads) {
-    if (q0 + r < sq) lse[bh * sq + q0 + r] = m_s[r] + logf(l_s[r]);
+
+  // out = o / l in registers, stored as bf16 pairs; lse = m ln 2 + ln l
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / l[r];
   }
+  const int row = q0 + warp * 16 + lane / 4;
+  bf16* oh = out + bh * sq * d;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    const int col = nd * 8 + 2 * (lane % 4);
+    if (col < d) {  // d % 8 == 0: a pair is inside d or past it
+      if (row < sq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * d + col) =
+            __floats2bfloat162_rn(o[nd][0] * inv[0], o[nd][1] * inv[0]);
+      if (row + 8 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)(row + 8) * d + col) =
+            __floats2bfloat162_rn(o[nd][2] * inv[1], o[nd][3] * inv[1]);
+    }
+  }
+  if (lane % 4 == 0) {
+    if (row < sq) lse[bh * sq + row] = m[0] * kLn2 + logf(l[0]);
+    if (row + 8 < sq) lse[bh * sq + row + 8] = m[1] * kLn2 + logf(l[1]);
+  }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int sq, int skv, int d,
+           int kv_len, float scale, int bq, cudaStream_t stream) {
+  static unsigned done = 0;
+  cudaError_t err = allow_max_smem(flash_fwd_oneshot_kernel<DP>, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bq % 16 || bq < 16 || bq * 2 > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((sq + bq - 1) / bq, bh);
+  flash_fwd_oneshot_kernel<DP><<<grid, bq * 2, smem_bytes(bq, (kv_len + 15) / 16 * 16, DP), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), sq, skv, d, kv_len, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for the given tiles.
-int fdt_attn_smem_bytes(int bq, int kvp, int dp) { return Layout(bq, kvp, dp).bytes; }
+// Bytes of dynamic shared memory one block needs for a q tile of bq rows
+// and kvp keys at padded head dim dp.
+int fdt_attn_smem_bytes(int bq, int kvp, int dp) { return smem_bytes(bq, kvp, dp); }
 
-// One-shot forward: the whole KV (kv_len rows, zero-padded to kvp, a
-// multiple of 16) in shared memory. q [bh, sq, d], k/v [bh, skv, d] bf16;
-// out [bh, sq, d] bf16; lse [bh, sq] fp32. Returns the CUDA error code of
-// the launch (0 on success).
-int fdt_flash_fwd_oneshot(const void* q, const void* k, const void* v, void* out, void* lse,
-                          int bh, int sq, int skv, int d, int kv_len, float scale, int bq,
-                          int kvp, void* stream) {
-  const int dp = (d + 15) / 16 * 16;
-  const int bytes = Layout(bq, kvp, dp).bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_oneshot_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + bq - 1) / bq, bh);
-  flash_fwd_oneshot_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), sq, skv, d, dp, kv_len, scale, bq,
-      kvp);
-  return static_cast<int>(cudaGetLastError());
+// One-shot forward: the whole KV (kv_len rows, zero-padded to a multiple
+// of 16) in shared memory, q tiles of bq rows (16, 32, 48 or 64). q [bh,
+// sq, d], k/v [bh, skv, d] bf16, d % 8 == 0 and d <= 160; out [bh, sq, d]
+// bf16; lse [bh, sq] fp32. Returns the CUDA error code of the launch (0 on
+// success).
+int fdt_flash_fwd_oneshot(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int sq,
+                          int skv, int d, int kv_len, float scale, int bq, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d % 8 ? 0 : (d + 15) / 16) {
+    case 1: return launch<16>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 2: return launch<32>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 3: return launch<48>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 4: return launch<64>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 5: return launch<80>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 6: return launch<96>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 7: return launch<112>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 8: return launch<128>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 9: return launch<144>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 10: return launch<160>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Warp-level tile helpers shared by the mma.sync kernels (the attention
 // forward and backward, the GEMMs): cp.async 16- and 4-byte copies with
 // zero-fill, ldmatrix fragment loads, the bf16 m16n8k16 MMA with fp32
-// accumulate, and a base-2 exponential.
+// accumulate, a base-2 exponential, and the host's raise of a kernel's
+// shared-memory limit.
 //
 // Fragment layout of mma.sync m16n8k16 (PTX ISA): for the fp32 accumulator
 // d[4] of a 16x8 tile, element e sits at row lane/4 (+8 for e >= 2) and
@@ -68,6 +69,21 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Raises a kernel's dynamic shared-memory limit to the card's opt-in
+// maximum, once per process and card (bit `dev` of `done`): the launches
+// that follow need no attribute call of their own.
+template <typename Kernel>
+inline cudaError_t allow_max_smem(Kernel kernel, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (done >> dev) & 1u)) return err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
 }
 
 }  // namespace fdt

@@ -33,10 +33,10 @@ Dispatch, as the JAX ``_attn_primal`` does it:
   picks by ``attention_plan``:
   - ``flash_fwd_oneshot`` (``csrc/attention.cu``, the port of
     ``_flash_fwd_oneshot_kernel``): the whole padded KV of one (batch*head)
-    in shared memory, whenever that tile set fits the 227 KB a block can
-    have at a q tile of 64, 32 or 16 rows. At SD1.5 shapes: every
-    cross-attention (KV = 77) and the 64- and 256-token self-attention
-    (D = 160; 256 keys only at a 16-row q tile).
+    in shared memory, for head dims up to 160, whenever it and a q tile of
+    64, 32 or 16 rows fit the 227 KB a block can have. At SD1.5 shapes:
+    every cross-attention (KV = 77) and the 64- and 256-token
+    self-attention (D = 160).
   - ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
     ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
     accumulator in registers, for D <= 512. At SD1.5 and SDXL shapes: the
@@ -54,10 +54,10 @@ for the kernels; its backward is ``flash_attention_bwd_bhsd``, which picks by
 ``attention_bwd_plan``:
 
 - ``flash_bwd_oneshot`` (``csrc/flash_bwd_oneshot.cu``, the port of
-  ``_flash_bwd_oneshot_kernel``): the head's whole KV and fp32 dK/dV sums in
-  one block's shared memory, whenever that fits at a q tile of 64 or 32
-  rows. At SD1.5 shapes: every cross-attention (KV = 77) and the mid
-  block's 64-token self-attention.
+  ``_flash_bwd_oneshot_kernel``): the head's whole KV in one block, its
+  dK/dV sums in registers, for head dims up to 160 and up to 128 padded
+  keys (80 above D = 80). At SD1.5 shapes: every cross-attention (KV = 77)
+  and the mid block's 64-token self-attention.
 - ``flash_bwd_dkv`` then ``flash_bwd_dq`` (``csrc/flash_bwd.cu``, the ports
   of ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``): the
   streaming pair, for everything else; at SD1.5 shapes the 256-, 1024- and
@@ -81,7 +81,6 @@ from . import kernels
 
 _NEG_INF = -1e30
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block can have
-_WARPS = 4
 
 # Launch counts of the kernels, raised by one per launch (never on the
 # plain path). Reset them by assigning 0.
@@ -90,6 +89,7 @@ LAUNCHES = {
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_oneshot": 0,
 }
 _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
+_ONESHOT_MAX_D = 160  # and the one-shot kernel
 _PACKED_D = (64, 128)  # head dims the packed kernels are built for
 _PACKED_KV_MAX = 256  # the JAX default of FLASH_TPU_PACKED_CROSS_KV_MAX
 _PACKED_BQ = 64  # q rows of one packed block
@@ -104,27 +104,36 @@ def _align128(n: int) -> int:
 
 
 def smem_bytes(bq: int, kvp: int, dp: int) -> int:
-    """Shared memory of one block of the one-shot kernel; mirrors ``Layout``
-    in csrc/attention.cu."""
-    ld_qkv, ld_s, ld_p = dp + 8, kvp + 4, kvp + 8
-    total = _align128(bq * ld_qkv * 2) + 2 * _align128(kvp * ld_qkv * 2)
-    total += _align128(bq * ld_s * 4) + _align128(bq * ld_p * 2)
-    total += _align128(_WARPS * 16 * 16 * 4)
-    return total + 2 * _align128(bq * 4)
+    """Shared memory of one block of the one-shot kernel: Q [bq, dp], K and V
+    [kvp, dp] in bf16, row stride dp + 8; mirrors ``smem_bytes`` in
+    csrc/attention.cu."""
+    return (bq + 2 * kvp) * (dp + 8) * 2
 
 
 def attention_plan(kv_len: int, d: int) -> Tuple[str, int]:
     """(kernel, q tile rows) for ``kv_len`` valid keys at head dim ``d``.
 
-    The one-shot kernel takes a q tile of 64, 32 or 16 rows, the largest
-    whose tile set fits; the streaming kernel has fixed tiles."""
+    The one-shot kernel takes head dims up to 160 and the largest q tile of
+    64, 32 or 16 rows at which the head's padded K and V and the tile fit a
+    block (``fwd_q_tile`` may take a smaller one); the streaming kernel has
+    fixed tiles."""
     dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
-    for bq in (64, 32, 16):
-        if smem_bytes(bq, kvp, dp) <= _SMEM_LIMIT:
-            return "flash_fwd_oneshot", bq
+    if d <= _ONESHOT_MAX_D:
+        for bq in (64, 32, 16):
+            if smem_bytes(bq, kvp, dp) <= _SMEM_LIMIT:
+                return "flash_fwd_oneshot", bq
     if d <= _STREAM_MAX_D:
         return "flash_fwd_stream", 64
     raise ValueError(f"head dim {d} too large for the attention kernels")
+
+
+def fwd_q_tile(bq: int, sq: int, bh: int, sms: int) -> int:
+    """The one-shot kernel's q tile: ``bq`` (the plan's), halved down to 16
+    rows while the grid would give fewer than 3/4 of a block an SM. Each row's
+    result is the same at any tile, so this changes no bit."""
+    while bq > 16 and 4 * -(-sq // bq) * bh < 3 * sms:
+        bq //= 2
+    return bq
 
 
 def attention_bhsd_reference(
@@ -216,7 +225,7 @@ def flash_attention_bhsd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "flash_fwd_oneshot":
-            err = lib.fdt_flash_fwd_oneshot(*args, bq, _round_up(kv_len, 16), stream)
+            err = lib.fdt_flash_fwd_oneshot(*args, fwd_q_tile(bq, sq, bh, _sm_count(q.device.index)), stream)
         else:
             err = lib.fdt_flash_fwd_stream_mma(*args, stream)
     kernels.check(err, kind)
@@ -324,9 +333,8 @@ def flash_attention_packed_stream(
     return _launch_packed("flash_fwd_packed", q, k, v, num_heads, scale)
 
 
-_BWD_WARPS = 8  # warps of one backward block (csrc/bwd_tiles.cuh kWarps)
-_BWD_SCRATCH = _BWD_WARPS * 16 * 16 * 4  # the one-shot kernel's dq staging tiles
-_BWD_BLOCKS_PER_SM = 2  # one-shot blocks to aim for
+_BWD_BS = 32  # q rows of K8's streamed tile (csrc/flash_bwd_oneshot.cu kBS)
+_BWD_MIN_TILES = 4  # q tiles of a K8 split, at least: its partial dK, dV stay a fraction of its q traffic
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,14 +342,46 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bwd_smem_bytes(bq: int, bkv: int, dp: int, acc_rows: int, dc: int, n_acc: int,
-                   scratch: int = 0) -> int:
-    """Shared memory of one K8 (one-shot backward) block; mirrors
-    ``BwdLayout`` in csrc/bwd_tiles.cuh."""
-    ld_x, ld_s, ld_p = dp + 8, bkv + 4, bkv + 8
-    total = 2 * _align128(bq * ld_x * 2) + 2 * _align128(bkv * ld_x * 2) + 2 * _align128(bq * 4)
-    total += 2 * _align128(bq * ld_s * 4) + 2 * _align128(bq * ld_p * 2)
-    return total + n_acc * _align128(acc_rows * dc * 4) + _align128(scratch)
+class OneshotTiles(NamedTuple):
+    """K8's tiles for one head."""
+
+    kvp: int  # keys, padded to a multiple of 16: the rows of K and V in the block
+    dp: int  # padded head dim
+    threads: int  # of a block: 32 a warp, one warp (two above D = 80) on each 16-row kv band
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def bwd_smem_bytes(kvp: int, dp: int) -> int:
+    """Shared memory of one K8 block: K and V [kvp, dp] bf16, two stages of
+    (q, dO [32, dp] bf16; lse, Δ [32] fp32), dSᵀ [kvp, 32] bf16, at row
+    strides dp + 8 and 40; mirrors ``smem_bytes`` in csrc/flash_bwd_oneshot.cu."""
+    stage = 2 * _BWD_BS * (dp + 8) * 2 + 2 * _BWD_BS * 4
+    return 2 * kvp * (dp + 8) * 2 + 2 * stage + kvp * (_BWD_BS + 8) * 2
+
+
+def bwd_oneshot_tiles(kv_len: int, d: int) -> Optional[OneshotTiles]:
+    """K8's tiles for ``kv_len`` valid keys at head dim ``d``, or None where
+    K8 does not take the head: D up to 160 (padded to a multiple of 16 up to
+    80, else to 96, 128 or 160) and at most 128 padded keys up to D = 80
+    (8 warps), 80 above (10 warps: two a band, each on half the columns);
+    mirrors ``fdt_flash_bwd_oneshot_tiles``."""
+    if d % 8 or not 8 <= d <= _ONESHOT_MAX_D:
+        return None
+    dp = _round_up(d, 16) if d <= 80 else 96 if d <= 96 else 128 if d <= 128 else 160
+    kvp, wb = _round_up(kv_len, 16), 1 if dp <= 80 else 2
+    if kvp > (128 if wb == 1 else 80):
+        return None
+    return OneshotTiles(kvp, dp, kvp // 16 * wb * 32, bwd_smem_bytes(kvp, dp))
+
+
+def bwd_splits(sq: int, sms: int) -> Tuple[int, int]:
+    """(nsplit, q tiles a split) of K8 over ``sq`` query rows on a card of
+    ``sms`` SMs: at most sms / 8 splits of at least ``_BWD_MIN_TILES`` tiles.
+    Never from BH, so a head's dK and dV are summed in one order alone and
+    in any batch."""
+    q_tiles = -(-sq // _BWD_BS)
+    per_split = max(_BWD_MIN_TILES, -(-q_tiles // max(1, sms // 8)))
+    return -(-q_tiles // per_split), per_split
 
 
 class PairTiles(NamedTuple):
@@ -380,13 +420,12 @@ def bwd_pair_tiles(d: int) -> Tuple[PairTiles, PairTiles]:
 def attention_bwd_plan(kv_len: int, d: int) -> Tuple[str, tuple]:
     """(route, tiles) of the backward for ``kv_len`` valid keys at head dim ``d``.
 
-    ``flash_bwd_oneshot`` with (q tile rows, padded KV, padded D) when the
-    head's padded KV, its fp32 dK and dV and a q tile of 64 or 32 rows fit
-    one block; else the ``flash_bwd_pair`` K6 + K7 with ``bwd_pair_tiles(d)``."""
-    dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
-    for bq in (64, 32):
-        if bwd_smem_bytes(bq, kvp, dp, kvp, dp, 2, _BWD_SCRATCH) <= _SMEM_LIMIT:
-            return "flash_bwd_oneshot", (bq, kvp, dp)
+    ``flash_bwd_oneshot`` with ``bwd_oneshot_tiles`` where K8 takes the head
+    (the whole padded KV in one block); else the ``flash_bwd_pair`` K6 + K7
+    with ``bwd_pair_tiles(d)``."""
+    tiles = bwd_oneshot_tiles(kv_len, d)
+    if tiles is not None:
+        return "flash_bwd_oneshot", tiles
     return "flash_bwd_pair", bwd_pair_tiles(d)
 
 
@@ -482,14 +521,10 @@ def flash_attention_bwd_bhsd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "flash_bwd_oneshot":
-            bq, bkv, dc = tiles
-            q_tiles = -(-sq // bq)
-            target = _BWD_BLOCKS_PER_SM * _sm_count(q.device.index)
-            per_split = -(-q_tiles // max(1, min(q_tiles, -(-target // bh))))
-            nsplit = -(-q_tiles // per_split)
-            ws = torch.empty(2 * nsplit * bh * bkv * dc, dtype=torch.float32, device=q.device)
+            nsplit, per_split = bwd_splits(sq, _sm_count(q.device.index))
+            ws = torch.empty(2 * nsplit * bh * tiles.kvp * tiles.dp, dtype=torch.float32, device=q.device)
             err = lib.fdt_flash_bwd_oneshot(*ins, dq.data_ptr(), ws.data_ptr(), dk.data_ptr(),
-                                            dv.data_ptr(), *dims, bq, bkv, nsplit, per_split, stream)
+                                            dv.data_ptr(), *dims, nsplit, per_split, stream)
             kernels.check(err, route)
             LAUNCHES[route] += 1
         else:

@@ -15,8 +15,9 @@ wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
 of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
-the kernels with the most device time (with ``--train``, also the
-streaming attention backward's K6 + K7 and their share). The JAX
+the kernels with the most device time, and the device time and share of
+the one-shot attention forward (K1), the one-shot backward (K8, with the
+kernel that sums its partials) and the streaming backward (K6 + K7). The JAX
 package's kernel switches (``FLASH_TPU_ATTN_PACKED``,
 ``FLASH_TPU_FFN_FUSED``, ``FLASH_TPU_FFN_DOWN_GEMM``) are read from the
 environment, as everywhere in the port, and printed beside the result.
@@ -126,11 +127,14 @@ def main():
         cats[_category(e.key)] += e.self_device_time_total / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:20s} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time)")
-    pair = [e for e in kernels if "flash_bwd_dkv" in e.key or "flash_bwd_dq" in e.key]
-    if pair:  # the streaming attention backward, K6 + K7
-        ms = sum(e.self_device_time_total for e in pair) / 1e3
-        print(f"  attention backward pair (K6 + K7) {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time), "
-              f"{sum(e.count for e in pair)} launches")
+    for label, keys in (("one-shot forward (K1)", ("flash_fwd_oneshot_kernel",)),
+                        ("one-shot backward (K8 + its reduce)", ("flash_bwd_oneshot",)),
+                        ("attention backward pair (K6 + K7)", ("flash_bwd_dkv", "flash_bwd_dq"))):
+        found = [e for e in kernels if any(k in e.key for k in keys)]
+        if found:
+            ms = sum(e.self_device_time_total for e in found) / 1e3
+            print(f"  {label} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time), "
+                  f"{sum(e.count for e in found)} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 

@@ -250,7 +250,7 @@ def test_group_norm_function_gradcheck(act):
 SD15_ATTENTION = [
     (4096, 40, "flash_fwd_stream"),  # level-0 self-attention
     (1024, 80, "flash_fwd_stream"),  # level-1 self-attention
-    (256, 160, "flash_fwd_oneshot"),  # level-2 self-attention (16-row q tile)
+    (256, 160, "flash_fwd_oneshot"),  # level-2 self-attention (a 64-row q tile and 256 keys: 189 KB)
     (64, 160, "flash_fwd_oneshot"),  # mid-block self-attention
     (77, 40, "flash_fwd_oneshot"),  # cross-attention over the 77 text tokens
     (77, 80, "flash_fwd_oneshot"),
@@ -262,7 +262,7 @@ SD15_ATTENTION = [
 # The SDXL calls at 1024² that take flash_attention_bhsd (batch folded into BH)
 SDXL_ATTENTION = [
     (4096, 64, "flash_fwd_stream"),  # level-1 self-attention
-    (1024, 64, "flash_fwd_stream"),  # level-2 and mid self-attention (one-shot tiles: 295 KB)
+    (1024, 64, "flash_fwd_stream"),  # level-2 and mid self-attention (one-shot K and V: 288 KB)
     (16384, 512, "flash_fwd_stream"),  # VAE mid-block
 ]
 
@@ -273,6 +273,34 @@ def test_attention_plan_at_sd15_shapes(kv, d, kernel):
     assert kind == kernel and bq % 16 == 0
     if kind == "flash_fwd_oneshot":  # the whole padded KV fits one block
         assert tattn.smem_bytes(bq, -(-kv // 16) * 16, -(-d // 16) * 16) <= tattn._SMEM_LIMIT
+
+
+# The ragged forward calls of the card's checks (kv, kv_valid, head dim) and
+# the route they take: the one-shot kernel wherever the whole padded K and V
+# and a q tile fit a block at D <= 160
+FWD_RAGGED_ROUTES = [
+    (1024, 900, 80, "flash_fwd_stream"), (77, 70, 40, "flash_fwd_oneshot"), (4096, 3000, 512, "flash_fwd_stream"),
+    (4096, 4001, 40, "flash_fwd_stream"), (2000, 1999, 160, "flash_fwd_stream"), (200, 150, 80, "flash_fwd_oneshot"),
+    (77, None, 40, "flash_fwd_oneshot"),
+]
+
+
+@pytest.mark.parametrize("kv,kv_valid,d,kernel", [(kv, None, d, k) for kv, d, k in SD15_ATTENTION] + FWD_RAGGED_ROUTES)
+def test_oneshot_forward_tiles_fit_and_fill_the_card(kv, kv_valid, d, kernel):
+    """K1's plan: the route of every SD1.5 and ragged call, a tile set that
+    fits 227 KB at the plan's q tile (the largest of 64, 32, 16 rows), and a
+    q tile that ``fwd_q_tile`` shrinks only where 64-row tiles leave most of
+    132 SMs idle (32 heads at Sq = 64: 16 rows, 128 blocks)."""
+    kind, bq = tattn.attention_plan(kv_valid or kv, d)
+    assert kind == kernel
+    if kind != "flash_fwd_oneshot":
+        return
+    kvp, dp = -(-(kv_valid or kv) // 16) * 16, -(-d // 16) * 16
+    assert d <= 160 and tattn.smem_bytes(bq, kvp, dp) <= tattn._SMEM_LIMIT
+    assert tattn.smem_bytes(bq, kvp, dp) == (bq + 2 * kvp) * (dp + 8) * 2
+    assert tattn.fwd_q_tile(bq, 4096, 32, 132) == bq and tattn.fwd_q_tile(bq, 256, 32, 132) == bq
+    assert tattn.fwd_q_tile(bq, 64, 32, 132) == 16 and tattn.fwd_q_tile(bq, 64, 64, 132) == min(bq, 32)
+    assert all(tattn.fwd_q_tile(bq, sq, bh, 132) in (16, 32, 64) for sq in (1, 64, 4000) for bh in (1, 64))
 
 
 def test_cpu_calls_take_the_plain_path_and_launch_nothing(monkeypatch):
@@ -499,12 +527,38 @@ def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
     got, tiles = tattn.attention_bwd_plan(kv, d)
     assert got == route
     if route == "flash_bwd_oneshot":
-        bq, kvp, dp = tiles
-        assert bq % 16 == 0 and kvp % 16 == 0 and dp == -(-d // 16) * 16
-        assert tattn.bwd_smem_bytes(bq, kvp, dp, kvp, dp, 2, tattn._BWD_SCRATCH) <= tattn._SMEM_LIMIT
+        assert tiles.kvp == -(-kv // 16) * 16 and tiles.dp == (-(-d // 16) * 16 if d <= 80 else 160)
+        assert tiles.threads <= 320 and tiles.smem <= tattn._SMEM_LIMIT
     else:
         assert tiles == tattn.bwd_pair_tiles(d)
         assert all(t.smem <= tattn._SMEM_LIMIT for t in tiles)
+
+
+# The ragged backward calls of the card's checks (kv, kv_valid, head dim) and
+# their route: K8 wherever the whole padded KV fits its warps
+BWD_RAGGED_ROUTES = [
+    (77, None, 40, "flash_bwd_oneshot"), (200, 150, 80, "flash_bwd_pair"), (4096, 3001, 40, "flash_bwd_pair"),
+    (77, 70, 40, "flash_bwd_oneshot"), (4096, 3000, 512, "flash_bwd_pair"), (2000, 1999, 160, "flash_bwd_pair"),
+]
+
+
+@pytest.mark.parametrize("kv,kv_valid,d,route", [(kv, None, d, r) for kv, d, r in SD15_BWD] + BWD_RAGGED_ROUTES)
+def test_oneshot_backward_tiles_fit_and_split_without_bh(kv, kv_valid, d, route):
+    """K8's plan: the route of every SD1.5 training backward and ragged call,
+    a block of at most 10 warps (one on each 16-row kv band, two above
+    D = 80) whose K, V, two q stages and dSᵀ fit 227 KB; and an Sq split
+    that covers every q tile once, uses at most sms / 8 splits of at least
+    4 tiles, and takes no BH."""
+    got, tiles = tattn.attention_bwd_plan(kv_valid or kv, d)
+    assert got == route
+    if route != "flash_bwd_oneshot":
+        return
+    assert tiles.threads == tiles.kvp // 16 * (1 if tiles.dp <= 80 else 2) * 32 <= 320
+    assert tiles.smem == tattn.bwd_smem_bytes(tiles.kvp, tiles.dp) <= tattn._SMEM_LIMIT
+    for sq in (1, 64, 256, 1024, 4000, 4096):
+        nsplit, per = tattn.bwd_splits(sq, 132)
+        q_tiles = -(-sq // 32)
+        assert (nsplit - 1) * per < q_tiles <= nsplit * per and nsplit <= 16 and (nsplit == 1 or per >= 4)
 
 
 def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
@@ -777,6 +831,25 @@ def test_attention_bwd_pair_bit_equal_run_to_run_and_batched_on_card(cuda, sq, s
     g = torch.Generator(device=cuda).manual_seed(12)
     q, k, v, do = (torch.randn(4, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv, sq))
     assert tattn.attention_bwd_plan(kv_valid or skv, d)[0] == "flash_bwd_pair"
+    o, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
+    run = lambda *t: tattn.flash_attention_bwd_bhsd(*t, d ** -0.5, kv_valid)
+    first, again = run(q, k, v, o, lse, do), run(q, k, v, o, lse, do)
+    alone = run(*(t[1:2].contiguous() for t in (q, k, v, o, lse, do)))
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, alone):
+        assert torch.equal(a, b) and torch.equal(a[1:2], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,d,kv_valid", [(64, 77, 160, None), (4000, 77, 40, 70), (1000, 200, 80, 120)])
+def test_attention_bwd_oneshot_bit_equal_run_to_run_and_batched_on_card(cuda, sq, skv, d, kv_valid):
+    """K8 splits Sq by Sq and the card alone (``bwd_splits``), never by BH,
+    and sums its partials in a fixed order: dq, dk and dv are ``torch.equal``
+    from run to run, and a head alone equals the same head in slot 1 of a
+    batch of 4 (its 8-warp block at 128 padded keys, D = 80, included)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, do = (torch.randn(4, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv, sq))
+    assert tattn.attention_bwd_plan(kv_valid or skv, d)[0] == "flash_bwd_oneshot"
     o, lse = tattn.flash_attention_bhsd(q, k, v, d ** -0.5, kv_valid)
     run = lambda *t: tattn.flash_attention_bwd_bhsd(*t, d ** -0.5, kv_valid)
     first, again = run(q, k, v, o, lse, do), run(q, k, v, o, lse, do)
