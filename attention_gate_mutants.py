@@ -38,7 +38,7 @@ CHECKS = {"fwd": "check_attention", "bwd": "check_attention_bwd"}
 # the package, [(text, its replacement, occurrences)])
 MUTANTS = [
     ("K1 key mask removed", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
-     [("const float x = c < kv_len ? s[nt][e] * scale_log2 : kNegInf;",
+     [("const float x = c < lim ? s[nt][e] * scale_log2 : kNegInf;",
        "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),
     ("K1 out x 1.01", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
      [("inv[r] = 1.0f / l[r];", "inv[r] = 1.01f / l[r];", 1)]),

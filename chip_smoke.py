@@ -1417,7 +1417,7 @@ def main():
             raise AssertionError(f"packed shared-memory plan and kernel layout disagree at kv={kv} d={d}")
     for d in range(8, 161, 8):  # K8's tiles, at every head dim and KV it could take
         for kv in range(1, 257):
-            got = (ctypes.c_int * 4)()
+            got = (ctypes.c_int * 5)()
             err = lib.fdt_flash_bwd_oneshot_tiles(kv, d, got)
             want = attention.bwd_oneshot_tiles(kv, d)
             if (err == 0) != (want is not None) or (want is not None and tuple(got) != tuple(want)):

@@ -23,16 +23,19 @@
 //   - Where a row's scores and its output fit registers together (up to
 //     128 keys at D <= 80, 80 keys above), the softmax is exact over the
 //     whole row in one pass, as the TPU kernel's is. Past that (256 keys at
-//     D = 160) the warp walks the resident K and V in chunks of that many
-//     keys with a running max and row sum: the same function to rounding.
+//     D = 160) a second set of warps takes the upper half of the keys for
+//     the same q rows (8 warps a block, so that the SM holding the block's
+//     193 KB has twice the warps in flight); each walks its half of the
+//     resident K and V in chunks with a running max and row sum, and the
+//     halves merge at the end: the same function to rounding.
 //   - K and V of the head are copied into shared memory once per block by
 //     cp.async, in two commit groups: V lands behind the first chunk's
 //     scores and softmax. Only Q, K and V live in shared memory, so the q
-//     tile is not bounded by a score tile: 64 rows (4 warps) wherever the
-//     grid has enough blocks; 32 or 16 rows (2 or 1 warps) where 64-row
-//     tiles would leave most SMs idle (Sq = 64: 32 heads give 32 blocks of
-//     64 rows, 128 of 16). A row's result does not depend on the tile, so
-//     the choice (the host's) changes no bit.
+//     tile is not bounded by a score tile: 64 rows (4 warps) wherever that
+//     fits. Smaller tiles to fill the card at Sq = 64 lose (measured on an
+//     H100: 32 heads of [64, 77, 160] in 0.0083 ms at 64 rows, 32 blocks;
+//     0.0105 ms at 16 rows, 128 blocks, each reloading the head's K and V).
+//     A row's result does not depend on the tile.
 //   - No block-wide barrier between the products: one after Q and K land,
 //     one after V lands.
 //
@@ -54,7 +57,7 @@ namespace {
 
 using namespace fdt;
 
-constexpr int kMaxThreads = 128;  // at most 4 warps: a 64-row q tile
+constexpr int kMaxThreads = 256;  // at most 8 warps: a 64-row q tile, two key halves
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -66,6 +69,14 @@ struct OneshotCfg {
   static constexpr int kLD = DP + 8;  // shared row stride (16-byte multiple; ldmatrix rows hit every bank)
   static constexpr int kChunk = DP <= 80 ? 128 : 80;
 };
+
+// Key halves of a block: 1, or 2 where the keys take more than one chunk;
+// then a second set of warps takes the upper half of the keys for the same
+// q rows, and the two halves' (max, sum, output) merge at the end.
+template <int DP>
+__host__ __device__ inline int key_halves(int kvp) {
+  return kvp > OneshotCfg<DP>::kChunk ? 2 : 1;
+}
 
 // Bytes of dynamic shared memory of a block: Q [bq, DP], K and V [kvp, DP]
 // in bf16, row stride DP + 8. The planner (ops/attention.py smem_bytes)
@@ -99,8 +110,9 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int ND = DP / 8;            // n-tiles of the output
   constexpr int NT = C::kChunk / 8;     // n-tiles of a chunk's scores
   extern __shared__ __align__(128) unsigned char smem[];
-  const int bq = blockDim.x / 2;        // 16 q rows a warp
   const int kvp = (kv_len + 15) / 16 * 16;
+  const int kh = key_halves<DP>(kvp);
+  const int bq = blockDim.x / (2 * kh);  // 16 q rows a warp of each half
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + bq * LD;
   bf16* vs = ks + kvp * LD;
@@ -109,6 +121,10 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * bq;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int band = warp % (bq / 16);  // this warp's 16 q rows
+  const int half = warp / (bq / 16);  // and its keys: [0, mid) or [mid, kvp)
+  const int mid = kh == 1 ? kvp : (kvp / 16 + 1) / 2 * 16;
+  const int lo = half == 0 ? 0 : mid, hi = half == 0 ? mid : kvp;
 
   // group 0: Q and K; group 1: V, which lands behind the first scores
   load_rows<DP>(qs, q + bh * sq * d, q0, bq, sq, d);
@@ -119,15 +135,16 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<1>();
   __syncthreads();
 
-  const bf16* qrow = qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const bf16* qrow = qs + (band * 16 + lane % 16) * LD + (lane / 16) * 8;
   float o[ND][4];
 #pragma unroll
   for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
   float m[2] = {kNegInf, kNegInf};  // running max of rows lane/4 and lane/4 + 8
   float l[2] = {0.0f, 0.0f};        // this thread's partial row sums
 
-  for (int kv0 = 0; kv0 < kvp; kv0 += C::kChunk) {
-    const int nk = min(C::kChunk, kvp - kv0) / 16;  // 16-key steps in this chunk
+  for (int kv0 = lo; kv0 < hi; kv0 += C::kChunk) {
+    const int nk = min(C::kChunk, hi - kv0) / 16;  // 16-key steps in this chunk
+    const int lim = min(kv_len, kv0 + nk * 16);    // keys at or past it get -1e30
 
     // scores s = q . k^T for this warp's 16 rows x the chunk's keys
     float s[NT][4];
@@ -150,14 +167,14 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // the softmax on the fragments: element e of n-tile nt is row lane/4
     // (+8 for e >= 2), key kv0 + nt*8 + 2*(lane%4) + (e&1); keys at or past
-    // kv_len (also those past the chunk's last step) get -1e30, so p = 0
+    // kv_len, and those past the chunk's last step, get -1e30, so p = 0
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = kv0 + nt * 8 + 2 * (lane % 4) + (e & 1);
-        const float x = c < kv_len ? s[nt][e] * scale_log2 : kNegInf;
+        const float x = c < lim ? s[nt][e] * scale_log2 : kNegInf;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -187,7 +204,7 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[nd][2] *= alpha[1];
       o[nd][3] *= alpha[1];
     }
-    if (kv0 == 0) {  // every warp takes this branch: V has landed everywhere after it
+    if (kv0 == lo) {  // every warp takes this branch once: V has landed everywhere after it
       cp_async_wait<0>();
       __syncthreads();
     }
@@ -210,6 +227,33 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
+  if (kh == 2) {  // the second half's (m, l, o) into the first's, through the dead Q, K and V
+    float* buf = reinterpret_cast<float*>(smem) + band * (ND * 4 + 4) * 32 + lane;
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) buf[(nd * 4 + e) * 32] = o[nd][e];
+      }
+      buf[ND * 128] = m[0], buf[ND * 128 + 32] = m[1], buf[ND * 128 + 64] = l[0], buf[ND * 128 + 96] = l[1];
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = buf[ND * 128 + 32 * r], mx = fmaxf(m[r], m1);
+      const float a0 = fast_exp2(m[r] - mx), a1 = fast_exp2(m1 - mx);
+      l[r] = l[r] * a0 + buf[ND * 128 + 64 + 32 * r] * a1;
+      m[r] = mx;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        o[nd][2 * r] = o[nd][2 * r] * a0 + buf[(nd * 4 + 2 * r) * 32] * a1;
+        o[nd][2 * r + 1] = o[nd][2 * r + 1] * a0 + buf[(nd * 4 + 2 * r + 1) * 32] * a1;
+      }
+    }
+  }
+
   // out = o / l in registers, stored as bf16 pairs; lse = m ln 2 + ln l
   float inv[2];
 #pragma unroll
@@ -218,7 +262,7 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / l[r];
   }
-  const int row = q0 + warp * 16 + lane / 4;
+  const int row = q0 + band * 16 + lane / 4;
   bf16* oh = out + bh * sq * d;
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
@@ -244,9 +288,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   static unsigned done = 0;
   cudaError_t err = allow_max_smem(flash_fwd_oneshot_kernel<DP>, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bq % 16 || bq < 16 || bq * 2 > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int kvp = (kv_len + 15) / 16 * 16, threads = bq * 2 * key_halves<DP>(kvp);
+  if (bq % 16 || bq < 16 || threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((sq + bq - 1) / bq, bh);
-  flash_fwd_oneshot_kernel<DP><<<grid, bq * 2, smem_bytes(bq, (kv_len + 15) / 16 * 16, DP), stream>>>(
+  flash_fwd_oneshot_kernel<DP><<<grid, threads, smem_bytes(bq, kvp, DP), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), sq, skv, d, kv_len, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());

@@ -18,8 +18,11 @@
 //     16) stay in shared memory. Each warp owns a 16-row band of them (two
 //     warps a band above D = 80, each on half the columns) and keeps the
 //     band's fp32 dK and dV accumulators in registers for the block's life.
-//   - q tiles of 32 rows (Q, dO, lse and delta) stream through a two-stage
-//     cp.async ring: tile t + 1 lands behind tile t's products.
+//   - q tiles of 32 rows (16 at D = 160; Q, dO, O and lse) stream through
+//     a two-stage cp.async ring: tile t + 1 lands behind tile t's products. The block
+//     computes the tile's delta = rowsum(dO * O) itself (fp32, a warp a
+//     row, read after the first products and a barrier): no pass over dO
+//     and O before the kernel.
 //   - Per tile, in the transposed orientation (as the TPU kernel): S^T =
 //     K.Q^T and dP^T = V.dO^T for the band (mma.sync m16n8k16 fed by
 //     ldmatrix); their accumulator fragments, exponentiated, masked and
@@ -27,7 +30,7 @@
 //     dK += dS^T.Q (the trick of K2), so S, dP, P and dS never leave
 //     registers for those products.
 //   - dQ = dS.K sums over every band, so dS crosses shared memory once, in
-//     bf16 (as dS^T, [kvp, 32], written straight from the fragments), behind
+//     bf16 (as dS^T, [kvp, q rows], written straight from the fragments), behind
 //     one barrier; then the warps take 16 x 16 blocks of the tile's dQ
 //     (A from dS^T by ldmatrix.trans, B from the resident K), scale them and
 //     write them out. Five products a (q, kv) pair, none recomputed.
@@ -35,7 +38,8 @@
 //     the card's SM count alone (never from BH, so a head's sums do not
 //     depend on its batch). Each block writes its partial fp32 dK and dV to a
 //     workspace; a second, small kernel sums them in a fixed order and rounds
-//     once to bf16. No atomics: bit-equal run to run and alone vs batched.
+//     once to bf16; with one split (Sq <= 128) the block stores dK and dV
+//     itself. No atomics: bit-equal run to run and alone vs batched.
 //
 // Design points: D is padded to DP (a multiple of 16 up to 80; 96, 128 or
 // 160 above, so that half of it is whole 16-column blocks); rows past Sq or
@@ -50,9 +54,12 @@ namespace {
 
 using namespace fdt;
 
-constexpr int kBS = 32;            // q rows of a streamed tile
 constexpr int kMaxThreads = 320;   // 10 warps: 5 bands of 80 keys, two warps a band
 constexpr float kLog2e = 1.4426950408889634f;
+
+// q rows of a streamed tile: 32, or 16 at DP = 160, where the block's 10
+// warps have 168 registers a thread and 80 of them hold dK and dV.
+__host__ __device__ constexpr int q_tile_rows(int dp) { return dp > 128 ? 16 : 32; }
 
 // The padded head dim for head dim d <= 160.
 constexpr int oneshot_dp(int d) { return d <= 80 ? (d + 15) / 16 * 16 : d <= 96 ? 96 : d <= 128 ? 128 : 160; }
@@ -62,18 +69,21 @@ struct Cfg {
   static constexpr int kWB = DP <= 80 ? 1 : 2;       // warps on one 16-row kv band
   static constexpr int kWC = DP / kWB;               // dK and dV columns of a warp
   static constexpr int kMaxKV = DP <= 80 ? 128 : 80;  // padded keys a block takes
-  static constexpr int kLD = DP + 8;                  // bf16 row stride of Q, dO, K, V
+  static constexpr int kLD = DP + 8;                  // bf16 row stride of Q, dO, O, K, V
+  static constexpr int kBS = q_tile_rows(DP);
+  static constexpr int kLDS = kBS + 8;                // bf16 row stride of dS^T [kvp, kBS]
   static_assert(kWC % 16 == 0 && kMaxKV / 16 * kWB * 32 <= kMaxThreads, "tile shape");
 };
 
-constexpr int kLDS = kBS + 8;  // bf16 row stride of dS^T [kvp, kBS]
-
-// Shared memory of a block: K and V [kvp, DP] bf16, two stages of (Q, dO
-// [kBS, DP] bf16; lse, delta [kBS] fp32), dS^T [kvp, kBS] bf16; every row
-// stride a multiple of 16 bytes. ops/attention.py bwd_smem_bytes mirrors it.
-__host__ __device__ constexpr int stage_bytes(int dp) { return 2 * kBS * (dp + 8) * 2 + 2 * kBS * 4; }
+// Shared memory of a block: K and V [kvp, DP] bf16, two stages of (Q, dO,
+// O [bs, DP] bf16; lse, delta [bs] fp32), dS^T [kvp, bs] bf16 (bs =
+// q_tile_rows(DP)); every row stride a multiple of 16 bytes.
+// ops/attention.py bwd_smem_bytes mirrors it.
+__host__ __device__ constexpr int stage_bytes(int dp) {
+  return 3 * q_tile_rows(dp) * (dp + 8) * 2 + 2 * q_tile_rows(dp) * 4;
+}
 __host__ __device__ inline int smem_bytes(int kvp, int dp) {
-  return 2 * kvp * (dp + 8) * 2 + 2 * stage_bytes(dp) + kvp * kLDS * 2;
+  return 2 * kvp * (dp + 8) * 2 + 2 * stage_bytes(dp) + kvp * (q_tile_rows(dp) + 8) * 2;
 }
 
 // Rows [row0, row0 + nrows) of a row-major [*, d] matrix into a [nrows, DP]
@@ -94,12 +104,13 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 template <int DP>
 __global__ void __launch_bounds__(kMaxThreads)
 flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dq, float* __restrict__ ws,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse, const bf16* __restrict__ o,
+                         bf16* __restrict__ dq, float* __restrict__ ws, bf16* __restrict__ dk, bf16* __restrict__ dv,
                          int bh_total, int sq, int skv, int d, int kv_len, float scale, int tiles_per_split) {
   typedef Cfg<DP> C;
   constexpr int LD = C::kLD;
   constexpr int KD = DP / 16;    // k-steps of S^T and dP^T
+  constexpr int kBS = C::kBS, kLDS = C::kLDS;
   constexpr int NS = kBS / 8;    // n-tiles of S^T: q columns
   constexpr int NW = C::kWC / 8; // n-tiles of a warp's dK, dV
   extern __shared__ __align__(128) unsigned char smem[];
@@ -127,11 +138,11 @@ flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* qt = reinterpret_cast<bf16*>(p);
     load_rows<DP>(qt, q + bh * sq * d, qrow0, kBS, sq, d);
     load_rows<DP>(qt + kBS * LD, dout + bh * sq * d, qrow0, kBS, sq, d);
-    float* stats = reinterpret_cast<float*>(qt + 2 * kBS * LD);
+    load_rows<DP>(qt + 2 * kBS * LD, o + bh * sq * d, qrow0, kBS, sq, d);
+    float* lse_s = reinterpret_cast<float*>(qt + 3 * kBS * LD);
     for (int r = threadIdx.x; r < kBS; r += blockDim.x) {
       const bool ok = qrow0 + r < sq;
-      cp_async4(stats + r, ok ? lse + bh * sq + qrow0 + r : lse, ok);
-      cp_async4(stats + kBS + r, ok ? delta + bh * sq + qrow0 + r : delta, ok);
+      cp_async4(lse_s + r, ok ? lse + bh * sq + qrow0 + r : lse, ok);
     }
     cp_async_commit();
   };
@@ -152,18 +163,31 @@ flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   // the key mask: P = 0 for kv rows at or past kv_len
   const bool key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};
-  const bf16* krow = ks + (band * 16 + lane % 16) * LD + (lane / 16) * 8;
-  const bf16* vrow = vs + (band * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const int arow = (band * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row of K and V
   for (int t = t0; t < t_end; ++t) {
     const int j = t - t0;
     cp_async_wait<0>();
     __syncthreads();  // tile t landed everywhere; every warp is done with tile t - 1's stage and dS^T
     if (t + 1 < t_end) load_stage((j + 1) & 1, (t + 1) * kBS);
-    const bf16* qt = reinterpret_cast<const bf16*>(ring + (j & 1) * stage_bytes(DP));
+    unsigned char* stage = ring + (j & 1) * stage_bytes(DP);
+    const bf16* qt = reinterpret_cast<const bf16*>(stage);
     const bf16* dot = qt + kBS * LD;
-    const float* lse_t = reinterpret_cast<const float*>(qt + 2 * kBS * LD);
-    const float* delta_t = lse_t + kBS;
+    const bf16* ot = qt + 2 * kBS * LD;
+    const float* lse_t = reinterpret_cast<const float*>(stage + 3 * kBS * LD * 2);
+    float* delta_t = reinterpret_cast<float*>(stage + 3 * kBS * LD * 2) + kBS;
     const int q0 = t * kBS;
+
+    // delta = rowsum(dO * O) of the tile's rows, a warp a row (read after
+    // the barrier below); rows past Sq are zeros and give 0
+#pragma unroll 1
+    for (int r = warp; r < kBS; r += nwarps) {
+      float acc = 0.0f;
+#pragma unroll 1
+      for (int c = lane; c < DP; c += 32)
+        acc += __bfloat162float(dot[r * LD + c]) * __bfloat162float(ot[r * LD + c]);
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) delta_t[r] = acc;
+    }
 
     // S^T = K.Q^T and dP^T = V.dO^T: this band's 16 kv rows x kBS q
     float st[NS][4], dpt[NS][4];
@@ -175,8 +199,8 @@ flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t ak[4], av[4];
-      ldmatrix_x4(ak, krow + kk * 16);
-      ldmatrix_x4(av, vrow + kk * 16);
+      ldmatrix_x4(ak, ks + arow + kk * 16);
+      ldmatrix_x4(av, vs + arow + kk * 16);
 #pragma unroll
       for (int nt = 0; nt < NS; nt += 2) {
         const int at = (nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
@@ -189,6 +213,8 @@ flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(dpt[nt + 1], av, b[2], b[3]);
       }
     }
+
+    __syncthreads();  // delta landed
 
     // P^T and dS^T as bf16 A fragments: element e of n-tile nt is kv row
     // r0 (+8 for e >= 2), q row q0 + nt*8 + 2*(lane%4) + (e&1)
@@ -268,7 +294,29 @@ flash_bwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // this split's partial dK and dV to the workspace: [2][nsplit][bh_total][kvp][DP] fp32
+  if (gridDim.x == 1) {  // one split: dK (times scale) and dV straight out; rows past kvp are zeros
+    const size_t at = bh * skv * d;
+#pragma unroll
+    for (int nd = 0; nd < NW; ++nd) {
+      const int col = cw + nd * 8 + 2 * (lane % 4);
+      if (col >= d) continue;  // d % 8 == 0: a pair is inside d or past it
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= skv) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + (size_t)row * d + col) =
+            __floats2bfloat162_rn(acc_k[nd][2 * h] * scale, acc_k[nd][2 * h + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + (size_t)row * d + col) =
+            __floats2bfloat162_rn(acc_v[nd][2 * h], acc_v[nd][2 * h + 1]);
+      }
+    }
+    for (int i = kvp * d + threadIdx.x; i < skv * d; i += blockDim.x) {
+      dk[at + i] = __float2bfloat16(0.0f);
+      dv[at + i] = __float2bfloat16(0.0f);
+    }
+    return;
+  }
+  // else this split's partial dK and dV to the workspace: [2][nsplit][bh_total][kvp][DP] fp32
   const size_t part = (size_t)kvp * DP;
   float* wk = ws + ((size_t)split * bh_total + bh) * part;
   float* wv = wk + (size_t)gridDim.x * bh_total * part;
@@ -310,7 +358,7 @@ __global__ void flash_bwd_oneshot_reduce_kernel(const float* __restrict__ ws, bf
 }
 
 struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
+  const void *q, *k, *v, *dout, *lse, *o;
   void *dq, *ws, *dk, *dv;
   int bh, sq, skv, d, kv_len;
   float scale;
@@ -328,11 +376,11 @@ int launch(const Args& a) {
   if (kvp > C::kMaxKV || a.nsplit < 1 || a.tiles_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_oneshot_kernel<DP><<<dim3(a.nsplit, a.bh), kvp / 16 * C::kWB * 32, smem_bytes(kvp, DP), a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dq), static_cast<float*>(a.ws), a.bh, a.sq, a.skv, a.d, a.kv_len, a.scale,
-      a.tiles_per_split);
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse), static_cast<const bf16*>(a.o),
+      static_cast<bf16*>(a.dq), static_cast<float*>(a.ws), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.bh,
+      a.sq, a.skv, a.d, a.kv_len, a.scale, a.tiles_per_split);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || a.nsplit == 1) return static_cast<int>(err);
   const long long n = (long long)a.bh * a.skv * a.d;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   flash_bwd_oneshot_reduce_kernel<<<blocks, 256, 0, a.stream>>>(static_cast<const float*>(a.ws),
@@ -356,14 +404,15 @@ int launch(const Args& a) {
     default: break;                                            \
   }
 
-// K8's tiles for kv_len keys at head dim d into out[4]: padded KV, padded
-// D, threads of a block, dynamic shared memory (bytes).
+// K8's tiles for kv_len keys at head dim d into out[5]: padded KV, padded
+// D, q rows of a streamed tile, threads of a block, dynamic shared memory
+// (bytes).
 template <int DP>
 int tiles(int kv_len, int* out) {
   const int kvp = (kv_len + 15) / 16 * 16;
   if (kvp > Cfg<DP>::kMaxKV) return static_cast<int>(cudaErrorInvalidValue);
-  const int t[4] = {kvp, DP, kvp / 16 * Cfg<DP>::kWB * 32, smem_bytes(kvp, DP)};
-  for (int i = 0; i < 4; ++i) out[i] = t[i];
+  const int t[5] = {kvp, DP, Cfg<DP>::kBS, kvp / 16 * Cfg<DP>::kWB * 32, smem_bytes(kvp, DP)};
+  for (int i = 0; i < 5; ++i) out[i] = t[i];
   return 0;
 }
 
@@ -380,17 +429,18 @@ int fdt_flash_bwd_oneshot_tiles(int kv_len, int d, int* out) {
 }
 
 // K8: dq [bh, sq, d], dk, dv [bh, skv, d] bf16 from q, dout [bh, sq, d],
-// k, v [bh, skv, d] bf16 and lse, delta [bh, sq] fp32; kv_len keys (padded
+// k, v [bh, skv, d] bf16, the forward's out o [bh, sq, d] bf16 and lse
+// [bh, sq] fp32; kv_len keys (padded
 // to a multiple of 16: at most 128 at d <= 80, 80 up to d = 160); Sq in q
-// tiles of 32 rows, split over nsplit blocks per head (tiles_per_split
+// tiles of 32 rows (16 above d = 128), split over nsplit blocks per head (tiles_per_split
 // tiles each); ws an fp32 workspace of 2 * nsplit * bh * kvp * dp floats
-// (kvp, dp as fdt_flash_bwd_oneshot_tiles gives them). Two launches (the
-// blocks, then the sum of their partials); returns the CUDA error code (0
-// on success).
+// (kvp, dp as fdt_flash_bwd_oneshot_tiles gives them; unused when nsplit
+// is 1). Two launches (the blocks, then the sum of their partials), one
+// when nsplit is 1; returns the CUDA error code (0 on success).
 int fdt_flash_bwd_oneshot(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                          const void* delta, void* dq, void* ws, void* dk, void* dv, int bh, int sq, int skv, int d,
+                          const void* o, void* dq, void* ws, void* dk, void* dv, int bh, int sq, int skv, int d,
                           int kv_len, float scale, int nsplit, int tiles_per_split, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, ws, dk, dv, bh, sq, skv, d, kv_len, scale, nsplit, tiles_per_split,
+  const Args a{q, k, v, dout, lse, o, dq, ws, dk, dv, bh, sq, skv, d, kv_len, scale, nsplit, tiles_per_split,
                static_cast<cudaStream_t>(stream)};
   FDT_ONESHOT_DISPATCH(launch, d, a)
   return static_cast<int>(cudaErrorInvalidValue);

@@ -115,8 +115,7 @@ def attention_plan(kv_len: int, d: int) -> Tuple[str, int]:
 
     The one-shot kernel takes head dims up to 160 and the largest q tile of
     64, 32 or 16 rows at which the head's padded K and V and the tile fit a
-    block (``fwd_q_tile`` may take a smaller one); the streaming kernel has
-    fixed tiles."""
+    block; the streaming kernel has fixed tiles."""
     dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
     if d <= _ONESHOT_MAX_D:
         for bq in (64, 32, 16):
@@ -125,15 +124,6 @@ def attention_plan(kv_len: int, d: int) -> Tuple[str, int]:
     if d <= _STREAM_MAX_D:
         return "flash_fwd_stream", 64
     raise ValueError(f"head dim {d} too large for the attention kernels")
-
-
-def fwd_q_tile(bq: int, sq: int, bh: int, sms: int) -> int:
-    """The one-shot kernel's q tile: ``bq`` (the plan's), halved down to 16
-    rows while the grid would give fewer than 3/4 of a block an SM. Each row's
-    result is the same at any tile, so this changes no bit."""
-    while bq > 16 and 4 * -(-sq // bq) * bh < 3 * sms:
-        bq //= 2
-    return bq
 
 
 def attention_bhsd_reference(
@@ -225,7 +215,7 @@ def flash_attention_bhsd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "flash_fwd_oneshot":
-            err = lib.fdt_flash_fwd_oneshot(*args, fwd_q_tile(bq, sq, bh, _sm_count(q.device.index)), stream)
+            err = lib.fdt_flash_fwd_oneshot(*args, bq, stream)
         else:
             err = lib.fdt_flash_fwd_stream_mma(*args, stream)
     kernels.check(err, kind)
@@ -333,8 +323,7 @@ def flash_attention_packed_stream(
     return _launch_packed("flash_fwd_packed", q, k, v, num_heads, scale)
 
 
-_BWD_BS = 32  # q rows of K8's streamed tile (csrc/flash_bwd_oneshot.cu kBS)
-_BWD_MIN_TILES = 4  # q tiles of a K8 split, at least: its partial dK, dV stay a fraction of its q traffic
+_BWD_MIN_ROWS = 128  # q rows of a K8 split, at least: its partial dK, dV stay a fraction of its q traffic
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,16 +336,24 @@ class OneshotTiles(NamedTuple):
 
     kvp: int  # keys, padded to a multiple of 16: the rows of K and V in the block
     dp: int  # padded head dim
+    bs: int  # q rows of a streamed tile
     threads: int  # of a block: 32 a warp, one warp (two above D = 80) on each 16-row kv band
     smem: int  # dynamic shared memory of a block, bytes
 
 
 def bwd_smem_bytes(kvp: int, dp: int) -> int:
     """Shared memory of one K8 block: K and V [kvp, dp] bf16, two stages of
-    (q, dO [32, dp] bf16; lse, Δ [32] fp32), dSᵀ [kvp, 32] bf16, at row
-    strides dp + 8 and 40; mirrors ``smem_bytes`` in csrc/flash_bwd_oneshot.cu."""
-    stage = 2 * _BWD_BS * (dp + 8) * 2 + 2 * _BWD_BS * 4
-    return 2 * kvp * (dp + 8) * 2 + 2 * stage + kvp * (_BWD_BS + 8) * 2
+    (q, dO, o [bs, dp] bf16; lse, Δ [bs] fp32), dSᵀ [kvp, bs] bf16, at row
+    strides dp + 8 and bs + 8; mirrors ``smem_bytes`` in
+    csrc/flash_bwd_oneshot.cu."""
+    bs = _bwd_q_tile_rows(dp)
+    stage = 3 * bs * (dp + 8) * 2 + 2 * bs * 4
+    return 2 * kvp * (dp + 8) * 2 + 2 * stage + kvp * (bs + 8) * 2
+
+
+def _bwd_q_tile_rows(dp: int) -> int:
+    """q rows of K8's streamed tile: 32, or 16 at padded D = 160 (registers)."""
+    return 16 if dp > 128 else 32
 
 
 def bwd_oneshot_tiles(kv_len: int, d: int) -> Optional[OneshotTiles]:
@@ -371,16 +368,16 @@ def bwd_oneshot_tiles(kv_len: int, d: int) -> Optional[OneshotTiles]:
     kvp, wb = _round_up(kv_len, 16), 1 if dp <= 80 else 2
     if kvp > (128 if wb == 1 else 80):
         return None
-    return OneshotTiles(kvp, dp, kvp // 16 * wb * 32, bwd_smem_bytes(kvp, dp))
+    return OneshotTiles(kvp, dp, _bwd_q_tile_rows(dp), kvp // 16 * wb * 32, bwd_smem_bytes(kvp, dp))
 
 
-def bwd_splits(sq: int, sms: int) -> Tuple[int, int]:
-    """(nsplit, q tiles a split) of K8 over ``sq`` query rows on a card of
-    ``sms`` SMs: at most sms / 8 splits of at least ``_BWD_MIN_TILES`` tiles.
-    Never from BH, so a head's dK and dV are summed in one order alone and
-    in any batch."""
-    q_tiles = -(-sq // _BWD_BS)
-    per_split = max(_BWD_MIN_TILES, -(-q_tiles // max(1, sms // 8)))
+def bwd_splits(sq: int, bs: int, sms: int) -> Tuple[int, int]:
+    """(nsplit, q tiles a split) of K8 over ``sq`` query rows in tiles of
+    ``bs`` rows on a card of ``sms`` SMs: at most sms / 8 splits of at least
+    ``_BWD_MIN_ROWS`` rows. Never from BH, so a head's dK and dV are summed
+    in one order alone and in any batch."""
+    q_tiles = -(-sq // bs)
+    per_split = max(_BWD_MIN_ROWS // bs, -(-q_tiles // max(1, sms // 8)))
     return -(-q_tiles // per_split), per_split
 
 
@@ -508,26 +505,29 @@ def flash_attention_bwd_bhsd(
     _check_cuda_inputs(q, k, v, kv_len)
     bh, sq, d = q.shape
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous bf16 [BH, Sq, D] tensor on {q.device}")
+        if (t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned bf16 [BH, Sq, D] tensor on {q.device}")
     if lse.shape != (bh, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 [BH, Sq] tensor")
-    delta = (do.float() * o.float()).sum(-1)  # Δ: a plain reduction, as in JAX (XLA there)
     route, tiles = attention_bwd_plan(kv_len, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library()
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     dims = (bh, sq, k.shape[1], d, kv_len, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "flash_bwd_oneshot":
-            nsplit, per_split = bwd_splits(sq, _sm_count(q.device.index))
-            ws = torch.empty(2 * nsplit * bh * tiles.kvp * tiles.dp, dtype=torch.float32, device=q.device)
+        if route == "flash_bwd_oneshot":  # K8 computes Δ = rowsum(dO∘O) itself
+            nsplit, per_split = bwd_splits(sq, tiles.bs, _sm_count(q.device.index))
+            ws = torch.empty(2 * nsplit * bh * tiles.kvp * tiles.dp if nsplit > 1 else 0, dtype=torch.float32,
+                             device=q.device)
+            ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), o.data_ptr())
             err = lib.fdt_flash_bwd_oneshot(*ins, dq.data_ptr(), ws.data_ptr(), dk.data_ptr(),
                                             dv.data_ptr(), *dims, nsplit, per_split, stream)
             kernels.check(err, route)
             LAUNCHES[route] += 1
         else:
+            delta = (do.float() * o.float()).sum(-1)  # Δ: a plain reduction, as in JAX (XLA there)
+            ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
             err = lib.fdt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream)
             kernels.check(err, "flash_bwd_dkv")
             LAUNCHES["flash_bwd_dkv"] += 1

@@ -286,11 +286,10 @@ FWD_RAGGED_ROUTES = [
 
 
 @pytest.mark.parametrize("kv,kv_valid,d,kernel", [(kv, None, d, k) for kv, d, k in SD15_ATTENTION] + FWD_RAGGED_ROUTES)
-def test_oneshot_forward_tiles_fit_and_fill_the_card(kv, kv_valid, d, kernel):
-    """K1's plan: the route of every SD1.5 and ragged call, a tile set that
-    fits 227 KB at the plan's q tile (the largest of 64, 32, 16 rows), and a
-    q tile that ``fwd_q_tile`` shrinks only where 64-row tiles leave most of
-    132 SMs idle (32 heads at Sq = 64: 16 rows, 128 blocks)."""
+def test_oneshot_forward_tiles_fit_a_block(kv, kv_valid, d, kernel):
+    """K1's plan: the route of every SD1.5 and ragged call, and a tile set
+    (Q, K and V in bf16 at row stride D + 8) that fits 227 KB at the plan's
+    q tile: 64 rows at every SD1.5 shape."""
     kind, bq = tattn.attention_plan(kv_valid or kv, d)
     assert kind == kernel
     if kind != "flash_fwd_oneshot":
@@ -298,9 +297,7 @@ def test_oneshot_forward_tiles_fit_and_fill_the_card(kv, kv_valid, d, kernel):
     kvp, dp = -(-(kv_valid or kv) // 16) * 16, -(-d // 16) * 16
     assert d <= 160 and tattn.smem_bytes(bq, kvp, dp) <= tattn._SMEM_LIMIT
     assert tattn.smem_bytes(bq, kvp, dp) == (bq + 2 * kvp) * (dp + 8) * 2
-    assert tattn.fwd_q_tile(bq, 4096, 32, 132) == bq and tattn.fwd_q_tile(bq, 256, 32, 132) == bq
-    assert tattn.fwd_q_tile(bq, 64, 32, 132) == 16 and tattn.fwd_q_tile(bq, 64, 64, 132) == min(bq, 32)
-    assert all(tattn.fwd_q_tile(bq, sq, bh, 132) in (16, 32, 64) for sq in (1, 64, 4000) for bh in (1, 64))
+    assert bq == 64
 
 
 def test_cpu_calls_take_the_plain_path_and_launch_nothing(monkeypatch):
@@ -546,19 +543,20 @@ BWD_RAGGED_ROUTES = [
 def test_oneshot_backward_tiles_fit_and_split_without_bh(kv, kv_valid, d, route):
     """K8's plan: the route of every SD1.5 training backward and ragged call,
     a block of at most 10 warps (one on each 16-row kv band, two above
-    D = 80) whose K, V, two q stages and dSᵀ fit 227 KB; and an Sq split
-    that covers every q tile once, uses at most sms / 8 splits of at least
-    4 tiles, and takes no BH."""
+    D = 80) whose K, V, two q stages (32 rows, 16 at D = 160) and dSᵀ fit
+    227 KB; and an Sq split that covers every q tile once, uses at most
+    sms / 8 splits of at least 128 rows, and takes no BH."""
     got, tiles = tattn.attention_bwd_plan(kv_valid or kv, d)
     assert got == route
     if route != "flash_bwd_oneshot":
         return
     assert tiles.threads == tiles.kvp // 16 * (1 if tiles.dp <= 80 else 2) * 32 <= 320
     assert tiles.smem == tattn.bwd_smem_bytes(tiles.kvp, tiles.dp) <= tattn._SMEM_LIMIT
+    assert tiles.bs == (16 if tiles.dp == 160 else 32)
     for sq in (1, 64, 256, 1024, 4000, 4096):
-        nsplit, per = tattn.bwd_splits(sq, 132)
-        q_tiles = -(-sq // 32)
-        assert (nsplit - 1) * per < q_tiles <= nsplit * per and nsplit <= 16 and (nsplit == 1 or per >= 4)
+        nsplit, per = tattn.bwd_splits(sq, tiles.bs, 132)
+        q_tiles = -(-sq // tiles.bs)
+        assert (nsplit - 1) * per < q_tiles <= nsplit * per and nsplit <= 16 and (nsplit == 1 or per * tiles.bs >= 128)
 
 
 def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
