@@ -50,7 +50,9 @@ MUTANTS = [
     ("K8 key mask removed", "bwd", ("flash_bwd_oneshot",), "csrc/flash_bwd_oneshot.cu",
      [("key_ok[2] = {r0 < kv_len, r0 + 8 < kv_len};", "key_ok[2] = {true, true};", 1)]),
     ("K8 dV x 1.03", "bwd", ("flash_bwd_oneshot",), "csrc/flash_bwd_oneshot.cu",
-     [("dv[idx] = __float2bfloat16(sv);", "dv[idx] = __float2bfloat16(sv * 1.03f);", 1)]),
+     [("dv[idx] = __float2bfloat16(sv);", "dv[idx] = __float2bfloat16(sv * 1.03f);", 1),
+      ("__floats2bfloat162_rn(acc_v[nd][2 * h], acc_v[nd][2 * h + 1]);",
+       "__floats2bfloat162_rn(acc_v[nd][2 * h] * 1.03f, acc_v[nd][2 * h + 1] * 1.03f);", 1)]),
 ]
 
 
