@@ -32,10 +32,10 @@
 //     cp.async, in two commit groups: V lands behind the first chunk's
 //     scores and softmax. Only Q, K and V live in shared memory, so the q
 //     tile is not bounded by a score tile: 64 rows (4 warps) wherever that
-//     fits. Smaller tiles to fill the card at Sq = 64 lose (measured on an
-//     H100: 32 heads of [64, 77, 160] in 0.0083 ms at 64 rows, 32 blocks;
-//     0.0105 ms at 16 rows, 128 blocks, each reloading the head's K and V).
-//     A row's result does not depend on the tile.
+//     fits. Smaller tiles that would fill the card at Sq = 64 (128 blocks
+//     of 16 rows for 32 heads, not 32 of 64) measured slower on an H100:
+//     each block reloads the head's K and V. A row's result does not
+//     depend on the tile.
 //   - No block-wide barrier between the products: one after Q and K land,
 //     one after V lands.
 //
