@@ -14,9 +14,10 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
    per source, all at once; timed), with ptxas' register report; the
    attention kernels' shared-memory plans against the kernels' own
-   arithmetic (K6/K7's tiles at every head dim they take, K8's at every head
-   dim and KV up to 160 and 256), and no K1, K6,
-   K7 or K8 instantiation may spill;
+   arithmetic (K6/K7's and K2's tiles at every head dim they take, K8's at
+   every head dim and KV up to 160 and 256, K10's plan at every FFN shape
+   and tile width), and no K1, K2, K6, K7, K8 or K10 instantiation may
+   spill, nor may K2 or K10 have ptxas serialize their wgmma;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
@@ -41,8 +42,9 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    ``attention_fwd_gate`` (max|out err| within 4e-3 + 2^-8 of max|out|, a
    mean signed error within 5e-4, lse within 5e-3) on cases whose keys past
    ``kv_valid`` are k × 3 and v + 1, and on a 77-key case with v + 1 at
-   every key (a zero padding row that leaked would show); K2 to 2e-2, with
-   the new gate's verdict printed. The backward kernels (K6+K7 or K8, routed by
+   every key (a zero padding row that leaked would show); K2 to the same
+   gate, with ragged and v + 1 cases at D = 64 and 72 whose Sq and KV are
+   off its tiles. The backward kernels (K6+K7 or K8, routed by
    ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv by ``attention_bwd_gate``
    (max|err| within 4e-3 + 2^-6 of max|grad|, relative L2 within 1e-2, and
@@ -53,7 +55,9 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    signed error within 5e-4; the ragged cases offset v by +1 so that keys
    past KV leaking into the softmax would show); K10 and K12 (the feed-forward's
    down-projection GEMMs) at SDXL's two feed-forward shapes, ragged M and
-   K10's dW shapes, to 2^-7 of max|y| (library yardsticks ``F.linear``;
+   K10's dW shapes, to ``ops/gemm.py gemm_gate`` (|err| within 2^-8 of |y|
+   plus 2^-8 of max|y| at every element, relative L2 within 4e-3, mean
+   signed error within 1e-4 of rms|y|; library yardsticks ``F.linear``;
    ``torch.mm`` for dW = xᵀ·dy; for K12, which no one PyTorch call
    computes, the unfused gate then ``F.linear``);
 3. SD1.5 path: ``build_pipeline("sd15", device="cuda")`` then ``generate``
@@ -187,11 +191,13 @@ ATTENTION_SHAPES = [
 ATTENTION_RAGGED = [
     (32, 1000, 1024, 80, 900), (32, 4000, 77, 40, 70), (4, 700, 4096, 512, 3000),
     (32, 4000, 4096, 40, 4001), (32, 300, 2000, 160, 1999),
+    (40, 1000, 1100, 64, 1037), (16, 700, 1500, 72, 1433),  # K2 at SDXL's and Pixart's D, off every tile
 ]
 # v + 1 at every key (kv_valid None): a zero-filled padding row past KV (77
-# keys padded to 80) that leaked into the softmax would pull every row's
-# output towards 0 by ~2%
-ATTENTION_V_SHIFTED = [(32, 4000, 77, 40, None)]
+# keys padded to 80; the zero rows of K2's last KV tile past 1030 or 999
+# keys) that leaked into the softmax would pull every row's output towards
+# 0: by ~2% at 77 keys, by 2–11% at ~1000 keys and 64- or 128-key tiles
+ATTENTION_V_SHIFTED = [(32, 4000, 77, 40, None), (40, 1000, 1030, 64, None), (16, 999, 999, 72, None)]
 # SDXL at batch 4, 1024²: the self-attention (10 heads at level 1, 20 at
 # level 2 and mid; D = 64) and the VAE mid-block over 128² latents' 16384
 # tokens
@@ -311,12 +317,12 @@ SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
-# tolerances, kernel (bf16) vs plain (fp32): K2's and K4's attention out is
-# rounded to bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2; K1
-# is held to ops/attention.py attention_fwd_gate); lse is fp32 from exact
-# bf16 products (5e-3); LayerNorm in bf16 differs by the output's
-# one rounding (|y| < 8: 1/32), in fp32 by summation order (1e-4)
-ATTN_OUT_TOL, ATTN_LSE_TOL = 2e-2, 5e-3
+# tolerances, kernel (bf16) vs plain (fp32): K4's attention out is rounded
+# to bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2; K1 and K2
+# are held to ops/attention.py attention_fwd_gate); LayerNorm in bf16
+# differs by the output's one rounding (|y| < 8: 1/32), in fp32 by
+# summation order (1e-4)
+ATTN_OUT_TOL = 2e-2
 # K5 vs the plain version in fp32, held tighter than ATTN_OUT_TOL (a typical
 # |out| is ~0.03 at 4096 unit-normal keys; measured max|err| 1.2e-3):
 # max|err| within PACKED_STREAM_TOL + 2^-8·max|ref| (the output's own
@@ -324,10 +330,6 @@ ATTN_OUT_TOL, ATTN_LSE_TOL = 2e-2, 5e-3
 # PACKED_STREAM_BIAS_TOL: rounding to nearest has no bias, while leaked
 # padded keys shift the v-offset ragged cases by -5e-3 or more
 PACKED_STREAM_TOL, PACKED_STREAM_BIAS_TOL = 4e-3, 5e-4
-# K10 and K12 (bf16 out) vs the plain version in fp32: max|err| within
-# 2^-7 of max|ref| (the output's rounding is half an ulp, 2^-9 of |y|, and
-# K12 also rounds h to bf16; a 2x margin)
-GEMM_TOL = 2 ** -7
 LN_TOL = {torch.bfloat16: 1 / 32, torch.float32: 1e-4}
 # GroupNorm statistics (fp32 sums in another order than the fp64 plain
 # version): Σx to GN_STATS_TOL of Σ|x|, Σx² to GN_STATS_TOL relative
@@ -423,10 +425,9 @@ def fmt_ms(x):
 def check_attention(attention, results, timed=True):
     """K1 (``flash_fwd_oneshot``) and K2 (``flash_fwd_stream``) against the
     plain version in fp32 on the same bf16 inputs, every case printed, then
-    a raise listing the failures. K1 is held to ``attention_fwd_gate``
+    a raise listing the failures. Both are held to ``attention_fwd_gate``
     (max|out err| ≤ 4e-3 + 2⁻⁸·max|ref|, |mean err| ≤ 5e-4, max|lse err| ≤
-    5e-3); K2 to ATTN_OUT_TOL and ATTN_LSE_TOL, with the new gate's verdict
-    printed beside. On the ragged cases the keys at or past ``kv_valid`` are
+    5e-3). On the ragged cases the keys at or past ``kv_valid`` are
     k × 3 and v + 1, and ATTENTION_V_SHIFTED adds 1 to every v, so that a
     masked key, or a zero-filled padding row past KV, leaking into the
     softmax shows as a mean error. With ``timed``, the kernel's and the plain
@@ -450,15 +451,9 @@ def check_attention(attention, results, timed=True):
             q.float(), k.float(), v.float(), scale, kv_valid)
         stats = attention.attention_fwd_errors(out, lse, ref_out, ref_lse)
         del ref_out, ref_lse
-        gate_ok, report = attention.attention_fwd_gate(stats)
-        err, lse_err = stats["max_err"], stats["lse_err"]
-        if kind == "flash_fwd_oneshot":
-            ok, checks = gate_ok, f"{'pass' if gate_ok else 'FAIL'}: {report}"
-        else:
-            ok = err <= ATTN_OUT_TOL and lse_err <= ATTN_LSE_TOL
-            checks = (f"{'pass' if ok else 'FAIL'}: max|out err| {err:.3e} (tol {ATTN_OUT_TOL}) max|lse err| "
-                      f"{lse_err:.3e} (tol {ATTN_LSE_TOL}); the forward gate would {'pass' if gate_ok else 'FAIL'}: "
-                      f"{report}")
+        ok, report = attention.attention_fwd_gate(stats)
+        err = stats["max_err"]
+        checks = f"{'pass' if ok else 'FAIL'}: {report}"
         main = shape in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART
         times = ""
         if timed:
@@ -532,16 +527,20 @@ def check_packed(attention, results, name, shapes, ragged, seed):
         torch.cuda.empty_cache()
 
 
-def check_ffn_gemm(gemm, results):
-    """K12 and K10 against their plain versions in fp32 (GEMM_TOL), and the
-    plain version on the kernel's own bf16 inputs (its rounding contract;
-    printed); K10 also at its dW shapes. At SDXL's shapes also the times,
-    the library's (K10: ``F.linear(x, W, b)``; K12: no one PyTorch call
-    computes it, so the unfused ``F.linear(a * F.gelu(g, "tanh"), W, b)``)
-    and the bound: 2·M·K·N operations, or x (K12: a and g), W, b read and y
-    written once in bf16."""
+def check_ffn_gemm(gemm, results, timed=True):
+    """K12 and K10 against their plain versions in fp32, held to
+    ``gemm_gate`` (|err| within 2^-8·|y| + 2^-8·max|y| at every element,
+    relative L2 within 4e-3, mean signed error within 1e-4 of rms|y|), and
+    the plain version on the kernel's own bf16 inputs (its rounding
+    contract; printed); K10 also at its dW shapes. Every case printed, then
+    a raise listing the failures. With ``timed``, the kernel's time, and at
+    SDXL's shapes the plain version's, the library's (K10: ``F.linear(x, W,
+    b)``; K12: no one PyTorch call computes it, so the unfused ``F.linear(a
+    * F.gelu(g, "tanh"), W, b)``) and the bound: 2·M·K·N operations, or x
+    (K12: a and g), W, b read and y written once in bf16."""
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [(True, s) for s in FFN_SHAPES + FFN_RAGGED] + [(False, s) for s in FFN_SHAPES + FFN_RAGGED + FFN_DW_SHAPES]
+    failed = []
     for geglu, (m, k, n) in cases:
         name = "geglu_gemm" if geglu else "gemm"
         kernel = gemm.geglu_gemm if geglu else gemm.gemm
@@ -552,14 +551,17 @@ def check_ffn_gemm(gemm, results):
         y = kernel(x, w, b)
         torch.cuda.synchronize()
         ref = plain_fn(x.float(), w.float(), b.float())
-        err, tol = (y.float() - ref).abs().max().item(), GEMM_TOL * ref.abs().max().item()
+        stats = gemm.gemm_errors(y, ref)
+        ok, report = gemm.gemm_gate(stats)
         contract = (y.float() - plain_fn(x, w, b).float()).abs().max().item()
         del ref
-        ms = median_ms(lambda: kernel(x, w, b))
         main = (m, k, n) in FFN_SHAPES
         dw = not geglu and (m, k, n) in FFN_DW_SHAPES
-        times = f"kernel {ms:.4f} ms"
-        if main or dw:
+        times = ""
+        if timed:
+            ms = median_ms(lambda: kernel(x, w, b))
+            times = f"; kernel {ms:.4f} ms"
+        if timed and (main or dw):
             plain = median_ms(lambda: plain_fn(x, w, b))
             if geglu:
                 library = library_ms(lambda: lambda: F.linear(
@@ -571,16 +573,18 @@ def check_ffn_gemm(gemm, results):
             bnd = bound(2 * m * k * n, 2 * (x.numel() + w.numel() + n + m * n))
             times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
         what = "dW " if dw else ""
-        print(f"{name:10s} {what}M={m:5d} K={k:5d} N={n:4d}: max|err| vs fp32 {err:.3e} (tol {tol:.3e}), "
-              f"vs the plain version in bf16 {contract:.3e}; {times}")
-        if not err <= tol:
-            raise AssertionError(f"{name} kernel disagrees with its plain version at {(m, k, n)}")
+        print(f"{name:10s} {what}M={m:5d} K={k:5d} N={n:4d}: {'pass' if ok else 'FAIL'}: {report}; "
+              f"vs the plain version in bf16 {contract:.3e}{times}")
+        if not ok:
+            failed.append((name, m, k, n))
         r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
+        r["max_abs_err"] = max(r["max_abs_err"], stats["max_err"])
+        if timed and main:
             add_times(r, ms, plain, library, bnd)
         del x, w, b, y
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"feed-forward GEMM kernel disagrees with its plain version at {failed}")
 
 
 def check_layer_norm(norms, results):
@@ -1394,14 +1398,18 @@ def main():
     lib = kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc {kernels.BUILD_INFO['seconds']:.2f} s "
           f"-> {kernels.BUILD_INFO['path']}")
-    entry, spill_report = "", []
+    entry, spill_report, serialized = "", [], []
     if kernels.BUILD_INFO["log"] == "(cached)":
         print("  no ptxas report: the library was built before this run (delete build/kernels to see it)")
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
         if "Compiling entry function" in line:
-            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|ffn_gemm_kernel|"
+            name = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w+?_kernel|layer_norm_kernel|int8_gemm_kernel|gemm_sm90_kernel|"
+                             r"geglu_gemm_kernel|"
                              r"gn_(?:stats_partial|stats_final|apply)_kernel)(I\w+?E)?E", line)
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
+        elif "wgmma" in line and "serializ" in line:  # products that ptxas could not keep in flight
+            print(f"  ptxas {entry}: {line.strip()}")
+            serialized.append(f"{entry}: {line.strip()}")
         elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
             if "spill" in line and not re.search(r" 0 bytes spill stores, 0 bytes spill loads", line):
@@ -1428,16 +1436,33 @@ def main():
             kernels.check(lib.fdt_flash_bwd_pair_tiles(which, d, got), "fdt_flash_bwd_pair_tiles")
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K{6 + which} tiles at d={d}: kernel {tuple(got)}, plan {tuple(want)}")
-    spills = [line for line in spill_report if any(
-        k in line for k in ("flash_fwd_oneshot_kernel", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_oneshot_kernel"))]
+    for d in range(8, 513, 8):  # K2's tiles at every head dim: the wgmma kernel's up to 128, the other's above
+        want, got = attention.stream_fwd_tiles(d), (ctypes.c_int * 6)()
+        err = lib.fdt_flash_fwd_wgmma_tiles(d, got)
+        if (err == 0) != (want.route == "wgmma") or (err == 0 and tuple(got) != (
+                want.dp, want.bq, want.bkv, want.stages, want.threads, want.smem)):
+            raise AssertionError(f"K2 tiles at d={d}: kernel {tuple(got)} (error {err}), plan {want}")
+    for m, k, n in FFN_SHAPES + FFN_RAGGED + FFN_DW_SHAPES:  # K10's plan, and every tile width it is built for
+        for bn in (None, 128, 160, 192, 256):
+            want, got = gemm.gemm_plan(k, n, bn), (ctypes.c_int * 4)()
+            kernels.check(lib.fdt_gemm_plan(k, n, bn or 0, got), "fdt_gemm_plan")
+            if tuple(got) != tuple(want):
+                raise AssertionError(f"K10 plan at K={k} N={n} bn={bn}: kernel {tuple(got)}, plan {tuple(want)}")
+    spills = [line for line in spill_report if any(k in line for k in (
+        "flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv", "flash_bwd_dq",
+        "flash_bwd_oneshot_kernel", "gemm_sm90_kernel"))]
+    spills += [line for line in serialized if "flash_fwd_wgmma_kernel" in line or "gemm_sm90_kernel" in line]
     if spills:
-        raise AssertionError(f"K1/K6/K7/K8 instantiations spill registers: {spills}")
+        raise AssertionError(f"K1/K2/K6/K7/K8/K10 instantiations spill registers, or K2/K10 serialize "
+                             f"their wgmma: {spills}")
 
     results = {
         "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",
                                      "flash_diffusion_tpu/ops/attention.py:171"),
-        "flash_fwd_stream": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_mma.cu",
-                                    "flash_diffusion_tpu/ops/attention.py:85"),
+        # D ≤ 128 on the wgmma kernel, above (the VAE's D = 512) on the mma.sync one
+        "flash_fwd_stream": dict(new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                         "flash_diffusion_tpu/ops/attention.py:85"),
+                                 source_above_d128="flash_diffusion_tpu_torch/csrc/flash_fwd_mma.cu"),
         "layer_norm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/layer_norm.cu",
                               "flash_diffusion_tpu/ops/norms.py:317"),
         "flash_fwd_oneshot_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention_packed.cu",
@@ -1450,7 +1475,7 @@ def main():
                                 "flash_diffusion_tpu/ops/attention.py:703"),
         "flash_bwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd_oneshot.cu",
                                      "flash_diffusion_tpu/ops/attention.py:769"),
-        "gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/ffn_gemm.cu", "flash_diffusion_tpu/ops/gemm.py:36"),
+        "gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/gemm_sm90.cu", "flash_diffusion_tpu/ops/gemm.py:36"),
         "int8_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/int8_gemm.cu",
                              "flash_diffusion_tpu/ops/gemm.py:171"),
         "geglu_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/ffn_gemm.cu",

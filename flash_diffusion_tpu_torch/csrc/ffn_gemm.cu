@@ -1,28 +1,26 @@
-// bf16 GEMM for the feed-forward's down projection, for Hopper (sm_90a),
-// with an optional GEGLU prologue on the A operand.
+// bf16 GEMM for the feed-forward's down projection with a GEGLU prologue
+// on the A operand (K12), for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of flash_diffusion_tpu/ops/gemm.py:
-//   - _gemm_kernel (K10, via down_proj_gemm): y[M, N] = x[M, K] . w[N, K]^T
-//     + b[N], fp32 accumulator, the bias added in fp32 in the epilogue, one
-//     cast to bf16. The JAX `act` prologue is never set by a caller.
-//   - _geglu_gemm_kernel (K12, via geglu_down_proj): the same product on
-//     h = a * gelu_tanh(g), where [a | g] are the two halves of one
-//     row-major [M, 2K] array (the up projection's raw output; no split
-//     copy), and h never goes to device memory.
-// The weight is [N, K], the nn.Linear layout, which is exactly the ".col"
-// B operand of mma.sync, so nothing is transposed. SDXL's feed-forwards
-// send it [16384, 2560] -> 640 and [4096, 5120] -> 1280 at batch 4, 1024²;
-// the backward of K10 sends it dW = x^T . dy at [2560 or 5120, M] -> N.
+// Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/gemm.py:271
+// _geglu_gemm_kernel (K12, via geglu_down_proj): y[M, N] = h . w[N, K]^T +
+// b[N] on h = a * gelu_tanh(g), where [a | g] are the two halves of one
+// row-major [M, 2K] array (the up projection's raw output; no split copy),
+// and h never goes to device memory; fp32 accumulator, the bias added in
+// fp32 in the epilogue, one cast to bf16. The plain down projection (K10)
+// is gemm_sm90.cu, a wgmma kernel; this one keeps the first port's
+// Ampere-style design until it gets K10's core. The weight is [N, K], the
+// nn.Linear layout, which is exactly the ".col" B operand of mma.sync, so
+// nothing is transposed. SDXL's feed-forwards send it [16384, 2 * 2560] ->
+// 640 and [4096, 2 * 5120] -> 1280 at batch 4, 1024².
 //
 // What bounds it on this card: 2*M*K*N operations at 989 TFLOP/s against
-// (M*K [2*M*K for K12] + K*N + M*N) * 2 bytes at 3.35 TB/s: the tensor
-// cores at K10's shapes and K12's 1280-wide one, the bytes (just) at
-// K12's [16384, 2*2560] -> 640, where a and g are read once. The design is
-// the plain Ampere-style one of int8_gemm.cu, in bf16: a 128 x 128 output
-// tile per block of 8 warps (2 x 4, 64 x 32 each), K in steps of 64,
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix from shared
-// memory, the next K step loaded with cp.async behind the current one (two
-// stages). wgmma, TMA and a persistent schedule come later.
+// (2*M*K + K*N + M*N) * 2 bytes at 3.35 TB/s: the tensor cores at the
+// 1280-wide shape, the bytes (just) at [16384, 2*2560] -> 640, where a and
+// g are read once. The design is the plain Ampere-style one of
+// int8_gemm.cu, in bf16: a 128 x 128 output tile per block of 8 warps (2 x
+// 4, 64 x 32 each), K in steps of 64, mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) fed by ldmatrix from shared memory, the next K step loaded
+// with cp.async behind the current one (two stages).
 //
 // Design points:
 //   - The GEGLU prologue runs once per element per block: after a stage's
@@ -54,12 +52,10 @@ constexpr int kThreads = 256;                  // 8 warps: 2 along M x 4 along N
 constexpr int kLD = kBK + 8;                   // shared row stride (bf16)
 constexpr int kTile = kBM * kLD;               // bf16 of one 128-row tile
 
-// Tiles of one stage: A (or a and g), then B. 73,728 bytes for K10 and
-// 110,592 for K12 in two stages: two blocks fit an SM.
-template <bool GEGLU>
-__host__ __device__ constexpr int stage_elems() { return (GEGLU ? 3 : 2) * kTile; }
-template <bool GEGLU>
-__host__ __device__ constexpr int smem_bytes() { return 2 * stage_elems<GEGLU>() * 2; }
+// Tiles of one stage: a and g, then B; 110,592 bytes in two stages, so two
+// blocks fit an SM.
+constexpr int kStage = 3 * kTile;
+constexpr int kSmemBytes = 2 * kStage * 2;
 
 // Rows [row0, row0 + 128) x columns [k0, k0 + 64) of a row-major bf16
 // matrix of row stride ld into a shared tile; rows >= rows load zeros.
@@ -101,17 +97,15 @@ __device__ __forceinline__ void geglu_tile(bf16* a, const bf16* g) {
   }
 }
 
-// x: [m, k] (K10) or [m, 2k] (K12: a = columns [0, k), g = [k, 2k)); w
-// [n, k]; bias [n]; out [m, n]; all bf16, row-major.
-template <bool GEGLU>
+// x: [m, 2k] (a = columns [0, k), g = [k, 2k)); w [n, k]; bias [n]; out
+// [m, n]; all bf16, row-major.
 __global__ void __launch_bounds__(kThreads)
-ffn_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const bf16* __restrict__ bias, bf16* __restrict__ out, int m, int n, int k) {
+geglu_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
+                  bf16* __restrict__ out, int m, int n, int k) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* tiles = reinterpret_cast<bf16*>(smem);
-  constexpr int kStage = stage_elems<GEGLU>();
-  constexpr int kB = (GEGLU ? 2 : 1) * kTile;  // offset of B in a stage
-  const size_t ldx = GEGLU ? 2 * (size_t)k : (size_t)k;
+  constexpr int kB = 2 * kTile;  // offset of B in a stage
+  const size_t ldx = 2 * (size_t)k;
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
   const int warp = threadIdx.x / 32;
@@ -121,7 +115,7 @@ ffn_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   auto load_stage = [&](bf16* st, int k0) {
     load_tile(st, x, m0, m, ldx, k0);
-    if constexpr (GEGLU) load_tile(st + kTile, x + k, m0, m, ldx, k0);
+    load_tile(st + kTile, x + k, m0, m, ldx, k0);
     load_tile(st + kB, w, n0, n, (size_t)k, k0);
     cp_async_commit();
   };
@@ -144,10 +138,8 @@ ffn_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (GEGLU) {
-      geglu_tile(as, as + kTile);
-      __syncthreads();
-    }
+    geglu_tile(as, as + kTile);
+    __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t a[4][4], b[4][2];
@@ -190,17 +182,13 @@ ffn_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <bool GEGLU>
-int launch(const void* x, const void* w, const void* bias, void* out, int m, int n, int k,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ffn_gemm_kernel<GEGLU>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes<GEGLU>());
+int launch(const void* x, const void* w, const void* bias, void* out, int m, int n, int k, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(geglu_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  ffn_gemm_kernel<GEGLU><<<grid, kThreads, smem_bytes<GEGLU>(), stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), m, n, k);
+  geglu_gemm_kernel<<<grid, kThreads, kSmemBytes, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                                                           static_cast<const bf16*>(bias), static_cast<bf16*>(out), m,
+                                                           n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,16 +196,13 @@ int launch(const void* x, const void* w, const void* bias, void* out, int m, int
 
 extern "C" {
 
-// y [m, n] = x [m, k] . w [n, k]^T + bias [n] (geglu = 0, K10), or the
-// same product on h = a * gelu_tanh(g) with x = [a | g] of shape [m, 2k]
-// (geglu != 0, K12). All bf16, contiguous, 16-byte aligned; k % 64 == 0,
-// n even. Returns the CUDA error code of the launch (0 on success).
-int fdt_ffn_gemm(const void* x, const void* w, const void* bias, void* out, int m, int n, int k,
-                 int geglu, void* stream) {
+// K12: y [m, n] = (a * gelu_tanh(g)) . w [n, k]^T + bias [n] with x = [a | g]
+// of shape [m, 2k]. All bf16, contiguous, 16-byte aligned; k % 64 == 0, n
+// even. Returns the CUDA error code of the launch (0 on success).
+int fdt_geglu_gemm(const void* x, const void* w, const void* bias, void* out, int m, int n, int k, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % kBK != 0 || n % 2 != 0 || m > 65535 * kBM)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return geglu ? launch<true>(x, w, bias, out, m, n, k, s) : launch<false>(x, w, bias, out, m, n, k, s);
+  return launch(x, w, bias, out, m, n, k, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

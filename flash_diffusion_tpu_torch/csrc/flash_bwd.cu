@@ -60,10 +60,7 @@
 //     with fp32 atomics, whose order changes from run to run. The TPU
 //     carried the same sums across sequential grid steps in VMEM.
 
-#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types (looked up at run time)
-#include <dlfcn.h>
-
-#include "wgmma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -108,65 +105,8 @@ struct PairCfg {
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
-// ---- shared-memory tiles: 16-column blocks of R rows of 32 bytes, each
-// 32-byte row's two 16-byte halves swapped on rows 4..7 of every 8 (the
-// 32-byte swizzle of TMA and wgmma). Byte offset of element (r, c) of an
-// [R, DP] tile: (c / 16) * 32R + 32r + (((c / 8) ^ (r / 4)) & 1) * 16 +
-// (c % 8) * 2. The reads of 8 rows x 16 bytes (ldmatrix, wgmma) hit every
-// bank once, and a tile is both a K-major operand (S = K.Q^T) and an
-// MN-major one (dV += P^T.dO).
-
-__device__ __forceinline__ const bf16* at_byte(const bf16* tile, int bytes) {
-  return reinterpret_cast<const bf16*>(reinterpret_cast<const unsigned char*>(tile) + bytes);
-}
-
-// A descriptor of a 32-byte-swizzled operand (wgmma.cuh smem_desc):
-// K-major, 8-row groups 256 bytes apart; or MN-major, 16-column blocks
-// 32R bytes apart along N and 8-row groups 256 bytes apart along K.
-__device__ __forceinline__ uint64_t desc_k(const bf16* p) { return smem_desc(p, 16, 256) | (3ull << 62); }
-__device__ __forceinline__ uint64_t desc_mn(const bf16* p, int rows) {
-  return smem_desc(p, 32 * rows, 256) | (3ull << 62);
-}
-
-// ---- the ring: TMA into that layout, completion on mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-// Waits for the phase of the given parity to complete; a copy that never
-// lands (some seconds of polling) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == (1 << 22)) __trap();
-  }
-}
-
-// Rows [row0, row0 + R) of head bh of a [BH, rows, d] bf16 tensor into an
-// [R, DP] tile, one TMA box of 16 columns by R rows per block; rows past the
-// map's row count and columns past d arrive as zeros. Completes on bar. One
-// thread starts it.
-template <int DP, int R>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int row0, int bh, uint64_t* bar) {
-#pragma unroll 4
-  for (int cb = 0; cb < DP / 16; ++cb) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst + cb * 16 * R)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(cb * 16), "r"(row0), "r"(bh), "r"(smem_addr(bar))
-        : "memory");
-  }
-}
+// ---- shared-memory tiles: the 32-byte-swizzled attention tiles of
+// tma.cuh, filled by TMA (tma_tile) into a ring completing on mbarriers.
 
 // dst[r] = src[row0 + r] for r < N, 0 past valid, by cp.async.
 template <int N, int THREADS>
@@ -340,9 +280,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float* __restrict_
       cp_async_commit();
     };
     if (threadIdx.x == 0) {
-      mbar_init(bar);
-      mbar_init(bar + 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init(bar, 1);
+      mbar_init(bar + 1, 1);
+      mbar_fence_init();
     }
     __syncthreads();
     load_stage(0, 0, 2 * C::kResBytes);
@@ -426,9 +366,9 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
     tma_tile<DP, BS>(reinterpret_cast<bf16*>(p + C::kTileBytes), &maps.v, kv0, bh, bar + s);
   };
   if (threadIdx.x == 0) {
-    mbar_init(bar);
-    mbar_init(bar + 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // the resident tiles land on stage 0's barrier
@@ -475,36 +415,6 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__
     accumulate<C::kWgmma, NS, NW, false>(acc, dsa, kt, acc, dsa, kt, cw, lane);  // dQ += dS.K
   }
   store_rows(dq + (size_t)bh * sq * d, acc, scale, r0, sq, cw, d, lane);
-}
-
-// cuTensorMapEncodeTiled, found at run time in libcuda (which the CUDA
-// runtime has loaded), so that the library needs no link to it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW);
-    if (libcuda != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(libcuda, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// A map of rows [0, rows) of each head of a [bh, stride_rows, d] bf16
-// tensor, in boxes of 16 columns by box_rows rows, 32-byte swizzled;
-// false on failure.
-bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int stride_rows, int d, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)stride_rows * d * 2};
-  const cuuint32_t box[3] = {16, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Args {

@@ -1,12 +1,14 @@
-// Streaming flash-attention forward for Hopper (sm_90a): scores,
-// probabilities and the output accumulator stay in registers.
+// Streaming flash-attention forward for Hopper (sm_90a) at head dims 129
+// to 512: scores, probabilities and the output accumulator stay in
+// registers.
 //
-// Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py
-// _flash_fwd_kernel (via _flash_fwd_bhsd), for head dims up to 512: online
-// softmax over KV tiles with a running max, denominator and fp32
-// accumulator; out [BH, Sq, D] bf16 and lse [BH, Sq] fp32; KV positions
-// >= kv_len masked to -1e30. SD1.5 sends it the 1024- and 4096-token
-// self-attention (D = 80, 40) and the VAE's single-head D = 512 attention.
+// Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py:85
+// _flash_fwd_kernel (via _flash_fwd_bhsd) above D = 128 (the VAE's
+// single-head D = 512 attention); head dims up to 128 take the wgmma kernel
+// of flash_fwd_wgmma.cu, whose one-warpgroup accumulator of 64 rows x D
+// would not fit the registers here. Online softmax over KV tiles with a
+// running max, denominator and fp32 accumulator; out [BH, Sq, D] bf16 and
+// lse [BH, Sq] fp32; KV positions >= kv_len masked to -1e30.
 //
 // What bounds it on this card: tensor-core issue and the exp of every score.
 // The design is FlashAttention-2's: 64 q rows per block, 16 per warp; q·k^T
@@ -17,7 +19,6 @@
 // round trip of scores or output. K and V tiles are double-buffered with
 // cp.async, so the next tile loads behind the current tile's products. The
 // softmax runs in base 2 (scores pre-scaled by scale * log2(e), ex2.approx).
-// No TMA or wgmma yet: later work.
 //
 // Head dims above 160 do not fit one warp's registers (a 16 x 512 fp32
 // accumulator is 128 registers a thread on its own). There two warps share
@@ -261,35 +262,23 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 
 extern "C" {
 
-// Streaming forward for head dims d <= 512 (d % 8 == 0). q [bh, sq, d],
-// k/v [bh, skv, d] bf16; out [bh, sq, d] bf16; lse [bh, sq] fp32. Returns
-// the CUDA error code of the launch (0 on success).
+// Streaming forward for head dims 128 < d <= 512 (d % 8 == 0). q [bh, sq,
+// d], k/v [bh, skv, d] bf16; out [bh, sq, d] bf16; lse [bh, sq] fp32.
+// Returns the CUDA error code of the launch (0 on success).
 int fdt_flash_fwd_stream_mma(const void* q, const void* k, const void* v, void* out, void* lse,
                              int bh, int sq, int skv, int d, int kv_len, float scale,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 160) {
-    switch ((d + 63) / 64) {
-      case 3: return launch<192>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      case 4: return launch<256>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      case 5: return launch<320>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      case 6: return launch<384>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      case 7: return launch<448>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      case 8: return launch<512>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  switch ((d + 15) / 16) {
-    case 1: return launch<16>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 2: return launch<32>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 3: return launch<48>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 4: return launch<64>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 5: return launch<80>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 6: return launch<96>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 7: return launch<112>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 8: return launch<128>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 9: return launch<144>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
-    case 10: return launch<160>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+  if (d % 8 || d <= 128 || d > 512) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d <= 160 ? (d + 15) / 16 * 16 : (d + 63) / 64 * 64) {
+    case 144: return launch<144>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 160: return launch<160>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 192: return launch<192>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 256: return launch<256>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 320: return launch<320>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 384: return launch<384>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 448: return launch<448>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
+    case 512: return launch<512>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

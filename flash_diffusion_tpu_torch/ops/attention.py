@@ -37,11 +37,13 @@ Dispatch, as the JAX ``_attn_primal`` does it:
     64, 32 or 16 rows fit the 227 KB a block can have. At SD1.5 shapes:
     every cross-attention (KV = 77) and the 64- and 256-token
     self-attention (D = 160).
-  - ``flash_fwd_stream`` (``csrc/flash_fwd_mma.cu``, the port of
-    ``_flash_fwd_kernel``): online softmax over KV tiles with scores and
-    accumulator in registers, for D <= 512. At SD1.5 and SDXL shapes: the
-    1024- and 4096-token self-attention (without the switch) and the VAE's
-    D = 512 mid-attention.
+  - ``flash_fwd_stream``, the port of ``_flash_fwd_kernel``: online
+    softmax over KV tiles, for D <= 512, on one of two kernels by
+    ``stream_fwd_tiles``: ``csrc/flash_fwd_wgmma.cu`` up to D = 128 (wgmma
+    fed by a TMA ring, two consumer warpgroups in ping-pong) and
+    ``csrc/flash_fwd_mma.cu`` above (mma.sync, the VAE's D = 512). At
+    SD1.5, SDXL and Pixart shapes: the 1024- and 4096-token self-attention
+    (without the switch) and the VAE's D = 512 mid-attention.
 
 The JAX rule (padded KV <= 1024 is one-shot, ``attention.py:569``) does not
 carry over: 1024 keys at D = 80 are 426 KB of K and V here.
@@ -110,19 +112,57 @@ def smem_bytes(bq: int, kvp: int, dp: int) -> int:
     return (bq + 2 * kvp) * (dp + 8) * 2
 
 
+class StreamTiles(NamedTuple):
+    """The streaming forward's tiles at one head dim."""
+
+    route: str  # "wgmma" (csrc/flash_fwd_wgmma.cu, D ≤ 128) or "mma" (csrc/flash_fwd_mma.cu, above)
+    dp: int  # padded head dim
+    bq: int  # q rows of a block
+    bkv: int  # keys of a streamed K/V tile
+    stages: int  # K/V tiles in flight (the ring)
+    threads: int  # of a block
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+_STREAM_WGMMA_MAX_D = 128
+
+
+def stream_fwd_tiles(d: int) -> StreamTiles:
+    """The streaming forward's tiles at head dim ``d`` (d % 8 == 0, d ≤ 512);
+    never from Sq, KV or BH, so a head's output does not depend on the
+    batch. Up to D = 128 the wgmma kernel (mirrors ``FwdCfg`` in
+    csrc/flash_fwd_wgmma.cu): D padded to a multiple of 16, 128 q rows (two
+    consumer warpgroups and a producer warpgroup), 96-key tiles up to D =
+    80 and 64 above (registers), four stages; shared memory Q [128, dp]
+    and four stages of K and V [bkv, dp] in bf16, nine 8-byte mbarriers. Above, the mma.sync
+    kernel (``Tiles`` in csrc/flash_fwd_mma.cu): D padded to 144 or 160, or
+    a multiple of 64; 64 q rows, two warps a row group above D = 160, KV
+    tiles of 64 keys (32 above 160) double-buffered at row stride dp + 8."""
+    if d % 8 or not 8 <= d <= _STREAM_MAX_D:
+        raise ValueError(f"head dim {d} outside the streaming forward's (a multiple of 8 up to 512)")
+    if d <= _STREAM_WGMMA_MAX_D:
+        dp = _round_up(d, 16)
+        bkv, stages = (96 if dp <= 80 else 64), 4
+        smem = 128 * dp * 2 + stages * 2 * bkv * dp * 2 + (1 + 2 * stages) * 8
+        return StreamTiles("wgmma", dp, 128, bkv, stages, 384, smem)
+    dp = _round_up(d, 16) if d <= 160 else _round_up(d, 64)
+    bkv, warps_d = (64, 1) if dp <= 160 else (32, 2)
+    return StreamTiles("mma", dp, 64, bkv, 2, 128 * warps_d, (64 + 4 * bkv) * (dp + 8) * 2)
+
+
 def attention_plan(kv_len: int, d: int) -> Tuple[str, int]:
     """(kernel, q tile rows) for ``kv_len`` valid keys at head dim ``d``.
 
     The one-shot kernel takes head dims up to 160 and the largest q tile of
     64, 32 or 16 rows at which the head's padded K and V and the tile fit a
-    block; the streaming kernel has fixed tiles."""
+    block; the streaming kernel's tiles follow D alone (``stream_fwd_tiles``)."""
     dp, kvp = _round_up(d, 16), _round_up(kv_len, 16)
     if d <= _ONESHOT_MAX_D:
         for bq in (64, 32, 16):
             if smem_bytes(bq, kvp, dp) <= _SMEM_LIMIT:
                 return "flash_fwd_oneshot", bq
     if d <= _STREAM_MAX_D:
-        return "flash_fwd_stream", 64
+        return "flash_fwd_stream", stream_fwd_tiles(_round_up(d, 8)).bq
     raise ValueError(f"head dim {d} too large for the attention kernels")
 
 
@@ -216,6 +256,8 @@ def flash_attention_bhsd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "flash_fwd_oneshot":
             err = lib.fdt_flash_fwd_oneshot(*args, bq, stream)
+        elif stream_fwd_tiles(d).route == "wgmma":
+            err = lib.fdt_flash_fwd_stream_wgmma(*args, stream)
         else:
             err = lib.fdt_flash_fwd_stream_mma(*args, stream)
     kernels.check(err, kind)

@@ -5,18 +5,21 @@ Port of ``flash_diffusion_tpu/ops/gemm.py``. Every kernel wrapper takes its
 plain version for a tensor on the CPU; on a CUDA tensor it launches its
 kernel or raises, and never falls back.
 
-The down-projection family (``csrc/ffn_gemm.cu``, one template):
+The down-projection family:
 
 - ``down_proj_gemm(x, w, b)`` (JAX ``down_proj_gemm``, :402): y = x·Wᵀ + b
   through ``DownProjGemmFunction`` → ``gemm``, the port of ``_gemm_kernel``
-  (K10; fp32 accumulator, the bias added in fp32 in the epilogue, one
-  cast), for the shapes ``gemm_eligible`` takes and x's dtype equal to W's;
+  (K10, ``csrc/gemm_sm90.cu``: wgmma fed by a TMA ring, persistent, tiles
+  by ``gemm_plan``; fp32 accumulator, the bias added in fp32 in the
+  epilogue, one cast), for the shapes ``gemm_eligible`` takes and x's
+  dtype equal to W's;
   every other call takes the unfused ops (x·Wᵀ, then + b in y's dtype), as
   JAX's does: routing by shape, not a fallback on failure. On the card K10
   is built for bf16: an fp32 call that JAX would send to K10 raises.
 - ``geglu_down_proj(x2k, w, b)`` (JAX :374): y = (a · gelu_tanh(g))·Wᵀ + b
   with x2k = [a | g] along the last dim, through ``GegluGemmFunction`` →
-  ``geglu_gemm``, the port of ``_geglu_gemm_kernel`` (K12), for bf16 calls
+  ``geglu_gemm``, the port of ``_geglu_gemm_kernel`` (K12,
+  ``csrc/ffn_gemm.cu``: mma.sync, the GEGLU prologue in shared memory), for bf16 calls
   that ``gemm_eligible`` takes; every other call takes the unfused ops.
   Rounding contract of K12 and its plain version: h = a · gelu_tanh(g) is
   computed in fp32 from the bf16 inputs and rounded once to bf16, the MMA
@@ -55,7 +58,7 @@ serves bf16 and raises for it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -176,7 +179,79 @@ def geglu_down_proj_reference(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Te
     return down_proj_gemm_reference((a * F.gelu(g, approximate="tanh")).to(x2k.dtype), w, bias)
 
 
-def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool) -> torch.Tensor:
+# The gate of K10 and K12 (bf16 out) against their plain versions in fp32 on
+# the same bf16 inputs. Rounding y to bf16 moves an element by at most
+# 2⁻⁸·|y| (bf16's unit roundoff), and K12's rounding of h adds a spread of
+# 1.6e-3·max|y| (the plain version in bf16, measured on the CPU), so:
+# |err_i| ≤ GEMM_TOL_REL·|ref_i| + GEMM_TOL_FLOOR·max|ref| for every element
+# (K10's plain version in bf16 stays below 1e-9·max|ref| past the first
+# term, K12's at 0.40 of the floor); ‖err‖₂ ≤ GEMM_REL_L2_TOL·‖ref‖₂ (plain
+# K10 1.66e-3, K12 2.33e-3; y × 1.005 gives 5e-3); and the mean signed error
+# within GEMM_BIAS_TOL·rms(ref) (rounding to nearest has no bias: plain
+# 4e-6 at 1032 × 128 outputs). The old bound, max|err| ≤ 2⁻⁷·max|ref|,
+# passed y × 1.005.
+GEMM_TOL_REL, GEMM_TOL_FLOOR, GEMM_REL_L2_TOL, GEMM_BIAS_TOL = 2 ** -8, 2 ** -8, 4e-3, 1e-4
+
+
+def gemm_errors(y: torch.Tensor, ref: torch.Tensor) -> dict:
+    """What ``gemm_gate`` reads of a GEMM's output ``y`` against its plain
+    version's ``ref``."""
+    r = ref.double()
+    e = y.double() - r
+    return {"excess": (e.abs() - GEMM_TOL_REL * r.abs()).max().item(), "max_err": e.abs().max().item(),
+            "max_ref": r.abs().max().item(), "rel_l2": (e.norm() / r.norm()).item(),
+            "mean_err": e.mean().item(), "rms_ref": r.square().mean().sqrt().item()}
+
+
+def gemm_gate(stats: dict) -> tuple:
+    """(pass, report) of the gate above on ``gemm_errors``' stats."""
+    floor = GEMM_TOL_FLOOR * stats["max_ref"]
+    bias_tol = GEMM_BIAS_TOL * stats["rms_ref"]
+    ok = (stats["excess"] <= floor and stats["rel_l2"] <= GEMM_REL_L2_TOL
+          and abs(stats["mean_err"]) <= bias_tol)
+    return ok, (f"max|err| {stats['max_err']:.3e}, past 2^-8·|ref| {stats['excess']:.3e} (tol {floor:.3e}) "
+                f"rel L2 {stats['rel_l2']:.3e} (tol {GEMM_REL_L2_TOL}) mean err {stats['mean_err']:.3e} "
+                f"(tol {bias_tol:.3e})")
+
+
+class GemmPlan(NamedTuple):
+    """K10's launch plan for one product (``csrc/gemm_sm90.cu`` ``GemmCfg``)."""
+
+    bn: int  # output columns of a tile (its rows: 128, two warpgroups of 64)
+    stages: int  # 64-deep K steps in the TMA ring
+    smem: int  # dynamic shared memory of a block, bytes
+    threads: int  # of a block: two consumer warpgroups and the producer warp
+
+
+_GEMM_BM, _GEMM_BK, _GEMM_SMEM_LIMIT = 128, 64, 232448
+
+
+def gemm_plan(k: int, n: int, bn: Optional[int] = None) -> GemmPlan:
+    """K10's plan for a product of depth ``k`` into ``n`` columns, from K and
+    N alone, so that a row's bits do not depend on M; mirrors ``plan_bn``
+    and ``GemmCfg`` in csrc/gemm_sm90.cu. The tile width (``bn`` asks for
+    one of 128, 160, 192, 256) is 160 where it divides N and K < 8N (SDXL's
+    forward shapes and the 1280-wide dW), else 128 (the 640-wide dW, whose
+    M = 2560 gives 100 tiles of 128 × 128 on 132 SMs either way): the
+    fastest in the sweep of PERF.md. Stages: as many 64-deep steps of
+    x [128, 64] and w [bn, 64] in bf16 (and their two mbarriers) as 227 KB
+    hold after 1024 bytes of alignment slack, at most 8."""
+    if bn is None:
+        bn = 160 if n % 160 == 0 and k < 8 * n else 128
+    if bn not in (128, 160, 192, 256):
+        raise ValueError(f"K10 is built for tile widths 128, 160, 192 and 256, not {bn}")
+    stage = (_GEMM_BM + bn) * _GEMM_BK * 2
+    stages = min(8, (_GEMM_SMEM_LIMIT - 1024) // (stage + 16))
+    return GemmPlan(bn, stages, 1024 + stages * (stage + 16), 288)
+
+
+def gemm_blocks(m: int, n: int, bn: int, sms: int) -> int:
+    """Persistent blocks of K10: one per SM, or one per 128 × bn tile where
+    there are fewer tiles; each walks the tiles ``blockIdx``, + grid, ..."""
+    return min(-(-m // _GEMM_BM) * -(-n // bn), sms)
+
+
+def _check_gemm_inputs(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool) -> None:
     name = "geglu_gemm" if geglu else "gemm"
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors, got {x.device}")
@@ -192,12 +267,19 @@ def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool)
         raise ValueError(f"the {name} kernel needs x [M, {'2K' if geglu else 'K'}], w [N, K], bias [N] "
                          f"with K % 64 == 0 and N even, got {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(bias.shape)}")
+
+
+def _launch_gemm(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launches K10 (``gemm``) or K12 (``geglu_gemm``) on checked inputs."""
+    m, (n, k) = x.shape[0], w.shape
     out = torch.empty(m, n, device=x.device, dtype=x.dtype)
+    ptrs = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k)
     with torch.cuda.device(x.device):
-        err = kernels.library().fdt_ffn_gemm(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, int(geglu),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if name == "gemm":
+            err = kernels.library().fdt_gemm_sm90(*ptrs, gemm_plan(k, n).bn, stream)
+        else:
+            err = kernels.library().fdt_geglu_gemm(*ptrs, stream)
     kernels.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -208,7 +290,8 @@ def gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     plain version; CUDA tensors launch the kernel (bf16)."""
     if x.device.type == "cpu":
         return down_proj_gemm_reference(x, w, bias)
-    return _ffn_gemm(x, w, bias, geglu=False)
+    _check_gemm_inputs(x, w, bias, geglu=False)
+    return _launch_gemm("gemm", x, w, bias)
 
 
 def geglu_gemm(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -217,7 +300,8 @@ def geglu_gemm(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
     launch the kernel (bf16)."""
     if x2k.device.type == "cpu":
         return geglu_down_proj_reference(x2k, w, bias)
-    return _ffn_gemm(x2k, w, bias, geglu=True)
+    _check_gemm_inputs(x2k, w, bias, geglu=True)
+    return _launch_gemm("geglu_gemm", x2k, w, bias)
 
 
 class DownProjGemmFunction(torch.autograd.Function):

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "fdt_attn_smem_bytes": [_I, _I, _I],
     "fdt_flash_fwd_oneshot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "fdt_flash_fwd_stream_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fdt_flash_fwd_stream_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fdt_flash_fwd_wgmma_tiles": [_I, _P],
     "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "fdt_packed_smem_bytes": [_I, _I],
     "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -49,7 +51,9 @@ _SIGNATURES = {
     "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_P],
     "fdt_flash_bwd_oneshot": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "fdt_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
-    "fdt_ffn_gemm": [_P] * 4 + [_I] * 4 + [_P],
+    "fdt_gemm_sm90": [_P] * 4 + [_I] * 4 + [_P],
+    "fdt_gemm_plan": [_I] * 3 + [_P],
+    "fdt_geglu_gemm": [_P] * 4 + [_I] * 3 + [_P],
     "fdt_group_norm_stats": [_P] * 5 + [_I] * 7 + [_P],
     "fdt_group_norm_apply": [_P] * 4 + [_I] * 7 + [_P],
 }

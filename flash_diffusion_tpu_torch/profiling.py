@@ -16,8 +16,10 @@ port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
 of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
 the kernels with the most device time, and the device time and share of
-the one-shot attention forward (K1), the one-shot backward (K8, with the
-kernel that sums its partials) and the streaming backward (K6 + K7). The JAX
+the streaming attention forward (K2, both routes), the down-projection
+GEMM (K10), the one-shot attention forward (K1), the one-shot backward
+(K8, with the kernel that sums its partials) and the streaming backward
+(K6 + K7). The JAX
 package's kernel switches (``FLASH_TPU_ATTN_PACKED``,
 ``FLASH_TPU_FFN_FUSED``, ``FLASH_TPU_FFN_DOWN_GEMM``) are read from the
 environment, as everywhere in the port, and printed beside the result.
@@ -43,7 +45,7 @@ def _category(name: str) -> str:
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
         ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
-        ("ffn_gemm_kernel", "ffn gemm kernels"),
+        ("gemm_sm90_kernel", "ffn gemm kernels"), ("geglu_gemm_kernel", "ffn gemm kernels"),
         ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
@@ -127,7 +129,9 @@ def main():
         cats[_category(e.key)] += e.self_device_time_total / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:20s} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time)")
-    for label, keys in (("one-shot forward (K1)", ("flash_fwd_oneshot_kernel",)),
+    for label, keys in (("streaming forward (K2)", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
+                        ("down-projection GEMM (K10)", ("gemm_sm90_kernel",)),
+                        ("one-shot forward (K1)", ("flash_fwd_oneshot_kernel",)),
                         ("one-shot backward (K8 + its reduce)", ("flash_bwd_oneshot",)),
                         ("attention backward pair (K6 + K7)", ("flash_bwd_dkv", "flash_bwd_dq"))):
         found = [e for e in kernels if any(k in e.key for k in keys)]

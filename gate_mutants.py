@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Proof on the card that the attention gates catch a faulty kernel.
+"""Proof on the card that the kernel gates catch a faulty kernel.
 
-    python3 attention_gate_mutants.py
+    python3 gate_mutants.py
 
 Runs the phase-2 checks of ``chip_smoke.py`` untimed, each in its own
-process with its own kernel build: first on the port as it is (both
-checks), then on copies of the port made in a temporary directory outside
+process with its own kernel build: first on the port as it is (every
+check), then on copies of the port made in a temporary directory outside
 the checkout, each with one fault written into one kernel source and held
 to that kernel's check:
 
-- ``check_attention`` (``attention_fwd_gate`` for K1, every
-  ``ATTENTION_*`` case) for the one-shot forward K1;
+- ``check_attention`` (``attention_fwd_gate``, every ``ATTENTION_*`` case)
+  for the forwards: the one-shot K1 and the streaming K2;
 - ``check_attention_bwd`` (``attention_bwd_gate``, every ``BWD_SHAPES`` and
-  ``BWD_RAGGED`` case) for the backward: K6 and K7, and K8.
+  ``BWD_RAGGED`` case) for the backward: K6 and K7, and K8;
+- ``check_ffn_gemm`` (``gemm_gate``, every ``FFN_*`` case) for the
+  down-projection GEMM K10.
 
-Each kernel gets two faults: its key mask removed (keys at or past
-``kv_valid``, and the zero padding past KV, enter the softmax) and a scale
-error on one output (K1's out × 1.01, dV × 1.03). Passes (exit 0) when the
-port passes every case and each copy fails at least one. Each run's full
-output goes to ``build/gate_mutants/<n>.log`` (the checkout's git-ignored
-build directory); the summary, with every case of the faulted kernel's
-route, is printed. The patterns name lines of the sources, so the script
-refuses to run (SystemExit) once they no longer match. Needs a CUDA card
-and nvcc.
+Each attention kernel gets two faults: its key mask removed (keys at or
+past ``kv_valid``, and the zero padding past KV, enter the softmax) and a
+scale error on one output (K1's and K2's out × 1.01, dV × 1.03). K10 gets
+three: its bias dropped, its last 64-deep K step skipped, and y × 1.01.
+Passes (exit 0) when the port passes every case and each copy fails at
+least one. Each run's full output goes to ``build/gate_mutants/<n>.log``
+(the checkout's git-ignored build directory); the summary, with every case
+of the faulted kernel's route, is printed. The patterns name lines of the
+sources, so the script refuses to run (SystemExit) once they no longer
+match. Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -33,10 +36,27 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CHECKS = {"fwd": "check_attention", "bwd": "check_attention_bwd"}
 # (name, the check it must fail, the routes whose cases it prints, file under
 # the package, [(text, its replacement, occurrences)])
 MUTANTS = [
+    ("K2 key mask removed", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_mma.cu",
+     [("const float x = col < kv_len ? s[nt][e] * scale_log2 : kNegInf;",
+       "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),
+    ("K2 out x 1.01", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_mma.cu",
+     [("__floats2bfloat162_rn(o[nd][0] / l[0], o[nd][1] / l[0]);",
+       "__floats2bfloat162_rn(o[nd][0] * 1.01f / l[0], o[nd][1] * 1.01f / l[0]);", 1),
+      ("__floats2bfloat162_rn(o[nd][2] / l[1], o[nd][3] / l[1]);",
+       "__floats2bfloat162_rn(o[nd][2] * 1.01f / l[1], o[nd][3] * 1.01f / l[1]);", 1)]),
+    ("K10 bias dropped", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
+     [("__fadd_rn(acc[mt][nt][2 * half], bf.x), __fadd_rn(acc[mt][nt][2 * half + 1], bf.y)",
+       "__fadd_rn(acc[mt][nt][2 * half], GEGLU ? bf.x : 0.0f), "
+       "__fadd_rn(acc[mt][nt][2 * half + 1], GEGLU ? bf.y : 0.0f)", 1)]),
+    ("K10 last K step skipped", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
+     [("const int n_steps = k / kBK;", "const int n_steps = k / kBK - (GEGLU ? 0 : 1);", 1)]),
+    ("K10 y x 1.01", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
+     [("__fadd_rn(acc[mt][nt][2 * half], bf.x), __fadd_rn(acc[mt][nt][2 * half + 1], bf.y)",
+       "__fadd_rn(acc[mt][nt][2 * half], bf.x) * (GEGLU ? 1.0f : 1.01f), "
+       "__fadd_rn(acc[mt][nt][2 * half + 1], bf.y) * (GEGLU ? 1.0f : 1.01f)", 1)]),
     ("K1 key mask removed", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
      [("const float x = c < lim ? s[nt][e] * scale_log2 : kNegInf;",
        "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),
@@ -59,20 +79,23 @@ MUTANTS = [
 def child(package_root: str, checks: str) -> None:
     sys.path.insert(0, package_root)  # the copy's port before the checkout's
     import chip_smoke
-    from flash_diffusion_tpu_torch.ops import attention, kernels
+    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels
 
     print(f"port: {Path(attention.__file__).parents[2]}")
     kernels.library()
     print(f"kernel build: nvcc {kernels.BUILD_INFO['seconds']:.2f} s -> {kernels.BUILD_INFO['path']}")
-    names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_oneshot")
+    names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_oneshot",
+             "gemm", "geglu_gemm")
     results = {name: chip_smoke.new_row("cuda", "", "") for name in names}
     failed = []
     for check in checks.split(","):
         try:
             if check == "fwd":
                 chip_smoke.check_attention(attention, results, timed=False)
-            else:
+            elif check == "bwd":
                 chip_smoke.check_attention_bwd(attention, kernels, results, timed=False)
+            else:
+                chip_smoke.check_ffn_gemm(gemm, results, timed=False)
         except AssertionError as e:
             failed.append(str(e))
     print("GATE: every case passed" if not failed else f"GATE: {' / '.join(failed)}")
@@ -94,19 +117,20 @@ def mutated_copy(where: Path, path: str, edits) -> Path:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--child", help=argparse.SUPPRESS)
-    ap.add_argument("--checks", default="fwd,bwd", help=argparse.SUPPRESS)
+    ap.add_argument("--checks", default="fwd,bwd,gemm", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         return child(args.child, args.checks)
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("attention_gate_mutants: needs an NVIDIA GPU")
+        raise SystemExit("gate_mutants: needs an NVIDIA GPU")
     out_dir = ROOT / "build" / "gate_mutants"
     out_dir.mkdir(parents=True, exist_ok=True)
     verdicts = []
     with tempfile.TemporaryDirectory() as tmp:
-        variants = [("as built", ROOT, "fwd,bwd", ("flash_fwd_oneshot", "flash_bwd_oneshot", "flash_bwd_pair"))] + [
+        variants = [("as built", ROOT, "fwd,bwd,gemm", ("flash_fwd_oneshot", "flash_fwd_stream", "flash_bwd_oneshot",
+                                                         "flash_bwd_pair", "gemm"))] + [
             (name, mutated_copy(Path(tmp) / f"m{i}", path, edits), check, routes)
             for i, (name, check, routes, path, edits) in enumerate(MUTANTS)]
         for i, (name, root, checks, routes) in enumerate(variants):
@@ -118,7 +142,8 @@ def main() -> None:
             print(f"== {name} (rc {run.returncode}): {verdict}")
             for line in lines:
                 words = line.split()
-                if line.startswith("attention") and words[1 + (words[1] == "backward")] in routes:
+                route = words[1 + (words[1] == "backward")] if line.startswith("attention") else words[0] if words else ""
+                if route in routes:
                     print("  " + line)
             if verdict is None:
                 print(run.stderr[-3000:])

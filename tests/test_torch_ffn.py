@@ -356,6 +356,53 @@ def test_default_mode_takes_the_default_routes(mode, port_kernels):
     assert port_kernels == ["flash_attention_bhsd", "flash_attention_packed"]
 
 
+# [M, K, N] of K10 on the card's paths and in its checks: SDXL's forward
+# shapes, the ragged ones, and the dW shapes
+K10_CALLS = [(16384, 2560, 640), (4096, 5120, 1280), (4096, 2560, 640), (1024, 5120, 1280), (4001, 2560, 640),
+             (1032, 2048, 128), (2560, 16384, 640), (5120, 4096, 1280)]
+
+
+@pytest.mark.parametrize("m,k,n", K10_CALLS)
+def test_gemm_plan_fits_and_follows_k_and_n(m, k, n):
+    """K10's plan: a built tile width, 4–8 stages of x [128, 64] and w [bn,
+    64] that fit a block with their barriers and the alignment slack, the
+    same for any M (so a row's bits do not depend on it), and one
+    persistent block per SM or per tile."""
+    p = tgemm.gemm_plan(k, n)
+    assert p.bn in (128, 160, 192, 256) and 4 <= p.stages <= 8 and p.threads == 288
+    assert p.smem == 1024 + p.stages * ((128 + p.bn) * 64 * 2 + 16) <= 232448
+    assert all(tgemm.gemm_plan(k, n) == p for _ in (m, 1, 2 * m))  # no M in the plan
+    for bn in (128, 160, 192, 256):
+        assert tgemm.gemm_plan(k, n, bn).smem <= 232448
+    tiles = -(-m // 128) * -(-n // p.bn)
+    assert tgemm.gemm_blocks(m, n, p.bn, 132) == min(tiles, 132)
+
+
+@pytest.mark.parametrize("fault", [None, "bias dropped", "y x 1.01", "K step zeroed"])
+@pytest.mark.parametrize("geglu", [False, True])
+def test_gemm_gate_passes_the_plain_gemm_and_catches_faults(geglu, fault):
+    """The gate of K10 and K12, on the CPU: the plain version on the bf16
+    inputs (the kernels' rounding points) against itself in fp32 passes; a
+    copy with the bias dropped, with y × 1.01, or with the last 64-deep K
+    step zeroed fails."""
+    g = torch.Generator().manual_seed(16)
+    m, k, n = 1032, 2048, 128
+    x = torch.randn(m, 2 * k if geglu else k, generator=g).bfloat16()
+    w = (torch.randn(n, k, generator=g) * k ** -0.5).bfloat16()
+    b = (0.1 * torch.randn(n, generator=g)).bfloat16()
+    plain = tgemm.geglu_down_proj_reference if geglu else tgemm.down_proj_gemm_reference
+    want = plain(x.float(), w.float(), b.float())
+    if fault == "bias dropped":
+        b = torch.zeros_like(b)
+    if fault == "K step zeroed":
+        w[:, k - 64:] = 0
+    got = plain(x, w, b)
+    if fault == "y x 1.01":
+        got = (got.float() * 1.01).bfloat16()
+    ok, report = tgemm.gemm_gate(tgemm.gemm_errors(got, want))
+    assert ok == (fault is None), report
+
+
 # -- on the card ----------------------------------------------------------
 
 # (M, K, N): SDXL's two shapes, batch 1, ragged M (odd), the dW shapes
@@ -367,9 +414,9 @@ CARD_GEMMS = [(16384, 2560, 640), (4096, 5120, 1280), (4096, 2560, 640), (4001, 
 @pytest.mark.parametrize("geglu", [False, True])
 @pytest.mark.parametrize("m,k,n", CARD_GEMMS)
 def test_ffn_gemm_kernels_match_plain_on_card(cuda, geglu, m, k, n):
-    """K10 and K12 vs their plain version in fp32 within 2^-7 of max|y|
+    """K10 and K12 vs their plain version in fp32, held to ``gemm_gate``
     (bf16 out; K12 rounds h too), and vs the plain version on the same bf16
-    inputs within one bf16 ulp of max|y|."""
+    inputs within 2^-7 of max|y|."""
     g = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn(m, 2 * k if geglu else k, generator=g, device=cuda).bfloat16()
     w = (torch.randn(n, k, generator=g, device=cuda) * k ** -0.5).bfloat16()
@@ -380,9 +427,9 @@ def test_ffn_gemm_kernels_match_plain_on_card(cuda, geglu, m, k, n):
     y = kernel(x, w, b)
     assert tgemm.LAUNCHES["geglu_gemm" if geglu else "gemm"] == before + 1
     ref = plain(x.float(), w.float(), b.float())
-    top = ref.abs().max().item()
-    assert (y.float() - ref).abs().max().item() <= 2 ** -7 * top
-    assert (y.float() - plain(x, w, b).float()).abs().max().item() <= 2 ** -7 * top
+    ok, report = tgemm.gemm_gate(tgemm.gemm_errors(y, ref))
+    assert ok, report
+    assert (y.float() - plain(x, w, b).float()).abs().max().item() <= 2 ** -7 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -412,6 +459,46 @@ def test_ffn_gemm_batch_invariant_on_card(cuda, geglu):
     kernel = tgemm.geglu_gemm if geglu else tgemm.gemm
     batched = kernel(x.reshape(-1, x.shape[-1]), w, b).reshape(4, 4096, n)
     assert torch.equal(batched[1], kernel(x[1].contiguous(), w, b))
+
+
+@pytest.mark.cuda
+def test_gemm_rows_bit_equal_alone_and_inside_a_larger_m_on_card(cuda):
+    """K10's rows 1000..2030 alone (M = 1031, off the 128-row tile) equal
+    the same rows inside M = 4001, where they start 104 rows into a tile,
+    and a second run gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k, n = 2560, 640
+    x = torch.randn(4001, k, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(n, k, generator=g, device=cuda) * k ** -0.5).bfloat16()
+    b = torch.randn(n, generator=g, device=cuda).bfloat16()
+    whole = tgemm.gemm(x, w, b)
+    assert torch.equal(whole, tgemm.gemm(x, w, b))
+    assert torch.equal(whole[1000:2031], tgemm.gemm(x[1000:2031].contiguous(), w, b))
+
+
+@pytest.mark.cuda
+def test_down_proj_grads_at_a_dw_shape_match_cpu(cuda):
+    """``DownProjGemmFunction`` at a shape whose dW = xᵀ·dy is K10's too
+    (M = 2048): forward and gradients on the card vs the same function on
+    the CPU (the plain versions), all in bf16, to a relative L2 of 1e-2
+    (the same roundings; sums in another order)."""
+    g = torch.Generator().manual_seed(5)
+    m, k, n = 2048, 2048, 128
+    assert tgemm.gemm_eligible(m, k, n) and tgemm.gemm_eligible(k, m, n)
+    x = torch.randn(m, k, generator=g).bfloat16()
+    w = (torch.randn(n, k, generator=g) * 0.02).bfloat16()
+    b = (0.1 * torch.randn(n, generator=g)).bfloat16()
+    dy = torch.randn(m, n, generator=g).bfloat16()
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        before = tgemm.LAUNCHES["gemm"]
+        y = tgemm.down_proj_gemm(*leaves)
+        y.backward(dy.to(dev))
+        assert tgemm.LAUNCHES["gemm"] - before == (0 if dev == "cpu" else 2)
+        grads.append([y.detach().float().cpu()] + [t.grad.float().cpu() for t in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
 @pytest.mark.cuda

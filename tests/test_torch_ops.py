@@ -577,6 +577,45 @@ def test_attention_bwd_plan_takes_every_head_dim_of_the_pair():
             tattn.attention_bwd_plan(4096, d)
 
 
+# The streaming forward's calls on the card's paths and in its checks
+# (BH, Sq, KV, head dim): SD1.5, SDXL, Pixart, the VAE, and the ragged ones
+STREAM_CALLS = [
+    (32, 4096, 4096, 40), (32, 1024, 1024, 80), (40, 4096, 4096, 64), (80, 1024, 1024, 64), (64, 4096, 4096, 72),
+    (4, 4096, 4096, 512), (4, 16384, 16384, 512), (32, 1000, 900, 80), (4, 700, 3000, 512), (32, 4000, 4001, 40),
+    (32, 300, 1999, 160), (40, 1000, 1037, 64), (16, 700, 1433, 72), (40, 1000, 1030, 64), (16, 999, 999, 72),
+]
+
+
+@pytest.mark.parametrize("bh,sq,kv,d", STREAM_CALLS)
+def test_stream_forward_tiles_fit_and_follow_the_head_dim(bh, sq, kv, d):
+    """K2's plan at every streaming call of the paths and checks: the call
+    takes the streaming route, its tiles fit a block, D ≤ 128 goes to the
+    wgmma kernel (128 q rows, four stages) and D above it keeps the mma.sync
+    kernel (64 q rows, its old tiles); the tiles come from D alone, never
+    from Sq, KV or BH."""
+    assert tattn.attention_plan(kv, d)[0] == "flash_fwd_stream"
+    t = tattn.stream_fwd_tiles(d)
+    assert t.smem <= tattn._SMEM_LIMIT and d <= t.dp < d + 64 and t.dp % 16 == 0
+    if d <= 128:
+        assert (t.route, t.bq, t.stages, t.threads) == ("wgmma", 128, 4, 384) and t.bkv in (64, 96)
+        assert t.smem == 128 * t.dp * 2 + 4 * 2 * t.bkv * t.dp * 2 + 9 * 8
+    else:
+        assert (t.route, t.bq) == ("mma", 64) and t.smem == (64 + 4 * t.bkv) * (t.dp + 8) * 2
+    assert tattn.attention_plan(kv, d)[1] == t.bq
+
+
+def test_stream_forward_tiles_at_every_head_dim():
+    """Every D % 8 == 0 up to 512 has streaming tiles that fit a block, on
+    the wgmma kernel exactly up to D = 128; D above 512 or off the 8-step
+    raises."""
+    for d in range(8, 513, 8):
+        t = tattn.stream_fwd_tiles(d)
+        assert t.route == ("wgmma" if d <= 128 else "mma") and t.smem <= tattn._SMEM_LIMIT
+    for d in (520, 44):
+        with pytest.raises(ValueError):
+            tattn.stream_fwd_tiles(d)
+
+
 def _plain_fwd_variant(q, k, v, scale, kv_valid, fault):
     """The plain forward at the one-shot kernel's rounding points (p rounded
     to q's dtype before p·v, the fp32 row sum, out rounded once), or a copy
@@ -678,12 +717,12 @@ def test_bwd_wrapper_refuses_devices_without_a_kernel():
     (2, 300, 256, 160, 200), (2, 512, 512, 512, 500), (3, 37, 1100, 16, 1030),
     (2, 130, 2000, 160, 1999), (4, 200, 4096, 40, None), (2, 77, 700, 8, None),
     (2, 100, 1500, 200, 1400), (1, 64, 4096, 512, None),
+    (3, 1000, 1100, 64, 1037), (2, 700, 1500, 72, 1433), (2, 130, 333, 128, 301),
 ])
 def test_attention_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
-    """bf16 kernel vs the plain version on the same inputs in fp32; keys at
-    or past ``kv_valid`` are k × 3 and v + 1. The one-shot kernel (K1) is
-    held to ``attention_fwd_gate``; the streaming one (K2) to bf16 rounding
-    of p and of the output, |out| < 4 → 2e-2, and lse to 5e-3."""
+    """bf16 kernel vs the plain version on the same inputs in fp32, held to
+    ``attention_fwd_gate`` (K1 and K2 alike); keys at or past ``kv_valid``
+    are k × 3 and v + 1, so that a masked key that leaks moves the mean."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda).to(torch.bfloat16)
                for s in (sq, skv, skv))
@@ -696,12 +735,8 @@ def test_attention_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
     torch.cuda.synchronize()
     assert tattn.LAUNCHES[kind] == n + 1
     ref_out, ref_lse = tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), d ** -0.5, kv_valid)
-    if kind == "flash_fwd_oneshot":
-        ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, ref_out, ref_lse))
-        assert ok, report
-    else:
-        assert (out.float() - ref_out).abs().max().item() < 2e-2
-        assert (lse - ref_lse).abs().max().item() < 5e-3
+    ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, ref_out, ref_lse))
+    assert ok, report
 
 
 @pytest.mark.cuda
@@ -833,6 +868,24 @@ def test_attention_bwd_pair_bit_equal_run_to_run_and_batched_on_card(cuda, sq, s
     run = lambda *t: tattn.flash_attention_bwd_bhsd(*t, d ** -0.5, kv_valid)
     first, again = run(q, k, v, o, lse, do), run(q, k, v, o, lse, do)
     alone = run(*(t[1:2].contiguous() for t in (q, k, v, o, lse, do)))
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, alone):
+        assert torch.equal(a, b) and torch.equal(a[1:2], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,d,kv_valid", [(1000, 1100, 64, 1037), (700, 1500, 72, None), (300, 2000, 40, 1999),
+                                              (130, 1024, 128, None)])
+def test_attention_stream_bit_equal_run_to_run_and_batched_on_card(cuda, sq, skv, d, kv_valid):
+    """K2 splits no head's keys across blocks and uses no atomics: out and
+    lse are ``torch.equal`` from run to run, and a head alone equals the
+    same head in slot 1 of a batch of 4."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(4, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv))
+    assert tattn.attention_plan(kv_valid or skv, d)[0] == "flash_fwd_stream"
+    run = lambda *t: tattn.flash_attention_bhsd(*t, d ** -0.5, kv_valid)
+    first, again = run(q, k, v), run(q, k, v)
+    alone = run(*(t[1:2].contiguous() for t in (q, k, v)))
     torch.cuda.synchronize()
     for a, b, c in zip(first, again, alone):
         assert torch.equal(a, b) and torch.equal(a[1:2], c)
