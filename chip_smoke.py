@@ -1443,7 +1443,7 @@ def main():
                 want.dp, want.bq, want.bkv, want.stages, want.threads, want.smem)):
             raise AssertionError(f"K2 tiles at d={d}: kernel {tuple(got)} (error {err}), plan {want}")
     for m, k, n in FFN_SHAPES + FFN_RAGGED + FFN_DW_SHAPES:  # K10's plan, and every tile width it is built for
-        for bn in (None, 128, 160, 192, 256):
+        for bn in (None, 112, 128, 160, 224, 256):
             want, got = gemm.gemm_plan(k, n, bn), (ctypes.c_int * 4)()
             kernels.check(lib.fdt_gemm_plan(k, n, bn or 0, got), "fdt_gemm_plan")
             if tuple(got) != tuple(want):

@@ -32,7 +32,7 @@
 //     by row and column.
 //   - No split of K, no atomics: each output element is one block's sum over
 //     K in a fixed order, so a row's bits do not depend on M (alone vs
-//     batched), and the tile width BN follows N and K only (GemmPlan,
+//     batched), and the tile width BN follows N and K only (plan_bn,
 //     mirrored by ops/gemm.py gemm_plan).
 
 #include "tma.cuh"
@@ -57,10 +57,17 @@ struct GemmCfg {
   static_assert(kStageBytes % 1024 == 0 && kStages >= 4, "stage shape");
 };
 
-// The tile width for a product of depth k into n columns (n % 128 == 0 on
-// the eligible shapes; any even n runs). Fixed by a sweep on the card
-// (PERF.md): 160 where it divides N and K is the forward's, 128 else.
-int plan_bn(int k, int n) { return n % 160 == 0 && k < 8 * n ? 160 : 128; }
+// The tile width for a product of depth k into n columns, from K and N
+// alone. At SDXL's four shapes, the fastest of a sweep on the card
+// (PERF.md): the width sets the wave count there (132 SMs), and the wave
+// count at these M is what the sweep measured. Elsewhere 160 where it
+// divides N, else 128 (n % 128 == 0 on the eligible shapes; any even n
+// runs).
+int plan_bn(int k, int n) {
+  if (n == 640) return k == 16384 ? 112 : 160;  // dW at M = 2560: 120 tiles; the forward at K = 2560
+  if (n == 1280 && k == 4096) return 224;       // dW at M = 5120: 240 tiles
+  return n % 160 == 0 ? 160 : 128;
+}
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -148,13 +155,6 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constan
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
-}
-
 template <int BN>
 int launch(const void* x, const void* w, const void* bias, void* out, int m, int n, int k, cudaStream_t stream) {
   typedef GemmCfg<BN> C;
@@ -183,9 +183,10 @@ int plan(int* out) {
 // Returns F<BN>(args...) for BN in the built set; falls through otherwise.
 #define FDT_GEMM_DISPATCH(F, bn, ...)          \
   switch (bn) {                                \
+    case 112: return F<112>(__VA_ARGS__);      \
     case 128: return F<128>(__VA_ARGS__);      \
     case 160: return F<160>(__VA_ARGS__);      \
-    case 192: return F<192>(__VA_ARGS__);      \
+    case 224: return F<224>(__VA_ARGS__);      \
     case 256: return F<256>(__VA_ARGS__);      \
     default: break;                            \
   }
@@ -196,7 +197,7 @@ extern "C" {
 
 // K10's plan for a product of depth k into n columns into out[4]: tile
 // width BN, ring stages, dynamic shared memory (bytes), threads of a block;
-// bn != 0 asks for that width instead of the plan's (128, 160, 192, 256).
+// bn != 0 asks for that width instead of the plan's (112, 128, 160, 224, 256).
 // Returns 0, or cudaErrorInvalidValue for a width not built.
 int fdt_gemm_plan(int k, int n, int bn, int* out) {
   FDT_GEMM_DISPATCH(plan, bn ? bn : plan_bn(k, n), out)

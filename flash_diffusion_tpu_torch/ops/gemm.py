@@ -230,16 +230,23 @@ def gemm_plan(k: int, n: int, bn: Optional[int] = None) -> GemmPlan:
     """K10's plan for a product of depth ``k`` into ``n`` columns, from K and
     N alone, so that a row's bits do not depend on M; mirrors ``plan_bn``
     and ``GemmCfg`` in csrc/gemm_sm90.cu. The tile width (``bn`` asks for
-    one of 128, 160, 192, 256) is 160 where it divides N and K < 8N (SDXL's
-    forward shapes and the 1280-wide dW), else 128 (the 640-wide dW, whose
-    M = 2560 gives 100 tiles of 128 × 128 on 132 SMs either way): the
-    fastest in the sweep of PERF.md. Stages: as many 64-deep steps of
-    x [128, 64] and w [bn, 64] in bf16 (and their two mbarriers) as 227 KB
-    hold after 1024 bytes of alignment slack, at most 8."""
+    one of 112, 128, 160, 224, 256): at SDXL's shapes the fastest in the
+    sweep of PERF.md (``kernel_times.py --sweep``), 160 for the forward's
+    [·, 2560] → 640 and [·, 5120] → 1280, 112 and 224 for the dW products
+    [·, 16384] → 640 and [·, 4096] → 1280 (120 and 240 tiles of 128 rows
+    on 132 SMs); elsewhere 160 where it divides N, else 128. Stages: as
+    many 64-deep steps of x [128, 64] and w [bn, 64] in bf16 (and their
+    two mbarriers) as 227 KB hold after 1024 bytes of alignment slack, at
+    most 8."""
     if bn is None:
-        bn = 160 if n % 160 == 0 and k < 8 * n else 128
-    if bn not in (128, 160, 192, 256):
-        raise ValueError(f"K10 is built for tile widths 128, 160, 192 and 256, not {bn}")
+        if n == 640:
+            bn = 112 if k == 16384 else 160
+        elif (n, k) == (1280, 4096):
+            bn = 224
+        else:
+            bn = 160 if n % 160 == 0 else 128
+    if bn not in (112, 128, 160, 224, 256):
+        raise ValueError(f"K10 is built for tile widths 112, 128, 160, 224 and 256, not {bn}")
     stage = (_GEMM_BM + bn) * _GEMM_BK * 2
     stages = min(8, (_GEMM_SMEM_LIMIT - 1024) // (stage + 16))
     return GemmPlan(bn, stages, 1024 + stages * (stage + 16), 288)

@@ -39,24 +39,22 @@ ROOT = Path(__file__).resolve().parent
 # (name, the check it must fail, the routes whose cases it prints, file under
 # the package, [(text, its replacement, occurrences)])
 MUTANTS = [
-    ("K2 key mask removed", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_mma.cu",
-     [("const float x = col < kv_len ? s[nt][e] * scale_log2 : kNegInf;",
-       "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),
-    ("K2 out x 1.01", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_mma.cu",
+    ("K2 key mask removed", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_wgmma.cu",
+     [("if (kv0 + nt * 8 + 2 * (lane % 4) + (e & 1) >= kv_len) s[nt][e] = kNegInf;",
+       "if (false) s[nt][e] = kNegInf;", 1)]),
+    ("K2 out x 1.01", "fwd", ("flash_fwd_stream",), "csrc/flash_fwd_wgmma.cu",
      [("__floats2bfloat162_rn(o[nd][0] / l[0], o[nd][1] / l[0]);",
        "__floats2bfloat162_rn(o[nd][0] * 1.01f / l[0], o[nd][1] * 1.01f / l[0]);", 1),
       ("__floats2bfloat162_rn(o[nd][2] / l[1], o[nd][3] / l[1]);",
        "__floats2bfloat162_rn(o[nd][2] * 1.01f / l[1], o[nd][3] * 1.01f / l[1]);", 1)]),
-    ("K10 bias dropped", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
-     [("__fadd_rn(acc[mt][nt][2 * half], bf.x), __fadd_rn(acc[mt][nt][2 * half + 1], bf.y)",
-       "__fadd_rn(acc[mt][nt][2 * half], GEGLU ? bf.x : 0.0f), "
-       "__fadd_rn(acc[mt][nt][2 * half + 1], GEGLU ? bf.y : 0.0f)", 1)]),
-    ("K10 last K step skipped", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
-     [("const int n_steps = k / kBK;", "const int n_steps = k / kBK - (GEGLU ? 0 : 1);", 1)]),
-    ("K10 y x 1.01", "gemm", ("gemm",), "csrc/ffn_gemm.cu",
-     [("__fadd_rn(acc[mt][nt][2 * half], bf.x), __fadd_rn(acc[mt][nt][2 * half + 1], bf.y)",
-       "__fadd_rn(acc[mt][nt][2 * half], bf.x) * (GEGLU ? 1.0f : 1.01f), "
-       "__fadd_rn(acc[mt][nt][2 * half + 1], bf.y) * (GEGLU ? 1.0f : 1.01f)", 1)]),
+    ("K10 bias dropped", "gemm", ("gemm",), "csrc/gemm_sm90.cu",
+     [("__fadd_rn(acc[nt][2 * half], bf.x), __fadd_rn(acc[nt][2 * half + 1], bf.y)",
+       "__fadd_rn(acc[nt][2 * half], 0.0f), __fadd_rn(acc[nt][2 * half + 1], 0.0f)", 1)]),
+    ("K10 last K step skipped", "gemm", ("gemm",), "csrc/gemm_sm90.cu",
+     [("const int steps = k / kBK;", "const int steps = k / kBK - 1;", 1)]),
+    ("K10 y x 1.01", "gemm", ("gemm",), "csrc/gemm_sm90.cu",
+     [("__fadd_rn(acc[nt][2 * half], bf.x), __fadd_rn(acc[nt][2 * half + 1], bf.y)",
+       "__fadd_rn(acc[nt][2 * half], bf.x) * 1.01f, __fadd_rn(acc[nt][2 * half + 1], bf.y) * 1.01f", 1)]),
     ("K1 key mask removed", "fwd", ("flash_fwd_oneshot",), "csrc/attention.cu",
      [("const float x = c < lim ? s[nt][e] * scale_log2 : kNegInf;",
        "const float x = true ? s[nt][e] * scale_log2 : kNegInf;", 1)]),

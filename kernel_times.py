@@ -20,8 +20,8 @@ asked for:
   (K12 at ``FFN_SHAPES`` comes along: one template with K10 before).
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
-process also times K10 at every tile width it is built for (128, 160, 192,
-256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``. Prints
+process also times K10 at every tile width it is built for (112, 128, 160,
+224, 256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``. Prints
 each tree's lines and, last, a table of kernel ms per shape and tree.
 Needs a CUDA card and nvcc.
 """
@@ -47,7 +47,7 @@ def sweep(cs, gemm, kernels):
         b = torch.zeros(n, device="cuda", dtype=torch.bfloat16)
         y = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
         stream = torch.cuda.current_stream().cuda_stream
-        for bn in (128, 160, 192, 256):
+        for bn in (112, 128, 160, 224, 256):
             run = lambda: kernels.check(lib.fdt_gemm_sm90(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                                                           m, n, k, bn, stream), "gemm sweep")
             ms = cs.median_ms(run)

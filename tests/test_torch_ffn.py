@@ -369,10 +369,10 @@ def test_gemm_plan_fits_and_follows_k_and_n(m, k, n):
     same for any M (so a row's bits do not depend on it), and one
     persistent block per SM or per tile."""
     p = tgemm.gemm_plan(k, n)
-    assert p.bn in (128, 160, 192, 256) and 4 <= p.stages <= 8 and p.threads == 288
+    assert p.bn in (112, 128, 160, 224, 256) and 4 <= p.stages <= 8 and p.threads == 288
     assert p.smem == 1024 + p.stages * ((128 + p.bn) * 64 * 2 + 16) <= 232448
     assert all(tgemm.gemm_plan(k, n) == p for _ in (m, 1, 2 * m))  # no M in the plan
-    for bn in (128, 160, 192, 256):
+    for bn in (112, 128, 160, 224, 256):
         assert tgemm.gemm_plan(k, n, bn).smem <= 232448
     tiles = -(-m // 128) * -(-n // p.bn)
     assert tgemm.gemm_blocks(m, n, p.bn, 132) == min(tiles, 132)
@@ -491,7 +491,7 @@ def test_down_proj_grads_at_a_dw_shape_match_cpu(cuda):
     dy = torch.randn(m, n, generator=g).bfloat16()
     grads = []
     for dev in ("cpu", cuda):
-        leaves = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        leaves = [t.to(dev).detach().requires_grad_() for t in (x, w, b)]
         before = tgemm.LAUNCHES["gemm"]
         y = tgemm.down_proj_gemm(*leaves)
         y.backward(dy.to(dev))
