@@ -155,6 +155,14 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constan
   }
 }
 
+// The SMs of the current card, or 0 on an error: the persistent grid.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
 template <int BN>
 int launch(const void* x, const void* w, const void* bias, void* out, int m, int n, int k, cudaStream_t stream) {
   typedef GemmCfg<BN> C;

@@ -71,15 +71,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The SMs of the current card, or 0 on an error: the grid of a persistent
-// kernel.
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
-}
-
 // Raises a kernel's dynamic shared-memory limit to the card's opt-in
 // maximum, once per process and card (bit `dev` of `done`): the launches
 // that follow need no attribute call of their own.

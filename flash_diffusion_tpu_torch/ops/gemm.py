@@ -19,8 +19,9 @@ The down-projection family:
 - ``geglu_down_proj(x2k, w, b)`` (JAX :374): y = (a · gelu_tanh(g))·Wᵀ + b
   with x2k = [a | g] along the last dim, through ``GegluGemmFunction`` →
   ``geglu_gemm``, the port of ``_geglu_gemm_kernel`` (K12,
-  ``csrc/ffn_gemm.cu``: mma.sync, the GEGLU prologue in shared memory), for bf16 calls
-  that ``gemm_eligible`` takes; every other call takes the unfused ops.
+  ``csrc/ffn_gemm.cu``: mma.sync, the GEGLU prologue in shared memory),
+  for bf16 calls that ``gemm_eligible`` takes; every other call takes the
+  unfused ops.
   Rounding contract of K12 and its plain version: h = a · gelu_tanh(g) is
   computed in fp32 from the bf16 inputs and rounded once to bf16, the MMA
   operand; the product accumulates in fp32, b (rounded to x's dtype first)
@@ -258,7 +259,7 @@ def gemm_blocks(m: int, n: int, bn: int, sms: int) -> int:
     return min(-(-m // _GEMM_BM) * -(-n // bn), sms)
 
 
-def _check_gemm_inputs(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool) -> None:
+def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool) -> torch.Tensor:
     name = "geglu_gemm" if geglu else "gemm"
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors, got {x.device}")
@@ -274,19 +275,14 @@ def _check_gemm_inputs(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geg
         raise ValueError(f"the {name} kernel needs x [M, {'2K' if geglu else 'K'}], w [N, K], bias [N] "
                          f"with K % 64 == 0 and N even, got {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(bias.shape)}")
-
-
-def _launch_gemm(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launches K10 (``gemm``) or K12 (``geglu_gemm``) on checked inputs."""
-    m, (n, k) = x.shape[0], w.shape
     out = torch.empty(m, n, device=x.device, dtype=x.dtype)
-    ptrs = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k)
+    args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if name == "gemm":
-            err = kernels.library().fdt_gemm_sm90(*ptrs, gemm_plan(k, n).bn, stream)
+        if geglu:
+            err = kernels.library().fdt_geglu_gemm(*args, stream)
         else:
-            err = kernels.library().fdt_geglu_gemm(*ptrs, stream)
+            err = kernels.library().fdt_gemm_sm90(*args, gemm_plan(k, n).bn, stream)
     kernels.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -297,8 +293,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     plain version; CUDA tensors launch the kernel (bf16)."""
     if x.device.type == "cpu":
         return down_proj_gemm_reference(x, w, bias)
-    _check_gemm_inputs(x, w, bias, geglu=False)
-    return _launch_gemm("gemm", x, w, bias)
+    return _ffn_gemm(x, w, bias, geglu=False)
 
 
 def geglu_gemm(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -307,8 +302,7 @@ def geglu_gemm(x2k: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
     launch the kernel (bf16)."""
     if x2k.device.type == "cpu":
         return geglu_down_proj_reference(x2k, w, bias)
-    _check_gemm_inputs(x2k, w, bias, geglu=True)
-    return _launch_gemm("geglu_gemm", x2k, w, bias)
+    return _ffn_gemm(x2k, w, bias, geglu=True)
 
 
 class DownProjGemmFunction(torch.autograd.Function):
