@@ -194,9 +194,9 @@ ATTENTION_RAGGED = [
     (40, 1000, 1100, 64, 1037), (16, 700, 1500, 72, 1433),  # K2 at SDXL's and Pixart's D, off every tile
 ]
 # v + 1 at every key (kv_valid None): a zero-filled padding row past KV (77
-# keys padded to 80; the zero rows of K2's last 96-key tile past 1030 or
+# keys padded to 80; the zero rows of K2's last 128-key tile past 1030 or
 # 999 keys) that leaked into the softmax would pull every row's output
-# towards 0: by ~2% at 77 keys, by 2–6% at ~1000 keys
+# towards 0: by ~2% at 77 keys, by 2–11% at ~1000 keys
 ATTENTION_V_SHIFTED = [(32, 4000, 77, 40, None), (40, 1000, 1030, 64, None), (16, 999, 999, 72, None)]
 # SDXL at batch 4, 1024²: the self-attention (10 heads at level 1, 20 at
 # level 2 and mid; D = 64) and the VAE mid-block over 128² latents' 16384

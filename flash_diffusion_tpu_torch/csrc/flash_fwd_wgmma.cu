@@ -63,12 +63,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles at padded head dim DP. Registers a consumer thread: S (kBKV / 2),
-// P in bf16 (kBKV / 4), O (DP / 2), plus addresses: within 168 (ptxas
-// allocates the launch bound's count to every warpgroup), which 128-key
-// tiles overran up to D = 80 (spills) and 96-key ones do not.
+// P in bf16 (kBKV / 4), O (DP / 2), plus addresses, within the consumers'
+// 232. Above D = 80 the stages of 128-key tiles would not fit 227 KB four
+// times over, so the tiles there are 64 keys.
 template <int DP>
 struct FwdCfg {
-  static constexpr int kBKV = DP <= 80 ? 96 : 64;  // keys of a streamed tile
+  static constexpr int kBKV = DP <= 80 ? 128 : 64;  // keys of a streamed tile
   static constexpr int kStages = 4;
   static constexpr int kQBytes = kBQ * DP * 2;
   static constexpr int kTileBytes = kBKV * DP * 2;
@@ -116,7 +116,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ 
   }
   __syncthreads();
 
-  if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues the copies
+  // the role by warpgroup, broadcast from lane 0 so that ptxas sees it
+  // warp-uniform: only then does it give each role the registers of its
+  // setmaxnreg (with threadIdx.x / 32 it held every warpgroup to 168)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {  // the producer warpgroup: one thread issues the copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect(q_bar, C::kQBytes);

@@ -132,8 +132,8 @@ def stream_fwd_tiles(d: int) -> StreamTiles:
     never from Sq, KV or BH, so a head's output does not depend on the
     batch. Up to D = 128 the wgmma kernel (mirrors ``FwdCfg`` in
     csrc/flash_fwd_wgmma.cu): D padded to a multiple of 16, 128 q rows (two
-    consumer warpgroups and a producer warpgroup), 96-key tiles up to D =
-    80 and 64 above (registers), four stages; shared memory Q [128, dp]
+    consumer warpgroups and a producer warpgroup), 128-key tiles up to D =
+    80 and 64 above (shared memory), four stages; shared memory Q [128, dp]
     and four stages of K and V [bkv, dp] in bf16, nine 8-byte mbarriers. Above, the mma.sync
     kernel (``Tiles`` in csrc/flash_fwd_mma.cu): D padded to 144 or 160, or
     a multiple of 64; 64 q rows, two warps a row group above D = 160, KV
@@ -142,7 +142,7 @@ def stream_fwd_tiles(d: int) -> StreamTiles:
         raise ValueError(f"head dim {d} outside the streaming forward's (a multiple of 8 up to 512)")
     if d <= _STREAM_WGMMA_MAX_D:
         dp = _round_up(d, 16)
-        bkv, stages = (96 if dp <= 80 else 64), 4
+        bkv, stages = (128 if dp <= 80 else 64), 4
         smem = 128 * dp * 2 + stages * 2 * bkv * dp * 2 + (1 + 2 * stages) * 8
         return StreamTiles("wgmma", dp, 128, bkv, stages, 384, smem)
     dp = _round_up(d, 16) if d <= 160 else _round_up(d, 64)

@@ -597,7 +597,7 @@ def test_stream_forward_tiles_fit_and_follow_the_head_dim(bh, sq, kv, d):
     t = tattn.stream_fwd_tiles(d)
     assert t.smem <= tattn._SMEM_LIMIT and d <= t.dp < d + 64 and t.dp % 16 == 0
     if d <= 128:
-        assert (t.route, t.bq, t.stages, t.threads) == ("wgmma", 128, 4, 384) and t.bkv in (64, 96)
+        assert (t.route, t.bq, t.stages, t.threads) == ("wgmma", 128, 4, 384) and t.bkv in (64, 128)
         assert t.smem == 128 * t.dp * 2 + 4 * 2 * t.bkv * t.dp * 2 + 9 * 8
     else:
         assert (t.route, t.bq) == ("mma", 64) and t.smem == (64 + 4 * t.bkv) * (t.dp + 8) * 2
