@@ -17,7 +17,7 @@ asked for:
   takes K2 (the streaming forward: SD1.5, SDXL, Pixart, the VAE);
 - ``k8``: ``check_attention_bwd`` at the ``BWD_SHAPES`` that take K8;
 - ``k10``: ``check_ffn_gemm`` at ``FFN_SHAPES`` and ``FFN_DW_SHAPES``
-  (K12 at ``FFN_SHAPES`` comes along: one template with K10 before).
+  (K12 at ``FFN_SHAPES`` comes along, the check's other kernel).
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
 process also times K10 at every tile width it is built for (112, 128, 160,
