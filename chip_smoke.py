@@ -40,19 +40,19 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    yardsticks are ``torch.var_mean`` and ``F.silu(F.group_norm(...))``. K2
    also runs at Pixart's D = 72. K1 (the one-shot forward) is held to
    ``attention_fwd_gate`` (max|out err| within 4e-3 + 2^-8 of max|out|, a
-   mean signed error within 5e-4, lse within 5e-3) on cases whose keys past
-   ``kv_valid`` are k × 3 and v + 1, and on a 77-key case with v + 1 at
-   every key (a zero padding row that leaked would show); K2 to the same
-   gate, with ragged and v + 1 cases at D = 64 and 72 whose Sq and KV are
-   off its tiles. The backward kernels (K6+K7 or K8, routed by
+   relative L2 within 4e-3, a mean signed error within 5e-4, lse within
+   5e-3) on cases whose keys past ``kv_valid`` are k × 3 and v + 1, and on
+   a 77-key case with v + 1 at every key (a zero padding row that leaked
+   would show); K2 to the same gate, with ragged and v + 1 cases at D = 64
+   and 72 whose Sq and KV are off its tiles. The backward kernels (K6+K7 or K8, routed by
    ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv by ``attention_bwd_gate``
    (max|err| within 4e-3 + 2^-6 of max|grad|, relative L2 within 1e-2, and
    dk, dv exactly 0 at rows past ``kv_valid``, whose keys are filled with
-   k × 3 and v + 1); K6 and K7 are also timed alone. K5
-   (the packed streaming attention) at SDXL's self-attention shapes and
-   ragged ones, to its own tolerance (4e-3 + 2^-8 of max|out| and a mean
-   signed error within 5e-4; the ragged cases offset v by +1 so that keys
+   k × 3 and v + 1); K6 and K7 are also timed alone. K4 and K5 (the
+   packed one-shot and streaming attention) at SDXL's cross- and
+   self-attention shapes and ragged ones, to the same gate without the lse
+   term (their ragged cases add 1 to every v, so that a zero-filled key
    past KV leaking into the softmax would show); K10 and K12 (the feed-forward's
    down-projection GEMMs) at SDXL's two feed-forward shapes, ragged M and
    K10's dW shapes, to ``ops/gemm.py gemm_gate`` (|err| within 2^-8 of |y|
@@ -209,26 +209,27 @@ ATTENTION_SHAPES_XL = [
 # Pixart-α 1024² at batch 4: the DiT's self-attention (16 heads of D = 72,
 # padded to 80, over 4096 tokens); its VAE mid-block is SDXL's shape above
 ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None)]
-# (b, sq, kv, h, d) of the packed kernel: SDXL's cross-attention at level 1
-# and at level 2 / mid (batch 4, 77 text tokens), plus ragged cases (Sq off
-# the tile, KV 200 and 256, D = 128, batch 1, batch 8 as under CFG)
+# (b, sq, kv, h, d) of the packed one-shot kernel (K4): SDXL's
+# cross-attention at level 1 and at level 2 / mid (batch 4, 77 text tokens),
+# plus ragged cases (Sq off the tile, KV 200 and 256, D = 128, batch 1,
+# batch 8 as under CFG). The ragged cases add 1 to every v (the packed
+# kernels take no ``kv_valid``), so that a zero-filled padding key past KV
+# (77 keys pad to 80, 200 to 208) that leaked into the softmax (its score
+# 0, not -1e30) would pull every row's output towards 0
 PACKED_SHAPES = [(4, 4096, 77, 10, 64), (4, 1024, 77, 20, 64)]
 PACKED_RAGGED = [
     (4, 4000, 77, 10, 64), (4, 1024, 200, 20, 64), (2, 1000, 256, 10, 64),
-    (2, 1024, 77, 8, 128), (1, 4000, 256, 8, 128), (1, 4096, 77, 10, 64),
+    (2, 1024, 77, 8, 128), (1, 4000, 256, 8, 128), (2, 1000, 200, 8, 128), (1, 4096, 77, 10, 64),
     (8, 1024, 77, 20, 64),
 ]
 # (b, sq, kv, h, d) of the packed streaming kernel (K5) under
 # FLASH_TPU_ATTN_PACKED=1: SDXL's self-attention at level 1 and at level 2 /
 # mid (batch 4), plus ragged cases (Sq off the tile, KV = 4000 and off the
-# tile, batch 1, D = 128). On the ragged cases v is offset by
-# PACKED_STREAM_V_OFFSET, so that a zero-filled key past KV that leaked into
-# the softmax (its score 0, not -1e30) would pull every row's output towards
-# 0: by 0.5% (KV 4000) to 3.3% (KV 1030) of |out| ~ 1
+# tile, batch 1, D = 128), with v + 1 as K4's: a leaked key would pull every
+# row's output towards 0 by 0.5% (KV 4000) to 3.3% (KV 1030) of |out| ~ 1
 PACKED_STREAM_SHAPES = [(4, 4096, 4096, 10, 64), (4, 1024, 1024, 20, 64)]
 PACKED_STREAM_RAGGED = [(4, 4000, 4000, 10, 64), (1, 4096, 4096, 10, 64), (1, 1000, 1030, 20, 64),
                         (2, 700, 1500, 8, 128)]
-PACKED_STREAM_V_OFFSET = 1.0
 # [M, K, N] of SDXL's feed-forward down projection at batch 4, 1024² (level
 # 1: 640 channels over 4096 tokens; level 2 and mid: 1280 over 1024): K12
 # under FLASH_TPU_FFN_FUSED=1 (on [a | g] of [M, 2K]), K10 under
@@ -317,19 +318,10 @@ SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
-# tolerances, kernel (bf16) vs plain (fp32): K4's attention out is rounded
-# to bf16 and p is rounded to bf16 before p·v (|out| < 4: 2e-2; K1 and K2
-# are held to ops/attention.py attention_fwd_gate); LayerNorm in bf16
-# differs by the output's one rounding (|y| < 8: 1/32), in fp32 by
+# tolerances, kernel (bf16) vs plain (fp32): the attention forwards (K1,
+# K2, K4, K5) are held to ops/attention.py attention_fwd_gate; LayerNorm in
+# bf16 differs by the output's one rounding (|y| < 8: 1/32), in fp32 by
 # summation order (1e-4)
-ATTN_OUT_TOL = 2e-2
-# K5 vs the plain version in fp32, held tighter than ATTN_OUT_TOL (a typical
-# |out| is ~0.03 at 4096 unit-normal keys; measured max|err| 1.2e-3):
-# max|err| within PACKED_STREAM_TOL + 2^-8·max|ref| (the output's own
-# rounding is 2^-9 of |out|), and the mean signed error within
-# PACKED_STREAM_BIAS_TOL: rounding to nearest has no bias, while leaked
-# padded keys shift the v-offset ragged cases by -5e-3 or more
-PACKED_STREAM_TOL, PACKED_STREAM_BIAS_TOL = 4e-3, 5e-4
 LN_TOL = {torch.bfloat16: 1 / 32, torch.float32: 1e-4}
 # GroupNorm statistics (fp32 sums in another order than the fp64 plain
 # version): Σx to GN_STATS_TOL of Σ|x|, Σx² to GN_STATS_TOL relative
@@ -478,53 +470,56 @@ def check_attention(attention, results, timed=True):
         raise AssertionError(f"attention kernel disagrees with its plain version at {failed}")
 
 
-def check_packed(attention, results, name, shapes, ragged, seed):
+def check_packed(attention, results, name, shapes, ragged, seed, timed=True):
     """A packed kernel (K4 ``flash_fwd_oneshot_packed``, K5
     ``flash_fwd_packed``) against the packed plain version (the function of
-    both) in fp32: K4 to ATTN_OUT_TOL, K5 to its own tolerances and on
-    v-offset ragged cases; at the paths' shapes also its times, the
-    library's (``F.scaled_dot_product_attention`` on the [B, H, S, D] views
-    of the same tensors, no copy) and the bound: q, k, v, out in bf16 once
-    (no lse); q·kᵀ and p·v, 4·B·H·Sq·KV·D operations."""
-    stream = name == "flash_fwd_packed"
-    kernel = attention.flash_attention_packed_stream if stream else attention.flash_attention_packed
+    both) in fp32 on the same bf16 inputs, every case printed, then a raise
+    listing the failures. Both are held to ``attention_fwd_gate`` without
+    its lse term (max|out err| ≤ 4e-3 + 2⁻⁸·max|ref|, rel. L2 ≤ 4e-3, |mean
+    err| ≤ 5e-4); the ragged cases add 1 to every v, so that a zero-filled
+    key past KV leaking into the softmax shows as a mean error. With
+    ``timed``, the kernel's and the plain version's times, and at the
+    paths' shapes the library's (``F.scaled_dot_product_attention`` on the
+    [B, H, S, D] views of the same tensors, no copy) and the bound: q, k,
+    v, out in bf16 once (no lse); q·kᵀ and p·v, 4·B·H·Sq·KV·D operations."""
+    kernel = attention.flash_attention_packed_stream if name == "flash_fwd_packed" else attention.flash_attention_packed
     g = torch.Generator(device="cuda").manual_seed(seed)
+    failed = []
     for b, sq, kv, h, d in shapes + ragged:
         main = (b, sq, kv, h, d) in shapes
         q, k, v = (torch.randn(b, s, h * d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, kv, kv))
-        if stream and not main:
-            v = v + PACKED_STREAM_V_OFFSET
+        if not main:
+            v += 1
         scale = d ** -0.5
         out = kernel(q, k, v, h, scale)
         torch.cuda.synchronize()
         ref = attention.attention_packed_reference(q.float(), k.float(), v.float(), h, scale)
-        diff = out.float() - ref
-        err, bias = diff.abs().max().item(), diff.mean().item()
-        tol = PACKED_STREAM_TOL + 2 ** -8 * ref.abs().max().item() if stream else ATTN_OUT_TOL
-        del ref, diff
-        ms = median_ms(lambda: kernel(q, k, v, h, scale))
-        plain = median_ms(lambda: attention.attention_packed_reference(q, k, v, h, scale))
-        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if main:
+        stats = attention.attention_fwd_errors(out, None, ref, None)
+        del ref
+        ok, report = attention.attention_fwd_gate(stats)
+        times = ""
+        if timed:
+            ms = median_ms(lambda: kernel(q, k, v, h, scale))
+            plain = median_ms(lambda: attention.attention_packed_reference(q, k, v, h, scale))
+            times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if timed and main:
             heads = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
             library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v), scale=scale))
             bnd = bound(4 * b * h * sq * kv * d, 2 * b * (2 * sq + 2 * kv) * h * d)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        checks = f"max|out err| {err:.3e} (tol {tol:.3e})"
-        if stream:
-            checks += f", mean err {bias:.3e} (tol {PACKED_STREAM_BIAS_TOL})"
-        print(f"attention {name} b={b} sq={sq:4d} kv={kv:4d} h={h:2d} d={d:3d}"
-              f"{f' v+{PACKED_STREAM_V_OFFSET:g}' if stream and not main else ''}: {checks}; {times}")
-        if not (err <= tol and (not stream or abs(bias) <= PACKED_STREAM_BIAS_TOL)):
-            raise AssertionError(f"{name} kernel disagrees with its plain version at {(b, sq, kv, h, d)}")
+            add_times(results[name], ms, plain, library, bnd)
+        print(f"attention {name} b={b} sq={sq:4d} kv={kv:4d} h={h:2d} d={d:3d}{'' if main else ' (v +1)'}: "
+              f"{'pass' if ok else 'FAIL'}: {report}{times}")
+        if not ok:
+            failed.append((b, sq, kv, h, d))
         r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
-            add_times(r, ms, plain, library, bnd)
+        r["max_abs_err"] = max(r["max_abs_err"], stats["max_err"])
         del q, k, v, out
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{name} kernel disagrees with its plain version at {failed}")
 
 
 def check_ffn_gemm(gemm, results, timed=True):

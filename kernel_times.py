@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the redesigned kernels in two trees on one card, in turns.
 
-    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k8,k10] [--sweep]
+    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k4,k5,k8,k10] [--sweep]
 
 For each tree of ``--order`` in turn (``this``: the checkout; ``base``:
 another checkout of the repo, such as a parent commit unpacked with ``git
@@ -15,6 +15,11 @@ asked for:
   (the one-shot forward);
 - ``k2``: ``check_attention`` at every ``ATTENTION_SHAPES*`` shape that
   takes K2 (the streaming forward: SD1.5, SDXL, Pixart, the VAE);
+- ``k4``: ``check_packed`` at ``PACKED_SHAPES`` (the packed one-shot
+  forward: SDXL's cross-attention);
+- ``k5``: ``check_packed`` at ``PACKED_STREAM_SHAPES`` (the packed
+  streaming forward: SDXL's self-attention under
+  ``FLASH_TPU_ATTN_PACKED=1``);
 - ``k8``: ``check_attention_bwd`` at the ``BWD_SHAPES`` that take K8;
 - ``k10``: ``check_ffn_gemm`` at ``FFN_SHAPES`` and ``FFN_DW_SHAPES``
   (K12 at ``FFN_SHAPES`` comes along, the check's other kernel).
@@ -69,11 +74,15 @@ def child(root: str, which: str, do_sweep: bool) -> None:
               "k2": fwd("flash_fwd_stream") if "k2" in which else []}
     cs.ATTENTION_SHAPES = shapes["k1"] + shapes["k2"]
     cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], [], [], []
-    names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_oneshot", "gemm",
-             "geglu_gemm")
+    names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
+             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm")
     results = {n: cs.new_row("cuda", "", "") for n in names}
     if cs.ATTENTION_SHAPES:
         cs.check_attention(attention, results)
+    if "k4" in which:
+        cs.check_packed(attention, results, "flash_fwd_oneshot_packed", cs.PACKED_SHAPES, [], 2)
+    if "k5" in which:
+        cs.check_packed(attention, results, "flash_fwd_packed", cs.PACKED_STREAM_SHAPES, [], 10)
     if "k8" in which:
         cs.BWD_SHAPES = [s for s in cs.BWD_SHAPES if attention.attention_bwd_plan(s[2], s[3])[0] == "flash_bwd_oneshot"]
         cs.BWD_RAGGED = []
@@ -92,7 +101,9 @@ def kernel_ms(lines):
         if "kernel " not in line or " ms" not in line:
             continue
         words = line.split()
-        if line.startswith("attention"):
+        if line.startswith("attention") and " b=" in line:  # the packed kernels
+            kind, shape = words[1], line[line.index(" b=") + 1:line.index(":")]
+        elif line.startswith("attention"):
             kind = words[2] if words[1] == "backward" else words[1]
             shape = line[line.index("bh="):line.index(" kv_valid")]
         elif words[0] in ("gemm", "geglu_gemm"):
@@ -108,7 +119,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", help="root of the other tree")
     ap.add_argument("--order", default="base,this,this,base")
-    ap.add_argument("--kernels", default="k1,k2,k8,k10")
+    ap.add_argument("--kernels", default="k1,k2,k4,k5,k8,k10")
     ap.add_argument("--sweep", action="store_true", help="also sweep K10's tile width in this tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -638,13 +638,24 @@ def _plain_fwd_variant(q, k, v, scale, kv_valid, fault):
     return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
+def _plain_packed_variant(q, k, v, num_heads, scale, fault):
+    """``_plain_fwd_variant`` on the packed [B, S, H·D] layout: each head's
+    [B·H, S, D] slice, without an lse (the packed kernels return none)."""
+    b, d = q.shape[0], q.shape[2] // num_heads
+    heads = lambda x: x.reshape(b, x.shape[1], num_heads, d).transpose(1, 2).reshape(b * num_heads, x.shape[1], d)
+    out, _ = _plain_fwd_variant(heads(q), heads(k), heads(v), scale, None, fault)
+    return out.reshape(b, num_heads, q.shape[1], d).transpose(1, 2).reshape(q.shape)
+
+
 @pytest.mark.parametrize("fault", [None, "mask dropped", "padding leaked", "out x 1.01"])
 def test_attention_fwd_gate_passes_the_plain_forward_and_catches_faults(fault):
-    """The gate of the one-shot forward, on the CPU, on the two kinds of case
-    that the card's checks add: ragged (keys at or past ``kv_valid`` are
-    k × 3 and v + 1) and 77 keys with v + 1 everywhere. The plain forward in
-    bf16 (the kernel's rounding points) against the plain version in fp32
-    passes both; each fault fails at least one."""
+    """The gate of the forward kernels, on the CPU, on the kinds of case that
+    the card's checks add: ragged (keys at or past ``kv_valid`` are k × 3
+    and v + 1), 77 keys with v + 1 everywhere, and a packed [B, S, H·D]
+    case with v + 1 and no lse (K4, K5). The plain forward in bf16 (the
+    kernels' rounding points) against the plain version in fp32 passes
+    every case; out × 1.01 fails every case (the relative-L2 term), and each
+    other fault fails at least one."""
     g = torch.Generator().manual_seed(14)
     bh, sq, kv, d = 2, 100, 77, 40
     verdicts = []
@@ -658,12 +669,50 @@ def test_attention_fwd_gate_passes_the_plain_forward_and_catches_faults(fault):
         scale = d ** -0.5
         want = tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), scale, kv_valid)
         out, lse = _plain_fwd_variant(q, k, v, scale, kv_valid, fault)
-        ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, *want))
-        verdicts.append((ok, report))
+        verdicts.append(tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, lse, *want)))
+    h, d = 2, 64
+    q, k, v = (torch.randn(2, s, h * d, generator=g).to(torch.bfloat16) for s in (sq, kv, kv))
+    v += 1
+    want = tattn.attention_packed_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
+    out = _plain_packed_variant(q, k, v, h, d ** -0.5, fault)
+    verdicts.append(tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, None, want, None)))
+    print(fault, verdicts)
     if fault is None:
         assert all(ok for ok, _ in verdicts), verdicts
+    elif fault == "out x 1.01":
+        assert not any(ok for ok, _ in verdicts), verdicts
     else:
         assert not all(ok for ok, _ in verdicts), verdicts
+
+
+# (bh, sq, kv, d, kv_valid, v + 1): the card's kinds of forward case, at a
+# few rows: unit-normal at 77 to 16384 keys and D 40 to 512, ragged, and v
+# + 1 at 77, 200 (D = 128, packed) and 1030 keys
+FWD_L2_CASES = [
+    (2, 100, 77, 40, 50, False), (2, 100, 77, 64, None, True), (2, 64, 200, 128, None, True),
+    (2, 100, 1030, 64, None, True), (1, 64, 16384, 64, None, False), (1, 64, 4096, 512, None, False),
+]
+
+
+@pytest.mark.parametrize("bh,sq,kv,d,kv_valid,shift", FWD_L2_CASES)
+def test_plain_bf16_forward_sits_inside_the_gate(bh, sq, kv, d, kv_valid, shift):
+    """Where ``FWD_REL_L2_TOL`` comes from: the plain forward in bf16 at the
+    kernels' rounding points against fp32 (its rel. L2 is printed: run with
+    ``-rP``) stays within the gate with a margin of 1.5×, and out × 1.01
+    fails it."""
+    g = torch.Generator().manual_seed(bh * sq + kv + d)
+    q, k, v = (torch.randn(bh, s, d, generator=g).to(torch.bfloat16) for s in (sq, kv, kv))
+    if shift:
+        v += 1
+    if kv_valid is not None:
+        k[:, kv_valid:] *= 3
+        v[:, kv_valid:] += 1
+    want = tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), d ** -0.5, kv_valid)
+    stats = tattn.attention_fwd_errors(*_plain_fwd_variant(q, k, v, d ** -0.5, kv_valid, None), *want)
+    print(f"plain bf16 forward rel L2 {stats['rel_l2']:.3e} at {(bh, sq, kv, d, kv_valid, shift)}")
+    assert tattn.attention_fwd_gate(stats)[0] and stats["rel_l2"] * 1.5 <= tattn.FWD_REL_L2_TOL
+    faulty = tattn.attention_fwd_errors(*_plain_fwd_variant(q, k, v, d ** -0.5, kv_valid, "out x 1.01"), *want)
+    assert not tattn.attention_fwd_gate(faulty)[0]
 
 
 def _plain_bwd_variant(q, k, v, o, lse, do, scale, kv_valid, fault):
@@ -771,24 +820,27 @@ def test_dot_product_attention_on_card_matches_cpu(cuda, b, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,kv,h,d", [
-    (4, 4096, 77, 10, 64), (4, 1024, 77, 20, 64), (1, 4000, 77, 10, 64),
-    (2, 1000, 200, 20, 64), (1, 33, 256, 8, 128), (2, 1024, 77, 8, 128),
-    (8, 100, 77, 20, 64), (3, 130, 16, 4, 64), (2, 70, 250, 2, 128),
+@pytest.mark.parametrize("b,sq,kv,h,d,v_offset", [
+    (4, 4096, 77, 10, 64, 0.0), (4, 1024, 77, 20, 64, 0.0), (1, 4000, 77, 10, 64, 1.0),
+    (2, 1000, 200, 20, 64, 1.0), (1, 33, 256, 8, 128, 1.0), (2, 1024, 77, 8, 128, 1.0),
+    (8, 100, 77, 20, 64, 0.0), (3, 130, 16, 4, 64, 1.0), (2, 70, 250, 2, 128, 1.0),
 ])
-def test_packed_kernel_matches_plain_on_card(cuda, b, sq, kv, h, d):
-    """bf16 kernel vs the plain version on the same inputs in fp32, batch 1
-    and ragged Sq/KV included. Tolerance: bf16 rounding of p and of the
-    output, |out| < 4 → 2e-2."""
+def test_packed_kernel_matches_plain_on_card(cuda, b, sq, kv, h, d, v_offset):
+    """K4 (bf16) vs the plain version on the same inputs in fp32, batch 1
+    and ragged Sq/KV included, held to ``attention_fwd_gate`` without the
+    lse term; the v + 1 cases would show a zero-filled padding key past KV
+    that leaked into the softmax as a mean error."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn(b, s, h * d, generator=g, device=cuda).to(torch.bfloat16)
                for s in (sq, kv, kv))
+    v += v_offset
     n = tattn.LAUNCHES["flash_fwd_oneshot_packed"]
     out = tattn.flash_attention_packed(q, k, v, h, d ** -0.5)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES["flash_fwd_oneshot_packed"] == n + 1
     want = tattn.attention_packed_reference(q.float(), k.float(), v.float(), h, d ** -0.5)
-    assert (out.float() - want).abs().max().item() < 2e-2
+    ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(out, None, want, None))
+    assert ok, report
 
 
 @pytest.mark.cuda
@@ -796,7 +848,7 @@ def test_packed_kernel_matches_plain_on_card(cuda, b, sq, kv, h, d):
 def test_dot_product_attention_packed_on_card_matches_cpu(cuda, b):
     """The [B, S, H, D] ⇄ [B, S, H·D] reshape around the packed kernel from
     the projections' layout, batch 1 included, against the plain path on
-    the CPU (bf16 tolerance)."""
+    the CPU in fp32, held to ``attention_fwd_gate`` without the lse term."""
     g = torch.Generator().manual_seed(4)
     lin = torch.nn.Linear(640, 640, bias=False)
     x, ctx = torch.randn(b, 300, 640, generator=g), torch.randn(b, 77, 640, generator=g)
@@ -806,7 +858,22 @@ def test_dot_product_attention_packed_on_card_matches_cpu(cuda, b):
     n = tattn.LAUNCHES["flash_fwd_oneshot_packed"]
     got = tattn.dot_product_attention(q.to(cuda), k.to(cuda), v.to(cuda)).float().cpu()
     assert tattn.LAUNCHES["flash_fwd_oneshot_packed"] == n + 1
-    assert (got - want).abs().max().item() < 2e-2
+    ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(got, None, want, None))
+    assert ok, report
+
+
+@pytest.mark.cuda
+def test_packed_oneshot_batch_invariant_and_routed_on_card(cuda):
+    """A [B, S, H, D] cross-attention over 77 keys launches K4, and slot 1
+    of a batch of 4 gets the bits it gets alone: K4's q tile follows D and
+    KV alone, never the batch."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(4, 1024, 20, 64, generator=g, device=cuda).bfloat16()
+    kv = torch.randn(4, 77, 20, 64, generator=g, device=cuda).bfloat16()
+    before = tattn.LAUNCHES["flash_fwd_oneshot_packed"]
+    out = tattn.dot_product_attention(q, kv, kv)
+    assert tattn.LAUNCHES["flash_fwd_oneshot_packed"] == before + 1
+    assert torch.equal(out[1], tattn.dot_product_attention(q[1:2], kv[1:2], kv[1:2])[0])
 
 
 @pytest.mark.cuda
