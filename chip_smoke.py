@@ -14,10 +14,12 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
    per source, all at once; timed), with ptxas' register report; the
    attention kernels' shared-memory plans against the kernels' own
-   arithmetic (K6/K7's and K2's tiles at every head dim they take, K8's at
-   every head dim and KV up to 160 and 256, K10's plan at every FFN shape
-   and tile width), and no K1, K2, K6, K7, K8 or K10 instantiation may
-   spill, nor may K2 or K10 have ptxas serialize their wgmma;
+   arithmetic (K1's and K4's at their shapes, K6/K7's and K2's tiles at
+   every head dim they take, K8's at every head dim and KV up to 160 and
+   256, K10's plan at every FFN shape and tile width), and no K1, K2, K4,
+   K5, K6, K7, K8 or K10 instantiation may spill (the packed K4 and K5
+   must have a report of their own), nor may K2, K5 or K10 have ptxas
+   serialize their wgmma;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
@@ -1393,7 +1395,7 @@ def main():
     lib = kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc {kernels.BUILD_INFO['seconds']:.2f} s "
           f"-> {kernels.BUILD_INFO['path']}")
-    entry, spill_report, serialized = "", [], []
+    entry, entries, spill_report, serialized = "", set(), [], []
     if kernels.BUILD_INFO["log"] == "(cached)":
         print("  no ptxas report: the library was built before this run (delete build/kernels to see it)")
     for line in kernels.BUILD_INFO["log"].splitlines():  # ptxas -v: one report per kernel
@@ -1402,6 +1404,7 @@ def main():
                              r"geglu_gemm_kernel|"
                              r"gn_(?:stats_partial|stats_final|apply)_kernel)(I\w+?E)?E", line)
             entry = name.group(1) + (name.group(2) or "") if name else line.split("'")[1]
+            entries.add(entry)
         elif "wgmma" in line and "serializ" in line:  # products that ptxas could not keep in flight
             print(f"  ptxas {entry}: {line.strip()}")
             serialized.append(f"{entry}: {line.strip()}")
@@ -1414,10 +1417,10 @@ def main():
         kvp, dp = -(-kv // 16) * 16, -(-d // 16) * 16
         if kind == "flash_fwd_oneshot" and lib.fdt_attn_smem_bytes(bq, kvp, dp) != attention.smem_bytes(bq, kvp, dp):
             raise AssertionError(f"shared-memory plan and kernel layout disagree at kv={kv} d={d}")
-    for _, _, kv, _, d in PACKED_SHAPES + PACKED_RAGGED:
-        kvp = -(-kv // 16) * 16
-        if lib.fdt_packed_smem_bytes(d, kvp) != attention.packed_smem_bytes(d, kvp):
-            raise AssertionError(f"packed shared-memory plan and kernel layout disagree at kv={kv} d={d}")
+    for _, _, kv, _, d in PACKED_SHAPES + PACKED_RAGGED:  # K4: K1's kernel at K1's plan
+        bq, kvp = attention.packed_oneshot_tile(kv, d), -(-kv // 16) * 16
+        if not lib.fdt_attn_smem_bytes(bq, kvp, d) == attention.smem_bytes(bq, kvp, d) <= attention._SMEM_LIMIT:
+            raise AssertionError(f"K4 shared-memory plan and kernel layout disagree at kv={kv} d={d}")
     for d in range(8, 161, 8):  # K8's tiles, at every head dim and KV it could take
         for kv in range(1, 257):
             got = (ctypes.c_int * 5)()
@@ -1447,9 +1450,14 @@ def main():
         "flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv", "flash_bwd_dq",
         "flash_bwd_oneshot_kernel", "gemm_sm90_kernel"))]
     spills += [line for line in serialized if "flash_fwd_wgmma_kernel" in line or "gemm_sm90_kernel" in line]
-    if spills:
-        raise AssertionError(f"K1/K2/K6/K7/K8/K10 instantiations spill registers, or K2/K10 serialize "
-                             f"their wgmma: {spills}")
+    # the packed instantiations (K4 on K1's kernel, K5 on K2's) by their
+    # template arguments <DP, kPacked = true>, in the report that was read
+    packed = [f"{kernel}ILi{dp}ELb1E" for kernel in ("flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel")
+              for dp in (64, 128)]
+    missing = [name for name in packed if kernels.BUILD_INFO["log"] != "(cached)" and name not in entries]
+    if spills or missing:
+        raise AssertionError(f"K1/K2/K4/K5/K6/K7/K8/K10 instantiations spill registers, or K2/K5/K10 serialize "
+                             f"their wgmma: {spills}; no ptxas report of {missing}")
 
     results = {
         "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",
@@ -1460,9 +1468,10 @@ def main():
                                  source_above_d128="flash_diffusion_tpu_torch/csrc/flash_fwd_mma.cu"),
         "layer_norm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/layer_norm.cu",
                               "flash_diffusion_tpu/ops/norms.py:317"),
-        "flash_fwd_oneshot_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention_packed.cu",
+        # K4 and K5: K1's and K2's kernels instantiated on the packed layout
+        "flash_fwd_oneshot_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",
                                             "flash_diffusion_tpu/ops/attention.py:292"),
-        "flash_fwd_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_packed.cu",
+        "flash_fwd_packed": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                     "flash_diffusion_tpu/ops/attention.py:223"),
         "flash_bwd_dkv": new_row("cuda", "flash_diffusion_tpu_torch/csrc/flash_bwd.cu",
                                  "flash_diffusion_tpu/ops/attention.py:635"),

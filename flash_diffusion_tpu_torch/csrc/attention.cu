@@ -1,5 +1,7 @@
 // One-shot flash-attention forward for Hopper (sm_90a): K1, bf16 in, fp32
-// softmax, the whole KV of one (batch*head) resident in shared memory.
+// softmax, the whole KV of one (batch*head) resident in shared memory. One
+// kernel, two layouts of a head's rows (the template's kPacked): K1 on [BH,
+// S, D] and K4 on the projection-native [B, S, H*D].
 //
 // Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py:171
 // _flash_fwd_oneshot_kernel (via _flash_fwd_oneshot_bhsd, :491):
@@ -7,7 +9,21 @@
 // (bf16) and the per-row logsumexp lse [BH, Sq] (fp32); KV positions >=
 // kv_len masked to -1e30 before the softmax. SD1.5 sends it every
 // cross-attention (77 text tokens) and the 64- and 256-token
-// self-attention. Longer KV streams through flash_fwd_mma.cu (K2).
+// self-attention. Longer KV streams through K2 (flash_fwd_wgmma.cu up to
+// D = 128, flash_fwd_mma.cu above).
+//
+// Also replaces flash_diffusion_tpu/ops/attention.py:292
+// _flash_fwd_oneshot_packed_kernel (via _flash_fwd_packed), the inference
+// primal that _attn_primal picks when _packed_cross_eligible holds (head
+// dim 64 or 128, at least 2 heads, KV padded to 128 at most 256, no
+// kv_valid): the same function per head h on q, k, v and out [B, S, H*D],
+// out[b, s, h*D:(h+1)*D], with no lse. SDXL sends it every cross-attention
+// over the 77 text tokens, [B, 4096, 10*64] at level 1 and [B, 1024, 20*64]
+// at level 2 and in the mid block. The packed instantiation reads and
+// writes rows at stride H*D from column h*D (the head's D columns one
+// contiguous, 16-byte aligned run), compiles the lse store out, and runs on
+// the grid (ceil(Sq / bq), H, B) at K1's q tile (ops/attention.py
+// attention_plan: from D and KV alone, never from B).
 //
 // What bounds it on this card: at the UNet's shapes the bytes (q, k, v and
 // out once: 4.BH.(Sq + KV).D against 4.BH.Sq.KV.D operations, 77 keys
@@ -21,9 +37,9 @@
 //     probabilities and the output accumulator never leave registers; the
 //     output is divided by the row sum there and stored as bf16 pairs.
 //   - Where a row's scores and its output fit registers together (up to
-//     128 keys at D <= 80, 80 keys above), the softmax is exact over the
-//     whole row in one pass, as the TPU kernel's is. Past that (256 keys at
-//     D = 160) a second set of warps takes the upper half of the keys for
+//     80 keys: OneshotCfg), the softmax is exact over the whole row in one
+//     pass, as the TPU kernel's is. Past that (256 keys at D = 160; K4's
+//     81 to 256 keys) a second set of warps takes the upper half of the keys for
 //     the same q rows (8 warps a block, so that the SM holding the block's
 //     193 KB has twice the warps in flight); each walks its half of the
 //     resident K and V in chunks with a running max and row sum, and the
@@ -34,8 +50,11 @@
 //     tile is not bounded by a score tile: 64 rows (4 warps) wherever that
 //     fits. Smaller tiles that would fill the card at Sq = 64 (128 blocks
 //     of 16 rows for 32 heads, not 32 of 64) measured slower on an H100:
-//     each block reloads the head's K and V. A row's result does not
-//     depend on the tile.
+//     each block reloads the head's K and V; so did K4's 128-row tiles at
+//     D = 64 (8 warps a block, half the blocks resident), and blocks that
+//     take several q tiles each, copying K and V once and the next Q behind
+//     the tile in hand, gained nothing on SDXL's cross-attention as a
+//     whole. A row's result does not depend on the tile.
 //   - No block-wide barrier between the products: one after Q and K land,
 //     one after V lands.
 //
@@ -63,11 +82,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Keys of one chunk: a warp's scores are kChunk / 2 registers a thread,
-// its output accumulator DP / 2.
+// its output accumulator DP / 2. 80 keys hold the 77 text tokens in one
+// chunk at every D; 128-key chunks at D <= 80 took 153 registers a thread
+// at D = 64 (120 at 80 keys) and made the 77-key calls of K1 and K4
+// 7-19% slower on an H100.
 template <int DP>
 struct OneshotCfg {
   static constexpr int kLD = DP + 8;  // shared row stride (16-byte multiple; ldmatrix rows hit every bank)
-  static constexpr int kChunk = DP <= 80 ? 128 : 80;
+  static constexpr int kChunk = 80;
 };
 
 // Key halves of a block: 1, or 2 where the keys take more than one chunk;
@@ -83,26 +105,30 @@ __host__ __device__ inline int key_halves(int kvp) {
 // mirrors it.
 __host__ __device__ inline int smem_bytes(int bq, int kvp, int dp) { return (bq + 2 * kvp) * (dp + 8) * 2; }
 
-// Rows [row0, row0 + nrows) of a row-major [*, d] matrix into a [nrows, DP]
-// shared tile of row stride DP + 8 by cp.async; rows >= valid_rows and
-// columns >= d become zeros. d % 8 == 0 and a 16-byte aligned source (the
-// host checks both).
+// Rows [row0, row0 + nrows) of a row-major matrix of row stride ld, d
+// columns from src, into a [nrows, DP] shared tile of row stride DP + 8 by
+// cp.async; rows >= valid_rows and columns >= d become zeros. d % 8 == 0,
+// ld % 8 == 0 and a 16-byte aligned source (the host checks them).
 template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int nrows, int valid_rows, int d) {
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int ld, int row0, int nrows, int valid_rows,
+                                          int d) {
   constexpr int kChunks = DP / 8;
   for (int idx = threadIdx.x; idx < nrows * kChunks; idx += blockDim.x) {
     const int r = idx / kChunks;
     const int c = (idx - r * kChunks) * 8;
     const int gr = row0 + r;
     const bool valid = gr < valid_rows && c < d;
-    cp_async16(dst + r * (DP + 8) + c, valid ? src + (size_t)gr * d + c : src, valid);
+    cp_async16(dst + r * (DP + 8) + c, valid ? src + (size_t)gr * ld + c : src, valid);
   }
 }
 
-template <int DP>
+// kPacked: K4 on [B, S, H*D] (grid (Sq tiles, H, B); rows at stride ld =
+// H*D from column h*D; no lse); else K1 on [BH, S, D] (grid (Sq tiles, BH);
+// ld = d).
+template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kMaxThreads)
 flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv, int d, int kv_len,
+                         bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv, int d, int ld, int kv_len,
                          float scale_log2) {
   typedef OneshotCfg<DP> C;
   constexpr int LD = C::kLD;
@@ -117,7 +143,10 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ks = qs + bq * LD;
   bf16* vs = ks + kvp * LD;
 
-  const size_t bh = blockIdx.y;
+  const size_t bh = blockIdx.y;  // K4: the head, of batch blockIdx.z
+  // the first element of this head's q/out rows and of its k/v rows
+  const size_t q_at = kPacked ? (size_t)blockIdx.z * sq * ld + bh * d : bh * sq * d;
+  const size_t kv_at = kPacked ? (size_t)blockIdx.z * skv * ld + bh * d : bh * skv * d;
   const int q0 = blockIdx.x * bq;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -127,10 +156,10 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lo = half == 0 ? 0 : mid, hi = half == 0 ? mid : kvp;
 
   // group 0: Q and K; group 1: V, which lands behind the first scores
-  load_rows<DP>(qs, q + bh * sq * d, q0, bq, sq, d);
-  load_rows<DP>(ks, k + bh * skv * d, 0, kvp, kv_len, d);
+  load_rows<DP>(qs, q + q_at, ld, q0, bq, sq, d);
+  load_rows<DP>(ks, k + kv_at, ld, 0, kvp, kv_len, d);
   cp_async_commit();
-  load_rows<DP>(vs, v + bh * skv * d, 0, kvp, kv_len, d);
+  load_rows<DP>(vs, v + kv_at, ld, 0, kvp, kv_len, d);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -263,38 +292,47 @@ flash_fwd_oneshot_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     inv[r] = 1.0f / l[r];
   }
   const int row = q0 + band * 16 + lane / 4;
-  bf16* oh = out + bh * sq * d;
+  bf16* oh = out + q_at;
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     const int col = nd * 8 + 2 * (lane % 4);
     if (col < d) {  // d % 8 == 0: a pair is inside d or past it
       if (row < sq)
-        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * d + col) =
+        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * ld + col) =
             __floats2bfloat162_rn(o[nd][0] * inv[0], o[nd][1] * inv[0]);
       if (row + 8 < sq)
-        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)(row + 8) * d + col) =
+        *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)(row + 8) * ld + col) =
             __floats2bfloat162_rn(o[nd][2] * inv[1], o[nd][3] * inv[1]);
     }
   }
-  if (lane % 4 == 0) {
-    if (row < sq) lse[bh * sq + row] = m[0] * kLn2 + logf(l[0]);
-    if (row + 8 < sq) lse[bh * sq + row + 8] = m[1] * kLn2 + logf(l[1]);
+  if constexpr (!kPacked) {
+    if (lane % 4 == 0) {
+      if (row < sq) lse[bh * sq + row] = m[0] * kLn2 + logf(l[0]);
+      if (row + 8 < sq) lse[bh * sq + row + 8] = m[1] * kLn2 + logf(l[1]);
+    }
   }
 }
 
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int sq, int skv, int d,
-           int kv_len, float scale, int bq, cudaStream_t stream) {
+// grid.y (and grid.z) are the heads; grid.x follows from sq and bq.
+template <int DP, bool kPacked>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, dim3 grid, int sq, int skv, int d,
+           int ld, int kv_len, float scale, int bq, cudaStream_t stream) {
   static unsigned done = 0;
-  cudaError_t err = allow_max_smem(flash_fwd_oneshot_kernel<DP>, done);
+  cudaError_t err = allow_max_smem(flash_fwd_oneshot_kernel<DP, kPacked>, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kvp = (kv_len + 15) / 16 * 16, threads = bq * 2 * key_halves<DP>(kvp);
   if (bq % 16 || bq < 16 || threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((sq + bq - 1) / bq, bh);
-  flash_fwd_oneshot_kernel<DP><<<grid, threads, smem_bytes(bq, kvp, DP), stream>>>(
+  grid.x = (sq + bq - 1) / bq;
+  flash_fwd_oneshot_kernel<DP, kPacked><<<grid, threads, smem_bytes(bq, kvp, DP), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), sq, skv, d, kv_len, scale * kLog2e);
+      static_cast<float*>(lse), sq, skv, d, ld, kv_len, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_bhsd(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int sq, int skv, int d,
+                int kv_len, float scale, int bq, cudaStream_t stream) {
+  return launch<DP, false>(q, k, v, out, lse, dim3(1, bh), sq, skv, d, d, kv_len, scale, bq, stream);
 }
 
 }  // namespace
@@ -314,16 +352,32 @@ int fdt_flash_fwd_oneshot(const void* q, const void* k, const void* v, void* out
                           int skv, int d, int kv_len, float scale, int bq, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d % 8 ? 0 : (d + 15) / 16) {
-    case 1: return launch<16>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 2: return launch<32>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 3: return launch<48>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 4: return launch<64>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 5: return launch<80>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 6: return launch<96>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 7: return launch<112>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 8: return launch<128>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 9: return launch<144>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
-    case 10: return launch<160>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 1: return launch_bhsd<16>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 2: return launch_bhsd<32>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 3: return launch_bhsd<48>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 4: return launch_bhsd<64>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 5: return launch_bhsd<80>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 6: return launch_bhsd<96>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 7: return launch_bhsd<112>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 8: return launch_bhsd<128>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 9: return launch_bhsd<144>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    case 10: return launch_bhsd<160>(q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, bq, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Packed one-shot forward (K4): the whole KV (skv rows, zero-padded to a
+// multiple of 16) of head h in shared memory, q tiles of bq rows. q [b, sq,
+// h*d], k/v [b, skv, h*d], out [b, sq, h*d], all bf16 and contiguous; d in
+// {64, 128}; b and h at most 65535 (the grid's z and y). Returns the CUDA
+// error code of the launch (0 on success).
+int fdt_flash_fwd_oneshot_packed(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv,
+                                 int h, int d, float scale, int bq, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || h < 1 || h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch<64, true>(q, k, v, out, nullptr, dim3(1, h, b), sq, skv, d, h * d, skv, scale, bq, s);
+    case 128: return launch<128, true>(q, k, v, out, nullptr, dim3(1, h, b), sq, skv, d, h * d, skv, scale, bq, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

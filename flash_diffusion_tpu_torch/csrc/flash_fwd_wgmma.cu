@@ -1,6 +1,8 @@
 // Streaming flash-attention forward for Hopper (sm_90a), head dims up to
 // 128: wgmma fed by a TMA ring, a producer warpgroup, and two consumer
-// warpgroups in ping-pong (FlashAttention-3, arXiv:2407.08608 §3.1).
+// warpgroups in ping-pong (FlashAttention-3, arXiv:2407.08608 §3.1). One
+// kernel, two layouts of a head's rows (the template's kPacked): K2 on
+// [BH, S, D] and K5 on the projection-native [B, S, H*D].
 //
 // Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/attention.py:85
 // _flash_fwd_kernel (via _flash_fwd_bhsd) for D <= 128: online softmax over
@@ -13,6 +15,20 @@
 // DiT's 4096-token one (D = 72). Head dims 144 to 512 (the VAE's D = 512)
 // stay on flash_fwd_mma.cu: a 64 x 512 fp32 accumulator does not fit one
 // warpgroup's registers.
+//
+// Also replaces flash_diffusion_tpu/ops/attention.py:223
+// _flash_fwd_packed_kernel (via _flash_fwd_packed), the inference primal
+// that _attn_primal picks under FLASH_TPU_ATTN_PACKED=1 (head dim 64 or
+// 128, at least 2 heads, no kv_valid, no gradient): the same function per
+// head h on q, k, v and out [B, S, H*D], out[b, s, h*D:(h+1)*D], with no
+// lse. SDXL sends it its self-attention under the switch, [B, 4096, 10*64]
+// at level 1 and [B, 1024, 20*64] at level 2 and in the mid block. The
+// packed instantiation reads its tiles through 4-D tensor maps over [B, S,
+// H, D] (tma.cuh make_map_packed), whose boxes land as the same swizzled
+// slabs as the 3-D maps', so the consumers' code is K2's; it stores out at
+// row stride H*D from column h*D and compiles the lse store out. Its grid
+// is (ceil(Sq / 128), H, B), and its tiles are K2's at the same D (FwdCfg),
+// so nothing follows B, Sq or KV.
 //
 // What bounds it on this card: the tensor cores (4.BH.Sq.KV.D operations
 // at 989 TFLOP/s) and, close behind, the exponentials of the softmax,
@@ -38,7 +54,7 @@
 //     registers while one is in flight, so ptxas keeps them in flight. The
 //     two warpgroups take turns at issuing (named barriers 1 and 2), so
 //     one's exponentials overlap the other's products.
-//   - Keys at or past kv_len in the last tile are masked in registers:
+//   - Keys at or past kv_len (K5: KV) in the last tile are masked in registers:
 //     they count -1e30 in the row max and p = 0 exactly (their zero-filled
 //     rows would score 0); stores of out and lse are masked by row.
 //   - No split of KV across blocks and no atomics: every output row is one
@@ -83,13 +99,27 @@ struct FwdMaps {
   CUtensorMap q, k, v;
 };
 
+// Rows [row0, row0 + R) of this block's head into an [R, DP] tile: K2's
+// head blockIdx.y through a 3-D map, K5's head blockIdx.y of batch
+// blockIdx.z through a 4-D one.
+template <int DP, int R, bool kPacked>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, int row0, uint64_t* bar) {
+  if constexpr (kPacked)
+    tma_tile_packed<DP, R>(dst, map, row0, blockIdx.y, blockIdx.z, bar);
+  else
+    tma_tile<DP, R>(dst, map, row0, blockIdx.y, bar);
+}
+
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
 __device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
 
-template <int DP>
+// kPacked: K5 on [B, S, H*D] (grid (Sq tiles, H, B); out at row stride ld
+// = H*D from column h*D; no lse); else K2 on [BH, S, D] (grid (Sq tiles,
+// BH); ld = d).
+template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ out, float* __restrict__ lse,
-                       int sq, int d, int kv_len, float scale_log2) {
+                       int sq, int d, int ld, int kv_len, float scale_log2) {
   typedef FwdCfg<DP> C;
   constexpr int BKV = C::kBKV;
   constexpr int NS = BKV / 8;  // n-tiles of the scores
@@ -101,7 +131,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ 
   uint64_t* full = q_bar + 1;
   uint64_t* empty = full + C::kStages;
 
-  const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -124,14 +153,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ 
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect(q_bar, C::kQBytes);
-      tma_tile<DP, kBQ>(qs, &maps.q, q0, bh, q_bar);
+      load_tile<DP, kBQ, kPacked>(qs, &maps.q, q0, q_bar);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % C::kStages;
         if (j >= C::kStages) mbar_wait(empty + s, (j / C::kStages - 1) & 1);
         bf16* kt = reinterpret_cast<bf16*>(ring + s * 2 * C::kTileBytes);
         mbar_expect(full + s, 2 * C::kTileBytes);
-        tma_tile<DP, BKV>(kt, &maps.k, j * BKV, bh, full + s);
-        tma_tile<DP, BKV>(kt + BKV * DP, &maps.v, j * BKV, bh, full + s);
+        load_tile<DP, BKV, kPacked>(kt, &maps.k, j * BKV, full + s);
+        load_tile<DP, BKV, kPacked>(kt + BKV * DP, &maps.v, j * BKV, full + s);
       }
     }
   } else {  // the consumers: warpgroup wg owns q rows 64wg..64wg+63 of the block
@@ -266,24 +295,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, bf16* __restrict__ 
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const int row = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-    bf16* oh = out + (size_t)bh * sq * d;
+    // K2: head blockIdx.y's [sq, d]; K5: batch blockIdx.z's rows from column h*D
+    bf16* oh = out + (kPacked ? (size_t)blockIdx.z * sq * ld + blockIdx.y * d : (size_t)blockIdx.y * sq * d);
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
       const int col = nd * 8 + 2 * (lane % 4);
       if (col < d) {  // d % 8 == 0: a pair is inside d or past it
         if (row < sq)
-          *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * d + col) =
+          *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)row * ld + col) =
               __floats2bfloat162_rn(o[nd][0] / l[0], o[nd][1] / l[0]);
         if (row + 8 < sq)
-          *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)(row + 8) * d + col) =
+          *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)(row + 8) * ld + col) =
               __floats2bfloat162_rn(o[nd][2] / l[1], o[nd][3] / l[1]);
       }
     }
-    if (lane % 4 == 0) {
-      if (row < sq) lse[(size_t)bh * sq + row] = m[0] * kLn2 + logf(l[0]);
-      if (row + 8 < sq) lse[(size_t)bh * sq + row + 8] = m[1] * kLn2 + logf(l[1]);
+    if constexpr (!kPacked) {
+      if (lane % 4 == 0) {
+        const size_t bh = blockIdx.y;
+        if (row < sq) lse[bh * sq + row] = m[0] * kLn2 + logf(l[0]);
+        if (row + 8 < sq) lse[bh * sq + row + 8] = m[1] * kLn2 + logf(l[1]);
+      }
     }
   }
+}
+
+template <int DP, bool kPacked>
+int start(const FwdMaps& maps, dim3 grid, void* out, void* lse, int sq, int d, int ld, int kv_len, float scale,
+          cudaStream_t stream) {
+  typedef FwdCfg<DP> C;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP, kPacked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_wgmma_kernel<DP, kPacked><<<grid, kThreads, C::kSmemBytes, stream>>>(
+      maps, static_cast<bf16*>(out), static_cast<float*>(lse), sq, d, ld, kv_len, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
@@ -294,13 +339,18 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   if (!(make_map(&maps.q, q, bh, sq, sq, d, kBQ) && make_map(&maps.k, k, bh, kv_len, skv, d, C::kBKV) &&
         make_map(&maps.v, v, bh, kv_len, skv, d, C::kBKV)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         C::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_wgmma_kernel<DP><<<grid, kThreads, C::kSmemBytes, stream>>>(
-      maps, static_cast<bf16*>(out), static_cast<float*>(lse), sq, d, kv_len, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  return start<DP, false>(maps, dim3((sq + kBQ - 1) / kBQ, bh), out, lse, sq, d, d, kv_len, scale, stream);
+}
+
+template <int DP>
+int launch_packed(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv, int h, int d,
+                  float scale, cudaStream_t stream) {
+  typedef FwdCfg<DP> C;
+  FwdMaps maps;
+  if (!(make_map_packed(&maps.q, q, b, sq, h, d, kBQ) && make_map_packed(&maps.k, k, b, skv, h, d, C::kBKV) &&
+        make_map_packed(&maps.v, v, b, skv, h, d, C::kBKV)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return start<DP, true>(maps, dim3((sq + kBQ - 1) / kBQ, h, b), out, nullptr, sq, d, h * d, skv, scale, stream);
 }
 
 template <int DP>
@@ -347,6 +397,21 @@ int fdt_flash_fwd_stream_wgmma(const void* q, const void* k, const void* v, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FDT_FWD_DISPATCH(launch, d, q, k, v, out, lse, bh, sq, skv, d, kv_len, scale, s)
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Packed streaming forward (K5). q [b, sq, h*d], k/v [b, skv, h*d], out [b,
+// sq, h*d], all bf16 and contiguous; d in {64, 128}; b and h at most 65535
+// (the grid's z and y). Returns the CUDA error code of the launch (0 on
+// success).
+int fdt_flash_fwd_packed(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv, int h,
+                         int d, float scale, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || h < 1 || h > 65535 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_packed<64>(q, k, v, out, b, sq, skv, h, d, scale, s);
+    case 128: return launch_packed<128>(q, k, v, out, b, sq, skv, h, d, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

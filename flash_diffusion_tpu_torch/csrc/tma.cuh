@@ -1,7 +1,8 @@
 // Tensor Memory Accelerator (TMA) copies and the mbarriers they complete
 // on, shared by the Hopper kernels that fill shared-memory rings by TMA:
 // the attention backward pair (flash_bwd.cu), the streaming attention
-// forward (flash_fwd_wgmma.cu) and the down-projection GEMM (gemm_sm90.cu).
+// forward on both layouts (flash_fwd_wgmma.cu: K2 and the packed K5) and
+// the down-projection GEMM (gemm_sm90.cu).
 //
 // Two layouts:
 //   - The attention tiles: an [R, DP] tile of a [BH, rows, d] bf16 tensor
@@ -12,7 +13,11 @@
 //     (ldmatrix, wgmma) hit every bank once, and the tile is both a K-major
 //     and an MN-major wgmma operand (desc_k, desc_mn). The map is 3-D, so
 //     rows past a head's row count arrive as zeros and never as the next
-//     head's rows; columns past d arrive as zeros too.
+//     head's rows; columns past d arrive as zeros too. On the packed [B, S,
+//     H*D] layout the map is 4-D over [B, S, H, D] (make_map_packed), with
+//     boxes of 16 columns by 1 head by R rows by 1 batch: each lands as the
+//     same [R, 16] swizzled slab, rows past S arrive as zeros and never as
+//     the next batch's rows, and columns past d never as the next head's.
 //   - The GEMM tiles: boxes of 64 columns (128 bytes) by R rows of a 2-D
 //     row-major matrix, 128-byte swizzled (wgmma.cuh smem_desc_sw128); rows
 //     past the matrix arrive as zeros.
@@ -83,6 +88,21 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int 
   }
 }
 
+// The same tile of head h of batch b through a packed map (make_map_packed):
+// one box of 16 columns by 1 head by R rows by 1 batch per 16-column block.
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile_packed(bf16* dst, const CUtensorMap* map, int row0, int h, int b,
+                                                uint64_t* bar) {
+#pragma unroll 4
+  for (int cb = 0; cb < DP / 16; ++cb) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst + cb * 16 * R)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(cb * 16), "r"(h), "r"(row0), "r"(b), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
 // ---- wgmma descriptors of the attention tiles (wgmma.cuh smem_desc)
 
 __device__ __forceinline__ const bf16* at_byte(const bf16* tile, int bytes) {
@@ -123,6 +143,22 @@ inline bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int s
   const cuuint32_t box[3] = {16, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of the packed [b, rows, h * d] bf16 tensor as [b, rows, h, d], in
+// attention boxes of 16 columns by one head by box_rows rows (tma_tile_packed):
+// dims {d, h, rows, b}, strides {2d, 2hd, 2hd.rows} bytes (multiples of 16
+// for d % 8 == 0); false on failure.
+inline bool make_map_packed(CUtensorMap* map, const void* base, int b, int rows, int h, int d, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)rows, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2, (cuuint64_t)rows * h * d * 2};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

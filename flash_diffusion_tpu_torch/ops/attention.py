@@ -11,19 +11,23 @@ or beyond it to -1e30. Bias-free calls go to a kernel wrapper:
 
 Dispatch, as the JAX ``_attn_primal`` does it:
 
-- ``flash_fwd_oneshot_packed`` (``csrc/attention_packed.cu``, the port of
-  ``_flash_fwd_oneshot_packed_kernel``) through ``flash_attention_packed``
-  on the projection-native [B, S, H·D] layout (a free reshape, no head
+- ``flash_fwd_oneshot_packed`` (the port of
+  ``_flash_fwd_oneshot_packed_kernel``: K1's kernel in ``csrc/attention.cu``
+  instantiated on the packed layout, its q tile from
+  ``packed_oneshot_tile``) through ``flash_attention_packed`` on the
+  projection-native [B, S, H·D] layout (a free reshape, no head
   transposes), for calls without ``kv_valid`` that ``packed_cross_eligible``
   takes: head dim 64 or 128, at least 2 heads, KV ≤ 256 once padded to
   128. At SDXL shapes: every cross-attention over the 77 text tokens. The
   JAX A/B switches of this path (``FLASH_TPU_ATTN_PACKED_CROSS``,
   ``_ANY_D``, ``FLASH_TPU_PACKED_CROSS_KV_MAX``) are TPU probes, not ported.
-- ``flash_fwd_packed`` (``csrc/flash_fwd_packed.cu``, the port of
-  ``_flash_fwd_packed_kernel``) through ``flash_attention_packed_stream``
-  on the same layout, for every other call without ``kv_valid`` that
-  ``packed_eligible`` takes: ``FLASH_TPU_ATTN_PACKED=1`` (read at call
-  time, default ``"0"``, as in JAX), head dim 64 or 128, at least 2 heads.
+- ``flash_fwd_packed`` (the port of ``_flash_fwd_packed_kernel``: K2's
+  wgmma kernel in ``csrc/flash_fwd_wgmma.cu`` instantiated on the packed
+  layout through 4-D tensor maps, its tiles ``stream_fwd_tiles``'s)
+  through ``flash_attention_packed_stream`` on the same layout, for every
+  other call without ``kv_valid`` that ``packed_eligible`` takes:
+  ``FLASH_TPU_ATTN_PACKED=1`` (read at call time, default ``"0"``, as in
+  JAX), head dim 64 or 128, at least 2 heads.
   At SDXL shapes under the switch: the 4096- and 1024-token
   self-attention. One departure from JAX: its 1024-token call (padded KV ≤
   ``_ONESHOT_KV_MAX``) asks for the packed one-shot kernel, whose block
@@ -94,7 +98,6 @@ _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
 _ONESHOT_MAX_D = 160  # and the one-shot kernel
 _PACKED_D = (64, 128)  # head dims the packed kernels are built for
 _PACKED_KV_MAX = 256  # the JAX default of FLASH_TPU_PACKED_CROSS_KV_MAX
-_PACKED_BQ = 64  # q rows of one packed block
 
 
 def _round_up(x: int, m: int) -> int:
@@ -286,10 +289,16 @@ def packed_cross_eligible(q4: torch.Tensor, kv_len: int) -> bool:
     return h >= 2 and d in _PACKED_D and _align128(kv_len) <= _PACKED_KV_MAX
 
 
-def packed_smem_bytes(d: int, kvp: int) -> int:
-    """Shared memory of one packed block (64 q rows and the padded KV of one
-    head); mirrors csrc/attention_packed.cu."""
-    return (_PACKED_BQ + 2 * kvp) * (d + 8) * 2
+def packed_oneshot_tile(kv_len: int, d: int) -> int:
+    """q rows of a K4 block for ``kv_len`` keys at head dim ``d``: K4 is K1's
+    kernel on the packed layout, at K1's plan (``attention_plan``), which
+    takes every shape that ``packed_cross_eligible`` takes (64 rows; past 80
+    keys two key halves, 256 threads). From D and KV alone, never from B or
+    Sq. 128-row tiles at D = 64 measured slower on an H100 (PERF.md)."""
+    kind, bq = attention_plan(kv_len, d)
+    if kind != "flash_fwd_oneshot" or d not in _PACKED_D:
+        raise ValueError(f"K4 takes head dims {_PACKED_D} and KV that fits one block, got d={d} kv={kv_len}")
+    return bq
 
 
 def attention_packed_reference(
@@ -325,18 +334,19 @@ def _check_packed_inputs(q, k, v, num_heads):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if num_heads < 1 or hd % num_heads or hd // num_heads not in _PACKED_D:
         raise ValueError(f"the packed kernel takes head dims {_PACKED_D}, got {hd} / {num_heads} heads")
-    if not 1 <= b <= 65535:
-        raise ValueError(f"batch {b} outside the grid's z range")
+    if not (1 <= b <= 65535 and num_heads <= 65535):
+        raise ValueError(f"batch {b} or {num_heads} heads outside the grid's z or y range")
 
 
-def _launch_packed(name, q, k, v, num_heads, scale):
-    """Launches the packed kernel ``name`` on checked CUDA inputs."""
+def _launch_packed(name, q, k, v, num_heads, scale, *tiles):
+    """Launches the packed kernel ``name`` on checked CUDA inputs (K4 also
+    takes its q tile)."""
     b, sq, hd = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = getattr(kernels.library(), f"fdt_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
-            num_heads, hd // num_heads, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            num_heads, hd // num_heads, float(scale), *tiles, torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(err, name)
     LAUNCHES[name] += 1
@@ -352,9 +362,8 @@ def flash_attention_packed(
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, scale)
     _check_packed_inputs(q, k, v, num_heads)
-    if packed_smem_bytes(q.shape[2] // num_heads, _round_up(k.shape[1], 16)) > _SMEM_LIMIT:
-        raise ValueError(f"KV {k.shape[1]} does not fit the packed kernel's shared memory")
-    return _launch_packed("flash_fwd_oneshot_packed", q, k, v, num_heads, scale)
+    bq = packed_oneshot_tile(k.shape[1], q.shape[2] // num_heads)
+    return _launch_packed("flash_fwd_oneshot_packed", q, k, v, num_heads, scale, bq)
 
 
 def packed_eligible(q4: torch.Tensor) -> bool:

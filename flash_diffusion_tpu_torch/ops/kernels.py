@@ -42,8 +42,7 @@ _SIGNATURES = {
     "fdt_flash_fwd_stream_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_fwd_wgmma_tiles": [_I, _P],
     "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    "fdt_packed_smem_bytes": [_I, _I],
-    "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "fdt_flash_fwd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_bwd_oneshot_tiles": [_I, _I, _P],
     "fdt_flash_bwd_pair_tiles": [_I, _I, _P],

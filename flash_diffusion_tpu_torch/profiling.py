@@ -16,8 +16,9 @@ port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
 of ``FlashPipeline.generate``; ``fdt.train.*`` of the training step), and
 the kernels with the most device time, and the device time and share of
-the streaming attention forward (K2, both routes), the down-projection
-GEMM (K10), the one-shot attention forward (K1), the one-shot backward
+the streaming attention forward (K2, both routes), the packed streaming
+forward (K5), the down-projection GEMM (K10), the one-shot attention
+forward (K1), the packed one-shot forward (K4), the one-shot backward
 (K8, with the kernel that sums its partials) and the streaming backward
 (K6 + K7). The JAX
 package's kernel switches (``FLASH_TPU_ATTN_PACKED``,
@@ -55,6 +56,28 @@ def _category(name: str) -> str:
         if key in low:
             return cat
     return "other"
+
+
+def _packed(name: str) -> bool:
+    """Whether a kernel is an attention kernel's packed [B, S, H·D]
+    instantiation (template argument kPacked = true: K4 of K1's kernel, K5
+    of K2's), demangled or not; ``flash_fwd_oneshot_packed_kernel`` and
+    ``flash_fwd_packed_kernel`` name separate packed kernels."""
+    return ", true>" in name or "Lb1E" in name or "_packed_kernel" in name
+
+
+# (label, the kernels it sums by name)
+_ROUTES = (
+    ("streaming forward (K2)", lambda n: ("flash_fwd_wgmma_kernel" in n or "flash_fwd_mma_kernel" in n)
+     and not _packed(n)),
+    ("packed streaming forward (K5)", lambda n: _packed(n) and ("flash_fwd_wgmma_kernel" in n
+                                                                  or "flash_fwd_packed_kernel" in n)),
+    ("down-projection GEMM (K10)", lambda n: "gemm_sm90_kernel" in n),
+    ("one-shot forward (K1)", lambda n: "flash_fwd_oneshot_kernel" in n and not _packed(n)),
+    ("packed one-shot forward (K4)", lambda n: _packed(n) and "flash_fwd_oneshot" in n),
+    ("one-shot backward (K8 + its reduce)", lambda n: "flash_bwd_oneshot" in n),
+    ("attention backward pair (K6 + K7)", lambda n: "flash_bwd_dkv" in n or "flash_bwd_dq" in n),
+)
 
 
 def main():
@@ -129,12 +152,8 @@ def main():
         cats[_category(e.key)] += e.self_device_time_total / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:20s} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time)")
-    for label, keys in (("streaming forward (K2)", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
-                        ("down-projection GEMM (K10)", ("gemm_sm90_kernel",)),
-                        ("one-shot forward (K1)", ("flash_fwd_oneshot_kernel",)),
-                        ("one-shot backward (K8 + its reduce)", ("flash_bwd_oneshot",)),
-                        ("attention backward pair (K6 + K7)", ("flash_bwd_dkv", "flash_bwd_dq"))):
-        found = [e for e in kernels if any(k in e.key for k in keys)]
+    for label, takes in _ROUTES:
+        found = [e for e in kernels if takes(e.key)]
         if found:
             ms = sum(e.self_device_time_total for e in found) / 1e3
             print(f"  {label} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time), "

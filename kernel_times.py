@@ -26,7 +26,9 @@ asked for:
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
 process also times K10 at every tile width it is built for (112, 128, 160,
-224, 256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``. Prints
+224, 256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``, and
+K4 at q tiles of 64 and 128 rows at ``PACKED_SHAPES``, the sweep behind
+``ops/attention.py packed_oneshot_tile`` (each for the kernels asked for). Prints
 each tree's lines and, last, a table of kernel ms per shape and tree.
 Needs a CUDA card and nvcc.
 """
@@ -40,13 +42,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def sweep(cs, gemm, kernels):
-    """K10 at each built tile width, at its main-path shapes (this tree)."""
+def sweep(cs, attention, gemm, kernels, which):
+    """K10 at each built tile width and K4 at each q tile, at their main-path
+    shapes (this tree)."""
     import torch
 
     lib = kernels.library()
     g = torch.Generator(device="cuda").manual_seed(9)
-    for m, k, n in cs.FFN_SHAPES + cs.FFN_DW_SHAPES:
+    for b, sq, kv, h, d in cs.PACKED_SHAPES if "k4" in which else []:
+        q, k, v = (torch.randn(b, s, h * d, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, kv, kv))
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream().cuda_stream
+        for bq in (64, 128):
+            run = lambda: kernels.check(lib.fdt_flash_fwd_oneshot_packed(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, kv, h, d, d ** -0.5, bq, stream),
+                "K4 sweep")
+            print(f"sweep flash_fwd_oneshot_packed b={b} sq={sq} kv={kv} h={h} d={d} bq={bq}: "
+                  f"{cs.median_ms(run):.4f} ms{' <- plan' if attention.packed_oneshot_tile(kv, d) == bq else ''}")
+    for m, k, n in cs.FFN_SHAPES + cs.FFN_DW_SHAPES if "k10" in which else []:
         x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
         w = (torch.randn(n, k, generator=g, device="cuda") * k ** -0.5).to(torch.bfloat16)
         b = torch.zeros(n, device="cuda", dtype=torch.bfloat16)
@@ -90,8 +103,8 @@ def child(root: str, which: str, do_sweep: bool) -> None:
     if "k10" in which:
         cs.FFN_RAGGED = []
         cs.check_ffn_gemm(gemm, results)
-        if do_sweep:
-            sweep(cs, gemm, kernels)
+    if do_sweep:
+        sweep(cs, attention, gemm, kernels, which)
 
 
 def kernel_ms(lines):
@@ -120,7 +133,7 @@ def main() -> None:
     ap.add_argument("--base", help="root of the other tree")
     ap.add_argument("--order", default="base,this,this,base")
     ap.add_argument("--kernels", default="k1,k2,k4,k5,k8,k10")
-    ap.add_argument("--sweep", action="store_true", help="also sweep K10's tile width in this tree")
+    ap.add_argument("--sweep", action="store_true", help="also sweep K10's tile width and K4's q tile in this tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     which = set(args.kernels.split(","))

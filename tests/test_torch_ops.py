@@ -340,11 +340,48 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tnorms.group_norm_apply(g, g[:, :, 0, 0], g[:, :, 0, 0])
 
 
+def _k4_block(kv, d):
+    """(q rows, threads, shared bytes) of K4's block: K1's kernel, one warp
+    on 16 q rows of each key half (two past the 80 keys one warp holds)."""
+    bq, kvp = tattn.packed_oneshot_tile(kv, d), -(-kv // 16) * 16
+    halves = 1 if kvp <= 80 else 2
+    return bq, bq * 2 * halves, tattn.smem_bytes(bq, kvp, d)
+
+
 @pytest.mark.parametrize("d,kv", [(64, 77), (64, 256), (128, 77), (128, 256)])
 def test_packed_tiles_fit_a_block(d, kv):
-    """Every shape ``packed_cross_eligible`` takes fits one block's shared memory."""
+    """K4 is K1's kernel on the packed layout: a shape ``packed_cross_eligible``
+    takes maps onto K1's plan (the one-shot route) and K4 takes its q tile,
+    in at most K1's 256 threads and 227 KB with the head's padded K and V."""
     assert tattn.packed_cross_eligible(torch.empty(1, 1, 2, d), kv)
-    assert tattn.packed_smem_bytes(d, -(-kv // 16) * 16) <= tattn._SMEM_LIMIT
+    kind, bq1 = tattn.attention_plan(kv, d)
+    bq, threads, smem = _k4_block(kv, d)
+    assert kind == "flash_fwd_oneshot" and bq == bq1 == 64
+    assert threads <= 256 and smem <= tattn._SMEM_LIMIT
+
+
+def test_packed_oneshot_tile_at_every_eligible_kv():
+    """Every KV that ``packed_cross_eligible`` takes (1 to 256) at D = 64 and
+    128 has a K4 block within K1's limits: 64 q rows, and past 80 keys the
+    split-halves case (256 threads); KV past 256 is refused."""
+    for d in (64, 128):
+        for kv in range(1, 257):
+            assert tattn.packed_cross_eligible(torch.empty(1, 1, 2, d), kv)
+            bq, threads, smem = _k4_block(kv, d)
+            assert bq == 64 and threads == (128 if kv <= 80 else 256) and smem <= tattn._SMEM_LIMIT
+    assert not tattn.packed_cross_eligible(torch.empty(1, 1, 2, 64), 257)
+    with pytest.raises(ValueError):
+        tattn.packed_oneshot_tile(4096, 64)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_stream_tiles_are_the_stream_forwards(d):
+    """K5 is K2's wgmma kernel on the packed layout: its tiles at D = 64 and
+    128 are ``stream_fwd_tiles``' (128 q rows in two consumer warpgroups,
+    128-key tiles at D = 64 and 64 at D = 128, four stages) and fit 227 KB."""
+    t = tattn.stream_fwd_tiles(d)
+    assert (t.route, t.dp, t.bq, t.bkv, t.stages, t.threads) == ("wgmma", d, 128, 128 if d == 64 else 64, 4, 384)
+    assert t.smem == 128 * d * 2 + 4 * 2 * t.bkv * d * 2 + 9 * 8 <= tattn._SMEM_LIMIT
 
 
 FAKE_NVCC = """#!{python}
