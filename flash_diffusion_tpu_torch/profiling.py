@@ -59,11 +59,12 @@ def _category(name: str) -> str:
 
 
 def _packed(name: str) -> bool:
-    """Whether a kernel is an attention kernel's packed [B, S, H·D]
-    instantiation (template argument kPacked = true: K4 of K1's kernel, K5
-    of K2's), demangled or not; ``flash_fwd_oneshot_packed_kernel`` and
-    ``flash_fwd_packed_kernel`` name separate packed kernels."""
-    return ", true>" in name or "Lb1E" in name or "_packed_kernel" in name
+    """Whether a kernel is a packed [B, S, H·D] attention forward: an
+    instantiation with kPacked = true (K4 of K1's kernel, K5 of K2's), or a
+    kernel of its own (``flash_fwd_oneshot_packed_kernel``,
+    ``flash_fwd_packed_kernel``), so that a tree of either kind profiles
+    alike."""
+    return ", true>" in name or "_packed_kernel" in name
 
 
 # (label, the kernels it sums by name)
