@@ -46,8 +46,8 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    5e-3) on cases whose keys past ``kv_valid`` are k × 3 and v + 1, and on
    a 77-key case with v + 1 at every key (a zero padding row that leaked
    would show); K2 to the same gate, with ragged and v + 1 cases at D = 64
-   and 72 whose Sq and KV are off its tiles. The backward kernels (K6+K7 or K8, routed by
-   ``attention_bwd_plan``) are held in fp32 against
+   and 72 whose Sq and KV are off its tiles. The backward kernels (K6+K7
+   or K8, routed by ``attention_bwd_plan``) are held in fp32 against
    ``attention_bwd_reference`` for dq, dk and dv by ``attention_bwd_gate``
    (max|err| within 4e-3 + 2^-6 of max|grad|, relative L2 within 1e-2, and
    dk, dv exactly 0 at rows past ``kv_valid``, whose keys are filled with

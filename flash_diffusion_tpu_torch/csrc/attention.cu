@@ -83,9 +83,9 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // Keys of one chunk: a warp's scores are kChunk / 2 registers a thread,
 // its output accumulator DP / 2. 80 keys hold the 77 text tokens in one
-// chunk at every D; 128-key chunks at D <= 80 took 153 registers a thread
-// at D = 64 (120 at 80 keys) and made the 77-key calls of K1 and K4
-// 7-19% slower on an H100.
+// chunk at every D; 128-key chunks at D <= 80 held registers for 128
+// scores a row, and made the 77-key calls of K1 11-19% slower on an H100
+// (kernel_times.py).
 template <int DP>
 struct OneshotCfg {
   static constexpr int kLD = DP + 8;  // shared row stride (16-byte multiple; ldmatrix rows hit every bank)
