@@ -16,10 +16,12 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    attention kernels' shared-memory plans against the kernels' own
    arithmetic (K1's and K4's at their shapes, K6/K7's and K2's tiles at
    every head dim they take, K8's at every head dim and KV up to 160 and
-   256, K10's plan at every FFN shape and tile width), and no K1, K2, K4,
-   K5, K6, K7, K8 or K10 instantiation may spill (the packed K4 and K5
-   must have a report of their own), nor may K2, K5 or K10 have ptxas
-   serialize their wgmma;
+   256, K10's plan at every FFN shape and tile width, K12's at every FFN
+   shape and built variant, K11's at every int8 shape on this card's SMs
+   and on 132, and at each split), and no K1, K2, K4, K5, K6, K7, K8, K10,
+   K11 or K12 instantiation may spill (the packed K4 and K5, K11's and K12's
+   must have a report of their own), nor may K2, K5, K10, K11 or K12 have
+   ptxas serialize their wgmma;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs), with ragged cases; max abs error
@@ -35,7 +37,7 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    ``F.layer_norm`` for K3, ``torch._int_mm`` and the same dequant for the
    int8 GEMM (K11, whose bound counts int8 operations at 1979 TOP/s and whose
    int32 sums are checked equal to the plain version's, its bf16 output to
-   one ulp). The GroupNorm statistics kernel (K9) is held in fp64 at every
+   one ulp, at every case, each printed with its plan). The GroupNorm statistics kernel (K9) is held in fp64 at every
    GroupNorm shape of the paths (Σx to 1e-5 of Σ|x|, Σx² to 1e-5) and
    bit-equal for a sample alone and in its batch and from run to run; the
    port's apply kernel (x·ŵ + b̂, SiLU) to one bf16 ulp; their library
@@ -702,16 +704,20 @@ def within_bf16_ulp(got, want, floor=0.0) -> bool:
     return bool(((got.float() - w).abs() <= torch.clamp(ulp, min=floor)).all())
 
 
-def check_int8_gemm(gemm, results):
+def check_int8_gemm(gemm, results, timed=True):
     """K11 at every int8 shape of the SDXL path and the extra cases: its
     int32 sums (the raw-sums epilogue) equal the plain version's; its bf16
     output within one ulp of the plain version's (the epilogue runs in the
     same fp32 order, so exactly equal without gelu; with tanh-gelu, 1e-6
-    absolute where 1 + tanh(u) cancels in the negative tail). At the path's
-    shapes also kernel, plain, library and bound times. Bound: 2·M·K·N int8
-    operations at 1979 TOP/s, or xq, wq, the two scales read and the bf16
-    output written once at 3.35 TB/s."""
+    absolute where 1 + tanh(u) cancels in the negative tail). Every case
+    printed with its plan, then a raise listing the failures. With
+    ``timed``, the kernel's time, and at the path's shapes the plain
+    version's, the library's and the bound: 2·M·K·N int8 operations at
+    1979 TOP/s, or xq, wq, the two scales read and the bf16 output written
+    once at 3.35 TB/s."""
     g = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failed = []
     for m, k, n, epilogue in [(*s, False) for s in INT8_SHAPES] + INT8_EXTRA:
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
         wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
@@ -725,26 +731,32 @@ def check_int8_gemm(gemm, results):
         sums_equal = torch.equal(sums, gemm.int8_sums_reference(xq, wq))
         close = within_bf16_ulp(y, ref, 1e-6 if act else 0.0)
         err = (y.float() - ref.float()).abs().max().item()
-        ms = median_ms(lambda: gemm.int8_gemm(xq, sx, wq, sw, bias, act))
         main = (m, k, n) in INT8_SHAPES and not epilogue
-        times = f"kernel {ms:.4f} ms"
-        if main:
+        plan = gemm.int8_gemm_plan(m, k, n, sms)
+        times = f"; plan split {plan.split}"
+        if timed:
+            ms = median_ms(lambda: gemm.int8_gemm(xq, sx, wq, sw, bias, act))
+            times += f"; kernel {ms:.4f} ms"
+        if timed and main:
             plain = median_ms(lambda: gemm.int8_gemm_reference(xq, sx, wq, sw))
             library = library_ms(lambda: lambda: (torch._int_mm(xq, wq.t()).float() * sx[:, None] * sw).to(
                 torch.bfloat16))
             bnd = bound(2 * m * k * n, m * k + k * n + 4 * (m + n) + 2 * m * n, INT8_OPS_PER_S)
             times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        print(f"int8_gemm M={m:5d} K={k:4d} N={n:5d}{' bias+gelu' if epilogue else ''}: int32 sums equal "
-              f"{sums_equal}; bf16 max|err| {err:.3e} (within one ulp{' or 1e-6' if act else ''}: {close}); "
-              f"{times}")
-        if not (sums_equal and close):
-            raise AssertionError(f"int8 GEMM kernel disagrees with its plain version at {(m, k, n, epilogue)}")
+        ok = sums_equal and close
+        print(f"int8_gemm M={m:5d} K={k:4d} N={n:5d}{' bias+gelu' if epilogue else ''}: {'pass' if ok else 'FAIL'}: "
+              f"int32 sums equal {sums_equal}; bf16 max|err| {err:.3e} (within one ulp{' or 1e-6' if act else ''}: "
+              f"{close}){times}")
+        if not ok:
+            failed.append((m, k, n, epilogue))
         r = results["int8_gemm"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
+        if timed and main:
             add_times(r, ms, plain, library, bnd)
         del xq, wq, sums, y, ref
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"int8 GEMM kernel disagrees with its plain version at {failed}")
 
 
 def pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid):
@@ -1446,18 +1458,36 @@ def main():
             kernels.check(lib.fdt_gemm_plan(k, n, bn or 0, got), "fdt_gemm_plan")
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K10 plan at K={k} N={n} bn={bn}: kernel {tuple(got)}, plan {tuple(want)}")
+        for bn, cluster in ((None, None), (160, 1), (128, 1)):  # K12's plan, and its other built variants
+            want, got = gemm.geglu_gemm_plan(k, n, bn, cluster), (ctypes.c_int * 5)()
+            kernels.check(lib.fdt_geglu_gemm_plan(k, n, bn or 0, cluster or 0, got), "fdt_geglu_gemm_plan")
+            if tuple(got) != tuple(want):
+                raise AssertionError(f"K12 plan at K={k} N={n} ({bn}, {cluster}): kernel {tuple(got)}, plan {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n, *_ in [(*s, False) for s in INT8_SHAPES] + INT8_EXTRA:  # K11's plan, here and on 132 SMs
+        for on, split in [(c, None) for c in (sms, 132)] + [(sms, s) for s in (1, 2, 4, 8)]:
+            want, got = gemm.int8_gemm_plan(m, k, n, on, split), (ctypes.c_int * 6)()
+            kernels.check(lib.fdt_int8_gemm_plan(m, n, k, on, split or 0, got), "fdt_int8_gemm_plan")
+            if tuple(got) != tuple(want):
+                raise AssertionError(f"K11 plan at {(m, k, n)} on {on} SMs (split {split}): kernel {tuple(got)}, "
+                                     f"plan {want}")
     spills = [line for line in spill_report if any(k in line for k in (
         "flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv", "flash_bwd_dq",
-        "flash_bwd_oneshot_kernel", "gemm_sm90_kernel"))]
-    spills += [line for line in serialized if "flash_fwd_wgmma_kernel" in line or "gemm_sm90_kernel" in line]
-    # the packed instantiations (K4 on K1's kernel, K5 on K2's) by their
-    # template arguments <DP, kPacked = true>, in the report that was read
-    packed = [f"{kernel}ILi{dp}ELb1E" for kernel in ("flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel")
-              for dp in (64, 128)]
-    missing = [name for name in packed if kernels.BUILD_INFO["log"] != "(cached)" and name not in entries]
+        "flash_bwd_oneshot_kernel", "gemm_sm90_kernel", "int8_gemm_kernel"))]
+    spills += [line for line in serialized if any(k in line for k in (
+        "flash_fwd_wgmma_kernel", "gemm_sm90_kernel", "int8_gemm_kernel"))]
+    # instantiations that must have a report of their own, by their template
+    # arguments: the packed K4 and K5 (<DP, kPacked = true> of K1's and K2's
+    # kernels), K12 (<BN, kCluster, kGeglu = true> of K10's) and K11
+    # (<kSplit>)
+    own = [f"{kernel}ILi{dp}ELb1E" for kernel in ("flash_fwd_oneshot_kernel", "flash_fwd_wgmma_kernel")
+           for dp in (64, 128)]
+    own += [f"gemm_sm90_kernelILi{bn}ELi{c}ELb1E" for bn, c in ((160, 8), (160, 4), (160, 1), (128, 1))]
+    own += [f"int8_gemm_kernelILb{split}E" for split in (0, 1)]
+    missing = [name for name in own if kernels.BUILD_INFO["log"] != "(cached)" and name not in entries]
     if spills or missing:
-        raise AssertionError(f"K1/K2/K4/K5/K6/K7/K8/K10 instantiations spill registers, or K2/K5/K10 serialize "
-                             f"their wgmma: {spills}; no ptxas report of {missing}")
+        raise AssertionError(f"K1/K2/K4/K5/K6/K7/K8/K10/K11/K12 instantiations spill registers, or K2/K5/K10/K11/K12 "
+                             f"serialize their wgmma: {spills}; no ptxas report of {missing}")
 
     results = {
         "flash_fwd_oneshot": new_row("cuda", "flash_diffusion_tpu_torch/csrc/attention.cu",
@@ -1482,7 +1512,8 @@ def main():
         "gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/gemm_sm90.cu", "flash_diffusion_tpu/ops/gemm.py:36"),
         "int8_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/int8_gemm.cu",
                              "flash_diffusion_tpu/ops/gemm.py:171"),
-        "geglu_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/ffn_gemm.cu",
+        # K12: K10's kernel with the GEGLU producer (kGeglu = true)
+        "geglu_gemm": new_row("cuda", "flash_diffusion_tpu_torch/csrc/gemm_sm90.cu",
                               "flash_diffusion_tpu/ops/gemm.py:271"),
         "group_norm_stats": new_row("cuda", "flash_diffusion_tpu_torch/csrc/group_norm.cu",
                                     "flash_diffusion_tpu/ops/norms.py:40"),

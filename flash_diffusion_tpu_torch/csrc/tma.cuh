@@ -1,8 +1,9 @@
 // Tensor Memory Accelerator (TMA) copies and the mbarriers they complete
 // on, shared by the Hopper kernels that fill shared-memory rings by TMA:
 // the attention backward pair (flash_bwd.cu), the streaming attention
-// forward on both layouts (flash_fwd_wgmma.cu: K2 and the packed K5) and
-// the down-projection GEMM (gemm_sm90.cu).
+// forward on both layouts (flash_fwd_wgmma.cu: K2 and the packed K5), the
+// feed-forward GEMMs (gemm_sm90.cu: K10 and K12) and the int8 GEMM
+// (int8_gemm.cu: K11).
 //
 // Two layouts:
 //   - The attention tiles: an [R, DP] tile of a [BH, rows, d] bf16 tensor
@@ -18,9 +19,13 @@
 //     boxes of 16 columns by 1 head by R rows by 1 batch: each lands as the
 //     same [R, 16] swizzled slab, rows past S arrive as zeros and never as
 //     the next batch's rows, and columns past d never as the next head's.
-//   - The GEMM tiles: boxes of 64 columns (128 bytes) by R rows of a 2-D
-//     row-major matrix, 128-byte swizzled (wgmma.cuh smem_desc_sw128); rows
-//     past the matrix arrive as zeros.
+//   - The GEMM tiles: boxes of 128 bytes (64 bf16 or 128 int8 columns) by R
+//     rows of a 2-D row-major matrix, 128-byte swizzled (wgmma.cuh
+//     smem_desc_sw128); rows and columns past the matrix arrive as zeros.
+//
+// Also the cluster helpers of the GEMMs: K11's split of K reduces its int32
+// partials through distributed shared memory, and K12's blocks push their
+// rows of h into their peers' stages.
 
 #pragma once
 
@@ -64,6 +69,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, bulk copies) that reads them next.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Named barrier `id` over `threads` threads of the block (id 0 is
+// __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread block clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster: writes before it (to any
+// block's shared memory) are seen by reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The shared::cluster address of p (in this block's shared memory) in block
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+// One arrival on an mbarrier of any block of the cluster (peer_addr), with
+// the default (.release.cta) semantics: it orders nothing across blocks, so
+// it serves where the arriving thread's own reads are already done (a
+// consumer whose wgmma has completed frees a stage). A .release.cluster
+// arrival costs a cluster-scope fence each time: it made K12 1.9-3.3x
+// slower on the card.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// Copies `bytes` (a multiple of 16) of this block's shared memory to a
+// peer's (dst, peer_addr), completing on the peer's mbarrier bar.
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 // ---- copies (one thread starts each)
 
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
@@ -102,6 +162,21 @@ __device__ __forceinline__ void tma_tile_packed(bf16* dst, const CUtensorMap* ma
         : "memory");
   }
 }
+
+// A TMA store of a box of a 2-D map from shared memory (one thread), in
+// this thread's bulk async-group; rows and columns past the matrix are not
+// written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// This thread's bulk stores have read their shared memory (it may be
+// written again), or (bulk_wait) have completed.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // ---- wgmma descriptors of the attention tiles (wgmma.cuh smem_desc)
 
@@ -163,18 +238,29 @@ inline bool make_map_packed(CUtensorMap* map, const void* base, int b, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A map of a row-major [rows, cols] bf16 matrix in GEMM boxes of 64
-// columns by box_rows rows; false on failure.
-inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// A map of a row-major [rows, cols] matrix of bf16 (elem_bytes 2) or int8
+// (1) in GEMM boxes of 128 bytes (64 bf16 or 128 int8 columns) by box_rows
+// rows; the row stride (cols * elem_bytes) must be a multiple of 16 bytes.
+// False on failure.
+inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows, int elem_bytes = 2) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The SMs of the current card, or 0 on an error: the persistent grids.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 }  // namespace fdt

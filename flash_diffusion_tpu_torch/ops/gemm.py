@@ -19,15 +19,21 @@ The down-projection family:
 - ``geglu_down_proj(x2k, w, b)`` (JAX :374): y = (a · gelu_tanh(g))·Wᵀ + b
   with x2k = [a | g] along the last dim, through ``GegluGemmFunction`` →
   ``geglu_gemm``, the port of ``_geglu_gemm_kernel`` (K12,
-  ``csrc/ffn_gemm.cu``: mma.sync, the GEGLU prologue in shared memory),
-  for bf16 calls that ``gemm_eligible`` takes; every other call takes the
-  unfused ops.
+  ``csrc/gemm_sm90.cu``: K10's consumers on h, which a producer warpgroup
+  makes into the swizzled A stages, each h once per cluster of blocks
+  along N; plan by ``geglu_gemm_plan``), for bf16 calls that
+  ``gemm_eligible`` takes; every other call takes the unfused ops.
   Rounding contract of K12 and its plain version: h = a · gelu_tanh(g) is
   computed in fp32 from the bf16 inputs and rounded once to bf16, the MMA
   operand; the product accumulates in fp32, b (rounded to x's dtype first)
-  is added in fp32, and y is rounded once. JAX in interpret mode rounds its
-  bf16 elementwise ops one by one, so the tests hold the two to a
-  tolerance.
+  is added in fp32, and y is rounded once. K12 takes the hardware's
+  ``tanh.approx.f32`` for torch's ``tanhf`` in that fp32 gelu; the plain
+  version keeps ``F.gelu(approximate="tanh")``. That is allowed only while
+  ``gemm_gate`` keeps a margin of at least 1.5× on its relative-L2 term at
+  every ``FFN_SHAPES`` and ``FFN_RAGGED`` case of ``chip_smoke.py`` on the
+  card: measured on an H100, 2.33e-3 against the gate's 4e-3 (1.71×), as
+  with ``tanhf``. JAX in interpret mode rounds its bf16 elementwise ops one
+  by one, so the tests hold the two to a tolerance.
 
 ``gemm_eligible`` is JAX's shape family (:108-124: K ≥ 2N, K ≥ 2048,
 128 ≤ N ≤ 2048, N and K multiples of 128, M ≥ 1024, M % 8 == 0). JAX also
@@ -45,8 +51,10 @@ exact int32 sums, the per-token scale ``sx`` and the per-channel scale
 keeps [K, N]).
 
 - On a CUDA tensor ``int8_gemm`` launches the kernel of
-  ``csrc/int8_gemm.cu`` for every shape with K % 32 == 0, or raises; it
-  never falls back. JAX's ``int8_gemm_eligible`` (M ≥ 256, K and N
+  ``csrc/int8_gemm.cu`` (wgmma with s8 operands fed by a TMA ring;
+  persistent, or K split across a cluster where the output has few tiles;
+  plan by ``int8_gemm_plan``) for every shape with K % 32 == 0, or raises;
+  it never falls back. JAX's ``int8_gemm_eligible`` (M ≥ 256, K and N
   multiples of 128) is a TPU tiling gate that sends small products to an
   XLA dot with the same numerics; here every int8 product is the kernel's.
 - On a CPU tensor it runs ``int8_gemm_reference``, the plain version.
@@ -75,7 +83,9 @@ _OUT_KINDS = {torch.bfloat16: 0, torch.int32: 1}
 def int8_sums_reference(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Σ_k xq[m, k]·wq[n, k] as int32 [M, N], exactly: the product runs in
     fp64, where every partial sum is an integer far below 2^53 (|sum| ≤
-    127²·K), on the CPU and on the card alike (CUDA has no int32 matmul)."""
+    127²·K), on the CPU and on the card alike (CUDA has no int32 matmul).
+    Exact sums do not depend on their order, so the kernel may cut K into
+    parts summed apart (``int8_gemm_plan``'s split) and M into any tiles."""
     return (xq.double() @ wq.double().t()).to(torch.int32)
 
 
@@ -141,13 +151,53 @@ def int8_gemm(
     if out_dtype == torch.int32:
         sx = sw = bias = None
     with torch.cuda.device(xq.device):
-        err = kernels.library().fdt_int8_gemm(
+        err = kernels.library().fdt_int8_gemm(  # the kernel's own plan (split 0)
             xq.data_ptr(), wq.data_ptr(), ptr(sx), ptr(sw), ptr(bias), out.data_ptr(), m, n, k,
-            _OUT_KINDS[out_dtype], int(act == "gelu"), torch.cuda.current_stream(xq.device).cuda_stream,
+            _OUT_KINDS[out_dtype], int(act == "gelu"), 0, torch.cuda.current_stream(xq.device).cuda_stream,
         )
     kernels.check(err, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1
     return out
+
+
+class Int8Plan(NamedTuple):
+    """K11's launch plan for one product (``csrc/int8_gemm.cu`` ``plan``)."""
+
+    bn: int  # output columns of a tile (128, as its rows)
+    split: int  # blocks of a cluster that share a tile's K steps (1: persistent, no split)
+    stages: int  # 128-byte K steps in the TMA ring
+    smem: int  # dynamic shared memory of a block, bytes
+    threads: int  # of a block: two consumer warpgroups and the producer warp
+    blocks: int  # of the launch
+
+
+_INT8_BM, _INT8_BN, _INT8_BK = 128, 128, 128
+
+
+def int8_gemm_plan(m: int, k: int, n: int, sms: int = 132, split: Optional[int] = None) -> Int8Plan:
+    """K11's plan for xq [m, k] · wq [n, k]ᵀ on a card of ``sms`` SMs;
+    mirrors ``plan`` in csrc/int8_gemm.cu. Tiles of 128 × 128. The int32
+    sums are exact in any order, so the plan may follow M: few tiles (at
+    most half the SMs; SDXL's cross-attention k/v at M = 308) and at least
+    two 128-byte K steps split K across a cluster of 8, 4 or 2 blocks, the
+    most that divides the K steps and keeps tiles × split within the SMs;
+    else one persistent block per SM, whose two warpgroups take its tiles
+    in turn. Stages: as many 128-byte steps of xq [128, 128] and wq [128,
+    128] (and their two mbarriers) as 227 KB hold beside 1024 bytes of
+    alignment slack, the warpgroups' two bf16 output tiles [128, 128] and
+    their two turn barriers, at most 8. ``split`` asks for that split
+    instead."""
+    steps, tiles = -(-k // _INT8_BK), -(-m // _INT8_BM) * -(-n // _INT8_BN)
+    if split is None:
+        split = 1
+        if 2 * tiles <= sms and steps >= 2:
+            split = next((s for s in (8, 4, 2) if steps % s == 0 and tiles * s <= sms), 1)
+    if split not in (1, 2, 4, 8):
+        raise ValueError(f"K11 splits K 2, 4 or 8 ways, not {split}")
+    fixed, stage = 1024 + 2 * _INT8_BM * _INT8_BN * 2 + 16, (_INT8_BM + _INT8_BN) * _INT8_BK + 16
+    stages = min(8, (_GEMM_SMEM_LIMIT - fixed) // stage)
+    return Int8Plan(_INT8_BN, split, stages, fixed + stages * stage, 288,
+                    tiles * split if split > 1 else min(tiles, sms))
 
 
 def gemm_eligible(m: int, k: int, n: int) -> bool:
@@ -253,6 +303,50 @@ def gemm_plan(k: int, n: int, bn: Optional[int] = None) -> GemmPlan:
     return GemmPlan(bn, stages, 1024 + stages * (stage + 16), 288)
 
 
+class GegluPlan(NamedTuple):
+    """K12's launch plan for one product (``csrc/gemm_sm90.cu``
+    ``GemmCfg<BN, kCluster, true>``)."""
+
+    bn: int  # output columns of a tile (its rows: 128)
+    cluster: int  # blocks along N that share one row block's h, each making 128 / cluster rows of it
+    stages: int  # 64-deep K steps in the ring
+    smem: int  # dynamic shared memory of a block, bytes
+    threads: int  # of a block: two consumer warpgroups, two loader warps, four h-maker warps, a copier with a cluster
+
+
+def geglu_gemm_plan(k: int, n: int, bn: Optional[int] = None, cluster: Optional[int] = None) -> GegluPlan:
+    """K12's plan for a product of depth ``k`` into ``n`` columns, from K and
+    N alone (its fp32 sums depend on their order, so a row's bits must not
+    depend on M); mirrors ``plan_geglu`` and ``GemmCfg`` in
+    csrc/gemm_sm90.cu. Width 160 where it divides N, else 128 without a
+    cluster. At SDXL's widths the fastest of ``kernel_times.py --sweep`` on
+    the card: at N = 640 a cluster of all 4 tiles along N (every h made
+    once), at N = 1280 a cluster of 2 (every h made 4 times: the card holds
+    only 15 clusters of 8 at once, on 120 SMs, and 32 row blocks then take
+    a third round); elsewhere 2 where it divides N's tiles, else 1.
+    ``bn``/``cluster`` ask for another built one ((160, 8), (160, 4), (160,
+    2), (160, 1), (128, 1)): (160, 1) makes every h in each of N's tiles. Stages: as many 64-deep steps of h [128, 64] and w
+    [bn, 64] in bf16 as 227 KB hold beside 1024 bytes of slack and a
+    staging ring of the block's a and g boxes (as many slots as 40 KB hold,
+    2 to 8), at most 8. Threads: two consumer warpgroups, two loader warps
+    (w; a and g), four warps that make h and, with a cluster, one that
+    copies it to the peers."""
+    pbn = 160 if n % 160 == 0 else 128
+    tiles = -(-n // pbn)
+    pc = 1 if pbn == 128 else 4 if n == 640 else 2 if tiles % 2 == 0 else 1
+    bn = bn or pbn
+    cluster = cluster or (pc if bn == pbn else 1)
+    if (bn, cluster) not in ((160, 8), (160, 4), (160, 2), (160, 1), (128, 1)):
+        raise ValueError(f"K12 is built for (width, cluster) (160, 8), (160, 4), (160, 2), (160, 1) and (128, 1), "
+                         f"not {(bn, cluster)}")
+    slice_bytes = _GEMM_BM // cluster * _GEMM_BK * 2
+    slots = min(8, max(2, 40960 // (2 * slice_bytes)))
+    fixed = 1024 + slots * (2 * slice_bytes + 16)
+    stage = (_GEMM_BM + bn) * _GEMM_BK * 2 + 24  # and its full, empty and made barriers
+    stages = min(8, (_GEMM_SMEM_LIMIT - fixed) // stage)
+    return GegluPlan(bn, cluster, stages, fixed + stages * stage, 480 if cluster > 1 else 448)
+
+
 def gemm_blocks(m: int, n: int, bn: int, sms: int) -> int:
     """Persistent blocks of K10: one per SM, or one per 128 × bn tile where
     there are fewer tiles; each walks the tiles ``blockIdx``, + grid, ..."""
@@ -280,7 +374,7 @@ def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if geglu:
-            err = kernels.library().fdt_geglu_gemm(*args, stream)
+            err = kernels.library().fdt_geglu_gemm(*args, 0, 0, stream)  # the kernel's own plan
         else:
             err = kernels.library().fdt_gemm_sm90(*args, gemm_plan(k, n).bn, stream)
     kernels.check(err, name)

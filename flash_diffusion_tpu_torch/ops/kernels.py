@@ -49,10 +49,13 @@ _SIGNATURES = {
     "fdt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F] + [_P],
     "fdt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F] + [_P],
     "fdt_flash_bwd_oneshot": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
-    "fdt_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
+    "fdt_int8_gemm": [_P] * 6 + [_I] * 6 + [_P],
+    "fdt_int8_gemm_plan": [_I] * 5 + [_P],
     "fdt_gemm_sm90": [_P] * 4 + [_I] * 4 + [_P],
     "fdt_gemm_plan": [_I] * 3 + [_P],
-    "fdt_geglu_gemm": [_P] * 4 + [_I] * 3 + [_P],
+    "fdt_geglu_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    "fdt_geglu_gemm_plan": [_I] * 4 + [_P],
+    "fdt_geglu_gemm_occupancy": [_I] * 2 + [_P],
     "fdt_group_norm_stats": [_P] * 5 + [_I] * 7 + [_P],
     "fdt_group_norm_apply": [_P] * 4 + [_I] * 7 + [_P],
 }

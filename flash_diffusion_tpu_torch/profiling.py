@@ -46,7 +46,7 @@ def _category(name: str) -> str:
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
         ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
-        ("gemm_sm90_kernel", "ffn gemm kernels"), ("geglu_gemm_kernel", "ffn gemm kernels"),
+        ("gemm_sm90_kernel", "ffn gemm kernels"),
         ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
@@ -67,13 +67,21 @@ def _packed(name: str) -> bool:
     return ", true>" in name or "_packed_kernel" in name
 
 
+def _geglu(name: str) -> bool:
+    """Whether a kernel is K12: K10's kernel instantiated with kGeglu =
+    true (``gemm_sm90_kernel<BN, kCluster, true>``)."""
+    return "gemm_sm90_kernel" in name and ", true>" in name
+
+
 # (label, the kernels it sums by name)
 _ROUTES = (
     ("streaming forward (K2)", lambda n: ("flash_fwd_wgmma_kernel" in n or "flash_fwd_mma_kernel" in n)
      and not _packed(n)),
     ("packed streaming forward (K5)", lambda n: _packed(n) and ("flash_fwd_wgmma_kernel" in n
                                                                   or "flash_fwd_packed_kernel" in n)),
-    ("down-projection GEMM (K10)", lambda n: "gemm_sm90_kernel" in n),
+    ("down-projection GEMM (K10)", lambda n: "gemm_sm90_kernel" in n and not _geglu(n)),
+    ("GEGLU down projection (K12)", _geglu),
+    ("int8 GEMM (K11)", lambda n: "int8_gemm_kernel" in n),
     ("one-shot forward (K1)", lambda n: "flash_fwd_oneshot_kernel" in n and not _packed(n)),
     ("packed one-shot forward (K4)", lambda n: _packed(n) and "flash_fwd_oneshot" in n),
     ("one-shot backward (K8 + its reduce)", lambda n: "flash_bwd_oneshot" in n),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the redesigned kernels in two trees on one card, in turns.
 
-    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k4,k5,k8,k10] [--sweep]
+    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k4,k5,k8,k10,k11,k12] [--sweep]
 
 For each tree of ``--order`` in turn (``this``: the checkout; ``base``:
 another checkout of the repo, such as a parent commit unpacked with ``git
@@ -22,33 +22,95 @@ asked for:
   ``FLASH_TPU_ATTN_PACKED=1``);
 - ``k8``: ``check_attention_bwd`` at the ``BWD_SHAPES`` that take K8;
 - ``k10``: ``check_ffn_gemm`` at ``FFN_SHAPES`` and ``FFN_DW_SHAPES``
-  (K12 at ``FFN_SHAPES`` comes along, the check's other kernel).
+  (K12 at ``FFN_SHAPES`` comes along, the check's other kernel);
+- ``k11``: ``check_int8_gemm`` at ``INT8_SHAPES`` (the int8 GEMM: every
+  W8A8 product of SDXL's int8 serving);
+- ``k12``: ``check_ffn_gemm`` at ``FFN_SHAPES`` (the GEGLU down
+  projection under ``FLASH_TPU_FFN_FUSED=1``; K10 comes along).
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
 process also times K10 at every tile width it is built for (112, 128, 160,
-224, 256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``, and
-K4 at q tiles of 64 and 128 rows at ``PACKED_SHAPES``, the sweep behind
-``ops/attention.py packed_oneshot_tile`` (each for the kernels asked for). Prints
-each tree's lines and, last, a table of kernel ms per shape and tree.
-Needs a CUDA card and nvcc.
+224, 256) at those shapes, the sweep behind ``ops/gemm.py gemm_plan``; K4
+at q tiles of 64 and 128 rows at ``PACKED_SHAPES``, the sweep behind
+``ops/attention.py packed_oneshot_tile``; K11 at each built plan
+(persistent, and splits of K 2, 4, 8 where they divide its steps) at
+``INT8_SHAPES``, the sweep behind ``ops/gemm.py int8_gemm_plan``, and the
+host's time of one K11 launch (the wrapper, and the C call alone, which
+encodes the two tensor maps); K12 at its built (width, cluster) at
+``FFN_SHAPES``, the sweep behind ``ops/gemm.py geglu_gemm_plan`` (each for
+the kernels asked for). Prints each tree's lines and, last, a table of
+kernel ms per shape and tree. Needs a CUDA card and nvcc.
 """
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 
+def host_us(fn, calls=500):
+    """Host time of one call, in µs: ``calls`` calls queued behind a GPU
+    sleep long enough that none waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(calls * 2e5))  # ~100 µs of GPU cycles a call
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def sweep(cs, attention, gemm, kernels, which):
-    """K10 at each built tile width and K4 at each q tile, at their main-path
-    shapes (this tree)."""
+    """K10 at each built tile width, K4 at each q tile, K11 at each built
+    plan (and the host's time of a launch) and K12 at each built (width,
+    cluster), at their main-path shapes (this tree)."""
     import torch
 
     lib = kernels.library()
     g = torch.Generator(device="cuda").manual_seed(9)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n in cs.INT8_SHAPES if "k11" in which else []:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        sx, sw = torch.rand(m, device="cuda") * 1e-3, torch.rand(n, device="cuda") * 1e-3
+        y = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        want = gemm.int8_gemm_plan(m, k, n, sms)
+        steps = -(-k // 128)
+        for split in [1] + [s for s in (2, 4, 8) if steps % s == 0]:
+            run = lambda: kernels.check(lib.fdt_int8_gemm(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                                                          None, y.data_ptr(), m, n, k, 0, 0, split, stream()),
+                                        "int8 sweep")
+            print(f"sweep int8_gemm M={m:5d} K={k:4d} N={n:5d} split={split}: {cs.median_ms(run):.4f} ms"
+                  f"{' <- plan' if want.split == split else ''}")
+        if (m, k, n) == cs.INT8_SHAPES[0]:
+            plan_call = lambda: lib.fdt_int8_gemm(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(), None,
+                                                  y.data_ptr(), m, n, k, 0, 0, 0, stream())
+            print(f"host int8_gemm M={m} K={k} N={n}: wrapper {host_us(lambda: gemm.int8_gemm(xq, sx, wq, sw)):.2f} "
+                  f"us a launch, the C call alone (plan, three tensor-map encodings, launch) {host_us(plan_call):.2f} us")
+    for m, k, n in cs.FFN_SHAPES if "k12" in which else []:
+        x = torch.randn(m, 2 * k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        b = torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+        y = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        want = gemm.geglu_gemm_plan(k, n)
+        variants = {(want.bn, want.cluster), (160, 1), (128, 1)} | {(160, c) for c in (2, 4, 8) if n // 160 % c == 0}
+        for bn, cluster in sorted(variants):
+            run = lambda: kernels.check(lib.fdt_geglu_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                                           m, n, k, bn, cluster, stream()), "geglu sweep")
+            held = (ctypes.c_int * 1)()
+            kernels.check(lib.fdt_geglu_gemm_occupancy(bn, cluster, held), "geglu occupancy")
+            print(f"sweep geglu_gemm M={m:5d} K={k:5d} N={n:4d} bn={bn} cluster={cluster}: {cs.median_ms(run):.4f} ms "
+                  f"({held[0]} clusters held at once){' <- plan' if (want.bn, want.cluster) == (bn, cluster) else ''}")
     for b, sq, kv, h, d in cs.PACKED_SHAPES if "k4" in which else []:
         q, k, v = (torch.randn(b, s, h * d, generator=g, device="cuda").to(torch.bfloat16) for s in (sq, kv, kv))
         out = torch.empty_like(q)
@@ -88,7 +150,7 @@ def child(root: str, which: str, do_sweep: bool) -> None:
     cs.ATTENTION_SHAPES = shapes["k1"] + shapes["k2"]
     cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], [], [], []
     names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
-             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm")
+             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm")
     results = {n: cs.new_row("cuda", "", "") for n in names}
     if cs.ATTENTION_SHAPES:
         cs.check_attention(attention, results)
@@ -100,9 +162,14 @@ def child(root: str, which: str, do_sweep: bool) -> None:
         cs.BWD_SHAPES = [s for s in cs.BWD_SHAPES if attention.attention_bwd_plan(s[2], s[3])[0] == "flash_bwd_oneshot"]
         cs.BWD_RAGGED = []
         cs.check_attention_bwd(attention, kernels, results)
-    if "k10" in which:
+    if "k10" in which or "k12" in which:
         cs.FFN_RAGGED = []
+        if "k10" not in which:
+            cs.FFN_DW_SHAPES = []
         cs.check_ffn_gemm(gemm, results)
+    if "k11" in which:
+        cs.INT8_EXTRA = []
+        cs.check_int8_gemm(gemm, results)
     if do_sweep:
         sweep(cs, attention, gemm, kernels, which)
 
@@ -119,7 +186,7 @@ def kernel_ms(lines):
         elif line.startswith("attention"):
             kind = words[2] if words[1] == "backward" else words[1]
             shape = line[line.index("bh="):line.index(" kv_valid")]
-        elif words[0] in ("gemm", "geglu_gemm"):
+        elif words[0] in ("gemm", "geglu_gemm", "int8_gemm"):
             kind = words[0] + (" dW" if words[1] == "dW" else "")
             shape = line[line.index("M="):line.index(":")]
         else:
@@ -132,8 +199,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", help="root of the other tree")
     ap.add_argument("--order", default="base,this,this,base")
-    ap.add_argument("--kernels", default="k1,k2,k4,k5,k8,k10")
-    ap.add_argument("--sweep", action="store_true", help="also sweep K10's tile width and K4's q tile in this tree")
+    ap.add_argument("--kernels", default="k1,k2,k4,k5,k8,k10,k11,k12")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also sweep K10's tile width, K4's q tile, K11's plans and K12's in this tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     which = set(args.kernels.split(","))

@@ -378,6 +378,31 @@ def test_gemm_plan_fits_and_follows_k_and_n(m, k, n):
     assert tgemm.gemm_blocks(m, n, p.bn, 132) == min(tiles, 132)
 
 
+# [M, K, N] of K12 on the card's path and in its checks: SDXL's two shapes
+# and the ragged ones
+K12_CALLS = [(16384, 2560, 640), (4096, 5120, 1280), (4096, 2560, 640), (1024, 5120, 1280), (4001, 2560, 640),
+             (1032, 2048, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", K12_CALLS)
+def test_geglu_gemm_plan_fits_and_follows_k_and_n(m, k, n):  # m: the plan takes none
+    """K12's plan from K and N alone (its fp32 sums depend on their order,
+    so a row's bits must not depend on M): a built (width, cluster), the
+    cluster a divisor of N's tiles, at SDXL's widths the sweep's (640: all
+    4 tiles, each h made once; 1280: 2 of 8), and 3–8 stages that fit a
+    block with its staging ring of a and g; the single-block variant (160,
+    1) fits too."""
+    p = tgemm.geglu_gemm_plan(k, n)
+    assert (p.bn, p.cluster) in ((160, 8), (160, 4), (160, 2), (160, 1), (128, 1)) and 3 <= p.stages <= 8
+    assert p.threads == 32 * (8 + 6 + (p.cluster > 1))  # consumers, loaders, h-makers, copier
+    tiles_n = -(-n // p.bn)
+    assert tiles_n % p.cluster == 0 and p.cluster == {640: 4, 1280: 2}.get(n, p.cluster)
+    slice_bytes = 128 // p.cluster * 128  # the rows of h a block makes in a K step
+    slots = min(8, max(2, 40960 // (2 * slice_bytes)))
+    assert p.smem == 1024 + slots * (2 * slice_bytes + 16) + p.stages * ((128 + p.bn) * 128 + 24) <= 232448
+    assert tgemm.geglu_gemm_plan(k, n, 160, 1).smem <= 232448
+
+
 @pytest.mark.parametrize("fault", [None, "bias dropped", "y x 1.01", "K step zeroed"])
 @pytest.mark.parametrize("geglu", [False, True])
 def test_gemm_gate_passes_the_plain_gemm_and_catches_faults(geglu, fault):

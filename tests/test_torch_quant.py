@@ -201,6 +201,53 @@ def tiny_sdxl_jax_unet():
     return unet, params, TUNetConfig(**SDXL_UNET_KW, use_linear_projection=True)
 
 
+@pytest.mark.parametrize("parts", [[1024, 1024], [512] * 4, [256] * 8, [640, 128, 1280]])
+def test_int8_sums_split_along_k_add_up_exactly(parts):
+    """What K11's split of K rests on: int32 sums over any cut of K into
+    parts, added, equal the sums over all of K bit for bit (integer sums
+    do not round), at the cross-attention's [308, 2048] · [640, 2048]ᵀ with
+    rows of extreme codes; so the bf16 output from them is the same too."""
+    rng = np.random.default_rng(12)
+    xq = torch.from_numpy(rng.integers(-127, 128, (308, 2048), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (640, 2048), dtype=np.int8))
+    xq[0], wq[0] = 127, -127  # the largest |sum|, 127² · 2048
+    sx, sw = torch.from_numpy(rng.random(308, dtype=np.float32)), torch.from_numpy(rng.random(640, dtype=np.float32))
+    whole = gemm.int8_sums_reference(xq, wq)
+    edges = np.cumsum([0, *parts])
+    split = sum(gemm.int8_sums_reference(xq[:, a:b].contiguous(), wq[:, a:b].contiguous())
+                for a, b in zip(edges[:-1], edges[1:]))
+    assert split.dtype == torch.int32 and torch.equal(split, whole) and whole[0, 0] == -127 ** 2 * 2048
+    y = (split.float() * sx[:, None] * sw[None, :]).to(torch.bfloat16)
+    assert torch.equal(y, gemm.int8_gemm_reference(xq, sx, wq, sw))
+
+
+# [M, K, N] of K11 on the card: SDXL's int8 products and the checks' extra
+# cases (batch 1's k/v, ragged M and N, K off the 128-byte step, odd N)
+K11_CALLS = SDXL_SHAPES + [(77, 2048, 640), (4001, 1280, 1000), (300, 96, 130), (65, 96, 7), (1000, 640, 1000)]
+
+
+@pytest.mark.parametrize("m,k,n", K11_CALLS)
+def test_int8_gemm_plan_fits_covers_and_splits(m, k, n):
+    """K11's plan on 132 SMs: 128 × 128 tiles, 4–8 stages that fit a block
+    beside the two warpgroups' output tiles, a launch that covers every
+    tile;
+    where it splits K (the cross-attention's k/v at M = 77 and 308), a
+    split that divides the K steps with tiles × split within the SMs. The
+    plan may follow M: the sums are exact in any order."""
+    p = gemm.int8_gemm_plan(m, k, n, 132)
+    steps = -(-k // 128)
+    assert p.bn == 128 and 4 <= p.stages <= 8 and p.threads == 288
+    assert p.smem == 1024 + 2 * 128 * 128 * 2 + 16 + p.stages * (256 * 128 + 16) <= 232448
+    for split in (1, 2, 4, 8):  # every split the sweep asks for fits as the plan's does
+        assert gemm.int8_gemm_plan(m, k, n, 132, split).smem == p.smem
+    tiles = -(-m // 128) * -(-n // p.bn)
+    if p.split > 1:
+        assert p.bn == 128 and steps % p.split == 0 and p.blocks == tiles * p.split <= 132
+    else:
+        assert p.blocks == min(tiles, 132)
+    assert (p.split > 1) == (m in (77, 308))
+
+
 def test_quantize_dense_matches_jax_on_the_tiny_sdxl_unet(tiny_sdxl_jax_unet):
     """Same count as JAX, and each quantized layer's codes and scale equal
     JAX's for the same weights."""
@@ -403,6 +450,29 @@ def test_int8_gemm_kernel_matches_plain_on_card(cuda, m, k, n):
         gemm.int8_gemm(xq[:, :16].contiguous(), sx, wq[:, :16].contiguous(), sw)
     with pytest.raises(ValueError, match="bf16 or int32"):
         gemm.int8_gemm(xq, sx, wq, sw, out_dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,big,k,n", [(77, 308, 2048, 640), (4096, 16384, 1280, 1280)])
+def test_int8_gemm_rows_bit_equal_alone_and_inside_a_larger_m_on_card(cuda, m, big, k, n):
+    """K11's plan follows M (77 and 308 rows split K across 40 and 120
+    blocks; 4096 and 16384 rows are 320 and 1280 tiles on persistent
+    blocks, so a row's tile lands on another block at another turn), its
+    bits do not: batch slot 1's rows alone equal the same rows of the
+    larger product, int32 sums and bf16 with bias and gelu."""
+    g = torch.Generator(device=cuda).manual_seed(big)
+    xq = torch.randint(-127, 128, (big, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    sx = torch.rand(big, generator=g, device=cuda) * 1e-3
+    sw = torch.rand(n, generator=g, device=cuda) * 1e-3
+    bias = torch.randn(n, generator=g, device=cuda)
+    rows = slice(m, 2 * m)
+    for args in ((None, None, None, None, torch.int32), (sx, sw, bias, "gelu", torch.bfloat16)):
+        xs, ws, b, act, out = args
+        whole = gemm.int8_gemm(xq, xs, wq, ws, b, act, out)
+        alone = gemm.int8_gemm(xq[rows].contiguous(), None if xs is None else xs[rows].contiguous(), wq, ws, b, act,
+                               out)
+        assert torch.equal(whole[rows], alone)
 
 
 @pytest.mark.cuda
