@@ -252,6 +252,9 @@ LAYER_NORM_SHAPES = [
     (4 * 77, 768, torch.float32),
 ]
 LAYER_NORM_RAGGED = [(4 * 1024 + 3, 640, torch.bfloat16), (1001, 320, torch.bfloat16)]
+# rows of small variance (x ~ 3e-3·N(0, 1), var ≈ eps = 1e-5): a kernel that
+# drops eps is off by ~√2 there, and by ~1e-6 at unit scale
+LAYER_NORM_SMALL_VAR = [(1001, 320, torch.bfloat16), (4 * 256, 1280, torch.bfloat16), (4 * 77, 768, torch.float32)]
 # Pixart: the DiT's affine-free LayerNorms over its 4 × 4096 tokens
 LAYER_NORM_SHAPES_PIXART = [(4 * 4096, 1152, torch.bfloat16)]
 # SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32)
@@ -323,10 +326,9 @@ SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
 # tolerances, kernel (bf16) vs plain (fp32): the attention forwards (K1,
-# K2, K4, K5) are held to ops/attention.py attention_fwd_gate; LayerNorm in
-# bf16 differs by the output's one rounding (|y| < 8: 1/32), in fp32 by
-# summation order (1e-4)
-LN_TOL = {torch.bfloat16: 1 / 32, torch.float32: 1e-4}
+# K2, K4, K5) are held to ops/attention.py attention_fwd_gate, LayerNorm
+# (K3) to ops/norms.py layer_norm_gate, the whole GroupNorm to
+# group_norm_gate
 # GroupNorm statistics (fp32 sums in another order than the fp64 plain
 # version): Σx to GN_STATS_TOL of Σ|x|, Σx² to GN_STATS_TOL relative
 GN_STATS_TOL = 1e-5
@@ -586,54 +588,81 @@ def check_ffn_gemm(gemm, results, timed=True):
         raise AssertionError(f"feed-forward GEMM kernel disagrees with its plain version at {failed}")
 
 
-def check_layer_norm(norms, results):
+def check_layer_norm(norms, results, timed=True):
+    """K3 against its plain version in fp32 on the same inputs at every
+    LayerNorm shape of the paths, ragged rows, and rows of small variance
+    (x ~ 3e-3·N(0, 1): var ≈ eps, so that eps shows), held to
+    ``layer_norm_gate`` (bf16: every element within 2⁻⁸·|y| + 2⁻¹⁶·max|y|,
+    relative L2 within 4e-3, mean signed error within 1e-4·rms(y); fp32: the
+    summation order, 1e-5·max|y|); every case printed, then a raise listing
+    the failures. With ``timed``, the kernel's and the plain version's times,
+    and at the paths' shapes the library's (``F.layer_norm``) and the bound
+    (x read and y written once, the affine once)."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    for rows, c, dtype in LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_RAGGED:
-        x = (torch.randn(rows, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    main_shapes = LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART
+    cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED] + [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
+    failed = []
+    for (rows, c, dtype), scale, offset in cases:
+        x = (torch.randn(rows, c, generator=g, device="cuda") * scale + offset).to(dtype)
         w = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
         b = (0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
         y = norms.layer_norm(x, w, b)
         torch.cuda.synchronize()
-        err = (y.float() - norms.layer_norm_reference(x.float(), w.float(), b.float())).abs().max().item()
-        ms = median_ms(lambda: norms.layer_norm(x, w, b))
-        plain = median_ms(lambda: norms.layer_norm_reference(x, w, b))
-        main = (rows, c, dtype) in LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART
-        times = f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if main:  # x and y, weight and bias; Σx, Σx², centre, scale, affine: 7 fp32 ops an element
+        stats = norms.layer_norm_errors(y, norms.layer_norm_reference(x.float(), w.float(), b.float()))
+        ok, report = norms.layer_norm_gate(stats)
+        main = (rows, c, dtype) in main_shapes and scale == 2.0
+        times = ""
+        if timed:
+            ms = median_ms(lambda: norms.layer_norm(x, w, b))
+            plain = median_ms(lambda: norms.layer_norm_reference(x, w, b))
+            times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+        if timed and main:  # x and y, weight and bias; Σx, Σx², centre, scale, affine: 7 fp32 ops an element
             library = library_ms(lambda: lambda: F.layer_norm(x, (c,), w, b, 1e-5))
             bnd = bound(7 * rows * c, (2 * rows * c + 2 * c) * x.element_size(), FP32_OPS_PER_S)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-        print(f"layer_norm rows={rows:5d} C={c:4d} {str(dtype):14s}: max|err| {err:.3e} "
-              f"(tol {LN_TOL[dtype]:.3e}); {times}")
-        if not err <= LN_TOL[dtype]:
-            raise AssertionError(f"LayerNorm kernel disagrees with its plain version at {(rows, c, dtype)}")
+        print(f"layer_norm rows={rows:5d} C={c:4d} {str(dtype)[6:]:8s} x~{scale:g}·N(0,1)+{offset:g}: "
+              f"{'pass' if ok else 'FAIL'}: {report}{times}")
+        if not ok:
+            failed.append((rows, c, dtype, scale))
         r = results["layer_norm"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
+        r["max_abs_err"] = max(r["max_abs_err"], stats["max_err"])
+        if timed and main:
             add_times(r, ms, plain, library, bnd)
+    if failed:
+        raise AssertionError(f"LayerNorm kernel disagrees with its plain version at {failed}")
 
 
-def check_group_norm(norms, results):
-    """K9 (the statistics) and the apply kernel at every GroupNorm shape of
-    the paths, in both layouts the kernels take (contiguous NCHW and
-    channels-last, the layout the paths' convolutions hand on): Σx and Σx²
-    against the plain version in fp64 (GN_STATS_TOL), bit-equal for a sample
-    alone and in its batch and from run to run; the apply (with SiLU)
-    within one bf16 ulp of the plain version (the same roundings: expected
-    equal). Times at the paths' shapes in channels-last: kernel, plain,
-    library (``torch.var_mean`` for the statistics, one call for the
-    per-channel mean and variance; ``F.silu(F.group_norm(...))`` for the
-    apply, the whole GroupNorm the two kernels and the fold replace) and the
-    bound: the statistics read x and write two [B, C] fp32, the apply reads
-    x, w and shift and writes y, at 3.35 TB/s. ``max_abs_err`` of the
-    statistics row is that of Σx/N and Σx²/N, the mean and E[x²] the fold
-    takes."""
+def check_group_norm(norms, results, timed=True):
+    """The whole GroupNorm (``group_norm``: K9's statistics, the fold, the
+    apply, SiLU or not) at every GroupNorm shape of the paths and the
+    ragged ones, in both layouts the kernels take (contiguous NCHW and
+    channels-last, the layout the paths' convolutions hand on), held to
+    ``group_norm_gate``: y with and without SiLU against the plain version
+    in fp32 from the same x, weight and bias (bf16: every element within
+    2⁻⁸·|y| + 2⁻⁷·max|y|, relative L2 within 7.5e-3, mean signed error within
+    2e-3·rms(y)), the per-group mean and inv within 1e-5 of fp64; y in x's
+    layout; and exact: a sample alone equal to the same sample in its batch,
+    and run to run. K9's own entry (``group_norm_stats``): Σx and Σx²
+    against fp64 (GN_STATS_TOL), alone == batched and run == run. The apply
+    kernel alone (``group_norm_apply``, SiLU) within one bf16 ulp of the
+    plain apply on the same scale and shift. Every case printed, then a
+    raise listing the failures. With ``timed``, at the paths' shapes:
+    statistics, apply and the whole op's time (plain, library
+    ``torch.var_mean`` and ``F.silu(F.group_norm(...))``), and the bounds:
+    the statistics read x and write two [B, C] fp32, the apply reads x, w
+    and shift and writes y, the whole op reads x and writes y at least once
+    each. ``max_abs_err`` of the statistics row is that of Σx/N and Σx²/N,
+    the mean and E[x²] the fold takes."""
     g = torch.Generator(device="cuda").manual_seed(6)
+    failed = []
     for shape, dtype in [(s, torch.bfloat16) for s in GN_SHAPES] + GN_RAGGED:
         b, c = shape[:2]
         n = shape[2] * shape[3]
+        groups = 32 if c % 32 == 0 else 4
         main = shape in GN_SHAPES and dtype == torch.bfloat16
         x0 = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+        gw = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
+        gb = (0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
         w = (1 + 0.1 * torch.randn(b, c, generator=g, device="cuda")).to(dtype)
         shift = (0.1 * torch.randn(b, c, generator=g, device="cuda")).to(dtype)
         rs, rss, mag = (torch.empty(b, c, dtype=torch.float64, device="cuda") for _ in range(3))
@@ -641,8 +670,24 @@ def check_group_norm(norms, results):
             xi = x0[i].double().reshape(c, n)
             rs[i], rss[i], mag[i] = xi.sum(-1), (xi * xi).sum(-1), xi.abs().sum(-1)
             del xi
+        count = n * (c // groups)  # the per-group mean and inv in fp64, from the channel sums
+        mean64 = rs.reshape(b, groups, -1).sum(-1) / count
+        inv64 = torch.rsqrt(torch.clamp(rss.reshape(b, groups, -1).sum(-1) / count - mean64 * mean64, min=0.0) + 1e-5)
+        want64 = (mean64, inv64)
+        want = [norms.group_norm_reference(x0.float(), groups, gw.float(), gb.float(), 1e-5, act)[0]
+                for act in (None, "silu")]
         for layout in ("NCHW", "NHWC"):
             x = x0 if layout == "NCHW" else x0.to(memory_format=torch.channels_last)
+            y, mean, inv = norms.group_norm_forward(x, groups, gw, gb, 1e-5)
+            y_act = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
+            again = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
+            alone = norms.group_norm(x[1:2], groups, gw, gb, 1e-5, act="silu")
+            torch.cuda.synchronize()
+            gn_exact = torch.equal(again, y_act) and torch.equal(alone[0], y_act[1])
+            layout_ok = y.stride() == x.stride() and y_act.stride() == x.stride()
+            stats = norms.group_norm_errors((y, y_act, mean, inv), want, want64)
+            gate_ok, report = norms.group_norm_gate(stats)
+            del y, y_act, again, alone, mean, inv
             s, ss = norms.group_norm_stats(x)
             again = norms.group_norm_stats(x)
             alone = norms.group_norm_stats(x[1:2])
@@ -659,41 +704,44 @@ def check_group_norm(norms, results):
             apply_ok = y.stride() == x.stride() and (within_bf16_ulp(y, ref) if dtype == torch.bfloat16 else bool(
                 (y - ref).abs().le(1e-6 * ref.abs().clamp(min=1.0)).all()))
             apply_err = (y.float() - ref.float()).abs().max().item()
-            equal = torch.equal(y, ref)
             del y, ref
             times = ""
-            if main:
+            if timed and main:
                 ms_s = median_ms(lambda: norms.group_norm_stats(x))
                 ms_a = median_ms(lambda: norms.group_norm_apply(x, w, shift, "silu"))
+                whole = median_ms(lambda: norms.group_norm(x, groups, gw, gb, 1e-5, act="silu"))
                 plain_s = median_ms(lambda: norms.group_norm_stats_reference(x))
                 plain_a = median_ms(lambda: norms.group_norm_apply_reference(x, w, shift, "silu"))
+                plain_w = median_ms(lambda: norms.group_norm_reference(x, groups, gw, gb, 1e-5, "silu"))
                 times = (f"; statistics {ms_s:.4f} ms (plain {plain_s:.4f}), apply+SiLU {ms_a:.4f} ms "
-                         f"(plain {plain_a:.4f})")
-            if main and layout == "NHWC":  # the paths' layout: the row of the kernels line
-                gw, gb = torch.ones(c, device="cuda", dtype=dtype), torch.zeros(c, device="cuda", dtype=dtype)
+                         f"(plain {plain_a:.4f}), kernel {whole:.4f} ms the whole group_norm+SiLU "
+                         f"(plain {plain_w:.4f})")
+            if timed and main and layout == "NHWC":  # the paths' layout: the row of the kernels line
                 lib_s = library_ms(lambda: lambda: torch.var_mean(x.reshape(b, c, n), dim=-1))
-                lib_a = library_ms(lambda: lambda: F.silu(F.group_norm(x, 32, gw, gb, 1e-5)))
-                whole = median_ms(lambda: norms.group_norm(x, 32, gw, gb, 1e-5, act="silu"))
+                lib_a = library_ms(lambda: lambda: F.silu(F.group_norm(x, groups, gw, gb, 1e-5)))
                 nbytes = x.numel() * x.element_size()
                 b_s = bound(3 * x.numel(), nbytes + 8 * b * c, FP32_OPS_PER_S)
                 b_a = bound(8 * x.numel(), 2 * nbytes + 2 * b * c * x.element_size(), FP32_OPS_PER_S)
+                b_w = bound(11 * x.numel(), 2 * nbytes + 2 * c * x.element_size(), FP32_OPS_PER_S)
                 add_times(results["group_norm_stats"], ms_s, plain_s, lib_s, b_s)
                 add_times(results["group_norm_apply"], ms_a, plain_a, lib_a, b_a)
                 times += (f"; library var_mean {fmt_ms(lib_s)}, group_norm+silu {fmt_ms(lib_a)}; bound statistics "
-                          f"{b_s[0]:.4f} ({b_s[1]}), apply {b_a[0]:.4f} ({b_a[1]}); the port's whole "
-                          f"group_norm+SiLU {whole:.4f} ms")
-            print(f"group_norm {str(shape):21s} {str(dtype)[6:]:8s} {layout}: Σx, Σx² within {GN_STATS_TOL} "
-                  f"{stats_ok} (mean/E[x²] max|err| {err:.3e}); alone == batched and run == run {exact}; apply "
-                  f"within one ulp {apply_ok} (equal {equal}, max|err| {apply_err:.3e}){times}")
-            if not (stats_ok and exact and apply_ok):
-                raise AssertionError(f"GroupNorm kernels disagree with their plain versions at {shape} {dtype} "
-                                     f"{layout}")
+                          f"{b_s[0]:.4f} ({b_s[1]}), apply {b_a[0]:.4f} ({b_a[1]}), whole {b_w[0]:.4f} ({b_w[1]})")
+            ok = gate_ok and gn_exact and layout_ok and stats_ok and exact and apply_ok
+            print(f"group_norm {str(shape):21s} {str(dtype)[6:]:8s} {layout} G={groups}: {'pass' if ok else 'FAIL'}: "
+                  f"{report}; alone == batched and run == run {gn_exact}, y in x's layout {layout_ok}; statistics: "
+                  f"Σx, Σx² within {GN_STATS_TOL} {stats_ok} (mean/E[x²] max|err| {err:.3e}), alone == batched "
+                  f"and run == run {exact}; apply within one ulp {apply_ok} (max|err| {apply_err:.3e}){times}")
+            if not ok:
+                failed.append((shape, str(dtype), layout))
             results["group_norm_stats"]["max_abs_err"] = max(results["group_norm_stats"]["max_abs_err"], err)
             results["group_norm_apply"]["max_abs_err"] = max(results["group_norm_apply"]["max_abs_err"],
                                                              apply_err)
             del x, s, ss
-        del x0, w, shift, rs, rss, mag
+        del x0, w, shift, rs, rss, mag, want, want64, mean64, inv64
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"GroupNorm disagrees with its plain version at {failed}")
 
 
 def within_bf16_ulp(got, want, floor=0.0) -> bool:

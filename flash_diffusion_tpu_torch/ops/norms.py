@@ -43,6 +43,27 @@ LAUNCHES = {"layer_norm": 0, "group_norm_stats": 0, "group_norm_apply": 0}
 # sample's sums, depends on N and the layout alone: never on the batch, the
 # slot or the channel count.
 GN_CHUNK, GN_NHWC_ROWS = 2048, 512
+# The LayerNorm kernel's gate against the plain version in fp32 on the same
+# inputs, per output dtype: (rel, floor, l2, bias) of ``layer_norm_gate``.
+# bf16: y rounds once on store, by at most half an ulp (≤ 2⁻⁸·|y|); the
+# fp32 statistics differ by their summation order only, far inside the
+# floor; the plain version in bf16 gives a relative L2 of ~1.6e-3
+# (``test_plain_bf16_layer_norm_sits_inside_the_gate``), and y × 1.01 gives
+# 1e-2. fp32: the summation order alone (≲ 1e-6 of max|y|).
+LN_GATE = {torch.bfloat16: (2**-8, 2**-16, 4e-3, 1e-4), torch.float32: (0.0, 1e-5, 1e-5, 1e-6)}
+# The whole GroupNorm's gate (``group_norm_gate``) against the plain version
+# in fp32, per output dtype: (rel, floor, l2, bias) for y, with and without
+# SiLU. bf16: the folded scale and shift round to bf16 (JAX's rounding; a
+# kernel's fold may land one ulp off the plain fold's), then x·w and + shift
+# round, and their terms cancel where y ≈ 0 (the floor); a channel's scale
+# rounds once for all its N elements, so the mean error averages over C
+# channels only (the bias term). The plain version in bf16 gives a relative
+# L2 of ~3.0e-3 (y) and ≤ 4.6e-3 (with SiLU), y × 1.01 ~1.04–1.1e-2
+# (``test_plain_bf16_group_norm_sits_inside_the_gate``). fp32: summation
+# order. The per-group mean and inv are held to fp64 within GN_STATS_REL of
+# |mean| + σ and of inv.
+GN_GATE = {torch.bfloat16: (2**-8, 2**-7, 7.5e-3, 2e-3), torch.float32: (0.0, 1e-5, 1e-5, 1e-6)}
+GN_STATS_REL = 1e-5
 
 
 def layer_norm_reference(
@@ -63,6 +84,30 @@ def layer_norm_reference(
     if bias is not None:
         y = y + bias.to(acc)
     return y.to(x.dtype)
+
+
+def layer_norm_errors(y: torch.Tensor, ref: torch.Tensor) -> dict:
+    """What ``layer_norm_gate`` reads of the kernel's ``y`` against the plain
+    version's ``ref`` in fp32 on the same inputs."""
+    r = ref.double()
+    e = y.double() - r
+    rel = LN_GATE[y.dtype][0]
+    return {"dtype": str(y.dtype).replace("torch.", ""), "excess": (e.abs() - rel * r.abs()).max().item(),
+            "max_err": e.abs().max().item(), "max_ref": r.abs().max().item(),
+            "rel_l2": (e.norm() / r.norm()).item(), "mean_err": e.mean().item(),
+            "rms_ref": r.square().mean().sqrt().item()}
+
+
+def layer_norm_gate(stats: dict) -> tuple:
+    """(pass, report): every element within ``rel``·|ref| + ``floor``·max|ref|,
+    the relative L2 error within ``l2`` and the mean signed error within
+    ``bias``·rms(ref), at the constants of ``LN_GATE`` for y's dtype."""
+    rel, floor, l2, bias = LN_GATE[getattr(torch, stats["dtype"])]
+    ok = (stats["excess"] <= floor * stats["max_ref"] and stats["rel_l2"] <= l2
+          and abs(stats["mean_err"]) <= bias * stats["rms_ref"])
+    return ok, (f"max|err| {stats['max_err']:.3e}, past {rel:.3g}·|ref| {stats['excess']:.3e} "
+                f"(tol {floor * stats['max_ref']:.3e}) rel L2 {stats['rel_l2']:.3e} (tol {l2}) "
+                f"mean err {stats['mean_err']:.3e} (tol {bias * stats['rms_ref']:.3e})")
 
 
 def _check_cuda_inputs(x, weight, bias):
@@ -282,10 +327,70 @@ def _gn_fold_stats(s, ss, weight, bias, g: int, n: int, eps: float, dtype):
     return w, shift, mean, inv
 
 
-def _group_norm_forward(x, num_groups, weight, bias, eps, act):
-    """(y, mean, inv): the statistics, the fold and the apply, in x's
-    layout where the kernels take it (contiguous or channels-last)."""
-    if x.device.type != "cpu" and _nhwc(x) is None:
+def group_norm_reference(x, num_groups, weight, bias, eps=1e-5, act=None):
+    """Plain version of the whole GroupNorm forward, on any device: (y, mean,
+    inv) from the plain statistics, ``_gn_fold_stats`` and the plain apply
+    (fp32 statistics; fp64 for fp64 inputs)."""
+    b, c = x.shape[:2]
+    s, ss = group_norm_stats_reference(x)
+    n = (x.numel() // (b * c)) * (c // num_groups)
+    w, shift, mean, inv = _gn_fold_stats(s, ss, weight, bias, num_groups, n, eps, x.dtype)
+    return group_norm_apply_reference(x, w, shift, act), mean, inv
+
+
+def _y_errors(y: torch.Tensor, ref: torch.Tensor, rel: float) -> dict:
+    r = ref.double()
+    e = y.double() - r
+    return {"excess": (e.abs() - rel * r.abs()).max().item(), "max_err": e.abs().max().item(),
+            "max_ref": r.abs().max().item(), "rel_l2": (e.norm() / r.norm()).item(), "mean_err": e.mean().item(),
+            "rms_ref": r.square().mean().sqrt().item()}
+
+
+def group_norm_errors(got, want, want64) -> dict:
+    """What ``group_norm_gate`` reads: ``got`` = (y, y with SiLU, mean, inv) of
+    the port's ``group_norm`` from one x, weight and bias; ``want`` = the
+    same of ``group_norm_reference`` in fp32 (x, weight and bias cast to
+    fp32); ``want64`` = its (mean, inv) in fp64."""
+    y, y_act, mean, inv = got
+    ref, ref_act = want[0], want[1]
+    mean64, inv64 = (t.double() for t in want64)
+    rel = GN_GATE[y.dtype][0]
+    scale = mean64.abs() + 1.0 / inv64  # |mean| + σ of each (sample, group)
+    return {"dtype": str(y.dtype).replace("torch.", ""), "y": _y_errors(y, ref, rel),
+            "silu": _y_errors(y_act, ref_act, rel),
+            "mean_err": ((mean.double() - mean64).abs() / scale).max().item(),
+            "inv_err": ((inv.double() - inv64).abs() / inv64).max().item()}
+
+
+def group_norm_gate(stats: dict) -> tuple:
+    """(pass, report): y and y with SiLU each within ``rel``·|ref| +
+    ``floor``·max|ref| at every element, a relative L2 error within ``l2``
+    and a mean signed error within ``bias``·rms(ref) (``GN_GATE`` for y's
+    dtype); mean within ``GN_STATS_REL``·(|mean| + σ) and inv within
+    ``GN_STATS_REL``·inv of fp64, per (sample, group)."""
+    rel, floor, l2, bias = GN_GATE[getattr(torch, stats["dtype"])]
+    ok = stats["mean_err"] <= GN_STATS_REL and stats["inv_err"] <= GN_STATS_REL
+    parts = []
+    for key in ("y", "silu"):
+        s = stats[key]
+        ok = ok and (s["excess"] <= floor * s["max_ref"] and s["rel_l2"] <= l2
+                     and abs(s["mean_err"]) <= bias * s["rms_ref"])
+        parts.append(f"{key}: max|err| {s['max_err']:.3e}, past {rel:.3g}·|ref| {s['excess']:.3e} "
+                     f"(tol {floor * s['max_ref']:.3e}) rel L2 {s['rel_l2']:.3e} (tol {l2}) mean err "
+                     f"{s['mean_err']:.3e} (tol {bias * s['rms_ref']:.3e})")
+    parts.append(f"mean {stats['mean_err']:.3e}, inv {stats['inv_err']:.3e} of fp64 (tol {GN_STATS_REL})")
+    return ok, "; ".join(parts)
+
+
+def group_norm_forward(x, num_groups, weight, bias, eps=1e-5, act=None):
+    """(y, mean, inv) of the GroupNorm forward, without autograd: the
+    statistics, the fold and the apply, in x's layout where the kernels take
+    it (contiguous or channels-last); the plain version on a CPU tensor.
+    ``mean`` and ``inv`` are the per-group fp32 [B, G] that
+    ``group_norm_backward`` takes."""
+    if x.device.type == "cpu":
+        return group_norm_reference(x, num_groups, weight, bias, eps, act)
+    if _nhwc(x) is None:
         x = x.contiguous()
     b, c = x.shape[:2]
     s, ss = group_norm_stats(x)
@@ -325,7 +430,7 @@ class GroupNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups: int, eps: float):
-        y, mean, inv = _group_norm_forward(x, num_groups, weight, bias, eps, None)
+        y, mean, inv = group_norm_forward(x, num_groups, weight, bias, eps, None)
         ctx.save_for_backward(x, weight, mean, inv)
         ctx.num_groups, ctx.bias_dtype = num_groups, bias.dtype
         return y
@@ -355,7 +460,7 @@ def group_norm(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         y = GroupNormFunction.apply(x, weight, bias, num_groups, eps)
         return F.silu(y) if act == "silu" else y
-    return _group_norm_forward(x, num_groups, weight, bias, eps, act)[0]
+    return group_norm_forward(x, num_groups, weight, bias, eps, act)[0]
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Proof on the card that the kernel gates catch a faulty kernel.
 
-    python3 gate_mutants.py
+    python3 gate_mutants.py [--checks norm,...]
 
 Runs the phase-2 checks of ``chip_smoke.py`` untimed, each in its own
 process with its own kernel build: first on the port as it is (every
@@ -19,7 +19,11 @@ to that kernel's check:
 - ``check_ffn_gemm`` (``gemm_gate``, every ``FFN_*`` case) for the
   down-projection GEMMs K10 and K12 (one source, ``gemm_sm90.cu``);
 - ``check_int8_gemm`` (int32 sums equal, bf16 within one ulp, every
-  ``INT8_SHAPES`` and ``INT8_EXTRA`` case) for the int8 GEMM K11.
+  ``INT8_SHAPES`` and ``INT8_EXTRA`` case) for the int8 GEMM K11;
+- ``check_layer_norm`` (``layer_norm_gate``, every ``LAYER_NORM_*`` case)
+  and ``check_group_norm`` (``group_norm_gate`` and the exact checks, every
+  ``GN_SHAPES`` and ``GN_RAGGED`` case in both layouts) for the norms: K3,
+  and the GroupNorm (K9's statistics, the fold, the apply).
 
 Each attention kernel gets two faults: its key mask removed (keys at or
 past ``kv_valid``, and the zero padding past KV, enter the softmax) and a
@@ -37,7 +41,9 @@ Each run's full output goes to ``build/gate_mutants/<n>.log``
 (the checkout's git-ignored build directory); the summary, with every case
 of the faulted kernel's route, is printed. The patterns name lines of the
 sources, so the script refuses to run (SystemExit) once they no longer
-match. Needs a CUDA card and nvcc.
+match. ``--checks`` runs only the named checks (of ``fwd``, ``packed``,
+``bwd``, ``gemm``, ``int8``, ``norm``) and their faults. Needs a CUDA card
+and nvcc.
 """
 
 import argparse
@@ -49,9 +55,9 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CHECKS = ("fwd", "packed", "bwd", "gemm", "int8")
+CHECKS = ("fwd", "packed", "bwd", "gemm", "int8", "norm")
 ROUTES = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_oneshot",
-          "flash_bwd_pair", "gemm", "geglu_gemm", "int8_gemm")
+          "flash_bwd_pair", "gemm", "geglu_gemm", "int8_gemm", "layer_norm", "group_norm")
 
 
 def head_dim(line: str) -> int:
@@ -142,20 +148,38 @@ MUTANTS = [
      [("return gelu ? gelu_tanh(v) : v;", "return v;", 1)], None),
     ("K11 one K partial dropped", "int8", ("int8_gemm",), "csrc/int8_gemm.cu",
      [("for (int p = 0; p < split; ++p) {", "for (int p = 1; p < split; ++p) {", 1)], SPLIT_M),
+    ("K3 bias dropped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
+     [("if (b != nullptr) v += to_f(b[c]);", "if (false) v += to_f(b[c]);", 1)], None),
+    ("K3 last pack of a row skipped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
+     [("for (int i = lane; i < packs; i += 32) {", "for (int i = lane; i < packs - 1; i += 32) {", 2)], None),
+    ("K3 eps dropped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
+     [("const float rstd = rsqrtf(var + eps);", "const float rstd = rsqrtf(var);", 1)], None),
+    ("K3 y x 1.01", "norm", ("layer_norm",), "csrc/layer_norm.cu",
+     [("p.v[j] = from_f<T>(v);", "p.v[j] = from_f<T>(v * 1.01f);", 1)], EVERY),
+    ("GroupNorm one part of N dropped", "norm", ("group_norm",), "csrc/group_norm.cu",
+     [("for (int p = lane; p < parts; p += 32) {", "for (int p = lane; p < parts - 1; p += 32) {", 1)], None),
+    ("GroupNorm group boundary shifted by one channel", "norm", ("group_norm",), "ops/norms.py",
+     [("mean = s.reshape(b, g, -1).sum(-1) / n", "mean = s.roll(-1, 1).reshape(b, g, -1).sum(-1) / n", 1),
+      ("ss.reshape(b, g, -1).sum(-1) / n", "ss.roll(-1, 1).reshape(b, g, -1).sum(-1) / n", 1)], None),
+    ("GroupNorm SiLU dropped", "norm", ("group_norm",), "csrc/group_norm.cu",
+     [("if constexpr (SILU) u = __fdiv_rn(u, 1.0f + expf(-u));", "", 1)], None),
+    ("GroupNorm y x 1.01", "norm", ("group_norm",), "csrc/group_norm.cu",
+     [("v[j] = from_f<T>(u);", "v[j] = from_f<T>(u * 1.01f);", 1)], EVERY),
 ]
 
 
 def child(package_root: str, checks: str) -> None:
     sys.path.insert(0, package_root)  # the copy's port before the checkout's
     import chip_smoke as cs
-    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels
+    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
 
     print(f"port: {Path(attention.__file__).parents[2]}")
     kernels.library()
     print(f"card: {cs.card_line()}")
     print(f"kernel build: nvcc {kernels.BUILD_INFO['seconds']:.2f} s -> {kernels.BUILD_INFO['path']}")
     names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
-             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm")
+             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm", "layer_norm", "group_norm_stats",
+             "group_norm_apply", "group_norm_fused")
     results = {name: cs.new_row("cuda", "", "") for name in names}
     runs = {
         "fwd": [lambda: cs.check_attention(attention, results, timed=False)],
@@ -166,6 +190,8 @@ def child(package_root: str, checks: str) -> None:
         "bwd": [lambda: cs.check_attention_bwd(attention, kernels, results, timed=False)],
         "gemm": [lambda: cs.check_ffn_gemm(gemm, results, timed=False)],
         "int8": [lambda: cs.check_int8_gemm(gemm, results, timed=False)],
+        "norm": [lambda: cs.check_layer_norm(norms, results, timed=False),
+                 lambda: cs.check_group_norm(norms, results, timed=False)],
     }
     failed = []
     for check in checks.split(","):
@@ -201,7 +227,7 @@ def mutated_copy(where: Path, path: str, edits) -> Path:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--child", help=argparse.SUPPRESS)
-    ap.add_argument("--checks", default=",".join(CHECKS), help=argparse.SUPPRESS)
+    ap.add_argument("--checks", default=",".join(CHECKS), help="the checks to run, and their faults only")
     args = ap.parse_args()
     if args.child:
         return child(args.child, args.checks)
@@ -213,9 +239,10 @@ def main() -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        variants = [("as built", ROOT, ",".join(CHECKS), ROUTES, None)] + [
+        asked = args.checks.split(",")
+        variants = [("as built", ROOT, args.checks, ROUTES, None)] + [
             (name, mutated_copy(Path(tmp) / f"m{i}", path, edits), check, routes, must_fail)
-            for i, (name, check, routes, path, edits, must_fail) in enumerate(MUTANTS)]
+            for i, (name, check, routes, path, edits, must_fail) in enumerate(MUTANTS) if check in asked]
         for i, (name, root, checks, routes, must_fail) in enumerate(variants):
             run = subprocess.run([sys.executable, __file__, "--child", str(root), "--checks", checks],
                                  capture_output=True, text=True, cwd=ROOT)
