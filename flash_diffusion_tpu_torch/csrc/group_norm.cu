@@ -1,49 +1,69 @@
-// GroupNorm for Hopper (sm_90a): the per-channel statistics kernel (K9) and
-// the normalize pass that applies the folded per-channel scale and shift.
-// Both take the two layouts the port's activations come in: NCHW, and
-// channels-last NHWC (what cuDNN's convolutions hand on when their input
-// is a permuted NHWC tensor, as the UNet's and the VAE's inputs are).
+// GroupNorm for Hopper (sm_90a): the per-channel statistics (K9), the fold
+// into a per-channel scale and shift, and the normalize pass, in one launch
+// where a group fits a thread block cluster's shared memory, else in two.
+// Every kernel takes the two layouts the port's activations come in: NCHW,
+// and channels-last NHWC (what cuDNN's convolutions hand on when their
+// input is a permuted NHWC tensor, as the UNet's and the VAE's inputs are).
 //
 // Statistics: replaces the Pallas TPU kernel flash_diffusion_tpu/ops/norms.py
 // _gn_stats_kernel (via _gn_stats_pallas): per (batch, channel) fp32 sums
-// Σx and Σx² over the spatial extent. The JAX kernel walks the [B·N, C]
-// view with a sequential grid and carries its sums in VMEM scratch; here
-// blocks run in parallel, so each sample's N is cut into fixed parts (the
-// caller's constants, never a function of B or C) whose partial sums a
-// second kernel adds in a fixed order (lane-strided, then an xor-shuffle
-// tree). NCHW: each (b, c) row of N elements is contiguous; one warp sums
-// one chunk of a row with 16-byte loads, then a fixed xor-shuffle tree.
-// NHWC: each sample is an [N, C] matrix; a block takes `rows` rows of 64
-// (bf16) or 32 (fp32) channels, 32 row lanes by 8 column threads of 16-byte
-// loads, and adds its row lanes in a fixed shared-memory tree. No atomics:
-// a row's sums depend only on its own N values and the layout, so a sample's
-// statistics are bit-identical alone, in any batch and at any slot, and
-// from run to run. A sample of one part skips the second kernel (that
-// choice depends on N alone).
+// Σx and Σx² over the spatial extent. The fold and the normalize pass are
+// what JAX leaves to XLA (norms.py _gn_fold_stats, then x·w + shift, SiLU):
+// per group the sum of its channel sums in channel order, mean, var =
+// max(E[x²] − mean², 0), inv = rsqrt(var + eps), then per channel w =
+// inv·weight and shift = bias − mean·inv·weight, each rounded to x's dtype,
+// and y = x·w + shift (+ SiLU), rounding where the plain PyTorch version
+// rounds: x·w to x's dtype, then + shift, then SiLU x / (1 + exp(-x)) in
+// fp32 with one rounding.
 //
-// Apply: the port's own fused elementwise pass, not a TPU kernel (JAX leaves
-// it to XLA, which fuses it into the next convolution). y = x·w[b,c] +
-// shift[b,c], then an optional SiLU, in one read and one write, in x's
-// layout. It rounds where the plain PyTorch version rounds: x·w to x's
-// dtype, then + shift to x's dtype, then SiLU x / (1 + exp(-x)) in fp32
-// with one rounding.
+// What bounds it on this card: memory. The whole op must read x once and
+// write y once; its arithmetic is a few operations an element. Two plans
+// (ops/norms.py group_norm_plan, by N, C, G, the layout and the dtype, never
+// by B):
 //
-// What bounds both on this card: memory. The statistics read each element
-// once (2 bytes in bf16) and write 8 bytes per (b, c); the apply reads and
-// writes each element once. The arithmetic is a few operations an element.
+// (a) Resident (gn_resident_*_kernel): one cluster of 1-8 blocks per
+//     (sample, group-aligned channel slice) loads the slice once into its
+//     blocks' shared memory by TMA (NHWC: 3-D tensor-map boxes of the
+//     slice's channels by up to 256 rows, the rows split over the cluster's
+//     blocks; NCHW: one bulk copy of each block's whole channel rows, the
+//     group's channels split over the blocks). Each block sums its part per
+//     channel in a fixed order (lanes, then a fixed shared-memory or xor
+//     tree); the blocks add each other's sums through distributed shared
+//     memory in rank order, fold, and apply from shared memory. One read,
+//     one write, one launch, and no co-residency across clusters, so any B.
+// (b) Streaming, where a slice does not fit (the VAE's larger levels): the
+//     statistics kernel (gn_stats_*_kernel) cuts each sample's N into fixed
+//     parts (a function of N and the layout) and writes per-part partial
+//     sums; the last block of a sample to finish, picked by an arrival
+//     counter that decides who adds and never the order of the sums, adds
+//     the partials in part order and folds. Then the apply kernel
+//     (gn_apply_*_kernel) reads x again: NCHW a block per row segment with
+//     its row's scale and shift loaded once, NHWC each thread on fixed
+//     channels with their scale and shift loaded once as 16-byte vectors and
+//     rows walked by multiplication, with no divide per pack.
+//
+// The statistics kernel alone (fold off) is group_norm_stats, K9's own
+// entry: the channel sums. No atomics touch a sum: a sample's bits depend
+// only on its own values, N, C, G, the layout and the dtype, alone or in any
+// batch, at any slot and from run to run.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "tma.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kWarps = 8;  // warps (work items) per 256-thread block
-constexpr int kApplyThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // independent 16-byte loads a thread keeps in flight (apply)
+constexpr int kSmemLimit = 232448;
 
 __device__ inline float to_f(float x) { return x; }
 __device__ inline float to_f(bf16 x) { return __bfloat162float(x); }
@@ -58,27 +78,157 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// One warp per (row, chunk): partial Σx and Σx² of elements [part·chunk,
-// min(n, (part+1)·chunk)) of the row. VEC: 16-byte loads (n·sizeof(T) and
-// chunk·sizeof(T) multiples of 16, x 16-byte aligned).
+// weight or bias [C], bf16 or fp32
+__device__ inline float param(const void* p, int i, bool bf) {
+  return bf ? __bfloat162float(static_cast<const bf16*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+
+// kV elements of T (16 bytes when VEC, else one)
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(32 * kWarps)
-gn_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ psum, float* __restrict__ psq,
-                        long long items, int n, int chunk, int parts) {
-  const long long item = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (item >= items) return;
-  const int lane = threadIdx.x % 32;
-  const long long row = item / parts;
-  const int begin = (int)(item % parts) * chunk;
-  const int end = min(n, begin + chunk);
-  const T* xr = x + row * (long long)n;
-  float s = 0.0f, ss = 0.0f;
+__device__ inline void load_pack(T* v, const T* p) {
   if constexpr (VEC) {
-    constexpr int kV = 16 / sizeof(T);
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+  } else {
+    v[0] = p[0];
+  }
+}
+template <typename T, bool VEC>
+__device__ inline void store_pack(T* p, const T* v) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// ---- the fold (the plain _gn_fold_stats, with its roundings explicit)
+
+// The sums of a group's cg channel sums, in channel order from its first:
+// the fold's fixed order (ops/norms.py group_norm_fold_reference).
+__device__ inline float2 group_sums(const float* s, const float* q, int first, int cg) {
+  float a = 0.0f, b = 0.0f;
+  for (int j = 0; j < cg; ++j) {
+    const int ch = first + j;
+    a += s[ch];
+    b += q[ch];
+  }
+  return make_float2(a, b);
+}
+
+struct GroupStats {
+  float mean, inv;
+};
+__device__ inline GroupStats fold_group(float2 sums, float count, float eps) {
+  const float mean = __fdiv_rn(sums.x, count);
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(sums.y, count), __fmul_rn(mean, mean)), 0.0f);
+  return {mean, rsqrtf(__fadd_rn(var, eps))};
+}
+// w = inv·weight, shift = bias − (mean·inv)·weight, each rounded to T
+template <typename T>
+__device__ inline float2 fold_channel(GroupStats st, float wc, float bc) {
+  return make_float2(round_to<T>(__fmul_rn(st.inv, wc)),
+                     round_to<T>(__fsub_rn(bc, __fmul_rn(__fmul_rn(st.mean, st.inv), wc))));
+}
+// y of one element: x·w, then + shift, each rounded to T, then the SiLU
+template <typename T, bool SILU>
+__device__ inline T gn_out(float x, float w, float shift) {
+  float u = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x, w)), shift));
+  if constexpr (SILU) u = __fdiv_rn(u, 1.0f + expf(-u));
+  return from_f<T>(u);
+}
+
+// ---- plan (b): the statistics kernel, with the fold in its last block
+
+struct StatsArgs {
+  const void* x;
+  float* psum;             // [B, C, parts] partial Σx
+  float* psq;              // [B, C, parts] partial Σx²
+  unsigned* counter;       // [B] arrivals, 0 between launches
+  float* sum;              // fold = 0: [B, C] Σx
+  float* sumsq;            // fold = 0: [B, C] Σx²
+  const void* weight;      // fold = 1: [C]
+  const void* bias;        // fold = 1: [C]
+  void* w_out;             // fold = 1: [B, C] scale in x's dtype
+  void* shift_out;         // fold = 1: [B, C] shift in x's dtype
+  float* mean_out;         // fold = 1: [B, G]
+  float* inv_out;          // fold = 1: [B, G]
+  int c, n, g, chunk, parts, w_bf16, fold;
+  float eps;
+};
+
+// The last block of sample b to arrive adds the partials of each channel in
+// part order, then writes the sums (fold = 0) or folds: per group the sums
+// of its channel sums, mean and inv, then per channel the scale and shift.
+// The other blocks return. Dynamic shared memory: 2C + 2G floats.
+template <typename T>
+__device__ void finish_sample(const StatsArgs& a, int b, int arrivals) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&a.counter[b], 1u) == static_cast<unsigned>(arrivals - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  extern __shared__ float fold_smem[];
+  float *cs = fold_smem, *cq = fold_smem + a.c, *gm = fold_smem + 2 * a.c, *gv = gm + a.g;
+  for (int ch = threadIdx.x; ch < a.c; ch += blockDim.x) {
+    const long long at = ((long long)b * a.c + ch) * a.parts;
+    float s = 0.0f, q = 0.0f;
+    for (int p = 0; p < a.parts; ++p) {
+      s += __ldcg(a.psum + at + p);
+      q += __ldcg(a.psq + at + p);
+    }
+    if (a.fold) {
+      cs[ch] = s;
+      cq[ch] = q;
+    } else {
+      a.sum[(long long)b * a.c + ch] = s;
+      a.sumsq[(long long)b * a.c + ch] = q;
+    }
+  }
+  if (a.fold) {
+    __syncthreads();
+    const int cg = a.c / a.g;
+    const float count = static_cast<float>((long long)a.n * cg);
+    for (int gi = threadIdx.x; gi < a.g; gi += blockDim.x) {
+      const GroupStats st = fold_group(group_sums(cs, cq, gi * cg, cg), count, a.eps);
+      gm[gi] = st.mean;
+      gv[gi] = st.inv;
+      a.mean_out[(long long)b * a.g + gi] = st.mean;
+      a.inv_out[(long long)b * a.g + gi] = st.inv;
+    }
+    __syncthreads();
+    for (int ch = threadIdx.x; ch < a.c; ch += blockDim.x) {
+      const float2 f = fold_channel<T>({gm[ch / cg], gv[ch / cg]}, param(a.weight, ch, a.w_bf16),
+                                       param(a.bias, ch, a.w_bf16));
+      static_cast<T*>(a.w_out)[(long long)b * a.c + ch] = from_f<T>(f.x);
+      static_cast<T*>(a.shift_out)[(long long)b * a.c + ch] = from_f<T>(f.y);
+    }
+  }
+  if (threadIdx.x == 0) a.counter[b] = 0u;  // ready for the next launch on this stream
+}
+
+// NCHW: grid (ceil(C·parts / 8), B); one warp per (channel, part) of
+// sample blockIdx.y: elements [part·chunk, min(n, (part+1)·chunk)) of the
+// channel's row, lane-strided, then the xor tree. VEC: 16-byte loads (n and
+// chunk multiples of 16 bytes, x 16-byte aligned).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) gn_stats_nchw_kernel(StatsArgs a) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
+  const int b = blockIdx.y;
+  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (item < a.c * a.parts) {
+    const int ch = item / a.parts, part = item % a.parts;
+    const int begin = part * a.chunk, end = min(a.n, begin + a.chunk);
+    const T* xr = static_cast<const T*>(a.x) + ((long long)b * a.c + ch) * a.n;
+    float s = 0.0f, ss = 0.0f;
 #pragma unroll 4
     for (int i = begin + lane * kV; i < end; i += 32 * kV) {
       alignas(16) T v[kV];
-      *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(xr + i));
+      load_pack<T, VEC>(v, xr + i);
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
         const float f = to_f(v[j]);
@@ -86,52 +236,41 @@ gn_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ psum, float
         ss += f * f;
       }
     }
-  } else {
-    for (int i = begin + lane; i < end; i += 32) {
-      const float f = to_f(xr[i]);
-      s += f;
-      ss += f * f;
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      const long long at = ((long long)b * a.c + ch) * a.parts + part;
+      a.psum[at] = s;
+      a.psq[at] = ss;
+      __threadfence();
     }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  if (lane == 0) {
-    psum[item] = s;
-    psq[item] = ss;
-  }
+  finish_sample<T>(a, b, gridDim.x);
 }
 
-// NHWC: block (column tile, part, b) sums rows [part·rows, min(n, (part+1)·
-// rows)) of sample b's [n, c] matrix for 8·kV channels: thread (row lane
-// r, column thread j) takes rows r, r + 32, ... and channels
-// [(tile·8 + j)·kV, +kV); the 32 row lanes then add in a fixed tree. The
-// partial of (b, ch) goes to [b·c + ch][part] (the layout the final kernel
-// reads), or straight to the sums when there is one part. VEC: 16-byte loads
-// (c·sizeof(T) a multiple of 16, x 16-byte aligned).
+// NHWC: grid (ceil(C / 8kV), parts, B); block (column tile, part, b) sums
+// rows [part·chunk, min(n, (part+1)·chunk)) of sample b's [n, C] matrix for
+// 8·kV channels: thread (row lane r, column thread j) takes rows r, r + 32,
+// ... and channels [(tile·8 + j)·kV, +kV); the 32 row lanes then add in a
+// fixed tree. VEC: 16-byte loads (C·sizeof(T) a multiple of 16).
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(32 * kWarps)
-gn_stats_nhwc_partial_kernel(const T* __restrict__ x, float* __restrict__ psum, float* __restrict__ psq,
-                             int n, int c, int rows, int parts) {
+__global__ void __launch_bounds__(kThreads) gn_stats_nhwc_kernel(StatsArgs a) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  constexpr int kCols = 8, kLanes = 32 * kWarps / kCols;
+  constexpr int kCols = 8, kLanes = kThreads / kCols;
   __shared__ float sh_s[kLanes][kCols * kV], sh_q[kLanes][kCols * kV];
   const int col = threadIdx.x % kCols, lane = threadIdx.x / kCols;
   const int b = blockIdx.z, part = blockIdx.y;
   const int c0 = (blockIdx.x * kCols + col) * kV;
-  const int r1 = min(n, (part + 1) * rows);
+  const int r1 = min(a.n, (part + 1) * a.chunk);
   float s[kV], ss[kV];
 #pragma unroll
   for (int j = 0; j < kV; ++j) s[j] = ss[j] = 0.0f;
-  if (c0 < c) {
-    const T* xb = x + (long long)b * n * c + c0;
+  if (c0 < a.c) {
+    const T* xb = static_cast<const T*>(a.x) + (long long)b * a.n * a.c + c0;
 #pragma unroll 4
-    for (int r = part * rows + lane; r < r1; r += kLanes) {
+    for (int r = part * a.chunk + lane; r < r1; r += kLanes) {
       alignas(16) T v[kV];
-      if constexpr (VEC) {
-        *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(xb + (long long)r * c));
-      } else {
-        v[0] = xb[(long long)r * c];
-      }
+      load_pack<T, VEC>(v, xb + (long long)r * a.c);
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
         const float f = to_f(v[j]);
@@ -156,149 +295,500 @@ gn_stats_nhwc_partial_kernel(const T* __restrict__ x, float* __restrict__ psum, 
     }
     __syncthreads();
   }
-  if (lane == 0 && c0 < c) {
+  if (lane == 0 && c0 < a.c) {
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
-      const long long at = ((long long)b * c + c0 + j) * parts + part;
-      psum[at] = sh_s[0][col * kV + j];
-      psq[at] = sh_q[0][col * kV + j];
+      if (c0 + j < a.c) {
+        const long long at = ((long long)b * a.c + c0 + j) * a.parts + part;
+        a.psum[at] = sh_s[0][col * kV + j];
+        a.psq[at] = sh_q[0][col * kV + j];
+      }
+    }
+    __threadfence();
+  }
+  finish_sample<T>(a, b, gridDim.x * gridDim.y);
+}
+
+// ---- plan (b): the apply kernels
+
+// NCHW: grid (B·C, ceil(packs / (256·kUnroll))); block (row, segment) of
+// the [B·C, n] rows; the row's scale and shift loaded once.
+template <typename T, bool VEC, bool SILU>
+__global__ void __launch_bounds__(kThreads)
+gn_apply_nchw_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ shift,
+                     T* __restrict__ y, int n) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
+  const long long row = blockIdx.x;
+  const float wr = to_f(w[row]), sr = to_f(shift[row]);
+  const int packs = n / kV;
+  const T* xr = x + row * n;
+  T* yr = y + row * n;
+  const int p0 = blockIdx.y * (kThreads * kUnroll) + threadIdx.x;
+  alignas(16) T v[kUnroll][kV];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int p = p0 + u * kThreads;
+    if (p < packs) load_pack<T, VEC>(v[u], xr + (long long)p * kV);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int p = p0 + u * kThreads;
+    if (p < packs) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[u][j] = gn_out<T, SILU>(to_f(v[u][j]), wr, sr);
+      store_pack<T, VEC>(yr + (long long)p * kV, v[u]);
     }
   }
 }
 
-// One warp per row: the sum of its `parts` partials, lane-strided then the
-// xor tree.
-__global__ void __launch_bounds__(32 * kWarps)
-gn_stats_final_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
-                      float* __restrict__ sum, float* __restrict__ sumsq, int rows, int parts) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const float* ps = psum + (long long)row * parts;
-  const float* pq = psq + (long long)row * parts;
-  float s = 0.0f, ss = 0.0f;
-  for (int p = lane; p < parts; p += 32) {
-    s += ps[p];
-    ss += pq[p];
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  if (lane == 0) {
-    sum[row] = s;
-    sumsq[row] = ss;
+// NHWC: grid (ceil(n / rows), B); block (row segment, b) of sample b's
+// [n, C] matrix: thread (tx, ty) of tx_n = min(C / kV, 256) by 256 / tx_n
+// takes channel packs tx, tx + tx_n, ..., each with its scale and shift in
+// registers, over rows ty, ty + ty_n, ... of the segment.
+template <typename T, bool VEC, bool SILU>
+__global__ void __launch_bounds__(kThreads)
+gn_apply_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ shift,
+                     T* __restrict__ y, int n, int c, int rows) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
+  const int cpacks = c / kV;
+  const int tx_n = min(cpacks, kThreads), ty_n = kThreads / tx_n;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  if (ty >= ty_n) return;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows, r1 = min(n, r0 + rows);
+  const long long base = (long long)b * n * c;
+  for (int cp = tx; cp < cpacks; cp += tx_n) {
+    alignas(16) T wp[kV], sp[kV];
+    load_pack<T, VEC>(wp, w + (long long)b * c + cp * kV);
+    load_pack<T, VEC>(sp, shift + (long long)b * c + cp * kV);
+    float wf[kV], sf[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      wf[j] = to_f(wp[j]);
+      sf[j] = to_f(sp[j]);
+    }
+    const T* xc = x + base + cp * kV;
+    T* yc = y + base + cp * kV;
+    for (int r = r0 + ty; r < r1; r += ty_n * kUnroll) {
+      alignas(16) T v[kUnroll][kV];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int ru = r + u * ty_n;
+        if (ru < r1) load_pack<T, VEC>(v[u], xc + (long long)ru * c);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int ru = r + u * ty_n;
+        if (ru < r1) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) v[u][j] = gn_out<T, SILU>(to_f(v[u][j]), wf[j], sf[j]);
+          store_pack<T, VEC>(yc + (long long)ru * c, v[u]);
+        }
+      }
+    }
   }
 }
 
-// y = x·w[b, ch] + shift[b, ch] (+ SiLU) over [B, C, n] (NCHW) or [B, n, C]
-// (NHWC) elements; w and shift are [B, C]. One thread per kV elements (VEC:
-// 16 bytes; n, or C for NHWC, a multiple of kV), grid-stride.
-template <typename T, bool VEC, bool SILU, bool NHWC>
-__global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                T* __restrict__ y, long long total, int n, int c) {
-  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  const long long packs = total / kV;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < packs;
-       p += (long long)gridDim.x * blockDim.x) {
-    const long long i = p * kV;
-    // the (b, ch) of the first element: NCHW shares it across the pack,
-    // NHWC steps one channel per element
-    const long long at = NHWC ? i / ((long long)n * c) * c + i % c : i / n;
-    alignas(16) T v[kV];
-    if constexpr (VEC) {
-      *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(x + i));
-    } else {
-      v[0] = x[i];
+// ---- plan (a): the resident kernels
+
+struct ResidentArgs {
+  const void* x;           // NCHW: the input (the bulk copies' source)
+  void* y;
+  const void* weight;      // [C]
+  const void* bias;        // [C]
+  float* mean_out;         // [B, G]
+  float* inv_out;          // [B, G]
+  int c, n, g;
+  int cs;                  // NHWC: channels of a slice (whole groups, 16-byte rows); NCHW: channels of a block
+  int rows;                // NHWC: rows a block takes
+  int box_rows, boxes;     // NHWC: the TMA boxes of a block's rows
+  int cluster, w_bf16;
+  float eps;
+};
+
+__device__ inline float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+__device__ inline void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          fdt::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(fdt::smem_addr(bar))
+      : "memory");
+}
+__device__ inline void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   fdt::smem_addr(dst)),
+               "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes), "r"(fdt::smem_addr(bar))
+               : "memory");
+}
+
+// Shared memory of the NHWC resident block, in bytes past its 128-byte
+// aligned base: the data [boxes·box_rows, cs], the lanes' sums [lanes, cs]
+// twice (row 0 holds the block's channel sums, which the peers read), the
+// cluster's sums, scale and shift [cs] each, the groups' mean and inv, the
+// mbarrier.
+struct NhwcLayout {
+  int data, red_q, tot_s, tot_q, wsh, ssh, gst, bar, total;
+  __host__ __device__ NhwcLayout(int cs, int data_rows, int elem, int groups) {
+    const int cols = cs * elem / 16, lanes = kThreads / cols;
+    data = 0;
+    red_q = data_rows * cs * elem + lanes * cs * 4;  // red_s follows the data
+    tot_s = red_q + lanes * cs * 4;
+    tot_q = tot_s + cs * 4;
+    wsh = tot_q + cs * 4;
+    ssh = wsh + cs * 4;
+    gst = ssh + cs * 4;
+    bar = (gst + 2 * groups * 4 + 7) / 8 * 8;
+    total = bar + 8 + 128;  // + the base's alignment slack
+  }
+};
+
+// NHWC: grid (cluster, B·C / cs), clusters of `cluster` blocks along x.
+// Block (rank, b·slices + slice) takes rows [rank·rows, min(n, +rows)) of
+// channels [slice·cs, +cs) of sample b: TMA boxes of cs channels by
+// box_rows rows land in shared memory (rows past n as zeros, never read).
+// Thread (lane, col) of cols = cs / kV column threads: channels [col·kV,
+// +kV) of rows lane, lane + lanes, ...
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kThreads)
+gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a) {
+  constexpr int kV = 16 / sizeof(T);
+  extern __shared__ unsigned char gn_smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(gn_smem_raw) + 127) & ~uintptr_t(127));
+  const int cg = a.c / a.g, groups = a.cs / cg;
+  const NhwcLayout lay(a.cs, a.boxes * a.box_rows, sizeof(T), groups);
+  T* data = reinterpret_cast<T*>(base);
+  float* red_s = reinterpret_cast<float*>(base + a.boxes * a.box_rows * a.cs * sizeof(T));
+  float* red_q = reinterpret_cast<float*>(base + lay.red_q);
+  float* tot_s = reinterpret_cast<float*>(base + lay.tot_s);
+  float* tot_q = reinterpret_cast<float*>(base + lay.tot_q);
+  float* wsh = reinterpret_cast<float*>(base + lay.wsh);
+  float* ssh = reinterpret_cast<float*>(base + lay.ssh);
+  float* gst = reinterpret_cast<float*>(base + lay.gst);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + lay.bar);
+
+  const int rank = static_cast<int>(fdt::cluster_ctarank());
+  const int slices = a.c / a.cs;
+  const int b = blockIdx.y / slices, c0 = blockIdx.y % slices * a.cs;
+  const int r0 = rank * a.rows;
+  const int rows = min(a.rows, a.n - r0);
+  if (threadIdx.x == 0) {
+    fdt::mbar_init(bar, 1);
+    fdt::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int boxes = (rows + a.box_rows - 1) / a.box_rows;
+    fdt::mbar_expect(bar, boxes * a.box_rows * a.cs * static_cast<int>(sizeof(T)));
+    for (int i = 0; i < boxes; ++i) tma_3d(data + i * a.box_rows * a.cs, &map, c0, r0 + i * a.box_rows, b, bar);
+  }
+  const int cols = a.cs / kV, lanes = kThreads / cols;
+  const int col = threadIdx.x % cols, lane = threadIdx.x / cols;
+  fdt::mbar_wait(bar, 0);
+
+  // this block's channel sums: lanes, then a fixed tree over the lanes
+  float s[kV], q[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) s[j] = q[j] = 0.0f;
+  if (lane < lanes) {
+    for (int r = lane; r < rows; r += lanes) {
+      alignas(16) T v[kV];
+      load_pack<T, true>(v, data + r * a.cs + col * kV);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const float f = to_f(v[j]);
+        s[j] += f;
+        q[j] += f * f;
+      }
     }
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
-      const float wr = to_f(w[NHWC ? at + j : at]), br = to_f(b[NHWC ? at + j : at]);
-      // explicit roundings: no fused multiply-add, as PyTorch's separate ops
-      float u = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(to_f(v[j]), wr)), br));
-      if constexpr (SILU) u = __fdiv_rn(u, 1.0f + expf(-u));
-      v[j] = from_f<T>(u);
-    }
-    if constexpr (VEC) {
-      *reinterpret_cast<uint4*>(y + i) = *reinterpret_cast<const uint4*>(v);
-    } else {
-      y[i] = v[0];
+      red_s[lane * a.cs + col * kV + j] = s[j];
+      red_q[lane * a.cs + col * kV + j] = q[j];
     }
   }
-}
-
-template <typename T, bool VEC>
-void stats_nchw(const T* x, float* out_s, float* out_q, int rows, int n, int chunk, int parts,
-                cudaStream_t stream) {
-  const long long items = (long long)rows * parts;
-  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-  gn_stats_partial_kernel<T, VEC><<<blocks, 32 * kWarps, 0, stream>>>(x, out_s, out_q, items, n, chunk, parts);
-}
-
-template <typename T, bool VEC>
-void stats_nhwc(const T* x, float* out_s, float* out_q, int batch, int c, int n, int rows, int parts,
-                cudaStream_t stream) {
-  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  const dim3 grid((c + 8 * kV - 1) / (8 * kV), parts, batch);
-  gn_stats_nhwc_partial_kernel<T, VEC><<<grid, 32 * kWarps, 0, stream>>>(x, out_s, out_q, n, c, rows, parts);
-}
-
-template <typename T>
-int stats(const void* xv, float* sum, float* sumsq, float* psum, float* psq, int batch, int c, int n,
-          int chunk, bool nhwc, bool vec, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  const int rows = batch * c;
-  const int parts = (n + chunk - 1) / chunk;
-  // one part a sample: the partials are the sums
-  float* out_s = parts == 1 ? sum : psum;
-  float* out_q = parts == 1 ? sumsq : psq;
-  if (nhwc) {
-    if (vec) {
-      stats_nhwc<T, true>(x, out_s, out_q, batch, c, n, chunk, parts, stream);
-    } else {
-      stats_nhwc<T, false>(x, out_s, out_q, batch, c, n, chunk, parts, stream);
+  __syncthreads();
+  int top = 1;
+  while (top < lanes) top <<= 1;
+  for (int stride = top / 2; stride > 0; stride >>= 1) {
+    if (lane < stride && lane + stride < lanes) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        red_s[lane * a.cs + col * kV + j] += red_s[(lane + stride) * a.cs + col * kV + j];
+        red_q[lane * a.cs + col * kV + j] += red_q[(lane + stride) * a.cs + col * kV + j];
+      }
     }
-  } else if (vec) {
-    stats_nchw<T, true>(x, out_s, out_q, rows, n, chunk, parts, stream);
-  } else {
-    stats_nchw<T, false>(x, out_s, out_q, rows, n, chunk, parts, stream);
+    __syncthreads();
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
-  gn_stats_final_kernel<<<(rows + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
-      psum, psq, sum, sumsq, rows, parts);
+  fdt::cluster_sync();  // every block's sums (row 0 of red_s, red_q) are in place
+
+  // the cluster's channel sums in rank order, then the fold
+  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+    float ts = 0.0f, tq = 0.0f;
+    for (int r = 0; r < a.cluster; ++r) {
+      ts += ld_cluster_f32(fdt::peer_addr(&red_s[ch], r));
+      tq += ld_cluster_f32(fdt::peer_addr(&red_q[ch], r));
+    }
+    tot_s[ch] = ts;
+    tot_q[ch] = tq;
+  }
+  __syncthreads();
+  const float count = static_cast<float>((long long)a.n * cg);
+  for (int gi = threadIdx.x; gi < groups; gi += kThreads) {
+    const GroupStats st = fold_group(group_sums(tot_s, tot_q, gi * cg, cg), count, a.eps);
+    gst[gi] = st.mean;
+    gst[groups + gi] = st.inv;
+    if (rank == 0) {
+      a.mean_out[(long long)b * a.g + c0 / cg + gi] = st.mean;
+      a.inv_out[(long long)b * a.g + c0 / cg + gi] = st.inv;
+    }
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+    const int gi = ch / cg;
+    const float2 f = fold_channel<T>({gst[gi], gst[groups + gi]}, param(a.weight, c0 + ch, a.w_bf16),
+                                     param(a.bias, c0 + ch, a.w_bf16));
+    wsh[ch] = f.x;
+    ssh[ch] = f.y;
+  }
+  cluster_arrive();  // this block is done with its peers' shared memory
+  __syncthreads();
+
+  // the apply, from shared memory
+  if (lane < lanes) {
+    float wf[kV], sf[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      wf[j] = wsh[col * kV + j];
+      sf[j] = ssh[col * kV + j];
+    }
+    T* yb = static_cast<T*>(a.y) + ((long long)b * a.n + r0) * a.c + c0 + col * kV;
+    for (int r = lane; r < rows; r += lanes) {
+      alignas(16) T v[kV];
+      load_pack<T, true>(v, data + r * a.cs + col * kV);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = gn_out<T, SILU>(to_f(v[j]), wf[j], sf[j]);
+      store_pack<T, true>(yb + (long long)r * a.c, v);
+    }
+  }
+  cluster_wait();  // no block leaves while a peer may still read its sums
+}
+
+// NCHW: grid (cluster, B·G), clusters of `cluster` blocks along x. Block
+// (rank, b·G + group) takes channels [rank·cs, +cs) of the group (cs = C/G
+// / cluster), whole rows of n, by one bulk copy; warp w sums its channels w,
+// w + 8, ... (lanes, then the xor tree); the group's channel sums come from
+// their blocks through distributed shared memory. The apply takes a
+// channel at a time with every thread.
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs a) {
+  constexpr int kV = 16 / sizeof(T);
+  extern __shared__ unsigned char gn_smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(gn_smem_raw) + 127) & ~uintptr_t(127));
+  const int cg = a.c / a.g;
+  T* data = reinterpret_cast<T*>(base);
+  float* part_s = reinterpret_cast<float*>(base + (long long)a.cs * a.n * sizeof(T));
+  float* part_q = part_s + a.cs;
+  float* tot_s = part_q + a.cs;  // [cg]
+  float* tot_q = tot_s + cg;
+  float* wsh = tot_q + cg;       // [cs]
+  float* ssh = wsh + a.cs;
+  float* gst = ssh + a.cs;       // mean, inv
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(gst + 2) + 7) & ~uintptr_t(7));
+
+  const int rank = static_cast<int>(fdt::cluster_ctarank());
+  const int b = blockIdx.y / a.g, gi = blockIdx.y % a.g;
+  const int ch0 = gi * cg + rank * a.cs;  // this block's first channel
+  const long long at = ((long long)b * a.c + ch0) * a.n;
+  if (threadIdx.x == 0) {
+    fdt::mbar_init(bar, 1);
+    fdt::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int bytes = a.cs * a.n * static_cast<int>(sizeof(T));
+    fdt::mbar_expect(bar, bytes);
+    bulk_load(data, static_cast<const T*>(a.x) + at, bytes, bar);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int packs = a.n / kV;
+  fdt::mbar_wait(bar, 0);
+  for (int ch = warp; ch < a.cs; ch += kWarps) {
+    float s = 0.0f, q = 0.0f;
+    for (int p = lane; p < packs; p += 32) {
+      alignas(16) T v[kV];
+      load_pack<T, true>(v, data + (long long)ch * a.n + p * kV);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const float f = to_f(v[j]);
+        s += f;
+        q += f * f;
+      }
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      part_s[ch] = s;
+      part_q[ch] = q;
+    }
+  }
+  fdt::cluster_sync();
+  for (int j = threadIdx.x; j < cg; j += kThreads) {
+    tot_s[j] = ld_cluster_f32(fdt::peer_addr(&part_s[j % a.cs], j / a.cs));
+    tot_q[j] = ld_cluster_f32(fdt::peer_addr(&part_q[j % a.cs], j / a.cs));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const GroupStats st = fold_group(group_sums(tot_s, tot_q, 0, cg), static_cast<float>((long long)a.n * cg),
+                                     a.eps);
+    gst[0] = st.mean;
+    gst[1] = st.inv;
+    if (rank == 0) {
+      a.mean_out[blockIdx.y] = st.mean;
+      a.inv_out[blockIdx.y] = st.inv;
+    }
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+    const float2 f = fold_channel<T>({gst[0], gst[1]}, param(a.weight, ch0 + ch, a.w_bf16),
+                                     param(a.bias, ch0 + ch, a.w_bf16));
+    wsh[ch] = f.x;
+    ssh[ch] = f.y;
+  }
+  cluster_arrive();
+  __syncthreads();
+  T* yb = static_cast<T*>(a.y) + at;
+  for (int ch = 0; ch < a.cs; ++ch) {
+    const float wf = wsh[ch], sf = ssh[ch];
+    for (int p = threadIdx.x; p < packs; p += kThreads) {
+      alignas(16) T v[kV];
+      load_pack<T, true>(v, data + (long long)ch * a.n + p * kV);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = gn_out<T, SILU>(to_f(v[j]), wf, sf);
+      store_pack<T, true>(yb + (long long)ch * a.n + p * kV, v);
+    }
+  }
+  cluster_wait();
+}
+
+// ---- host side
+
+// A 3-D map {C, n, B} of an NHWC tensor, in boxes of cs channels by
+// box_rows rows of one sample, no swizzle (the box lands as [box_rows, cs]).
+bool make_nhwc_map(CUtensorMap* map, const void* x, int batch, int n, int c, int cs, int box_rows, bool bf) {
+  fdt::EncodeTiled encode = fdt::encode_tiled();
+  if (encode == nullptr) return false;
+  const int elem = bf ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * elem, (cuuint64_t)n * c * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)cs, (cuuint32_t)box_rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return encode(map, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(x),
+                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, dim3 grid, int cluster, int smem, cudaStream_t stream, Args... args) {
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC, bool NHWC>
-void apply_launch(const void* x, const void* w, const void* b, void* y, long long total, int n, int c,
-                  bool silu, cudaStream_t stream) {
+template <typename T, bool SILU>
+int resident(ResidentArgs a, int batch, bool nhwc, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  if (a.cluster < 1 || a.cluster > 8 || a.c % a.g != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = a.c / a.g;
+  if (nhwc) {
+    // the slice: whole groups in 16-byte rows; the rows of a block in boxes
+    // of at most 256 rows, a multiple of 8 (128-byte aligned box slots)
+    if (a.cs % cg != 0 || a.cs % kV != 0 || a.c % a.cs != 0 || a.cs > 256 || (long long)(a.cluster - 1) * a.rows >= a.n)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.boxes = (a.rows + 255) / 256;
+    a.box_rows = ((a.rows + a.boxes - 1) / a.boxes + 7) / 8 * 8;
+    const NhwcLayout lay(a.cs, a.boxes * a.box_rows, sizeof(T), a.cs / cg);
+    CUtensorMap map;
+    if (!make_nhwc_map(&map, a.x, batch, a.n, a.c, a.cs, a.box_rows, sizeof(T) == 2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cluster(gn_resident_nhwc_kernel<T, SILU>, dim3(a.cluster, batch * (a.c / a.cs)), a.cluster,
+                          lay.total, stream, map, a);
+  }
+  // NCHW: the group's channels split over the cluster, whole rows each
+  if (cg % a.cluster != 0 || a.cs != cg / a.cluster || a.n % kV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long data = (long long)a.cs * a.n * sizeof(T);
+  const long long smem = 128 + data + (4LL * a.cs + 2LL * cg + 2) * 4 + 16;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(gn_resident_nchw_kernel<T, SILU>, dim3(a.cluster, batch * a.g), a.cluster,
+                        static_cast<int>(smem), stream, a);
+}
+
+template <typename T, bool VEC>
+int stats(StatsArgs a, int batch, bool nhwc, cudaStream_t stream) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  const long long packs = total / kV;
-  const unsigned blocks =
-      (unsigned)std::min<long long>((packs + kApplyThreads - 1) / kApplyThreads, 1LL << 20);
+  a.parts = (a.n + a.chunk - 1) / a.chunk;
+  const int smem = a.fold ? (2 * a.c + 2 * a.g) * 4 : 0;
+  void (*kernel)(StatsArgs) = nhwc ? gn_stats_nhwc_kernel<T, VEC> : gn_stats_nchw_kernel<T, VEC>;
+  if (smem > 32768) {  // the fold of a wide C
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nhwc) {
+    const dim3 grid((a.c + 8 * kV - 1) / (8 * kV), a.parts, batch);
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+  } else {
+    const dim3 grid((unsigned)(((long long)a.c * a.parts + kWarps - 1) / kWarps), batch);
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool VEC, bool SILU>
+void apply_launch(const void* x, const void* w, const void* b, void* y, int batch, int c, int n, bool nhwc,
+                  cudaStream_t stream) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
   const T *xp = static_cast<const T*>(x), *wp = static_cast<const T*>(w), *bp = static_cast<const T*>(b);
   T* yp = static_cast<T*>(y);
-  if (silu) {
-    gn_apply_kernel<T, VEC, true, NHWC><<<blocks, kApplyThreads, 0, stream>>>(xp, wp, bp, yp, total, n, c);
+  if (nhwc) {
+    // rows a block: about 64 KB of x, at least the rows its threads span
+    const int rows = std::max(kThreads / std::min(c / kV, kThreads), 65536 / (c * (int)sizeof(T)));
+    gn_apply_nhwc_kernel<T, VEC, SILU><<<dim3((n + rows - 1) / rows, batch), kThreads, 0, stream>>>(
+        xp, wp, bp, yp, n, c, rows);
   } else {
-    gn_apply_kernel<T, VEC, false, NHWC><<<blocks, kApplyThreads, 0, stream>>>(xp, wp, bp, yp, total, n, c);
+    const int packs = n / kV;
+    gn_apply_nchw_kernel<T, VEC, SILU><<<dim3(batch * c, (packs + kThreads * kUnroll - 1) / (kThreads * kUnroll)),
+                                         kThreads, 0, stream>>>(xp, wp, bp, yp, n);
   }
 }
 
-template <typename T>
-int apply(const void* x, const void* w, const void* b, void* y, int batch, int c, int n, bool silu,
-          bool nhwc, bool vec, cudaStream_t stream) {
-  const long long total = (long long)batch * c * n;
-  if (nhwc) {
-    if (vec) {
-      apply_launch<T, true, true>(x, w, b, y, total, n, c, silu, stream);
-    } else {
-      apply_launch<T, false, true>(x, w, b, y, total, n, c, silu, stream);
-    }
-  } else if (vec) {
-    apply_launch<T, true, false>(x, w, b, y, total, n, c, silu, stream);
+template <typename T, bool VEC>
+int apply(const void* x, const void* w, const void* b, void* y, int batch, int c, int n, bool silu, bool nhwc,
+          cudaStream_t stream) {
+  if (silu) {
+    apply_launch<T, VEC, true>(x, w, b, y, batch, c, n, nhwc, stream);
   } else {
-    apply_launch<T, false, false>(x, w, b, y, total, n, c, silu, stream);
+    apply_launch<T, VEC, false>(x, w, b, y, batch, c, n, nhwc, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -307,31 +797,63 @@ int apply(const void* x, const void* w, const void* b, void* y, int batch, int c
 
 extern "C" {
 
-// x: [batch, c, n] contiguous (nhwc = 0) or [batch, n, c] (nhwc = 1: a
-// channels-last tensor), bf16 (x_bf16 = 1) or fp32. sum, sumsq: [batch, c]
-// fp32 out. psum, psq: [batch·c, ceil(n / chunk)] fp32 scratch (unused when
-// n <= chunk). chunk: elements of an NCHW row that one warp sums (a multiple
-// of 8), or NHWC rows that one block sums. vec = 1 takes 16-byte loads: the
-// caller sets it only when x is 16-byte aligned and the contiguous extent (n
-// for NCHW, c for NHWC) times the element size is a multiple of 16. Returns
-// the CUDA error code of the launches (0 on success).
-int fdt_group_norm_stats(const void* x, void* sum, void* sumsq, void* psum, void* psq, int batch,
-                         int c, int n, int chunk, int x_bf16, int nhwc, int vec, void* stream) {
+// Plan (b)'s first launch, or K9's own entry. x: [batch, c, n] contiguous
+// (nhwc = 0) or [batch, n, c] (nhwc = 1: a channels-last tensor), bf16
+// (x_bf16 = 1) or fp32. psum, psq: [batch·c·ceil(n / chunk)] fp32 scratch;
+// counter: [batch] unsigned, zero, and zero again after the launch. chunk:
+// elements of an NCHW row, or NHWC rows, a part (ops/norms.py
+// gn_stream_plan). fold = 0: writes the channel sums sum, sumsq [batch, c].
+// fold = 1: writes the scale and shift w_out, shift_out [batch, c] in x's
+// dtype and the groups' mean_out, inv_out [batch, g] fp32, from weight and
+// bias [c] (bf16 when w_bf16 = 1, else fp32) and eps. vec = 1 takes 16-byte
+// loads: only when x is 16-byte aligned and the contiguous extent (n for
+// NCHW, c for NHWC) times the element size is a multiple of 16. Returns the
+// CUDA error code of the launch (0 on success).
+int fdt_group_norm_stats(const void* x, void* sum, void* sumsq, const void* weight, const void* bias, void* w_out,
+                         void* shift_out, void* mean_out, void* inv_out, void* psum, void* psq, void* counter,
+                         int batch, int c, int n, int g, int chunk, int x_bf16, int w_bf16, int nhwc, int vec,
+                         int fold, float eps, void* stream) {
+  StatsArgs a = {x, static_cast<float*>(psum), static_cast<float*>(psq), static_cast<unsigned*>(counter),
+                 static_cast<float*>(sum), static_cast<float*>(sumsq), weight, bias, w_out, shift_out,
+                 static_cast<float*>(mean_out), static_cast<float*>(inv_out), c, n, g, chunk, 0, w_bf16, fold, eps};
+  if (chunk <= 0 || (fold && (g <= 0 || c % g != 0))) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *o_s = static_cast<float*>(sum), *o_q = static_cast<float*>(sumsq);
-  float *p_s = static_cast<float*>(psum), *p_q = static_cast<float*>(psq);
-  return x_bf16 ? stats<bf16>(x, o_s, o_q, p_s, p_q, batch, c, n, chunk, nhwc != 0, vec != 0, s)
-                : stats<float>(x, o_s, o_q, p_s, p_q, batch, c, n, chunk, nhwc != 0, vec != 0, s);
+  const bool nh = nhwc != 0;
+  if (x_bf16) return vec ? stats<bf16, true>(a, batch, nh, s) : stats<bf16, false>(a, batch, nh, s);
+  return vec ? stats<float, true>(a, batch, nh, s) : stats<float, false>(a, batch, nh, s);
 }
 
-// x, y: [batch, c, n] or (nhwc = 1) [batch, n, c], contiguous; w, b: [batch,
-// c] (the folded scale and shift), all bf16 (x_bf16 = 1) or all fp32. silu
-// = 1 applies SiLU after the shift. vec as above (y 16-byte aligned too).
-int fdt_group_norm_apply(const void* x, const void* w, const void* b, void* y, int batch, int c,
-                         int n, int silu, int x_bf16, int nhwc, int vec, void* stream) {
+// Plan (b)'s second launch. x, y: [batch, c, n] or (nhwc = 1) [batch, n, c],
+// contiguous; w, b: [batch, c] (the folded scale and shift), all bf16
+// (x_bf16 = 1) or all fp32. silu = 1 applies SiLU after the shift. vec as
+// above (y, w and b 16-byte aligned too).
+int fdt_group_norm_apply(const void* x, const void* w, const void* b, void* y, int batch, int c, int n, int silu,
+                         int x_bf16, int nhwc, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? apply<bf16>(x, w, b, y, batch, c, n, silu != 0, nhwc != 0, vec != 0, s)
-                : apply<float>(x, w, b, y, batch, c, n, silu != 0, nhwc != 0, vec != 0, s);
+  const bool si = silu != 0, nh = nhwc != 0;
+  if (x_bf16) return vec ? apply<bf16, true>(x, w, b, y, batch, c, n, si, nh, s) : apply<bf16, false>(x, w, b, y, batch, c, n, si, nh, s);
+  return vec ? apply<float, true>(x, w, b, y, batch, c, n, si, nh, s) : apply<float, false>(x, w, b, y, batch, c, n, si, nh, s);
+}
+
+// Plan (a): the whole GroupNorm in one launch. x, y as above (16-byte
+// aligned; NCHW: n, NHWC: c and `channels` times the element size multiples
+// of 16); weight, bias [c] (bf16 when w_bf16 = 1, else fp32); mean_out,
+// inv_out [batch, g] fp32. cluster: blocks of a cluster (1-8). NHWC:
+// `channels` of a slice (whole groups), `rows` a block takes (the last
+// block's first row inside n); NCHW: `channels` a block takes (C/G /
+// cluster), rows unused (ops/norms.py gn_resident_plan). Returns the CUDA
+// error code of the launch (0 on success): a plan whose shared memory
+// exceeds the block's limit, or a cluster the card cannot hold, is refused.
+int fdt_group_norm_resident(const void* x, const void* weight, const void* bias, void* y, void* mean_out,
+                            void* inv_out, int batch, int c, int n, int g, int cluster, int channels, int rows,
+                            int x_bf16, int w_bf16, int nhwc, int silu, float eps, void* stream) {
+  ResidentArgs a = {x, y, weight, bias, static_cast<float*>(mean_out), static_cast<float*>(inv_out), c, n, g,
+                    channels, rows, 0, 0, cluster, w_bf16, eps};
+  if (g <= 0 || channels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool nh = nhwc != 0;
+  if (x_bf16) return silu ? resident<bf16, true>(a, batch, nh, s) : resident<bf16, false>(a, batch, nh, s);
+  return silu ? resident<float, true>(a, batch, nh, s) : resident<float, false>(a, batch, nh, s);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// LayerNorm forward for Hopper (sm_90a): one read and one write per row.
+// LayerNorm forward for Hopper (sm_90a): one read and one write per row,
+// the row held in registers between them.
 //
 // Replaces the Pallas TPU kernel flash_diffusion_tpu/ops/norms.py
 // _ln_fwd_kernel (via _ln_pallas_call), with its math: fp32 row statistics
@@ -7,13 +8,20 @@
 //
 // What bounds it on this card: memory. Each row is read from device memory
 // once and written once; the arithmetic is a few operations per element,
-// far below the card's compute. One warp takes one row (four rows per
-// 128-thread block). Where the row allows it (16-byte aligned rows) the
-// lanes move 16 bytes per load and store; they reduce sum(x) and sum(x^2)
-// with warp shuffles, then walk the row again to normalise. The second walk
-// finds the row in L1/L2 (a row is at most a few KB), so device traffic
-// stays one read and one write. Unlike the JAX dispatch, every width and
-// row count is taken (C = 320 included).
+// far below the card's compute. So the kernel keeps every lane busy on its
+// loads and keeps them in flight: `tpr` lanes (8, 16 or 32 of one warp)
+// take one row, each holding PPT packs (16 bytes where the row allows it)
+// in registers from the loads, through the statistics (lane sums, then an
+// xor-shuffle tree over the row's lanes), to the store. The caller
+// (ops/norms.py layer_norm_plan) picks tpr and PPT by the width so that
+// tpr * PPT packs cover the row exactly at the paths' widths (bf16 C = 320:
+// 8 x 5; 640, 1152: 16 x 5, 16 x 9; 1280: 32 x 5; fp32 768, 1280: 32 x 6,
+// 32 x 10). The affine is loaded once per thread as 16-byte vectors and
+// kept across the rows the thread takes (the grid is capped at the card's
+// resident blocks; rows past it loop). A row's sums depend on its width
+// alone, never on its slot or the row count. Rows wider than 16 packs a
+// lane take the wide kernel: one warp a row, walking the row twice (the
+// second walk finds it in L1/L2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,7 +31,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kRowsPerBlock = 4;
+constexpr int kWideRows = 4;  // rows (warps) per block of the wide kernel
 
 __device__ inline float to_f(float x) { return x; }
 __device__ inline float to_f(bf16 x) { return __bfloat162float(x); }
@@ -31,89 +39,218 @@ template <typename T> __device__ inline T from_f(float x);
 template <> __device__ inline float from_f<float>(float x) { return x; }
 template <> __device__ inline bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// K elements of E from p, in the widest vector loads their bytes allow
+// (p aligned to them).
+template <typename E, int K>
+__device__ inline void load_k(E (&dst)[K], const E* p) {
+  constexpr int kBytes = K * (int)sizeof(E);
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(p)[i];
+  } else if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) dst[i] = p[i];
+  }
+}
+template <typename E, int K>
+__device__ inline void store_k(E* p, const E (&src)[K]) {
+  if constexpr (K * sizeof(E) == 16) {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) p[i] = src[i];
+  }
 }
 
-// kV elements of T per load: 16 bytes when VEC, else one element.
-template <typename T, bool VEC>
-struct Pack {
-  static constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  alignas(16) T v[kV];
-  __device__ inline void load(const T* p) {
-    if constexpr (VEC) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
-    } else {
-      v[0] = p[0];
-    }
-  }
-  __device__ inline void store(T* p) const {
-    if constexpr (VEC) {
-      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
-    } else {
-      p[0] = v[0];
-    }
-  }
-};
+// rstd of a row from its fp32 sums (JAX's formula); mean through *mean
+__device__ inline float row_rstd(float s, float ss, int cols, float eps, float* mean) {
+  *mean = s / cols;
+  const float var = fmaxf(ss / cols - *mean * *mean, 0.0f);
+  return rsqrtf(var + eps);
+}
 
+// One row per `tpr` lanes (8, 16 or 32), PPT packs of kV elements per lane:
+// lane l of a row takes packs l, l + tpr, ... (neighbouring lanes on
+// neighbouring 16 bytes). VEC: 16-byte packs (cols * sizeof(T) a multiple of
+// 16, x, y, w and b 16-byte aligned), else packs of one element.
+template <typename T, typename W, int PPT, bool VEC>
+__global__ void __launch_bounds__(256)
+layer_norm_rows_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __restrict__ b,
+                       T* __restrict__ y, int rows, int cols, int tpr, float eps) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
+  const int packs = cols / kV;
+  const int lane = threadIdx.x % tpr;
+  const int rows_per_warp = 32 / tpr;
+  // the first row of this thread's warp, and the step between its rows:
+  // warp-uniform, so that every lane of a warp joins every shuffle
+  const int warp_row = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * rows_per_warp;
+  const int step = gridDim.x * (blockDim.x / 32) * rows_per_warp;
+  const int my = (threadIdx.x % 32) / tpr;
+  bool ok[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) ok[j] = j * tpr + lane < packs;
+  W wv[PPT][kV], bv[PPT][kV];  // the affine, loaded once
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    if (ok[j] && w != nullptr) load_k(wv[j], w + (j * tpr + lane) * kV);
+    if (ok[j] && b != nullptr) load_k(bv[j], b + (j * tpr + lane) * kV);
+  }
+  for (int row0 = warp_row; row0 < rows; row0 += step) {
+    const int row = row0 + my;
+    const bool live = row < rows;
+    const T* xr = x + (size_t)row * cols;
+    T v[PPT][kV];
+    float s = 0.0f, ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      if (live && ok[j]) {
+        load_k(v[j], xr + (j * tpr + lane) * kV);
+#pragma unroll
+        for (int e = 0; e < kV; ++e) {
+          const float f = to_f(v[j][e]);
+          s += f;
+          ss += f * f;
+        }
+      }
+    }
+    for (int o = tpr / 2; o > 0; o >>= 1) {  // the row's lanes: a fixed xor tree
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    float mean;
+    const float rstd = row_rstd(s, ss, cols, eps, &mean);
+    T* yr = y + (size_t)row * cols;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      if (live && ok[j]) {
+#pragma unroll
+        for (int e = 0; e < kV; ++e) {
+          float u = (to_f(v[j][e]) - mean) * rstd;
+          if (w != nullptr) u *= to_f(wv[j][e]);
+          if (b != nullptr) u += to_f(bv[j][e]);
+          v[j][e] = from_f<T>(u);
+        }
+        store_k(yr + (j * tpr + lane) * kV, v[j]);
+      }
+    }
+  }
+}
+
+// Rows wider than 16 packs a lane: one warp a row, 16-byte packs where the
+// row allows it, the row walked twice.
 template <typename T, typename W, bool VEC>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-layer_norm_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __restrict__ b,
-                  T* __restrict__ y, int rows, int cols, float eps) {
-  typedef Pack<T, VEC> P;
+__global__ void __launch_bounds__(32 * kWideRows)
+layer_norm_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __restrict__ b,
+                       T* __restrict__ y, int rows, int cols, float eps) {
+  constexpr int kV = VEC ? 16 / sizeof(T) : 1;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  const int row = blockIdx.x * kWideRows + threadIdx.x / 32;
   if (row >= rows) return;
   const T* xr = x + (size_t)row * cols;
   T* yr = y + (size_t)row * cols;
-  const int packs = cols / P::kV;
-
+  const int packs = cols / kV;
   float s = 0.0f, ss = 0.0f;
   for (int i = lane; i < packs; i += 32) {
-    P p;
-    p.load(xr + i * P::kV);
+    T v[kV];
+    load_k(v, xr + i * kV);
 #pragma unroll
-    for (int j = 0; j < P::kV; ++j) {
-      const float v = to_f(p.v[j]);
-      s += v;
-      ss += v * v;
+    for (int e = 0; e < kV; ++e) {
+      const float f = to_f(v[e]);
+      s += f;
+      ss += f * f;
     }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / cols;
-  const float var = fmaxf(ss / cols - mean * mean, 0.0f);
-  const float rstd = rsqrtf(var + eps);
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  float mean;
+  const float rstd = row_rstd(s, ss, cols, eps, &mean);
   for (int i = lane; i < packs; i += 32) {
-    P p;
-    p.load(xr + i * P::kV);
+    T v[kV];
+    load_k(v, xr + i * kV);
 #pragma unroll
-    for (int j = 0; j < P::kV; ++j) {
-      const int c = i * P::kV + j;
-      float v = (to_f(p.v[j]) - mean) * rstd;
-      if (w != nullptr) v *= to_f(w[c]);
-      if (b != nullptr) v += to_f(b[c]);
-      p.v[j] = from_f<T>(v);
+    for (int e = 0; e < kV; ++e) {
+      const int c = i * kV + e;
+      float u = (to_f(v[e]) - mean) * rstd;
+      if (w != nullptr) u *= to_f(w[c]);
+      if (b != nullptr) u += to_f(b[c]);
+      v[e] = from_f<T>(u);
     }
-    p.store(yr + i * P::kV);
+    store_k(yr + i * kV, v);
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <typename T, typename W, int PPT, bool VEC>
+int launch_rows(const T* x, const W* w, const W* b, T* y, int rows, int cols, int tpr, float eps,
+                cudaStream_t stream) {
+  // warps of a block: up to 8, fewer where the rows would not fill the card
+  // with two blocks an SM; the grid is capped at the blocks the card holds,
+  // and the threads loop over the rest
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int rows_per_warp = 32 / tpr;
+  const long long warps = (rows + rows_per_warp - 1) / rows_per_warp;
+  int wpb = 8;
+  while (wpb > 1 && warps < (long long)wpb * 2 * sms) wpb /= 2;
+  const long long blocks = (warps + wpb - 1) / wpb;
+  const long long cap = (long long)sms * (2048 / (32 * wpb));
+  layer_norm_rows_kernel<T, W, PPT, VEC><<<(unsigned)(blocks < cap ? blocks : cap), 32 * wpb, 0, stream>>>(
+      x, w, b, y, rows, cols, tpr, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename W, bool VEC>
+int dispatch(const void* xv, const void* wv, const void* bv, void* yv, int rows, int cols, float eps, int tpr,
+             int ppt, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const W* w = static_cast<const W*>(wv);
+  const W* b = static_cast<const W*>(bv);
+  T* y = static_cast<T*>(yv);
+  if (ppt != 0 && tpr != 8 && tpr != 16 && tpr != 32) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!VEC) {  // packs of one element: 32 lanes of 1, 2, 4, 8 or 16
+    if (ppt != 0 && (tpr != 32 || (ppt & (ppt - 1)) != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (ppt) {
+    case 0:  // the wide kernel
+      layer_norm_wide_kernel<T, W, VEC><<<(rows + kWideRows - 1) / kWideRows, 32 * kWideRows, 0, stream>>>(
+          x, w, b, y, rows, cols, eps);
+      return static_cast<int>(cudaGetLastError());
+    case 1: return launch_rows<T, W, 1, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+    case 2: return launch_rows<T, W, 2, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+    case 3: if constexpr (VEC) return launch_rows<T, W, 3, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 4: return launch_rows<T, W, 4, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+    case 5: if constexpr (VEC) return launch_rows<T, W, 5, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 6: if constexpr (VEC) return launch_rows<T, W, 6, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 8: return launch_rows<T, W, 8, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+    case 9: if constexpr (VEC) return launch_rows<T, W, 9, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 10: if constexpr (VEC) return launch_rows<T, W, 10, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 12: if constexpr (VEC) return launch_rows<T, W, 12, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_rows<T, W, 16, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, typename W>
-int launch(const void* x, const void* w, const void* b, void* y, int rows, int cols, float eps,
-           bool vec, cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (vec) {
-    layer_norm_kernel<T, W, true><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const W*>(b),
-        static_cast<T*>(y), rows, cols, eps);
-  } else {
-    layer_norm_kernel<T, W, false><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const W*>(b),
-        static_cast<T*>(y), rows, cols, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+int by_vec(const void* x, const void* w, const void* b, void* y, int rows, int cols, float eps, bool vec, int tpr,
+           int ppt, cudaStream_t stream) {
+  return vec ? dispatch<T, W, true>(x, w, b, y, rows, cols, eps, tpr, ppt, stream)
+             : dispatch<T, W, false>(x, w, b, y, rows, cols, eps, tpr, ppt, stream);
 }
 
 }  // namespace
@@ -121,20 +258,23 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int c
 extern "C" {
 
 // x, y: [rows, cols] contiguous, bf16 (x_bf16 = 1) or fp32. w, b: [cols] or
-// null, bf16 (w_bf16 = 1) or fp32. vec = 1 takes 16-byte loads and stores:
-// the caller sets it only when x and y are 16-byte aligned and cols * the
-// element size is a multiple of 16. Returns the CUDA error code of the
-// launch (0 on success).
-int fdt_layer_norm(const void* x, const void* w, const void* b, void* y, int rows, int cols,
-                   float eps, int x_bf16, int w_bf16, int vec, void* stream) {
+// null, bf16 (w_bf16 = 1) or fp32. vec = 1 takes 16-byte packs: the caller
+// sets it only when x, y, w and b are 16-byte aligned and cols * the element
+// size is a multiple of 16. (tpr, ppt): lanes a row and packs a lane of the
+// row kernel (ops/norms.py layer_norm_plan: tpr * ppt packs cover the row;
+// ppt in 1-6, 8, 9, 10, 12, 16 with vec, else tpr = 32 and ppt a power of
+// two up to 16), or ppt = 0 for the wide kernel. Returns the
+// CUDA error code of the launch (0 on success).
+int fdt_layer_norm(const void* x, const void* w, const void* b, void* y, int rows, int cols, float eps, int x_bf16,
+                   int w_bf16, int vec, int tpr, int ppt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
   if (x_bf16) {
-    return w_bf16 ? launch<bf16, bf16>(x, w, b, y, rows, cols, eps, v, s)
-                  : launch<bf16, float>(x, w, b, y, rows, cols, eps, v, s);
+    return w_bf16 ? by_vec<bf16, bf16>(x, w, b, y, rows, cols, eps, v, tpr, ppt, s)
+                  : by_vec<bf16, float>(x, w, b, y, rows, cols, eps, v, tpr, ppt, s);
   }
-  return w_bf16 ? launch<float, bf16>(x, w, b, y, rows, cols, eps, v, s)
-                : launch<float, float>(x, w, b, y, rows, cols, eps, v, s);
+  return w_bf16 ? by_vec<float, bf16>(x, w, b, y, rows, cols, eps, v, tpr, ppt, s)
+                : by_vec<float, float>(x, w, b, y, rows, cols, eps, v, tpr, ppt, s);
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "fdt_flash_fwd_stream_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_fwd_stream_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_fwd_wgmma_tiles": [_I, _P],
-    "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "fdt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "fdt_flash_fwd_oneshot_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "fdt_flash_fwd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fdt_flash_bwd_oneshot_tiles": [_I, _I, _P],
@@ -56,8 +56,9 @@ _SIGNATURES = {
     "fdt_geglu_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "fdt_geglu_gemm_plan": [_I] * 4 + [_P],
     "fdt_geglu_gemm_occupancy": [_I] * 2 + [_P],
-    "fdt_group_norm_stats": [_P] * 5 + [_I] * 7 + [_P],
+    "fdt_group_norm_stats": [_P] * 12 + [_I] * 10 + [_F] + [_P],
     "fdt_group_norm_apply": [_P] * 4 + [_I] * 7 + [_P],
+    "fdt_group_norm_resident": [_P] * 6 + [_I] * 11 + [_F] + [_P],
 }
 
 

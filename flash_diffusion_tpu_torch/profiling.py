@@ -19,8 +19,10 @@ the kernels with the most device time, and the device time and share of
 the streaming attention forward (K2, both routes), the packed streaming
 forward (K5), the down-projection GEMM (K10), the one-shot attention
 forward (K1), the packed one-shot forward (K4), the one-shot backward
-(K8, with the kernel that sums its partials) and the streaming backward
-(K6 + K7). The JAX
+(K8, with the kernel that sums its partials), the streaming backward
+(K6 + K7), the LayerNorm (K3) and the GroupNorm kernels (the resident one,
+the statistics with the fold, the apply). Each stage's line counts the
+kernels that start in its window (copies and fills excluded). The JAX
 package's kernel switches (``FLASH_TPU_ATTN_PACKED``,
 ``FLASH_TPU_FFN_FUSED``, ``FLASH_TPU_FFN_DOWN_GEMM``) are read from the
 environment, as everywhere in the port, and printed beside the result.
@@ -45,9 +47,9 @@ def _category(name: str) -> str:
     low = name.lower()
     for key, cat in (
         ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
-        ("layer_norm_kernel", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
+        ("layer_norm_", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
         ("gemm_sm90_kernel", "ffn gemm kernels"),
-        ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"),
+        ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"), ("gn_resident", "group_norm kernels"),
         ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
         ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
         ("reduce", "reduction"), ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -86,6 +88,10 @@ _ROUTES = (
     ("packed one-shot forward (K4)", lambda n: _packed(n) and "flash_fwd_oneshot" in n),
     ("one-shot backward (K8 + its reduce)", lambda n: "flash_bwd_oneshot" in n),
     ("attention backward pair (K6 + K7)", lambda n: "flash_bwd_dkv" in n or "flash_bwd_dq" in n),
+    ("LayerNorm (K3)", lambda n: "layer_norm_" in n and "kernel" in n),
+    ("GroupNorm resident (K9 + fold + apply, one launch)", lambda n: "gn_resident" in n),
+    ("GroupNorm statistics (K9, + fold)", lambda n: "gn_stats" in n),
+    ("GroupNorm apply", lambda n: "gn_apply" in n),
 )
 
 
@@ -139,6 +145,8 @@ def main():
     timeline = [e for e in prof.events() if on_device(e)]
     device_spans = {e.name: e.time_range for e in timeline if e.name.startswith("fdt.")}
     launches = [e.time_range for e in timeline if not e.name.startswith("fdt.")]
+    kernel_starts = [e.time_range.start for e in timeline
+                     if not e.name.startswith(("fdt.", "Memcpy", "Memset"))]
     order = sorted(device_spans, key=lambda name: device_spans[name].start)
     windows = {name: (device_spans[name].start, device_spans[nxt].start if nxt else device_spans[name].end)
                for name, nxt in zip(order, order[1:] + [None])}
@@ -154,8 +162,9 @@ def main():
         if e.key.startswith("fdt.") and not on_device(e):
             lo, hi = windows[e.key]
             stage_ms = sum(k.elapsed_us() for k in launches if lo <= k.start < hi) / 1e3
+            count = sum(1 for t in kernel_starts if lo <= t < hi)
             print(f"  stage {e.key:21s} host {e.cpu_time_total / 1e3:9.2f} ms, "
-                  f"device busy {stage_ms:9.2f} ms of a {(hi - lo) / 1e3:9.2f} ms span")
+                  f"device busy {stage_ms:9.2f} ms of a {(hi - lo) / 1e3:9.2f} ms span, {count} kernels")
     cats = defaultdict(float)
     for e in kernels:
         cats[_category(e.key)] += e.self_device_time_total / 1e3

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the redesigned kernels in two trees on one card, in turns.
 
-    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k4,k5,k8,k10,k11,k12] [--sweep]
+    python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k3,k4,k5,k8,k9,k10,k11,k12] [--sweep]
 
 For each tree of ``--order`` in turn (``this``: the checkout; ``base``:
 another checkout of the repo, such as a parent commit unpacked with ``git
@@ -26,7 +26,12 @@ asked for:
 - ``k11``: ``check_int8_gemm`` at ``INT8_SHAPES`` (the int8 GEMM: every
   W8A8 product of SDXL's int8 serving);
 - ``k12``: ``check_ffn_gemm`` at ``FFN_SHAPES`` (the GEGLU down
-  projection under ``FLASH_TPU_FFN_FUSED=1``; K10 comes along).
+  projection under ``FLASH_TPU_FFN_FUSED=1``; K10 comes along);
+- ``k3``: ``check_layer_norm`` at every ``LAYER_NORM_SHAPES*`` shape (the
+  LayerNorm: SD1.5, SDXL, CLIP in fp32, Pixart);
+- ``k9``: ``check_group_norm`` at ``GN_SHAPES``; the table takes the whole
+  ``group_norm`` with SiLU in channels-last (K9's statistics, the fold and
+  the apply: one launch or two), the paths' layout.
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
 process also times K10 at every tile width it is built for (112, 128, 160,
@@ -45,6 +50,7 @@ kernel ms per shape and tree. Needs a CUDA card and nvcc.
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,7 +145,7 @@ def sweep(cs, attention, gemm, kernels, which):
 def child(root: str, which: str, do_sweep: bool) -> None:
     sys.path.insert(0, root)  # that tree's port and chip_smoke before the checkout's
     import chip_smoke as cs
-    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels
+    from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
 
     kernels.library()
     print(f"card: {cs.card_line()}")
@@ -150,7 +156,8 @@ def child(root: str, which: str, do_sweep: bool) -> None:
     cs.ATTENTION_SHAPES = shapes["k1"] + shapes["k2"]
     cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], [], [], []
     names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
-             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm")
+             "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm", "layer_norm", "group_norm_stats",
+             "group_norm_apply", "group_norm_fused")
     results = {n: cs.new_row("cuda", "", "") for n in names}
     if cs.ATTENTION_SHAPES:
         cs.check_attention(attention, results)
@@ -170,6 +177,12 @@ def child(root: str, which: str, do_sweep: bool) -> None:
     if "k11" in which:
         cs.INT8_EXTRA = []
         cs.check_int8_gemm(gemm, results)
+    if "k3" in which:
+        cs.LAYER_NORM_RAGGED, cs.LAYER_NORM_SMALL_VAR = [], []
+        cs.check_layer_norm(norms, results)
+    if "k9" in which:
+        cs.GN_RAGGED = []
+        cs.check_group_norm(norms, results)
     if do_sweep:
         sweep(cs, attention, gemm, kernels, which)
 
@@ -178,6 +191,16 @@ def kernel_ms(lines):
     """{(kind, shape text): kernel ms} from the checks' printed lines."""
     out = {}
     for line in lines:
+        whole = re.search(r"(?:whole group_norm\+SiLU |kernel )(\d+\.\d+) ms", line)
+        if line.startswith("group_norm (") and " NHWC" in line and whole:  # the whole op, channels-last
+            shape = re.search(r"group_norm (\([\d, ]+\))\s+(\w+)", line)
+            out[("group_norm+silu NHWC", f"{shape.group(1)} {shape.group(2)}")] = float(whole.group(1))
+            continue
+        if line.startswith("layer_norm rows=") and "kernel " in line:
+            shape = re.search(r"rows=\s*(\d+) C=\s*(\d+) (?:torch\.)?(\w+)", line)
+            out[("layer_norm", f"rows={shape.group(1)} C={shape.group(2)} {shape.group(3)}")] = float(
+                line.split("kernel ")[1].split(" ms")[0])
+            continue
         if "kernel " not in line or " ms" not in line:
             continue
         words = line.split()
@@ -199,7 +222,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", help="root of the other tree")
     ap.add_argument("--order", default="base,this,this,base")
-    ap.add_argument("--kernels", default="k1,k2,k4,k5,k8,k10,k11,k12")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k8,k9,k10,k11,k12")
     ap.add_argument("--sweep", action="store_true",
                     help="also sweep K10's tile width, K4's q tile, K11's plans and K12's in this tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
