@@ -63,6 +63,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // independent 16-byte loads a thread keeps in flight (apply)
+constexpr int kBatch = 8;   // partials a thread of the last block loads at once
+constexpr int kResThreads = 512, kResWarps = kResThreads / 32;  // a resident block
 constexpr int kSmemLimit = 232448;
 
 __device__ inline float to_f(float x) { return x; }
@@ -141,11 +143,12 @@ __device__ inline T gn_out(float x, float w, float shift) {
 
 struct StatsArgs {
   const void* x;
-  float* psum;             // [B, C, parts] partial Σx
-  float* psq;              // [B, C, parts] partial Σx²
-  unsigned* counter;       // [B] arrivals, 0 between launches
-  float* sum;              // fold = 0: [B, C] Σx
-  float* sumsq;            // fold = 0: [B, C] Σx²
+  float* psum;             // NHWC: [B, C, parts] partial Σx
+  float* psq;              // NHWC: [B, C, parts] partial Σx²
+  unsigned* counter;       // NHWC: [B, tiles] arrivals of a column tile's parts, then [B] of a sample's
+                           // blocks; 0 between launches
+  float* sum;              // [B, C] Σx
+  float* sumsq;            // [B, C] Σx²
   const void* weight;      // fold = 1: [C]
   const void* bias;        // fold = 1: [C]
   void* w_out;             // fold = 1: [B, C] scale in x's dtype
@@ -156,111 +159,113 @@ struct StatsArgs {
   float eps;
 };
 
-// The last block of sample b to arrive adds the partials of each channel in
-// part order, then writes the sums (fold = 0) or folds: per group the sums
-// of its channel sums, mean and inv, then per channel the scale and shift.
-// The other blocks return. Dynamic shared memory: 2C + 2G floats.
-template <typename T>
-__device__ void finish_sample(const StatsArgs& a, int b, int arrivals) {
+// Whether this block is the last of `arrivals` to pass *counter (which it
+// then resets to 0 for the next launch on this stream); the counter decides
+// who goes on, never the order of a sum. Every thread's global writes before
+// it are visible to the last block after it.
+__device__ inline bool last_to_arrive(unsigned* counter, int arrivals) {
   __shared__ bool last;
+  __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(&a.counter[b], 1u) == static_cast<unsigned>(arrivals - 1);
+    last = atomicAdd(counter, 1u) == static_cast<unsigned>(arrivals - 1);
+    if (last) *counter = 0u;
   }
   __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (last) __threadfence();
+  return last;
+}
+
+// The fold of sample b from its channel sums (sum, sumsq): per group the
+// sums of its channel sums, mean and inv, then per channel the scale and
+// shift. Dynamic shared memory: 2C + 2G floats.
+template <typename T>
+__device__ void fold_sample(const StatsArgs& a, int b) {
   extern __shared__ float fold_smem[];
   float *cs = fold_smem, *cq = fold_smem + a.c, *gm = fold_smem + 2 * a.c, *gv = gm + a.g;
   for (int ch = threadIdx.x; ch < a.c; ch += blockDim.x) {
-    const long long at = ((long long)b * a.c + ch) * a.parts;
-    float s = 0.0f, q = 0.0f;
-    for (int p = 0; p < a.parts; ++p) {
-      s += __ldcg(a.psum + at + p);
-      q += __ldcg(a.psq + at + p);
-    }
-    if (a.fold) {
-      cs[ch] = s;
-      cq[ch] = q;
-    } else {
-      a.sum[(long long)b * a.c + ch] = s;
-      a.sumsq[(long long)b * a.c + ch] = q;
-    }
+    cs[ch] = __ldcg(a.sum + (long long)b * a.c + ch);
+    cq[ch] = __ldcg(a.sumsq + (long long)b * a.c + ch);
   }
-  if (a.fold) {
-    __syncthreads();
-    const int cg = a.c / a.g;
-    const float count = static_cast<float>((long long)a.n * cg);
-    for (int gi = threadIdx.x; gi < a.g; gi += blockDim.x) {
-      const GroupStats st = fold_group(group_sums(cs, cq, gi * cg, cg), count, a.eps);
-      gm[gi] = st.mean;
-      gv[gi] = st.inv;
-      a.mean_out[(long long)b * a.g + gi] = st.mean;
-      a.inv_out[(long long)b * a.g + gi] = st.inv;
-    }
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < a.c; ch += blockDim.x) {
-      const float2 f = fold_channel<T>({gm[ch / cg], gv[ch / cg]}, param(a.weight, ch, a.w_bf16),
-                                       param(a.bias, ch, a.w_bf16));
-      static_cast<T*>(a.w_out)[(long long)b * a.c + ch] = from_f<T>(f.x);
-      static_cast<T*>(a.shift_out)[(long long)b * a.c + ch] = from_f<T>(f.y);
-    }
+  __syncthreads();
+  const int cg = a.c / a.g;
+  const float count = static_cast<float>((long long)a.n * cg);
+  for (int gi = threadIdx.x; gi < a.g; gi += blockDim.x) {
+    const GroupStats st = fold_group(group_sums(cs, cq, gi * cg, cg), count, a.eps);
+    gm[gi] = st.mean;
+    gv[gi] = st.inv;
+    a.mean_out[(long long)b * a.g + gi] = st.mean;
+    a.inv_out[(long long)b * a.g + gi] = st.inv;
   }
-  if (threadIdx.x == 0) a.counter[b] = 0u;  // ready for the next launch on this stream
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < a.c; ch += blockDim.x) {
+    const float2 f = fold_channel<T>({gm[ch / cg], gv[ch / cg]}, param(a.weight, ch, a.w_bf16),
+                                     param(a.bias, ch, a.w_bf16));
+    static_cast<T*>(a.w_out)[(long long)b * a.c + ch] = from_f<T>(f.x);
+    static_cast<T*>(a.shift_out)[(long long)b * a.c + ch] = from_f<T>(f.y);
+  }
 }
 
-// NCHW: grid (ceil(C·parts / 8), B); one warp per (channel, part) of
-// sample blockIdx.y: elements [part·chunk, min(n, (part+1)·chunk)) of the
-// channel's row, lane-strided, then the xor tree. VEC: 16-byte loads (n and
-// chunk multiples of 16 bytes, x 16-byte aligned).
+// NCHW: grid (C, B); block (channel, b) sums its channel's row of n: warp w
+// takes elements [w·chunk, min(n, (w+1)·chunk)) (chunk = ceil(n / 8) in
+// whole packs), lane-strided, then the xor tree, then the warps in order.
+// VEC: 16-byte loads (n·sizeof(T) a multiple of 16, x 16-byte aligned). With
+// fold, the last block of a sample folds.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads) gn_stats_nchw_kernel(StatsArgs a) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  const int b = blockIdx.y;
-  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (item < a.c * a.parts) {
-    const int ch = item / a.parts, part = item % a.parts;
-    const int begin = part * a.chunk, end = min(a.n, begin + a.chunk);
-    const T* xr = static_cast<const T*>(a.x) + ((long long)b * a.c + ch) * a.n;
-    float s = 0.0f, ss = 0.0f;
+  __shared__ float red[2][kWarps];
+  const int ch = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int begin = warp * a.chunk, end = min(a.n, begin + a.chunk);
+  const T* xr = static_cast<const T*>(a.x) + ((long long)b * a.c + ch) * a.n;
+  float s = 0.0f, ss = 0.0f;
 #pragma unroll 4
-    for (int i = begin + lane * kV; i < end; i += 32 * kV) {
-      alignas(16) T v[kV];
-      load_pack<T, VEC>(v, xr + i);
+  for (int i = begin + lane * kV; i < end; i += 32 * kV) {
+    alignas(16) T v[kV];
+    load_pack<T, VEC>(v, xr + i);
 #pragma unroll
-      for (int j = 0; j < kV; ++j) {
-        const float f = to_f(v[j]);
-        s += f;
-        ss += f * f;
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const long long at = ((long long)b * a.c + ch) * a.parts + part;
-      a.psum[at] = s;
-      a.psq[at] = ss;
-      __threadfence();
+    for (int j = 0; j < kV; ++j) {
+      const float f = to_f(v[j]);
+      s += f;
+      ss += f * f;
     }
   }
-  finish_sample<T>(a, b, gridDim.x);
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = ss;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ts = 0.0f, tq = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      ts += red[0][w];
+      tq += red[1][w];
+    }
+    a.sum[(long long)b * a.c + ch] = ts;
+    a.sumsq[(long long)b * a.c + ch] = tq;
+  }
+  if (a.fold && last_to_arrive(a.counter + b, gridDim.x)) fold_sample<T>(a, b);
 }
 
-// NHWC: grid (ceil(C / 8kV), parts, B); block (column tile, part, b) sums
+// NHWC: grid (tiles = ceil(C / 8kV), parts, B); block (tile, part, b) sums
 // rows [part·chunk, min(n, (part+1)·chunk)) of sample b's [n, C] matrix for
 // 8·kV channels: thread (row lane r, column thread j) takes rows r, r + 32,
 // ... and channels [(tile·8 + j)·kV, +kV); the 32 row lanes then add in a
-// fixed tree. VEC: 16-byte loads (C·sizeof(T) a multiple of 16).
+// fixed tree, into partials [B, C, parts]. The last block of a (tile, b) to
+// arrive adds the tile's partials: thread (quarter qi, channel) the parts
+// qi, qi + Q, ... in order, then the quarters in order. With fold, the last
+// tile of a sample folds. VEC: 16-byte loads (C·sizeof(T) a multiple of 16).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads) gn_stats_nhwc_kernel(StatsArgs a) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  constexpr int kCols = 8, kLanes = kThreads / kCols;
-  __shared__ float sh_s[kLanes][kCols * kV], sh_q[kLanes][kCols * kV];
+  constexpr int kCols = 8, kLanes = kThreads / kCols, kTile = kCols * kV, kQuarters = kThreads / kTile;
+  __shared__ float sh_s[kLanes][kTile], sh_q[kLanes][kTile];
   const int col = threadIdx.x % kCols, lane = threadIdx.x / kCols;
-  const int b = blockIdx.z, part = blockIdx.y;
-  const int c0 = (blockIdx.x * kCols + col) * kV;
+  const int b = blockIdx.z, part = blockIdx.y, tile = blockIdx.x;
+  const int c0 = (tile * kCols + col) * kV;
   const int r1 = min(a.n, (part + 1) * a.chunk);
   float s[kV], ss[kV];
 #pragma unroll
@@ -304,35 +309,73 @@ __global__ void __launch_bounds__(kThreads) gn_stats_nhwc_kernel(StatsArgs a) {
         a.psq[at] = sh_q[0][col * kV + j];
       }
     }
-    __threadfence();
   }
-  finish_sample<T>(a, b, gridDim.x * gridDim.y);
+  const int tiles = gridDim.x;
+  if (!last_to_arrive(a.counter + (long long)b * tiles + tile, a.parts)) return;
+  // the tile's channel sums from their partials
+  const int ch = tile * kTile + threadIdx.x % kTile, qi = threadIdx.x / kTile;
+  float ts = 0.0f, tq = 0.0f;
+  if (ch < a.c) {
+    const long long at = ((long long)b * a.c + ch) * a.parts;
+    for (int p0 = qi; p0 < a.parts; p0 += kBatch * kQuarters) {  // kBatch loads in flight, added in part order
+      float ps[kBatch], pq[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int p = p0 + k * kQuarters;
+        ps[k] = p < a.parts ? __ldcg(a.psum + at + p) : 0.0f;
+        pq[k] = p < a.parts ? __ldcg(a.psq + at + p) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (p0 + k * kQuarters < a.parts) {
+          ts += ps[k];
+          tq += pq[k];
+        }
+      }
+    }
+  }
+  __syncthreads();  // the tree's last reads of sh_s, sh_q are done
+  sh_s[qi][threadIdx.x % kTile] = ts;
+  sh_q[qi][threadIdx.x % kTile] = tq;
+  __syncthreads();
+  if (threadIdx.x < kTile && ch < a.c) {
+    float cs = 0.0f, cq = 0.0f;
+    for (int k = 0; k < kQuarters; ++k) {
+      cs += sh_s[k][threadIdx.x];
+      cq += sh_q[k][threadIdx.x];
+    }
+    a.sum[(long long)b * a.c + ch] = cs;
+    a.sumsq[(long long)b * a.c + ch] = cq;
+  }
+  if (a.fold && last_to_arrive(a.counter + (long long)gridDim.z * tiles + b, tiles)) fold_sample<T>(a, b);
 }
 
 // ---- plan (b): the apply kernels
 
-// NCHW: grid (B·C, ceil(packs / (256·kUnroll))); block (row, segment) of
-// the [B·C, n] rows; the row's scale and shift loaded once.
+// NCHW: grid (ceil(B·C / (256 / tpr)), ceil(packs / (tpr·kUnroll))); `tpr`
+// threads (a power of two up to 256) a (b, c) row of the [B·C, n] rows, 256
+// / tpr rows a block, each row's scale and shift loaded once a thread.
 template <typename T, bool VEC, bool SILU>
 __global__ void __launch_bounds__(kThreads)
 gn_apply_nchw_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ shift,
-                     T* __restrict__ y, int n) {
+                     T* __restrict__ y, int n, int rows, int tpr) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  const long long row = blockIdx.x;
+  const long long row = (long long)blockIdx.x * (kThreads / tpr) + threadIdx.x / tpr;
+  if (row >= rows) return;
   const float wr = to_f(w[row]), sr = to_f(shift[row]);
   const int packs = n / kV;
   const T* xr = x + row * n;
   T* yr = y + row * n;
-  const int p0 = blockIdx.y * (kThreads * kUnroll) + threadIdx.x;
+  const int p0 = blockIdx.y * (tpr * kUnroll) + threadIdx.x % tpr;
   alignas(16) T v[kUnroll][kV];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const int p = p0 + u * kThreads;
+    const int p = p0 + u * tpr;
     if (p < packs) load_pack<T, VEC>(v[u], xr + (long long)p * kV);
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const int p = p0 + u * kThreads;
+    const int p = p0 + u * tpr;
     if (p < packs) {
 #pragma unroll
       for (int j = 0; j < kV; ++j) v[u][j] = gn_out<T, SILU>(to_f(v[u][j]), wr, sr);
@@ -401,7 +444,7 @@ struct ResidentArgs {
   int c, n, g;
   int cs;                  // NHWC: channels of a slice (whole groups, 16-byte rows); NCHW: channels of a block
   int rows;                // NHWC: rows a block takes
-  int box_rows, boxes;     // NHWC: the TMA boxes of a block's rows
+  int box_rows, boxes;     // NHWC: the TMA boxes of a block's rows (set by the launcher)
   int cluster, w_bf16;
   float eps;
 };
@@ -427,76 +470,87 @@ __device__ inline void bulk_load(void* dst, const void* src, int bytes, uint64_t
                : "memory");
 }
 
-// Shared memory of the NHWC resident block, in bytes past its 128-byte
-// aligned base: the data [boxes·box_rows, cs], the lanes' sums [lanes, cs]
-// twice (row 0 holds the block's channel sums, which the peers read), the
-// cluster's sums, scale and shift [cs] each, the groups' mean and inv, the
-// mbarrier.
-struct NhwcLayout {
-  int data, red_q, tot_s, tot_q, wsh, ssh, gst, bar, total;
-  __host__ __device__ NhwcLayout(int cs, int data_rows, int elem, int groups) {
-    const int cols = cs * elem / 16, lanes = kThreads / cols;
-    data = 0;
-    red_q = data_rows * cs * elem + lanes * cs * 4;  // red_s follows the data
-    tot_s = red_q + lanes * cs * 4;
-    tot_q = tot_s + cs * 4;
-    wsh = tot_q + cs * 4;
-    ssh = wsh + cs * 4;
-    gst = ssh + cs * 4;
+// Shared memory of a resident block, in bytes past its 128-byte aligned
+// base. NHWC: the data [boxes·box_rows, cs], the warps' sums [warps, cs]
+// twice, the block's sums (which the peers read), the cluster's, the scale
+// and the shift [cs] each, the groups' mean and inv, one mbarrier a box.
+// NCHW: the data [cs, n], the warps' sums [warps] twice, the block's sums
+// [cs] twice, the group's channel sums [C/G] twice, the scale and shift
+// [cs], mean and inv, one mbarrier.
+struct ResidentLayout {
+  int red, part, tot, wsh, gst, bar, total;
+  __host__ __device__ ResidentLayout(bool nhwc, int cs, int cg, int rows, int boxes, int elem, int groups) {
+    const int data = cs * rows * elem;  // NHWC: rows = boxes·box_rows; NCHW: rows = n
+    red = data;
+    part = red + 2 * (nhwc ? kResWarps * cs : kResWarps) * 4;
+    tot = part + 2 * cs * 4;
+    wsh = tot + 2 * (nhwc ? cs : cg) * 4;
+    gst = wsh + 2 * cs * 4;
     bar = (gst + 2 * groups * 4 + 7) / 8 * 8;
-    total = bar + 8 + 128;  // + the base's alignment slack
+    total = bar + 8 * (nhwc ? boxes : 1) + 128;  // + the base's alignment slack
   }
 };
 
 // NHWC: grid (cluster, B·C / cs), clusters of `cluster` blocks along x.
 // Block (rank, b·slices + slice) takes rows [rank·rows, min(n, +rows)) of
 // channels [slice·cs, +cs) of sample b: TMA boxes of cs channels by
-// box_rows rows land in shared memory (rows past n as zeros, never read).
-// Thread (lane, col) of cols = cs / kV column threads: channels [col·kV,
-// +kV) of rows lane, lane + lanes, ...
+// box_rows rows land in shared memory, each on its own mbarrier (rows past
+// n as zeros, never read). Lane l of a warp takes channels [(l % cols)·kV,
+// +kV) (cols = cs / kV) of sub-row l / cols of the warp's rows (32 / cols
+// rows at a time; the last lanes idle where cols does not divide 32), so
+// that the sums start on a box as it lands; a warp's sub-rows add in a fixed
+// shuffle chain, the warps in warp order.
 template <typename T, bool SILU>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kResThreads, 2)
 gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a) {
   constexpr int kV = 16 / sizeof(T);
   extern __shared__ unsigned char gn_smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(gn_smem_raw) + 127) & ~uintptr_t(127));
   const int cg = a.c / a.g, groups = a.cs / cg;
-  const NhwcLayout lay(a.cs, a.boxes * a.box_rows, sizeof(T), groups);
+  const ResidentLayout lay(true, a.cs, cg, a.boxes * a.box_rows, a.boxes, sizeof(T), groups);
   T* data = reinterpret_cast<T*>(base);
-  float* red_s = reinterpret_cast<float*>(base + a.boxes * a.box_rows * a.cs * sizeof(T));
-  float* red_q = reinterpret_cast<float*>(base + lay.red_q);
-  float* tot_s = reinterpret_cast<float*>(base + lay.tot_s);
-  float* tot_q = reinterpret_cast<float*>(base + lay.tot_q);
+  float* red_s = reinterpret_cast<float*>(base + lay.red);  // [warps][cs]
+  float* red_q = red_s + kResWarps * a.cs;
+  float* part_s = reinterpret_cast<float*>(base + lay.part);
+  float* part_q = part_s + a.cs;
+  float* tot_s = reinterpret_cast<float*>(base + lay.tot);
+  float* tot_q = tot_s + a.cs;
   float* wsh = reinterpret_cast<float*>(base + lay.wsh);
-  float* ssh = reinterpret_cast<float*>(base + lay.ssh);
+  float* ssh = wsh + a.cs;
   float* gst = reinterpret_cast<float*>(base + lay.gst);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base + lay.bar);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + lay.bar);
 
   const int rank = static_cast<int>(fdt::cluster_ctarank());
   const int slices = a.c / a.cs;
   const int b = blockIdx.y / slices, c0 = blockIdx.y % slices * a.cs;
   const int r0 = rank * a.rows;
   const int rows = min(a.rows, a.n - r0);
+  const int boxes = (rows + a.box_rows - 1) / a.box_rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cols = a.cs / kV, rpw = 32 / cols;
+  const int col = lane % cols, sub = lane / cols;
+  const bool active = sub < rpw;
+  const int first = warp * rpw + sub, step = kResWarps * rpw;
   if (threadIdx.x == 0) {
-    fdt::mbar_init(bar, 1);
+    for (int i = 0; i < boxes; ++i) fdt::mbar_init(&bars[i], 1);
     fdt::mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int boxes = (rows + a.box_rows - 1) / a.box_rows;
-    fdt::mbar_expect(bar, boxes * a.box_rows * a.cs * static_cast<int>(sizeof(T)));
-    for (int i = 0; i < boxes; ++i) tma_3d(data + i * a.box_rows * a.cs, &map, c0, r0 + i * a.box_rows, b, bar);
+    for (int i = 0; i < boxes; ++i) {
+      fdt::mbar_expect(&bars[i], a.box_rows * a.cs * static_cast<int>(sizeof(T)));
+      tma_3d(data + i * a.box_rows * a.cs, &map, c0, r0 + i * a.box_rows, b, &bars[i]);
+    }
   }
-  const int cols = a.cs / kV, lanes = kThreads / cols;
-  const int col = threadIdx.x % cols, lane = threadIdx.x / cols;
-  fdt::mbar_wait(bar, 0);
 
-  // this block's channel sums: lanes, then a fixed tree over the lanes
+  // this block's channel sums
   float s[kV], q[kV];
 #pragma unroll
   for (int j = 0; j < kV; ++j) s[j] = q[j] = 0.0f;
-  if (lane < lanes) {
-    for (int r = lane; r < rows; r += lanes) {
+  int landed = 0;  // boxes this thread has waited for
+  if (active) {
+    for (int r = first; r < rows; r += step) {
+      while (landed <= r / a.box_rows) fdt::mbar_wait(&bars[landed++], 0);
       alignas(16) T v[kV];
       load_pack<T, true>(v, data + r * a.cs + col * kV);
 #pragma unroll
@@ -506,40 +560,52 @@ gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a)
         q[j] += f * f;
       }
     }
+  }
 #pragma unroll
-    for (int j = 0; j < kV; ++j) {
-      red_s[lane * a.cs + col * kV + j] = s[j];
-      red_q[lane * a.cs + col * kV + j] = q[j];
+  for (int j = 0; j < kV; ++j) {  // the warp's sub-rows, in order
+    float ts = s[j], tq = q[j];
+    for (int k = 1; k < rpw; ++k) {
+      const float os = __shfl_sync(0xffffffffu, s[j], col + k * cols);
+      const float oq = __shfl_sync(0xffffffffu, q[j], col + k * cols);
+      ts += os;
+      tq += oq;
+    }
+    if (sub == 0) {
+      red_s[warp * a.cs + col * kV + j] = ts;
+      red_q[warp * a.cs + col * kV + j] = tq;
     }
   }
   __syncthreads();
-  int top = 1;
-  while (top < lanes) top <<= 1;
-  for (int stride = top / 2; stride > 0; stride >>= 1) {
-    if (lane < stride && lane + stride < lanes) {
-#pragma unroll
-      for (int j = 0; j < kV; ++j) {
-        red_s[lane * a.cs + col * kV + j] += red_s[(lane + stride) * a.cs + col * kV + j];
-        red_q[lane * a.cs + col * kV + j] += red_q[(lane + stride) * a.cs + col * kV + j];
-      }
+  for (int ch = threadIdx.x; ch < a.cs; ch += kResThreads) {  // the warps, in order
+    float ts = 0.0f, tq = 0.0f;
+    for (int w = 0; w < kResWarps; ++w) {
+      ts += red_s[w * a.cs + ch];
+      tq += red_q[w * a.cs + ch];
     }
-    __syncthreads();
+    part_s[ch] = ts;
+    part_q[ch] = tq;
   }
-  fdt::cluster_sync();  // every block's sums (row 0 of red_s, red_q) are in place
+  fdt::cluster_sync();  // every block's sums are in place
 
-  // the cluster's channel sums in rank order, then the fold
-  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+  // the cluster's channel sums: every (rank, channel) read at once into the
+  // warps' rows, then added in rank order; then the fold
+  for (int t = threadIdx.x; t < a.cluster * a.cs; t += kResThreads) {
+    red_s[t] = ld_cluster_f32(fdt::peer_addr(&part_s[t % a.cs], t / a.cs));
+    red_q[t] = ld_cluster_f32(fdt::peer_addr(&part_q[t % a.cs], t / a.cs));
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < a.cs; ch += kResThreads) {
     float ts = 0.0f, tq = 0.0f;
     for (int r = 0; r < a.cluster; ++r) {
-      ts += ld_cluster_f32(fdt::peer_addr(&red_s[ch], r));
-      tq += ld_cluster_f32(fdt::peer_addr(&red_q[ch], r));
+      ts += red_s[r * a.cs + ch];
+      tq += red_q[r * a.cs + ch];
     }
     tot_s[ch] = ts;
     tot_q[ch] = tq;
   }
   __syncthreads();
   const float count = static_cast<float>((long long)a.n * cg);
-  for (int gi = threadIdx.x; gi < groups; gi += kThreads) {
+  for (int gi = threadIdx.x; gi < groups; gi += kResThreads) {
     const GroupStats st = fold_group(group_sums(tot_s, tot_q, gi * cg, cg), count, a.eps);
     gst[gi] = st.mean;
     gst[groups + gi] = st.inv;
@@ -549,7 +615,7 @@ gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a)
     }
   }
   __syncthreads();
-  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+  for (int ch = threadIdx.x; ch < a.cs; ch += kResThreads) {
     const int gi = ch / cg;
     const float2 f = fold_channel<T>({gst[gi], gst[groups + gi]}, param(a.weight, c0 + ch, a.w_bf16),
                                      param(a.bias, c0 + ch, a.w_bf16));
@@ -559,8 +625,8 @@ gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a)
   cluster_arrive();  // this block is done with its peers' shared memory
   __syncthreads();
 
-  // the apply, from shared memory
-  if (lane < lanes) {
+  // the apply, from shared memory, two rows in flight
+  if (active) {
     float wf[kV], sf[kV];
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
@@ -568,12 +634,20 @@ gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a)
       sf[j] = ssh[col * kV + j];
     }
     T* yb = static_cast<T*>(a.y) + ((long long)b * a.n + r0) * a.c + c0 + col * kV;
-    for (int r = lane; r < rows; r += lanes) {
-      alignas(16) T v[kV];
-      load_pack<T, true>(v, data + r * a.cs + col * kV);
+    for (int r = first; r < rows; r += 2 * step) {
+      alignas(16) T v[2][kV];
 #pragma unroll
-      for (int j = 0; j < kV; ++j) v[j] = gn_out<T, SILU>(to_f(v[j]), wf[j], sf[j]);
-      store_pack<T, true>(yb + (long long)r * a.c, v);
+      for (int u = 0; u < 2; ++u) {
+        if (r + u * step < rows) load_pack<T, true>(v[u], data + (r + u * step) * a.cs + col * kV);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (r + u * step < rows) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) v[u][j] = gn_out<T, SILU>(to_f(v[u][j]), wf[j], sf[j]);
+          store_pack<T, true>(yb + (long long)(r + u * step) * a.c, v[u]);
+        }
+      }
     }
   }
   cluster_wait();  // no block leaves while a peer may still read its sums
@@ -581,26 +655,30 @@ gn_resident_nhwc_kernel(const __grid_constant__ CUtensorMap map, ResidentArgs a)
 
 // NCHW: grid (cluster, B·G), clusters of `cluster` blocks along x. Block
 // (rank, b·G + group) takes channels [rank·cs, +cs) of the group (cs = C/G
-// / cluster), whole rows of n, by one bulk copy; warp w sums its channels w,
-// w + 8, ... (lanes, then the xor tree); the group's channel sums come from
-// their blocks through distributed shared memory. The apply takes a
-// channel at a time with every thread.
+// / cluster), whole rows of n, by one bulk copy. The channel sums: warps
+// split the block's channels (wpc warps a channel where the warps outnumber
+// them, each on every wpc-th 32 packs; lanes, the xor tree, then the warps
+// in order); the group's channel sums come from their blocks through
+// distributed shared memory. The apply walks the block's packs with every
+// thread.
 template <typename T, bool SILU>
-__global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs a) {
+__global__ void __launch_bounds__(kResThreads, 2) gn_resident_nchw_kernel(ResidentArgs a) {
   constexpr int kV = 16 / sizeof(T);
   extern __shared__ unsigned char gn_smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(gn_smem_raw) + 127) & ~uintptr_t(127));
   const int cg = a.c / a.g;
+  const ResidentLayout lay(false, a.cs, cg, a.n, 1, sizeof(T), 1);
   T* data = reinterpret_cast<T*>(base);
-  float* part_s = reinterpret_cast<float*>(base + (long long)a.cs * a.n * sizeof(T));
+  float* red_s = reinterpret_cast<float*>(base + lay.red);  // [warps]
+  float* red_q = red_s + kResWarps;
+  float* part_s = reinterpret_cast<float*>(base + lay.part);
   float* part_q = part_s + a.cs;
-  float* tot_s = part_q + a.cs;  // [cg]
+  float* tot_s = reinterpret_cast<float*>(base + lay.tot);  // [cg]
   float* tot_q = tot_s + cg;
-  float* wsh = tot_q + cg;       // [cs]
+  float* wsh = reinterpret_cast<float*>(base + lay.wsh);
   float* ssh = wsh + a.cs;
-  float* gst = ssh + a.cs;       // mean, inv
-  uint64_t* bar = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(gst + 2) + 7) & ~uintptr_t(7));
+  float* gst = reinterpret_cast<float*>(base + lay.gst);  // mean, inv
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + lay.bar);
 
   const int rank = static_cast<int>(fdt::cluster_ctarank());
   const int b = blockIdx.y / a.g, gi = blockIdx.y % a.g;
@@ -617,11 +695,12 @@ __global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs
     bulk_load(data, static_cast<const T*>(a.x) + at, bytes, bar);
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int packs = a.n / kV;
+  const int ppr = a.n / kV;  // packs a row
+  const int wpc = a.cs >= kResWarps ? 1 : kResWarps / a.cs;
   fdt::mbar_wait(bar, 0);
-  for (int ch = warp; ch < a.cs; ch += kWarps) {
+  for (int ch = warp / wpc; ch < a.cs && warp < a.cs * wpc; ch += kResWarps / wpc) {
     float s = 0.0f, q = 0.0f;
-    for (int p = lane; p < packs; p += 32) {
+    for (int p = warp % wpc * 32 + lane; p < ppr; p += wpc * 32) {
       alignas(16) T v[kV];
       load_pack<T, true>(v, data + (long long)ch * a.n + p * kV);
 #pragma unroll
@@ -633,13 +712,28 @@ __global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs
     }
     s = warp_sum(s);
     q = warp_sum(q);
-    if (lane == 0) {
+    if (lane == 0 && wpc == 1) {
+      part_s[ch] = s;
+      part_q[ch] = q;
+    } else if (lane == 0) {
+      red_s[warp] = s;
+      red_q[warp] = q;
+    }
+  }
+  if (wpc > 1) {
+    __syncthreads();
+    for (int ch = threadIdx.x; ch < a.cs; ch += kResThreads) {  // the channel's warps, in order
+      float s = 0.0f, q = 0.0f;
+      for (int k = 0; k < wpc; ++k) {
+        s += red_s[ch * wpc + k];
+        q += red_q[ch * wpc + k];
+      }
       part_s[ch] = s;
       part_q[ch] = q;
     }
   }
   fdt::cluster_sync();
-  for (int j = threadIdx.x; j < cg; j += kThreads) {
+  for (int j = threadIdx.x; j < cg; j += kResThreads) {
     tot_s[j] = ld_cluster_f32(fdt::peer_addr(&part_s[j % a.cs], j / a.cs));
     tot_q[j] = ld_cluster_f32(fdt::peer_addr(&part_q[j % a.cs], j / a.cs));
   }
@@ -655,7 +749,7 @@ __global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs
     }
   }
   __syncthreads();
-  for (int ch = threadIdx.x; ch < a.cs; ch += kThreads) {
+  for (int ch = threadIdx.x; ch < a.cs; ch += kResThreads) {
     const float2 f = fold_channel<T>({gst[0], gst[1]}, param(a.weight, ch0 + ch, a.w_bf16),
                                      param(a.bias, ch0 + ch, a.w_bf16));
     wsh[ch] = f.x;
@@ -664,14 +758,24 @@ __global__ void __launch_bounds__(kThreads) gn_resident_nchw_kernel(ResidentArgs
   cluster_arrive();
   __syncthreads();
   T* yb = static_cast<T*>(a.y) + at;
-  for (int ch = 0; ch < a.cs; ++ch) {
-    const float wf = wsh[ch], sf = ssh[ch];
-    for (int p = threadIdx.x; p < packs; p += kThreads) {
-      alignas(16) T v[kV];
-      load_pack<T, true>(v, data + (long long)ch * a.n + p * kV);
+  const int total = a.cs * ppr;
+  for (int i = threadIdx.x; i < total; i += 2 * kResThreads) {  // two packs in flight
+    alignas(16) T v[2][kV];
+    int ch[2];
 #pragma unroll
-      for (int j = 0; j < kV; ++j) v[j] = gn_out<T, SILU>(to_f(v[j]), wf, sf);
-      store_pack<T, true>(yb + (long long)ch * a.n + p * kV, v);
+    for (int u = 0; u < 2; ++u) {
+      const int k = i + u * kResThreads;
+      ch[u] = k / ppr;
+      if (k < total) load_pack<T, true>(v[u], data + (long long)k * kV);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = i + u * kResThreads;
+      if (k < total) {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) v[u][j] = gn_out<T, SILU>(to_f(v[u][j]), wsh[ch[u]], ssh[ch[u]]);
+        store_pack<T, true>(yb + (long long)k * kV, v[u]);
+      }
     }
   }
   cluster_wait();
@@ -702,7 +806,7 @@ int launch_cluster(Kernel kernel, dim3 grid, int cluster, int smem, cudaStream_t
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(kResThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -722,13 +826,16 @@ int resident(ResidentArgs a, int batch, bool nhwc, cudaStream_t stream) {
   if (a.cluster < 1 || a.cluster > 8 || a.c % a.g != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int cg = a.c / a.g;
   if (nhwc) {
-    // the slice: whole groups in 16-byte rows; the rows of a block in boxes
-    // of at most 256 rows, a multiple of 8 (128-byte aligned box slots)
-    if (a.cs % cg != 0 || a.cs % kV != 0 || a.c % a.cs != 0 || a.cs > 256 || (long long)(a.cluster - 1) * a.rows >= a.n)
+    // the slice: whole groups in rows of whole 32-byte sectors, at most 32
+    // 16-byte packs; the rows
+    // of a block in boxes of at most 256 rows, a multiple of 8 (128-byte
+    // aligned box slots)
+    if (a.cs % cg != 0 || a.cs % (2 * kV) != 0 || a.c % a.cs != 0 || a.cs / kV > 32 || a.cs > 256 ||
+        (long long)(a.cluster - 1) * a.rows >= a.n)
       return static_cast<int>(cudaErrorInvalidValue);
     a.boxes = (a.rows + 255) / 256;
     a.box_rows = ((a.rows + a.boxes - 1) / a.boxes + 7) / 8 * 8;
-    const NhwcLayout lay(a.cs, a.boxes * a.box_rows, sizeof(T), a.cs / cg);
+    const ResidentLayout lay(true, a.cs, cg, a.boxes * a.box_rows, a.boxes, sizeof(T), a.cs / cg);
     CUtensorMap map;
     if (!make_nhwc_map(&map, a.x, batch, a.n, a.c, a.cs, a.box_rows, sizeof(T) == 2))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -736,18 +843,18 @@ int resident(ResidentArgs a, int batch, bool nhwc, cudaStream_t stream) {
                           lay.total, stream, map, a);
   }
   // NCHW: the group's channels split over the cluster, whole rows each
-  if (cg % a.cluster != 0 || a.cs != cg / a.cluster || a.n % kV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long data = (long long)a.cs * a.n * sizeof(T);
-  const long long smem = 128 + data + (4LL * a.cs + 2LL * cg + 2) * 4 + 16;
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(gn_resident_nchw_kernel<T, SILU>, dim3(a.cluster, batch * a.g), a.cluster,
-                        static_cast<int>(smem), stream, a);
+  if (cg % a.cluster != 0 || a.cs != cg / a.cluster || a.n % kV != 0 ||
+      (long long)a.cs * a.n * sizeof(T) > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ResidentLayout lay(false, a.cs, cg, a.n, 1, sizeof(T), 1);
+  return launch_cluster(gn_resident_nchw_kernel<T, SILU>, dim3(a.cluster, batch * a.g), a.cluster, lay.total, stream,
+                        a);
 }
 
 template <typename T, bool VEC>
 int stats(StatsArgs a, int batch, bool nhwc, cudaStream_t stream) {
   constexpr int kV = VEC ? 16 / sizeof(T) : 1;
-  a.parts = (a.n + a.chunk - 1) / a.chunk;
+  a.parts = nhwc ? (a.n + a.chunk - 1) / a.chunk : 1;
   const int smem = a.fold ? (2 * a.c + 2 * a.g) * 4 : 0;
   void (*kernel)(StatsArgs) = nhwc ? gn_stats_nhwc_kernel<T, VEC> : gn_stats_nchw_kernel<T, VEC>;
   if (smem > 32768) {  // the fold of a wide C
@@ -755,11 +862,10 @@ int stats(StatsArgs a, int batch, bool nhwc, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (nhwc) {
-    const dim3 grid((a.c + 8 * kV - 1) / (8 * kV), a.parts, batch);
-    kernel<<<grid, kThreads, smem, stream>>>(a);
+    kernel<<<dim3((a.c + 8 * kV - 1) / (8 * kV), a.parts, batch), kThreads, smem, stream>>>(a);
   } else {
-    const dim3 grid((unsigned)(((long long)a.c * a.parts + kWarps - 1) / kWarps), batch);
-    kernel<<<grid, kThreads, smem, stream>>>(a);
+    if (a.chunk % 8 != 0 || (long long)kWarps * a.chunk < a.n) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<dim3(a.c, batch), kThreads, smem, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -771,14 +877,22 @@ void apply_launch(const void* x, const void* w, const void* b, void* y, int batc
   const T *xp = static_cast<const T*>(x), *wp = static_cast<const T*>(w), *bp = static_cast<const T*>(b);
   T* yp = static_cast<T*>(y);
   if (nhwc) {
-    // rows a block: about 64 KB of x, at least the rows its threads span
-    const int rows = std::max(kThreads / std::min(c / kV, kThreads), 65536 / (c * (int)sizeof(T)));
+    // rows a block: at most about 64 KB of x, fewer where that would leave
+    // the card under 8 blocks an SM; at least the rows its threads span
+    const int sms = fdt::sm_count();
+    const long long fill = ((long long)n * batch + 8LL * sms - 1) / (8LL * sms);
+    const int rows = std::max<long long>(kThreads / std::min(c / kV, kThreads),
+                                         std::min<long long>(65536 / (c * (int)sizeof(T)), fill));
     gn_apply_nhwc_kernel<T, VEC, SILU><<<dim3((n + rows - 1) / rows, batch), kThreads, 0, stream>>>(
         xp, wp, bp, yp, n, c, rows);
   } else {
     const int packs = n / kV;
-    gn_apply_nchw_kernel<T, VEC, SILU><<<dim3(batch * c, (packs + kThreads * kUnroll - 1) / (kThreads * kUnroll)),
-                                         kThreads, 0, stream>>>(xp, wp, bp, yp, n);
+    int tpr = kThreads;  // threads a row: the least power of two holding its packs kUnroll a thread
+    while (tpr > 1 && (tpr / 2) * kUnroll >= packs) tpr /= 2;
+    const int rows = batch * c, per_block = kThreads / tpr;
+    gn_apply_nchw_kernel<T, VEC, SILU><<<dim3((rows + per_block - 1) / per_block,
+                                              (packs + tpr * kUnroll - 1) / (tpr * kUnroll)),
+                                         kThreads, 0, stream>>>(xp, wp, bp, yp, n, rows, tpr);
   }
 }
 
@@ -799,16 +913,19 @@ extern "C" {
 
 // Plan (b)'s first launch, or K9's own entry. x: [batch, c, n] contiguous
 // (nhwc = 0) or [batch, n, c] (nhwc = 1: a channels-last tensor), bf16
-// (x_bf16 = 1) or fp32. psum, psq: [batch·c·ceil(n / chunk)] fp32 scratch;
-// counter: [batch] unsigned, zero, and zero again after the launch. chunk:
-// elements of an NCHW row, or NHWC rows, a part (ops/norms.py
-// gn_stream_plan). fold = 0: writes the channel sums sum, sumsq [batch, c].
-// fold = 1: writes the scale and shift w_out, shift_out [batch, c] in x's
-// dtype and the groups' mean_out, inv_out [batch, g] fp32, from weight and
-// bias [c] (bf16 when w_bf16 = 1, else fp32) and eps. vec = 1 takes 16-byte
-// loads: only when x is 16-byte aligned and the contiguous extent (n for
-// NCHW, c for NHWC) times the element size is a multiple of 16. Returns the
-// CUDA error code of the launch (0 on success).
+// (x_bf16 = 1) or fp32. chunk (ops/norms.py gn_stream_plan): NCHW, the
+// elements of a row each of its block's 8 warps sums (a multiple of 8, 8
+// chunks covering n); NHWC, the rows of a part. psum, psq (NHWC): [batch·c·
+// ceil(n / chunk)] fp32 scratch. counter: [batch·(tiles + 1)] unsigned
+// (tiles = ceil(c / (8·16 / element size)) for NHWC with vec, c / 8 without;
+// 0 for NCHW), zero, and zero again after the launch. Writes the channel
+// sums sum, sumsq [batch, c]; fold = 1 also the scale and shift w_out,
+// shift_out [batch, c] in x's dtype and the groups' mean_out, inv_out
+// [batch, g] fp32, from weight and bias [c] (bf16 when w_bf16 = 1, else
+// fp32) and eps. vec = 1 takes 16-byte loads: only when x is 16-byte aligned
+// and the contiguous extent (n for NCHW, c for NHWC) times the element size
+// is a multiple of 16. Returns the CUDA error code of the launch (0 on
+// success).
 int fdt_group_norm_stats(const void* x, void* sum, void* sumsq, const void* weight, const void* bias, void* w_out,
                          void* shift_out, void* mean_out, void* inv_out, void* psum, void* psq, void* counter,
                          int batch, int c, int n, int g, int chunk, int x_bf16, int w_bf16, int nhwc, int vec,

@@ -35,34 +35,53 @@ constexpr int kWideRows = 4;  // rows (warps) per block of the wide kernel
 
 __device__ inline float to_f(float x) { return x; }
 __device__ inline float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ inline T from_f(float x);
-template <> __device__ inline float from_f<float>(float x) { return x; }
-template <> __device__ inline bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
-// K elements of E from p, in the widest vector loads their bytes allow
-// (p aligned to them).
+// K elements of E held in 32-bit words (bf16 two to a word), so that a
+// thread's packs and affine stay packed in its registers. VEC packs are
+// 16-byte loads and stores (p aligned to their bytes).
 template <typename E, int K>
-__device__ inline void load_k(E (&dst)[K], const E* p) {
-  constexpr int kBytes = K * (int)sizeof(E);
-  if constexpr (kBytes % 16 == 0) {
+struct Raw {
+  static constexpr int kBytes = K * (int)sizeof(E);
+  static constexpr int kWords = (kBytes + 3) / 4;
+  uint32_t w[kWords];
+  __device__ inline void load(const E* p) {
+    if constexpr (kBytes % 16 == 0) {
 #pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(p)[i];
-  } else if constexpr (kBytes == 8) {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(p);
-  } else {
-#pragma unroll
-    for (int i = 0; i < K; ++i) dst[i] = p[i];
+      for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(p)[i];
+    } else if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(w) = *reinterpret_cast<const uint2*>(p);
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {  // one bf16
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
   }
-}
-template <typename E, int K>
-__device__ inline void store_k(E* p, const E (&src)[K]) {
-  if constexpr (K * sizeof(E) == 16) {
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(src);
-  } else {
+  __device__ inline void store(E* p) const {
+    if constexpr (kBytes % 16 == 0) {
 #pragma unroll
-    for (int i = 0; i < K; ++i) p[i] = src[i];
+      for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(w)[i];
+    } else if constexpr (kBytes == 4) {
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    } else {
+      *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0]);
+    }
   }
-}
+  __device__ inline float get(int i) const {
+    if constexpr (sizeof(E) == 4) {
+      return __uint_as_float(w[i]);
+    } else {
+      return __uint_as_float(((w[i >> 1] >> ((i & 1) * 16)) & 0xffffu) << 16);
+    }
+  }
+  __device__ inline void set(int i, float v) {
+    if constexpr (sizeof(E) == 4) {
+      w[i] = __float_as_uint(v);
+    } else {
+      const uint32_t h = __bfloat16_as_ushort(__float2bfloat16(v));
+      w[i >> 1] = (w[i >> 1] & ~(0xffffu << ((i & 1) * 16))) | (h << ((i & 1) * 16));
+    }
+  }
+};
 
 // rstd of a row from its fp32 sums (JAX's formula); mean through *mean
 __device__ inline float row_rstd(float s, float ss, int cols, float eps, float* mean) {
@@ -91,25 +110,28 @@ layer_norm_rows_kernel(const T* __restrict__ x, const W* __restrict__ w, const W
   bool ok[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) ok[j] = j * tpr + lane < packs;
-  W wv[PPT][kV], bv[PPT][kV];  // the affine, loaded once
+  Raw<W, kV> wv[PPT], bv[PPT];  // the affine, loaded once
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    if (ok[j] && w != nullptr) load_k(wv[j], w + (j * tpr + lane) * kV);
-    if (ok[j] && b != nullptr) load_k(bv[j], b + (j * tpr + lane) * kV);
+    if (ok[j] && w != nullptr) wv[j].load(w + (j * tpr + lane) * kV);
+    if (ok[j] && b != nullptr) bv[j].load(b + (j * tpr + lane) * kV);
   }
   for (int row0 = warp_row; row0 < rows; row0 += step) {
     const int row = row0 + my;
     const bool live = row < rows;
     const T* xr = x + (size_t)row * cols;
-    T v[PPT][kV];
+    Raw<T, kV> v[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {  // every load in flight before the first sum
+      if (live && ok[j]) v[j].load(xr + (j * tpr + lane) * kV);
+    }
     float s = 0.0f, ss = 0.0f;
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       if (live && ok[j]) {
-        load_k(v[j], xr + (j * tpr + lane) * kV);
 #pragma unroll
         for (int e = 0; e < kV; ++e) {
-          const float f = to_f(v[j][e]);
+          const float f = v[j].get(e);
           s += f;
           ss += f * f;
         }
@@ -127,12 +149,12 @@ layer_norm_rows_kernel(const T* __restrict__ x, const W* __restrict__ w, const W
       if (live && ok[j]) {
 #pragma unroll
         for (int e = 0; e < kV; ++e) {
-          float u = (to_f(v[j][e]) - mean) * rstd;
-          if (w != nullptr) u *= to_f(wv[j][e]);
-          if (b != nullptr) u += to_f(bv[j][e]);
-          v[j][e] = from_f<T>(u);
+          float u = (v[j].get(e) - mean) * rstd;
+          if (w != nullptr) u *= wv[j].get(e);
+          if (b != nullptr) u += bv[j].get(e);
+          v[j].set(e, u);
         }
-        store_k(yr + (j * tpr + lane) * kV, v[j]);
+        v[j].store(yr + (j * tpr + lane) * kV);
       }
     }
   }
@@ -153,11 +175,11 @@ layer_norm_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, const W
   const int packs = cols / kV;
   float s = 0.0f, ss = 0.0f;
   for (int i = lane; i < packs; i += 32) {
-    T v[kV];
-    load_k(v, xr + i * kV);
+    Raw<T, kV> v;
+    v.load(xr + i * kV);
 #pragma unroll
     for (int e = 0; e < kV; ++e) {
-      const float f = to_f(v[e]);
+      const float f = v.get(e);
       s += f;
       ss += f * f;
     }
@@ -169,17 +191,17 @@ layer_norm_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, const W
   float mean;
   const float rstd = row_rstd(s, ss, cols, eps, &mean);
   for (int i = lane; i < packs; i += 32) {
-    T v[kV];
-    load_k(v, xr + i * kV);
+    Raw<T, kV> v;
+    v.load(xr + i * kV);
 #pragma unroll
     for (int e = 0; e < kV; ++e) {
       const int c = i * kV + e;
-      float u = (to_f(v[e]) - mean) * rstd;
+      float u = (v.get(e) - mean) * rstd;
       if (w != nullptr) u *= to_f(w[c]);
       if (b != nullptr) u += to_f(b[c]);
-      v[e] = from_f<T>(u);
+      v.set(e, u);
     }
-    store_k(yr + i * kV, v);
+    v.store(yr + i * kV);
   }
 }
 

@@ -41,18 +41,20 @@ from . import kernels
 # ``group_norm_apply`` the apply kernel (plan (b)'s second launch, or
 # ``group_norm_apply`` alone). Reset them by assigning 0.
 LAUNCHES = {"layer_norm": 0, "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0}
-# How the statistics kernel splits a sample's N (``gn_stream_plan``): at
-# least GN_CHUNK elements of an NCHW (b, c) row a warp, or GN_NHWC_ROWS rows
-# of an NHWC (channels-last) sample a block, and at most GN_MAX_PARTS parts
-# (so that the last block's sum over a channel's partials stays short): a
-# function of N and the layout alone, never of the batch, the slot or the
-# channel count, and with it the order of a sample's sums.
-GN_CHUNK, GN_NHWC_ROWS, GN_MAX_PARTS = 2048, 512, 128
+# How the statistics kernel splits an NHWC (channels-last) sample's N
+# (``gn_stream_plan``): at least GN_NHWC_ROWS rows a block, and at most
+# GN_MAX_PARTS parts (so that the sum over a channel's partials stays
+# short); an NCHW row goes to one block. A function of N and the layout
+# alone, never of the batch, the slot or the channel count, and with it the
+# order of a sample's sums.
+GN_NHWC_ROWS, GN_MAX_PARTS = 128, 32
 # The resident plan (``gn_resident_plan``): a block's share of a slice in
-# shared memory, at most GN_RESIDENT_BYTES (two blocks an SM) where a
-# cluster of up to 8 allows it, else at most GN_RESIDENT_MAX_BYTES (one).
-GN_RESIDENT_BYTES, GN_RESIDENT_MAX_BYTES, GN_CLUSTERS = 100 * 1024, 200 * 1024, (1, 2, 4, 8)
-_SMEM_LIMIT, _GN_THREADS = 232448, 256
+# shared memory, at most GN_RESIDENT_BYTES (two blocks an SM), in a cluster
+# of one of GN_CLUSTERS blocks. Past it the streaming plan was faster on the
+# card (``kernel_times.py --kernels k9 --sweep``: e.g. [4, 320, 128²] NCHW
+# in clusters of 2 × 160 KB, [4, 256, 256²] NCHW of 8 × 128 KB).
+GN_RESIDENT_BYTES, GN_CLUSTERS = 100 * 1024, (1, 2, 4, 8)
+_SMEM_LIMIT, _GN_WARPS = 232448, 16  # warps of a resident block
 # packs a lane of the LayerNorm row kernel (``layer_norm_plan``): 16-byte
 # packs, and packs of one element
 LN_PPT, LN_PPT_SCALAR = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16), (1, 2, 4, 8, 16)
@@ -307,56 +309,58 @@ class ResidentPlan(NamedTuple):
 
 def gn_stream_plan(n: int, nhwc: bool) -> StreamPlan:
     """The statistics kernel's split of a sample's N, by N and the layout
-    alone: GN_CHUNK elements (NCHW) or GN_NHWC_ROWS rows (NHWC) a part, more
-    past GN_MAX_PARTS parts."""
-    step, least = (32, GN_NHWC_ROWS) if nhwc else (256, GN_CHUNK)
-    chunk = max(least, -(-(-(-n // GN_MAX_PARTS)) // step) * step)
+    alone. NCHW: one block a (b, c) row, its 8 warps on 8 chunks of whole
+    16-byte packs (one part). NHWC: GN_NHWC_ROWS rows a part, more past
+    GN_MAX_PARTS parts."""
+    if not nhwc:
+        return StreamPlan(-(-(-(-n // 8)) // 8) * 8, 1)
+    chunk = max(GN_NHWC_ROWS, -(-(-(-n // GN_MAX_PARTS)) // 32) * 32)
     return StreamPlan(chunk, -(-n // chunk))
 
 
-def _nhwc_resident_smem(cs: int, data_rows: int, elem: int, groups: int) -> int:
-    """Dynamic shared memory of the NHWC resident block (``NhwcLayout`` in
-    csrc/group_norm.cu): the data, the lanes' sums twice, six [cs] rows, the
-    groups' mean and inv, the mbarrier and the base's alignment slack."""
-    lanes = _GN_THREADS // (cs * elem // 16)
-    gst = data_rows * cs * elem + 2 * lanes * cs * 4 + 4 * cs * 4
-    return -(-(gst + 2 * groups * 4) // 8) * 8 + 8 + 128
+def _resident_smem(nhwc: bool, cs: int, cg: int, rows: int, boxes: int, elem: int, groups: int) -> int:
+    """Dynamic shared memory of a resident block (``ResidentLayout`` in
+    csrc/group_norm.cu): the data (cs channels by ``rows``), the warps'
+    sums, the block's and the cluster's sums, the scale and shift, the
+    groups' mean and inv, the mbarriers and the base's alignment slack."""
+    gst = cs * rows * elem + 2 * (_GN_WARPS * cs if nhwc else _GN_WARPS) * 4 + 2 * cs * 4
+    gst += 2 * (cs if nhwc else cg) * 4 + 2 * cs * 4
+    return -(-(gst + 2 * groups * 4) // 8) * 8 + 8 * (boxes if nhwc else 1) + 128
 
 
 def gn_resident_plan(n: int, c: int, g: int, nhwc: bool, elem: int) -> Optional[ResidentPlan]:
     """Plan (a) for a GroupNorm of N positions, C channels in G groups, the
     layout and the element size, or None where a group does not fit a
     cluster's shared memory (or its rows are off the 16-byte step). NHWC: a
-    slice of the fewest whole groups whose channels make 16-byte rows (≤ 256
-    channels, a TMA box's width), its rows split over the cluster; NCHW: one
+    slice of the fewest whole groups whose channels make rows of whole
+    32-byte sectors (no two clusters share a sector of x or y; ≤ 256
+    channels, a TMA box's width, and ≤ 32 16-byte packs, a warp's lanes),
+    its rows split over the cluster; NCHW: one
     group, its channels split over the cluster. The least cluster (1, 2, 4,
-    8) whose blocks each hold at most GN_RESIDENT_BYTES, else at most
-    GN_RESIDENT_MAX_BYTES, within the block's shared-memory limit."""
+    8) whose blocks each hold at most GN_RESIDENT_BYTES."""
     if c % g:
         return None
     cg, kv = c // g, 16 // elem
     if nhwc:
-        k = next((k for k in range(1, g + 1) if g % k == 0 and k * cg % kv == 0), None)
-        if (c * elem) % 16 or k is None or k * cg > 256:
+        k = next((k for k in range(1, g + 1) if g % k == 0 and k * cg % (2 * kv) == 0), None)
+        if (c * elem) % 16 or k is None or k * cg > min(256, 32 * kv):
             return None
         cs = k * cg
-        for limit in (GN_RESIDENT_BYTES, GN_RESIDENT_MAX_BYTES):
-            for cluster in GN_CLUSTERS:
-                rows = -(-n // cluster)
-                boxes = -(-rows // 256)
-                data_rows = boxes * (-(-(-(-rows // boxes)) // 8) * 8)
-                smem = _nhwc_resident_smem(cs, data_rows, elem, k)
-                if (cluster - 1) * rows < n and data_rows * cs * elem <= limit and smem <= _SMEM_LIMIT:
-                    return ResidentPlan(cluster, cs, rows, smem)
+        for cluster in GN_CLUSTERS:
+            rows = -(-n // cluster)
+            boxes = -(-rows // 256)
+            data_rows = boxes * (-(-(-(-rows // boxes)) // 8) * 8)
+            smem = _resident_smem(True, cs, cg, data_rows, boxes, elem, k)
+            if (cluster - 1) * rows < n and data_rows * cs * elem <= GN_RESIDENT_BYTES and smem <= _SMEM_LIMIT:
+                return ResidentPlan(cluster, cs, rows, smem)
         return None
     if (n * elem) % 16:
         return None
-    for limit in (GN_RESIDENT_BYTES, GN_RESIDENT_MAX_BYTES):
-        for cluster in GN_CLUSTERS:
-            cs = cg // cluster
-            smem = 128 + cs * n * elem + (4 * cs + 2 * cg + 2) * 4 + 16
-            if cg % cluster == 0 and cs * n * elem <= limit and smem <= _SMEM_LIMIT:
-                return ResidentPlan(cluster, cs, n, smem)
+    for cluster in GN_CLUSTERS:
+        cs = cg // cluster
+        smem = _resident_smem(False, cs, cg, n, 1, elem, 1)
+        if cg % cluster == 0 and cs * n * elem <= GN_RESIDENT_BYTES and smem <= _SMEM_LIMIT:
+            return ResidentPlan(cluster, cs, n, smem)
     return None
 
 
@@ -371,37 +375,39 @@ def group_norm_plan(shape, num_groups: int, nhwc: bool, dtype) -> Tuple[str, tup
     return ("resident", plan) if plan is not None else ("stream", gn_stream_plan(n, nhwc))
 
 
-# the statistics kernel's arrival counters, one per sample, by (device,
-# stream): zero between launches (the last block of a sample resets its own)
+# the statistics kernel's arrival counters, by (device, stream): zero
+# between launches (the last block to arrive resets its own)
 _GN_COUNTERS: dict = {}
 
 
-def _gn_counters(device: torch.device, stream: int, batch: int) -> torch.Tensor:
+def _gn_counters(device: torch.device, stream: int, count: int) -> torch.Tensor:
     t = _GN_COUNTERS.get((device, stream))
-    if t is None or t.numel() < batch:
-        t = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
         _GN_COUNTERS[(device, stream)] = t
     return t
 
 
-def _gn_stats_launch(x, nhwc, *, sums=(None, None), fold=(None, None, None, None, None, None), groups=1,
-                     eps=0.0):
+def _gn_stats_launch(x, nhwc, sums, fold=None, groups=1, eps=0.0):
     """One launch of the statistics kernel over x: the channel sums into
-    ``sums`` = (Σx, Σx²), or, with ``fold`` = (weight, bias, w, shift,
-    mean, inv), the fold into the last four."""
+    ``sums`` = (Σx, Σx²) [B, C] fp32, and with ``fold`` = (weight, bias, w,
+    shift, mean, inv) the fold into the last four."""
     b, c = x.shape[:2]
     n = x.numel() // (b * c)
     plan = gn_stream_plan(n, nhwc)
-    partial = torch.empty((2, b * c * plan.parts), dtype=torch.float32, device=x.device)
+    vec = _vec16(x, nhwc)
+    tiles = -(-c // (8 * (16 // x.element_size() if vec else 1))) if nhwc else 0
+    partial = torch.empty((2, b * c * plan.parts if nhwc else 1), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    weight = fold[0]
     ptr = lambda t: None if t is None else t.data_ptr()
+    weight = None if fold is None else fold[0]
     with torch.cuda.device(x.device):
         err = kernels.library().fdt_group_norm_stats(
-            x.data_ptr(), *(ptr(t) for t in sums), *(ptr(t) for t in fold), partial[0].data_ptr(),
-            partial[1].data_ptr(), _gn_counters(x.device, stream, b).data_ptr(), b, c, n, groups, plan.chunk,
-            int(x.dtype == torch.bfloat16), int(weight is not None and weight.dtype == torch.bfloat16), int(nhwc),
-            int(_vec16(x, nhwc)), int(weight is not None), float(eps), stream,
+            x.data_ptr(), *(t.data_ptr() for t in sums), *(ptr(t) for t in (fold or (None,) * 6)),
+            partial[0].data_ptr(), partial[1].data_ptr(), _gn_counters(x.device, stream, b * (tiles + 1)).data_ptr(),
+            b, c, n, groups, plan.chunk, int(x.dtype == torch.bfloat16),
+            int(weight is not None and weight.dtype == torch.bfloat16), int(nhwc), int(vec), int(fold is not None),
+            float(eps), stream,
         )
     kernels.check(err, "group_norm_stats")
     LAUNCHES["group_norm_stats"] += 1
@@ -416,7 +422,7 @@ def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     nhwc = _check_gn_cuda("statistics", x)
     s = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
     ss = torch.empty_like(s)
-    _gn_stats_launch(x, nhwc, sums=(s, ss))
+    _gn_stats_launch(x, nhwc, (s, ss))
     return s, ss
 
 
@@ -560,7 +566,8 @@ def group_norm_forward(x, num_groups, weight, bias, eps=1e-5, act=None):
     inv = torch.empty_like(mean)
     if kind == "stream":  # plan (b): the statistics with the fold, then the apply
         w, shift = (torch.empty((b, c), dtype=x.dtype, device=x.device) for _ in range(2))
-        _gn_stats_launch(x, nhwc, fold=(weight, bias, w, shift, mean, inv), groups=num_groups, eps=eps)
+        sums = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+        _gn_stats_launch(x, nhwc, sums, (weight, bias, w, shift, mean, inv), num_groups, eps)
         return group_norm_apply(x, w, shift, act), mean, inv
     y = torch.empty_like(x)  # plan (a): one launch; y keeps x's layout
     if not all(t.data_ptr() % 16 == 0 for t in (x, y)):

@@ -149,22 +149,27 @@ MUTANTS = [
     ("K11 one K partial dropped", "int8", ("int8_gemm",), "csrc/int8_gemm.cu",
      [("for (int p = 0; p < split; ++p) {", "for (int p = 1; p < split; ++p) {", 1)], SPLIT_M),
     ("K3 bias dropped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
-     [("if (b != nullptr) v += to_f(b[c]);", "if (false) v += to_f(b[c]);", 1)], None),
+     [("if (b != nullptr) u += bv[j].get(e);", "if (false) u += bv[j].get(e);", 1)], None),
     ("K3 last pack of a row skipped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
-     [("for (int i = lane; i < packs; i += 32) {", "for (int i = lane; i < packs - 1; i += 32) {", 2)], None),
+     [("for (int j = 0; j < PPT; ++j) ok[j] = j * tpr + lane < packs;",
+       "for (int j = 0; j < PPT; ++j) ok[j] = j * tpr + lane < packs - 1;", 1)], None),
     ("K3 eps dropped", "norm", ("layer_norm",), "csrc/layer_norm.cu",
-     [("const float rstd = rsqrtf(var + eps);", "const float rstd = rsqrtf(var);", 1)], None),
+     [("return rsqrtf(var + eps);", "return rsqrtf(var);", 1)], None),
     ("K3 y x 1.01", "norm", ("layer_norm",), "csrc/layer_norm.cu",
-     [("p.v[j] = from_f<T>(v);", "p.v[j] = from_f<T>(v * 1.01f);", 1)], EVERY),
+     [("v[j].set(e, u);", "v[j].set(e, u * 1.01f);", 1)], EVERY),
+    # the GroupNorm: one part of N (a part of the NHWC statistics, a warp's
+    # chunk of an NCHW row, a block's rows of the resident NHWC cluster)
+    # left out of the sums
     ("GroupNorm one part of N dropped", "norm", ("group_norm",), "csrc/group_norm.cu",
-     [("for (int p = lane; p < parts; p += 32) {", "for (int p = lane; p < parts - 1; p += 32) {", 1)], None),
-    ("GroupNorm group boundary shifted by one channel", "norm", ("group_norm",), "ops/norms.py",
-     [("mean = s.reshape(b, g, -1).sum(-1) / n", "mean = s.roll(-1, 1).reshape(b, g, -1).sum(-1) / n", 1),
-      ("ss.reshape(b, g, -1).sum(-1) / n", "ss.roll(-1, 1).reshape(b, g, -1).sum(-1) / n", 1)], None),
+     [("        if (p0 + k * kQuarters < a.parts) {", "        if (p0 + k * kQuarters < a.parts - 1) {", 1),
+      ("    for (int r = 0; r < a.cluster; ++r) {", "    for (int r = 1; r < a.cluster; ++r) {", 1),
+      ("    for (int w = 0; w < kWarps; ++w) {", "    for (int w = 1; w < kWarps; ++w) {", 1)], None),
+    ("GroupNorm group boundary shifted by one channel", "norm", ("group_norm",), "csrc/group_norm.cu",
+     [("const int ch = first + j;", "const int ch = first + j + 1;", 1)], None),
     ("GroupNorm SiLU dropped", "norm", ("group_norm",), "csrc/group_norm.cu",
      [("if constexpr (SILU) u = __fdiv_rn(u, 1.0f + expf(-u));", "", 1)], None),
     ("GroupNorm y x 1.01", "norm", ("group_norm",), "csrc/group_norm.cu",
-     [("v[j] = from_f<T>(u);", "v[j] = from_f<T>(u * 1.01f);", 1)], EVERY),
+     [("return from_f<T>(u);", "return from_f<T>(u * 1.01f);", 1)], EVERY),
 ]
 
 

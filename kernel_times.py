@@ -42,8 +42,10 @@ at q tiles of 64 and 128 rows at ``PACKED_SHAPES``, the sweep behind
 ``INT8_SHAPES``, the sweep behind ``ops/gemm.py int8_gemm_plan``, and the
 host's time of one K11 launch (the wrapper, and the C call alone, which
 encodes the two tensor maps); K12 at its built (width, cluster) at
-``FFN_SHAPES``, the sweep behind ``ops/gemm.py geglu_gemm_plan`` (each for
-the kernels asked for). Prints each tree's lines and, last, a table of
+``FFN_SHAPES``, the sweep behind ``ops/gemm.py geglu_gemm_plan``; the
+whole GroupNorm with SiLU under the streaming plan and, where a slice fits
+a cluster, the resident one, at ``GN_SHAPES`` in both layouts, the sweep
+behind ``ops/norms.py gn_resident_plan`` (each for the kernels asked for). Prints each tree's lines and, last, a table of
 kernel ms per shape and tree. Needs a CUDA card and nvcc.
 """
 
@@ -77,11 +79,40 @@ def host_us(fn, calls=500):
 
 def sweep(cs, attention, gemm, kernels, which):
     """K10 at each built tile width, K4 at each q tile, K11 at each built
-    plan (and the host's time of a launch) and K12 at each built (width,
-    cluster), at their main-path shapes (this tree)."""
+    plan (and the host's time of a launch), K12 at each built (width,
+    cluster) and the whole GroupNorm under each plan, at their main-path
+    shapes (this tree)."""
     import torch
 
+    from flash_diffusion_tpu_torch.ops import norms
+
     lib = kernels.library()
+    for shape in cs.GN_SHAPES if "k9" in which else []:
+        for nhwc in (False, True):
+            x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+            if nhwc:
+                x = x.to(memory_format=torch.channels_last)
+            b, c = shape[:2]
+            w = torch.ones(c, device="cuda", dtype=torch.bfloat16)
+            n = shape[2] * shape[3]
+            resident = norms.gn_resident_plan(n, c, 32, nhwc, 2)
+            mean, inv = torch.empty(b, 32, device="cuda"), torch.empty(b, 32, device="cuda")
+            scale, shift = (torch.empty(b, c, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+            sums = torch.empty(2, b, c, device="cuda")
+
+            def stream():
+                norms._gn_stats_launch(x, nhwc, sums, (w, w, scale, shift, mean, inv), 32, 1e-5)
+                return norms.group_norm_apply(x, scale, shift, "silu")
+
+            line = f"sweep group_norm {shape} {'NHWC' if nhwc else 'NCHW'}: streaming {cs.median_ms(stream):.4f} ms"
+            if resident is not None:
+                y = torch.empty_like(x)
+                run = lambda: kernels.check(lib.fdt_group_norm_resident(
+                    x.data_ptr(), w.data_ptr(), w.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(), b, c, n, 32,
+                    resident.cluster, resident.channels, resident.rows, 1, 1, int(nhwc), 1, 1e-5,
+                    torch.cuda.current_stream().cuda_stream), "resident sweep")
+                line += f", resident {cs.median_ms(run):.4f} ms ({resident})"
+            print(line + f" <- plan {norms.group_norm_plan(shape, 32, nhwc, torch.bfloat16)[0]}")
     g = torch.Generator(device="cuda").manual_seed(9)
     stream = lambda: torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -224,7 +255,7 @@ def main() -> None:
     ap.add_argument("--order", default="base,this,this,base")
     ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k8,k9,k10,k11,k12")
     ap.add_argument("--sweep", action="store_true",
-                    help="also sweep K10's tile width, K4's q tile, K11's plans and K12's in this tree")
+                    help="also sweep K10's tile width, K4's q tile, K11's, K12's and the GroupNorm's plans in this tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     which = set(args.kernels.split(","))
