@@ -249,8 +249,6 @@ int dispatch(const void* xv, const void* wv, const void* bv, void* yv, int rows,
       return static_cast<int>(cudaGetLastError());
     case 1: return launch_rows<T, W, 1, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
     case 2: return launch_rows<T, W, 2, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
-    case 3: if constexpr (VEC) return launch_rows<T, W, 3, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
-      return static_cast<int>(cudaErrorInvalidValue);
     case 4: return launch_rows<T, W, 4, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
     case 5: if constexpr (VEC) return launch_rows<T, W, 5, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
       return static_cast<int>(cudaErrorInvalidValue);
@@ -260,8 +258,6 @@ int dispatch(const void* xv, const void* wv, const void* bv, void* yv, int rows,
     case 9: if constexpr (VEC) return launch_rows<T, W, 9, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
       return static_cast<int>(cudaErrorInvalidValue);
     case 10: if constexpr (VEC) return launch_rows<T, W, 10, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
-      return static_cast<int>(cudaErrorInvalidValue);
-    case 12: if constexpr (VEC) return launch_rows<T, W, 12, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
       return static_cast<int>(cudaErrorInvalidValue);
     case 16: return launch_rows<T, W, 16, VEC>(x, w, b, y, rows, cols, tpr, eps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -284,8 +280,8 @@ extern "C" {
 // sets it only when x, y, w and b are 16-byte aligned and cols * the element
 // size is a multiple of 16. (tpr, ppt): lanes a row and packs a lane of the
 // row kernel (ops/norms.py layer_norm_plan: tpr * ppt packs cover the row;
-// ppt in 1-6, 8, 9, 10, 12, 16 with vec, else tpr = 32 and ppt a power of
-// two up to 16), or ppt = 0 for the wide kernel. Returns the
+// ppt in 1, 2, 4, 5, 6, 8, 9, 10, 16 with vec, else tpr = 32 and ppt a
+// power of two up to 16), or ppt = 0 for the wide kernel. Returns the
 // CUDA error code of the launch (0 on success).
 int fdt_layer_norm(const void* x, const void* w, const void* b, void* y, int rows, int cols, float eps, int x_bf16,
                    int w_bf16, int vec, int tpr, int ppt, void* stream) {

@@ -27,6 +27,7 @@ SiLU follows through autograd.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -47,7 +48,7 @@ LAUNCHES = {"layer_norm": 0, "group_norm_stats": 0, "group_norm_apply": 0, "grou
 # short); an NCHW row goes to one block. A function of N and the layout
 # alone, never of the batch, the slot or the channel count, and with it the
 # order of a sample's sums.
-GN_NHWC_ROWS, GN_MAX_PARTS = 128, 32
+GN_NHWC_ROWS, GN_MAX_PARTS = 512, 32
 # The resident plan (``gn_resident_plan``): a block's share of a slice in
 # shared memory, at most GN_RESIDENT_BYTES (two blocks an SM), in a cluster
 # of one of GN_CLUSTERS blocks. Past it the streaming plan was faster on the
@@ -57,7 +58,7 @@ GN_RESIDENT_BYTES, GN_CLUSTERS = 100 * 1024, (1, 2, 4, 8)
 _SMEM_LIMIT, _GN_WARPS = 232448, 16  # warps of a resident block
 # packs a lane of the LayerNorm row kernel (``layer_norm_plan``): 16-byte
 # packs, and packs of one element
-LN_PPT, LN_PPT_SCALAR = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16), (1, 2, 4, 8, 16)
+LN_PPT, LN_PPT_SCALAR = (1, 2, 4, 5, 6, 8, 9, 10, 16), (1, 2, 4, 8, 16)
 # The LayerNorm kernel's gate against the plain version in fp32 on the same
 # inputs, per output dtype: (rel, floor, l2, bias) of ``layer_norm_gate``.
 # bf16: y rounds once on store, by at most half an ulp (≤ 2⁻⁸·|y|); the
@@ -206,6 +207,7 @@ def layer_norm(
     return _layer_norm_forward(x, weight, bias, eps)
 
 
+@functools.lru_cache(maxsize=None)
 def layer_norm_plan(c: int, elem: int, vec: bool) -> Tuple[int, int]:
     """(lanes a row, packs a lane) of the LayerNorm row kernel for rows of
     ``c`` elements of ``elem`` bytes, in 16-byte packs (``vec``) or packs of
@@ -307,6 +309,7 @@ class ResidentPlan(NamedTuple):
     smem: int  # dynamic shared memory of a block, bytes
 
 
+@functools.lru_cache(maxsize=None)
 def gn_stream_plan(n: int, nhwc: bool) -> StreamPlan:
     """The statistics kernel's split of a sample's N, by N and the layout
     alone. NCHW: one block a (b, c) row, its 8 warps on 8 chunks of whole
@@ -364,10 +367,11 @@ def gn_resident_plan(n: int, c: int, g: int, nhwc: bool, elem: int) -> Optional[
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def group_norm_plan(shape, num_groups: int, nhwc: bool, dtype) -> Tuple[str, tuple]:
     """("resident", ``ResidentPlan``) or ("stream", ``StreamPlan``) for a
     GroupNorm over x of ``shape`` [B, C, *spatial]: by N, C, G, the layout
-    and the dtype, never by B."""
+    and the dtype, never by B (cached: the host runs it at every call)."""
     n = 1
     for d in shape[2:]:
         n *= d

@@ -382,6 +382,7 @@ def test_pixart_slice_runs_through_the_kernels_on_card(cuda):
     images = pipe.generate(["a", "b"], latents=latents, noise=noise).cpu()
     torch.cuda.synchronize()
     assert images.shape == (2, 16, 16, 3) and torch.isfinite(images).all()
-    assert norms.LAUNCHES["layer_norm"] > 0 and norms.LAUNCHES["group_norm_stats"] > 0
+    # a GroupNorm is one resident launch, or the statistics then the apply
+    assert norms.LAUNCHES["layer_norm"] > 0 and norms.LAUNCHES["group_norm_fused"] + norms.LAUNCHES["group_norm_stats"] > 0
     assert norms.LAUNCHES["group_norm_apply"] == norms.LAUNCHES["group_norm_stats"]
     assert ((images - want).norm() / want.norm()).item() < 0.1

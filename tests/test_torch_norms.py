@@ -251,7 +251,7 @@ def test_group_norm_plans_follow_n_c_g_layout_and_dtype_not_the_batch(chw, kind)
 
 @pytest.mark.parametrize("n,nhwc,want", [
     (1, False, (8, 1)), (4099, False, (520, 1)), (512 * 512, False, (32768, 1)),
-    (1024 * 1024, False, (131072, 1)), (4096, True, (128, 32)), (1000, True, (128, 8)), (256 * 256, True, (2048, 32)),
+    (1024 * 1024, False, (131072, 1)), (4096, True, (512, 8)), (1000, True, (512, 2)), (256 * 256, True, (2048, 32)),
     (1024 * 1024, True, (32768, 32)),
 ])
 def test_stream_plan_splits_n_by_n_and_layout(n, nhwc, want):
