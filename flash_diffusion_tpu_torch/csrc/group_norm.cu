@@ -21,24 +21,26 @@
 // (ops/norms.py group_norm_plan, by N, C, G, the layout and the dtype, never
 // by B):
 //
-// (a) Resident (gn_resident_*_kernel): one cluster of 1-8 blocks per
-//     (sample, group-aligned channel slice) loads the slice once into its
-//     blocks' shared memory by TMA (NHWC: 3-D tensor-map boxes of the
-//     slice's channels by up to 256 rows, the rows split over the cluster's
-//     blocks; NCHW: one bulk copy of each block's whole channel rows, the
-//     group's channels split over the blocks). Each block sums its part per
-//     channel in a fixed order (lanes, then a fixed shared-memory or xor
-//     tree); the blocks add each other's sums through distributed shared
-//     memory in rank order, fold, and apply from shared memory. One read,
-//     one write, one launch, and no co-residency across clusters, so any B.
-// (b) Streaming, where a slice does not fit (the VAE's larger levels): the
-//     statistics kernel (gn_stats_*_kernel) cuts each sample's N into fixed
-//     parts (a function of N and the layout) and writes per-part partial
-//     sums; the last block of a sample to finish, picked by an arrival
-//     counter that decides who adds and never the order of the sums, adds
-//     the partials in part order and folds. Then the apply kernel
-//     (gn_apply_*_kernel) reads x again: NCHW a block per row segment with
-//     its row's scale and shift loaded once, NHWC each thread on fixed
+// (a) Resident (gn_resident_*_kernel), where a block's share of a slice
+//     fits 100 KB: one cluster of 1-8 blocks per (sample, group-aligned
+//     channel slice) loads the slice once into its blocks' shared memory by
+//     TMA (NHWC: 3-D tensor-map boxes of the slice's channels, rows of whole
+//     32-byte sectors so that no two clusters share one, by up to 256 rows,
+//     the rows split over the cluster's blocks; NCHW: one bulk copy of each
+//     block's whole channel rows, the group's channels split over the
+//     blocks). Each block sums its part per channel in a fixed order (lanes,
+//     a fixed shuffle chain or xor tree, then the warps in order); the
+//     blocks add each other's sums through distributed shared memory in
+//     rank order, fold, and apply from shared memory. One read, one write,
+//     one launch, and no co-residency across clusters, so any B.
+// (b) Streaming, where a slice does not fit (SDXL's 128² UNet level, the
+//     VAE's larger levels): the statistics kernel (gn_stats_*_kernel) sums
+//     NCHW rows a block each, and NHWC samples in fixed parts of rows (a
+//     function of N and the layout) whose partials the last block of each
+//     column tile adds; the last block of a sample folds. Arrival counters
+//     pick those blocks; they decide who adds, never the order of a sum.
+//     Then the apply kernel (gn_apply_*_kernel) reads x again: NCHW rows
+//     with their scale and shift loaded once a thread, NHWC threads on fixed
 //     channels with their scale and shift loaded once as 16-byte vectors and
 //     rows walked by multiplication, with no divide per pack.
 //
