@@ -7,8 +7,8 @@ token sequences are [B, S, C] with S in h-major order, the order of the JAX
 package's ``reshape(b, h*w, c)`` of NHWC. Attention goes through
 ``ops.dot_product_attention`` (the flash kernels; a biased call takes the
 plain path), LayerNorm through ``ops.layer_norm`` (the LayerNorm kernel),
-GroupNorm through ``ops.group_norm`` (the GroupNorm statistics and apply
-kernels, with the JAX numerics). The projections the JAX package builds as
+GroupNorm through ``ops.group_norm`` (the GroupNorm kernels, with the JAX
+numerics). The projections the JAX package builds as
 ``LoraDense`` (attention ``to_q``/``to_k``/``to_v``/``to_out.0``, the
 GEGLU feed-forward's two, and the spatial transformers' ``proj_in``/
 ``proj_out``, SD1.5's 1×1 convs included) go through ``lora_dense``, which

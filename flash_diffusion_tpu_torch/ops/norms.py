@@ -12,17 +12,19 @@ backward is ``layer_norm_backward``, the plain closed-form VJP of the JAX
 
 ``group_norm`` works on channel-first tensors ([B, C, *spatial], contiguous
 or, as cuDNN hands them on, channels-last; the kernels keep the layout) with
-the JAX package's numerics: fp32 Σx and Σx² per channel
-(``group_norm_stats``: on a CUDA tensor the statistics kernel of
-``csrc/group_norm.cu``, the port of the Pallas ``_gn_stats_kernel``), folded
-per group in plain PyTorch into one per-channel scale and shift in the input
-dtype (``_gn_fold_stats``, as JAX's), then applied with an optional SiLU in
-one pass (``group_norm_apply``: on a CUDA tensor the port's fused apply
-kernel of the same file). A CUDA tensor always takes both kernels, or raises; a CPU tensor
-takes their plain versions. Under a gradient it goes through
-``GroupNormFunction`` (JAX ``_gn_p``): the same forward without the SiLU, and
-``group_norm_backward``, the plain closed-form VJP of JAX ``_gn_p_bwd``; the
-SiLU follows through autograd.
+the JAX package's numerics: fp32 Σx and Σx² per channel (the port of the
+Pallas ``_gn_stats_kernel``), folded per group into one per-channel scale
+and shift in the input dtype (JAX's ``_gn_fold_stats``), then applied with
+an optional SiLU. On a CUDA tensor only the kernels of
+``csrc/group_norm.cu`` run, one or two launches by ``group_norm_plan``: the
+resident kernel (all three in one launch), or the statistics kernel with
+the fold in its last block, then the apply kernel; a plan the card refuses
+raises. On a CPU tensor the plain versions run (``group_norm_reference``).
+The statistics alone (``group_norm_stats``) and the apply alone
+(``group_norm_apply``) stay public with their plain versions. Under a
+gradient it goes through ``GroupNormFunction`` (JAX ``_gn_p``): the same
+forward without the SiLU, and ``group_norm_backward``, the plain
+closed-form VJP of JAX ``_gn_p_bwd``; the SiLU follows through autograd.
 """
 
 from __future__ import annotations
@@ -613,9 +615,9 @@ def group_norm_backward(
 
 
 class GroupNormFunction(torch.autograd.Function):
-    """GroupNorm without activation whose forward is the statistics kernel,
-    the fold and the apply kernel (their plain versions on the CPU), and
-    whose backward is ``group_norm_backward`` (JAX ``_gn_p``)."""
+    """GroupNorm without activation whose forward is ``group_norm_forward``
+    (the GroupNorm kernels; their plain versions on the CPU), and whose
+    backward is ``group_norm_backward`` (JAX ``_gn_p``)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups: int, eps: float):
@@ -643,9 +645,9 @@ def group_norm(
 ) -> torch.Tensor:
     """GroupNorm over [B, C, *spatial] with fp32 statistics and optional SiLU.
 
-    CPU tensors take the plain versions; CUDA tensors launch the statistics
-    and apply kernels; under a gradient either goes through
-    ``GroupNormFunction``, with the SiLU after it."""
+    CPU tensors take the plain versions; CUDA tensors launch the GroupNorm
+    kernels (one launch or two, ``group_norm_plan``); under a gradient
+    either goes through ``GroupNormFunction``, with the SiLU after it."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         y = GroupNormFunction.apply(x, weight, bias, num_groups, eps)
         return F.silu(y) if act == "silu" else y
