@@ -6,9 +6,9 @@
 Drives the port's main paths at full width and depth with random weights
 made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and of
 SDXL at 1024² (also in the JAX package's two opt-in kernel modes), the
-Flash distillation step of SD1.5 at 512², SDXL 1024² served over HTTP in
-int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
-(T5-XXL, the DiT). It fails unless every phase passes:
+Flash distillation step of SD1.5 at 512² and of SDXL at 1024², SDXL 1024²
+served over HTTP in int8 W8A8 with a merged LoRA, and 4-step sampling of
+Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -24,7 +24,10 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    ptxas serialize their wgmma;
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
-   version in fp32 on the same inputs), with ragged cases; max abs error
+   version in fp32 on the same inputs; the SDXL training step's shapes at
+   batch 2 and 4 among them: K1, K8 and the pair at D = 64, the VAE's
+   encoder at 1024² and decoder over 64² latent crops, the discriminator's
+   fp32 GroupNorms), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
    events around 10 queued calls, median of 5 runs) and the bound: the
@@ -124,6 +127,22 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
    a relative L2 of 0.1, the VAE encode to 0.1. Printed beside, ungated: the
    LoRA gradients' error of each scaled G term alone, and of the student's
    own backward (the gradient of a fixed random projection of its output);
+5c. SDXL training, after the SD1.5 trainers are freed: ``build_trainer(
+   "sdxl", device="cuda")`` with ``flash_sdxl.yaml`` (the full-width UNet
+   with ``remat``, CLIP-L + bigG, the SDXL VAE, K = 32 with the DPM-Solver++
+   2M teacher, LPIPS distill, DMD, lsgan, rank-64 LoRA, a 3-stage
+   discriminator), every step in stage 1, then ``fit`` on synthetic batches
+   of 2 at 1024² with the size tuples: 1 warm and 3 timed steps, each
+   printed with its start index and teacher forwards (K − start); checked
+   as phase 5 (K4 launched too), and every (kernel, shape) the steps
+   launched (the keys of the kernels' ``LAUNCHES``, cleared just before;
+   the GroupNorm's with its group count) must be among the shapes phase 2
+   gates. Warm s/step (median), images/s, peak memory;
+5d. SDXL training reference at 256², as 5b (K = [4], ``LPIPS_CROP`` 16,
+   batch 2, non-zero LoRA B, the discriminator's 1 stage on the 8² mid
+   features), the DPM rollout from ``TRAIN_REF_XL_START`` = 1 (first-order,
+   second-order and final steps), 5b's tolerances, without 5b's ungated
+   diagnostics; its seconds printed;
 6. int8 serving, after the training pipelines are freed: ``build_pipeline(
    "sdxl", device="cuda")``, a random rank-64 LoRA over the default targets
    written as a PEFT file and loaded through ``pipe.lora_loader``, then
@@ -160,7 +179,7 @@ int8 W8A8 with a merged LoRA, and 4-step sampling of Pixart-α at 1024²
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
 paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
-``sdxl_packed_fused`` and ``sdxl_down_gemm``; ``ms``, ``plain_ms``,
+``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -169,6 +188,7 @@ this file, it exits non-zero and prints no result.
 """
 
 import base64
+import collections
 import contextlib
 import ctypes
 import json
@@ -204,6 +224,7 @@ ATTENTION_RAGGED = [
     (32, 1000, 1024, 80, 900), (32, 4000, 77, 40, 70), (4, 700, 4096, 512, 3000),
     (32, 4000, 4096, 40, 4001), (32, 300, 2000, 160, 1999),
     (40, 1000, 1100, 64, 1037), (16, 700, 1500, 72, 1433),  # K2 at SDXL's and Pixart's D, off every tile
+    (20, 4000, 77, 64, 70),  # K1 at SDXL's D
 ]
 # v + 1 at every key (kv_valid None): a zero-filled padding row past KV (77
 # keys padded to 80; the zero rows of K2's last 128-key tile past 1030 or
@@ -221,6 +242,18 @@ ATTENTION_SHAPES_XL = [
 # Pixart-α 1024² at batch 4: the DiT's self-attention (16 heads of D = 72,
 # padded to 80, over 4096 tokens); its VAE mid-block is SDXL's shape above
 ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None)]
+# the SDXL training step at batch 2, 1024² (phase 5c), where the sampling
+# paths' shapes above do not have them: the student's forward under a
+# gradient (B = 2: BH 20 at 4096 tokens, 40 at 1024) and the GAN's teacher
+# pass (2B: 40, 80) take K1 for the cross-attention over the 77 text tokens
+# (never the packed K4 under a gradient), the student's K2 self-attention at
+# BH 20 and 40, the VAE encoder's mid-attention over 128² latents and the
+# decoder's over the LPIPS loss's 64² latent crops (one head of D = 512)
+ATTENTION_SHAPES_XL_TRAIN = [
+    (20, 4096, 77, 64, None), (40, 1024, 77, 64, None), (40, 4096, 77, 64, None), (80, 1024, 77, 64, None),
+    (20, 4096, 4096, 64, None), (40, 1024, 1024, 64, None), (2, 16384, 16384, 512, None),
+    (2, 4096, 4096, 512, None),
+]
 # (b, sq, kv, h, d) of the packed one-shot kernel (K4): SDXL's
 # cross-attention at level 1 and at level 2 / mid (batch 4, 77 text tokens),
 # plus ragged cases (Sq off the tile, KV 200 and 256, D = 128, batch 1,
@@ -228,7 +261,8 @@ ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None)]
 # kernels take no ``kv_valid``), so that a zero-filled padding key past KV
 # (77 keys pad to 80, 200 to 208) that leaked into the softmax (its score
 # 0, not -1e30) would pull every row's output towards 0
-PACKED_SHAPES = [(4, 4096, 77, 10, 64), (4, 1024, 77, 20, 64)]
+PACKED_SHAPES = [(4, 4096, 77, 10, 64), (4, 1024, 77, 20, 64),
+                 (2, 4096, 77, 10, 64), (2, 1024, 77, 20, 64)]  # the training step's DMD student (B = 2)
 PACKED_RAGGED = [
     (4, 4000, 77, 10, 64), (4, 1024, 200, 20, 64), (2, 1000, 256, 10, 64),
     (2, 1024, 77, 8, 128), (1, 4000, 256, 8, 128), (2, 1000, 200, 8, 128), (1, 4096, 77, 10, 64),
@@ -265,12 +299,18 @@ LAYER_NORM_RAGGED = [(4 * 1024 + 3, 640, torch.bfloat16), (1001, 320, torch.bflo
 LAYER_NORM_SMALL_VAR = [(1001, 320, torch.bfloat16), (4 * 256, 1280, torch.bfloat16), (4 * 77, 768, torch.float32)]
 # Pixart: the DiT's affine-free LayerNorms over its 4 × 4096 tokens
 LAYER_NORM_SHAPES_PIXART = [(4 * 4096, 1152, torch.bfloat16)]
-# SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32)
+# SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32);
+# then the training step's at batch 2 (the student, DMD's student; the
+# text towers' three passes)
 LAYER_NORM_SHAPES_XL = [
     (4 * 4096, 640, torch.bfloat16),
     (4 * 1024, 1280, torch.bfloat16),
     (4 * 77, 1280, torch.float32),
     (4 * 77, 768, torch.float32),
+    (2 * 4096, 640, torch.bfloat16),
+    (2 * 1024, 1280, torch.bfloat16),
+    (2 * 77, 1280, torch.float32),
+    (2 * 77, 768, torch.float32),
 ]
 # (bh, sq, kv, d, kv_valid) of the attention backward of one training step
 # at batch 4, 512² (8 heads): the student's (BH 32) and the GAN branch's
@@ -287,7 +327,15 @@ BWD_SHAPES.append((4, 4096, 4096, 512, None))
 BWD_RAGGED = [
     (32, 4000, 77, 40, None), (64, 1000, 200, 80, 150), (8, 4096, 4096, 40, 3001),
     (8, 4000, 77, 40, 70), (1, 700, 4096, 512, 3000), (64, 300, 2000, 160, 1999),
+    (20, 4000, 77, 64, 70), (40, 1000, 1100, 64, 1037),  # K8 and the pair at SDXL's D
 ]
+# the SDXL training step at batch 2, 1024² (D = 64): the student's backward
+# (BH 20 at 4096 tokens, 40 at 1024) and the GAN's teacher pass at 2B (40,
+# 80), self-attention on the pair and cross-attention over the 77 text
+# tokens on K8; the VAE decoder's mid-attention under the LPIPS loss
+BWD_SHAPES_XL = [(bh, sq, kv, 64, None) for sq, bh in ((4096, 20), (1024, 40), (4096, 40), (1024, 80))
+                 for kv in (sq, 77)]
+BWD_SHAPES_XL.append((2, 4096, 4096, 512, None))
 # [B, C, H, W] of every GroupNorm of the paths at batch 4 (bf16): the SD1.5
 # UNet's levels at 512², the SDXL UNet's at 1024², the SD VAE decoder at
 # 512² (SD1.5) and at 1024² (SDXL, Pixart: the largest, [4, 128, 1024²]);
@@ -303,7 +351,63 @@ GN_SHAPES = [
 ]
 GN_RAGGED = [((3, 96, 37, 29), torch.bfloat16), ((2, 64, 4099, 1), torch.bfloat16), ((2, 32, 1, 1), torch.bfloat16),
              ((2, 36, 5, 7), torch.bfloat16), ((4, 512, 2, 2), torch.float32), ((2, 96, 37, 29), torch.float32)]
-# the training phase: every step in stage 1 of flash_sd.yaml's four
+# the SDXL training step at 1024² (phase 5c): every UNet GroupNorm at batch
+# 2 (the student) and 4 (the rollout, DMD's and the GAN's teacher), the up
+# blocks' concatenated inputs (960–2560 channels) included; the VAE encoder
+# over the 1024² images and the decoder over the LPIPS loss's 64² latent
+# crops at batch 2 (bf16); the 256-feature discriminator's two GroupNorms
+# (fp32, 4 groups) over SDXL's 32² mid features
+GN_SHAPES_XL_TRAIN = [((b, c, hw, hw), torch.bfloat16, None) for b in (2, 4) for c, hw in (
+    (320, 128), (640, 128), (960, 128), (320, 64), (640, 64), (960, 64), (1280, 64), (1920, 64),
+    (640, 32), (1280, 32), (1920, 32), (2560, 32))]
+GN_SHAPES_XL_TRAIN += [((2, c, hw, hw), torch.bfloat16, None) for c, hw in (
+    (128, 1024), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128), (512, 64))]
+GN_SHAPES_XL_TRAIN += [((2, 512, 8, 8), torch.float32, 4), ((2, 1024, 4, 4), torch.float32, 4)]
+# The paths' shapes of each check (timed), read at call time so that a
+# caller may narrow the lists above; GroupNorm cases are (shape, dtype,
+# the path's group count or None)
+def attention_main():
+    return ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
+
+
+def layer_norm_main():
+    return LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART
+
+
+def gn_main():
+    return [(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN
+
+
+def gn_groups(shape, groups=None):
+    """The group count phase 2 checks a GroupNorm shape at: the path's own,
+    else 32 where C allows, else the most that leave a group 32 elements (a
+    group of a few elements can have var ≪ eps, and inv up to rsqrt(eps) ≈
+    316, where the scale and shift rounded to bf16, JAX's rounding and the
+    plain version's too, leave y off by an ulp of 316·x)."""
+    c, n = shape[1], shape[2] * shape[3]
+    return groups or next(k for k in (32, 16, 8, 4, 2, 1) if c % k == 0 and n * c // k >= 32)
+
+
+def gated_shapes():
+    """{kernel: the shape keys phase 2 checks it at}, in the keys of the
+    ``LAUNCHES`` of ``ops/attention.py`` and ``ops/norms.py``; the GroupNorm's
+    resident and statistics kernels with the group count (None: the
+    statistics alone), the apply kernel without."""
+    fwd = set(attention_main() + ATTENTION_RAGGED + ATTENTION_V_SHIFTED)
+    bwd = set(BWD_SHAPES + BWD_SHAPES_XL + BWD_RAGGED)
+    cases = gn_main() + [(shape, dtype, None) for shape, dtype in GN_RAGGED]
+    gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
+    gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
+    gn_apply = {(shape, dtype) for shape, dtype, _ in cases}
+    return {"flash_fwd_oneshot": fwd, "flash_fwd_stream": fwd,
+            "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_RAGGED),
+            "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
+            "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
+            "layer_norm": set(layer_norm_main() + LAYER_NORM_RAGGED + LAYER_NORM_SMALL_VAR),
+            "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn}
+
+
+# the training phases: every step in stage 1 of the yaml's four
 TRAIN_OVERRIDES = {"NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
 # the training reference at 256²: one stage, at stage 1's loss scales
 TRAIN_REF_OVERRIDES = {
@@ -311,6 +415,10 @@ TRAIN_REF_OVERRIDES = {
     "LPIPS_CROP": 16, "DISTILL_LOSS_SCALE": 1.0, "DMD_LOSS_SCALE": 0.3, "ADVERSARIAL_LOSS_SCALE": 0.1,
 }
 TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
+# phase 5d: the SDXL reference's rollout start; with lower_order_final a
+# start at K − 2 runs only first-order steps, so K − 3: a first-order step,
+# a second-order one, the final one
+TRAIN_REF_XL_START = 1
 # [M, K, N] of every int8 product of SDXL 1024² at batch 4, guidance 0:
 # at the 64² level q/k/v/out, attn2 q/out and proj_in/proj_out, the
 # cross-attention k/v over the 77 text tokens, ff.net.0.proj, ff.net.2;
@@ -440,7 +548,8 @@ def check_attention(attention, results, timed=True):
     version's times, and at the paths' shapes the library's and the bound."""
     g = torch.Generator(device="cuda").manual_seed(0)
     failed = []
-    for shape in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_RAGGED + ATTENTION_V_SHIFTED:
+    main_shapes = attention_main()
+    for shape in main_shapes + ATTENTION_RAGGED + ATTENTION_V_SHIFTED:
         bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, skv, skv))
@@ -460,7 +569,7 @@ def check_attention(attention, results, timed=True):
         ok, report = attention.attention_fwd_gate(stats)
         err = stats["max_err"]
         checks = f"{'pass' if ok else 'FAIL'}: {report}"
-        main = shape in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART
+        main = shape in main_shapes
         times = ""
         if timed:
             ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
@@ -607,7 +716,7 @@ def check_layer_norm(norms, results, timed=True):
     and at the paths' shapes the library's (``F.layer_norm``) and the bound
     (x read and y written once, the affine once)."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    main_shapes = LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART
+    main_shapes = layer_norm_main()
     cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED] + [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
     failed = []
     for (rows, c, dtype), scale, offset in cases:
@@ -663,16 +772,13 @@ def check_group_norm(norms, results, timed=True):
     the mean and E[x²] the fold takes."""
     g = torch.Generator(device="cuda").manual_seed(6)
     failed = []
-    for shape, dtype in [(s, torch.bfloat16) for s in GN_SHAPES] + GN_RAGGED:
+    main_cases = gn_main()
+    for case in main_cases + [(s, dtype, None) for s, dtype in GN_RAGGED]:
+        shape, dtype, groups = case
+        main = case in main_cases
         b, c = shape[:2]
         n = shape[2] * shape[3]
-        # 32 groups where C allows, else the most that leave a group 32
-        # elements: a group of a few elements can have var ≪ eps, and inv up to
-        # rsqrt(eps) ≈ 316, where the scale and shift rounded to bf16 (JAX's
-        # rounding, the plain version's too) leave y off by an ulp of 316·x;
-        # the statistics check below holds the rows of one element
-        groups = next(k for k in (32, 16, 8, 4, 2, 1) if c % k == 0 and n * c // k >= 32)
-        main = shape in GN_SHAPES and dtype == torch.bfloat16
+        groups = gn_groups(shape, groups)  # the statistics check below holds the rows of one element
         x0 = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
         gw = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
         gb = (0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
@@ -869,7 +975,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
     the last shape if any failed."""
     g = torch.Generator(device="cuda").manual_seed(3)
     failed = []
-    for shape in BWD_SHAPES + BWD_RAGGED:
+    for shape in BWD_SHAPES + BWD_SHAPES_XL + BWD_RAGGED:
         bh, sq, skv, d, kv_valid = shape
         q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                        for s in (sq, skv, skv, sq))
@@ -894,7 +1000,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
         del grads
         ok, report = attention.attention_bwd_gate(stats)
         err = [s["max_err"] for s in stats]
-        main = shape in BWD_SHAPES
+        main = shape in BWD_SHAPES + BWD_SHAPES_XL
         times = ""
         if timed:
             ms = median_ms(lambda: attention.flash_attention_bwd_bhsd(q, k, v, o, lse, do, scale, kv_valid))
@@ -937,8 +1043,12 @@ def check_attention_bwd(attention, kernels, results, timed=True):
 
 def reset(counters):
     for d in counters:
-        for k in d:
-            d[k] = 0
+        d.clear()
+
+
+def totals(counters):
+    """Every kernel's launches over its shapes, summed over the counters."""
+    return sum((d.totals() for d in counters), collections.Counter())
 
 
 def cpu_fp32_copy(state, meta_module: torch.nn.Module) -> torch.nn.Module:
@@ -1015,7 +1125,7 @@ def check_mode_references(pipe, counters):
             reset(counters)
             got = pipe.generate(PROMPTS[:1], **kw).cpu()
             torch.cuda.synchronize()
-            launches = {k: n for d in counters for k, n in d.items()}
+            launches = totals(counters)
             want = ref.generate(PROMPTS[:1], **kw)
         err = rel_l2(got, want)
         ran = {k: launches[k] for k, n in exact.items() if n}
@@ -1037,8 +1147,8 @@ def run_path(pipe, model, hw, counters, card, required):
     images = pipe.generate(PROMPTS, num_inference_steps=4, guidance_scale=0.0, seed=0)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = {k: n for d in counters for k, n in d.items()}
-    print(f"{model} generate (cold): {cold:.3f} s; launches {launches}")
+    launches = totals(counters)
+    print(f"{model} generate (cold): {cold:.3f} s; launches {dict(launches)}")
     if tuple(images.shape) != (4, hw, hw, 3) or not torch.isfinite(images).all():
         raise AssertionError(f"bad {model} images: shape {tuple(images.shape)}, "
                              f"finite {torch.isfinite(images).all().item()}")
@@ -1178,13 +1288,13 @@ def run_int8_serving(counters, card, required):
         for c in clients:
             c.join(900)
         wall = time.perf_counter() - t0
-        launches = {k: n for d in counters for k, n in d.items()}
+        launches = totals(counters)
         metrics, health, loras = get("/metrics"), get("/healthz"), get("/loras")
     finally:
         server.shutdown()
         thread.join(60)
     print(f"sdxl int8 serving: {SERVE_CLIENTS} clients × {SERVE_REQUESTS_PER_CLIENT} requests in {wall:.3f} s; "
-          f"launches {launches}; /metrics {metrics}; /healthz {health}; /loras {loras}")
+          f"launches {dict(launches)}; /metrics {metrics}; /healthz {health}; /loras {loras}")
     sizes = [png_pixels(base64.b64decode(p)) for r in replies if r for p in r["images_png_b64"]]
     if sizes != [(1024, 1024)] * n_req:
         raise AssertionError(f"expected {n_req} RGB PNGs of 1024x1024, got {len(sizes)}: {set(sizes)}")
@@ -1300,25 +1410,33 @@ def check_pixart_reference(pipe):
 
 
 def snapshot(modules):
-    return [t.detach().clone() for m in modules for t in m.state_dict().values()]
+    """Copies of the modules' state on the host (bit-identity checks)."""
+    return [t.detach().cpu().clone() for m in modules for t in m.state_dict().values()]
 
 
-def run_training(counters, card, required):
-    """Phase 5: ``build_trainer("sd15")`` then ``fit`` on synthetic batches
-    of 4 at 512², 1 warm step and 3 timed ones, all in stage 1; counts reset
-    just before the first step and read after the last."""
-    from flash_diffusion_tpu_torch.train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+def run_training(model, counters, card, required, gated=None):
+    """Phases 5 and 5c: ``build_trainer(model)`` with its yaml, every step in
+    stage 1, then ``fit`` on synthetic batches of the yaml's batch size at
+    its image size, 1 warm step and 3 timed ones; counts reset just before
+    the first step and read after the last. With ``gated``, every (kernel,
+    shape) the steps launched must be among phase 2's."""
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
 
+    cfg = {**load_config(CONFIGS[model]), **TRAIN_OVERRIDES}
+    batch, size = cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"]
     t0 = time.perf_counter()
-    trainer = build_trainer("sd15", device="cuda", seed=0, config={**load_config(DEFAULT_CONFIG), **TRAIN_OVERRIDES})
-    model = trainer.model
-    print(f"build_trainer('sd15'): {time.perf_counter() - t0:.2f} s; LoRA {len(trainer.lora)} pairs, "
-          f"{sum(t.numel() for ab in trainer.lora.values() for t in ab.values())} parameters")
-    frozen_modules = (model.teacher_module, model.vae, model.conditioner)
+    trainer = build_trainer(model, device="cuda", seed=0, config=cfg)
+    fl = trainer.model
+    print(f"build_trainer({model!r}): {time.perf_counter() - t0:.2f} s; teacher "
+          f"{sum(p.numel() for p in fl.teacher_module.parameters())} parameters, {cfg['TEACHER_SCHEDULER']}; LoRA "
+          f"{len(trainer.lora)} pairs of rank {cfg['LORA_RANK']}, "
+          f"{sum(t.numel() for ab in trainer.lora.values() for t in ab.values())} parameters; discriminator "
+          f"{fl.discriminator.config.num_stages} stages")
+    frozen_modules = (fl.teacher_module, fl.vae, fl.conditioner)
     frozen = snapshot(frozen_modules)
     lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
-    disc = snapshot([model.discriminator])
-    data = synthetic_batches(4, 512, seed=0)
+    disc = snapshot([fl.discriminator])
+    data = synthetic_batches(batch, size, seed=0, model=model)
 
     def one_step():
         torch.cuda.synchronize()
@@ -1327,11 +1445,13 @@ def run_training(counters, card, required):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         losses = {k: float(v) for k, v in aux.items()}
-        stage = model.stage_for_iteration(trainer.step)
-        print(f"train step {trainer.step} (stage {stage}): {dt:.3f} s; " + ", ".join(
-            f"{k} {v:.5g}" for k, v in losses.items()))
+        stage = fl.stage_for_iteration(trainer.step)
+        start = fl.stage_schedules[stage].timesteps.index(aux["start_timestep"])
+        print(f"{model} train step {trainer.step} (stage {stage}, start index {start}: "
+              f"{fl.config.K[stage] - start} teacher forwards): {dt:.3f} s; "
+              + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
         if stage != 1 or not all(map(math.isfinite, losses.values())):
-            raise AssertionError(f"training step {trainer.step}: stage {stage}, losses {losses}")
+            raise AssertionError(f"{model} training step {trainer.step}: stage {stage}, losses {losses}")
         return dt
 
     reset(counters)
@@ -1339,22 +1459,32 @@ def run_training(counters, card, required):
     torch.cuda.reset_peak_memory_stats()
     one_step()  # warm
     timed = [one_step() for _ in range(3)]
-    launches = {k: n for d in counters for k, n in d.items()}
-    print(f"training launches over 4 steps {launches} (the forward kernels' counts include the "
+    launches = totals(counters)
+    print(f"{model} training launches over 4 steps {dict(launches)} (the forward kernels' counts include the "
           f"recompute of remat and of the checkpointed LPIPS decode in the backward)")
     missing = [k for k in required if launches[k] == 0]
     if missing:
-        raise AssertionError(f"the training path never launched {missing}")
+        raise AssertionError(f"the {model} training path never launched {missing}")
+    if gated is not None:
+        launched = sorted({key for c in counters for key, n in c.items() if n}, key=str)
+        for kernel in sorted({k for k, _ in launched}):
+            print(f"  {kernel} launched at {sorted({str(shape) for k, shape in launched if k == kernel})}")
+        ungated = [(k, shape) for k, shape in launched if shape not in gated.get(k, ())]
+        print(f"{model} training: {len(launched)} distinct (kernel, shape) launched, "
+              f"{len(launched) - len(ungated)} of them gated in phase 2")
+        if ungated:
+            raise AssertionError(f"the {model} training path launched shapes phase 2 does not gate: {ungated}")
     if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
         raise AssertionError("a LoRA B factor did not change")
-    if all(torch.equal(a, b) for a, b in zip(disc, snapshot([model.discriminator]))):
+    if all(torch.equal(a, b) for a, b in zip(disc, snapshot([fl.discriminator]))):
         raise AssertionError("the discriminator did not change")
     if not all(torch.equal(a, b) for a, b in zip(frozen, snapshot(frozen_modules))):
-        raise AssertionError("a frozen module (teacher, VAE or CLIP) changed")
+        raise AssertionError("a frozen module (teacher, VAE or a text tower) changed")
     per_step = statistics.median(timed)
-    print(f"sd15 Flash distillation 512² batch 4 on {card}: warm {per_step:.4f} s/step (median of "
-          f"{[round(dt, 4) for dt in timed]}), {4 / per_step:.3f} images/s; peak memory "
+    print(f"{model} Flash distillation {size}² batch {batch} on {card}: warm {per_step:.4f} s/step (median of "
+          f"{[round(dt, 4) for dt in timed]}), {batch / per_step:.3f} images/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del trainer, fl, frozen_modules
     return launches
 
 
@@ -1376,15 +1506,20 @@ def rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
-def check_training_reference():
-    """Phase 5b: one ``losses`` and backward of the SD1.5 trainer at 256²
+def check_training_reference(model="sd15"):
+    """Phases 5b and 5d: one ``losses`` and backward of the trainer at 256²
     on the card (bf16, kernels) vs an fp32 copy on the CPU (plain paths)
-    with its state dicts, on the same staged batch and draws."""
-    from flash_diffusion_tpu_torch.train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+    with its state dicts, on the same staged batch and draws (SDXL from
+    ``TRAIN_REF_XL_START``). Printed beside for SD1.5, ungated: the LoRA
+    gradients' error of each scaled G term alone, and of the student's own
+    backward."""
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
 
-    cfg = {**load_config(DEFAULT_CONFIG), **TRAIN_REF_OVERRIDES}
-    dev = build_trainer("sd15", device="cuda", seed=0, config=cfg)
-    ref = build_trainer("sd15", device="cpu", seed=0, config=cfg)  # bf16 until its probe has run
+    started = time.perf_counter()
+    diagnostics = model == "sd15"
+    cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES}
+    dev = build_trainer(model, device="cuda", seed=0, config=cfg)
+    ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
         for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator"):
@@ -1394,10 +1529,12 @@ def check_training_reference():
             for k in ("a", "b"):
                 ref.lora[name][k].copy_(ab[k])
     size = cfg["IMAGE_SIZE"]
-    batch = next(synthetic_batches(2, size, seed=5))
+    batch = next(synthetic_batches(2, size, seed=5, model=model))
     noise = torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda")
     staged = dev.stage_batch(batch)
     draws = dev.model.draw(dev.generator, 0, staged["__z"])
+    if model == "sdxl":  # DPM draws no rollout noise
+        draws["start_idx"] = TRAIN_REF_XL_START
     lora = lambda tr: [f for ab in tr.lora.values() for f in ab.values()]
     flat = lambda gs: torch.cat([gr.detach().float().cpu().reshape(-1) for gr in gs])
     # the student's own backward: LoRA gradients of <student(x), w>, on the
@@ -1409,10 +1546,11 @@ def check_training_reference():
         out = tr.model._student_forward(x, t, cond).float()
         return flat(torch.autograd.grad((out * w).sum(), lora(tr), materialize_grads=True))
 
-    probes = [probe(dev, *args), probe(ref, *to_cpu(args))]
+    probes = [probe(dev, *args), probe(ref, *to_cpu(args))] if diagnostics else []
     ref.model.teacher_module.float()  # the student shares these parameters
     ref.model.vae.float()
-    probes.append(probe(ref, *to_cpu(args)))
+    if diagnostics:
+        probes.append(probe(ref, *to_cpu(args)))
     with torch.no_grad():
         image = torch.as_tensor(batch["image"])
         z_dev = dev.model._encode({"image": image.cuda()}, noise)
@@ -1427,7 +1565,7 @@ def check_training_reference():
     for tr, args in ((dev, (staged, draws, 0)), (ref, (to_cpu(staged), to_cpu(draws), 0))):
         total, aux = tr.model.losses(*args)
         terms = {k: flat(torch.autograd.grad(sc * aux[k], lora(tr), retain_graph=True, materialize_grads=True))
-                 for k, sc in scales.items()}
+                 for k, sc in scales.items()} if diagnostics else {}
         total.backward()
         results.append((aux, terms))
     for h in hooks:
@@ -1447,16 +1585,19 @@ def check_training_reference():
     }
     tols = {"loss/distill": 0.05, "loss/dmd": 0.05, "loss/gan_d": 0.05, "disc outputs": 0.05,
             "lora grads": 0.1, "disc grads": 0.1, "vae encode": 0.1}
-    print(f"sd15 training reference at {size}², batch 2, start index {draws['start_idx']} of K = 4: card "
-          + ", ".join(f"{k} {num(v):.5g}" for k, v in aux.items()) + "; CPU fp32 "
+    print(f"{model} training reference at {size}², batch 2, {cfg['TEACHER_SCHEDULER']} from start index "
+          f"{draws['start_idx']} of K = {cfg['K'][0]}, discriminator {dev.model.discriminator.config.num_stages} "
+          f"stages: card " + ", ".join(f"{k} {num(v):.5g}" for k, v in aux.items()) + "; CPU fp32 "
           + ", ".join(f"{k} {num(v):.5g}" for k, v in ref_aux.items()) + "; errors (tol) "
-          + ", ".join(f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items()))
-    print("  LoRA gradients by scaled G term, rel L2 err (|grad| fp32): " + ", ".join(
-        f"{k} {rel_l2(terms[k], ref_terms[k]):.3e} ({ref_terms[k].norm().item():.4g})" for k in scales)
-          + f"; the student's own backward against CPU fp32: card bf16 {rel_l2(probes[0], probes[2]):.3e}, "
-          f"CPU bf16 (plain paths, no kernels) {rel_l2(probes[1], probes[2]):.3e}")
+          + ", ".join(f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items())
+          + f"; {time.perf_counter() - started:.1f} s")
+    if diagnostics:
+        print("  LoRA gradients by scaled G term, rel L2 err (|grad| fp32): " + ", ".join(
+            f"{k} {rel_l2(terms[k], ref_terms[k]):.3e} ({ref_terms[k].norm().item():.4g})" for k in scales)
+              + f"; the student's own backward against CPU fp32: card bf16 {rel_l2(probes[0], probes[2]):.3e}, "
+              f"CPU bf16 (plain paths, no kernels) {rel_l2(probes[1], probes[2]):.3e}")
     if not all(math.isfinite(e) and e <= tols[k] for k, e in errs.items()):
-        raise AssertionError("the card's training step disagrees with the fp32 reference on a small input")
+        raise AssertionError(f"the card's {model} training step disagrees with the fp32 reference on a small input")
 
 
 def main():
@@ -1494,7 +1635,7 @@ def main():
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
             if "spill" in line and not re.search(r" 0 bytes spill stores, 0 bytes spill loads", line):
                 spill_report.append(f"{entry}: {line.strip()}")
-    for _, _, kv, d, _ in ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART:  # the one-shot plan mirrors the kernel's layout
+    for _, _, kv, d, _ in attention_main():  # the one-shot plan mirrors the kernel's layout
         kind, bq = attention.attention_plan(kv, d)
         kvp, dp = -(-kv // 16) * 16, -(-d // 16) * 16
         if kind == "flash_fwd_oneshot" and lib.fdt_attn_smem_bytes(bq, kvp, dp) != attention.smem_bytes(bq, kvp, dp):
@@ -1632,13 +1773,21 @@ def main():
     del pipe
     torch.cuda.empty_cache()
 
-    # phases 5 and 5b: the training step through the user's entry point,
-    # then its agreement with the fp32 plain reference on a small input
-    by_path["train"] = run_training(counters, card, (
+    # phases 5 and 5b: the SD1.5 training step through the user's entry
+    # point, then its agreement with the fp32 plain reference on a small
+    # input; 5c and 5d: the same for SDXL, whose launched shapes must all be
+    # among phase 2's
+    by_path["train"] = run_training("sd15", counters, card, (
         "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq",
         "flash_bwd_oneshot", *gn))
     torch.cuda.empty_cache()
-    check_training_reference()
+    check_training_reference("sd15")
+    torch.cuda.empty_cache()
+    by_path["train_sdxl"] = run_training("sdxl", counters, card, (
+        "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "flash_bwd_dkv",
+        "flash_bwd_dq", "flash_bwd_oneshot", *gn), gated_shapes())
+    torch.cuda.empty_cache()
+    check_training_reference("sdxl")
     torch.cuda.empty_cache()
 
     # phases 6 and 6b: SDXL served over HTTP in int8 with a merged LoRA,

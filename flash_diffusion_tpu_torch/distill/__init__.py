@@ -1,4 +1,4 @@
-"""Flash distillation of the PyTorch port (the SD1.5 step)."""
+"""Flash distillation of the PyTorch port (the SD1.5 and SDXL steps)."""
 
 from .common import (
     boundary_scalings,

@@ -5,7 +5,7 @@ Port of ``flash_diffusion_tpu/distill/discriminator.py:23-72``: repeated
 and a valid k4 conv to one logit per position, flattened to [B, N]. NHWC in
 (the teacher's mid features), fp32 compute, as the JAX module's default
 dtype. Unlike flax, a torch module needs its input width up front
-(``in_channels``: 1280 for SD1.5's mid block).
+(``in_channels``: 1280 for the SD1.5 and SDXL mid blocks).
 """
 
 from __future__ import annotations

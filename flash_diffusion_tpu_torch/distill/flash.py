@@ -1,4 +1,4 @@
-"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5).
+"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5, SDXL).
 
 Port of ``flash_diffusion_tpu/distill/flash.py:52-519`` (``losses`` and
 its parts). One loss computation per step, as in JAX: the teacher's K-step
@@ -21,7 +21,7 @@ from a generator on the device; the tests fill it from JAX keys split as
 - ``start_idx`` (host int), ``noise`` [B, h, w, C] and ``guidance`` (a
   uniform in [0, 1), scaled to the stage's guidance range);
 - ``rollout_noise``: the DDPM posterior noise of each rollout step, in
-  order from ``start_idx``;
+  order from ``start_idx`` (none for a deterministic teacher: DPM);
 - ``dmd_t`` [B], ``dmd_noise`` and ``dmd_guidance`` (uniform);
 - ``gan_idx`` [B] (into ``gan_timesteps``) and ``gan_noise``.
 
@@ -50,8 +50,8 @@ from .losses import center_crop, dmd_loss, gan_losses, huber_loss, l1_loss, l2_l
 
 @dataclasses.dataclass
 class FlashDiffusionConfig(BaseConfig):
-    """The JAX ``FlashDiffusionConfig`` fields that the simultaneous SD1.5
-    step reads; per-stage values broadcast from scalars."""
+    """The JAX ``FlashDiffusionConfig`` fields that the simultaneous step
+    reads; per-stage values broadcast from scalars."""
 
     input_key: str = "image"
     K: List[int] = field(default_factory=lambda: [32, 32, 32, 32])
@@ -128,6 +128,7 @@ class FlashDiffusion:
         self.teacher_sched_mod = REGISTRY[teacher_scheduler]
         self.sampling_sched_mod = REGISTRY[sampling_scheduler]
         self._sched_stochastic = teacher_scheduler == "DDPMScheduler"
+        self._sched_has_carry = hasattr(self.teacher_sched_mod, "init_state")
         acp, sqrt_acp, sqrt_1macp = training_tables(self.sched_config)
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
         self.alphas_cumprod, self.sqrt_acp, self.sqrt_1macp = f32(acp), f32(sqrt_acp), f32(sqrt_1macp)
@@ -203,16 +204,24 @@ class FlashDiffusion:
 
     @torch.no_grad()
     def _teacher_rollout(self, noisy, start_idx: int, cond, uncond, guidance, stage: int, step_noise):
-        """The K-step CFG rollout from position ``start_idx``, 2B-batched."""
+        """The K-step CFG rollout from position ``start_idx``, 2B-batched. A
+        multistep scheduler (one with ``init_state``: DPM) threads its carry
+        from a fresh one, so its first executed step is first order whatever
+        ``start_idx`` is, as in JAX (``distill/flash.py:273-304``); DDPM takes
+        ``step_noise``, one draw per step from ``start_idx``."""
         sched, mod = self.stage_schedules[stage], self.teacher_sched_mod
         cond2 = _cat(cond, uncond) if cond is not None else None
         sample, b = noisy, noisy.shape[0]
+        state = mod.init_state(sample) if self._sched_has_carry else None
         for n, i in enumerate(range(start_idx, self.config.K[stage])):
             t2 = torch.full((2 * b,), sched.timesteps[i], device=sample.device, dtype=torch.long)
             inp = mod.scale_model_input(sched, sample, i)
             pred_c, pred_u = self.teacher_module(torch.cat([inp, inp]), t2, cond2).chunk(2)
             pred = guidance * pred_c + (1.0 - guidance) * pred_u
-            sample = mod.step(sched, pred, i, sample, noise=step_noise[n] if self._sched_stochastic else None)
+            if state is not None:
+                sample, state = mod.step(sched, pred, i, sample, state)
+            else:
+                sample = mod.step(sched, pred, i, sample, noise=step_noise[n] if self._sched_stochastic else None)
         return sample
 
     def _distill_loss(self, student_output, teacher_output):

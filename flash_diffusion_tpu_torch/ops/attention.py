@@ -88,12 +88,10 @@ from . import kernels
 _NEG_INF = -1e30
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block can have
 
-# Launch counts of the kernels, raised by one per launch (never on the
-# plain path). Reset them by assigning 0.
-LAUNCHES = {
-    "flash_fwd_oneshot": 0, "flash_fwd_stream": 0, "flash_fwd_oneshot_packed": 0, "flash_fwd_packed": 0,
-    "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_oneshot": 0,
-}
+# Launch counts of the kernels by (kernel, shape) (``kernels.LaunchCounts``):
+# the shape is (BH, Sq, KV, D, kv_valid) for the [BH, S, D] kernels,
+# (B, Sq, KV, H, D) for the packed ones.
+LAUNCHES = kernels.LaunchCounts()
 _STREAM_MAX_D = 512  # head dims the streaming kernel is built for
 _ONESHOT_MAX_D = 160  # and the one-shot kernel
 _PACKED_D = (64, 128)  # head dims the packed kernels are built for
@@ -278,7 +276,7 @@ def flash_attention_bhsd(
         else:
             err = lib.fdt_flash_fwd_stream_mma(*args, stream)
     kernels.check(err, kind)
-    LAUNCHES[kind] += 1
+    LAUNCHES[kind, (bh, sq, k.shape[1], d, kv_valid)] += 1
     return out, lse
 
 
@@ -349,7 +347,7 @@ def _launch_packed(name, q, k, v, num_heads, scale, *tiles):
             num_heads, hd // num_heads, float(scale), *tiles, torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check(err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[name, (b, sq, k.shape[1], num_heads, hd // num_heads)] += 1
     return out
 
 
@@ -576,6 +574,7 @@ def flash_attention_bwd_bhsd(
     if lse.shape != (bh, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 [BH, Sq] tensor")
     route, tiles = attention_bwd_plan(kv_len, d)
+    shape = (bh, sq, k.shape[1], d, kv_valid)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library()
     dims = (bh, sq, k.shape[1], d, kv_len, float(scale))
@@ -589,16 +588,16 @@ def flash_attention_bwd_bhsd(
             err = lib.fdt_flash_bwd_oneshot(*ins, dq.data_ptr(), ws.data_ptr(), dk.data_ptr(),
                                             dv.data_ptr(), *dims, nsplit, per_split, stream)
             kernels.check(err, route)
-            LAUNCHES[route] += 1
+            LAUNCHES[route, shape] += 1
         else:
             delta = (do.float() * o.float()).sum(-1)  # Δ: a plain reduction, as in JAX (XLA there)
             ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
             err = lib.fdt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream)
             kernels.check(err, "flash_bwd_dkv")
-            LAUNCHES["flash_bwd_dkv"] += 1
+            LAUNCHES["flash_bwd_dkv", shape] += 1
             err = lib.fdt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, stream)
             kernels.check(err, "flash_bwd_dq")
-            LAUNCHES["flash_bwd_dq"] += 1
+            LAUNCHES["flash_bwd_dq", shape] += 1
     return dq, dk, dv
 
 

@@ -74,9 +74,8 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Launch counts of the kernels, raised by one per launch (never on the plain
-# path). Reset them by assigning 0.
-LAUNCHES = {"int8_gemm": 0, "gemm": 0, "geglu_gemm": 0}
+# Launch counts of the kernels by (kernel, (M, K, N)) (``kernels.LaunchCounts``).
+LAUNCHES = kernels.LaunchCounts()
 _OUT_KINDS = {torch.bfloat16: 0, torch.int32: 1}
 
 
@@ -156,7 +155,7 @@ def int8_gemm(
             _OUT_KINDS[out_dtype], int(act == "gelu"), 0, torch.cuda.current_stream(xq.device).cuda_stream,
         )
     kernels.check(err, "int8_gemm")
-    LAUNCHES["int8_gemm"] += 1
+    LAUNCHES["int8_gemm", (m, k, n)] += 1
     return out
 
 
@@ -378,7 +377,7 @@ def _ffn_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, geglu: bool)
         else:
             err = kernels.library().fdt_gemm_sm90(*args, gemm_plan(k, n).bn, stream)
     kernels.check(err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[name, (m, k, n)] += 1
     return out
 
 

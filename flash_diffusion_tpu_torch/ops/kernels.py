@@ -12,6 +12,7 @@ and loads.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,25 @@ _lib: Optional[ctypes.CDLL] = None
 # filled by the build: library path, seconds spent in nvcc (0 when cached),
 # and nvcc's output (ptxas register / shared-memory / spill report)
 BUILD_INFO: dict = {}
+
+
+class LaunchCounts(collections.Counter):
+    """Kernel launches keyed by (kernel, shape), one added where a wrapper
+    launches its kernel and nowhere else (never on a plain path).
+    ``counts[kernel]`` reads a kernel's total over its shapes, ``totals()``
+    every kernel's; reset with ``clear()``."""
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return sum(n for (name, _), n in self.items() if name == key)
+        return super().__getitem__(key)
+
+    def totals(self) -> collections.Counter:
+        out = collections.Counter()
+        for (name, _), n in self.items():
+            out[name] += n
+        return out
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

@@ -37,13 +37,16 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Launch counts of the LayerNorm and GroupNorm kernels, raised by one per
-# launch (never on the plain path): ``group_norm_fused`` is the resident
-# GroupNorm (plan (a), one launch), ``group_norm_stats`` the statistics
-# kernel (plan (b)'s first launch, or ``group_norm_stats`` alone),
-# ``group_norm_apply`` the apply kernel (plan (b)'s second launch, or
-# ``group_norm_apply`` alone). Reset them by assigning 0.
-LAUNCHES = {"layer_norm": 0, "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0}
+# Launch counts of the LayerNorm and GroupNorm kernels by (kernel, shape)
+# (``kernels.LaunchCounts``): ``group_norm_fused`` is the resident GroupNorm
+# (plan (a), one launch), ``group_norm_stats`` the statistics kernel (plan
+# (b)'s first launch, or ``group_norm_stats`` alone), ``group_norm_apply``
+# the apply kernel (plan (b)'s second launch, or ``group_norm_apply``
+# alone). The shape is (rows, C, dtype) for the LayerNorm, ((B, C,
+# *spatial), dtype, groups) for the resident and statistics kernels (groups
+# None for the statistics alone, which fold nothing), ((B, C, *spatial),
+# dtype) for the apply kernel, which takes no groups.
+LAUNCHES = kernels.LaunchCounts()
 # How the statistics kernel splits an NHWC (channels-last) sample's N
 # (``gn_stream_plan``): at least GN_NHWC_ROWS rows a block, and at most
 # GN_MAX_PARTS parts (so that the sum over a channel's partials stays
@@ -245,7 +248,7 @@ def _layer_norm_forward(x, weight, bias, eps):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(err, "layer_norm")
-    LAUNCHES["layer_norm"] += 1
+    LAUNCHES["layer_norm", (x.numel() // c, c, x.dtype)] += 1
     return y
 
 
@@ -416,7 +419,7 @@ def _gn_stats_launch(x, nhwc, sums, fold=None, groups=1, eps=0.0):
             float(eps), stream,
         )
     kernels.check(err, "group_norm_stats")
-    LAUNCHES["group_norm_stats"] += 1
+    LAUNCHES["group_norm_stats", (tuple(x.shape), x.dtype, None if fold is None else groups)] += 1
 
 
 def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -465,7 +468,7 @@ def group_norm_apply(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(err, "group_norm_apply")
-    LAUNCHES["group_norm_apply"] += 1
+    LAUNCHES["group_norm_apply", (tuple(x.shape), x.dtype)] += 1
     return y
 
 
@@ -586,7 +589,7 @@ def group_norm_forward(x, num_groups, weight, bias, eps=1e-5, act=None):
             float(eps), torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(err, "group_norm (resident)")
-    LAUNCHES["group_norm_fused"] += 1
+    LAUNCHES["group_norm_fused", (tuple(x.shape), x.dtype, num_groups)] += 1
     return y, mean, inv
 
 

@@ -2,15 +2,17 @@
 time by stage and by kernel.
 
     python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart] [--batch 4] [--int8] [--trace trace.json]
-    python -m flash_diffusion_tpu_torch.profiling --train [--batch 4]
+    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl] [--batch n]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
 weights; SD1.5 at 512², SDXL and Pixart-α at 1024²; with ``--int8`` switched to the W8A8
 int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``bench.py --int8``), runs ``generate`` once to warm up, then once under
-``torch.profiler``; with ``--train``, the SD1.5 trainer as
-``train.build_trainer("sd15")`` builds it (``flash_sd.yaml``, every step in
-stage 1) and one ``fit`` step on a synthetic 512² batch instead. Prints the
+``torch.profiler``; with ``--train``, the trainer as
+``train.build_trainer(model)`` builds it (the model's yaml: SD1.5
+``flash_sd.yaml`` at 512², batch 4; SDXL ``flash_sdxl.yaml`` at 1024², batch
+2; every step in stage 1) and one ``fit`` step on a synthetic batch of the
+yaml's size (``--batch`` overrides its batch) instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``
@@ -98,28 +100,32 @@ _ROUTES = (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="sd15", choices=MODELS)
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None, help="default 4; with --train the yaml's BATCH_SIZE")
     ap.add_argument("--int8", action="store_true", help="serve in the W8A8 int8 mode")
-    ap.add_argument("--train", action="store_true", help="profile a training step of sd15 instead")
+    ap.add_argument("--train", action="store_true", help="profile a training step of --model instead")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
     if args.train:
-        from .train import DEFAULT_CONFIG, build_trainer, load_config, synthetic_batches
+        from . import train
 
-        cfg = {**load_config(DEFAULT_CONFIG), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
-        trainer = build_trainer("sd15", device="cuda", config=cfg)
-        data = synthetic_batches(args.batch, 512)
+        if args.model not in train.MODELS:
+            raise SystemExit(f"profile: training of {args.model!r} is not ported (one of {train.MODELS})")
+        cfg = {**train.load_config(train.CONFIGS[args.model]), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
+        batch, size = args.batch or cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"]
+        trainer = train.build_trainer(args.model, device="cuda", config=cfg)
+        data = train.synthetic_batches(batch, size, model=args.model)
         run = lambda: trainer.fit(data, max_steps=trainer.step + 1)
-        what = f"sd15 training step, batch {args.batch}, 512²"
+        what = f"{args.model} training step, batch {batch}, {size}²"
     else:
+        batch = args.batch or 4
         pipe = build_pipeline(args.model, device="cuda")
         if args.int8:
             pipe.quantize("int8")
-        prompts = (_PROMPTS * args.batch)[: args.batch]
+        prompts = (_PROMPTS * batch)[:batch]
         run = lambda: pipe.generate(prompts)
-        what = f"{args.model}{' int8' if args.int8 else ''}, batch {args.batch}, 4 steps"
+        what = f"{args.model}{' int8' if args.int8 else ''}, batch {batch}, 4 steps"
         on = [k for k in ("FLASH_TPU_ATTN_PACKED", "FLASH_TPU_FFN_FUSED", "FLASH_TPU_FFN_DOWN_GEMM")
               if os.environ.get(k, "0") == "1"]
         what += f", switches {' '.join(f'{k}=1' for k in on) or 'none'}"
@@ -133,7 +139,8 @@ def main():
     if args.trace:
         prof.export_chrome_trace(args.trace)
     if args.train:
-        what += f" (start timestep {out['start_timestep']})"
+        start = trainer.model.stage_schedules[1].timesteps.index(out["start_timestep"])
+        what += f" (start timestep {out['start_timestep']}: {cfg['K'][1] - start} teacher forwards)"
 
     on_device = lambda e: str(e.device_type).endswith("CUDA")
     # Stage device time: the kernels that start inside the stage's window,

@@ -150,10 +150,11 @@ def pixart_size_cond_fn(n: int, h: int, w: int):
     return {"resolution_ar": np.tile([float(h), float(w), w / h], (n, 1)).astype(np.float32)}
 
 
-def build_modules(model: str):
+def build_modules(model: str, remat: bool = False):
     """The fp32 modules of a family on the default device: (denoiser, vae,
     conditioners, [(checkpoint file or shard directory, text tower)],
-    size_cond_fn)."""
+    size_cond_fn). ``remat``: the UNet recomputes its blocks in the
+    backward (training)."""
     if model not in MODELS:
         raise ValueError(f"model {model!r} is not ported yet (one of {MODELS})")
     if model == "pixart":
@@ -163,7 +164,7 @@ def build_modules(model: str):
                 [("text_encoder", t5)], pixart_size_cond_fn)
     if model == "sd15":
         clip = ClipEmbedder(ClipEmbedderConfig(input_key="text"))
-        return (UNet2DCondition(sd15_unet_config()), AutoencoderKL(sd_vae_config()), [clip],
+        return (UNet2DCondition(sd15_unet_config(remat=remat)), AutoencoderKL(sd_vae_config()), [clip],
                 [("text_encoder/model.safetensors", clip)], None)
     clip_l = ClipEmbedder(ClipEmbedderConfig(input_key="text", layer="hidden", layer_idx=-2))
     clip_g = ClipEmbedder(ClipEmbedderConfig(
@@ -176,7 +177,7 @@ def build_modules(model: str):
              for k in SIZE_KEYS]
     towers = [("text_encoder/model.safetensors", clip_l),
               ("text_encoder_2/model.safetensors", clip_g)]
-    return (UNet2DCondition(sdxl_unet_config()), AutoencoderKL(sd_vae_config(scaling_factor=0.13025)),
+    return (UNet2DCondition(sdxl_unet_config(remat=remat)), AutoencoderKL(sd_vae_config(scaling_factor=0.13025)),
             [clip_l, clip_g, *sizes], towers, size_cond_fn)
 
 

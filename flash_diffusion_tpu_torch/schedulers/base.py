@@ -56,6 +56,12 @@ class SchedulerConfig:
     steps_offset: int = 0
     clip_sample: bool = False
     clip_sample_range: float = 1.0
+    # DPM-Solver specific; ``dpm.set_timesteps`` implements these defaults
+    # (and final_sigmas_type "sigma_min") and refuses other values
+    solver_order: int = 2
+    final_sigmas_type: str = "zero"  # zero | sigma_min
+    lower_order_final: bool = True
+    euler_at_final: bool = False
     # LCM specific
     timestep_scaling: float = 10.0
     sigma_data: float = 0.5
@@ -89,6 +95,11 @@ def training_tables(config: SchedulerConfig) -> Tuple[np.ndarray, np.ndarray, np
     )
     alphas_cumprod = np.cumprod(1.0 - betas)
     return alphas_cumprod, np.sqrt(alphas_cumprod), np.sqrt(1.0 - alphas_cumprod)
+
+
+def interp_sigma(timesteps: np.ndarray, sigmas_all: np.ndarray) -> np.ndarray:
+    """diffusers-style linear interpolation of sigma at (possibly float) t."""
+    return np.interp(timesteps, np.arange(len(sigmas_all)), sigmas_all)
 
 
 def add_noise(

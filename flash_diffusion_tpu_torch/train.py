@@ -1,24 +1,35 @@
-"""Flash distillation of SD1.5 with the PyTorch port: build_trainer and CLI.
+"""Flash distillation of SD1.5 and SDXL with the PyTorch port: build_trainer and CLI.
 
-    python -m flash_diffusion_tpu_torch.train --config examples/configs/flash_sd.yaml \\
+    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl] [--config examples/configs/flash_sd.yaml] \\
         --max-steps 10 [--weights-root /weights/sd15] [--random-init] [--device cuda]
 
-``build_trainer("sd15", device=...)`` is the port's counterpart of
-``examples/train_flash_sd.py``: an SD1.5 teacher (``remat`` on), a rank-128
-LoRA student over it, the SD VAE, CLIP-L (its last hidden state) and
-LPIPS-VGG16 frozen in bf16, a conv discriminator over the teacher's mid
-features (64 features, ``num_stages`` from the image size: 1 at 512²), the
-DDPM teacher schedule and the yaml's losses, loss scales, mode
-probabilities and learning rates; then ``TrainingPipeline.fit(batches,
-max_steps=n)`` runs the simultaneous step.
+``build_trainer(model, device=...)`` is the port's counterpart of
+``examples/train_flash_sd.py`` and ``examples/train_flash_sdxl.py``. The
+teacher, VAE and conditioner come from ``sample.build_modules(model)``
+with the UNet's ``remat`` on; a LoRA student over the teacher, LPIPS-VGG16,
+a conv discriminator over the teacher's mid features (1280 channels;
+``num_stages`` from the mid block's size, the 4×4 head taking ≥ 4×4), the
+yaml's teacher schedule, losses, loss scales, mode probabilities and
+learning rates; then ``TrainingPipeline.fit(batches, max_steps=n)`` runs the
+simultaneous step. By model (its default yaml in ``CONFIGS``):
+
+- ``sd15``: SD1.5 UNet, SD VAE, CLIP-L (its last hidden state); mid block
+  at latent / 8, a 64-feature discriminator; ``flash_sd.yaml``: 512²,
+  batch 4, LoRA rank 128, DDPM teacher, hinge GAN;
+- ``sdxl``: SDXL UNet, SDXL VAE (scaling factor 0.13025), CLIP-L and bigG
+  (the penultimate layer, bigG's projected pooled output) with the three
+  size embeddings; mid block at latent / 4 (3 stages at 1024²), a
+  256-feature discriminator; ``flash_sdxl.yaml``: 1024², batch 2, LoRA rank
+  64, DPM-Solver++ 2M teacher, lsgan, the uncond dropping both CLIP towers.
 
 Weights are random, made from ``seed``, unless ``weights_root`` holds a
-local diffusers layout (``unet/``, ``vae/``, ``text_encoder/``
-safetensors); LPIPS and the discriminator are always random (the
-pretrained VGG/LPIPS weights are not in the repository). The data pipeline
-(webdataset shards) is not ported: ``synthetic_batches`` makes batches from
-a seed. Batch layout at the boundary: ``image`` [B, H, W, 3] fp32 in
-[-1, 1] (NHWC, as the JAX package), ``text_ids`` [B, 77] int token ids.
+local diffusers layout (``unet/``, ``vae/``, ``text_encoder/`` and, for
+SDXL, ``text_encoder_2/`` safetensors); LPIPS and the discriminator are
+always random (the pretrained VGG/LPIPS weights are not in the repository).
+The data pipeline (webdataset shards) is not ported: ``synthetic_batches``
+makes batches from a seed. Batch layout at the boundary: ``image`` [B, H,
+W, 3] fp32 in [-1, 1] (NHWC, as the JAX package), ``text_ids`` [B, 77] int
+token ids, and for SDXL the size tuples of ``sample.size_cond_fn``.
 """
 
 from __future__ import annotations
@@ -35,15 +46,25 @@ import yaml
 
 from .distill import LPIPS, ConvDiscriminator, DiscriminatorConfig, FlashDiffusion, FlashDiffusionConfig
 from .lora import init_lora, lora_scaling
-from .models import AutoencoderKL, UNet2DCondition, sd15_unet_config, sd_vae_config
-from .models.embedders import ClipEmbedder, ClipEmbedderConfig, ConditionerWrapper
-from .sample import _load_local
+from .models.embedders import ConditionerWrapper
+from .sample import _load_local, build_modules, size_cond_fn
 from .schedulers import SchedulerConfig
 from .trainer import TrainingConfig, TrainingPipeline
 
-DEFAULT_CONFIG = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs", "flash_sd.yaml")
-MODELS = ("sd15",)
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
+CONFIGS = {"sd15": os.path.join(_CONFIG_DIR, "flash_sd.yaml"), "sdxl": os.path.join(_CONFIG_DIR, "flash_sdxl.yaml")}
+MODELS = tuple(CONFIGS)
+# by model: (pixels per mid-block position, discriminator features); the
+# mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in SDXL's three
+_MID = {"sd15": (64, 64), "sdxl": (32, 256)}
+# by model, what a yaml may leave out: the JAX examples' defaults
+# (examples/train_flash_sd.py, train_flash_sdxl.py, common.py)
+DEFAULTS = {
+    "sd15": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 128, "USE_EMPTY_PROMPT": True,
+             "TEACHER_SCHEDULER": "DDPMScheduler"},
+    "sdxl": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_EMPTY_PROMPT": False,
+             "TEACHER_SCHEDULER": "DPMSolverMultistepScheduler"},
+}
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -52,9 +73,11 @@ def load_config(path: str) -> Dict[str, Any]:
 
 
 def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
-                      max_length: int = 77) -> Iterator[Dict[str, np.ndarray]]:
+                      max_length: int = 77, model: str = "sd15") -> Iterator[Dict[str, np.ndarray]]:
     """Endless batches made from ``seed``: images uniform in [-1, 1] and
-    CLIP-style ids (BOS, random tokens, EOS, EOS padding)."""
+    CLIP-style ids (BOS, random tokens, EOS, EOS padding); for ``sdxl`` also
+    the size tuples (original and target size ``image_size`` square, crop
+    (0, 0)), as ``examples/train_flash_sdxl.py`` makes them."""
     rng = np.random.default_rng(seed)
     while True:
         image = rng.uniform(-1.0, 1.0, (batch_size, image_size, image_size, 3)).astype(np.float32)
@@ -63,7 +86,10 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
         for i in range(batch_size):
             n = int(rng.integers(1, max_length - 1))
             ids[i, 1:n] = rng.integers(0, 49406, n - 1)
-        yield {"image": image, "text_ids": ids}
+        batch = {"image": image, "text_ids": ids}
+        if model == "sdxl":
+            batch.update(size_cond_fn(batch_size, image_size, image_size))
+        yield batch
 
 
 def build_trainer(
@@ -71,38 +97,39 @@ def build_trainer(
     weights_root: str = "",
     device: Union[str, torch.device] = "cuda",
     seed: Optional[int] = None,
-    config: Union[str, Dict[str, Any]] = DEFAULT_CONFIG,
+    config: Union[str, Dict[str, Any], None] = None,
 ) -> TrainingPipeline:
-    """The Flash SD1.5 trainer on ``device`` from a yaml config (a path or
-    its dict); ``seed`` defaults to the config's ``SEED``; the frozen
-    modules are stored in bf16, as the JAX example stores them. Sets
+    """The Flash trainer of ``model`` on ``device`` from a yaml config (a
+    path or its dict; the model's ``CONFIGS`` entry by default); ``seed``
+    defaults to the config's ``SEED``; the frozen modules are stored in
+    bf16, as the JAX examples store them. Sets
     ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False, as ``build_pipeline``."""
     if model not in MODELS:
         raise ValueError(f"training of {model!r} is not ported yet (one of {MODELS})")
-    cfg = load_config(config) if isinstance(config, str) else config
+    config = CONFIGS[model] if config is None else config
+    cfg = {**DEFAULTS[model], **(load_config(config) if isinstance(config, str) else config)}
     seed = cfg.get("SEED", 0) if seed is None else seed
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    size = cfg.get("IMAGE_SIZE", 512)
-    rank = cfg.get("LORA_RANK", 128)
-    mid_hw = size // 64  # SD1.5: the mid block runs at latent / 8
-    num_stages = max(0, int(math.log2(max(mid_hw // 4, 1))))
+    size = cfg["IMAGE_SIZE"]
+    rank = cfg["LORA_RANK"]
+    per_mid, features = _MID[model]
+    num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         with device:
-            unet = UNet2DCondition(sd15_unet_config(remat=True))
-            vae = AutoencoderKL(sd_vae_config())
-            clip = ClipEmbedder(ClipEmbedderConfig(input_key="text", layer="last"))
-            disc = ConvDiscriminator(DiscriminatorConfig(feature_dim=64, num_stages=num_stages),
+            unet, vae, conditioners, towers, _ = build_modules(model, remat=True)
+            disc = ConvDiscriminator(DiscriminatorConfig(feature_dim=features, num_stages=num_stages),
                                      in_channels=unet.config.block_out_channels[-1])
             lpips = LPIPS()
         if weights_root:
             _load_local(unet, os.path.join(weights_root, "unet/diffusion_pytorch_model.safetensors"))
             _load_local(vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"))
-            _load_local(clip.module, os.path.join(weights_root, "text_encoder/model.safetensors"),
-                        keep=lambda k: not k.endswith("position_ids"))
+            for path, tower in towers:
+                _load_local(tower.module, os.path.join(weights_root, path),
+                            keep=lambda k: not k.endswith("position_ids"))
         generator = torch.Generator(device=device).manual_seed(seed)
         lora = init_lora(unet, rank, generator, device=device)
     model_cfg = FlashDiffusionConfig(
@@ -122,14 +149,14 @@ def build_trainer(
         gan_loss_type=cfg["GAN_LOSS_TYPE"],
         mode_probs=cfg.get("MODE_PROBS"),
         use_teacher_as_real=cfg.get("USE_TEACHER_AS_REAL", False),
-        use_empty_prompt=cfg.get("USE_EMPTY_PROMPT", True),
+        use_empty_prompt=cfg["USE_EMPTY_PROMPT"],
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
     flash = FlashDiffusion(
         model_cfg, teacher_module=unet, scheduler_config=SchedulerConfig(),
-        teacher_scheduler=cfg.get("TEACHER_SCHEDULER", "DDPMScheduler"),
+        teacher_scheduler=cfg["TEACHER_SCHEDULER"],
         sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"),
-        vae=vae, conditioner=ConditionerWrapper([clip]), discriminator=disc, lpips=lpips,
+        vae=vae, conditioner=ConditionerWrapper(conditioners), discriminator=disc, lpips=lpips,
         lora_scaling=lora_scaling(rank),
     )
     train_cfg = TrainingConfig(
@@ -139,8 +166,8 @@ def build_trainer(
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", default=DEFAULT_CONFIG)
     ap.add_argument("--model", default="sd15", choices=MODELS)
+    ap.add_argument("--config", default=None, help="a yaml config (default: the model's, CONFIGS)")
     ap.add_argument("--weights-root", default=None)
     ap.add_argument("--random-init", action="store_true", help="ignore WEIGHTS_ROOT")
     ap.add_argument("--max-steps", type=int, default=10)
@@ -150,13 +177,13 @@ def main():
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    cfg = load_config(args.config)
+    cfg = {**DEFAULTS[args.model], **load_config(args.config or CONFIGS[args.model])}
     root = "" if args.random_init else (args.weights_root or cfg.get("WEIGHTS_ROOT", ""))
     root = root if root and os.path.isdir(root) else ""
     trainer = build_trainer(args.model, root, device=args.device, seed=args.seed, config=cfg)
     trainer.config.log_every_n_steps = 1
     seed = cfg.get("SEED", 0) if args.seed is None else args.seed
-    aux = trainer.fit(synthetic_batches(cfg.get("BATCH_SIZE", 4), cfg.get("IMAGE_SIZE", 512), seed),
+    aux = trainer.fit(synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, model=args.model),
                       max_steps=args.max_steps)
     print({k: float(v) for k, v in aux.items()})
 

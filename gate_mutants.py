@@ -14,15 +14,15 @@ to that kernel's check:
 - ``check_packed`` (``attention_fwd_gate`` without its lse term, every
   ``PACKED_*`` case) for the packed forwards: the one-shot K4 and the
   streaming K5;
-- ``check_attention_bwd`` (``attention_bwd_gate``, every ``BWD_SHAPES`` and
-  ``BWD_RAGGED`` case) for the backward: K6 and K7, and K8;
+- ``check_attention_bwd`` (``attention_bwd_gate``, every ``BWD_*`` case)
+  for the backward: K6 and K7, and K8;
 - ``check_ffn_gemm`` (``gemm_gate``, every ``FFN_*`` case) for the
   down-projection GEMMs K10 and K12 (one source, ``gemm_sm90.cu``);
 - ``check_int8_gemm`` (int32 sums equal, bf16 within one ulp, every
   ``INT8_SHAPES`` and ``INT8_EXTRA`` case) for the int8 GEMM K11;
 - ``check_layer_norm`` (``layer_norm_gate``, every ``LAYER_NORM_*`` case)
   and ``check_group_norm`` (``group_norm_gate`` and the exact checks, every
-  ``GN_SHAPES`` and ``GN_RAGGED`` case in both layouts) for the norms: K3,
+  ``GN_*`` case in both layouts) for the norms: K3,
   and the GroupNorm (K9's statistics, the fold, the apply).
 
 Each attention kernel gets two faults: its key mask removed (keys at or

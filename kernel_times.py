@@ -180,12 +180,12 @@ def child(root: str, which: str, do_sweep: bool) -> None:
 
     kernels.library()
     print(f"card: {cs.card_line()}")
-    fwd = lambda kind: [s for s in cs.ATTENTION_SHAPES + cs.ATTENTION_SHAPES_XL + cs.ATTENTION_SHAPES_PIXART
-                        if attention.attention_plan(s[2], s[3])[0] == kind]
+    fwd = lambda kind: [s for s in cs.attention_main() if attention.attention_plan(s[2], s[3])[0] == kind]
     shapes = {"k1": fwd("flash_fwd_oneshot") if "k1" in which else [],
               "k2": fwd("flash_fwd_stream") if "k2" in which else []}
     cs.ATTENTION_SHAPES = shapes["k1"] + shapes["k2"]
-    cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], [], [], []
+    cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_SHAPES_XL_TRAIN = [], [], []
+    cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], []
     names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
              "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm", "layer_norm", "group_norm_stats",
              "group_norm_apply", "group_norm_fused")
@@ -197,8 +197,9 @@ def child(root: str, which: str, do_sweep: bool) -> None:
     if "k5" in which:
         cs.check_packed(attention, results, "flash_fwd_packed", cs.PACKED_STREAM_SHAPES, [], 10)
     if "k8" in which:
-        cs.BWD_SHAPES = [s for s in cs.BWD_SHAPES if attention.attention_bwd_plan(s[2], s[3])[0] == "flash_bwd_oneshot"]
-        cs.BWD_RAGGED = []
+        cs.BWD_SHAPES = [s for s in cs.BWD_SHAPES + cs.BWD_SHAPES_XL
+                         if attention.attention_bwd_plan(s[2], s[3])[0] == "flash_bwd_oneshot"]
+        cs.BWD_SHAPES_XL, cs.BWD_RAGGED = [], []
         cs.check_attention_bwd(attention, kernels, results)
     if "k10" in which or "k12" in which:
         cs.FFN_RAGGED = []

@@ -28,7 +28,7 @@ from flash_diffusion_tpu_torch.lora import attach_lora, init_lora, lora_paths, m
 from flash_diffusion_tpu_torch.models import AutoencoderKL, AutoencoderKLConfig, UNet2DCondition, UNetConfig
 from flash_diffusion_tpu_torch.schedulers import SchedulerConfig, add_noise, ddpm
 from flash_diffusion_tpu_torch.trainer import TrainingConfig, TrainingPipeline
-from flash_diffusion_tpu_torch.train import DEFAULT_CONFIG
+from flash_diffusion_tpu_torch.train import CONFIGS
 from flash_diffusion_tpu_torch.utils import (
     discriminator_from_jax,
     lora_from_jax,
@@ -356,17 +356,17 @@ def test_build_trainer_reads_flash_sd_yaml(monkeypatch):
     ported."""
     import yaml
 
-    from flash_diffusion_tpu_torch import train
+    from flash_diffusion_tpu_torch import sample, train
     from flash_diffusion_tpu_torch.models.embedders import ClipEmbedderConfig
 
-    monkeypatch.setattr(train, "sd15_unet_config", lambda **kw: UNetConfig(**UNET_KW, **kw))
-    monkeypatch.setattr(train, "sd_vae_config", lambda: AutoencoderKLConfig(**VAE_KW))
-    monkeypatch.setattr(train, "ClipEmbedderConfig", lambda **kw: ClipEmbedderConfig(**kw, text_embedder_config=dict(
+    monkeypatch.setattr(sample, "sd15_unet_config", lambda **kw: UNetConfig(**UNET_KW, **kw))
+    monkeypatch.setattr(sample, "sd_vae_config", lambda: AutoencoderKLConfig(**VAE_KW))
+    monkeypatch.setattr(sample, "ClipEmbedderConfig", lambda **kw: ClipEmbedderConfig(**kw, text_embedder_config=dict(
         vocab_size=49408, hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2, max_positions=77,
         eos_token_id=49407)))
-    with open(DEFAULT_CONFIG) as f:
+    with open(CONFIGS["sd15"]) as f:
         want = yaml.safe_load(f)
-    assert train.load_config(DEFAULT_CONFIG) == want
+    assert train.load_config(CONFIGS["sd15"]) == want
     trainer = train.build_trainer("sd15", device="cpu", config={**want, "LORA_RANK": 4})
     mc = trainer.model.config
     assert (mc.K, mc.num_iterations_per_K, mc.mode_probs) == (want["K"], want["NUM_ITERATIONS_PER_K"],
@@ -378,8 +378,9 @@ def test_build_trainer_reads_flash_sd_yaml(monkeypatch):
     assert all(ab["a"].shape[1] == 4 for ab in trainer.lora.values())
     assert trainer.model.teacher_module.conv_in.weight.dtype == torch.bfloat16
     assert trainer.model.student_module.conv_in.weight is trainer.model.teacher_module.conv_in.weight
+    assert trainer.model.teacher_module.config.remat and trainer.model.teacher_sched_mod is ddpm
     with pytest.raises(ValueError):
-        train.build_trainer("sdxl", device="cpu")
+        train.build_trainer("pixart", device="cpu")
 
 
 @pytest.mark.parametrize("frozen_dtype", [None, torch.bfloat16])

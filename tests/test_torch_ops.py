@@ -264,6 +264,7 @@ SDXL_ATTENTION = [
     (4096, 64, "flash_fwd_stream"),  # level-1 self-attention
     (1024, 64, "flash_fwd_stream"),  # level-2 and mid self-attention (one-shot K and V: 288 KB)
     (16384, 512, "flash_fwd_stream"),  # VAE mid-block
+    (77, 64, "flash_fwd_oneshot"),  # cross-attention under a gradient (training: never the packed K4)
 ]
 
 
@@ -281,7 +282,7 @@ def test_attention_plan_at_sd15_shapes(kv, d, kernel):
 FWD_RAGGED_ROUTES = [
     (1024, 900, 80, "flash_fwd_stream"), (77, 70, 40, "flash_fwd_oneshot"), (4096, 3000, 512, "flash_fwd_stream"),
     (4096, 4001, 40, "flash_fwd_stream"), (2000, 1999, 160, "flash_fwd_stream"), (200, 150, 80, "flash_fwd_oneshot"),
-    (77, None, 40, "flash_fwd_oneshot"),
+    (77, None, 40, "flash_fwd_oneshot"), (77, None, 64, "flash_fwd_oneshot"), (77, 70, 64, "flash_fwd_oneshot"),
 ]
 
 
@@ -568,15 +569,42 @@ def test_attention_bwd_plan_at_sd15_shapes(kv, d, route):
         assert all(t.smem <= tattn._SMEM_LIMIT for t in tiles)
 
 
+# Every SDXL training backward at 1024² (D = 64): cross-attention over the 77
+# text tokens on K8, the 4096- and 1024-token self-attention on the pair,
+# the VAE decoder's mid-attention under the LPIPS loss
+SDXL_BWD = [
+    (77, 64, "flash_bwd_oneshot"), (4096, 64, "flash_bwd_pair"), (1024, 64, "flash_bwd_pair"),
+    (4096, 512, "flash_bwd_pair"),
+]
+
+
+@pytest.mark.parametrize("kv,d,route", SDXL_BWD)
+def test_attention_bwd_plan_at_sdxl_shapes(kv, d, route):
+    """SDXL's D = 64: the 77-key cross-attention reaches K8 (80 padded keys,
+    five warps of one 16-row band each, 32-row q tiles) and the 1024- and
+    4096-key self-attention the pair at D = 64's wgmma tiles; each fits a
+    block."""
+    got, tiles = tattn.attention_bwd_plan(kv, d)
+    assert got == route
+    if route == "flash_bwd_oneshot":
+        assert (tiles.kvp, tiles.dp, tiles.bs, tiles.threads) == (80, 64, 32, 160)
+        assert tiles.smem == tattn.bwd_smem_bytes(80, 64) <= tattn._SMEM_LIMIT
+    else:
+        assert tiles == tattn.bwd_pair_tiles(d) and all(t.smem <= tattn._SMEM_LIMIT for t in tiles)
+        assert all(t.wgmma == (d <= 128) for t in tiles)
+
+
 # The ragged backward calls of the card's checks (kv, kv_valid, head dim) and
 # their route: K8 wherever the whole padded KV fits its warps
 BWD_RAGGED_ROUTES = [
     (77, None, 40, "flash_bwd_oneshot"), (200, 150, 80, "flash_bwd_pair"), (4096, 3001, 40, "flash_bwd_pair"),
     (77, 70, 40, "flash_bwd_oneshot"), (4096, 3000, 512, "flash_bwd_pair"), (2000, 1999, 160, "flash_bwd_pair"),
+    (77, 70, 64, "flash_bwd_oneshot"), (1100, 1037, 64, "flash_bwd_pair"), (4096, 4001, 64, "flash_bwd_pair"),
 ]
 
 
-@pytest.mark.parametrize("kv,kv_valid,d,route", [(kv, None, d, r) for kv, d, r in SD15_BWD] + BWD_RAGGED_ROUTES)
+@pytest.mark.parametrize("kv,kv_valid,d,route", [(kv, None, d, r) for kv, d, r in SD15_BWD + SDXL_BWD]
+                         + BWD_RAGGED_ROUTES)
 def test_oneshot_backward_tiles_fit_and_split_without_bh(kv, kv_valid, d, route):
     """K8's plan: the route of every SD1.5 training backward and ragged call,
     a block of at most 10 warps (one on each 16-row kv band, two above
@@ -960,6 +988,53 @@ def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_vali
     assert ok, report
 
 
+# (bh, sq, kv, d, kv_valid) of the SDXL training step at batch 2, 1024²
+# (D = 64: 10 heads at 4096 tokens, 20 at 1024; BH at B = 2 and, in the
+# GAN's teacher pass, 2B) and the VAE decoder's mid-attention under the LPIPS
+# loss (64² latent crops), plus kv_valid cases at D = 64
+SDXL_TRAIN_ATTENTION = [
+    (20, 4096, 77, 64, None), (40, 1024, 77, 64, None), (40, 4096, 77, 64, None), (80, 1024, 77, 64, None),
+    (20, 4096, 4096, 64, None), (40, 1024, 1024, 64, None), (40, 4096, 4096, 64, None), (80, 1024, 1024, 64, None),
+    (2, 4096, 4096, 512, None), (20, 4000, 77, 64, 70), (40, 1000, 1100, 64, 1037),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,d,kv_valid", SDXL_TRAIN_ATTENTION)
+def test_sdxl_training_attention_on_card(cuda, bh, sq, skv, d, kv_valid):
+    """The forward (K1 or K2) and backward (K8, or K6 then K7) kernels at the
+    SDXL training step's shapes, held to ``attention_fwd_gate`` and
+    ``attention_bwd_gate`` against the plain versions in fp32 (one head
+    group at a time for the backward), each launch counted under its shape
+    in ``LAUNCHES``; keys at or past ``kv_valid`` are k × 3 and v + 1."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=cuda).to(torch.bfloat16) for s in (sq, skv, skv, sq))
+    if kv_valid is not None:
+        k[:, kv_valid:] *= 3
+        v[:, kv_valid:] += 1
+    scale = d ** -0.5
+    keys = [(tattn.attention_plan(kv_valid or skv, d)[0], (bh, sq, skv, d, kv_valid))]
+    route = tattn.attention_bwd_plan(kv_valid or skv, d)[0]
+    keys += [(r, keys[0][1]) for r in ((route,) if route == "flash_bwd_oneshot" else ("flash_bwd_dkv", "flash_bwd_dq"))]
+    before = [tattn.LAUNCHES[key] for key in keys]
+    out, lse = tattn.flash_attention_bhsd(q, k, v, scale, kv_valid)
+    grads = tattn.flash_attention_bwd_bhsd(q, k, v, out, lse, do, scale, kv_valid)
+    torch.cuda.synchronize()
+    assert [tattn.LAUNCHES[key] for key in keys] == [n + 1 for n in before]
+    ok, report = tattn.attention_fwd_gate(tattn.attention_fwd_errors(
+        out, lse, *tattn.attention_bhsd_reference(q.float(), k.float(), v.float(), scale, kv_valid)))
+    assert ok, report
+    stats, step = None, max(1, 2 ** 26 // (sq * skv))
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        ref = tattn.attention_bwd_reference(*(t[sl].float() for t in (q, k, v, out)), lse[sl], do[sl].float(),
+                                            scale, kv_valid)
+        part = tattn.attention_bwd_errors([t[sl] for t in grads], ref, kv_valid)
+        stats = part if stats is None else tattn.merge_bwd_errors(stats, part)
+    ok, report = tattn.attention_bwd_gate(stats)
+    assert ok, report
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,d,kv_valid", [(1000, 1024, 80, None), (300, 2000, 160, 1999), (300, 700, 512, 600)])
 def test_attention_bwd_pair_bit_equal_run_to_run_and_batched_on_card(cuda, sq, skv, d, kv_valid):
@@ -1076,7 +1151,7 @@ def test_group_norm_kernels_match_plain_on_card(cuda, shape, dtype, channels_las
     x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
     if channels_last:
         x = x.to(memory_format=torch.channels_last)
-    n = dict(tnorms.LAUNCHES)
+    n = tnorms.LAUNCHES.totals()
     s, ss = tnorms.group_norm_stats(x)
     torch.cuda.synchronize()
     x64 = x.double().reshape(shape[0], shape[1], -1)

@@ -484,7 +484,7 @@ def test_int8_pipeline_launches_the_kernel_on_card(cuda):
     for p in (ref, pipe):
         p.quantize("int8", min_dim=32)  # K11 takes K % 32 == 0
     n = sum(t.dtype == torch.int8 for t in pipe.state.values())
-    gemm.LAUNCHES["int8_gemm"] = 0
+    gemm.LAUNCHES.clear()
     g = torch.Generator().manual_seed(0)
     latents, noise = torch.randn(2, *LATENT, generator=g), [torch.randn(2, *LATENT, generator=g) for _ in range(4)]
     images = pipe.generate(["a", "b"], latents=latents, noise=noise).cpu()

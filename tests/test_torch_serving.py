@@ -421,7 +421,7 @@ def test_int8_request_served_on_card(cuda):
     pipe.quantize("int8", min_dim=32)  # K11 takes K % 32 == 0
     server = InferenceServer(pipe, ServingConfig(uint8_images=False, max_batch=1, batch_sizes=(1,)))
     server.batcher.start()
-    gemm.LAUNCHES["int8_gemm"] = 0
+    gemm.LAUNCHES.clear()
     try:
         out = server.handle_generate({"prompt": "fox", "seed": 3}, timeout=WAIT)
     finally:
