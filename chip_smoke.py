@@ -7,8 +7,9 @@ Drives the port's main paths at full width and depth with random weights
 made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and of
 SDXL at 1024² (also in the JAX package's two opt-in kernel modes), the
 Flash distillation step of SD1.5 at 512² and of SDXL at 1024², SDXL 1024²
-served over HTTP in int8 W8A8 with a merged LoRA, and 4-step sampling of
-Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
+served over HTTP in int8 W8A8 with a merged LoRA, 4-step sampling of
+Pixart-α at 1024² (T5-XXL, the DiT) in bf16 and in int8, and Pixart's
+distillation step at 512². It fails unless every phase passes:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -27,7 +28,10 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
    version in fp32 on the same inputs; the SDXL training step's shapes at
    batch 2 and 4 among them: K1, K8 and the pair at D = 64, the VAE's
    encoder at 1024² and decoder over 64² latent crops, the discriminator's
-   fp32 GroupNorms), with ragged cases; max abs error
+   fp32 GroupNorms; the Pixart training step's at batch 4 and 2B: K2, K3
+   and the pair at D = 72 over 1024 tokens, a ragged D = 72 backward, the
+   VAE encoder at 512² and the discriminator's fp32 GroupNorms at 16² and
+   8²; K11 at Pixart 1024²'s four int8 shapes), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
    events around 10 queued calls, median of 5 runs) and the bound: the
@@ -174,12 +178,34 @@ Pixart-α at 1024² (T5-XXL, the DiT). It fails unless every phase passes:
 7b. Pixart references: T5-XXL at full width and 2 layers, card (fp32) vs
    its CPU copy, rel. L2 1e-4; the DiT and VAE at full size at 128² on one
    prompt, bf16 on the card vs an fp32 CPU copy on the same T5 output
-   (the card's), latents and step noise: images to a relative L2 of 0.1.
+   (the card's), latents and step noise: images to a relative L2 of 0.1;
+7e. the same Pixart pipeline in int8 W8A8: ``quantize("int8")`` (280
+   layers), then ``generate`` of 4 prompts × 4 steps at 1024² as phase 7:
+   K11 launched exactly 280 × 4 times, every launched (kernel, shape) among
+   phase 2's; warm s/batch beside phase 7's; then its DiT and VAE at 128²
+   against an fp32 CPU copy with the same int8 weights, as 7b (images to
+   0.1);
+7c. Pixart training, after that pipeline is freed: ``build_trainer(
+   "pixart", device="cuda")`` with ``flash_pixart.yaml`` (the full-width DiT
+   with ``remat``, T5-XXL in fp32 over bf16-rounded weights, the SD VAE,
+   K = 16 with the DDPM teacher on linear betas, l2 distill, DMD, hinge,
+   rank-64 LoRA, a 3-stage 64-feature discriminator over the 4-channel
+   output latents), every step in stage 1, then ``fit`` on synthetic
+   batches of 4 at 512² (T5 ids and mask, ``resolution_ar``): 1 warm and 3
+   timed steps, each printed with its start index and teacher forwards;
+   checked as 5c (K2, K3, K6, K7 and the GroupNorm kernels launched, every
+   launched (kernel, shape) among phase 2's); warm s/step (median),
+   images/s, peak memory;
+7d. Pixart training reference at 256², as 5b (K = [4], batch 2, non-zero
+   LoRA B, the discriminator's 3 stages down to its 4×4 head): the CPU copy
+   is fed the card's staged ``__conds`` and holds a 1-layer stand-in T5,
+   never run, in place of T5-XXL; 5b's tolerances; its seconds printed.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
 paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
-``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``; ``ms``, ``plain_ms``,
+``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
+``pixart_int8``, 7c as ``train_pixart``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -240,8 +266,11 @@ ATTENTION_SHAPES_XL = [
     (4, 16384, 16384, 512, None),
 ]
 # Pixart-α 1024² at batch 4: the DiT's self-attention (16 heads of D = 72,
-# padded to 80, over 4096 tokens); its VAE mid-block is SDXL's shape above
-ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None)]
+# padded to 80, over 4096 tokens); its VAE mid-block is SDXL's shape above.
+# Pixart training at 512² (phase 7c): the DiT's self-attention over 1024
+# tokens at B = 4 (the student, DMD's student) and 2B (the rollout, DMD's
+# and the GAN's teacher); its VAE encoder's mid-block is SD1.5's shape
+ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None), (64, 1024, 1024, 72, None), (128, 1024, 1024, 72, None)]
 # the SDXL training step at batch 2, 1024² (phase 5c), where the sampling
 # paths' shapes above do not have them: the student's forward under a
 # gradient (B = 2: BH 20 at 4096 tokens, 40 at 1024) and the GAN's teacher
@@ -297,8 +326,10 @@ LAYER_NORM_RAGGED = [(4 * 1024 + 3, 640, torch.bfloat16), (1001, 320, torch.bflo
 # rows of small variance (x ~ 3e-3·N(0, 1), var ≈ eps = 1e-5): a kernel that
 # drops eps is off by ~√2 there, and by ~1e-6 at unit scale
 LAYER_NORM_SMALL_VAR = [(1001, 320, torch.bfloat16), (4 * 256, 1280, torch.bfloat16), (4 * 77, 768, torch.float32)]
-# Pixart: the DiT's affine-free LayerNorms over its 4 × 4096 tokens
-LAYER_NORM_SHAPES_PIXART = [(4 * 4096, 1152, torch.bfloat16)]
+# Pixart: the DiT's affine-free LayerNorms over its 4 × 4096 tokens; in
+# training at 512², over 4 × 1024 (B) and 8 × 1024 (2B)
+LAYER_NORM_SHAPES_PIXART = [(4 * 4096, 1152, torch.bfloat16), (4 * 1024, 1152, torch.bfloat16),
+                            (8 * 1024, 1152, torch.bfloat16)]
 # SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32);
 # then the training step's at batch 2 (the student, DMD's student; the
 # text towers' three passes)
@@ -336,6 +367,13 @@ BWD_RAGGED = [
 BWD_SHAPES_XL = [(bh, sq, kv, 64, None) for sq, bh in ((4096, 20), (1024, 40), (4096, 40), (1024, 80))
                  for kv in (sq, 77)]
 BWD_SHAPES_XL.append((2, 4096, 4096, 512, None))
+# the Pixart training step at batch 4, 512² (D = 72, padded to 80 in the
+# pair): the student's self-attention backward (BH 64) and the GAN's
+# teacher pass at 2B (BH 128) over 1024 tokens; its cross-attention carries
+# the T5 mask bias and takes the plain path. Ragged: Sq and KV off the 64-
+# and 128-row tiles, kv_valid < KV (k × 3, v + 1 past it)
+BWD_SHAPES_PIXART = [(64, 1024, 1024, 72, None), (128, 1024, 1024, 72, None)]
+BWD_RAGGED.append((16, 1000, 1100, 72, 1037))
 # [B, C, H, W] of every GroupNorm of the paths at batch 4 (bf16): the SD1.5
 # UNet's levels at 512², the SDXL UNet's at 1024², the SD VAE decoder at
 # 512² (SD1.5) and at 1024² (SDXL, Pixart: the largest, [4, 128, 1024²]);
@@ -363,6 +401,12 @@ GN_SHAPES_XL_TRAIN = [((b, c, hw, hw), torch.bfloat16, None) for b in (2, 4) for
 GN_SHAPES_XL_TRAIN += [((2, c, hw, hw), torch.bfloat16, None) for c, hw in (
     (128, 1024), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128), (512, 64))]
 GN_SHAPES_XL_TRAIN += [((2, 512, 8, 8), torch.float32, 4), ((2, 1024, 4, 4), torch.float32, 4)]
+# the Pixart training step at 512² (phase 7c): the SD VAE encoder over 4
+# images at 512² (bf16; its 128@512², 256@256², 512@128² and 512@64² levels
+# are in GN_SHAPES, the decoder's), and the 64-feature discriminator's two
+# GroupNorms (fp32, 4 groups) over the DiT's 64² output latents
+GN_SHAPES_PIXART_TRAIN = [((4, 128, 256, 256), torch.bfloat16, None), ((4, 256, 128, 128), torch.bfloat16, None),
+                          ((4, 128, 16, 16), torch.float32, 4), ((4, 256, 8, 8), torch.float32, 4)]
 # The paths' shapes of each check (timed), read at call time so that a
 # caller may narrow the lists above; GroupNorm cases are (shape, dtype,
 # the path's group count or None)
@@ -375,7 +419,15 @@ def layer_norm_main():
 
 
 def gn_main():
-    return [(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN
+    return [(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
+
+
+def bwd_main():
+    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART
+
+
+def int8_main():
+    return INT8_SHAPES + INT8_SHAPES_PIXART
 
 
 def gn_groups(shape, groups=None):
@@ -394,7 +446,7 @@ def gated_shapes():
     resident and statistics kernels with the group count (None: the
     statistics alone), the apply kernel without."""
     fwd = set(attention_main() + ATTENTION_RAGGED + ATTENTION_V_SHIFTED)
-    bwd = set(BWD_SHAPES + BWD_SHAPES_XL + BWD_RAGGED)
+    bwd = set(bwd_main() + BWD_RAGGED)
     cases = gn_main() + [(shape, dtype, None) for shape, dtype in GN_RAGGED]
     gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
     gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
@@ -404,7 +456,8 @@ def gated_shapes():
             "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
             "layer_norm": set(layer_norm_main() + LAYER_NORM_RAGGED + LAYER_NORM_SMALL_VAR),
-            "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn}
+            "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn,
+            "int8_gemm": set(int8_main() + [case[:3] for case in INT8_EXTRA])}
 
 
 # the training phases: every step in stage 1 of the yaml's four
@@ -427,6 +480,10 @@ INT8_SHAPES = [
     (16384, 640, 640), (308, 2048, 640), (16384, 640, 5120), (16384, 2560, 640),
     (4096, 1280, 1280), (308, 2048, 1280), (4096, 1280, 10240), (4096, 5120, 1280),
 ]
+# Pixart-α 1024² at batch 4 (phase 7e): q/k/v/out and attn2 q/out over
+# 16384 tokens, attn2 k/v over 4 × 120 T5 tokens, ff.net.0.proj (its
+# tanh-gelu a separate op, as in JAX) and ff.net.2
+INT8_SHAPES_PIXART = [(16384, 1152, 1152), (480, 1152, 1152), (16384, 1152, 4608), (16384, 4608, 1152)]
 # (M, K, N, bias + gelu): batch 1's k/v (M = 77), ragged M and N, the
 # epilogue with bias and tanh-gelu, K not a multiple of the 64-byte step
 INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10240, True),
@@ -439,6 +496,7 @@ INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10
 SERVE_LORA_RANK, SERVE_LORA_B_STD, SERVE_LINGER_MS = 64, 0.01, 1000.0
 SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
+PIXART_INT8_LAYERS = 280  # 28 DiT blocks × 10
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
 # tolerances, kernel (bf16) vs plain (fp32): the attention forwards (K1,
@@ -894,7 +952,7 @@ def check_int8_gemm(gemm, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    for m, k, n, epilogue in [(*s, False) for s in INT8_SHAPES] + INT8_EXTRA:
+    for m, k, n, epilogue in [(*s, False) for s in int8_main()] + INT8_EXTRA:
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
         wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
         sx = torch.rand(m, generator=g, device="cuda") * 1e-3 + 1e-5
@@ -907,7 +965,7 @@ def check_int8_gemm(gemm, results, timed=True):
         sums_equal = torch.equal(sums, gemm.int8_sums_reference(xq, wq))
         close = within_bf16_ulp(y, ref, 1e-6 if act else 0.0)
         err = (y.float() - ref.float()).abs().max().item()
-        main = (m, k, n) in INT8_SHAPES and not epilogue
+        main = (m, k, n) in int8_main() and not epilogue
         plan = gemm.int8_gemm_plan(m, k, n, sms)
         times = f"; plan split {plan.split}"
         if timed:
@@ -975,7 +1033,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
     the last shape if any failed."""
     g = torch.Generator(device="cuda").manual_seed(3)
     failed = []
-    for shape in BWD_SHAPES + BWD_SHAPES_XL + BWD_RAGGED:
+    for shape in bwd_main() + BWD_RAGGED:
         bh, sq, skv, d, kv_valid = shape
         q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                        for s in (sq, skv, skv, sq))
@@ -1000,7 +1058,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
         del grads
         ok, report = attention.attention_bwd_gate(stats)
         err = [s["max_err"] for s in stats]
-        main = shape in BWD_SHAPES + BWD_SHAPES_XL
+        main = shape in bwd_main()
         times = ""
         if timed:
             ms = median_ms(lambda: attention.flash_attention_bwd_bhsd(q, k, v, o, lse, do, scale, kv_valid))
@@ -1358,31 +1416,35 @@ class FixedConditioner(torch.nn.Module):
         return {"cond": self.cond}
 
 
-def check_pixart_reference(pipe):
+def check_pixart_reference(pipe, t5_check=True, label="pixart"):
     """Phase 7b: T5-XXL at full width and 2 layers on the card (fp32)
     against its CPU copy (rel. L2 1e-4) on 120 ids with a padded mask; then
     the pipeline's DiT and VAE at full size on one prompt at 128² (bf16,
-    kernels) against an fp32 CPU copy (plain paths), both on the card's T5
-    output and the same latents and step noise (images: rel. L2 0.1)."""
+    kernels) against an fp32 CPU copy (plain paths) with the pipeline's
+    served weights (7e: its int8 ones), both on the card's T5 output and the
+    same latents and step noise (images: rel. L2 0.1). Without
+    ``t5_check``, the DiT and VAE alone."""
     from flash_diffusion_tpu_torch import FlashPipeline
     from flash_diffusion_tpu_torch.models import T5Encoder, t5_xxl_config
     from flash_diffusion_tpu_torch.sample import build_modules
 
-    cfg = t5_xxl_config(num_layers=2)
-    with torch.random.fork_rng(devices=[0]):
-        torch.manual_seed(3)
-        with torch.device("cuda"):
-            t5 = T5Encoder(cfg).eval()
-    with torch.device("meta"):
-        t5_ref = T5Encoder(cfg)
-    t5_ref = cpu_fp32_copy(t5.state_dict(), t5_ref)
-    g = torch.Generator().manual_seed(8)
-    ids = torch.randint(0, cfg.vocab_size, (2, 120), generator=g)
-    mask = (torch.arange(120)[None] < torch.tensor([[37], [120]])).long()
-    with torch.inference_mode():
-        t5_err = rel_l2(t5(ids.cuda(), mask.cuda()).cpu(), t5_ref(ids, mask))
-    del t5, t5_ref
-    torch.cuda.empty_cache()
+    t5_err = 0.0
+    if t5_check:
+        cfg = t5_xxl_config(num_layers=2)
+        with torch.random.fork_rng(devices=[0]):
+            torch.manual_seed(3)
+            with torch.device("cuda"):
+                t5 = T5Encoder(cfg).eval()
+        with torch.device("meta"):
+            t5_ref = T5Encoder(cfg)
+        t5_ref = cpu_fp32_copy(t5.state_dict(), t5_ref)
+        g = torch.Generator().manual_seed(8)
+        ids = torch.randint(0, cfg.vocab_size, (2, 120), generator=g)
+        mask = (torch.arange(120)[None] < torch.tensor([[37], [120]])).long()
+        with torch.inference_mode():
+            t5_err = rel_l2(t5(ids.cuda(), mask.cuda()).cpu(), t5_ref(ids, mask))
+        del t5, t5_ref
+        torch.cuda.empty_cache()
 
     free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60).stdout
     print("host memory (GiB) before the fp32 copy: " + " | ".join(free.splitlines()[:2]))
@@ -1402,11 +1464,48 @@ def check_pixart_reference(pipe):
     got = pipe.generate(PROMPTS[:1], latents=latents, noise=noise, height=128, width=128).cpu()
     want = ref.generate(PROMPTS[:1], latents=latents, noise=noise, height=128, width=128)
     img_err = rel_l2(got, want)
-    print(f"pixart reference: T5-XXL at 2 layers (fp32 on the card vs the CPU) rel L2 err {t5_err:.3e} (tol 1e-4); "
-          f"DiT + VAE at 128², 1 prompt, on the card's T5 output: images (bf16 on the card vs fp32 on the CPU) "
-          f"rel L2 err {img_err:.3e} (tol 0.1), max|err| {(got - want).abs().max().item():.3e}")
+    t5_report = (f"T5-XXL at 2 layers (fp32 on the card vs the CPU) rel L2 err {t5_err:.3e} (tol 1e-4); "
+                 if t5_check else "")
+    print(f"{label} reference: {t5_report}DiT + VAE at 128², 1 prompt, on the card's T5 output: images (bf16 on "
+          f"the card vs fp32 on the CPU, the same served weights) rel L2 err {img_err:.3e} (tol 0.1), max|err| "
+          f"{(got - want).abs().max().item():.3e}")
     if not (t5_err <= 1e-4 and img_err <= 0.1 and torch.isfinite(got).all()):
-        raise AssertionError("the card's pixart slice disagrees with the fp32 reference on a small input")
+        raise AssertionError(f"the card's {label} slice disagrees with the fp32 reference on a small input")
+
+
+def check_gated(label, counters, gated):
+    """Every (kernel, shape) launched since the counters were reset must be
+    among the shapes phase 2 checks its kernel at (``gated_shapes()``)."""
+    launched = sorted({key for c in counters for key, n in c.items() if n}, key=str)
+    for kernel in sorted({k for k, _ in launched}):
+        print(f"  {kernel} launched at {sorted({str(shape) for k, shape in launched if k == kernel})}")
+    ungated = [(k, shape) for k, shape in launched if shape not in gated.get(k, ())]
+    print(f"{label}: {len(launched)} distinct (kernel, shape) launched, {len(launched) - len(ungated)} of them "
+          f"gated in phase 2")
+    if ungated:
+        raise AssertionError(f"the {label} path launched shapes phase 2 does not gate: {ungated}")
+
+
+def run_pixart_int8(pipe, counters, card, required, gated):
+    """Phase 7e: phase 7's Pixart pipeline switched to int8 W8A8
+    (``quantize("int8")``: 280 layers), then ``generate`` of 4 prompts × 4
+    steps at 1024² through ``run_path``: K11 launched exactly 280 × 4 times,
+    every launched (kernel, shape) among phase 2's; warm s/batch."""
+    t0 = time.perf_counter()
+    pipe.quantize("int8")
+    torch.cuda.synchronize()
+    n_int8 = sum(t.dtype == torch.int8 for t in pipe.state.values())
+    print(f"pixart int8: quantize {time.perf_counter() - t0:.2f} s; {n_int8} int8 layers; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n_int8 != PIXART_INT8_LAYERS:
+        raise AssertionError(f"quantize('int8') made {n_int8} int8 layers, not {PIXART_INT8_LAYERS}")
+    launches, images = run_path(pipe, "pixart int8", 1024, counters, card, required)
+    if launches["int8_gemm"] != PIXART_INT8_LAYERS * 4:
+        raise AssertionError(f"int8 GEMM launched {launches['int8_gemm']} times in a 4-step batch, not "
+                             f"{PIXART_INT8_LAYERS * 4}")
+    check_gated("pixart int8", counters, gated)
+    del images
+    return launches
 
 
 def snapshot(modules):
@@ -1466,14 +1565,7 @@ def run_training(model, counters, card, required, gated=None):
     if missing:
         raise AssertionError(f"the {model} training path never launched {missing}")
     if gated is not None:
-        launched = sorted({key for c in counters for key, n in c.items() if n}, key=str)
-        for kernel in sorted({k for k, _ in launched}):
-            print(f"  {kernel} launched at {sorted({str(shape) for k, shape in launched if k == kernel})}")
-        ungated = [(k, shape) for k, shape in launched if shape not in gated.get(k, ())]
-        print(f"{model} training: {len(launched)} distinct (kernel, shape) launched, "
-              f"{len(launched) - len(ungated)} of them gated in phase 2")
-        if ungated:
-            raise AssertionError(f"the {model} training path launched shapes phase 2 does not gate: {ungated}")
+        check_gated(f"{model} training", counters, gated)
     if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
         raise AssertionError("a LoRA B factor did not change")
     if all(torch.equal(a, b) for a, b in zip(disc, snapshot([fl.discriminator]))):
@@ -1506,24 +1598,44 @@ def rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+@contextlib.contextmanager
+def t5_stand_in():
+    """``build_modules("pixart")`` with a 1-layer, 64-wide T5 in place of
+    T5-XXL inside the block: phase 7d's CPU copy never runs its conditioner
+    (it is fed the card's staged ``__conds``, as 7b feeds the card's T5
+    output), so it need not hold a 19 GB fp32 T5."""
+    from flash_diffusion_tpu_torch import sample
+    from flash_diffusion_tpu_torch.models.embedders import T5TextEmbedderConfig
+
+    saved = sample.T5TextEmbedderConfig
+    sample.T5TextEmbedderConfig = lambda **kw: T5TextEmbedderConfig(**kw, text_embedder_config=dict(
+        d_model=64, d_ff=64, d_kv=8, num_layers=1, num_heads=8))
+    try:
+        yield
+    finally:
+        sample.T5TextEmbedderConfig = saved
+
+
 def check_training_reference(model="sd15"):
-    """Phases 5b and 5d: one ``losses`` and backward of the trainer at 256²
-    on the card (bf16, kernels) vs an fp32 copy on the CPU (plain paths)
-    with its state dicts, on the same staged batch and draws (SDXL from
-    ``TRAIN_REF_XL_START``). Printed beside for SD1.5, ungated: the LoRA
-    gradients' error of each scaled G term alone, and of the student's own
-    backward."""
+    """Phases 5b, 5d and 7d: one ``losses`` and backward of the trainer at
+    256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
+    paths) with its state dicts, on the same staged batch (the conditioning
+    the card's) and draws (SDXL from ``TRAIN_REF_XL_START``). Printed beside
+    for SD1.5, ungated: the LoRA gradients' error of each scaled G term
+    alone, and of the student's own backward."""
     from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
 
     started = time.perf_counter()
     diagnostics = model == "sd15"
     cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES}
     dev = build_trainer(model, device="cuda", seed=0, config=cfg)
-    ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
+    with t5_stand_in() if model == "pixart" else contextlib.nullcontext():
+        ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
         for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator"):
-            getattr(ref.model, name).load_state_dict(getattr(dev.model, name).state_dict())
+            if getattr(ref.model, name) is not None and not (name == "conditioner" and model == "pixart"):
+                getattr(ref.model, name).load_state_dict(getattr(dev.model, name).state_dict())
         for name, ab in dev.lora.items():
             ab["b"].normal_(0.0, TRAIN_REF_LORA_B_STD, generator=g)
             for k in ("a", "b"):
@@ -1675,7 +1787,7 @@ def main():
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K12 plan at K={k} N={n} ({bn}, {cluster}): kernel {tuple(got)}, plan {want}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for m, k, n, *_ in [(*s, False) for s in INT8_SHAPES] + INT8_EXTRA:  # K11's plan, here and on 132 SMs
+    for m, k, n, *_ in [(*s, False) for s in int8_main()] + INT8_EXTRA:  # K11's plan, here and on 132 SMs
         for on, split in [(c, None) for c in (sms, 132)] + [(sms, s) for s in (1, 2, 4, 8)]:
             want, got = gemm.int8_gemm_plan(m, k, n, on, split), (ctypes.c_int * 6)()
             kernels.check(lib.fdt_int8_gemm_plan(m, n, k, on, split or 0, got), "fdt_int8_gemm_plan")
@@ -1801,11 +1913,24 @@ def main():
 
     # phases 7 and 7b: Pixart-α 1024² (T5-XXL in fp32, the DiT), then its
     # references: T5 at full width and 2 layers, the DiT and VAE at full
-    # size at 128² on the same T5 output
+    # size at 128² on the same T5 output; 7e: the same pipeline in int8,
+    # then its reference
     pipe = build_pipeline("pixart", device="cuda", seed=0)
     by_path["pixart"] = run_path(pipe, "pixart", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))[0]
     check_pixart_reference(pipe)
+    by_path["pixart_int8"] = run_pixart_int8(pipe, counters, card, ("flash_fwd_stream", "layer_norm", "int8_gemm",
+                                                                     *gn), gated_shapes())
+    check_pixart_reference(pipe, t5_check=False, label="pixart int8")
     del pipe
+    torch.cuda.empty_cache()
+
+    # phases 7c and 7d: the Pixart training step through the user's entry
+    # point, its launched shapes all among phase 2's, then its agreement
+    # with the fp32 plain reference on a small input
+    by_path["train_pixart"] = run_training("pixart", counters, card, (
+        "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes())
+    torch.cuda.empty_cache()
+    check_training_reference("pixart")
     torch.cuda.empty_cache()
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")

@@ -1,4 +1,4 @@
-"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5, SDXL).
+"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5, SDXL, Pixart-α).
 
 Port of ``flash_diffusion_tpu/distill/flash.py:52-519`` (``losses`` and
 its parts). One loss computation per step, as in JAX: the teacher's K-step
@@ -24,6 +24,12 @@ from a generator on the device; the tests fill it from JAX keys split as
   order from ``start_idx`` (none for a deterministic teacher: DPM);
 - ``dmd_t`` [B], ``dmd_noise`` and ``dmd_guidance`` (uniform);
 - ``gan_idx`` [B] (into ``gan_timesteps``) and ``gan_noise``.
+
+The teacher is a UNet or a DiT: any denoiser ``(sample, t, conditioning,
+return_features)`` whose conditioning dict (``crossattn``, ``vector``,
+``attention_mask``, ``concat``) concatenates along the batch for the
+2B-batched calls; the GAN's features are what ``return_features`` gives
+(the UNet's mid block, the DiT's output latents).
 
 Batch convention: ``image`` [B, H, W, 3] in [-1, 1] (NHWC, as JAX) and
 ``text_ids``; the pre-staged ``__z`` (the VAE encode) and ``__conds`` (the
@@ -107,7 +113,7 @@ class FlashDiffusion:
     def __init__(
         self,
         config: FlashDiffusionConfig,
-        teacher_module,  # UNet2DCondition: (sample, t, cond, return_features)
+        teacher_module,  # UNet2DCondition or DiT: (sample, t, cond, return_features)
         scheduler_config: Optional[SchedulerConfig] = None,
         teacher_scheduler: str = "DDPMScheduler",
         sampling_scheduler: str = "LCMScheduler",
@@ -264,7 +270,8 @@ class FlashDiffusion:
 
     def _gan(self, z, student_output, teacher_output, cond, draws):
         """GAN branch: noise fake and real at the fixed timesteps, tap the
-        teacher's mid features on the 2B batch, both losses at once."""
+        teacher's features (``return_features``) on the 2B batch, both
+        losses at once."""
         cfg = self.config
         sel = torch.tensor(cfg.gan_timesteps, device=z.device)
         ts = sel[draws["gan_idx"]]

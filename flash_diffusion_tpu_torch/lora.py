@@ -37,7 +37,11 @@ import torch.nn as nn
 LoraTree = Dict[str, Dict[str, torch.Tensor]]
 
 # The JAX ``DEFAULT_TARGETS`` (attention and feed-forward projections, the
-# spatial transformers' proj_in/proj_out) over the port's module names
+# spatial transformers' proj_in/proj_out) over the port's module names. The
+# leading dot leaves a DiT's root ``proj_out`` out: JAX's pair there is
+# inert (``utils/convert.py DIT_INERT_LORA``), so over the DiT the port's
+# tree is JAX's without it (per block attn1/attn2 q, k, v, out and the
+# feed-forward's two)
 DEFAULT_TARGETS = (
     r".*\.(to_q|to_k|to_v|to_out\.0)$",
     r".*\.(proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$",

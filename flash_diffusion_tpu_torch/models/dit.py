@@ -19,8 +19,17 @@ scalars for the extra adaLN embedders) and ``attention_mask`` (the T5
 padding mask, an additive bias of the cross-attention, which therefore
 takes the plain path, as in JAX). The self-attention (D = 72 at Pixart's
 width) goes to the streaming flash kernel, the affine-free LayerNorms to
-the LayerNorm kernel. Not ported yet: ``remat``, ``return_features`` and
-the ``concat`` conditioning (the family's training).
+the LayerNorm kernel.
+
+For training (the JAX ``dit.py:209-216``, ``:246-269``): ``config.remat``
+recomputes each ``PixartBlock`` in the backward (``torch.utils.checkpoint``,
+non-reentrant; the JAX ``nn.remat`` of the block) whenever autograd
+records; ``return_features=True`` also returns the output latents in the
+compute dtype, the GAN's features (the reference wrapper has no mid-block
+tap, so the 4-channel discriminator reads the denoised output); a
+``concat`` conditioning is concatenated to the latents' channels before the
+patchify. Unlike flax, the patch convolution needs its input width up
+front: ``config.concat_channels`` (0: no ``concat``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
 from ..ops import layer_norm, modulate
@@ -56,6 +67,8 @@ class DiTConfig(BaseConfig):
     sample_size: int = 64  # base grid of the positional embedding
     # grid divisor of the positional embedding; None → max(sample_size // 64, 1)
     interpolation_scale: Optional[float] = None
+    remat: bool = False  # recompute each block in the backward (training)
+    concat_channels: int = 0  # channels of a ``concat`` conditioning
 
     def __post_init__(self):
         super().__post_init__()
@@ -193,7 +206,7 @@ class DiT(nn.Module):
         super().__init__()
         self.config = cfg = config
         d, p = cfg.hidden_size, cfg.patch_size
-        self.pos_embed = _PatchEmbed(cfg.in_channels, d, p)
+        self.pos_embed = _PatchEmbed(cfg.in_channels + cfg.concat_channels, d, p)
         self.adaln_single = AdaLayerNormSingle(d, cfg.num_vector_embeds, cfg.vector_embed_dim)
         self.caption_projection = _CaptionProjection(cfg.caption_channels, d)
         self.transformer_blocks = nn.ModuleList(
@@ -216,11 +229,16 @@ class DiT(nn.Module):
         sample: torch.Tensor,
         timestep: torch.Tensor,
         conditioning: Dict[str, Dict[str, torch.Tensor]],
-    ) -> torch.Tensor:
+        return_features: bool = False,
+    ):
+        """fp32 [B, H, W, in_channels]; with ``return_features`` also that
+        output in the compute dtype (the GAN's features, as JAX returns)."""
         cfg = self.config
         dtype = self.proj_out.weight.dtype
         cond = (conditioning or {}).get("cond", {})
         context, vector, mask = cond.get("crossattn"), cond.get("vector"), cond.get("attention_mask")
+        if cond.get("concat") is not None:
+            sample = torch.cat([sample, cond["concat"].to(sample.dtype)], dim=-1)
         b, hh, ww, _ = sample.shape
         p = cfg.patch_size
         gh, gw = hh // p, ww // p
@@ -234,14 +252,19 @@ class DiT(nn.Module):
             context = self.caption_projection(context.to(dtype))
             if mask is not None:  # [B, S_kv] → additive bias [B, 1, 1, S_kv]
                 context_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            x = block(x, mod6, context, context_bias)
+            if remat:
+                x = checkpoint(block, x, mod6, context, context_bias, use_reentrant=False)
+            else:
+                x = block(x, mod6, context, context_bias)
 
         shift, scale = (self.scale_shift_table[None] + emb_t[:, None, :]).unbind(1)
         x = self.proj_out(modulate(layer_norm(x, eps=1e-6), shift, scale))
         x = x.reshape(b, gh, gw, p, p, cfg.out_channels)
         x = torch.einsum("bhwpqc->bhpwqc", x).reshape(b, hh, ww, cfg.out_channels)
-        return x[..., : cfg.in_channels].float()
+        out = x[..., : cfg.in_channels].float()
+        return (out, out.to(dtype)) if return_features else out
 
 
 # diffusers 1024-MS micro-conditioning embedders → the port's vector chunks

@@ -2,7 +2,7 @@
 time by stage and by kernel.
 
     python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart] [--batch 4] [--int8] [--trace trace.json]
-    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl] [--batch n]
+    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart] [--batch n]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
 weights; SD1.5 at 512², SDXL and Pixart-α at 1024²; with ``--int8`` switched to the W8A8
@@ -11,7 +11,7 @@ int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``torch.profiler``; with ``--train``, the trainer as
 ``train.build_trainer(model)`` builds it (the model's yaml: SD1.5
 ``flash_sd.yaml`` at 512², batch 4; SDXL ``flash_sdxl.yaml`` at 1024², batch
-2; every step in stage 1) and one ``fit`` step on a synthetic batch of the
+2; Pixart ``flash_pixart.yaml`` at 512², batch 4; every step in stage 1) and one ``fit`` step on a synthetic batch of the
 yaml's size (``--batch`` overrides its batch) instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the

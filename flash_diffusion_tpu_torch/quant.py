@@ -3,7 +3,8 @@ per-token activations, the products on the int8 GEMM kernel.
 
 Port of ``flash_diffusion_tpu/quant.py`` (``quantize_weight``,
 ``int8_matmul``, ``quantize_dense``). ``quantize_dense`` turns the float
-weights of the UNet's ``LoraDense`` layers in a state dict into int8 codes
+weights of the UNet's or the DiT's ``LoraDense`` layers in a state dict
+into int8 codes
 with an fp32 per-output-channel scale beside each (``<layer>.weight_scale``);
 ``apply_weights`` points the module's parameters at such a state; the
 layers (``models/layers.py lora_dense``) branch on the int8 weight dtype and
@@ -30,9 +31,10 @@ SCALE_KEY = "weight_scale"
 
 # The layers with an int8 branch (the JAX allowlist of ``quant.py:44-47``
 # over the port's names): attention q/k/v/out, the spatial transformers'
-# proj_in/proj_out and the GEGLU feed-forward's two (JAX ff/proj_in and
-# ff/proj_out). The leading dot keeps a root-level ``proj_out`` (a DiT's
-# unembedding head) out, as the JAX depth rule does.
+# proj_in/proj_out and the feed-forward's two (JAX ff/proj_in and
+# ff/proj_out of the GEGLU, ff_in and ff_out of the DiT: 28 × 10 = 280
+# layers in Pixart-α). The leading dot keeps a root-level ``proj_out`` (a
+# DiT's unembedding head) out, as the JAX depth rule does.
 DENSE_INCLUDE = r"\.(to_q|to_k|to_v|to_out\.0|proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$"
 
 

@@ -134,6 +134,21 @@ def _t5_keys(sd):
     return sd
 
 
+def load_weights(model: str, root: str, denoiser, vae, towers) -> None:
+    """The local diffusers layout under ``root``, where present: the UNet
+    (``unet/``) or the DiT (``transformer/``, through
+    ``pixart_state_from_diffusers``), the VAE and the text towers (T5's
+    through ``_t5_keys``)."""
+    pixart = model == "pixart"
+    _load_local(denoiser, os.path.join(root, "transformer" if pixart else "unet",
+                                       "diffusion_pytorch_model.safetensors"),
+                convert=pixart_state_from_diffusers if pixart else None)
+    _load_local(vae, os.path.join(root, "vae/diffusion_pytorch_model.safetensors"))
+    for path, tower in towers:
+        _load_local(tower.module, os.path.join(root, path),
+                    keep=lambda k: not k.endswith("position_ids"), convert=_t5_keys if pixart else None)
+
+
 def size_cond_fn(n: int, h: int, w: int):
     """SDXL's size conditions of a batch of n images at h×w pixels: original
     and target size (h, w), crop (0, 0)."""
@@ -153,14 +168,14 @@ def pixart_size_cond_fn(n: int, h: int, w: int):
 def build_modules(model: str, remat: bool = False):
     """The fp32 modules of a family on the default device: (denoiser, vae,
     conditioners, [(checkpoint file or shard directory, text tower)],
-    size_cond_fn). ``remat``: the UNet recomputes its blocks in the
-    backward (training)."""
+    size_cond_fn). ``remat``: the UNet or the DiT recomputes its blocks in
+    the backward (training)."""
     if model not in MODELS:
         raise ValueError(f"model {model!r} is not ported yet (one of {MODELS})")
     if model == "pixart":
         t5 = T5TextEmbedder(T5TextEmbedderConfig(input_key="text", max_length=120))
         res_ar = RawVectorEmbedder(RawVectorEmbedderConfig(input_key="resolution_ar"))
-        return (DiT(pixart_config(num_vector_embeds=3)), AutoencoderKL(sd_vae_config()), [t5, res_ar],
+        return (DiT(pixart_config(num_vector_embeds=3, remat=remat)), AutoencoderKL(sd_vae_config()), [t5, res_ar],
                 [("text_encoder", t5)], pixart_size_cond_fn)
     if model == "sd15":
         clip = ClipEmbedder(ClipEmbedderConfig(input_key="text"))
@@ -204,13 +219,7 @@ def build_pipeline(model: str = "sd15", weights_root: str = "",
             denoiser, vae, conditioners, towers, size_fn = build_modules(model)
     pixart = model == "pixart"
     if weights_root:
-        _load_local(denoiser, os.path.join(weights_root, "transformer" if pixart else "unet",
-                                           "diffusion_pytorch_model.safetensors"),
-                    convert=pixart_state_from_diffusers if pixart else None)
-        _load_local(vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"))
-        for path, tower in towers:
-            _load_local(tower.module, os.path.join(weights_root, path),
-                        keep=lambda k: not k.endswith("position_ids"), convert=_t5_keys if pixart else None)
+        load_weights(model, weights_root, denoiser, vae, towers)
     pipe = FlashPipeline(
         denoiser.to(torch.bfloat16).eval(), ConditionerWrapper(conditioners).eval(),
         vae.to(torch.bfloat16).eval(), t5_tokenizer(weights_root) if pixart else clip_tokenizer(weights_root),

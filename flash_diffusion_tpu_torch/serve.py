@@ -2,7 +2,7 @@
 
     python -m flash_diffusion_tpu_torch.serve --model sdxl --int8 \\
         [--lora adapter.safetensors] [--port 8500] [--prewarm]
-    python -m flash_diffusion_tpu_torch.serve --model pixart [--port 8500]
+    python -m flash_diffusion_tpu_torch.serve --model pixart [--int8] [--port 8500]
 
     curl -s localhost:8500/healthz
     curl -s -X POST localhost:8500/generate \\
@@ -14,12 +14,12 @@
 Builds ``sample.build_pipeline`` (random weights from the seed unless
 ``--weights-root`` holds a diffusers layout; ``--lora`` merges a PEFT
 adapter), optionally switches it to the int8 W8A8 mode (``--int8``: every
-attention and feed-forward projection of the UNet on the int8 GEMM kernel)
+attention and feed-forward projection of the UNet or the DiT on the int8
+GEMM kernel)
 and serves it with ``serving.InferenceServer``. Request fields: prompt (str
 or list), steps, guidance_scale, seed, negative_prompt, format ("png" |
 "json"), height/width (multiples of 64). Not ported yet: ``--tp``,
-``--compile-cache`` (no compile step here), ``--t5`` and ``--int8`` for
-Pixart.
+``--compile-cache`` (no compile step here) and ``--t5``.
 """
 
 from __future__ import annotations
@@ -51,8 +51,6 @@ def main():
     args = ap.parse_args()
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
-    if args.int8 and args.model == "pixart":
-        raise SystemExit("--int8 is not ported for pixart yet")
     pipe = build_pipeline(args.model, args.weights_root, device=args.device, lora=args.lora,
                           lora_scale=args.lora_scale)
     if args.int8:

@@ -1,17 +1,19 @@
-"""Flash distillation of SD1.5 and SDXL with the PyTorch port: build_trainer and CLI.
+"""Flash distillation of SD1.5, SDXL and Pixart-α with the PyTorch port: build_trainer and CLI.
 
-    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl] [--config examples/configs/flash_sd.yaml] \\
+    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart] [--config examples/configs/flash_sd.yaml] \\
         --max-steps 10 [--weights-root /weights/sd15] [--random-init] [--device cuda]
 
 ``build_trainer(model, device=...)`` is the port's counterpart of
-``examples/train_flash_sd.py`` and ``examples/train_flash_sdxl.py``. The
-teacher, VAE and conditioner come from ``sample.build_modules(model)``
-with the UNet's ``remat`` on; a LoRA student over the teacher, LPIPS-VGG16,
-a conv discriminator over the teacher's mid features (1280 channels;
-``num_stages`` from the mid block's size, the 4×4 head taking ≥ 4×4), the
-yaml's teacher schedule, losses, loss scales, mode probabilities and
-learning rates; then ``TrainingPipeline.fit(batches, max_steps=n)`` runs the
-simultaneous step. By model (its default yaml in ``CONFIGS``):
+``examples/train_flash_sd.py``, ``train_flash_sdxl.py`` and
+``train_flash_pixart.py``. The teacher, VAE and conditioner come from
+``sample.build_modules(model)`` with the denoiser's ``remat`` on; a LoRA
+student over the teacher, LPIPS-VGG16 when the distill loss is ``lpips``,
+a conv discriminator (over the UNet's mid features, 1280 channels,
+``num_stages`` from the mid block's size, the 4×4 head taking ≥ 4×4; over
+the DiT's 4-channel output latents for Pixart), the yaml's teacher
+schedule, losses, loss scales, mode probabilities and learning rates; then
+``TrainingPipeline.fit(batches, max_steps=n)`` runs the simultaneous step.
+By model (its default yaml in ``CONFIGS``):
 
 - ``sd15``: SD1.5 UNet, SD VAE, CLIP-L (its last hidden state); mid block
   at latent / 8, a 64-feature discriminator; ``flash_sd.yaml``: 512²,
@@ -20,16 +22,27 @@ simultaneous step. By model (its default yaml in ``CONFIGS``):
   (the penultimate layer, bigG's projected pooled output) with the three
   size embeddings; mid block at latent / 4 (3 stages at 1024²), a
   256-feature discriminator; ``flash_sdxl.yaml``: 1024², batch 2, LoRA rank
-  64, DPM-Solver++ 2M teacher, lsgan, the uncond dropping both CLIP towers.
+  64, DPM-Solver++ 2M teacher, lsgan, the uncond dropping both CLIP towers;
+- ``pixart``: the Pixart-α DiT (1152 wide, 28 blocks, 16 heads of 72, the
+  3 vector embedders), SD VAE, T5-v1.1-XXL over 120 tokens with its padding
+  mask and the raw [h, w, aspect ratio] vector; the teacher's tables on
+  linear betas 1e-4 → 0.02 (``sample.PIXART_SCHEDULER``, the JAX
+  example's); a 64-feature, 3-stage discriminator over the 4-channel
+  output latents (the DiT's ``return_features``); ``flash_pixart.yaml``:
+  512², batch 4, K = 16, LoRA rank 64, DDPM teacher, l2 distill, DMD,
+  hinge GAN.
 
 Weights are random, made from ``seed``, unless ``weights_root`` holds a
 local diffusers layout (``unet/``, ``vae/``, ``text_encoder/`` and, for
-SDXL, ``text_encoder_2/`` safetensors); LPIPS and the discriminator are
-always random (the pretrained VGG/LPIPS weights are not in the repository).
-The data pipeline (webdataset shards) is not ported: ``synthetic_batches``
-makes batches from a seed. Batch layout at the boundary: ``image`` [B, H,
-W, 3] fp32 in [-1, 1] (NHWC, as the JAX package), ``text_ids`` [B, 77] int
-token ids, and for SDXL the size tuples of ``sample.size_cond_fn``.
+SDXL, ``text_encoder_2/``; Pixart: ``transformer/`` and a T5
+``text_encoder/``, ``sample.load_weights``); LPIPS and the discriminator
+are always random (the pretrained VGG/LPIPS weights are not in the
+repository). The data pipeline (webdataset shards) is not ported:
+``synthetic_batches`` makes batches from a seed. Batch layout at the
+boundary: ``image`` [B, H, W, 3] fp32 in [-1, 1] (NHWC, as the JAX
+package), ``text_ids`` [B, 77] int token ids (Pixart: [B, 120] T5 ids
+with ``text_mask``), for SDXL the size tuples of ``sample.size_cond_fn``,
+for Pixart ``resolution_ar``.
 """
 
 from __future__ import annotations
@@ -47,15 +60,17 @@ import yaml
 from .distill import LPIPS, ConvDiscriminator, DiscriminatorConfig, FlashDiffusion, FlashDiffusionConfig
 from .lora import init_lora, lora_scaling
 from .models.embedders import ConditionerWrapper
-from .sample import _load_local, build_modules, size_cond_fn
+from .sample import PIXART_SCHEDULER, build_modules, load_weights, size_cond_fn
 from .schedulers import SchedulerConfig
 from .trainer import TrainingConfig, TrainingPipeline
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
-CONFIGS = {"sd15": os.path.join(_CONFIG_DIR, "flash_sd.yaml"), "sdxl": os.path.join(_CONFIG_DIR, "flash_sdxl.yaml")}
+CONFIGS = {model: os.path.join(_CONFIG_DIR, name) for model, name in (
+    ("sd15", "flash_sd.yaml"), ("sdxl", "flash_sdxl.yaml"), ("pixart", "flash_pixart.yaml"))}
 MODELS = tuple(CONFIGS)
-# by model: (pixels per mid-block position, discriminator features); the
-# mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in SDXL's three
+# by UNet model: (pixels per mid-block position, discriminator features);
+# the mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in
+# SDXL's three
 _MID = {"sd15": (64, 64), "sdxl": (32, 256)}
 # by model, what a yaml may leave out: the JAX examples' defaults
 # (examples/train_flash_sd.py, train_flash_sdxl.py, common.py)
@@ -64,6 +79,8 @@ DEFAULTS = {
              "TEACHER_SCHEDULER": "DDPMScheduler"},
     "sdxl": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_EMPTY_PROMPT": False,
              "TEACHER_SCHEDULER": "DPMSolverMultistepScheduler"},
+    "pixart": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 64, "T5_MAX_LENGTH": 120,
+               "USE_EMPTY_PROMPT": True, "TEACHER_SCHEDULER": "DDPMScheduler", "DISTILL_LOSS_TYPE": "l2"},
 }
 
 
@@ -73,14 +90,30 @@ def load_config(path: str) -> Dict[str, Any]:
 
 
 def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
-                      max_length: int = 77, model: str = "sd15") -> Iterator[Dict[str, np.ndarray]]:
+                      max_length: Optional[int] = None, model: str = "sd15") -> Iterator[Dict[str, np.ndarray]]:
     """Endless batches made from ``seed``: images uniform in [-1, 1] and
-    CLIP-style ids (BOS, random tokens, EOS, EOS padding); for ``sdxl`` also
-    the size tuples (original and target size ``image_size`` square, crop
-    (0, 0)), as ``examples/train_flash_sdxl.py`` makes them."""
+    CLIP-style ids of ``max_length`` (77 by default: BOS, random tokens,
+    EOS, EOS padding); for ``sdxl`` also the size tuples (original and
+    target size ``image_size`` square, crop (0, 0)), as
+    ``examples/train_flash_sdxl.py`` makes them. For ``pixart``, T5-style
+    ids (120 by default: random tokens, EOS 1, padding 0) with their
+    ``text_mask`` (1 up to the EOS) and ``resolution_ar`` = [size, size,
+    1.0], as ``train_flash_pixart.py`` makes them."""
     rng = np.random.default_rng(seed)
+    pixart = model == "pixart"
+    max_length = max_length or (DEFAULTS["pixart"]["T5_MAX_LENGTH"] if pixart else 77)
     while True:
         image = rng.uniform(-1.0, 1.0, (batch_size, image_size, image_size, 3)).astype(np.float32)
+        if pixart:
+            ids = np.zeros((batch_size, max_length), np.int64)
+            for i in range(batch_size):
+                n = int(rng.integers(1, max_length))
+                ids[i, :n - 1] = rng.integers(3, 32100, n - 1)
+                ids[i, n - 1] = 1
+            yield {"image": image, "text_ids": ids, "text_mask": (ids != 0).astype(np.int64),
+                   "resolution_ar": np.tile([float(image_size), float(image_size), 1.0],
+                                            (batch_size, 1)).astype(np.float32)}
+            continue
         ids = np.full((batch_size, max_length), 49407, np.int64)
         ids[:, 0] = 49406
         for i in range(batch_size):
@@ -90,6 +123,20 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
         if model == "sdxl":
             batch.update(size_cond_fn(batch_size, image_size, image_size))
         yield batch
+
+
+def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
+    """Pixart's 64-feature, 3-stage discriminator over the DiT's 4-channel
+    output latents, fixed as ``train_flash_pixart.py`` fixes it; a UNet's
+    over its mid features, with as many stages as the mid block's size
+    leaves the 4×4 head."""
+    if model == "pixart":
+        return ConvDiscriminator(DiscriminatorConfig(feature_dim=64, num_stages=3),
+                                 in_channels=denoiser.config.in_channels)
+    per_mid, features = _MID[model]
+    num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
+    return ConvDiscriminator(DiscriminatorConfig(feature_dim=features, num_stages=num_stages),
+                             in_channels=denoiser.config.block_out_channels[-1])
 
 
 def build_trainer(
@@ -113,25 +160,17 @@ def build_trainer(
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    size = cfg["IMAGE_SIZE"]
     rank = cfg["LORA_RANK"]
-    per_mid, features = _MID[model]
-    num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         with device:
-            unet, vae, conditioners, towers, _ = build_modules(model, remat=True)
-            disc = ConvDiscriminator(DiscriminatorConfig(feature_dim=features, num_stages=num_stages),
-                                     in_channels=unet.config.block_out_channels[-1])
-            lpips = LPIPS()
+            denoiser, vae, conditioners, towers, _ = build_modules(model, remat=True)
+            disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"])
+            lpips = LPIPS() if cfg["DISTILL_LOSS_TYPE"] == "lpips" else None
         if weights_root:
-            _load_local(unet, os.path.join(weights_root, "unet/diffusion_pytorch_model.safetensors"))
-            _load_local(vae, os.path.join(weights_root, "vae/diffusion_pytorch_model.safetensors"))
-            for path, tower in towers:
-                _load_local(tower.module, os.path.join(weights_root, path),
-                            keep=lambda k: not k.endswith("position_ids"))
+            load_weights(model, weights_root, denoiser, vae, towers)
         generator = torch.Generator(device=device).manual_seed(seed)
-        lora = init_lora(unet, rank, generator, device=device)
+        lora = init_lora(denoiser, rank, generator, device=device)
     model_cfg = FlashDiffusionConfig(
         K=cfg["K"],
         num_iterations_per_K=cfg["NUM_ITERATIONS_PER_K"],
@@ -153,7 +192,8 @@ def build_trainer(
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
     flash = FlashDiffusion(
-        model_cfg, teacher_module=unet, scheduler_config=SchedulerConfig(),
+        model_cfg, teacher_module=denoiser,
+        scheduler_config=PIXART_SCHEDULER if model == "pixart" else SchedulerConfig(),
         teacher_scheduler=cfg["TEACHER_SCHEDULER"],
         sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"),
         vae=vae, conditioner=ConditionerWrapper(conditioners), discriminator=disc, lpips=lpips,
@@ -183,8 +223,8 @@ def main():
     trainer = build_trainer(args.model, root, device=args.device, seed=args.seed, config=cfg)
     trainer.config.log_every_n_steps = 1
     seed = cfg.get("SEED", 0) if args.seed is None else args.seed
-    aux = trainer.fit(synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, model=args.model),
-                      max_steps=args.max_steps)
+    data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, cfg.get("T5_MAX_LENGTH"), args.model)
+    aux = trainer.fit(data, max_steps=args.max_steps)
     print({k: float(v) for k, v in aux.items()})
 
 

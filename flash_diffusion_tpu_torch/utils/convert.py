@@ -26,7 +26,7 @@ Imports no JAX: the tree arrives as numpy.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -240,18 +240,35 @@ def dit_from_jax(params: Dict[str, Any], config) -> StateDict:
 
 # JAX module scopes inside a spatial transformer → the port's module names
 _LORA_LEAVES = {"to_out": "to_out.0", "ff/proj_in": "ff.net.0.proj", "ff/proj_out": "ff.net.2"}
+# JAX scopes inside a DiT block (``block_<i>``) → the port's names under
+# ``transformer_blocks.<i>``
+_DIT_LORA_LEAVES = {"to_out": "to_out.0", "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2"}
+# The DiT's root head: JAX ``lora_paths`` gives it a pair, but it is a
+# plain ``nn.Dense`` that never reads one (no effect on the output, a zero
+# gradient), so the port's tree leaves it out
+DIT_INERT_LORA = "proj_out"
 
 
-def lora_path_to_port(path: str, config) -> str:
-    """A JAX ``lora_paths`` entry of the UNet (``[params/]down_0_attn_0/
-    blocks_0/attn1/to_q/kernel``) → the port module name
-    (``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q``)."""
+def lora_path_to_port(path: str, config) -> Optional[str]:
+    """A JAX ``lora_paths`` entry → the port module name: of the UNet
+    (``[params/]down_0_attn_0/blocks_0/attn1/to_q/kernel`` →
+    ``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q``) or of
+    the DiT (``block_3/attn2/to_out/kernel`` →
+    ``transformer_blocks.3.attn2.to_out.0``, ``block_3/ff_in/kernel`` →
+    ``transformer_blocks.3.ff.net.0.proj``); None for the DiT's inert root
+    ``proj_out``."""
     parts = path.split("/")
     if parts[0] == "params":
         parts = parts[1:]
     if parts[-1] != "kernel":
         raise ValueError(f"not a kernel path: {path}")
     top, rest = parts[0], parts[1:-1]
+    if top == DIT_INERT_LORA and not rest:
+        return None
+    m = re.fullmatch(r"block_(\d+)", top)
+    if m:
+        leaf = _DIT_LORA_LEAVES.get(rest[-1], rest[-1])
+        return ".".join(["transformer_blocks", m.group(1), *rest[:-1], leaf])
     n = len(config.block_out_channels)
     m = re.fullmatch(r"(down|up)_(\d+)_attn_(\d+)", top)
     if m:
@@ -272,13 +289,16 @@ def lora_path_to_port(path: str, config) -> str:
 
 
 def lora_from_jax(lora: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX ``init_lora`` tree of the UNet → the port's ``{module name:
-    {"a": [in, r], "b": [r, out]}}`` (the same layouts)."""
+    """JAX ``init_lora`` tree of the UNet or the DiT → the port's
+    ``{module name: {"a": [in, r], "b": [r, out]}}`` (the same layouts),
+    without the DiT's inert root pair (``DIT_INERT_LORA``)."""
     out = {}
 
     def walk(tree, path):
         if "a" in tree and "b" in tree and not isinstance(tree["a"], dict):
-            out[lora_path_to_port("/".join(path), config)] = {"a": _t(tree["a"]), "b": _t(tree["b"])}
+            name = lora_path_to_port("/".join(path), config)
+            if name is not None:
+                out[name] = {"a": _t(tree["a"]), "b": _t(tree["b"])}
             return
         for k, v in tree.items():
             walk(v, path + [k])

@@ -380,7 +380,7 @@ def test_build_trainer_reads_flash_sd_yaml(monkeypatch):
     assert trainer.model.student_module.conv_in.weight is trainer.model.teacher_module.conv_in.weight
     assert trainer.model.teacher_module.config.remat and trainer.model.teacher_sched_mod is ddpm
     with pytest.raises(ValueError):
-        train.build_trainer("pixart", device="cpu")
+        train.build_trainer("sd3", device="cpu")
 
 
 @pytest.mark.parametrize("frozen_dtype", [None, torch.bfloat16])

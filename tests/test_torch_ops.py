@@ -594,6 +594,24 @@ def test_attention_bwd_plan_at_sdxl_shapes(kv, d, route):
         assert all(t.wgmma == (d <= 128) for t in tiles)
 
 
+# Pixart-α's training step at 512² (16 heads of D = 72 over 1024 tokens):
+# the self-attention forward and backward; a ragged D = 72 case off the tiles
+PIXART_ATTENTION = [(1024, None, 72), (1100, 1037, 72), (999, None, 72)]
+
+
+@pytest.mark.parametrize("kv,kv_valid,d", PIXART_ATTENTION)
+def test_attention_plans_at_pixart_d72(kv, kv_valid, d):
+    """D = 72: the forward on K2's wgmma kernel and the backward on the pair,
+    each with D zero-padded to 80 (the kernels drop columns 72..79 on
+    store); the pair's tiles are D = 80's, wgmma, and fit a block."""
+    kv_len = kv_valid or kv
+    assert tattn.attention_plan(kv_len, d)[0] == "flash_fwd_stream"
+    assert tattn.stream_fwd_tiles(d).route == "wgmma" and tattn.stream_fwd_tiles(d).dp == 80
+    route, tiles = tattn.attention_bwd_plan(kv_len, d)
+    assert route == "flash_bwd_pair" and tiles == tattn.bwd_pair_tiles(80)
+    assert all(t.dp == 80 and t.wgmma and t.smem <= tattn._SMEM_LIMIT for t in tiles)
+
+
 # The ragged backward calls of the card's checks (kv, kv_valid, head dim) and
 # their route: K8 wherever the whole padded KV fits its warps
 BWD_RAGGED_ROUTES = [
@@ -1033,6 +1051,17 @@ def test_sdxl_training_attention_on_card(cuda, bh, sq, skv, d, kv_valid):
         stats = part if stats is None else tattn.merge_bwd_errors(stats, part)
     ok, report = tattn.attention_bwd_gate(stats)
     assert ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,d,kv_valid", [(64, 1024, 1024, 72, None), (128, 1024, 1024, 72, None),
+                                                  (16, 1000, 1100, 72, 1037), (16, 999, 999, 72, None)])
+def test_pixart_training_attention_on_card(cuda, bh, sq, skv, d, kv_valid):
+    """The Pixart training step's self-attention (16 heads of D = 72 over
+    1024 tokens at B = 4 and 2B) and ragged D = 72 cases: the forward and
+    the K6 + K7 pair, each held to its gate as in the SDXL test above; dk
+    and dv exactly 0 past ``kv_valid``."""
+    test_sdxl_training_attention_on_card(cuda, bh, sq, skv, d, kv_valid)
 
 
 @pytest.mark.cuda

@@ -223,7 +223,11 @@ def test_int8_sums_split_along_k_add_up_exactly(parts):
 
 # [M, K, N] of K11 on the card: SDXL's int8 products and the checks' extra
 # cases (batch 1's k/v, ragged M and N, K off the 128-byte step, odd N)
-K11_CALLS = SDXL_SHAPES + [(77, 2048, 640), (4001, 1280, 1000), (300, 96, 130), (65, 96, 7), (1000, 640, 1000)]
+# Pixart-α 1024² at batch 4: q/k/v/out and attn2 q/out over 16384 tokens,
+# attn2 k/v over 4 × 120 T5 tokens, ff.net.0.proj and ff.net.2
+PIXART_SHAPES = [(16384, 1152, 1152), (480, 1152, 1152), (16384, 1152, 4608), (16384, 4608, 1152)]
+K11_CALLS = SDXL_SHAPES + PIXART_SHAPES + [(77, 2048, 640), (4001, 1280, 1000), (300, 96, 130), (65, 96, 7),
+                                           (1000, 640, 1000)]
 
 
 @pytest.mark.parametrize("m,k,n", K11_CALLS)
@@ -431,7 +435,7 @@ def test_pipeline_int8_no_match_raises_and_keeps_serving():
 
 # ---------------------------------------------------------------- on the card
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", SDXL_SHAPES + [(77, 2048, 640), (1000, 640, 1000), (65, 96, 7)])
+@pytest.mark.parametrize("m,k,n", SDXL_SHAPES + PIXART_SHAPES + [(77, 2048, 640), (1000, 640, 1000), (65, 96, 7)])
 def test_int8_gemm_kernel_matches_plain_on_card(cuda, m, k, n):
     """The kernel's int32 sums equal the plain version's; its bf16 output is
     equal without gelu and within one ulp (1e-6 floor) with bias and gelu."""

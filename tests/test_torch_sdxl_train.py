@@ -340,7 +340,7 @@ def test_build_trainer_reads_flash_sdxl_yaml(monkeypatch):
     assert all(ab["a"].shape[1] == 4 for ab in trainer.lora.values())
     assert model.teacher_module.conv_in.weight.dtype == torch.bfloat16
     with pytest.raises(ValueError):
-        train.build_trainer("pixart", device="cpu")
+        train.build_trainer("sd3", device="cpu")
 
 
 def test_build_trainer_fills_what_the_yaml_leaves_out(monkeypatch):
