@@ -144,7 +144,7 @@ distillation step at 512². It fails unless every phase passes:
    gates. Warm s/step (median), images/s, peak memory;
 5d. SDXL training reference at 256², as 5b (K = [4], ``LPIPS_CROP`` 16,
    batch 2, non-zero LoRA B, the discriminator's 1 stage on the 8² mid
-   features), the DPM rollout from ``TRAIN_REF_XL_START`` = 1 (first-order,
+   features), the DPM rollout from ``TRAIN_REF_START`` 1 (first-order,
    second-order and final steps), 5b's tolerances, without 5b's ungated
    diagnostics; its seconds printed;
 6. int8 serving, after the training pipelines are freed: ``build_pipeline(
@@ -197,9 +197,12 @@ distillation step at 512². It fails unless every phase passes:
    launched (kernel, shape) among phase 2's); warm s/step (median),
    images/s, peak memory;
 7d. Pixart training reference at 256², as 5b (K = [4], batch 2, non-zero
-   LoRA B, the discriminator's 3 stages down to its 4×4 head): the CPU copy
-   is fed the card's staged ``__conds`` and holds a 1-layer stand-in T5,
-   never run, in place of T5-XXL; 5b's tolerances; its seconds printed.
+   LoRA B, the discriminator's 3 stages down to its 4×4 head), the DDPM
+   rollout from ``TRAIN_REF_START`` 2 (two noised steps): the CPU copy is
+   fed the card's staged ``__conds`` and holds a 1-layer stand-in T5, never
+   run, in place of T5-XXL; 5b's tolerances, the discriminator's outputs
+   held on the card's features (``DISC_ON_CARD_FEATURES``), end to end
+   printed beside; its seconds printed.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -468,10 +471,25 @@ TRAIN_REF_OVERRIDES = {
     "LPIPS_CROP": 16, "DISTILL_LOSS_SCALE": 1.0, "DMD_LOSS_SCALE": 0.3, "ADVERSARIAL_LOSS_SCALE": 0.1,
 }
 TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
-# phase 5d: the SDXL reference's rollout start; with lower_order_final a
-# start at K − 2 runs only first-order steps, so K − 3: a first-order step,
-# a second-order one, the final one
-TRAIN_REF_XL_START = 1
+# phases 5d and 7d: the rollout start of the SDXL and Pixart references.
+# SDXL: with lower_order_final a start at K − 2 runs only first-order steps,
+# so K − 3: a first-order step, a second-order one, the final one. Pixart:
+# K − 2, two noised DDPM steps. From its starts 0 and 1 (t = 999, 749) the
+# random teacher's x̂₀ is (x − √(1−ᾱ)·ε)/√ᾱ with 1/√ᾱ = 156 and 17 on linear
+# betas, and the DMD loss, a squared difference of two nearly equal bf16
+# DiT forwards, then falls to ~2e-4 and differs from fp32 by ~0.13 relative
+# (the plain bf16 version on the CPU, no kernel, does the same)
+TRAIN_REF_START = {"sdxl": 1, "pixart": 2}
+# phase 7d: the models whose reference holds the discriminator's outputs on
+# the card's features (its inputs, each call's, handed to the CPU copy's
+# discriminator, as 7d hands over the card's ``__conds``) and prints them
+# end to end ungated. Pixart's discriminator reads the DiT's bf16 output
+# latents, which differ from the fp32 copy's by ≈ 2% (printed), and its
+# randomly initialised logits are small (|logit| ≈ 0.03–0.3), so end to end
+# they differ by several percent, about the 0.05 tolerance, from seed to
+# seed, while the discriminator itself (cuDNN's fp32 convolutions, the fp32
+# GroupNorm kernels) agrees to fp32 rounding on the same inputs
+DISC_ON_CARD_FEATURES = ("pixart",)
 # [M, K, N] of every int8 product of SDXL 1024² at batch 4, guidance 0:
 # at the 64² level q/k/v/out, attn2 q/out and proj_in/proj_out, the
 # cross-attention k/v over the 77 text tokens, ff.net.0.proj, ff.net.2;
@@ -1620,7 +1638,7 @@ def check_training_reference(model="sd15"):
     """Phases 5b, 5d and 7d: one ``losses`` and backward of the trainer at
     256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
     paths) with its state dicts, on the same staged batch (the conditioning
-    the card's) and draws (SDXL from ``TRAIN_REF_XL_START``). Printed beside
+    the card's) and draws (SDXL and Pixart from ``TRAIN_REF_START``). Printed beside
     for SD1.5, ungated: the LoRA gradients' error of each scaled G term
     alone, and of the student's own backward."""
     from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
@@ -1645,8 +1663,10 @@ def check_training_reference(model="sd15"):
     noise = torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda")
     staged = dev.stage_batch(batch)
     draws = dev.model.draw(dev.generator, 0, staged["__z"])
-    if model == "sdxl":  # DPM draws no rollout noise
-        draws["start_idx"] = TRAIN_REF_XL_START
+    if model in TRAIN_REF_START:  # and DDPM's posterior noise of each step from there (DPM draws none)
+        draws["start_idx"] = start = TRAIN_REF_START[model]
+        draws["rollout_noise"] = [torch.randn(staged["__z"].shape, generator=g, device="cuda")
+                                  for _ in range(cfg["K"][0] - start)] if dev.model._sched_stochastic else []
     lora = lambda tr: [f for ab in tr.lora.values() for f in ab.values()]
     flat = lambda gs: torch.cat([gr.detach().float().cpu().reshape(-1) for gr in gs])
     # the student's own backward: LoRA gradients of <student(x), w>, on the
@@ -1667,9 +1687,16 @@ def check_training_reference(model="sd15"):
         image = torch.as_tensor(batch["image"])
         z_dev = dev.model._encode({"image": image.cuda()}, noise)
         z_ref = ref.model._encode({"image": image}, noise.cpu())
-    d_out = {id(dev): [], id(ref): []}  # the discriminator's three calls: fake (G), fake (D), real
-    hooks = [tr.model.discriminator.register_forward_hook(
-        lambda _m, _i, out, key=id(tr): d_out[key].append(out.detach().float().cpu())) for tr in (dev, ref)]
+    # the discriminator's three calls: fake (G), fake (D), real; their inputs and outputs
+    d_in, d_out = {id(dev): [], id(ref): []}, {id(dev): [], id(ref): []}
+
+    def tap(key):
+        def hook(_m, inputs, out):
+            d_in[key].append(inputs[0].detach().float().cpu())
+            d_out[key].append(out.detach().float().cpu())
+        return hook
+
+    hooks = [tr.model.discriminator.register_forward_hook(tap(id(tr))) for tr in (dev, ref)]
     mcfg = ref.model.config
     scales = {"loss/distill": mcfg.distill_loss_scale[0], "loss/dmd": mcfg.dmd_loss_scale[0],
               "loss/gan_g": mcfg.adversarial_loss_scale[0]}
@@ -1683,13 +1710,19 @@ def check_training_reference(model="sd15"):
     for h in hooks:
         h.remove()
     (aux, terms), (ref_aux, ref_terms) = results
+    card_out = torch.cat(d_out[id(dev)])
+    end_to_end = rel_l2(card_out, torch.cat(d_out[id(ref)]))
+    if model in DISC_ON_CARD_FEATURES:
+        with torch.no_grad():
+            same_in = torch.cat([ref.model.discriminator(x) for x in d_in[id(dev)]])
+        features = [rel_l2(a, b) for a, b in zip(d_in[id(dev)], d_in[id(ref)])]
     grads = lambda ps: flat([p.grad for p in ps])
     rel = lambda k: abs(num(aux[k]) - num(ref_aux[k])) / abs(num(ref_aux[k]))
     errs = {
         "loss/distill": rel("loss/distill"),
         "loss/dmd": rel("loss/dmd"),
         "loss/gan_d": rel("loss/gan_d"),
-        "disc outputs": rel_l2(torch.cat(d_out[id(dev)]), torch.cat(d_out[id(ref)])),
+        "disc outputs": rel_l2(card_out, same_in) if model in DISC_ON_CARD_FEATURES else end_to_end,
         "lora grads": rel_l2(grads(lora(dev)), grads(lora(ref))),
         "disc grads": rel_l2(grads(dev.model.discriminator.parameters()),
                              grads(ref.model.discriminator.parameters())),
@@ -1703,6 +1736,10 @@ def check_training_reference(model="sd15"):
           + ", ".join(f"{k} {num(v):.5g}" for k, v in ref_aux.items()) + "; errors (tol) "
           + ", ".join(f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items())
           + f"; {time.perf_counter() - started:.1f} s")
+    if model in DISC_ON_CARD_FEATURES:
+        print(f"  {model} discriminator: its features (the DiT's bf16 output latents) against the CPU copy's, rel L2 "
+              + ", ".join(f"{e:.3e}" for e in features) + " (fake G, fake D, real); its outputs on the card's features "
+              f"{errs['disc outputs']:.3e} (gated), end to end on each side's own features {end_to_end:.3e} (ungated)")
     if diagnostics:
         print("  LoRA gradients by scaled G term, rel L2 err (|grad| fp32): " + ", ".join(
             f"{k} {rel_l2(terms[k], ref_terms[k]):.3e} ({ref_terms[k].norm().item():.4g})" for k in scales)
