@@ -31,7 +31,8 @@ distillation step at 512². It fails unless every phase passes:
    fp32 GroupNorms; the Pixart training step's at batch 4 and 2B: K2, K3
    and the pair at D = 72 over 1024 tokens, a ragged D = 72 backward, the
    VAE encoder at 512² and the discriminator's fp32 GroupNorms at 16² and
-   8²; K11 at Pixart 1024²'s four int8 shapes), with ragged cases; max abs error
+   8²; K11 at Pixart 1024²'s four int8 shapes; K1 at D = 72 at the small
+   Pixart references' shapes), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
    events around 10 queued calls, median of 5 runs) and the bound: the
@@ -260,6 +261,9 @@ ATTENTION_RAGGED = [
 # 999 keys) that leaked into the softmax would pull every row's output
 # towards 0: by ~2% at 77 keys, by 2–11% at ~1000 keys
 ATTENTION_V_SHIFTED = [(32, 4000, 77, 40, None), (40, 1000, 1030, 64, None), (16, 999, 999, 72, None)]
+# the small references' DiT self-attention on K1 at D = 72: 7d at 256² (B =
+# 2 and 2B over 256 tokens), 7b and 7e at 128² (64 tokens)
+ATTENTION_REFERENCES = [(32, 256, 256, 72, None), (64, 256, 256, 72, None), (16, 64, 64, 72, None)]
 # SDXL at batch 4, 1024²: the self-attention (10 heads at level 1, 20 at
 # level 2 and mid; D = 64) and the VAE mid-block over 128² latents' 16384
 # tokens
@@ -448,7 +452,7 @@ def gated_shapes():
     ``LAUNCHES`` of ``ops/attention.py`` and ``ops/norms.py``; the GroupNorm's
     resident and statistics kernels with the group count (None: the
     statistics alone), the apply kernel without."""
-    fwd = set(attention_main() + ATTENTION_RAGGED + ATTENTION_V_SHIFTED)
+    fwd = set(attention_main() + ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES)
     bwd = set(bwd_main() + BWD_RAGGED)
     cases = gn_main() + [(shape, dtype, None) for shape, dtype in GN_RAGGED]
     gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
@@ -625,7 +629,7 @@ def check_attention(attention, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(0)
     failed = []
     main_shapes = attention_main()
-    for shape in main_shapes + ATTENTION_RAGGED + ATTENTION_V_SHIFTED:
+    for shape in main_shapes + ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES:
         bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, skv, skv))
