@@ -11,8 +11,9 @@ int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``torch.profiler``; with ``--train``, the trainer as
 ``train.build_trainer(model)`` builds it (the model's yaml: SD1.5
 ``flash_sd.yaml`` at 512², batch 4; SDXL ``flash_sdxl.yaml`` at 1024², batch
-2; Pixart ``flash_pixart.yaml`` at 512², batch 4; every step in stage 1) and one ``fit`` step on a synthetic batch of the
-yaml's size (``--batch`` overrides its batch) instead. Prints the
+2; Pixart ``flash_pixart.yaml`` at 512², batch 4; every step in stage 1)
+and one ``fit`` step on a synthetic batch of the yaml's size (``--batch``
+overrides its batch) instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the
 port runs on one stream), each stage's host time and device busy time (the
 ``record_function`` spans: ``fdt.encode``, ``fdt.denoise``, ``fdt.decode``

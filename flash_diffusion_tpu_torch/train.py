@@ -101,7 +101,7 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
     1.0], as ``train_flash_pixart.py`` makes them."""
     rng = np.random.default_rng(seed)
     pixart = model == "pixart"
-    max_length = max_length or (DEFAULTS["pixart"]["T5_MAX_LENGTH"] if pixart else 77)
+    max_length = max_length or (120 if pixart else 77)
     while True:
         image = rng.uniform(-1.0, 1.0, (batch_size, image_size, image_size, 3)).astype(np.float32)
         if pixart:
@@ -110,16 +110,16 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
                 n = int(rng.integers(1, max_length))
                 ids[i, :n - 1] = rng.integers(3, 32100, n - 1)
                 ids[i, n - 1] = 1
-            yield {"image": image, "text_ids": ids, "text_mask": (ids != 0).astype(np.int64),
-                   "resolution_ar": np.tile([float(image_size), float(image_size), 1.0],
-                                            (batch_size, 1)).astype(np.float32)}
-            continue
-        ids = np.full((batch_size, max_length), 49407, np.int64)
-        ids[:, 0] = 49406
-        for i in range(batch_size):
-            n = int(rng.integers(1, max_length - 1))
-            ids[i, 1:n] = rng.integers(0, 49406, n - 1)
-        batch = {"image": image, "text_ids": ids}
+            batch = {"image": image, "text_ids": ids, "text_mask": (ids != 0).astype(np.int64),
+                     "resolution_ar": np.tile([float(image_size), float(image_size), 1.0],
+                                              (batch_size, 1)).astype(np.float32)}
+        else:
+            ids = np.full((batch_size, max_length), 49407, np.int64)
+            ids[:, 0] = 49406
+            for i in range(batch_size):
+                n = int(rng.integers(1, max_length - 1))
+                ids[i, 1:n] = rng.integers(0, 49406, n - 1)
+            batch = {"image": image, "text_ids": ids}
         if model == "sdxl":
             batch.update(size_cond_fn(batch_size, image_size, image_size))
         yield batch
