@@ -481,18 +481,18 @@ TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
 # K − 2, two noised DDPM steps. From its starts 0 and 1 (t = 999, 749) the
 # random teacher's x̂₀ is (x − √(1−ᾱ)·ε)/√ᾱ with 1/√ᾱ = 156 and 17 on linear
 # betas, and the DMD loss, a squared difference of two nearly equal bf16
-# DiT forwards, then falls to ~2e-4 and differs from fp32 by ~0.13 relative
-# (the plain bf16 version on the CPU, no kernel, does the same)
+# DiT forwards, then falls to ~2e-4 and differs from fp32 by ~0.13 relative:
+# bf16 rounding at that conditioning, with or without a kernel
 TRAIN_REF_START = {"sdxl": 1, "pixart": 2}
 # phase 7d: the models whose reference holds the discriminator's outputs on
 # the card's features (its inputs, each call's, handed to the CPU copy's
 # discriminator, as 7d hands over the card's ``__conds``) and prints them
 # end to end ungated. Pixart's discriminator reads the DiT's bf16 output
 # latents, which differ from the fp32 copy's by ≈ 2% (printed), and its
-# randomly initialised logits are small (|logit| ≈ 0.03–0.3), so end to end
-# they differ by several percent, about the 0.05 tolerance, from seed to
-# seed, while the discriminator itself (cuDNN's fp32 convolutions, the fp32
-# GroupNorm kernels) agrees to fp32 rounding on the same inputs
+# randomly initialised logits are small, so end to end they differ by
+# several percent, about the 0.05 tolerance, from seed to seed, while the
+# discriminator itself (cuDNN's fp32 convolutions, the fp32 GroupNorm
+# kernels) agrees to fp32 rounding on the same inputs
 DISC_ON_CARD_FEATURES = ("pixart",)
 # [M, K, N] of every int8 product of SDXL 1024² at batch 4, guidance 0:
 # at the 64² level q/k/v/out, attn2 q/out and proj_in/proj_out, the
