@@ -8,8 +8,10 @@ made from a seed: 4-step text-to-image sampling of SD1.5 at 512² and of
 SDXL at 1024² (also in the JAX package's two opt-in kernel modes), the
 Flash distillation step of SD1.5 at 512² and of SDXL at 1024², SDXL 1024²
 served over HTTP in int8 W8A8 with a merged LoRA, 4-step sampling of
-Pixart-α at 1024² (T5-XXL, the DiT) in bf16 and in int8, and Pixart's
-distillation step at 512². It fails unless every phase passes:
+Pixart-α at 1024² (T5-XXL, the DiT) in bf16 and in int8, Pixart's
+distillation step at 512², and 4-step sampling of SD3-medium at 1024² (the
+MMDiT, dual-CLIP and with T5-XXL) in bf16 and in int8. It fails unless
+every phase passes, and prints each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -32,7 +34,12 @@ distillation step at 512². It fails unless every phase passes:
    and the pair at D = 72 over 1024 tokens, a ragged D = 72 backward, the
    VAE encoder at 512² and the discriminator's fp32 GroupNorms at 16² and
    8²; K11 at Pixart 1024²'s four int8 shapes; K1 at D = 72 at the small
-   Pixart references' shapes), with ragged cases; max abs error
+   Pixart references' shapes; SD3's: K2 over the joint sequence at
+   [96, 4352, 4352, 64] masked at kv_valid 4250 and, with T5, [96, 4480,
+   4480, 64] at 4429, each timed against SDPA under the same key mask, and
+   a ragged joint length off the tile; K1 at the 128² references' 218 of
+   256 keys; K3 at width 1536 over the image and padded context streams;
+   K11 at SD3's six int8 products), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
    events around 10 queued calls, median of 5 runs) and the bound: the
@@ -203,13 +210,38 @@ distillation step at 512². It fails unless every phase passes:
    fed the card's staged ``__conds`` and holds a 1-layer stand-in T5, never
    run, in place of T5-XXL; 5b's tolerances, the discriminator's outputs
    held on the card's features (``DISC_ON_CARD_FEATURES``), end to end
-   printed beside; its seconds printed.
+   printed beside; its seconds printed;
+8. SD3-medium, after the Pixart trainers are freed: ``build_pipeline("sd3",
+   device="cuda")`` (CLIP-L and CLIP-G in fp32, packed to 77 CLIP and 77
+   zero T5 tokens 4096 wide; the MMDiT, 24 joint blocks of 1536, and the
+   16-channel VAE in bf16; the Flash flow-match sampler, shift 3) then
+   ``generate`` of 4 prompts × 4 steps, guidance 0, 1024²: [4, 1024, 1024,
+   3] and finite, the launch counts of K2, K3 and the GroupNorm kernels
+   grown, every launched (kernel, shape) among phase 2's (the joint
+   attention at kv_valid 4250, the VAE's GroupNorms at SDXL's shapes);
+   warm s/batch, images/s and peak memory;
+8b. SD3 references at 128² on one prompt, as 4b: the conditioner (CLIP-L
+   and CLIP-G, fp32 on the card) against its CPU copy, crossattn and
+   vector to a relative L2 of 1e-4; the MMDiT and VAE at full size, bf16 on
+   the card against an fp32 CPU copy built from the state dicts, the same
+   latents and flow-match step noise: images to 0.1;
+8e. the same SD3 pipeline in int8 W8A8: ``quantize("int8")`` (213 layers:
+   the add_q/k/v projections stay bf16, as in JAX), then ``generate`` as
+   phase 8: K11 launched exactly 213 × 4 times, every launched (kernel,
+   shape) among phase 2's; warm s/batch beside phase 8's; then its 128²
+   reference against an fp32 CPU copy with the same int8 weights, as 8b
+   (images to 0.1);
+8t. SD3 with T5-XXL, after that pipeline is freed: ``build_pipeline("sd3",
+   device="cuda", t5=True)`` (T5-XXL in fp32 over 256 tokens: a 4429-token
+   joint sequence padded to 4480), ``generate`` checked as phase 8; warm
+   s/batch, images/s and peak memory.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
 paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
-``pixart_int8``, 7c as ``train_pixart``; ``ms``, ``plain_ms``,
+``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
+8t as ``sd3_t5``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -278,6 +310,18 @@ ATTENTION_SHAPES_XL = [
 # tokens at B = 4 (the student, DMD's student) and 2B (the rollout, DMD's
 # and the GAN's teacher); its VAE encoder's mid-block is SD1.5's shape
 ATTENTION_SHAPES_PIXART = [(64, 4096, 4096, 72, None), (64, 1024, 1024, 72, None), (128, 1024, 1024, 72, None)]
+# SD3-medium 1024² at batch 4 (phases 8, 8e, 8t): the MMDiT's joint
+# attention (24 heads of D = 64) over 4096 image + 154 text tokens, the
+# context stream zero-padded to a 4352-row joint sequence and masked at
+# kv_valid 4250; with T5 (8t), 4096 + 77 + 256 = 4429 of 4480. Its VAE
+# mid-block is SDXL's shape above. A wrong key mask would let the padded
+# context rows into every image token's softmax
+ATTENTION_SHAPES_SD3 = [(96, 4352, 4352, 64, 4250), (96, 4480, 4480, 64, 4429)]
+# the 128² references of 8b and 8e (one prompt): 64 image + 154 text tokens
+# padded to 256 on K1's one-shot plan, masked at 218; and a ragged joint
+# length off K2's 128-row tile (k × 3, v + 1 past kv_valid)
+ATTENTION_REFERENCES_SD3 = [(24, 256, 256, 64, 218)]
+ATTENTION_RAGGED_SD3 = [(24, 4300, 4300, 64, 4201)]
 # the SDXL training step at batch 2, 1024² (phase 5c), where the sampling
 # paths' shapes above do not have them: the student's forward under a
 # gradient (B = 2: BH 20 at 4096 tokens, 40 at 1024) and the GAN's teacher
@@ -337,6 +381,14 @@ LAYER_NORM_SMALL_VAR = [(1001, 320, torch.bfloat16), (4 * 256, 1280, torch.bfloa
 # training at 512², over 4 × 1024 (B) and 8 × 1024 (2B)
 LAYER_NORM_SHAPES_PIXART = [(4 * 4096, 1152, torch.bfloat16), (4 * 1024, 1152, torch.bfloat16),
                             (8 * 1024, 1152, torch.bfloat16)]
+# SD3 at batch 4, 1024²: the MMDiT's affine-free LayerNorms over the image
+# stream (4 × 4096 rows) and the padded context stream (4 × 256 rows; with
+# T5, 4 × 384), width 1536; the 128² references' (64 image rows, 192
+# context rows) and CLIP-L's and CLIP-G's fp32 rows of one prompt there
+LAYER_NORM_SHAPES_SD3 = [(4 * 4096, 1536, torch.bfloat16), (4 * 256, 1536, torch.bfloat16),
+                         (4 * 384, 1536, torch.bfloat16)]
+LAYER_NORM_REFERENCES_SD3 = [(64, 1536, torch.bfloat16), (192, 1536, torch.bfloat16), (77, 768, torch.float32),
+                             (77, 1280, torch.float32)]
 # SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32);
 # then the training step's at batch 2 (the student, DMD's student; the
 # text towers' three passes)
@@ -418,11 +470,12 @@ GN_SHAPES_PIXART_TRAIN = [((4, 128, 256, 256), torch.bfloat16, None), ((4, 256, 
 # caller may narrow the lists above; GroupNorm cases are (shape, dtype,
 # the path's group count or None)
 def attention_main():
-    return ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
+    return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
+            + ATTENTION_SHAPES_SD3)
 
 
 def layer_norm_main():
-    return LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART
+    return LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
 
 
 def gn_main():
@@ -434,7 +487,18 @@ def bwd_main():
 
 
 def int8_main():
-    return INT8_SHAPES + INT8_SHAPES_PIXART
+    return INT8_SHAPES + INT8_SHAPES_PIXART + INT8_SHAPES_SD3
+
+
+def attention_unmain():
+    """The forward attention cases phase 2 checks untimed."""
+    return ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES + ATTENTION_REFERENCES_SD3 + \
+        ATTENTION_RAGGED_SD3
+
+
+def int8_extra():
+    """The int8 cases phase 2 checks untimed (M, K, N, bias + gelu)."""
+    return INT8_EXTRA + INT8_REFERENCES_SD3
 
 
 def gn_groups(shape, groups=None):
@@ -452,7 +516,7 @@ def gated_shapes():
     ``LAUNCHES`` of ``ops/attention.py`` and ``ops/norms.py``; the GroupNorm's
     resident and statistics kernels with the group count (None: the
     statistics alone), the apply kernel without."""
-    fwd = set(attention_main() + ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES)
+    fwd = set(attention_main() + attention_unmain())
     bwd = set(bwd_main() + BWD_RAGGED)
     cases = gn_main() + [(shape, dtype, None) for shape, dtype in GN_RAGGED]
     gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
@@ -462,9 +526,10 @@ def gated_shapes():
             "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_RAGGED),
             "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
-            "layer_norm": set(layer_norm_main() + LAYER_NORM_RAGGED + LAYER_NORM_SMALL_VAR),
+            "layer_norm": set(layer_norm_main() + LAYER_NORM_RAGGED + LAYER_NORM_SMALL_VAR
+                              + LAYER_NORM_REFERENCES_SD3),
             "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn,
-            "int8_gemm": set(int8_main() + [case[:3] for case in INT8_EXTRA])}
+            "int8_gemm": set(int8_main() + [case[:3] for case in int8_extra()])}
 
 
 # the training phases: every step in stage 1 of the yaml's four
@@ -506,6 +571,14 @@ INT8_SHAPES = [
 # 16384 tokens, attn2 k/v over 4 × 120 T5 tokens, ff.net.0.proj (its
 # tanh-gelu a separate op, as in JAX) and ff.net.2
 INT8_SHAPES_PIXART = [(16384, 1152, 1152), (480, 1152, 1152), (16384, 1152, 4608), (16384, 4608, 1152)]
+# SD3-medium 1024² at batch 4 (phase 8e): q/k/v/out and ff.net.0.proj,
+# ff.net.2 over the image stream's 16384 rows; to_add_out and the
+# ff_context pair over the padded context stream's 1024 rows (q/k/v there
+# are add_*_proj, which stay bf16); then the 128² reference's 64 and 192
+# rows, untimed
+INT8_SHAPES_SD3 = [(16384, 1536, 1536), (16384, 1536, 6144), (16384, 6144, 1536),
+                   (1024, 1536, 1536), (1024, 1536, 6144), (1024, 6144, 1536)]
+INT8_REFERENCES_SD3 = [(m, k, n, False) for m in (64, 192) for k, n in ((1536, 1536), (1536, 6144), (6144, 1536))]
 # (M, K, N, bias + gelu): batch 1's k/v (M = 77), ragged M and N, the
 # epilogue with bias and tanh-gelu, K not a multiple of the 64-byte step
 INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10240, True),
@@ -519,6 +592,7 @@ SERVE_LORA_RANK, SERVE_LORA_B_STD, SERVE_LINGER_MS = 64, 0.01, 1000.0
 SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 PIXART_INT8_LAYERS = 280  # 28 DiT blocks × 10
+SD3_INT8_LAYERS = 213  # 23 joint blocks × 9 + the final block's 6
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W)
 HBM_BYTES_PER_S, BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 67e12, 1979e12
 # tolerances, kernel (bf16) vs plain (fp32): the attention forwards (K1,
@@ -629,7 +703,7 @@ def check_attention(attention, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(0)
     failed = []
     main_shapes = attention_main()
-    for shape in main_shapes + ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES:
+    for shape in main_shapes + attention_unmain():
         bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, skv, skv))
@@ -655,10 +729,12 @@ def check_attention(attention, results, timed=True):
             ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
             plain = median_ms(lambda: attention.attention_bhsd_reference(q, k, v, scale, kv_valid))
             times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if timed and main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v
+        if timed and main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v over the valid keys
+            # SDPA under the same key mask (True: attend) where kv_valid cuts the keys
+            mask = None if kv_valid is None else (torch.arange(skv, device="cuda") < kv_valid)[None, None, None]
             library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], scale=scale))
-            bnd = bound(4 * bh * sq * skv * d, 2 * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq)
+                q[None], k[None], v[None], attn_mask=mask, scale=scale))
+            bnd = bound(4 * bh * sq * (kv_valid or skv) * d, 2 * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
             add_times(results[kind], ms, plain, library, bnd)
         print(f"attention {kind:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} kv_valid={kv_valid}"
@@ -797,7 +873,8 @@ def check_layer_norm(norms, results, timed=True):
     (x read and y written once, the affine once)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     main_shapes = layer_norm_main()
-    cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED] + [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
+    cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED + LAYER_NORM_REFERENCES_SD3]
+    cases += [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
     failed = []
     for (rows, c, dtype), scale, offset in cases:
         x = (torch.randn(rows, c, generator=g, device="cuda") * scale + offset).to(dtype)
@@ -974,7 +1051,7 @@ def check_int8_gemm(gemm, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    for m, k, n, epilogue in [(*s, False) for s in int8_main()] + INT8_EXTRA:
+    for m, k, n, epilogue in [(*s, False) for s in int8_main()] + int8_extra():
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
         wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
         sx = torch.rand(m, generator=g, device="cuda") * 1e-3 + 1e-5
@@ -1148,8 +1225,7 @@ def cpu_reference(pipe, model: str):
     """The pipeline's modules as an fp32 copy on the CPU (the plain paths),
     with the pipeline's served weights (int8 ones in int8 mode)."""
     from flash_diffusion_tpu_torch import FlashPipeline
-    from flash_diffusion_tpu_torch.models.embedders import ConditionerWrapper
-    from flash_diffusion_tpu_torch.sample import build_modules
+    from flash_diffusion_tpu_torch.sample import build_modules, make_conditioner
 
     free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60).stdout
     print("host memory (GiB) before the fp32 copy: " + " | ".join(free.splitlines()[:2]))
@@ -1157,8 +1233,9 @@ def cpu_reference(pipe, model: str):
         unet, vae, conditioners, _, _ = build_modules(model)
     ref = FlashPipeline(
         cpu_fp32_copy(pipe.state, unet),
-        cpu_fp32_copy(pipe.conditioner.state_dict(), ConditionerWrapper(conditioners)),
+        cpu_fp32_copy(pipe.conditioner.state_dict(), make_conditioner(model, conditioners)),
         cpu_fp32_copy(pipe.vae.state_dict(), vae), pipe.tokenizer_fn, pipe.latent_shape,
+        scheduler_config=pipe.sched_config, scheduler=pipe.scheduler_name,
     )
     ref.size_cond_fn = pipe.size_cond_fn
     return ref
@@ -1169,8 +1246,9 @@ def check_reference(pipe, model: str, label: str = ""):
     through the kernels vs ``cpu_reference``."""
     ref = cpu_reference(pipe, model)
     g = torch.Generator().manual_seed(7)
-    latents = torch.randn(1, 16, 16, 4, generator=g)
-    noise = [torch.randn(1, 16, 16, 4, generator=g) for _ in range(4)]
+    channels = pipe.latent_shape[-1]
+    latents = torch.randn(1, 16, 16, channels, generator=g)
+    noise = [torch.randn(1, 16, 16, channels, generator=g) for _ in range(4)]
     batch = dict(pipe.tokenizer_fn(PROMPTS[:1]))
     if pipe.size_cond_fn is not None:
         batch.update(pipe.size_cond_fn(1, 128, 128))
@@ -1181,7 +1259,8 @@ def check_reference(pipe, model: str, label: str = ""):
     want = ref.generate(PROMPTS[:1], latents=latents, noise=noise, height=128, width=128)
     img_err = ((got - want).norm() / want.norm()).item()
     errs = ", ".join(f"{k} {e:.3e}" for k, e in clip_errs.items())
-    print(f"{label or model} reference at 128², 1 prompt: CLIP (fp32 on the card) rel L2 err {errs} (tol 1e-4); "
+    print(f"{label or model} reference at 128², 1 prompt: the conditioner (fp32 on the card) rel L2 err {errs} "
+          f"(tol 1e-4); "
           f"images (bf16 on the card vs fp32 on the CPU) rel L2 err {img_err:.3e} (tol 0.1), "
           f"max|err| {(got - want).abs().max().item():.3e}")
     if not (max(clip_errs.values()) <= 1e-4 and img_err <= 0.1 and torch.isfinite(got).all()):
@@ -1508,24 +1587,25 @@ def check_gated(label, counters, gated):
         raise AssertionError(f"the {label} path launched shapes phase 2 does not gate: {ungated}")
 
 
-def run_pixart_int8(pipe, counters, card, required, gated):
-    """Phase 7e: phase 7's Pixart pipeline switched to int8 W8A8
-    (``quantize("int8")``: 280 layers), then ``generate`` of 4 prompts × 4
-    steps at 1024² through ``run_path``: K11 launched exactly 280 × 4 times,
-    every launched (kernel, shape) among phase 2's; warm s/batch."""
+def run_int8_path(pipe, model, n_layers, counters, card, required, gated):
+    """Phases 7e and 8e: a bf16 pipeline switched to int8 W8A8
+    (``quantize("int8")``: ``n_layers`` layers), then ``generate`` of 4
+    prompts × 4 steps at 1024² through ``run_path``: K11 launched exactly
+    ``n_layers`` × 4 times, every launched (kernel, shape) among phase 2's;
+    warm s/batch."""
     t0 = time.perf_counter()
     pipe.quantize("int8")
     torch.cuda.synchronize()
     n_int8 = sum(t.dtype == torch.int8 for t in pipe.state.values())
-    print(f"pixart int8: quantize {time.perf_counter() - t0:.2f} s; {n_int8} int8 layers; device memory "
+    print(f"{model} int8: quantize {time.perf_counter() - t0:.2f} s; {n_int8} int8 layers; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if n_int8 != PIXART_INT8_LAYERS:
-        raise AssertionError(f"quantize('int8') made {n_int8} int8 layers, not {PIXART_INT8_LAYERS}")
-    launches, images = run_path(pipe, "pixart int8", 1024, counters, card, required)
-    if launches["int8_gemm"] != PIXART_INT8_LAYERS * 4:
+    if n_int8 != n_layers:
+        raise AssertionError(f"quantize('int8') made {n_int8} int8 layers, not {n_layers}")
+    launches, images = run_path(pipe, f"{model} int8", 1024, counters, card, required)
+    if launches["int8_gemm"] != n_layers * 4:
         raise AssertionError(f"int8 GEMM launched {launches['int8_gemm']} times in a 4-step batch, not "
-                             f"{PIXART_INT8_LAYERS * 4}")
-    check_gated("pixart int8", counters, gated)
+                             f"{n_layers * 4}")
+    check_gated(f"{model} int8", counters, gated)
     del images
     return launches
 
@@ -1638,13 +1718,17 @@ def t5_stand_in():
         sample.T5TextEmbedderConfig = saved
 
 
-def check_training_reference(model="sd15"):
+def check_training_reference(model="sd15", start=None, cpu_bf16=False):
     """Phases 5b, 5d and 7d: one ``losses`` and backward of the trainer at
     256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
     paths) with its state dicts, on the same staged batch (the conditioning
-    the card's) and draws (SDXL and Pixart from ``TRAIN_REF_START``). Printed beside
-    for SD1.5, ungated: the LoRA gradients' error of each scaled G term
-    alone, and of the student's own backward."""
+    the card's) and draws (SDXL and Pixart from ``TRAIN_REF_START``, or
+    from ``start``). Printed beside for SD1.5, ungated: the LoRA gradients'
+    error of each scaled G term alone, and of the student's own backward.
+    With ``cpu_bf16`` (``train_ref_precision.py``), also the losses of the
+    CPU copy in bf16 (the plain paths, no kernel) on the same inputs,
+    printed beside the card's, ungated: whether bf16 itself, kernels or not,
+    puts a loss as far from fp32 as the card."""
     from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
 
     started = time.perf_counter()
@@ -1667,8 +1751,8 @@ def check_training_reference(model="sd15"):
     noise = torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda")
     staged = dev.stage_batch(batch)
     draws = dev.model.draw(dev.generator, 0, staged["__z"])
-    if model in TRAIN_REF_START:  # and DDPM's posterior noise of each step from there (DPM draws none)
-        draws["start_idx"] = start = TRAIN_REF_START[model]
+    if start is not None or model in TRAIN_REF_START:  # and DDPM's posterior noise from there (DPM draws none)
+        draws["start_idx"] = start = TRAIN_REF_START[model] if start is None else start
         draws["rollout_noise"] = [torch.randn(staged["__z"].shape, generator=g, device="cuda")
                                   for _ in range(cfg["K"][0] - start)] if dev.model._sched_stochastic else []
     lora = lambda tr: [f for ab in tr.lora.values() for f in ab.values()]
@@ -1683,6 +1767,10 @@ def check_training_reference(model="sd15"):
         return flat(torch.autograd.grad((out * w).sum(), lora(tr), materialize_grads=True))
 
     probes = [probe(dev, *args), probe(ref, *to_cpu(args))] if diagnostics else []
+    bf16_aux = None
+    if cpu_bf16:  # the CPU copy's losses while it is still bf16
+        with torch.no_grad():
+            bf16_aux = ref.model.losses(to_cpu(staged), to_cpu(draws), 0)[1]
     ref.model.teacher_module.float()  # the student shares these parameters
     ref.model.vae.float()
     if diagnostics:
@@ -1744,6 +1832,14 @@ def check_training_reference(model="sd15"):
         print(f"  {model} discriminator: its features (the DiT's bf16 output latents) against the CPU copy's, rel L2 "
               + ", ".join(f"{e:.3e}" for e in features) + " (fake G, fake D, real); its outputs on the card's features "
               f"{errs['disc outputs']:.3e} (gated), end to end on each side's own features {end_to_end:.3e} (ungated)")
+    if bf16_aux is not None:
+        loss_err = lambda a, b, k: abs(num(a[k]) - num(b[k])) / abs(num(b[k]))
+        keys = ("loss/distill", "loss/dmd", "loss/gan_d")
+        print(f"  {model} CPU copy in bf16 (plain paths, no kernel): " + ", ".join(
+            f"{k} {num(bf16_aux[k]):.5g}" for k in keys) + "; rel err vs CPU fp32: CPU bf16 " + ", ".join(
+            f"{k} {loss_err(bf16_aux, ref_aux, k):.3e}" for k in keys) + "; card (bf16, kernels) " + ", ".join(
+            f"{k} {loss_err(aux, ref_aux, k):.3e}" for k in keys) + "; card vs CPU bf16 " + ", ".join(
+            f"{k} {loss_err(aux, bf16_aux, k):.3e}" for k in keys))
     if diagnostics:
         print("  LoRA gradients by scaled G term, rel L2 err (|grad| fp32): " + ", ".join(
             f"{k} {rel_l2(terms[k], ref_terms[k]):.3e} ({ref_terms[k].norm().item():.4g})" for k in scales)
@@ -1763,6 +1859,13 @@ def main():
 
     # phase 1: device and build
     started = time.perf_counter()
+    last = [started]
+
+    def mark(phases):
+        """Print the seconds since the previous mark, as the phases' own."""
+        now = time.perf_counter()
+        print(f"phase {phases}: {now - last[0]:.1f} s")
+        last[0] = now
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1828,7 +1931,7 @@ def main():
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K12 plan at K={k} N={n} ({bn}, {cluster}): kernel {tuple(got)}, plan {want}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for m, k, n, *_ in [(*s, False) for s in int8_main()] + INT8_EXTRA:  # K11's plan, here and on 132 SMs
+    for m, k, n, *_ in [(*s, False) for s in int8_main()] + int8_extra():  # K11's plan, here and on 132 SMs
         for on, split in [(c, None) for c in (sms, 132)] + [(sms, s) for s in (1, 2, 4, 8)]:
             want, got = gemm.int8_gemm_plan(m, k, n, on, split), (ctypes.c_int * 6)()
             kernels.check(lib.fdt_int8_gemm_plan(m, n, k, on, split or 0, got), "fdt_int8_gemm_plan")
@@ -1901,6 +2004,7 @@ def main():
     check_int8_gemm(gemm, results)
     check_ffn_gemm(gemm, results)
     torch.cuda.empty_cache()
+    mark("1, 2")
 
     # phases 3 and 4: the SD1.5 path through the user's entry point, then
     # its agreement with the fp32 plain reference on a small input
@@ -1912,6 +2016,7 @@ def main():
     check_reference(pipe, "sd15")
     del pipe
     torch.cuda.empty_cache()
+    mark("3, 4")
 
     # phases 3b and 4b: the SDXL path, then its reference; 3c and 4c: the
     # same pipeline in the JAX package's opt-in kernel modes (K5 and K12,
@@ -1925,6 +2030,7 @@ def main():
     check_mode_references(pipe, counters)
     del pipe
     torch.cuda.empty_cache()
+    mark("3b, 4b, 3c, 4c")
 
     # phases 5 and 5b: the SD1.5 training step through the user's entry
     # point, then its agreement with the fp32 plain reference on a small
@@ -1936,12 +2042,14 @@ def main():
     torch.cuda.empty_cache()
     check_training_reference("sd15")
     torch.cuda.empty_cache()
+    mark("5, 5b")
     by_path["train_sdxl"] = run_training("sdxl", counters, card, (
         "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "flash_bwd_dkv",
         "flash_bwd_dq", "flash_bwd_oneshot", *gn), gated_shapes())
     torch.cuda.empty_cache()
     check_training_reference("sdxl")
     torch.cuda.empty_cache()
+    mark("5c, 5d")
 
     # phases 6 and 6b: SDXL served over HTTP in int8 with a merged LoRA,
     # then its agreement with the fp32 plain reference and batch invariance
@@ -1951,6 +2059,7 @@ def main():
     check_batch_invariance(pipe)
     del pipe
     torch.cuda.empty_cache()
+    mark("6, 6b")
 
     # phases 7 and 7b: Pixart-α 1024² (T5-XXL in fp32, the DiT), then its
     # references: T5 at full width and 2 layers, the DiT and VAE at full
@@ -1959,11 +2068,12 @@ def main():
     pipe = build_pipeline("pixart", device="cuda", seed=0)
     by_path["pixart"] = run_path(pipe, "pixart", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))[0]
     check_pixart_reference(pipe)
-    by_path["pixart_int8"] = run_pixart_int8(pipe, counters, card, ("flash_fwd_stream", "layer_norm", "int8_gemm",
-                                                                     *gn), gated_shapes())
+    by_path["pixart_int8"] = run_int8_path(pipe, "pixart", PIXART_INT8_LAYERS, counters, card, (
+        "flash_fwd_stream", "layer_norm", "int8_gemm", *gn), gated_shapes())
     check_pixart_reference(pipe, t5_check=False, label="pixart int8")
     del pipe
     torch.cuda.empty_cache()
+    mark("7, 7b, 7e")
 
     # phases 7c and 7d: the Pixart training step through the user's entry
     # point, its launched shapes all among phase 2's, then its agreement
@@ -1973,6 +2083,30 @@ def main():
     torch.cuda.empty_cache()
     check_training_reference("pixart")
     torch.cuda.empty_cache()
+    mark("7c, 7d")
+
+    # phases 8, 8b and 8e: SD3-medium 1024² (CLIP-L + CLIP-G, the MMDiT with
+    # its joint attention masked at kv_valid, the 16-channel VAE), its
+    # references at 128² (the conditioner; the MMDiT and VAE at full size),
+    # then the same pipeline in int8 and its reference; 8t: SD3 with T5-XXL
+    pipe = build_pipeline("sd3", device="cuda", seed=0)
+    by_path["sd3"] = run_path(pipe, "sd3", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))[0]
+    check_gated("sd3", counters, gated_shapes())
+    mark("8")
+    check_reference(pipe, "sd3")
+    mark("8b")
+    by_path["sd3_int8"] = run_int8_path(pipe, "sd3", SD3_INT8_LAYERS, counters, card, (
+        "flash_fwd_stream", "layer_norm", "int8_gemm", *gn), gated_shapes())
+    check_reference(pipe, "sd3", "sd3 int8")
+    del pipe
+    torch.cuda.empty_cache()
+    mark("8e")
+    pipe = build_pipeline("sd3", device="cuda", seed=0, t5=True)
+    by_path["sd3_t5"] = run_path(pipe, "sd3 t5", 1024, counters, card, ("flash_fwd_stream", "layer_norm", *gn))[0]
+    check_gated("sd3 t5", counters, gated_shapes())
+    del pipe
+    torch.cuda.empty_cache()
+    mark("8t")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

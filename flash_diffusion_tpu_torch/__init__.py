@@ -3,11 +3,12 @@
 A second package beside the JAX one, for one NVIDIA H100 (Hopper, sm_90a).
 It mirrors the JAX package's module names; every Pallas kernel on a ported
 path is a hand-written CUDA kernel under ``csrc/``, built at first use.
-Ported so far: 4-step text-to-image sampling of SD1.5 at 512² and SDXL at
-1024² (CLIP-L, and for SDXL OpenCLIP-bigG and size conditioning → LCM →
-UNet → VAE decode), the SD1.5 distillation step, and serving
-(``serving.py``, ``serve.py``) with LoRA hot swap and the int8 W8A8 mode
-(``quant.py``). Imports ``torch`` and never ``jax``.
+Ported so far: 4-step text-to-image sampling of SD1.5 at 512², SDXL,
+Pixart-α and SD3-medium at 1024² (the text towers → LCM, or SD3's Flash
+flow matching → UNet, DiT or MMDiT → VAE decode), the SD1.5, SDXL and
+Pixart-α distillation steps, and serving (``serving.py``, ``serve.py``)
+with LoRA hot swap and the int8 W8A8 mode (``quant.py``). Imports
+``torch`` and never ``jax``.
 """
 
 from .pipelines import FlashPipeline

@@ -19,9 +19,11 @@ checkpoint's layout) but ``LoraDense`` layers in JAX: they are dense pairs
 here too, so the LoRA tree is dense-only and always takes the side path,
 as the JAX one does (``flash.py:226-231``). ``from_peft`` and
 ``load_peft_safetensors`` (``lora.py:172``, ``:332``) read a PEFT adapter
-(``unet.<module>.lora_A.weight`` [r, in], ``lora_B.weight`` [out, r]) into
-such a tree: the port's module names are PEFT's, so no name map is needed.
-PEFT export and kohya wait.
+(``<prefix>.<module>.lora_A.weight`` [r, in], ``lora_B.weight`` [out, r];
+the prefix ``unet`` for the UNet, ``transformer`` for the DiT and the
+MMDiT, as the JAX pipelines' ``lora_prefix``) into such a tree: the port's
+module names are PEFT's, so no name map is needed. PEFT export and kohya
+wait.
 """
 
 from __future__ import annotations
@@ -37,13 +39,15 @@ import torch.nn as nn
 LoraTree = Dict[str, Dict[str, torch.Tensor]]
 
 # The JAX ``DEFAULT_TARGETS`` (attention and feed-forward projections, the
-# spatial transformers' proj_in/proj_out) over the port's module names. The
-# leading dot leaves a DiT's root ``proj_out`` out: JAX's pair there is
-# inert (``utils/convert.py DIT_INERT_LORA``), so over the DiT the port's
-# tree is JAX's without it (per block attn1/attn2 q, k, v, out and the
-# feed-forward's two)
+# MMDiT's context projections, the spatial transformers' proj_in/proj_out)
+# over the port's module names. The leading dot leaves a DiT's or MMDiT's
+# root ``proj_out`` out: JAX's pair there is inert (``utils/convert.py
+# DIT_INERT_LORA``), so over the DiT the port's tree is JAX's without it
+# (per block attn1/attn2 q, k, v, out and the feed-forward's two), and over
+# the MMDiT too (per block q, k, v, out, add_q/k/v_proj, to_add_out and
+# the image stream's feed-forward; JAX's targets take no ff_context)
 DEFAULT_TARGETS = (
-    r".*\.(to_q|to_k|to_v|to_out\.0)$",
+    r".*\.(to_q|to_k|to_v|to_out\.0|add_q_proj|add_k_proj|add_v_proj|to_add_out)$",
     r".*\.(proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$",
 )
 
@@ -113,18 +117,20 @@ def merge_lora(state: Dict[str, torch.Tensor], lora: LoraTree, scaling: float = 
     return out
 
 
-def from_peft(tensors: Dict[str, torch.Tensor], alpha: Optional[float] = None) -> Tuple[LoraTree, float]:
-    """PEFT tensors of a UNet adapter → (LoRA tree, scaling):
-    ``unet.{module}.lora_A.weight`` [r, in] becomes ``a`` [in, r] and
+def from_peft(tensors: Dict[str, torch.Tensor], alpha: Optional[float] = None,
+              prefix: str = "unet") -> Tuple[LoraTree, float]:
+    """PEFT tensors of an adapter under ``prefix`` (``unet``; ``transformer``
+    for the DiT and the MMDiT) → (LoRA tree, scaling):
+    ``{prefix}.{module}.lora_A.weight`` [r, in] becomes ``a`` [in, r] and
     ``lora_B.weight`` [out, r] ``b`` [r, out], in fp32; the scaling is
     alpha / rank (1 without ``alpha``). Only dense pairs: a conv LoRA (4-D
     ``lora_A``) is not ported yet."""
     lora: LoraTree = {}
     rank = None
     for key, t in tensors.items():
-        if not key.startswith("unet."):
+        if not key.startswith(prefix + "."):
             continue
-        stem = key[len("unet."):]
+        stem = key[len(prefix) + 1:]
         for suffix, leaf in ((".lora_A.weight", "a"), (".lora_B.weight", "b")):
             if stem.endswith(suffix):
                 break
@@ -136,12 +142,13 @@ def from_peft(tensors: Dict[str, torch.Tensor], alpha: Optional[float] = None) -
         if leaf == "a":
             rank = t.shape[0]
     if rank is None:
-        raise ValueError("No LoRA tensors found under prefix 'unet'")
+        raise ValueError(f"No LoRA tensors found under prefix {prefix!r}")
     return lora, lora_scaling(rank, alpha)
 
 
-def load_peft_safetensors(path: str, alpha: Optional[float] = None) -> Tuple[LoraTree, float]:
+def load_peft_safetensors(path: str, alpha: Optional[float] = None,
+                          prefix: str = "unet") -> Tuple[LoraTree, float]:
     """``from_peft`` of a PEFT ``.safetensors`` file (on the CPU)."""
     from safetensors.torch import load_file
 
-    return from_peft(load_file(path), alpha)
+    return from_peft(load_file(path), alpha, prefix)

@@ -1,6 +1,7 @@
-"""Model bodies of the PyTorch port (SD1.5, SDXL and Pixart-α text-to-image slices)."""
+"""Model bodies of the PyTorch port (SD1.5, SDXL, Pixart-α and SD3 text-to-image slices)."""
 
 from .dit import DiT, DiTConfig, pixart_config
+from .mmdit import MMDiT, MMDiTConfig, sd3_medium_config
 from .text_encoders import (
     CLIPTextConfig,
     CLIPTextModel,
@@ -11,7 +12,7 @@ from .text_encoders import (
     t5_xxl_config,
 )
 from .unet import UNet2DCondition, UNetConfig, sd15_unet_config, sdxl_unet_config
-from .vae import AutoencoderKL, AutoencoderKLConfig, sd_vae_config
+from .vae import AutoencoderKL, AutoencoderKLConfig, sd3_vae_config, sd_vae_config
 
 __all__ = [
     "AutoencoderKL",
@@ -20,6 +21,8 @@ __all__ = [
     "CLIPTextModel",
     "DiT",
     "DiTConfig",
+    "MMDiT",
+    "MMDiTConfig",
     "T5Config",
     "T5Encoder",
     "UNet2DCondition",
@@ -28,6 +31,8 @@ __all__ = [
     "clip_l_config",
     "pixart_config",
     "sd15_unet_config",
+    "sd3_medium_config",
+    "sd3_vae_config",
     "sd_vae_config",
     "sdxl_unet_config",
     "t5_xxl_config",

@@ -5,10 +5,15 @@ Port of ``flash_diffusion_tpu/models/vae.py`` with diffusers
 ``decoder.*``, ``post_quant_conv``), so the keys match the published
 checkpoints. ``encode`` takes NHWC images and ``decode_latents`` NHWC
 latents, and both return fp32 NHWC, as in JAX. SD1.5 and SDXL share the
-architecture and differ in ``scaling_factor``. The mid-block attention is
-single-head with D = C (512 at full width; 16384 tokens at 1024²), which
-runs on the streaming flash kernels. Not ported yet: the SD3 shift/scale
-variant and tiled decode.
+architecture and differ in ``scaling_factor``. SD3's VAE
+(``sd3_vae_config``) has 16 latent channels, no quant convs
+(``use_quant_conv=False``: no such modules and no such keys, as in its
+checkpoints) and a shift: ``encode`` gives (z − shift)·scaling and
+``decode_latents`` un-scales z / scaling + shift (with per-channel
+``latents_mean``/``latents_std``, where given, z·std / scaling + mean). The
+mid-block attention is single-head with D = C (512 at full width; 16384
+tokens at 1024²), which runs on the streaming flash kernels. Not ported
+yet: tiled decode.
 """
 
 from __future__ import annotations
@@ -35,11 +40,24 @@ class AutoencoderKLConfig(BaseConfig):
     block_out_channels: List[int] = field(default_factory=lambda: [128, 256, 512, 512])
     layers_per_block: int = 2
     norm_num_groups: int = 32
-    scaling_factor: float = 0.18215  # SDXL: 0.13025
+    scaling_factor: float = 0.18215  # SDXL: 0.13025, SD3: 1.5305
+    latents_mean: Optional[List[float]] = None  # a per-channel shift (decode only)
+    latents_std: Optional[List[float]] = None
+    shift_factor: Optional[float] = None  # the scalar shift (SD3: 0.0609)
+    # SD1.5/SDXL carry 1×1 quant/post-quant convs around the latent; SD3's
+    # VAE has neither
+    use_quant_conv: bool = True
 
 
 def sd_vae_config(**overrides) -> AutoencoderKLConfig:
     return AutoencoderKLConfig(**overrides)
+
+
+def sd3_vae_config(**overrides) -> AutoencoderKLConfig:
+    """SD3's VAE: 16 latent channels, scaling 1.5305, shift 0.0609, no quant convs."""
+    base = dict(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609, use_quant_conv=False)
+    base.update(overrides)
+    return AutoencoderKLConfig(**base)
 
 
 class _AttnBlock(Attention):
@@ -163,16 +181,18 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The VAE: ``encoder`` and ``quant_conv``, ``post_quant_conv`` and ``decoder``."""
+    """The VAE: ``encoder``, ``decoder`` and, with ``use_quant_conv``,
+    ``quant_conv`` and ``post_quant_conv``."""
 
     def __init__(self, config: AutoencoderKLConfig):
         super().__init__()
         self.config = config
         lat = config.latent_channels
+        quant = config.use_quant_conv
         self.encoder = Encoder(config)
-        self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
+        self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1) if quant else nn.Identity()
         self.decoder = Decoder(config)
-        self.post_quant_conv = nn.Conv2d(lat, lat, 1)
+        self.post_quant_conv = nn.Conv2d(lat, lat, 1) if quant else nn.Identity()
 
     def moments(self, x: torch.Tensor):
         """(mean, logvar clipped to [-30, 20]) of NHWC images, NHWC, in the
@@ -184,16 +204,30 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Posterior sample mean + exp(logvar / 2)·noise (the mode when
-        ``noise`` is None), times ``scaling_factor``: fp32 NHWC latents.
-        ``noise`` ([B, H/8, W/8, latent]) stands for the JAX ``rng`` draw."""
+        ``noise`` is None), less ``shift_factor`` where set, times
+        ``scaling_factor``: fp32 NHWC latents. ``noise`` ([B, H/8, W/8,
+        latent]) stands for the JAX ``rng`` draw."""
         mean, logvar = self.moments(x)
         if noise is not None:
             mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
-        return mean.float() * self.config.scaling_factor
+        latents = mean.float()
+        if self.config.shift_factor is not None:
+            latents = latents - self.config.shift_factor
+        return latents * self.config.scaling_factor
 
     def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
-        """Un-scale and decode NHWC latents; returns fp32 NHWC images."""
+        """Un-scale (with SD3's per-channel mean and std, or its scalar
+        shift, where set) and decode NHWC latents; returns fp32 NHWC images."""
+        cfg = self.config
         dtype = self.decoder.conv_in.weight.dtype
-        z = z.float() / self.config.scaling_factor
+        z = z.float()
+        if cfg.latents_mean is not None and cfg.latents_std is not None:
+            mean, std = (torch.tensor(v, dtype=torch.float32, device=z.device) for v in (cfg.latents_mean,
+                                                                                         cfg.latents_std))
+            z = z * std / cfg.scaling_factor + mean
+        elif cfg.shift_factor is not None:
+            z = z / cfg.scaling_factor + cfg.shift_factor
+        else:
+            z = z / cfg.scaling_factor
         h = self.post_quant_conv(z.to(dtype).permute(0, 3, 1, 2))
         return self.decoder(h).float().permute(0, 2, 3, 1).contiguous()

@@ -1,9 +1,13 @@
 """FlashPipeline of the PyTorch port: few-step text → image.
 
 Port of ``flash_diffusion_tpu/pipelines.py::FlashPipeline``: host-side
-tokenization → conditioner → K-step LCM sampling → VAE decode, returning
-images in [-1, 1], NHWC, fp32. The published 4-NFE setting is the default:
-4 steps, guidance 0 (no CFG doubling). Randomness comes from explicit
+tokenization → conditioner → K-step sampling (LCM by default; the
+scheduler is picked by name from ``schedulers.REGISTRY``, SD3's is the
+Flash flow-match one) → VAE decode, returning images in [-1, 1], NHWC,
+fp32. The stochastic schedulers (LCM, Flash flow-match, DDPM) take fresh
+noise at every step but the last, which returns the denoised sample. The
+published 4-NFE setting is the default: 4 steps, guidance 0 (no CFG
+doubling). Randomness comes from explicit
 ``torch.Generator``s: one seeded by a scalar ``seed``, or one per sample for
 a sequence of seeds (then sample j's latent and step noise depend on
 ``seed[j]`` alone, whatever its slot or the batch size); tests inject
@@ -36,24 +40,31 @@ from torch.profiler import record_function
 
 from .lora import LoraTree, merge_lora
 from .quant import apply_weights, quantize_dense
-from .schedulers import SchedulerConfig, lcm
+from .schedulers import REGISTRY, SchedulerConfig
 from .schedulers import step_noise as draw_step_noise
+
+# the schedulers whose step re-noises (JAX ``pipelines.py:210-215``; Euler
+# ancestral, the fourth there, is not ported)
+STOCHASTIC = ("LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler")
 
 
 class FlashPipeline:
-    """Few-step text-to-image pipeline with the LCM sampler.
+    """Few-step text-to-image pipeline.
 
     Args:
-      denoiser: ``UNet2DCondition`` or ``DiT`` (NHWC in, fp32 NHWC out);
-        its device is where latents and noise are drawn.
+      denoiser: ``UNet2DCondition``, ``DiT`` or ``MMDiT`` (NHWC in, fp32
+        NHWC out); its device is where latents and noise are drawn.
       conditioner: ``ConditionerWrapper``; every conditioning it returns
         (``crossattn``, ``vector``, Pixart's ``attention_mask``) reaches
         the denoiser.
       vae: ``AutoencoderKL`` (``decode_latents``).
       tokenizer_fn: callable(list[str]) -> dict of id arrays (host-side).
       latent_shape: (H, W, C) latent dims of the default resolution.
-      scheduler_config: the LCM schedule's ``SchedulerConfig`` (default: the
-        SD family's scaled-linear betas; Pixart's are linear).
+      scheduler_config: the schedule's ``SchedulerConfig`` (default: the
+        SD family's scaled-linear betas; Pixart's are linear, SD3's shift 3).
+      scheduler: the sampling scheduler's name in ``schedulers.REGISTRY``
+        (default the published LCM setting; SD3:
+        ``FlashFlowMatchEulerDiscreteScheduler``).
 
     Attributes: ``size_cond_fn``: None, or callable(n, height_px, width_px)
     -> dict of [n, k] arrays that ``generate`` adds to the conditioner's
@@ -72,8 +83,11 @@ class FlashPipeline:
         latent_shape: Tuple[int, int, int] = (64, 64, 4),
         vae_scale_factor: int = 8,
         scheduler_config: Optional[SchedulerConfig] = None,
+        scheduler: str = "LCMScheduler",
     ):
         self.denoiser = denoiser
+        self.scheduler_name = scheduler
+        self.sched_mod = REGISTRY[scheduler]
         self.conditioner = conditioner
         self.vae = vae
         self.tokenizer_fn = tokenizer_fn
@@ -229,25 +243,27 @@ class FlashPipeline:
             generator = torch.Generator(device=self.device).manual_seed(int(seed))
             if latents is None:
                 latents = torch.randn((batch, *lshape), generator=generator, device=self.device)
-        sched = lcm.set_timesteps(self.sched_config, num_inference_steps)
+        mod = self.sched_mod
+        stochastic = self.scheduler_name in STOCHASTIC
+        sched = mod.set_timesteps(self.sched_config, num_inference_steps)
         sample = latents.to(self.device, torch.float32) * sched.init_noise_sigma
 
         with record_function("fdt.denoise"):
             for i, t in enumerate(sched.timesteps):
-                inp = lcm.scale_model_input(sched, sample, i)
+                inp = mod.scale_model_input(sched, sample, i)
                 if do_cfg:
                     t2 = torch.full((2 * batch,), t, device=self.device)
                     pc, pu = self.denoiser(torch.cat([inp, inp]), t2, cond).chunk(2)
                     pred = guidance_scale * pc + (1.0 - guidance_scale) * pu
                 else:
                     pred = self.denoiser(inp, torch.full((batch,), t, device=self.device), cond)
-                if i == sched.num_inference_steps - 1:
+                if not stochastic or i == sched.num_inference_steps - 1:
                     step_noise = None  # the final step returns the denoised sample
                 elif noise is not None:
                     step_noise = noise[i].to(self.device)
                 else:
                     step_noise = draw_step_noise(sample, generator)
-                sample = lcm.step(sched, pred, i, sample, noise=step_noise)
+                sample = mod.step(sched, pred, i, sample, noise=step_noise)
 
         with record_function("fdt.decode"):
             return self._decode(sample)

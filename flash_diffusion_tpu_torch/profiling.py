@@ -1,11 +1,13 @@
 """Profile one warm ``generate``, or one warm training step, on the card:
 time by stage and by kernel.
 
-    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart] [--batch 4] [--int8] [--trace trace.json]
+    python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart|sd3] [--batch 4] [--int8] [--t5]
+        [--trace trace.json]
     python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart] [--batch n]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
-weights; SD1.5 at 512², SDXL and Pixart-α at 1024²; with ``--int8`` switched to the W8A8
+weights; SD1.5 at 512², SDXL, Pixart-α and SD3 at 1024²; ``--t5``: SD3
+with T5-XXL; with ``--int8`` switched to the W8A8
 int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``bench.py --int8``), runs ``generate`` once to warm up, then once under
 ``torch.profiler``; with ``--train``, the trainer as
@@ -103,6 +105,7 @@ def main():
     ap.add_argument("--model", default="sd15", choices=MODELS)
     ap.add_argument("--batch", type=int, default=None, help="default 4; with --train the yaml's BATCH_SIZE")
     ap.add_argument("--int8", action="store_true", help="serve in the W8A8 int8 mode")
+    ap.add_argument("--t5", action="store_true", help="sd3: add T5-XXL to the two CLIP towers")
     ap.add_argument("--train", action="store_true", help="profile a training step of --model instead")
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     args = ap.parse_args()
@@ -121,12 +124,12 @@ def main():
         what = f"{args.model} training step, batch {batch}, {size}²"
     else:
         batch = args.batch or 4
-        pipe = build_pipeline(args.model, device="cuda")
+        pipe = build_pipeline(args.model, device="cuda", t5=args.t5)
         if args.int8:
             pipe.quantize("int8")
         prompts = (_PROMPTS * batch)[:batch]
         run = lambda: pipe.generate(prompts)
-        what = f"{args.model}{' int8' if args.int8 else ''}, batch {batch}, 4 steps"
+        what = f"{args.model}{' + T5' if args.t5 else ''}{' int8' if args.int8 else ''}, batch {batch}, 4 steps"
         on = [k for k in ("FLASH_TPU_ATTN_PACKED", "FLASH_TPU_FFN_FUSED", "FLASH_TPU_FFN_DOWN_GEMM")
               if os.environ.get(k, "0") == "1"]
         what += f", switches {' '.join(f'{k}=1' for k in on) or 'none'}"

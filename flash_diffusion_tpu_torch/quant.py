@@ -3,7 +3,7 @@ per-token activations, the products on the int8 GEMM kernel.
 
 Port of ``flash_diffusion_tpu/quant.py`` (``quantize_weight``,
 ``int8_matmul``, ``quantize_dense``). ``quantize_dense`` turns the float
-weights of the UNet's or the DiT's ``LoraDense`` layers in a state dict
+weights of the UNet's, the DiT's or the MMDiT's ``LoraDense`` layers in a state dict
 into int8 codes
 with an fp32 per-output-channel scale beside each (``<layer>.weight_scale``);
 ``apply_weights`` points the module's parameters at such a state; the
@@ -33,9 +33,13 @@ SCALE_KEY = "weight_scale"
 # over the port's names): attention q/k/v/out, the spatial transformers'
 # proj_in/proj_out and the feed-forward's two (JAX ff/proj_in and
 # ff/proj_out of the GEGLU, ff_in and ff_out of the DiT: 28 × 10 = 280
-# layers in Pixart-α). The leading dot keeps a root-level ``proj_out`` (a
-# DiT's unembedding head) out, as the JAX depth rule does.
-DENSE_INCLUDE = r"\.(to_q|to_k|to_v|to_out\.0|proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$"
+# layers in Pixart-α), and the MMDiT's context-stream out and feed-forward
+# (JAX to_add_out, ff_context_in, ff_context_out: 23 × 9 + 6 = 213 layers in
+# SD3-medium; its add_q/k/v_proj stay float, as JAX's allowlist leaves
+# them). The leading dot keeps a root-level ``proj_out`` (a DiT's or an
+# MMDiT's unembedding head) out, as the JAX depth rule does.
+DENSE_INCLUDE = (r"\.(to_q|to_k|to_v|to_out\.0|to_add_out|proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2"
+                 r"|ff_context\.net\.0\.proj|ff_context\.net\.2)$")
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,12 +4,17 @@ Each scheduler family is a module exposing ``set_timesteps``,
 ``scale_model_input`` and ``step``, as in ``flash_diffusion_tpu.schedulers``.
 ``REGISTRY`` maps the diffusers class names of the training configs onto
 the families ported so far: DDPM (the SD1.5 teacher's rollout),
-DPM-Solver++ 2M (the SDXL teacher's, with its multistep carry) and LCM
-(the student's sampler). Euler and Euler-ancestral, which serve only the
-JAX ``log_samples``, wait.
+DPM-Solver++ 2M (the SDXL teacher's, with its multistep carry), LCM (the
+student's sampler) and SD3's flow matching: the plain Euler step
+(``FlowMatchEulerDiscreteScheduler``, the SD3 teacher's) and the Flash
+student's re-noising step (``FlashFlowMatchEulerDiscreteScheduler``: the
+same tables, ``flow_match.flash_step``). Euler and Euler-ancestral, which
+serve only the JAX ``log_samples``, wait.
 """
 
-from . import ddpm, dpm, lcm
+from types import SimpleNamespace
+
+from . import ddpm, dpm, flow_match, lcm
 from .base import (
     SchedulerConfig,
     add_noise,
@@ -21,7 +26,22 @@ from .base import (
     training_tables,
 )
 
-REGISTRY = {"DDPMScheduler": ddpm, "DPMSolverMultistepScheduler": dpm, "LCMScheduler": lcm}
+# Flash flow-match shares flow_match's tables and steps with flash_step
+_flash_flow_match = SimpleNamespace(
+    set_timesteps=flow_match.set_timesteps,
+    scale_model_input=flow_match.scale_model_input,
+    step=flow_match.flash_step,
+    add_noise=flow_match.add_noise,
+    get_sigmas=flow_match.get_sigmas,
+)
+
+REGISTRY = {
+    "DDPMScheduler": ddpm,
+    "DPMSolverMultistepScheduler": dpm,
+    "LCMScheduler": lcm,
+    "FlowMatchEulerDiscreteScheduler": flow_match,
+    "FlashFlowMatchEulerDiscreteScheduler": _flash_flow_match,
+}
 
 __all__ = [
     "REGISTRY",
@@ -29,6 +49,7 @@ __all__ = [
     "add_noise",
     "ddpm",
     "dpm",
+    "flow_match",
     "interp_sigma",
     "lcm",
     "make_betas",

@@ -66,6 +66,9 @@ class SchedulerConfig:
     timestep_scaling: float = 10.0
     sigma_data: float = 0.5
     original_inference_steps: int = 50  # LCM origin-grid density (diffusers)
+    # flow-match specific (SD3's rectified flow): the sigma warp
+    # σ ← s·σ / (1 + (s − 1)·σ)
+    shift: float = 3.0
 
 
 def spaced_timesteps(

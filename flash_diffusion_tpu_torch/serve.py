@@ -3,6 +3,7 @@
     python -m flash_diffusion_tpu_torch.serve --model sdxl --int8 \\
         [--lora adapter.safetensors] [--port 8500] [--prewarm]
     python -m flash_diffusion_tpu_torch.serve --model pixart [--int8] [--port 8500]
+    python -m flash_diffusion_tpu_torch.serve --model sd3 [--t5] [--int8] [--lora adapter.safetensors]
 
     curl -s localhost:8500/healthz
     curl -s -X POST localhost:8500/generate \\
@@ -13,13 +14,15 @@
 
 Builds ``sample.build_pipeline`` (random weights from the seed unless
 ``--weights-root`` holds a diffusers layout; ``--lora`` merges a PEFT
-adapter), optionally switches it to the int8 W8A8 mode (``--int8``: every
-attention and feed-forward projection of the UNet or the DiT on the int8
-GEMM kernel)
-and serves it with ``serving.InferenceServer``. Request fields: prompt (str
-or list), steps, guidance_scale, seed, negative_prompt, format ("png" |
-"json"), height/width (multiples of 64). Not ported yet: ``--tp``,
-``--compile-cache`` (no compile step here) and ``--t5``.
+adapter, under the ``unet`` prefix, or ``transformer`` for Pixart and
+SD3), optionally switches it to the int8 W8A8 mode (``--int8``: every
+attention and feed-forward projection of the UNet, the DiT or the MMDiT on
+the int8 GEMM kernel; the MMDiT's add_q/k/v_proj stay bf16, as in JAX) and
+serves it with ``serving.InferenceServer``. ``--t5`` (sd3) adds T5-XXL over
+``--t5-max-length`` tokens to SD3's two CLIP towers. Request fields: prompt
+(str or list), steps, guidance_scale, seed, negative_prompt, format ("png"
+| "json"), height/width (multiples of 64). Not ported yet: ``--tp`` and
+``--compile-cache`` (no compile step here).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ def main():
     ap.add_argument("--lora", default=None, help="PEFT safetensors adapter to merge")
     ap.add_argument("--lora-scale", type=float, default=1.0)
     ap.add_argument("--int8", action="store_true", help="W8A8 int8 serving mode (quant.py)")
+    ap.add_argument("--t5", action="store_true", help="sd3: add T5-XXL to the two CLIP towers")
+    ap.add_argument("--t5-max-length", type=int, default=256)
     ap.add_argument("--decode-chunk", type=int, default=0, metavar="K",
                     help="decode the batch in serial chunks of K images (0: whole batch)")
     ap.add_argument("--max-batch", type=int, default=8)
@@ -49,10 +54,12 @@ def main():
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if args.t5 and args.model != "sd3":
+        ap.error("--t5 is an option of --model sd3")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
     pipe = build_pipeline(args.model, args.weights_root, device=args.device, lora=args.lora,
-                          lora_scale=args.lora_scale)
+                          lora_scale=args.lora_scale, t5=args.t5, t5_max_length=args.t5_max_length)
     if args.int8:
         pipe.quantize("int8")
     if args.decode_chunk:
@@ -62,7 +69,7 @@ def main():
         batch_sizes=tuple(sorted({1, min(4, args.max_batch), args.max_batch})), prewarm=args.prewarm,
     )
     server = InferenceServer(pipe, config)
-    print(f"serving {args.model}{' int8' if args.int8 else ''} on http://{args.host}:{args.port}", flush=True)
+    print(f"serving {args.model}{' + T5' if args.t5 else ''}{' int8' if args.int8 else ''} on http://{args.host}:{args.port}", flush=True)
     server.serve_forever()
 
 

@@ -6,6 +6,7 @@ from .convert import (
     discriminator_from_jax,
     lora_from_jax,
     lpips_from_jax,
+    mmdit_from_jax,
     t5_from_jax,
     unet_from_jax,
     vae_from_jax,
@@ -17,6 +18,7 @@ __all__ = [
     "discriminator_from_jax",
     "lora_from_jax",
     "lpips_from_jax",
+    "mmdit_from_jax",
     "t5_from_jax",
     "unet_from_jax",
     "vae_from_jax",

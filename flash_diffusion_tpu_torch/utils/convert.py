@@ -16,7 +16,8 @@ layout rules it undoes:
 - the UNet's ``class_embedding`` → ``add_embedding`` (SDXL's diffusers name).
 
 They cover the SD1.5 and SDXL UNets, the Pixart DiT (its per-chunk vector
-MLPs as ``adaln_single.emb.vector_embedders.<i>``), the SD VAE, the CLIP-L,
+MLPs as ``adaln_single.emb.vector_embedders.<i>``), the SD3 MMDiT (the
+inverse of ``import_sd3_mmdit``), the SD VAE and SD3's (no quant convs), the CLIP-L,
 OpenCLIP-bigG and T5 text towers, and for training the LoRA tree, the conv
 discriminator and LPIPS (whose JAX param names are the port's).
 
@@ -143,7 +144,8 @@ def _vae_mid(sd: StateDict, key: str, p) -> None:
 
 
 def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
-    """JAX ``AutoencoderKL`` params → port ``AutoencoderKL`` state dict."""
+    """JAX ``AutoencoderKL`` params → port ``AutoencoderKL`` state dict (the
+    quant convs where the tree has them)."""
     p = _unwrap(params)
     enc, dec = p["encoder"], p["decoder"]
     sd: StateDict = {}
@@ -157,7 +159,8 @@ def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
     _vae_mid(sd, "encoder", enc)
     _norm(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
     _conv(sd, "encoder.conv_out", enc["conv_out"])
-    _conv(sd, "quant_conv", p["quant_conv"])
+    if "quant_conv" in p:  # SD3's VAE has no quant convs
+        _conv(sd, "quant_conv", p["quant_conv"])
     _conv(sd, "decoder.conv_in", dec["conv_in"])
     _vae_mid(sd, "decoder", dec)
     for ui, lvl in enumerate(reversed(range(n))):
@@ -167,7 +170,8 @@ def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
             _conv(sd, f"decoder.up_blocks.{ui}.upsamplers.0.conv", dec[f"up_{lvl}_upsample"])
     _norm(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
     _conv(sd, "decoder.conv_out", dec["conv_out"])
-    _conv(sd, "post_quant_conv", p["post_quant_conv"])
+    if "post_quant_conv" in p:
+        _conv(sd, "post_quant_conv", p["post_quant_conv"])
     return sd
 
 
@@ -238,25 +242,61 @@ def dit_from_jax(params: Dict[str, Any], config) -> StateDict:
     return sd
 
 
+# JAX scopes inside an MMDiT block (``block_<i>``) → the port's names under
+# ``transformer_blocks.<i>``
+_MMDIT_BLOCK = {
+    "norm1_linear": "norm1.linear", "norm1_context_linear": "norm1_context.linear",
+    "to_q": "attn.to_q", "to_k": "attn.to_k", "to_v": "attn.to_v", "to_out": "attn.to_out.0",
+    "add_q_proj": "attn.add_q_proj", "add_k_proj": "attn.add_k_proj", "add_v_proj": "attn.add_v_proj",
+    "to_add_out": "attn.to_add_out", "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2",
+    "ff_context_in": "ff_context.net.0.proj", "ff_context_out": "ff_context.net.2",
+}
+
+
+def mmdit_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``MMDiT`` params → port ``MMDiT`` state dict."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    _conv(sd, "pos_embed.proj", p["pos_embed_proj"])
+    _lin(sd, "context_embedder", p["context_embedder"])
+    for emb in ("timestep_embedder", "text_embedder"):
+        for i in ("1", "2"):
+            _lin(sd, f"time_text_embed.{emb}.linear_{i}", p[emb][f"linear_{i}"])
+    _lin(sd, "norm_out.linear", p["norm_out_linear"])
+    _lin(sd, "proj_out", p["proj_out"])
+    for b in range(config.depth):
+        bp, k = p[f"block_{b}"], f"transformer_blocks.{b}"
+        for jax_name, name in _MMDIT_BLOCK.items():
+            if jax_name in bp:
+                _lin(sd, f"{k}.{name}", bp[jax_name])
+        for q in ("q", "k"):
+            if f"norm_{q}_scale" in bp:
+                sd[f"{k}.attn.norm_{q}.weight"] = _t(bp[f"norm_{q}_scale"])
+    return sd
+
+
 # JAX module scopes inside a spatial transformer → the port's module names
 _LORA_LEAVES = {"to_out": "to_out.0", "ff/proj_in": "ff.net.0.proj", "ff/proj_out": "ff.net.2"}
 # JAX scopes inside a DiT block (``block_<i>``) → the port's names under
 # ``transformer_blocks.<i>``
 _DIT_LORA_LEAVES = {"to_out": "to_out.0", "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2"}
-# The DiT's root head: JAX ``lora_paths`` gives it a pair, but it is a
-# plain ``nn.Dense`` that never reads one (no effect on the output, a zero
-# gradient), so the port's tree leaves it out
+# The DiT's and the MMDiT's root head: JAX ``lora_paths`` gives it a pair,
+# but it is a plain ``nn.Dense`` that never reads one (no effect on the
+# output, a zero gradient), so the port's tree leaves it out
 DIT_INERT_LORA = "proj_out"
 
 
 def lora_path_to_port(path: str, config) -> Optional[str]:
     """A JAX ``lora_paths`` entry → the port module name: of the UNet
     (``[params/]down_0_attn_0/blocks_0/attn1/to_q/kernel`` →
-    ``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q``) or of
+    ``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q``), of
     the DiT (``block_3/attn2/to_out/kernel`` →
     ``transformer_blocks.3.attn2.to_out.0``, ``block_3/ff_in/kernel`` →
-    ``transformer_blocks.3.ff.net.0.proj``); None for the DiT's inert root
-    ``proj_out``."""
+    ``transformer_blocks.3.ff.net.0.proj``) or, for an MMDiT ``config``
+    (one with ``joint_attention_dim``), of the MMDiT (``block_3/to_q/kernel``
+    → ``transformer_blocks.3.attn.to_q``, ``block_3/ff_context_out/kernel``
+    → ``transformer_blocks.3.ff_context.net.2``); None for the DiT's or the
+    MMDiT's inert root ``proj_out``."""
     parts = path.split("/")
     if parts[0] == "params":
         parts = parts[1:]
@@ -266,6 +306,8 @@ def lora_path_to_port(path: str, config) -> Optional[str]:
     if top == DIT_INERT_LORA and not rest:
         return None
     m = re.fullmatch(r"block_(\d+)", top)
+    if m and hasattr(config, "joint_attention_dim"):
+        return f"transformer_blocks.{m.group(1)}.{_MMDIT_BLOCK[rest[-1]]}"
     if m:
         leaf = _DIT_LORA_LEAVES.get(rest[-1], rest[-1])
         return ".".join(["transformer_blocks", m.group(1), *rest[:-1], leaf])
@@ -289,9 +331,9 @@ def lora_path_to_port(path: str, config) -> Optional[str]:
 
 
 def lora_from_jax(lora: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX ``init_lora`` tree of the UNet or the DiT → the port's
+    """JAX ``init_lora`` tree of the UNet, the DiT or the MMDiT → the port's
     ``{module name: {"a": [in, r], "b": [r, out]}}`` (the same layouts),
-    without the DiT's inert root pair (``DIT_INERT_LORA``)."""
+    without the inert root pair (``DIT_INERT_LORA``)."""
     out = {}
 
     def walk(tree, path):

@@ -185,6 +185,7 @@ def child(root: str, which: str, do_sweep: bool) -> None:
               "k2": fwd("flash_fwd_stream") if "k2" in which else []}
     cs.ATTENTION_SHAPES = shapes["k1"] + shapes["k2"]
     cs.ATTENTION_SHAPES_XL, cs.ATTENTION_SHAPES_PIXART, cs.ATTENTION_SHAPES_XL_TRAIN = [], [], []
+    cs.ATTENTION_SHAPES_SD3, cs.ATTENTION_REFERENCES_SD3, cs.ATTENTION_RAGGED_SD3 = [], [], []
     cs.ATTENTION_RAGGED, cs.ATTENTION_V_SHIFTED = [], []
     names = ("flash_fwd_oneshot", "flash_fwd_stream", "flash_fwd_oneshot_packed", "flash_fwd_packed", "flash_bwd_dkv",
              "flash_bwd_dq", "flash_bwd_oneshot", "gemm", "geglu_gemm", "int8_gemm", "layer_norm", "group_norm_stats",
@@ -207,10 +208,10 @@ def child(root: str, which: str, do_sweep: bool) -> None:
             cs.FFN_DW_SHAPES = []
         cs.check_ffn_gemm(gemm, results)
     if "k11" in which:
-        cs.INT8_EXTRA = []
+        cs.INT8_EXTRA, cs.INT8_REFERENCES_SD3 = [], []
         cs.check_int8_gemm(gemm, results)
     if "k3" in which:
-        cs.LAYER_NORM_RAGGED, cs.LAYER_NORM_SMALL_VAR = [], []
+        cs.LAYER_NORM_RAGGED, cs.LAYER_NORM_SMALL_VAR, cs.LAYER_NORM_REFERENCES_SD3 = [], [], []
         cs.check_layer_norm(norms, results)
     if "k9" in which:
         cs.GN_RAGGED = []
