@@ -322,6 +322,15 @@ ATTENTION_SHAPES_SD3 = [(96, 4352, 4352, 64, 4250), (96, 4480, 4480, 64, 4429)]
 # length off K2's 128-row tile (k × 3, v + 1 past kv_valid)
 ATTENTION_REFERENCES_SD3 = [(24, 256, 256, 64, 218)]
 ATTENTION_RAGGED_SD3 = [(24, 4300, 4300, 64, 4201)]
+# the SD3 training step at batch 2, 1024² (phase 9): the student's joint
+# attention under a gradient (B = 2: BH 48) beside the 2B calls above (the
+# rollout, DMD's teacher, the GAN's teacher pass); its VAE encoder's
+# mid-attention is SDXL training's [2, 16384, 16384, 512]. Its 256²
+# reference (phase 9b): 256 image + 154 text tokens padded to 512, masked at
+# 410, on K1 at B and 2B, and the VAE encoder's mid-attention over 32²
+# latents
+ATTENTION_SHAPES_SD3_TRAIN = [(48, 4352, 4352, 64, 4250)]
+ATTENTION_REFERENCES_SD3_TRAIN = [(48, 512, 512, 64, 410), (96, 512, 512, 64, 410), (2, 1024, 1024, 512, None)]
 # the SDXL training step at batch 2, 1024² (phase 5c), where the sampling
 # paths' shapes above do not have them: the student's forward under a
 # gradient (B = 2: BH 20 at 4096 tokens, 40 at 1024) and the GAN's teacher
@@ -389,6 +398,12 @@ LAYER_NORM_SHAPES_SD3 = [(4 * 4096, 1536, torch.bfloat16), (4 * 256, 1536, torch
                          (4 * 384, 1536, torch.bfloat16)]
 LAYER_NORM_REFERENCES_SD3 = [(64, 1536, torch.bfloat16), (192, 1536, torch.bfloat16), (77, 768, torch.float32),
                              (77, 1280, torch.float32)]
+# the SD3 training step at batch 2, 1024² (phase 9): the image stream at B
+# (2 × 4096 rows) and the padded context stream at B (2 × 256); the 2B rows
+# are the sampling shapes above, CLIP's fp32 rows SDXL training's (2 × 77).
+# Its 256² reference (9b) launches [512, 1536] and [1024, 1536]: both
+# streams at 256 rows a sample
+LAYER_NORM_SHAPES_SD3_TRAIN = [(2 * 4096, 1536, torch.bfloat16), (2 * 256, 1536, torch.bfloat16)]
 # SDXL: UNet norm1/2/3 at levels 1 and 2 (bf16); CLIP-G and CLIP-L (fp32);
 # then the training step's at batch 2 (the student, DMD's student; the
 # text towers' three passes)
@@ -433,6 +448,13 @@ BWD_SHAPES_XL.append((2, 4096, 4096, 512, None))
 # and 128-row tiles, kv_valid < KV (k × 3, v + 1 past it)
 BWD_SHAPES_PIXART = [(64, 1024, 1024, 72, None), (128, 1024, 1024, 72, None)]
 BWD_RAGGED.append((16, 1000, 1100, 72, 1037))
+# the SD3 training step at batch 2, 1024² (phase 9): the joint attention's
+# backward over the 4352-row sequence masked at 4250 (k × 3, v + 1 past it;
+# dk, dv exactly 0 there), the student's (BH 48) and the GAN's teacher pass
+# at 2B (BH 96), timed against SDPA's backward under the same boolean key
+# mask; and its 256² reference's (9b) at 410 of 512 keys, on the pair too
+BWD_SHAPES_SD3 = [(48, 4352, 4352, 64, 4250), (96, 4352, 4352, 64, 4250)]
+BWD_REFERENCES_SD3 = [(48, 512, 512, 64, 410), (96, 512, 512, 64, 410)]
 # [B, C, H, W] of every GroupNorm of the paths at batch 4 (bf16): the SD1.5
 # UNet's levels at 512², the SDXL UNet's at 1024², the SD VAE decoder at
 # 512² (SD1.5) and at 1024² (SDXL, Pixart: the largest, [4, 128, 1024²]);
@@ -466,24 +488,45 @@ GN_SHAPES_XL_TRAIN += [((2, 512, 8, 8), torch.float32, 4), ((2, 1024, 4, 4), tor
 # GroupNorms (fp32, 4 groups) over the DiT's 64² output latents
 GN_SHAPES_PIXART_TRAIN = [((4, 128, 256, 256), torch.bfloat16, None), ((4, 256, 128, 128), torch.bfloat16, None),
                           ((4, 128, 16, 16), torch.float32, 4), ((4, 256, 8, 8), torch.float32, 4)]
+# the SD3 training step at 1024² (phase 9): its VAE encoder at batch 2 is
+# SDXL training's (the same channels and groups); the 64-feature, 4-stage
+# discriminator's three GroupNorms (fp32, 4 groups) over the MMDiT's 128²
+# post-mid features, of which [2, 512, 8, 8] is SDXL's. Its 256² reference
+# (9b): the VAE encoder over 2 images at 256² and the 3-stage
+# discriminator's two GroupNorms over 32² features (gated untimed)
+GN_SHAPES_SD3_TRAIN = [((2, 128, 32, 32), torch.float32, 4), ((2, 256, 16, 16), torch.float32, 4)]
+GN_REFERENCES_SD3_TRAIN = [((2, c, hw, hw), torch.bfloat16, None) for c, hw in (
+    (128, 256), (128, 128), (256, 128), (256, 64), (512, 64), (512, 32))]
+GN_REFERENCES_SD3_TRAIN += [((2, 128, 8, 8), torch.float32, 4), ((2, 256, 4, 4), torch.float32, 4)]
 # The paths' shapes of each check (timed), read at call time so that a
 # caller may narrow the lists above; GroupNorm cases are (shape, dtype,
 # the path's group count or None)
 def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
-            + ATTENTION_SHAPES_SD3)
+            + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN)
 
 
 def layer_norm_main():
-    return LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
+    return (LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
+            + LAYER_NORM_SHAPES_SD3_TRAIN)
 
 
 def gn_main():
-    return [(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
+    return ([(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
+            + GN_SHAPES_SD3_TRAIN)
 
 
 def bwd_main():
-    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART
+    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART + BWD_SHAPES_SD3
+
+
+def references():
+    """The small references' shapes (and the ragged joint length) phase 2
+    times beside the kernel with the library call and the bound, printed,
+    outside the paths' sums: SD3 sampling's 128² (8b, 8e), its training
+    step's 256² (9b)."""
+    return set(ATTENTION_REFERENCES_SD3 + ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN
+               + LAYER_NORM_REFERENCES_SD3 + BWD_REFERENCES_SD3)
 
 
 def int8_main():
@@ -493,7 +536,12 @@ def int8_main():
 def attention_unmain():
     """The forward attention cases phase 2 checks untimed."""
     return ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES + ATTENTION_REFERENCES_SD3 + \
-        ATTENTION_RAGGED_SD3
+        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN
+
+
+def gn_unmain():
+    """The GroupNorm cases phase 2 checks untimed."""
+    return [(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN
 
 
 def int8_extra():
@@ -517,8 +565,8 @@ def gated_shapes():
     resident and statistics kernels with the group count (None: the
     statistics alone), the apply kernel without."""
     fwd = set(attention_main() + attention_unmain())
-    bwd = set(bwd_main() + BWD_RAGGED)
-    cases = gn_main() + [(shape, dtype, None) for shape, dtype in GN_RAGGED]
+    bwd = set(bwd_main() + BWD_RAGGED + BWD_REFERENCES_SD3)
+    cases = gn_main() + gn_unmain()
     gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
     gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
     gn_apply = {(shape, dtype) for shape, dtype, _ in cases}
@@ -548,7 +596,10 @@ TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
 # betas, and the DMD loss, a squared difference of two nearly equal bf16
 # DiT forwards, then falls to ~2e-4 and differs from fp32 by ~0.13 relative:
 # bf16 rounding at that conditioning, with or without a kernel
-TRAIN_REF_START = {"sdxl": 1, "pixart": 2}
+# SD3: K − 3, three flow-match Euler steps from the σ-interpolation (the
+# rollout is deterministic; start 0, pure noise, is held against JAX in
+# tests/test_torch_sd3_train.py)
+TRAIN_REF_START = {"sdxl": 1, "pixart": 2, "sd3": 1}
 # phase 7d: the models whose reference holds the discriminator's outputs on
 # the card's features (its inputs, each call's, handed to the CPU copy's
 # discriminator, as 7d hands over the card's ``__conds``) and prints them
@@ -559,6 +610,14 @@ TRAIN_REF_START = {"sdxl": 1, "pixart": 2}
 # discriminator itself (cuDNN's fp32 convolutions, the fp32 GroupNorm
 # kernels) agrees to fp32 rounding on the same inputs
 DISC_ON_CARD_FEATURES = ("pixart",)
+# phase 9b: SD3's reference at 256² holds a 3-stage discriminator, not the
+# yaml's 4 (``train._discriminator`` fits the stages to the image): its
+# post-mid features are 32², and 4 stages reduce them to 2² before the 4×4
+# head, which then raises
+# LoRA pairs that no loss reaches, whose B stays at its 0 (their gradient is
+# exactly 0, as in JAX): the MMDiT's final block runs context_pre_only, so
+# its context queries (add_q_proj) feed only the context rows it drops
+INERT_LORA = {"sd3": ("transformer_blocks.23.attn.add_q_proj",)}
 # [M, K, N] of every int8 product of SDXL 1024² at batch 4, guidance 0:
 # at the 64² level q/k/v/out, attn2 q/out and proj_in/proj_out, the
 # cross-attention k/v over the 77 text tokens, ff.net.0.proj, ff.net.2;
@@ -702,7 +761,7 @@ def check_attention(attention, results, timed=True):
     version's times, and at the paths' shapes the library's and the bound."""
     g = torch.Generator(device="cuda").manual_seed(0)
     failed = []
-    main_shapes = attention_main()
+    main_shapes, refs = attention_main(), references()
     for shape in main_shapes + attention_unmain():
         bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
@@ -729,14 +788,14 @@ def check_attention(attention, results, timed=True):
             ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v, scale, kv_valid))
             plain = median_ms(lambda: attention.attention_bhsd_reference(q, k, v, scale, kv_valid))
             times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if timed and main:  # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v over the valid keys
-            # SDPA under the same key mask (True: attend) where kv_valid cuts the keys
-            mask = None if kv_valid is None else (torch.arange(skv, device="cuda") < kv_valid)[None, None, None]
+        # q, k, v, out in bf16 and the fp32 lse; q·kᵀ and p·v over the valid keys
+        if timed and (main or shape in refs):
             library = library_ms(lambda: lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=mask, scale=scale))
+                q[None], k[None], v[None], attn_mask=key_mask(skv, kv_valid), scale=scale))
             bnd = bound(4 * bh * sq * (kv_valid or skv) * d, 2 * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
-            add_times(results[kind], ms, plain, library, bnd)
+            if main:
+                add_times(results[kind], ms, plain, library, bnd)
         print(f"attention {kind:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} kv_valid={kv_valid}"
               f"{' (k x3, v +1 past it)' if kv_valid else ''}{' (v +1)' if shape in ATTENTION_V_SHIFTED else ''}: "
               f"{checks}{times}")
@@ -872,7 +931,7 @@ def check_layer_norm(norms, results, timed=True):
     and at the paths' shapes the library's (``F.layer_norm``) and the bound
     (x read and y written once, the affine once)."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    main_shapes = layer_norm_main()
+    main_shapes, refs = layer_norm_main(), references()
     cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED + LAYER_NORM_REFERENCES_SD3]
     cases += [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
     failed = []
@@ -885,12 +944,14 @@ def check_layer_norm(norms, results, timed=True):
         stats = norms.layer_norm_errors(y, norms.layer_norm_reference(x.float(), w.float(), b.float()))
         ok, report = norms.layer_norm_gate(stats)
         main = (rows, c, dtype) in main_shapes and scale == 2.0
+        ref = (rows, c, dtype) in refs and scale == 2.0
         times = ""
         if timed:
             ms = median_ms(lambda: norms.layer_norm(x, w, b))
             plain = median_ms(lambda: norms.layer_norm_reference(x, w, b))
             times = f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-        if timed and main:  # x and y, weight and bias; Σx, Σx², centre, scale, affine: 7 fp32 ops an element
+        # x and y, weight and bias; Σx, Σx², centre, scale, affine: 7 fp32 ops an element
+        if timed and (main or ref):
             library = library_ms(lambda: lambda: F.layer_norm(x, (c,), w, b, 1e-5))
             bnd = bound(7 * rows * c, (2 * rows * c + 2 * c) * x.element_size(), FP32_OPS_PER_S)
             times += f", library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
@@ -930,7 +991,7 @@ def check_group_norm(norms, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(6)
     failed = []
     main_cases = gn_main()
-    for case in main_cases + [(s, dtype, None) for s, dtype in GN_RAGGED]:
+    for case in main_cases + gn_unmain():
         shape, dtype, groups = case
         main = case in main_cases
         b, c = shape[:2]
@@ -1109,11 +1170,17 @@ def pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid):
     return dkv, dqk
 
 
-def sdpa_backward(q, k, v, do, scale):
+def key_mask(skv, kv_valid):
+    """SDPA's boolean key mask (True: attend) where ``kv_valid`` cuts the keys."""
+    return None if kv_valid is None else (torch.arange(skv, device="cuda") < kv_valid)[None, None, None]
+
+
+def sdpa_backward(q, k, v, do, scale, kv_valid=None):
     """The library yardstick of the backward: ``F.scaled_dot_product_attention``
-    on [1, BH, S, D], its dq, dk, dv by ``torch.autograd.grad``."""
+    on [1, BH, S, D] (under the same key mask where ``kv_valid`` cuts the
+    keys), its dq, dk, dv by ``torch.autograd.grad``."""
     qq, kk, vv = (t[None].detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=key_mask(k.shape[1], kv_valid), scale=scale)
     return lambda: torch.autograd.grad(out, (qq, kk, vv), do[None], retain_graph=True)
 
 
@@ -1132,7 +1199,8 @@ def check_attention_bwd(attention, kernels, results, timed=True):
     the last shape if any failed."""
     g = torch.Generator(device="cuda").manual_seed(3)
     failed = []
-    for shape in bwd_main() + BWD_RAGGED:
+    refs = references()
+    for shape in bwd_main() + BWD_RAGGED + BWD_REFERENCES_SD3:
         bh, sq, skv, d, kv_valid = shape
         q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                        for s in (sq, skv, skv, sq))
@@ -1162,15 +1230,16 @@ def check_attention_bwd(attention, kernels, results, timed=True):
         if timed:
             ms = median_ms(lambda: attention.flash_attention_bwd_bhsd(q, k, v, o, lse, do, scale, kv_valid))
             times = f"; kernel {ms:.4f} ms"
-        if timed and main:
+        if timed and (main or shape in refs):
             plain = median_ms(lambda: attention.attention_bwd_reference(q, k, v, o, lse, do, scale, kv_valid))
-            library = library_ms(lambda: sdpa_backward(q, k, v, do, scale))
+            library = library_ms(lambda: sdpa_backward(q, k, v, do, scale, kv_valid))
             work = bh * sq * kv_len * d
             times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms"
             if route == "flash_bwd_oneshot":
                 bnd = bound(10 * work, 2 * bh * (4 * sq + 4 * skv) * d + 4 * bh * sq)
                 times += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
-                add_times(results[route], ms, plain, library, bnd)
+                if main:
+                    add_times(results[route], ms, plain, library, bnd)
             else:
                 dkv, dqk = pair_kernels(attention, kernels, q, k, v, o, lse, do, scale, kv_valid)
                 ms_dkv, ms_dq = median_ms(dkv), median_ms(dqk)
@@ -1180,8 +1249,9 @@ def check_attention_bwd(attention, kernels, results, timed=True):
                           f"K7 alone {ms_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]})")
                 if library:
                     times += f"; K6 + K7 / library {(ms_dkv + ms_dq) / library:.2f}x"
-                add_times(results["flash_bwd_dkv"], ms_dkv, plain, library, b_dkv)
-                add_times(results["flash_bwd_dq"], ms_dq, plain, library, b_dq)
+                if main:
+                    add_times(results["flash_bwd_dkv"], ms_dkv, plain, library, b_dkv)
+                    add_times(results["flash_bwd_dq"], ms_dq, plain, library, b_dq)
         print(f"attention backward {route:17s} bh={bh:2d} sq={sq:5d} kv={skv:5d} d={d:3d} kv_valid={kv_valid}"
               f"{' (k x3, v +1 past it)' if kv_valid else ''}: {'pass' if ok else 'FAIL'}: {report}{times}")
         if not ok:
@@ -1668,8 +1738,11 @@ def run_training(model, counters, card, required, gated=None):
         raise AssertionError(f"the {model} training path never launched {missing}")
     if gated is not None:
         check_gated(f"{model} training", counters, gated)
-    if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
+    inert = INERT_LORA.get(model, ())
+    if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items() if k not in inert):
         raise AssertionError("a LoRA B factor did not change")
+    if any(trainer.lora[k]["b"].any() for k in inert):
+        raise AssertionError(f"an inert LoRA pair's B moved: {inert}")
     if all(torch.equal(a, b) for a, b in zip(disc, snapshot([fl.discriminator]))):
         raise AssertionError("the discriminator did not change")
     if not all(torch.equal(a, b) for a, b in zip(frozen, snapshot(frozen_modules))):
@@ -1718,12 +1791,14 @@ def t5_stand_in():
         sample.T5TextEmbedderConfig = saved
 
 
-def check_training_reference(model="sd15", start=None, cpu_bf16=False):
-    """Phases 5b, 5d and 7d: one ``losses`` and backward of the trainer at
-    256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
+def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=None, gated=None):
+    """Phases 5b, 5d, 7d and 9b: one ``losses`` and backward of the trainer
+    at 256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
     paths) with its state dicts, on the same staged batch (the conditioning
-    the card's) and draws (SDXL and Pixart from ``TRAIN_REF_START``, or
-    from ``start``). Printed beside for SD1.5, ungated: the LoRA gradients'
+    the card's) and draws (SDXL, Pixart and SD3 from ``TRAIN_REF_START``,
+    or from ``start``). With ``gated``, every (kernel, shape) the card's
+    side launched (``counters`` reset before its staging) must be among
+    phase 2's. Printed beside for SD1.5, ungated: the LoRA gradients'
     error of each scaled G term alone, and of the student's own backward.
     With ``cpu_bf16`` (``train_ref_precision.py``), also the losses of the
     CPU copy in bf16 (the plain paths, no kernel) on the same inputs,
@@ -1735,12 +1810,13 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False):
     diagnostics = model == "sd15"
     cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES}
     dev = build_trainer(model, device="cuda", seed=0, config=cfg)
-    with t5_stand_in() if model == "pixart" else contextlib.nullcontext():
+    fed = model in ("pixart", "sd3")  # the CPU copy takes the card's __conds: a stand-in T5, never run
+    with t5_stand_in() if fed else contextlib.nullcontext():
         ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
         for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator"):
-            if getattr(ref.model, name) is not None and not (name == "conditioner" and model == "pixart"):
+            if getattr(ref.model, name) is not None and not (name == "conditioner" and fed):
                 getattr(ref.model, name).load_state_dict(getattr(dev.model, name).state_dict())
         for name, ab in dev.lora.items():
             ab["b"].normal_(0.0, TRAIN_REF_LORA_B_STD, generator=g)
@@ -1748,13 +1824,17 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False):
                 ref.lora[name][k].copy_(ab[k])
     size = cfg["IMAGE_SIZE"]
     batch = next(synthetic_batches(2, size, seed=5, model=model))
-    noise = torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda")
+    channels = dev.model.vae.config.latent_channels
+    noise = torch.randn(2, size // 8, size // 8, channels, generator=g, device="cuda")
+    if gated is not None:
+        reset(counters)
     staged = dev.stage_batch(batch)
     draws = dev.model.draw(dev.generator, 0, staged["__z"])
-    if start is not None or model in TRAIN_REF_START:  # and DDPM's posterior noise from there (DPM draws none)
+    if start is not None or model in TRAIN_REF_START:  # and DDPM's posterior noise from there (DPM, SD3 draw none)
         draws["start_idx"] = start = TRAIN_REF_START[model] if start is None else start
-        draws["rollout_noise"] = [torch.randn(staged["__z"].shape, generator=g, device="cuda")
-                                  for _ in range(cfg["K"][0] - start)] if dev.model._sched_stochastic else []
+        if dev.model._sched_stochastic:
+            draws["rollout_noise"] = [torch.randn(staged["__z"].shape, generator=g, device="cuda")
+                                      for _ in range(cfg["K"][0] - start)]
     lora = lambda tr: [f for ab in tr.lora.values() for f in ab.values()]
     flat = lambda gs: torch.cat([gr.detach().float().cpu().reshape(-1) for gr in gs])
     # the student's own backward: LoRA gradients of <student(x), w>, on the
@@ -1802,12 +1882,13 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False):
     for h in hooks:
         h.remove()
     (aux, terms), (ref_aux, ref_terms) = results
+    if gated is not None:
+        check_gated(f"{model} training reference", counters, gated)
     card_out = torch.cat(d_out[id(dev)])
     end_to_end = rel_l2(card_out, torch.cat(d_out[id(ref)]))
-    if model in DISC_ON_CARD_FEATURES:
-        with torch.no_grad():
-            same_in = torch.cat([ref.model.discriminator(x) for x in d_in[id(dev)]])
-        features = [rel_l2(a, b) for a, b in zip(d_in[id(dev)], d_in[id(ref)])]
+    with torch.no_grad():
+        same_in = torch.cat([ref.model.discriminator(x) for x in d_in[id(dev)]])
+    features = [rel_l2(a, b) for a, b in zip(d_in[id(dev)], d_in[id(ref)])]
     grads = lambda ps: flat([p.grad for p in ps])
     rel = lambda k: abs(num(aux[k]) - num(ref_aux[k])) / abs(num(ref_aux[k]))
     errs = {
@@ -1828,10 +1909,11 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False):
           + ", ".join(f"{k} {num(v):.5g}" for k, v in ref_aux.items()) + "; errors (tol) "
           + ", ".join(f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items())
           + f"; {time.perf_counter() - started:.1f} s")
-    if model in DISC_ON_CARD_FEATURES:
-        print(f"  {model} discriminator: its features (the DiT's bf16 output latents) against the CPU copy's, rel L2 "
-              + ", ".join(f"{e:.3e}" for e in features) + " (fake G, fake D, real); its outputs on the card's features "
-              f"{errs['disc outputs']:.3e} (gated), end to end on each side's own features {end_to_end:.3e} (ungated)")
+    held = model in DISC_ON_CARD_FEATURES
+    print(f"  {model} discriminator: its features (the denoiser's bf16 output) against the CPU copy's, rel L2 "
+          + ", ".join(f"{e:.3e}" for e in features) + " (fake G, fake D, real); its outputs on the card's features "
+          f"{rel_l2(card_out, same_in):.3e} ({'gated' if held else 'ungated'}), end to end on each side's own "
+          f"features {end_to_end:.3e} ({'ungated' if held else 'gated'})")
     if bf16_aux is not None:
         loss_err = lambda a, b, k: abs(num(a[k]) - num(b[k])) / abs(num(b[k]))
         keys = ("loss/distill", "loss/dmd", "loss/gan_d")
@@ -2107,6 +2189,18 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     mark("8t")
+
+    # phases 9 and 9b: the SD3 training step through the user's entry point
+    # (the joint attention's backward masked at kv_valid 4250), its launched
+    # shapes all among phase 2's, then its agreement with the fp32 plain
+    # reference on a small input, whose launched shapes are gated too
+    by_path["train_sd3"] = run_training("sd3", counters, card, (
+        "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes())
+    torch.cuda.empty_cache()
+    mark("9")
+    check_training_reference("sd3", counters=counters, gated=gated_shapes())
+    torch.cuda.empty_cache()
+    mark("9b")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

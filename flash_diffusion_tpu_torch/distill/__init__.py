@@ -1,4 +1,4 @@
-"""Flash distillation of the PyTorch port (the SD1.5 and SDXL steps)."""
+"""Flash distillation of the PyTorch port (the SD1.5, SDXL, Pixart-α and SD3 steps)."""
 
 from .common import (
     boundary_scalings,
@@ -8,8 +8,9 @@ from .common import (
     stage_index,
     timestep_pdf,
 )
-from .discriminator import ConvDiscriminator, DiscriminatorConfig
+from .discriminator import ConvDiscriminator, DiscriminatorConfig, sd3_discriminator_config
 from .flash import FlashDiffusion, FlashDiffusionConfig
+from .flash_sd3 import FlashDiffusionSD3, FlashDiffusionSD3Config
 from .losses import center_crop, clip_disc_weights, dmd_loss, gan_losses, huber_loss, l1_loss, l2_loss
 from .lpips import LPIPS, VGG16Features
 
@@ -19,6 +20,8 @@ __all__ = [
     "DiscriminatorConfig",
     "FlashDiffusion",
     "FlashDiffusionConfig",
+    "FlashDiffusionSD3",
+    "FlashDiffusionSD3Config",
     "VGG16Features",
     "boundary_scalings",
     "center_crop",
@@ -30,6 +33,7 @@ __all__ = [
     "l1_loss",
     "l2_loss",
     "predicted_x0_eps",
+    "sd3_discriminator_config",
     "sample_start_index",
     "stage_index",
     "timestep_pdf",

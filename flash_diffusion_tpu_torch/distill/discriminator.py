@@ -5,7 +5,8 @@ Port of ``flash_diffusion_tpu/distill/discriminator.py:23-72``: repeated
 and a valid k4 conv to one logit per position, flattened to [B, N]. NHWC in
 (the teacher's mid features), fp32 compute, as the JAX module's default
 dtype. Unlike flax, a torch module needs its input width up front
-(``in_channels``: 1280 for the SD1.5 and SDXL mid blocks).
+(``in_channels``: 1280 for the SD1.5 and SDXL mid blocks, 4 over Pixart's
+output latents, 16 over SD3's post-mid features).
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ class DiscriminatorConfig(BaseConfig):
     feature_dim: int = 256
     num_stages: int = 3
     norm_groups: int = 4
+
+
+def sd3_discriminator_config(**kw) -> DiscriminatorConfig:
+    """SD3's: 64 features, 4 stages (JAX ``discriminator.py:34``), over the
+    MMDiT's 16-channel post-mid features ([B, 128, 128, 16] at 1024²)."""
+    return DiscriminatorConfig(**{"feature_dim": 64, "num_stages": 4, **kw})
 
 
 class ConvDiscriminator(nn.Module):

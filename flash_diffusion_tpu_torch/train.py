@@ -1,11 +1,13 @@
-"""Flash distillation of SD1.5, SDXL and Pixart-α with the PyTorch port: build_trainer and CLI.
+"""Flash distillation of SD1.5, SDXL, Pixart-α and SD3 with the PyTorch port: build_trainer and CLI.
 
-    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart] [--config examples/configs/flash_sd.yaml] \\
-        --max-steps 10 [--weights-root /weights/sd15] [--random-init] [--device cuda]
+    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart|sd3] \\
+        [--config examples/configs/flash_sd.yaml] --max-steps 10 [--weights-root /weights/sd15] \\
+        [--random-init] [--device cuda]
 
 ``build_trainer(model, device=...)`` is the port's counterpart of
-``examples/train_flash_sd.py``, ``train_flash_sdxl.py`` and
-``train_flash_pixart.py``. The teacher, VAE and conditioner come from
+``examples/train_flash_sd.py``, ``train_flash_sdxl.py``,
+``train_flash_pixart.py`` and ``train_flash_sd3.py``. The teacher, VAE and
+conditioner come from
 ``sample.build_modules(model)`` with the denoiser's ``remat`` on; a LoRA
 student over the teacher, LPIPS-VGG16 when the distill loss is ``lpips``,
 a conv discriminator (over the UNet's mid features, 1280 channels,
@@ -30,19 +32,32 @@ By model (its default yaml in ``CONFIGS``):
   example's); a 64-feature, 3-stage discriminator over the 4-channel
   output latents (the DiT's ``return_features``); ``flash_pixart.yaml``:
   512², batch 4, K = 16, LoRA rank 64, DDPM teacher, l2 distill, DMD,
-  hinge GAN.
+  hinge GAN;
+- ``sd3``: SD3-medium's MMDiT (24 joint blocks of 1536), the 16-channel
+  SD3 VAE, CLIP-L and CLIP-G packed by ``SD3Conditioner`` with T5-XXL over
+  ``T5_MAX_LENGTH`` (77) tokens when ``USE_T5`` (else 77 zero T5 tokens);
+  ``FlashDiffusionSD3`` (the flow-match Euler teacher on shift 3, float
+  timesteps); a 64-feature discriminator over the MMDiT's 16-channel
+  post-mid features, 4 stages (``sd3_discriminator_config``), fewer where
+  the image is too small for the 4×4 head; ``flash_sd3.yaml``: 1024², batch
+  2, K = 32, LoRA rank 64, l2 distill, DMD, lsgan, the uncond dropping every
+  text key (``UCG_KEYS``: ``text`` and ``t5_text``). The yaml's
+  ``TEXT_ENCODER_OFFLOAD`` is read but not honoured: the text towers stay
+  resident on the card (T5-XXL in fp32 takes ≈ 19 GB, which fits 80 GB).
 
 Weights are random, made from ``seed``, unless ``weights_root`` holds a
 local diffusers layout (``unet/``, ``vae/``, ``text_encoder/`` and, for
 SDXL, ``text_encoder_2/``; Pixart: ``transformer/`` and a T5
-``text_encoder/``, ``sample.load_weights``); LPIPS and the discriminator
+``text_encoder/``; SD3: ``transformer/``, ``text_encoder_2/`` and
+``text_encoder_3/``; ``sample.load_weights``); LPIPS and the discriminator
 are always random (the pretrained VGG/LPIPS weights are not in the
 repository). The data pipeline (webdataset shards) is not ported:
 ``synthetic_batches`` makes batches from a seed. Batch layout at the
 boundary: ``image`` [B, H, W, 3] fp32 in [-1, 1] (NHWC, as the JAX
 package), ``text_ids`` [B, 77] int token ids (Pixart: [B, 120] T5 ids
 with ``text_mask``), for SDXL the size tuples of ``sample.size_cond_fn``,
-for Pixart ``resolution_ar``.
+for Pixart ``resolution_ar``, for SD3 with T5 ``t5_text_ids`` and
+``t5_text_mask``.
 """
 
 from __future__ import annotations
@@ -57,23 +72,33 @@ import numpy as np
 import torch
 import yaml
 
-from .distill import LPIPS, ConvDiscriminator, DiscriminatorConfig, FlashDiffusion, FlashDiffusionConfig
+from .distill import (
+    LPIPS,
+    ConvDiscriminator,
+    DiscriminatorConfig,
+    FlashDiffusion,
+    FlashDiffusionConfig,
+    FlashDiffusionSD3,
+    FlashDiffusionSD3Config,
+    sd3_discriminator_config,
+)
 from .lora import init_lora, lora_scaling
-from .models.embedders import ConditionerWrapper
-from .sample import PIXART_SCHEDULER, build_modules, load_weights, size_cond_fn
+from .sample import PIXART_SCHEDULER, SD3_SCHEDULER_CONFIG, build_modules, load_weights, make_conditioner, size_cond_fn
 from .schedulers import SchedulerConfig
 from .trainer import TrainingConfig, TrainingPipeline
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
 CONFIGS = {model: os.path.join(_CONFIG_DIR, name) for model, name in (
-    ("sd15", "flash_sd.yaml"), ("sdxl", "flash_sdxl.yaml"), ("pixart", "flash_pixart.yaml"))}
+    ("sd15", "flash_sd.yaml"), ("sdxl", "flash_sdxl.yaml"), ("pixart", "flash_pixart.yaml"),
+    ("sd3", "flash_sd3.yaml"))}
 MODELS = tuple(CONFIGS)
 # by UNet model: (pixels per mid-block position, discriminator features);
 # the mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in
 # SDXL's three
 _MID = {"sd15": (64, 64), "sdxl": (32, 256)}
 # by model, what a yaml may leave out: the JAX examples' defaults
-# (examples/train_flash_sd.py, train_flash_sdxl.py, common.py)
+# (examples/train_flash_sd.py, train_flash_sdxl.py, train_flash_sd3.py,
+# common.py)
 DEFAULTS = {
     "sd15": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 128, "USE_EMPTY_PROMPT": True,
              "TEACHER_SCHEDULER": "DDPMScheduler"},
@@ -81,7 +106,11 @@ DEFAULTS = {
              "TEACHER_SCHEDULER": "DPMSolverMultistepScheduler"},
     "pixart": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 64, "T5_MAX_LENGTH": 120,
                "USE_EMPTY_PROMPT": True, "TEACHER_SCHEDULER": "DDPMScheduler", "DISTILL_LOSS_TYPE": "l2"},
+    "sd3": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_T5": True, "T5_MAX_LENGTH": 77,
+            "USE_EMPTY_PROMPT": False, "TEACHER_SCHEDULER": "FlowMatchEulerDiscreteScheduler",
+            "DISTILL_LOSS_TYPE": "l2"},
 }
+logger = logging.getLogger(__name__)
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -89,8 +118,20 @@ def load_config(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
+def _t5_ids(rng: np.random.Generator, batch_size: int, length: int):
+    """T5-style ids (random tokens, EOS 1, padding 0) and their mask (1 up
+    to the EOS)."""
+    ids = np.zeros((batch_size, length), np.int64)
+    for i in range(batch_size):
+        n = int(rng.integers(1, length))
+        ids[i, :n - 1] = rng.integers(3, 32100, n - 1)
+        ids[i, n - 1] = 1
+    return ids, (ids != 0).astype(np.int64)
+
+
 def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
-                      max_length: Optional[int] = None, model: str = "sd15") -> Iterator[Dict[str, np.ndarray]]:
+                      max_length: Optional[int] = None, model: str = "sd15",
+                      t5_max_length: Optional[int] = 77) -> Iterator[Dict[str, np.ndarray]]:
     """Endless batches made from ``seed``: images uniform in [-1, 1] and
     CLIP-style ids of ``max_length`` (77 by default: BOS, random tokens,
     EOS, EOS padding); for ``sdxl`` also the size tuples (original and
@@ -98,19 +139,18 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
     ``examples/train_flash_sdxl.py`` makes them. For ``pixart``, T5-style
     ids (120 by default: random tokens, EOS 1, padding 0) with their
     ``text_mask`` (1 up to the EOS) and ``resolution_ar`` = [size, size,
-    1.0], as ``train_flash_pixart.py`` makes them."""
+    1.0], as ``train_flash_pixart.py`` makes them. For ``sd3``, the CLIP
+    ids and, unless ``t5_max_length`` is None (no T5 tower), T5-style
+    ``t5_text_ids`` of that length with ``t5_text_mask``, as
+    ``train_flash_sd3.py`` tokenizes them."""
     rng = np.random.default_rng(seed)
     pixart = model == "pixart"
     max_length = max_length or (120 if pixart else 77)
     while True:
         image = rng.uniform(-1.0, 1.0, (batch_size, image_size, image_size, 3)).astype(np.float32)
         if pixart:
-            ids = np.zeros((batch_size, max_length), np.int64)
-            for i in range(batch_size):
-                n = int(rng.integers(1, max_length))
-                ids[i, :n - 1] = rng.integers(3, 32100, n - 1)
-                ids[i, n - 1] = 1
-            batch = {"image": image, "text_ids": ids, "text_mask": (ids != 0).astype(np.int64),
+            ids, mask = _t5_ids(rng, batch_size, max_length)
+            batch = {"image": image, "text_ids": ids, "text_mask": mask,
                      "resolution_ar": np.tile([float(image_size), float(image_size), 1.0],
                                               (batch_size, 1)).astype(np.float32)}
         else:
@@ -122,16 +162,24 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
             batch = {"image": image, "text_ids": ids}
         if model == "sdxl":
             batch.update(size_cond_fn(batch_size, image_size, image_size))
+        if model == "sd3" and t5_max_length:
+            batch["t5_text_ids"], batch["t5_text_mask"] = _t5_ids(rng, batch_size, t5_max_length)
         yield batch
 
 
 def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
     """Pixart's 64-feature, 3-stage discriminator over the DiT's 4-channel
-    output latents, fixed as ``train_flash_pixart.py`` fixes it; a UNet's
-    over its mid features, with as many stages as the mid block's size
-    leaves the 4×4 head."""
+    output latents, fixed as ``train_flash_pixart.py`` fixes it; SD3's over
+    the MMDiT's 16-channel post-mid features (latent-sized: size / 8),
+    ``train_flash_sd3.py``'s 4 stages or as many as leave the 4×4 head; a
+    UNet's over its mid features, with as many stages as the mid block's
+    size leaves the 4×4 head."""
     if model == "pixart":
         return ConvDiscriminator(DiscriminatorConfig(feature_dim=64, num_stages=3),
+                                 in_channels=denoiser.config.in_channels)
+    if model == "sd3":
+        fit = int(math.log2(max(size // 8 // 4, 1)))
+        return ConvDiscriminator(sd3_discriminator_config(num_stages=min(4, fit)),
                                  in_channels=denoiser.config.in_channels)
     per_mid, features = _MID[model]
     num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
@@ -161,23 +209,28 @@ def build_trainer(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = cfg["LORA_RANK"]
+    sd3 = model == "sd3"
+    t5 = {"t5": bool(cfg["USE_T5"]), "t5_max_length": cfg["T5_MAX_LENGTH"]} if sd3 else {}
+    if sd3 and cfg.get("TEXT_ENCODER_OFFLOAD"):
+        logger.info("TEXT_ENCODER_OFFLOAD %s is not honoured: the text towers stay resident",
+                    cfg["TEXT_ENCODER_OFFLOAD"])
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         with device:
-            denoiser, vae, conditioners, towers, _ = build_modules(model, remat=True)
+            denoiser, vae, conditioners, towers, _ = build_modules(model, remat=True, **t5)
             disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"])
             lpips = LPIPS() if cfg["DISTILL_LOSS_TYPE"] == "lpips" else None
         if weights_root:
             load_weights(model, weights_root, denoiser, vae, towers)
         generator = torch.Generator(device=device).manual_seed(seed)
         lora = init_lora(denoiser, rank, generator, device=device)
-    model_cfg = FlashDiffusionConfig(
+    kw = dict(
         K=cfg["K"],
         num_iterations_per_K=cfg["NUM_ITERATIONS_PER_K"],
         guidance_scale_min=float(cfg["GUIDANCE_MIN"]),
         guidance_scale_max=float(cfg["GUIDANCE_MAX"]),
         distill_loss_type=cfg["DISTILL_LOSS_TYPE"],
-        ucg_keys=cfg.get("UCG_KEYS", ["text"]),
+        ucg_keys=cfg.get("UCG_KEYS", ["text", "t5_text"] if t5.get("t5") else ["text"]),
         timestep_distribution=cfg["TIMESTEP_DISTRIBUTION"],
         mixture_num_components=cfg["MIXTURE_NUM_COMPONENTS"],
         mixture_var=cfg["MIXTURE_VAR"],
@@ -191,14 +244,18 @@ def build_trainer(
         use_empty_prompt=cfg["USE_EMPTY_PROMPT"],
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
-    flash = FlashDiffusion(
-        model_cfg, teacher_module=denoiser,
-        scheduler_config=PIXART_SCHEDULER if model == "pixart" else SchedulerConfig(),
-        teacher_scheduler=cfg["TEACHER_SCHEDULER"],
-        sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"),
-        vae=vae, conditioner=ConditionerWrapper(conditioners), discriminator=disc, lpips=lpips,
-        lora_scaling=lora_scaling(rank),
-    )
+    modules = dict(vae=vae, conditioner=make_conditioner(model, conditioners), discriminator=disc, lpips=lpips,
+                   lora_scaling=lora_scaling(rank))
+    if sd3:
+        flash = FlashDiffusionSD3(
+            FlashDiffusionSD3Config(**kw, use_adversarial_loss=cfg.get("USE_ADVERSARIAL_LOSS", True)),
+            teacher_module=denoiser, scheduler_config=SD3_SCHEDULER_CONFIG, **modules)
+    else:
+        flash = FlashDiffusion(
+            FlashDiffusionConfig(**kw), teacher_module=denoiser,
+            scheduler_config=PIXART_SCHEDULER if model == "pixart" else SchedulerConfig(),
+            teacher_scheduler=cfg["TEACHER_SCHEDULER"],
+            sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"), **modules)
     train_cfg = TrainingConfig(
         learning_rates=[float(cfg["LR"]), float(cfg.get("LR_DISCRIMINATOR", cfg["LR"]))], seed=seed)
     return TrainingPipeline(flash, train_cfg, lora, device=device)
@@ -223,7 +280,11 @@ def main():
     trainer = build_trainer(args.model, root, device=args.device, seed=args.seed, config=cfg)
     trainer.config.log_every_n_steps = 1
     seed = cfg.get("SEED", 0) if args.seed is None else args.seed
-    data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, cfg.get("T5_MAX_LENGTH"), args.model)
+    if args.model == "sd3":
+        data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, model="sd3",
+                                 t5_max_length=cfg["T5_MAX_LENGTH"] if cfg["USE_T5"] else None)
+    else:
+        data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, cfg.get("T5_MAX_LENGTH"), args.model)
     aux = trainer.fit(data, max_steps=args.max_steps)
     print({k: float(v) for k, v in aux.items()})
 

@@ -379,8 +379,9 @@ def test_build_trainer_reads_flash_sd_yaml(monkeypatch):
     assert trainer.model.teacher_module.conv_in.weight.dtype == torch.bfloat16
     assert trainer.model.student_module.conv_in.weight is trainer.model.teacher_module.conv_in.weight
     assert trainer.model.teacher_module.config.remat and trainer.model.teacher_sched_mod is ddpm
+    assert "canny_adapter" not in train.MODELS  # the T2I-Adapter family is not ported
     with pytest.raises(ValueError):
-        train.build_trainer("sd3", device="cpu")
+        train.build_trainer("canny_adapter", device="cpu")
 
 
 @pytest.mark.parametrize("frozen_dtype", [None, torch.bfloat16])

@@ -339,8 +339,9 @@ def test_build_trainer_reads_flash_sdxl_yaml(monkeypatch):
     assert trainer.opt_g.lr == trainer.opt_d.lr == float(want["LR"])
     assert all(ab["a"].shape[1] == 4 for ab in trainer.lora.values())
     assert model.teacher_module.conv_in.weight.dtype == torch.bfloat16
+    assert "canny_adapter" not in train.MODELS  # the T2I-Adapter family is not ported
     with pytest.raises(ValueError):
-        train.build_trainer("sd3", device="cpu")
+        train.build_trainer("canny_adapter", device="cpu")
 
 
 def test_build_trainer_fills_what_the_yaml_leaves_out(monkeypatch):

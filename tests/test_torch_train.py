@@ -98,23 +98,30 @@ def port_unet(params, **kw):
 
 # ---------------------------------------------------------------- the step
 def jax_step_draws(jmodel, rng, stage, z):
-    """The draws ``FlashDiffusion.losses`` makes from ``rng``, for the port."""
+    """The draws ``FlashDiffusion.losses`` makes from ``rng``, for the port.
+    ``FlashDiffusionSD3.losses`` splits the key alike but draws no rollout
+    noise (its flow-match rollout is deterministic), reads DMD's index into
+    its full 1000-step schedule (``dmd_idx``) and the GAN's into
+    ``gan_tail_indices``."""
     _, _, k_noise, k_start, k_guid, k_roll, k_dmd, k_gan = jax.random.split(rng, 8)
     cfg, b = jmodel.config, z.shape[0]
+    sd3 = hasattr(jmodel, "full_schedule")
     start = int(jcommon.sample_start_index(k_start, jmodel.stage_pdfs[stage]))
     draws = {"start_idx": start, "noise": t_(jax.random.normal(k_noise, z.shape, z.dtype)),
              "guidance": t_(jax.random.uniform(k_guid))}
-    key, roll = k_roll, []
-    for _ in range(start, cfg.K[stage]):
-        key, sub = jax.random.split(key)
-        roll.append(t_(jax.random.normal(sub, z.shape, z.dtype)))
-    draws["rollout_noise"] = roll
+    if not sd3:
+        key, roll = k_roll, []
+        for _ in range(start, cfg.K[stage]):
+            key, sub = jax.random.split(key)
+            roll.append(t_(jax.random.normal(sub, z.shape, z.dtype)))
+        draws["rollout_noise"] = roll
     kn, kt, kg = jax.random.split(k_dmd, 3)
-    draws.update(dmd_t=t_(jax.random.randint(kt, (b,), 0, 1000)).long(),
+    draws.update({"dmd_idx" if sd3 else "dmd_t": t_(jax.random.randint(kt, (b,), 0, 1000)).long()},
                  dmd_noise=t_(jax.random.normal(kn, z.shape, z.dtype)),
                  dmd_guidance=t_(jax.random.uniform(kg)))
     kt, kn = jax.random.split(k_gan)
-    draws.update(gan_idx=t_(jax.random.randint(kt, (b,), 0, len(cfg.gan_timesteps))).long(),
+    n_gan = len(cfg.gan_tail_indices if sd3 else cfg.gan_timesteps)
+    draws.update(gan_idx=t_(jax.random.randint(kt, (b,), 0, n_gan)).long(),
                  gan_noise=t_(jax.random.normal(kn, z.shape, z.dtype)))
     return draws
 
