@@ -3,7 +3,7 @@ time by stage and by kernel.
 
     python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart|sd3] [--batch 4] [--int8] [--t5]
         [--trace trace.json]
-    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart] [--batch n]
+    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart|sd3] [--batch n]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
 weights; SD1.5 at 512², SDXL, Pixart-α and SD3 at 1024²; ``--t5``: SD3
@@ -13,7 +13,8 @@ int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``torch.profiler``; with ``--train``, the trainer as
 ``train.build_trainer(model)`` builds it (the model's yaml: SD1.5
 ``flash_sd.yaml`` at 512², batch 4; SDXL ``flash_sdxl.yaml`` at 1024², batch
-2; Pixart ``flash_pixart.yaml`` at 512², batch 4; every step in stage 1)
+2; Pixart ``flash_pixart.yaml`` at 512², batch 4; SD3 ``flash_sd3.yaml`` at
+1024², batch 2, with T5-XXL; every step in stage 1)
 and one ``fit`` step on a synthetic batch of the yaml's size (``--batch``
 overrides its batch) instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the

@@ -4,13 +4,14 @@ Port of ``flash_diffusion_tpu/trainer/trainer.py`` (``__init__``, the
 simultaneous branch of ``_build_step`` and ``fit``, ``trainer.py:85-99``,
 ``:163-245``, ``:404-491``):
 
-- the frozen modules (teacher UNet or DiT, VAE, text conditioner, LPIPS)
-  are stored in ``frozen_dtype`` (bf16); the denoiser and the VAE compute
-  in it, as their JAX modules do (dtype=bf16); CLIP, T5 and LPIPS are fp32
-  flax modules in JAX that promote the bf16-stored weights at use, so here
-  their weights are rounded through ``frozen_dtype`` and kept in fp32, the
-  same numbers (a param-less conditioner, Pixart's ``RawVectorEmbedder``,
-  passes through). A parity trap: T5-XXL's weights are bf16-rounded in
+- the frozen modules (teacher UNet, DiT or MMDiT, VAE, text conditioner,
+  LPIPS) are stored in ``frozen_dtype`` (bf16); the denoiser and the VAE
+  compute in it, as their JAX modules do (dtype=bf16); CLIP, T5 and LPIPS
+  are fp32 flax modules in JAX that promote the bf16-stored weights at use,
+  so here their weights are rounded through ``frozen_dtype`` and kept in
+  fp32, the same numbers (SD3's CLIP-L, CLIP-G and T5-XXL inside its
+  ``SD3Conditioner`` too; a param-less conditioner, Pixart's
+  ``RawVectorEmbedder``, passes through). A parity trap: T5-XXL's weights are bf16-rounded in
   training but fp32 as loaded in sampling (``sample.build_pipeline``), so
   the two give different text states from one checkpoint;
 - the LoRA factors, the discriminator and the optimizer state stay fp32
