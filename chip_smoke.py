@@ -612,7 +612,10 @@ def gated_shapes():
 
 # the training phases: every step in stage 1 of the yaml's four
 TRAIN_OVERRIDES = {"NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
-# the training reference at 256²: one stage, at stage 1's loss scales
+# the training reference at 256²: one stage, at stage 1's loss scales. SD3's
+# (phase 9b) holds a 3-stage discriminator, not the yaml's 4
+# (``train._discriminator`` fits the stages to the image): its post-mid
+# features are 32², and 4 stages reduce them to 2² before the 4×4 head
 TRAIN_REF_OVERRIDES = {
     "IMAGE_SIZE": 256, "K": [4], "NUM_ITERATIONS_PER_K": [10], "MODE_PROBS": [[0.25] * 4],
     "LPIPS_CROP": 16, "DISTILL_LOSS_SCALE": 1.0, "DMD_LOSS_SCALE": 0.3, "ADVERSARIAL_LOSS_SCALE": 0.1,
@@ -640,10 +643,6 @@ TRAIN_REF_START = {"sdxl": 1, "pixart": 2, "sd3": 1}
 # discriminator itself (cuDNN's fp32 convolutions, the fp32 GroupNorm
 # kernels) agrees to fp32 rounding on the same inputs
 DISC_ON_CARD_FEATURES = ("pixart",)
-# phase 9b: SD3's reference at 256² holds a 3-stage discriminator, not the
-# yaml's 4 (``train._discriminator`` fits the stages to the image): its
-# post-mid features are 32², and 4 stages reduce them to 2² before the 4×4
-# head, which then raises
 # phase 9b: the tolerance of SD3's distill and DMD losses against the fp32
 # CPU copy (5b's is 0.05). bf16 itself puts them 4.6e-2–7.4e-2 (distill) and
 # 5.3e-2–5.8e-2 (DMD) from fp32 at rollout starts 0, 1 and 3, with no kernel:
@@ -1829,6 +1828,22 @@ def t5_stand_in():
         sample.T5TextEmbedderConfig = saved
 
 
+@contextlib.contextmanager
+def no_random_init():
+    """Modules built without ``torch.nn.init``'s random fills (tens of
+    seconds for a few billion parameters on the host): the training
+    references' CPU copies, whose weights all come from the card's state
+    dicts, or are never run."""
+    saved = {name: getattr(torch.nn.init, name) for name in ("kaiming_uniform_", "uniform_", "normal_")}
+    for name in saved:
+        setattr(torch.nn.init, name, lambda tensor, *args, **kwargs: tensor)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.nn.init, name, fn)
+
+
 def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=None, gated=None):
     """Phases 5b, 5d, 7d and 9b: one ``losses`` and backward of the trainer
     at 256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
@@ -1849,7 +1864,7 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
     cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES}
     dev = build_trainer(model, device="cuda", seed=0, config=cfg)
     fed = model in ("pixart", "sd3")  # the CPU copy takes the card's __conds: a stand-in T5, never run
-    with t5_stand_in() if fed else contextlib.nullcontext():
+    with t5_stand_in() if fed else contextlib.nullcontext(), no_random_init():
         ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
