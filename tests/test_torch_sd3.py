@@ -563,7 +563,7 @@ def test_build_modules_sd3_names():
     1536, 24 heads of 64, 2.03 B parameters, the 16-channel VAE without
     quant convs, CLIP-L and CLIP-G with projections (T5-XXL over 256 tokens
     with ``t5``, its ids and mask from the tokenizer), 213 int8 layers; the
-    CLIs offer it; training stays refused."""
+    CLIs offer it, training's too, on ``flash_sd3.yaml``."""
     from flash_diffusion_tpu_torch import profiling, serve, train
     from flash_diffusion_tpu_torch.sample import (MODELS, SD3_SCHEDULER, SD3_SCHEDULER_CONFIG, build_modules,
                                                   make_conditioner, sd3_tokenizer)
@@ -596,7 +596,7 @@ def test_build_modules_sd3_names():
     _, n = quantize_dense(mmdit.state_dict())
     assert n == 23 * 9 + 6
     assert "sd3" in MODELS and profiling.MODELS is MODELS and serve.MODELS is MODELS
-    assert "sd3" not in train.MODELS
+    assert "sd3" in train.MODELS and train.CONFIGS["sd3"].endswith("flash_sd3.yaml")
 
 
 def test_load_weights_reads_the_sd3_diffusers_layout(tmp_path):
