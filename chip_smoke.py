@@ -291,11 +291,13 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 import zlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1722,16 +1724,85 @@ def snapshot(modules):
     return [t.detach().cpu().clone() for m in modules for t in m.state_dict().values()]
 
 
+def check_pngs(paths, logger, size):
+    """Every sample PNG decodes (PIL) to a square of ``size`` a side per
+    image, and no sample set had a value that is not finite."""
+    from PIL import Image
+
+    if not paths or logger.nonfinite:
+        raise AssertionError(f"sample PNGs {paths}; sets with non-finite values {logger.nonfinite}")
+    for path in paths:
+        with Image.open(path) as im:
+            pix = np.asarray(im.convert("RGB"), np.float32)
+        if pix.shape[0] % size or pix.shape[1] % size or not np.isfinite(pix).all():
+            raise AssertionError(f"{path}: {pix.shape}, not a grid of {size}² images")
+
+
+class StepTimer:
+    """A ``fit`` callback: each step's wall seconds (the device synchronized
+    at both ends), printed with its stage, start index and losses; with
+    ``check_stage``, a step outside it or a non-finite loss fails."""
+
+    def __init__(self, label, check_stage=None):
+        self.label, self.check_stage, self.times = label, check_stage, []
+        self.mark()
+
+    def mark(self):
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def __call__(self, trainer, aux, step):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        self.times.append(dt)
+        fl = trainer.model
+        losses = {k: float(v) for k, v in aux.items()}
+        stage = fl.stage_for_iteration(step)
+        start = fl.stage_schedules[stage].timesteps.index(aux["start_timestep"])
+        print(f"{self.label} step {step} (stage {stage}, start index {start}: {fl.config.K[stage] - start} teacher "
+              f"forwards): {dt:.3f} s; " + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
+        if (self.check_stage is not None and stage != self.check_stage) or not all(map(math.isfinite,
+                                                                                          losses.values())):
+            raise AssertionError(f"{self.label} step {step}: stage {stage}, losses {losses}")
+
+
+class BurstWatch:
+    """A ``fit`` callback's ``after_burst``: the seconds of the text towers'
+    move to the card and the peak memory up to the end of the burst, then
+    the peak reset, so that what follows is the training steps' own."""
+
+    def __init__(self):
+        self.moves, self.peaks = [], []
+
+    def __call__(self, trainer, aux, step):
+        pass
+
+    def after_burst(self, trainer):
+        torch.cuda.synchronize()
+        self.moves.append(trainer.offload_moves[-1])
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+
 def run_training(model, counters, card, required, gated=None):
-    """Phases 5 and 5c: ``build_trainer(model)`` with its yaml, every step in
-    stage 1, then ``fit`` on synthetic batches of the yaml's batch size at
-    its image size, 1 warm step and 3 timed ones; counts reset just before
-    the first step and read after the last. With ``gated``, every (kernel,
-    shape) the steps launched must be among phase 2's."""
-    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
+    """Phases 5, 5c, 7c and 9: ``build_trainer(model)`` with its yaml, every
+    step in stage 1, then one ``fit`` of 4 steps on synthetic batches of the
+    yaml's batch size at its image size, 1 warm and 3 timed (a callback
+    times each); counts reset just before the first step and read after the
+    last. With ``gated``, every (kernel, shape) the steps launched must be
+    among phase 2's. SD3 (phase 9) honours ``TEXT_ENCODER_OFFLOAD`` (4: one
+    burst): the seconds of each move of the towers to the card, the peak
+    memory over the whole phase and over the training steps alone (reset
+    after the burst), then one ``SampleLogger`` call (the student, 4 steps,
+    the yaml's first prompt) under ``sampling_frozen``, its PNG decoded and
+    finite."""
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, make_tokenizer, synthetic_batches
+    from flash_diffusion_tpu_torch.trainer import SampleLogger
 
     cfg = {**load_config(CONFIGS[model]), **TRAIN_OVERRIDES}
     batch, size = cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = build_trainer(model, device="cuda", seed=0, config=cfg)
     fl = trainer.model
@@ -1739,37 +1810,37 @@ def run_training(model, counters, card, required, gated=None):
           f"{sum(p.numel() for p in fl.teacher_module.parameters())} parameters, {cfg['TEACHER_SCHEDULER']}; LoRA "
           f"{len(trainer.lora)} pairs of rank {cfg['LORA_RANK']}, "
           f"{sum(t.numel() for ab in trainer.lora.values() for t in ab.values())} parameters; discriminator "
-          f"{fl.discriminator.config.num_stages} stages")
+          f"{fl.discriminator.config.num_stages} stages; text towers "
+          + (f"offloaded (bursts of {cfg['TEXT_ENCODER_OFFLOAD']})" if trainer.text_encoder_offload else "resident"))
     frozen_modules = (fl.teacher_module, fl.vae, fl.conditioner)
     frozen = snapshot(frozen_modules)
     lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
     disc = snapshot([fl.discriminator])
     data = synthetic_batches(batch, size, seed=0, model=model)
-
-    def one_step():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        aux = trainer.fit(data, max_steps=trainer.step + 1)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        losses = {k: float(v) for k, v in aux.items()}
-        stage = fl.stage_for_iteration(trainer.step)
-        start = fl.stage_schedules[stage].timesteps.index(aux["start_timestep"])
-        print(f"{model} train step {trainer.step} (stage {stage}, start index {start}: "
-              f"{fl.config.K[stage] - start} teacher forwards): {dt:.3f} s; "
-              + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
-        if stage != 1 or not all(map(math.isfinite, losses.values())):
-            raise AssertionError(f"{model} training step {trainer.step}: stage {stage}, losses {losses}")
-        return dt
-
+    timer, bursts = StepTimer(model, check_stage=1), BurstWatch()
     reset(counters)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    one_step()  # warm
-    timed = [one_step() for _ in range(3)]
+    timer.mark()
+    trainer.fit(data, max_steps=4, callbacks=[bursts, timer])
+    timed = timer.times[1:]
+    train_peak = torch.cuda.max_memory_allocated()
+    sampled = None
+    if model == "sd3":
+        prompts = cfg["VALIDATION_PROMPTS"][:1]
+        tok = make_tokenizer(model, cfg)
+        with tempfile.TemporaryDirectory() as out_dir:
+            logger = SampleLogger(lambda: {"text": prompts, **tok(prompts)}, (size // 8, size // 8, 16),
+                                  out_dir=out_dir, every_n_steps=1, num_steps=[4])
+            t0 = time.perf_counter()
+            logger(trainer, {}, trainer.step)
+            torch.cuda.synchronize()
+            pngs = [p for p in logger.written if p.endswith(".png")]
+            check_pngs(pngs, logger, size)
+        sampled = (time.perf_counter() - t0, pngs)
     launches = totals(counters)
     print(f"{model} training launches over 4 steps {dict(launches)} (the forward kernels' counts include the "
-          f"recompute of remat and of the checkpointed LPIPS decode in the backward)")
+          f"recompute of remat and of the checkpointed LPIPS decode in the backward"
+          + ("; and the sampling callback's" if sampled else "") + ")")
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"the {model} training path never launched {missing}")
@@ -1787,8 +1858,255 @@ def run_training(model, counters, card, required, gated=None):
     per_step = statistics.median(timed)
     print(f"{model} Flash distillation {size}² batch {batch} on {card}: warm {per_step:.4f} s/step (median of "
           f"{[round(dt, 4) for dt in timed]}), {batch / per_step:.3f} images/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{max([train_peak] + bursts.peaks) / 2**30:.2f} GiB")
+    if trainer.text_encoder_offload:
+        if len(bursts.moves) != 1:
+            raise AssertionError(f"{model}: {len(bursts.moves)} encode bursts in 4 steps, not 1")
+        print(f"{model} text-encoder offload: host → card moves of the towers {[round(t, 3) for t in trainer.offload_moves]} "
+              f"s (the burst's, then the sampling callback's); peak memory over the whole phase "
+              f"{max([train_peak, torch.cuda.max_memory_allocated()] + bursts.peaks) / 2**30:.2f} GiB, up to the end "
+              f"of the burst {bursts.peaks[0] / 2**30:.2f} GiB, over the training steps alone {train_peak / 2**30:.2f} "
+              f"GiB (towers on the host)")
+    if sampled:
+        print(f"{model} SampleLogger (student, 4 steps, 1 prompt, under sampling_frozen): {sampled[0]:.2f} s, "
+              f"{len(sampled[1])} PNG of {size}², decoded")
     del trainer, fl, frozen_modules
+    return launches
+
+
+# phase 10: the SD1.5 training run's settings over flash_sd.yaml stage 1
+RUN_OVERRIDES = {"EMA_DECAY": 0.999, "GRADIENT_ACCUMULATION_STEPS": 2, "VAL_EVERY_N_STEPS": 4,
+                 "CKPT_EVERY_N_STEPS": 4}
+RUN_SHARDS = (3, 12)  # training shards, samples in each; plus one eval shard of 8
+RUN_RESUME_TOL = 1e-3  # the LoRA after the same steps, continuing vs resumed (rel. L2)
+
+
+def write_run_shards(root, n_shards, per_shard, seed, first=0):
+    """Webdataset shards of ``.jpg`` (random noise, 512–768 a side) and
+    ``.json`` (``caption``, ``aesthetic_score``: every fourth below 6, the
+    yaml's ``MIN_AESTHETIC_SCORE``) from ``seed``; returns (paths, kept,
+    dropped)."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths, kept, idx = [], 0, first
+    for s in range(n_shards):
+        path = os.path.join(root, f"{s:06d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for _ in range(per_shard):
+                h, w = (int(v) for v in rng.integers(512, 769, 2))
+                buf = io.BytesIO()
+                Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="JPEG", quality=90)
+                score = 4.5 if idx % 4 == 0 else 6.5
+                kept += score >= 6.0
+                meta = json.dumps({"caption": f"a photo, sample {idx}", "aesthetic_score": score}).encode()
+                for name, payload in ((f"{idx:06d}.jpg", buf.getvalue()), (f"{idx:06d}.json", meta)):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+                idx += 1
+        paths.append(path)
+    return paths, kept, n_shards * per_shard - kept
+
+
+def trainable_state(trainer):
+    """The trainable state's tensors by name (LoRA, discriminator, EMA, both
+    optimizers' slots, accumulators and counts, the step and the
+    generator), copied."""
+    out = {f"lora.{n}.{k}": v.detach().clone() for n, ab in trainer.lora.items() for k, v in ab.items()}
+    out.update({f"disc.{k}": v.detach().clone() for k, v in trainer.model.discriminator.state_dict().items()})
+    if trainer.ema is not None:
+        out.update({f"ema.{n}.{k}": v.detach().clone() for n, ab in trainer.ema.items() for k, v in ab.items()})
+    for which in ("opt_g", "opt_d"):
+        st = getattr(trainer, which).state_dict()
+        out.update({f"{which}.{slot}.{i}": t.detach().clone() for slot, ts in st["slots"].items()
+                    for i, t in enumerate(ts)})
+        out.update({f"{which}.acc.{i}": t.detach().clone() for i, t in enumerate(st["acc"])})
+        out[f"{which}.counts"] = torch.tensor([st["count"], st["mini_step"]])
+    out["step"] = torch.tensor(trainer.step)
+    out["generator"] = trainer.generator.get_state().clone()
+    return out
+
+
+def moved(a, b, prefix):
+    return any(not torch.equal(a[k], b[k]) for k in a if k.startswith(prefix))
+
+
+def lora_vector(tree):
+    return torch.cat([t.detach().float().reshape(-1) for ab in tree.values() for t in ab.values()])
+
+
+def run_training_run(counters, card, required, gated):
+    """Phase 10: the SD1.5 training run at 512² through the user's entry
+    points: 3 training shards and 1 eval shard of JPEGs (512–768 a side,
+    every fourth score below ``MIN_AESTHETIC_SCORE``) written from seed 0;
+    ``build_trainer("sd15")`` with ``flash_sd.yaml`` stage 1 and
+    ``RUN_OVERRIDES`` (EMA 0.999, accumulation 2, validation and
+    checkpoints every 4 micro-steps); ``build_data`` (thread workers) and
+    ``tokenize_batches`` behind ``prefetch_to_device``; ``fit`` of 4
+    micro-steps with ``MetricLogger``, ``CheckpointCallback`` and a
+    ``SampleLogger`` (the yaml's 2 prompts, 1, 2 and 4 steps, the teacher's
+    Euler-ancestral samples at CFG 5) and ``eval_data``. Checks: after
+    micro-step 1 the LoRA, the discriminator and the EMA are unchanged;
+    after micro-step 2 all moved, EMA = 0.999·EMA₀ + 0.001·LoRA to fp32
+    rounding; the validation finite; every sample PNG decodes; a checkpoint
+    at step 4, which a fresh trainer restores bit for bit (the generator
+    included); two more micro-steps (one update) on the continuing and the
+    resumed trainer with the same batches draw the same starts and leave
+    the LoRAs within ``RUN_RESUME_TOL``; two steps in the alternating mode
+    (``"g"`` moves the LoRA only, ``"d"`` the discriminator only); the
+    export read back equal to the EMA tree, and ``build_pipeline("sd15",
+    lora=...)`` generating 4 finite images. Counts reset just before the
+    first step; K1, K2, K3, K6, K7, K8 and the GroupNorm kernels launched
+    and every launched (kernel, shape) among phase 2's."""
+    from flash_diffusion_tpu_torch.data import prefetch_to_device
+    from flash_diffusion_tpu_torch.lora import load_peft_safetensors, save_peft_safetensors
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.train import (
+        CONFIGS,
+        build_data,
+        build_trainer,
+        load_config,
+        make_tokenizer,
+        tokenize_batches,
+    )
+    from flash_diffusion_tpu_torch.trainer import (
+        CheckpointCallback,
+        MetricLogger,
+        SampleLogger,
+        export_lora,
+        latest_step,
+        restore_state,
+    )
+
+    work = tempfile.TemporaryDirectory()
+    root = work.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "train"))
+    os.makedirs(os.path.join(root, "eval"))
+    shards, kept, dropped = write_run_shards(os.path.join(root, "train"), *RUN_SHARDS, seed=0)
+    eval_shards, e_kept, e_dropped = write_run_shards(os.path.join(root, "eval"), 1, 8, seed=1, first=1000)
+    print(f"train run shards: {len(shards)} training shards, {kept} samples kept and {dropped} dropped by "
+          f"MIN_AESTHETIC_SCORE; 1 eval shard, {e_kept} kept and {e_dropped} dropped "
+          f"({time.perf_counter() - t0:.2f} s to write)")
+    cfg = {**load_config(CONFIGS["sd15"]), **TRAIN_OVERRIDES, **RUN_OVERRIDES,
+           "SHARDS_PATH_OR_URLS": [os.path.join(root, "train", "{000000..%06d}.tar" % (len(shards) - 1))]}
+    size, batch = cfg["IMAGE_SIZE"], cfg["BATCH_SIZE"]
+    t0 = time.perf_counter()
+    trainer = build_trainer("sd15", device="cuda", seed=0, config=cfg)
+    print(f"build_trainer('sd15') for the run: {time.perf_counter() - t0:.2f} s")
+    tok = make_tokenizer("sd15", cfg)
+    data = prefetch_to_device(tokenize_batches(build_data(cfg, num_workers=2), tok, "sd15", size))
+    eval_pipe = build_data({**cfg, "SHARDS_PATH_OR_URLS": eval_shards}, num_workers=1)
+    eval_data = lambda: tokenize_batches(eval_pipe.batches(epoch=0), tok, "sd15", size)
+    prompts = cfg["VALIDATION_PROMPTS"]
+    samples = SampleLogger(lambda: {"text": prompts, **tok(prompts)}, (size // 8, size // 8, 4),
+                           out_dir=os.path.join(root, "samples"), every_n_steps=4, num_steps=cfg["NUM_STEPS"],
+                           log_teacher_samples=True, teacher_guidance_scale=5.0)
+    ckpt = os.path.join(root, "checkpoints")
+    timer, metrics = StepTimer("sd15 run", check_stage=1), MetricLogger(1)
+    callbacks = [timer, metrics, CheckpointCallback(ckpt, 4), samples]
+    batches = iter(data)
+    checked = []
+
+    def fed():  # the batches fit takes, their scores checked against the filter
+        for b in batches:
+            if not all(float(v) >= cfg.get("MIN_AESTHETIC_SCORE", 6.0) for v in b["aesthetic_score"]):
+                raise AssertionError(f"a batch kept scores below MIN_AESTHETIC_SCORE: {b['aesthetic_score']}")
+            checked.append(len(b["text"]))
+            yield b
+
+    stream = fed()
+    reset(counters)
+    state0 = trainable_state(trainer)
+    timer.mark()
+    trainer.fit(stream, max_steps=1, callbacks=callbacks, eval_data=eval_data)
+    state1 = trainable_state(trainer)
+    if any(moved(state0, state1, p) for p in ("lora.", "disc.", "ema.")):
+        raise AssertionError("micro-step 1 of 2 moved the LoRA, the discriminator or the EMA")
+    trainer.fit(stream, max_steps=2, callbacks=callbacks, eval_data=eval_data)
+    state2 = trainable_state(trainer)
+    stuck = [p for p in ("lora.", "disc.", "ema.") if not moved(state1, state2, p)]
+    if stuck:
+        raise AssertionError(f"micro-step 2 (the first update) left {stuck} unchanged")
+    ema_err = max(((e - (state1[f"ema.{n}.{k}"] * 0.999 + trainer.lora[n][k].detach() * (1.0 - 0.999))).abs()
+                   / (e.abs() + 1e-30)).max().item() for n, ab in trainer.ema.items() for k, e in ab.items())
+    if ema_err > 4 * 2.0 ** -23:
+        raise AssertionError(f"EMA after the first update: max rel err {ema_err:.3e} from 0.999·EMA₀ + 0.001·LoRA")
+    trainer.fit(stream, max_steps=4, callbacks=callbacks, eval_data=eval_data)
+    val = dict(trainer.last_val)
+    if not val or not all(map(math.isfinite, val.values())):
+        raise AssertionError(f"validation at step 4: {val}")
+    pngs = [p for p in samples.written if p.endswith(".png")]
+    check_pngs(pngs, samples, size)
+    if latest_step(ckpt) != 4:
+        raise AssertionError(f"no checkpoint at step 4 under {ckpt}")
+    fit_wait = trainer.data_wait_s
+    # resume: a fresh trainer from the checkpoint, then two more micro-steps on both
+    t0 = time.perf_counter()
+    resumed = build_trainer("sd15", device="cuda", seed=0, config=cfg)
+    restore_state(ckpt, resumed)
+    saved, back = trainable_state(trainer), trainable_state(resumed)
+    differ = [k for k in saved if not torch.equal(saved[k].cpu(), back[k].cpu())]
+    if differ or saved.keys() != back.keys():
+        raise AssertionError(f"the restored state differs from the saved one at {differ[:5]}")
+    restore_s = time.perf_counter() - t0
+    more = [next(stream), next(stream)]
+    auxes = [tr.fit(iter(more), max_steps=6, callbacks=[MetricLogger(1)]) for tr in (trainer, resumed)]
+    starts = [a["start_timestep"] for a in auxes]
+    resume_err = rel_l2(lora_vector(resumed.lora), lora_vector(trainer.lora))
+    print(f"sd15 run resume: state restored bit for bit ({len(saved)} tensors, the generator and counts included; "
+          f"build + restore {restore_s:.2f} s); 2 more micro-steps: start timesteps {starts}, LoRA rel L2 "
+          f"continuing vs resumed {resume_err:.3e} (tol {RUN_RESUME_TOL})")
+    if starts[0] != starts[1] or not resume_err <= RUN_RESUME_TOL:
+        raise AssertionError("the resumed run drew other starts or its LoRA left the continuing one's")
+    path = os.path.join(root, "pytorch_lora_weights.safetensors")
+    save_peft_safetensors(path, export_lora(trainer), prefix="unet")
+    back_tree, scaling = load_peft_safetensors(path)
+    if not all(torch.equal(back_tree[n][k], trainer.ema[n][k].cpu()) for n in trainer.ema for k in ("a", "b")):
+        raise AssertionError("the exported PEFT file does not read back as the EMA tree")
+    del resumed, trainer
+    torch.cuda.empty_cache()
+    # the alternating mode: "g" on step 0, "d" on step 1
+    alt = build_trainer("sd15", device="cuda", seed=0, config={**cfg, "GAN_UPDATE_MODE": "alternating",
+                                                                "GRADIENT_ACCUMULATION_STEPS": 1})
+    a0 = trainable_state(alt)
+    alt.fit(stream, max_steps=1)
+    a1 = trainable_state(alt)
+    alt.fit(stream, max_steps=2)
+    a2 = trainable_state(alt)
+    if not (moved(a0, a1, "lora.") and not moved(a0, a1, "disc.") and moved(a1, a2, "disc.")
+            and not moved(a1, a2, "lora.")):
+        raise AssertionError("alternating mode: the g step must move the LoRA only, the d step the "
+                             "discriminator only")
+    del alt
+    stream.close()
+    data.close()  # the prefetch thread, and with it the pipeline's workers
+    torch.cuda.empty_cache()
+    pipe = build_pipeline("sd15", device="cuda", seed=0, lora=path)
+    images = pipe.generate(PROMPTS, num_inference_steps=4, guidance_scale=0.0, seed=0)
+    torch.cuda.synchronize()
+    px = pipe.latent_shape[0] * pipe.vae_scale_factor
+    if tuple(images.shape) != (4, px, px, 3) or not bool(torch.isfinite(images).all()):
+        raise AssertionError(f"the LoRA pipeline's images: {tuple(images.shape)}, finite {torch.isfinite(images).all()}")
+    del pipe, images
+    launches = totals(counters)
+    print(f"sd15 run launches {dict(launches)}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the sd15 training run never launched {missing}")
+    check_gated("sd15 training run", counters, gated)
+    timed = timer.times[1:]
+    print(f"sd15 training run {size}² batch {batch} on {card}: warm {statistics.median(timed):.4f} s/micro-step "
+          f"(median of {[round(t, 4) for t in timed]}; step 4 with the validation pass), {sum(checked)} images over "
+          f"{len(checked)} batches; fit waited {fit_wait:.3f} s on the data iterator; validation "
+          + ", ".join(f"{k} {v:.5g}" for k, v in val.items())
+          + f"; {len(pngs)} sample grids; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    work.cleanup()
     return launches
 
 
@@ -2256,6 +2574,16 @@ def main():
     check_training_reference("sd3", counters=counters, gated=gated_shapes())
     torch.cuda.empty_cache()
     mark("9b")
+
+    # phase 10: the SD1.5 training run through the user's entry points
+    # (shards, EMA, accumulation, validation, samples, checkpoint and
+    # resume, the alternating mode, the LoRA export served), every launched
+    # shape among phase 2's
+    by_path["train_run"] = run_training_run(counters, card, (
+        "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq",
+        "flash_bwd_oneshot", *gn), gated_shapes())
+    torch.cuda.empty_cache()
+    mark("10")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

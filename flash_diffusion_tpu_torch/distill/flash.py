@@ -35,14 +35,29 @@ Batch convention: ``image`` [B, H, W, 3] in [-1, 1] (NHWC, as JAX) and
 ``text_ids``; the pre-staged ``__z`` (the VAE encode) and ``__conds`` (the
 three conditioner passes) entries are used when present, as in JAX.
 ``record_function`` spans (``fdt.train.*``) mark the stages.
+
+Validation (``distill/flash.py:522-662``): ``sample`` runs the student (the
+LoRA tree it is given, attached for the call: the EMA tree, say) or the
+teacher, CFG as one 2B forward; the student's scheduler takes the
+teacher's trailing timesteps and re-noises with injected noise (``noise``,
+one tensor a step) or noise drawn from a generator, one draw a step as
+JAX splits its key a step; the teacher samples deterministically with
+``teacher_sampling_scheduler``, as JAX does (its step gets no key).
+``log_samples`` draws the latents and samples 1, 2, 4 steps. For
+``switch_teacher``, ``merge_lora_into_teacher`` merges the LoRA into the
+teacher's weights in place, rounded back to their dtype, as JAX's
+``_merged_teacher``; the student shares those weights, so after the switch
+it is the merged teacher plus the same LoRA, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import field
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
@@ -56,8 +71,8 @@ from .losses import center_crop, dmd_loss, gan_losses, huber_loss, l1_loss, l2_l
 
 @dataclasses.dataclass
 class FlashDiffusionConfig(BaseConfig):
-    """The JAX ``FlashDiffusionConfig`` fields that the simultaneous step
-    reads; per-stage values broadcast from scalars."""
+    """The JAX ``FlashDiffusionConfig`` fields that the training run reads;
+    per-stage values broadcast from scalars."""
 
     input_key: str = "image"
     K: List[int] = field(default_factory=lambda: [32, 32, 32, 32])
@@ -78,9 +93,15 @@ class FlashDiffusionConfig(BaseConfig):
     use_teacher_as_real: bool = False
     use_empty_prompt: bool = False
     gan_timesteps: List[int] = field(default_factory=lambda: [10, 250, 500, 750])
+    # "simultaneous": both updates each step from one backward;
+    # "alternating": the generator on even steps, the discriminator on odd
+    gan_update_mode: str = "simultaneous"
     sigma_data: float = 0.5
     timestep_scaling: float = 10.0
     lpips_crop: int = 64
+    # at a stage boundary where K changes, the teacher becomes the merged
+    # student (the trainer does it between stages)
+    switch_teacher: bool = False
 
     def __post_init__(self):
         super().__post_init__()
@@ -95,6 +116,8 @@ class FlashDiffusionConfig(BaseConfig):
         self.adversarial_loss_scale = bc(self.adversarial_loss_scale)
         if self.mode_probs is None:
             self.mode_probs = [[1.0 / m] * m for m in self.mixture_num_components]
+        if self.gan_update_mode not in ("simultaneous", "alternating"):
+            raise ValueError(f"gan_update_mode {self.gan_update_mode!r}: simultaneous or alternating")
         if len(self.num_iterations_per_K) != n or len(self.mode_probs) != n:
             raise ValueError("num_iterations_per_K and mode_probs need one entry per stage")
         for i in range(n):
@@ -117,6 +140,7 @@ class FlashDiffusion:
         scheduler_config: Optional[SchedulerConfig] = None,
         teacher_scheduler: str = "DDPMScheduler",
         sampling_scheduler: str = "LCMScheduler",
+        teacher_sampling_scheduler: str = "EulerDiscreteScheduler",
         vae=None,  # AutoencoderKL
         conditioner=None,  # ConditionerWrapper
         discriminator=None,  # ConvDiscriminator
@@ -133,6 +157,8 @@ class FlashDiffusion:
         self.sched_config = scheduler_config or SchedulerConfig()
         self.teacher_sched_mod = REGISTRY[teacher_scheduler]
         self.sampling_sched_mod = REGISTRY[sampling_scheduler]
+        self.teacher_sampling_sched_mod = REGISTRY[teacher_sampling_scheduler]
+        self.sampling_scheduler_name = sampling_scheduler
         self._sched_stochastic = teacher_scheduler == "DDPMScheduler"
         self._sched_has_carry = hasattr(self.teacher_sched_mod, "init_state")
         acp, sqrt_acp, sqrt_1macp = training_tables(self.sched_config)
@@ -156,6 +182,144 @@ class FlashDiffusion:
 
     def stage_for_iteration(self, iter_step: int) -> int:
         return stage_index(iter_step, self.config.num_iterations_per_K)
+
+    @torch.no_grad()
+    def merge_lora_into_teacher(self, lora: LoraTree) -> None:
+        """W ← W + scaling·(A·B)ᵀ on the teacher's targeted layers, in fp32,
+        rounded back to W's dtype, in place (``switch_teacher``; JAX
+        ``_merged_teacher``). The student shares the weights."""
+        for name, ab in lora.items():
+            w = self.teacher_module.get_submodule(name).weight
+            delta = (ab["a"].detach().float() @ ab["b"].detach().float()).t() * self.lora_scaling
+            w.copy_((w.float() + delta.reshape(w.shape)).to(w.dtype))
+
+    @contextlib.contextmanager
+    def using_lora(self, lora: Optional[LoraTree]):
+        """The student with ``lora``'s tensors on its side path for the
+        block (the EMA tree, say); the trained tree is back on exit."""
+        prev = {}
+        try:
+            for name, ab in (lora or {}).items():
+                m = self.student_module.get_submodule(name)
+                prev[name] = m.lora
+                m.lora = (ab["a"], ab["b"], float(self.lora_scaling))
+            yield self.student_module
+        finally:
+            for name, v in prev.items():
+                self.student_module.get_submodule(name).lora = v
+
+    def _sample_loop(self, module, mod, sched, z, cond2, g_scale, do_cfg, stochastic, noise, generator):
+        """The sampling steps: CFG as one 2B forward; a stochastic step takes
+        ``noise[i]`` or a draw from ``generator`` (zeros when neither)."""
+        b, dev = z.shape[0], z.device
+        sample = z * sched.init_noise_sigma
+        state = mod.init_state(sample) if hasattr(mod, "init_state") else None
+        for i, t in enumerate(sched.timesteps):
+            inp = mod.scale_model_input(sched, sample, i)
+            if do_cfg:
+                pc, pu = module(torch.cat([inp, inp]), torch.full((2 * b,), t, device=dev), cond2).chunk(2)
+                pred = g_scale * pc + (1.0 - g_scale) * pu
+            else:
+                pred = module(inp, torch.full((b,), t, device=dev), cond2)
+            if state is not None:
+                sample, state = mod.step(sched, pred, i, sample, state)
+                continue
+            step_noise = None
+            if stochastic and noise is not None:
+                step_noise = noise[i].to(dev)
+            elif stochastic and generator is not None:
+                step_noise = torch.randn(sample.shape, generator=generator, device=dev, dtype=sample.dtype)
+            sample = mod.step(sched, pred, i, sample, noise=step_noise)
+        return sample
+
+    def _sample_conds(self, batch, g_scale, uncond_batch):
+        """(cond or the 2B cond ⊕ uncond under CFG, CFG on)."""
+        do_cfg = g_scale != 1.0
+        if self.conditioner is None:
+            return None, do_cfg
+        cond = self.conditioner(batch, set_ucg_rate_zero=True)
+        if not do_cfg:
+            return cond, do_cfg
+        if uncond_batch is not None:
+            uncond = self.conditioner(uncond_batch, set_ucg_rate_zero=True)
+        else:
+            uncond = self.conditioner(batch, ucg_keys=self.config.ucg_keys)
+        return _cat(cond, uncond), do_cfg
+
+    @torch.no_grad()
+    def sample(
+        self,
+        lora: Optional[LoraTree],
+        z: torch.Tensor,
+        batch: Dict[str, Any],
+        num_steps: int = 4,
+        guidance_scale: float = 1.0,
+        uncond_batch: Optional[Dict[str, Any]] = None,
+        decode: bool = True,
+        use_teacher: bool = False,
+        teacher_guidance_scale: float = 5.0,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Few-step sampling from latents ``z`` [B, h, w, C] (JAX
+        ``sample``): the student with ``lora`` (None: the teacher's weights)
+        on the sampling scheduler over the teacher's trailing timesteps, or
+        with ``use_teacher`` the teacher on ``teacher_sampling_scheduler``
+        at ``teacher_guidance_scale``; a guidance of 1.0 skips the uncond
+        forward. Decoded to [B, H, W, 3] unless ``decode`` is False."""
+        if use_teacher:
+            mod, module, g_scale = self.teacher_sampling_sched_mod, self.teacher_module, teacher_guidance_scale
+            sched = mod.set_timesteps(self.sched_config, num_steps)
+            stochastic = False
+        else:
+            mod, g_scale = self.sampling_sched_mod, guidance_scale
+            base = self.teacher_sched_mod.set_timesteps(self.sched_config, num_steps)
+            try:
+                sched = mod.set_timesteps(self.sched_config, timesteps=np.asarray(base.timesteps))
+            except TypeError:
+                sched = mod.set_timesteps(self.sched_config, num_steps)
+            module = self.student_module if lora is not None else self.teacher_module
+            stochastic = self.sampling_scheduler_name in (
+                "LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler",
+                "EulerAncestralDiscreteScheduler")
+        cond2, do_cfg = self._sample_conds(batch, g_scale, uncond_batch)
+        with self.using_lora(None if use_teacher else lora):
+            sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
+                                       noise, generator)
+        if decode and self.vae is not None:
+            return self.vae.decode_latents(sample)
+        return sample
+
+    def log_samples(
+        self,
+        lora: Optional[LoraTree],
+        batch: Dict[str, Any],
+        input_shape: Sequence[int],
+        num_steps=(1, 2, 4),
+        guidance_scale: float = 1.0,
+        max_samples: int = 8,
+        log_teacher_samples: bool = False,
+        teacher_guidance_scale: float = 5.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Sample grids (JAX ``log_samples``): for each step count, latents
+        of ``input_shape`` (h, w, C) for the first ``max_samples`` of the
+        batch, the student's samples and with ``log_teacher_samples`` the
+        teacher's from the same latents; the draws from ``generator``."""
+        num_steps = [num_steps] if isinstance(num_steps, int) else list(num_steps)
+        n = min(max_samples, next(iter(batch.values())).shape[0])
+        small = {k: v[:n] for k, v in batch.items()}
+        dev = next(self.teacher_module.parameters()).device
+        logs = {}
+        for steps in num_steps:
+            z = torch.randn((n, *input_shape), generator=generator, device=dev)
+            logs[f"samples_{steps}_steps/student"] = self.sample(
+                lora, z, small, num_steps=steps, guidance_scale=guidance_scale, generator=generator)
+            if log_teacher_samples:
+                logs[f"samples_{steps}_steps/teacher"] = self.sample(
+                    None, z, small, num_steps=steps, use_teacher=True,
+                    teacher_guidance_scale=teacher_guidance_scale)
+        return logs
 
     # ------------------------------------------------------------------
     def draw(self, generator: torch.Generator, stage: int, latent: torch.Tensor) -> Dict[str, Any]:

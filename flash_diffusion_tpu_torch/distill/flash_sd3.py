@@ -29,21 +29,23 @@ flow-matching deltas against the ε family:
 
 Draws (``draw``): ``start_idx``, ``noise``, ``guidance``; ``dmd_idx`` [B]
 (into ``full_schedule``), ``dmd_noise``, ``dmd_guidance``; ``gan_idx`` [B]
-(into ``gan_tail_indices``) and ``gan_noise``. Not ported here: the
-validation ``sample`` (JAX ``flash_sd3.py:255-309``).
+(into ``gan_tail_indices``) and ``gan_noise``. ``sample`` (JAX
+``flash_sd3.py:255-309``): the student on the Flash flow-match step with
+its noise injected (or drawn, one draw a step), the teacher on the plain
+flow-match Euler step, both on the flow schedule of ``num_steps``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..schedulers import SchedulerConfig, flow_match
+from ..schedulers import REGISTRY, SchedulerConfig, flow_match
 from .common import sample_start_index
 from .flash import FlashDiffusion, FlashDiffusionConfig, _cat
 from .losses import dmd_loss, gan_losses
@@ -202,3 +204,37 @@ class FlashDiffusionSD3(FlashDiffusion):
             aux["loss/gan_d"] = loss_d
         aux["loss/generator"] = loss_g
         return loss_g + loss_d, aux
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def sample(
+        self,
+        lora,
+        z: torch.Tensor,
+        batch: Dict[str, Any],
+        num_steps: int = 4,
+        guidance_scale: float = 1.0,
+        uncond_batch: Optional[Dict[str, Any]] = None,
+        decode: bool = True,
+        use_teacher: bool = False,
+        teacher_guidance_scale: float = 5.0,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Few-step flow-match sampling (JAX ``FlashDiffusionSD3.sample``):
+        the student with ``lora`` on the Flash flow-match step (stochastic),
+        or with ``use_teacher`` the teacher on the plain Euler step at
+        ``teacher_guidance_scale``; float timesteps, CFG as one 2B forward."""
+        sched = flow_match.set_timesteps(self.sched_config, num_steps)
+        if use_teacher:
+            module, g_scale, mod, stochastic = self.teacher_module, teacher_guidance_scale, flow_match, False
+        else:
+            module = self.student_module if lora is not None else self.teacher_module
+            g_scale, mod, stochastic = guidance_scale, REGISTRY["FlashFlowMatchEulerDiscreteScheduler"], True
+        cond2, do_cfg = self._sample_conds(batch, g_scale, uncond_batch)
+        with self.using_lora(None if use_teacher else lora):
+            sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
+                                       noise, generator)
+        if decode and self.vae is not None:
+            return self.vae.decode_latents(sample)
+        return sample

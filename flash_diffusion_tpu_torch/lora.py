@@ -22,8 +22,12 @@ as the JAX one does (``flash.py:226-231``). ``from_peft`` and
 (``<prefix>.<module>.lora_A.weight`` [r, in], ``lora_B.weight`` [out, r];
 the prefix ``unet`` for the UNet, ``transformer`` for the DiT and the
 MMDiT, as the JAX pipelines' ``lora_prefix``) into such a tree: the port's
-module names are PEFT's, so no name map is needed. PEFT export and kohya
-wait.
+module names are PEFT's, so no name map is needed. ``to_peft`` and
+``save_peft_safetensors`` (``lora.py:137-171``, ``:217-224``) write a tree
+back under those names, which diffusers, ``from_peft`` and the JAX
+``load_peft_safetensors`` read; over the DiT and the MMDiT the file has no
+pair for the inert root ``proj_out``, which the port's tree leaves out.
+Kohya export and conv LoRA wait.
 """
 
 from __future__ import annotations
@@ -144,6 +148,26 @@ def from_peft(tensors: Dict[str, torch.Tensor], alpha: Optional[float] = None,
     if rank is None:
         raise ValueError(f"No LoRA tensors found under prefix {prefix!r}")
     return lora, lora_scaling(rank, alpha)
+
+
+def to_peft(lora: LoraTree, prefix: str = "unet") -> Dict[str, torch.Tensor]:
+    """A LoRA tree → PEFT tensors: ``{prefix}.{module}.lora_A.weight`` =
+    Aᵀ [r, in] and ``lora_B.weight`` = Bᵀ [out, r], fp32, contiguous, on the
+    CPU (``from_peft``'s inverse)."""
+    out = {}
+    for name, ab in sorted(lora.items()):
+        if ab["a"].dim() != 2:
+            raise ValueError(f"{name}: only dense (2-D) LoRA pairs are ported, got shape {tuple(ab['a'].shape)}")
+        out[f"{prefix}.{name}.lora_A.weight"] = ab["a"].detach().float().t().contiguous().cpu()
+        out[f"{prefix}.{name}.lora_B.weight"] = ab["b"].detach().float().t().contiguous().cpu()
+    return out
+
+
+def save_peft_safetensors(path: str, lora: LoraTree, prefix: str = "unet") -> None:
+    """``to_peft`` of ``lora`` written as a ``.safetensors`` file."""
+    from safetensors.torch import save_file
+
+    save_file(to_peft(lora, prefix), path)
 
 
 def load_peft_safetensors(path: str, alpha: Optional[float] = None,

@@ -4,7 +4,8 @@ Port of ``flash_diffusion_tpu/pipelines.py::FlashPipeline``: host-side
 tokenization → conditioner → K-step sampling (LCM by default; the
 scheduler is picked by name from ``schedulers.REGISTRY``, SD3's is the
 Flash flow-match one) → VAE decode, returning images in [-1, 1], NHWC,
-fp32. The stochastic schedulers (LCM, Flash flow-match, DDPM) take fresh
+fp32. The stochastic schedulers (LCM, Flash flow-match, DDPM, Euler
+ancestral) take fresh
 noise at every step but the last, which returns the denoised sample. The
 published 4-NFE setting is the default: 4 steps, guidance 0 (no CFG
 doubling). Randomness comes from explicit
@@ -43,9 +44,9 @@ from .quant import apply_weights, quantize_dense
 from .schedulers import REGISTRY, SchedulerConfig
 from .schedulers import step_noise as draw_step_noise
 
-# the schedulers whose step re-noises (JAX ``pipelines.py:210-215``; Euler
-# ancestral, the fourth there, is not ported)
-STOCHASTIC = ("LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler")
+# the schedulers whose step re-noises (JAX ``pipelines.py:210-215``)
+STOCHASTIC = ("LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler",
+              "EulerAncestralDiscreteScheduler")
 
 
 class FlashPipeline:

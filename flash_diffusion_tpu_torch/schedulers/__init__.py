@@ -5,16 +5,17 @@ Each scheduler family is a module exposing ``set_timesteps``,
 ``REGISTRY`` maps the diffusers class names of the training configs onto
 the families ported so far: DDPM (the SD1.5 teacher's rollout),
 DPM-Solver++ 2M (the SDXL teacher's, with its multistep carry), LCM (the
-student's sampler) and SD3's flow matching: the plain Euler step
+student's sampler), SD3's flow matching: the plain Euler step
 (``FlowMatchEulerDiscreteScheduler``, the SD3 teacher's) and the Flash
 student's re-noising step (``FlashFlowMatchEulerDiscreteScheduler``: the
-same tables, ``flow_match.flash_step``). Euler and Euler-ancestral, which
-serve only the JAX ``log_samples``, wait.
+same tables, ``flow_match.flash_step``), and Euler and Euler-ancestral in
+σ space (``EulerDiscreteScheduler``, ``EulerAncestralDiscreteScheduler``:
+the teachers' validation samplers).
 """
 
 from types import SimpleNamespace
 
-from . import ddpm, dpm, flow_match, lcm
+from . import ddpm, dpm, euler, flow_match, lcm
 from .base import (
     SchedulerConfig,
     add_noise,
@@ -24,6 +25,13 @@ from .base import (
     spaced_timesteps,
     step_noise,
     training_tables,
+)
+
+# Euler ancestral shares the euler module, with ancestral=True at set_timesteps
+_euler_ancestral = SimpleNamespace(
+    set_timesteps=lambda config, n: euler.set_timesteps(config, n, ancestral=True),
+    scale_model_input=euler.scale_model_input,
+    step=euler.step,
 )
 
 # Flash flow-match shares flow_match's tables and steps with flash_step
@@ -38,6 +46,8 @@ _flash_flow_match = SimpleNamespace(
 REGISTRY = {
     "DDPMScheduler": ddpm,
     "DPMSolverMultistepScheduler": dpm,
+    "EulerDiscreteScheduler": euler,
+    "EulerAncestralDiscreteScheduler": _euler_ancestral,
     "LCMScheduler": lcm,
     "FlowMatchEulerDiscreteScheduler": flow_match,
     "FlashFlowMatchEulerDiscreteScheduler": _flash_flow_match,
@@ -49,6 +59,7 @@ __all__ = [
     "add_noise",
     "ddpm",
     "dpm",
+    "euler",
     "flow_match",
     "interp_sigma",
     "lcm",

@@ -2,7 +2,8 @@
 
     python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart|sd3] \\
         [--config examples/configs/flash_sd.yaml] --max-steps 10 [--weights-root /weights/sd15] \\
-        [--random-init] [--device cuda]
+        [--random-init] [--device cuda] [--shards /data/{000000..000010}.tar] \\
+        [--eval-shards /data/eval/{00000..00003}.tar] [--output-dir runs] [--resume]
 
 ``build_trainer(model, device=...)`` is the port's counterpart of
 ``examples/train_flash_sd.py``, ``train_flash_sdxl.py``,
@@ -14,7 +15,14 @@ a conv discriminator (over the UNet's mid features, 1280 channels,
 ``num_stages`` from the mid block's size, the 4×4 head taking ≥ 4×4; over
 the DiT's 4-channel output latents for Pixart), the yaml's teacher
 schedule, losses, loss scales, mode probabilities and learning rates; then
-``TrainingPipeline.fit(batches, max_steps=n)`` runs the simultaneous step.
+``TrainingPipeline.fit(batches, max_steps=n)`` runs the training run: the
+simultaneous (or, with ``GAN_UPDATE_MODE: alternating``, the alternating)
+step, ``EMA_DECAY``, ``GRADIENT_ACCUMULATION_STEPS``, ``VAL_EVERY_N_STEPS``
+over ``EVAL_SHARDS_PATH_OR_URLS``, ``SWITCH_TEACHER``, checkpoints every
+``CKPT_EVERY_N_STEPS`` under ``<output-dir>/checkpoints`` (``--resume``
+restores the latest), and at the end the LoRA student (the EMA one when
+tracked) as ``<output-dir>/pytorch_lora_weights.safetensors`` (PEFT names,
+the ``unet`` or ``transformer`` prefix).
 By model (its default yaml in ``CONFIGS``):
 
 - ``sd15``: SD1.5 UNet, SD VAE, CLIP-L (its last hidden state); mid block
@@ -42,8 +50,9 @@ By model (its default yaml in ``CONFIGS``):
   the image is too small for the 4×4 head; ``flash_sd3.yaml``: 1024², batch
   2, K = 32, LoRA rank 64, l2 distill, DMD, lsgan, the uncond dropping every
   text key (``UCG_KEYS``: ``text`` and ``t5_text``). The yaml's
-  ``TEXT_ENCODER_OFFLOAD`` is read but not honoured: the text towers stay
-  resident on the card (T5-XXL in fp32 takes ≈ 19 GB, which fits 80 GB).
+  ``TEXT_ENCODER_OFFLOAD`` (4) keeps the text towers on the host between
+  bursts of that many batches, whose conditioning is computed while they
+  are on the card (T5-XXL in fp32 takes ≈ 19 GB of it).
 
 Weights are random, made from ``seed``, unless ``weights_root`` holds a
 local diffusers layout (``unet/``, ``vae/``, ``text_encoder/`` and, for
@@ -51,9 +60,14 @@ SDXL, ``text_encoder_2/``; Pixart: ``transformer/`` and a T5
 ``text_encoder/``; SD3: ``transformer/``, ``text_encoder_2/`` and
 ``text_encoder_3/``; ``sample.load_weights``); LPIPS and the discriminator
 are always random (the pretrained VGG/LPIPS weights are not in the
-repository). The data pipeline (webdataset shards) is not ported:
-``synthetic_batches`` makes batches from a seed. Batch layout at the
-boundary: ``image`` [B, H, W, 3] fp32 in [-1, 1] (NHWC, as the JAX
+repository). Data: ``build_data(cfg)`` streams local (or URL, or ``pipe:``)
+webdataset shards of ``.jpg`` + ``.json`` (``caption``,
+``aesthetic_score``), kept at ``MIN_AESTHETIC_SCORE`` and above, each image
+resized and center-cropped to ``IMAGE_SIZE`` square and scaled to
+[-1, 1], as ``examples/common.py`` builds it; ``tokenize_batches`` adds the
+token ids (a local tokenizer under ``weights_root``, else zero ids, as in
+JAX). Without a shard, ``synthetic_batches`` makes batches from a seed, and
+the CLI logs which source it used. Batch layout at the boundary: ``image`` [B, H, W, 3] fp32 in [-1, 1] (NHWC, as the JAX
 package), ``text_ids`` [B, 77] int token ids (Pixart: [B, 120] T5 ids
 with ``text_mask``), for SDXL the size tuples of ``sample.size_cond_fn``,
 for Pixart ``resolution_ar``, for SD3 with T5 ``t5_text_ids`` and
@@ -82,10 +96,20 @@ from .distill import (
     FlashDiffusionSD3Config,
     sd3_discriminator_config,
 )
-from .lora import init_lora, lora_scaling
-from .sample import PIXART_SCHEDULER, SD3_SCHEDULER_CONFIG, build_modules, load_weights, make_conditioner, size_cond_fn
+from .lora import init_lora, lora_scaling, save_peft_safetensors
+from .sample import (
+    PIXART_SCHEDULER,
+    SD3_SCHEDULER_CONFIG,
+    build_modules,
+    clip_tokenizer,
+    load_weights,
+    make_conditioner,
+    sd3_tokenizer,
+    size_cond_fn,
+    t5_tokenizer,
+)
 from .schedulers import SchedulerConfig
-from .trainer import TrainingConfig, TrainingPipeline
+from .trainer import CheckpointCallback, MetricLogger, TrainingConfig, TrainingPipeline, export_lora, restore_state
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
 CONFIGS = {model: os.path.join(_CONFIG_DIR, name) for model, name in (
@@ -101,15 +125,18 @@ _MID = {"sd15": (64, 64), "sdxl": (32, 256)}
 # common.py)
 DEFAULTS = {
     "sd15": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 128, "USE_EMPTY_PROMPT": True,
-             "TEACHER_SCHEDULER": "DDPMScheduler"},
+             "TEACHER_SCHEDULER": "DDPMScheduler", "TEACHER_SAMPLING_SCHEDULER": "EulerAncestralDiscreteScheduler"},
     "sdxl": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_EMPTY_PROMPT": False,
-             "TEACHER_SCHEDULER": "DPMSolverMultistepScheduler"},
+             "TEACHER_SCHEDULER": "DPMSolverMultistepScheduler", "TEACHER_SAMPLING_SCHEDULER": "EulerDiscreteScheduler"},
     "pixart": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 64, "T5_MAX_LENGTH": 120,
-               "USE_EMPTY_PROMPT": True, "TEACHER_SCHEDULER": "DDPMScheduler", "DISTILL_LOSS_TYPE": "l2"},
+               "USE_EMPTY_PROMPT": True, "TEACHER_SCHEDULER": "DDPMScheduler", "DISTILL_LOSS_TYPE": "l2",
+               "TEACHER_SAMPLING_SCHEDULER": "DPMSolverMultistepScheduler"},
     "sd3": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_T5": True, "T5_MAX_LENGTH": 77,
             "USE_EMPTY_PROMPT": False, "TEACHER_SCHEDULER": "FlowMatchEulerDiscreteScheduler",
             "DISTILL_LOSS_TYPE": "l2"},
 }
+# the PEFT prefix of each family's denoiser (``sample.build_pipeline``'s)
+LORA_PREFIX = {"sd15": "unet", "sdxl": "unet", "pixart": "transformer", "sd3": "transformer"}
 logger = logging.getLogger(__name__)
 
 
@@ -167,6 +194,116 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
         yield batch
 
 
+class _AtLeast:
+    """``value >= threshold`` (a class, so that process workers can pickle it)."""
+
+    def __init__(self, threshold: float):
+        self.threshold = threshold
+
+    def __call__(self, value) -> bool:
+        return value >= self.threshold
+
+
+def build_data(cfg: Dict[str, Any], extra_filters_mappers=(), num_workers: Optional[int] = None,
+               worker_backend: str = "thread"):
+    """The training ``DataPipeline`` over ``cfg["SHARDS_PATH_OR_URLS"]``, the
+    port of ``examples/common.py:119-226`` with the PIL decoder: samples
+    with ``jpg`` and ``json``, ``caption`` → ``text`` and ``aesthetic_score``
+    read from the JSON, ``jpg`` → ``image`` resized to ``IMAGE_SIZE``
+    square, center-cropped and scaled to [-1, 1], kept when the score is at
+    least ``MIN_AESTHETIC_SCORE`` (6.0) or absent; batches of
+    ``BATCH_SIZE``. ``ASPECT_BUCKETING`` and ``DECODER: native`` are not
+    ported and raise."""
+    from .data import (
+        DataModuleConfig,
+        DataPipeline,
+        FilterOnCondition,
+        FilterOnConditionConfig,
+        ImageTransformMapper,
+        ImageTransformMapperConfig,
+        KeyFilter,
+        KeyFilterConfig,
+        KeyRenameMapper,
+        KeyRenameMapperConfig,
+        KeysFromJSONMapper,
+        KeysFromJSONMapperConfig,
+        MapperWrapper,
+        RescaleMapper,
+        RescaleMapperConfig,
+    )
+
+    if cfg.get("ASPECT_BUCKETING", False):
+        raise ValueError("ASPECT_BUCKETING is not ported yet (ROADMAP Queue 1 item 3)")
+    if cfg.get("DECODER", "pil") == "native":
+        raise ValueError("DECODER: native is not ported yet (ROADMAP Queue 1 item 3)")
+    size = cfg.get("IMAGE_SIZE", 512)
+    chain = [
+        KeyFilter(KeyFilterConfig(keys=["jpg", "json"])),
+        MapperWrapper([
+            KeysFromJSONMapper(KeysFromJSONMapperConfig(
+                key="json", keys_to_extract=["caption", "aesthetic_score"], remove_original=True, strict=False)),
+            KeyRenameMapper(KeyRenameMapperConfig(key_map={"jpg": "image", "caption": "text"})),
+            ImageTransformMapper(ImageTransformMapperConfig(key="image", transforms=[
+                {"name": "Resize", "size": [size, size]},
+                {"name": "CenterCrop", "size": [size, size]},
+                {"name": "ToTensor"},
+            ])),
+            RescaleMapper(RescaleMapperConfig(key="image")),
+        ]),
+        FilterOnCondition(FilterOnConditionConfig(condition_key="aesthetic_score", strict=False),
+                          _AtLeast(cfg.get("MIN_AESTHETIC_SCORE", 6.0))),
+        *extra_filters_mappers,
+    ]
+    data_cfg = DataModuleConfig(
+        shards_path_or_urls=list(cfg["SHARDS_PATH_OR_URLS"]),
+        per_worker_batch_size=cfg.get("BATCH_SIZE", 2),
+        num_workers=cfg.get("NUM_WORKERS", 2) if num_workers is None else num_workers,
+        worker_backend=worker_backend,
+        shuffle_buffer_size=cfg.get("SHUFFLE_BUFFER_SIZE", 100),
+        decode_draft_size=cfg.get("DECODE_DRAFT_SIZE", size),
+        seed=cfg.get("SEED", 0),
+    )
+    return DataPipeline(data_cfg, chain)
+
+
+def make_tokenizer(model: str, cfg: Dict[str, Any], weights_root: str = ""):
+    """texts → token-id arrays for ``model``'s conditioner: CLIP ids for
+    SD1.5 and SDXL, T5 ids and mask over ``T5_MAX_LENGTH`` for Pixart, CLIP
+    and (with ``USE_T5``) T5 ids for SD3; a local tokenizer under
+    ``weights_root`` (``tokenizer/``, SD3's T5 ``tokenizer_3/``), else zero
+    ids (an all-ones T5 mask), as the JAX examples fall back; what ``cfg``
+    leaves out comes from ``DEFAULTS``."""
+    cfg = {**DEFAULTS[model], **cfg}
+    if model == "pixart":
+        return t5_tokenizer(weights_root, cfg["T5_MAX_LENGTH"])
+    if model == "sd3":
+        return sd3_tokenizer(weights_root, bool(cfg["USE_T5"]), cfg["T5_MAX_LENGTH"])
+    return clip_tokenizer(weights_root)
+
+
+def tokenize_batches(batches, tokenizer, model: str = "sd15", image_size: int = 512):
+    """Each batch with ``tokenizer(batch["text"])``'s ids added, and the
+    family's extras: SDXL's size tuples (``image_size`` square, crop (0, 0))
+    and Pixart's ``resolution_ar``."""
+    for batch in batches:
+        batch = dict(batch)
+        batch.update(tokenizer(list(batch["text"])))
+        n = len(batch["text"])
+        if model == "sdxl":
+            batch.update(size_cond_fn(n, image_size, image_size))
+        elif model == "pixart":
+            batch["resolution_ar"] = np.tile([float(image_size), float(image_size), 1.0], (n, 1)).astype(np.float32)
+        yield batch
+
+
+def _shards_present(specs) -> bool:
+    from .data import expand_shards
+
+    return any(s.startswith(("pipe:", "http://", "https://", "gs://", "s3://")) or
+               os.path.isfile(s[len("file://"):] if s.startswith("file://") else s)
+               for s in expand_shards(specs or []))
+
+
 def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
     """Pixart's 64-feature, 3-stage discriminator over the DiT's 4-channel
     output latents, fixed as ``train_flash_pixart.py`` fixes it; SD3's over
@@ -211,9 +348,6 @@ def build_trainer(
     rank = cfg["LORA_RANK"]
     sd3 = model == "sd3"
     t5 = {"t5": bool(cfg["USE_T5"]), "t5_max_length": cfg["T5_MAX_LENGTH"]} if sd3 else {}
-    if sd3 and cfg.get("TEXT_ENCODER_OFFLOAD"):
-        logger.info("TEXT_ENCODER_OFFLOAD %s is not honoured: the text towers stay resident",
-                    cfg["TEXT_ENCODER_OFFLOAD"])
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         with device:
@@ -242,6 +376,8 @@ def build_trainer(
         mode_probs=cfg.get("MODE_PROBS"),
         use_teacher_as_real=cfg.get("USE_TEACHER_AS_REAL", False),
         use_empty_prompt=cfg["USE_EMPTY_PROMPT"],
+        gan_update_mode=cfg.get("GAN_UPDATE_MODE", "simultaneous"),
+        switch_teacher=bool(cfg.get("SWITCH_TEACHER", False)),
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
     modules = dict(vae=vae, conditioner=make_conditioner(model, conditioners), discriminator=disc, lpips=lpips,
@@ -255,10 +391,17 @@ def build_trainer(
             FlashDiffusionConfig(**kw), teacher_module=denoiser,
             scheduler_config=PIXART_SCHEDULER if model == "pixart" else SchedulerConfig(),
             teacher_scheduler=cfg["TEACHER_SCHEDULER"],
-            sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"), **modules)
+            sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"),
+            teacher_sampling_scheduler=cfg["TEACHER_SAMPLING_SCHEDULER"], **modules)
+    ema = cfg.get("EMA_DECAY")
     train_cfg = TrainingConfig(
-        learning_rates=[float(cfg["LR"]), float(cfg.get("LR_DISCRIMINATOR", cfg["LR"]))], seed=seed)
-    return TrainingPipeline(flash, train_cfg, lora, device=device)
+        learning_rates=[float(cfg["LR"]), float(cfg.get("LR_DISCRIMINATOR", cfg["LR"]))], seed=seed,
+        checkpoint_every_n_steps=int(cfg.get("CKPT_EVERY_N_STEPS", 5000)),
+        ema_decay=float(ema) if ema else None,
+        gradient_accumulation_steps=int(cfg.get("GRADIENT_ACCUMULATION_STEPS", 1)),
+        val_every_n_steps=cfg.get("VAL_EVERY_N_STEPS"))
+    offload = int(cfg.get("TEXT_ENCODER_OFFLOAD", 0) or 0) if sd3 else 0
+    return TrainingPipeline(flash, train_cfg, lora, device=device, text_encoder_offload=offload)
 
 
 def main():
@@ -270,23 +413,58 @@ def main():
     ap.add_argument("--max-steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shards", nargs="+", default=None, help="training shards (default: the yaml's)")
+    ap.add_argument("--eval-shards", nargs="+", default=None, help="validation shards (VAL_EVERY_N_STEPS)")
+    ap.add_argument("--output-dir", default="runs", help="checkpoints, the log and the LoRA file")
+    ap.add_argument("--resume", action="store_true", help="restore the latest checkpoint of --output-dir")
     args = ap.parse_args()
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    os.makedirs(args.output_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s", handlers=[
+        logging.StreamHandler(), logging.FileHandler(os.path.join(args.output_dir, "train.log"))])
     cfg = {**DEFAULTS[args.model], **load_config(args.config or CONFIGS[args.model])}
+    if args.shards:
+        cfg["SHARDS_PATH_OR_URLS"] = args.shards
+    if args.eval_shards:
+        cfg["EVAL_SHARDS_PATH_OR_URLS"] = args.eval_shards
     root = "" if args.random_init else (args.weights_root or cfg.get("WEIGHTS_ROOT", ""))
     root = root if root and os.path.isdir(root) else ""
-    trainer = build_trainer(args.model, root, device=args.device, seed=args.seed, config=cfg)
-    trainer.config.log_every_n_steps = 1
     seed = cfg.get("SEED", 0) if args.seed is None else args.seed
-    if args.model == "sd3":
-        data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, model="sd3",
-                                 t5_max_length=cfg["T5_MAX_LENGTH"] if cfg["USE_T5"] else None)
+    trainer = build_trainer(args.model, root, device=args.device, seed=seed, config=cfg)
+    tc = trainer.config
+    tc.log_every_n_steps, tc.checkpoint_dir = 1, os.path.join(args.output_dir, "checkpoints")
+    size = cfg["IMAGE_SIZE"]
+    if _shards_present(cfg.get("SHARDS_PATH_OR_URLS")):
+        from .data import prefetch_to_device
+
+        tokenizer = make_tokenizer(args.model, cfg, root)
+        data = prefetch_to_device(tokenize_batches(build_data(cfg), tokenizer, args.model, size))
+        logger.info("data: shards %s", cfg["SHARDS_PATH_OR_URLS"])
     else:
-        data = synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed, cfg.get("T5_MAX_LENGTH"), args.model)
-    aux = trainer.fit(data, max_steps=args.max_steps)
+        if args.model == "sd3":
+            data = synthetic_batches(cfg["BATCH_SIZE"], size, seed, model="sd3",
+                                     t5_max_length=cfg["T5_MAX_LENGTH"] if cfg["USE_T5"] else None)
+        else:
+            data = synthetic_batches(cfg["BATCH_SIZE"], size, seed, cfg.get("T5_MAX_LENGTH"), args.model)
+        logger.info("data: synthetic batches from seed %d (no shard at %s)", seed, cfg.get("SHARDS_PATH_OR_URLS"))
+    eval_data = None
+    if _shards_present(cfg.get("EVAL_SHARDS_PATH_OR_URLS")):
+        eval_pipe = build_data({**cfg, "SHARDS_PATH_OR_URLS": cfg["EVAL_SHARDS_PATH_OR_URLS"]})
+        eval_tok = make_tokenizer(args.model, cfg, root)
+        eval_data = lambda: tokenize_batches(eval_pipe.batches(epoch=0), eval_tok, args.model, size)
+    if args.resume:
+        _, step = restore_state(tc.checkpoint_dir, trainer)
+        if step is None:
+            logger.warning("--resume: no checkpoint under %s, starting fresh", tc.checkpoint_dir)
+        else:
+            logger.info("resumed from step %d", step)
+    callbacks = [MetricLogger(tc.log_every_n_steps), CheckpointCallback(tc.checkpoint_dir, tc.checkpoint_every_n_steps)]
+    aux = trainer.fit(data, max_steps=args.max_steps, callbacks=callbacks, eval_data=eval_data)
     print({k: float(v) for k, v in aux.items()})
+    out = os.path.join(args.output_dir, "pytorch_lora_weights.safetensors")
+    save_peft_safetensors(out, export_lora(trainer), prefix=LORA_PREFIX[args.model])
+    print("saved", out)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,6 @@
-"""Training pipeline of the port: the simultaneous Flash step, two optimizers.
+"""Training pipeline of the port: the Flash training run.
 
-Port of ``flash_diffusion_tpu/trainer/trainer.py`` (``__init__``, the
-simultaneous branch of ``_build_step`` and ``fit``, ``trainer.py:85-99``,
-``:163-245``, ``:404-491``):
+Port of ``flash_diffusion_tpu/trainer/trainer.py:48-491``:
 
 - the frozen modules (teacher UNet, DiT or MMDiT, VAE, text conditioner,
   LPIPS) are stored in ``frozen_dtype`` (bf16); the denoiser and the VAE
@@ -14,24 +12,43 @@ simultaneous branch of ``_build_step`` and ``fit``, ``trainer.py:85-99``,
   ``RawVectorEmbedder``, passes through). A parity trap: T5-XXL's weights are bf16-rounded in
   training but fp32 as loaded in sampling (``sample.build_pipeline``), so
   the two give different text states from one checkpoint;
-- the LoRA factors, the discriminator and the optimizer state stay fp32
-  (AdamW's first moment in ``adam_mu_dtype``);
+- the LoRA factors, the discriminator, the optimizer state and the EMA
+  stay fp32 (Adam's first moment in ``adam_mu_dtype``);
 - per step: the conditioning and the VAE encode are staged under
-  ``no_grad`` (the JAX ``__conds``/``__z``), then one ``losses``, one
-  backward of loss_G + loss_D, the generator and the discriminator updates.
+  ``no_grad`` (the JAX ``__conds``/``__z``), each from a generator of its
+  own seeded by the seed and the step (JAX folds the step into its key),
+  so that offloaded, resident and resumed runs draw alike; then one
+  ``losses`` and one backward. Simultaneous mode: loss_G + loss_D, both
+  updates. Alternating mode (``gan_update_mode``): the global step's parity
+  picks ``"g"`` (even: only the LoRA has a gradient and an update) or
+  ``"d"`` (odd: only the discriminator), so a resumed run keeps it;
+- gradient accumulation is the optimizers' (``training_config.Optimizer``,
+  optax ``MultiSteps``); the EMA student (``ema_decay``) moves only when the
+  generator's optimizer applies an update, never on a ``"d"`` step;
+- ``switch_teacher``: at a stage boundary whose K changes, the LoRA is
+  merged into the teacher's weights, which the student shares;
+- text-encoder offload (``text_encoder_offload`` = n): the towers live on
+  the host and move to the device once for each burst of n batches, whose
+  conditioning is computed then; callbacks that sample use
+  ``sampling_frozen()``, which places them for the block. Their host copies
+  are pageable: the pinned allocator rounds every tensor up to a power of
+  two (T5-XXL's 19 GB would pin ~30 GB);
+- ``evaluate``: averaged loss aux over held-out batches with fixed
+  generators, from ``fit`` every ``val_every_n_steps``; ``state_dict`` and
+  ``load_state_dict`` carry the trainable state (``checkpoint.py``).
 
 The step runs eagerly; the stages are ``record_function`` spans
 (``fdt.train.encode``/``.backward``/``.optimizer`` here, the loss stages in
-``distill/flash.py``), read by ``profiling.py --train``. Not ported yet: EMA, gradient accumulation, the
-alternating GAN mode, ``switch_teacher``, text-encoder offload, checkpoints,
-loggers, validation.
+``distill/flash.py``), read by ``profiling.py --train``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -39,13 +56,21 @@ from torch.profiler import record_function
 
 from ..distill.losses import clip_disc_weights
 from ..lora import LoraTree
+from ..utils.ema import init_ema, update_ema
 from .training_config import TrainingConfig
 
 logger = logging.getLogger(__name__)
 
 
+def export_lora(pipeline: "TrainingPipeline") -> LoraTree:
+    """The LoRA tree to publish: the EMA student when it is tracked, else
+    the live one."""
+    return pipeline.ema if pipeline.ema is not None else pipeline.lora
+
+
 class TrainingPipeline:
-    """Drives a ``FlashDiffusion``. ``fit`` feeds batches and steps."""
+    """Drives a ``FlashDiffusion``(``SD3``). ``fit`` feeds batches, steps,
+    validates and calls the callbacks."""
 
     def __init__(
         self,
@@ -54,6 +79,7 @@ class TrainingPipeline:
         lora: LoraTree,
         frozen_dtype: Optional[torch.dtype] = torch.bfloat16,
         device=None,
+        text_encoder_offload: int = 0,
     ):
         self.model, self.config = model, config
         self.device = torch.device(device) if device is not None else next(
@@ -72,80 +98,269 @@ class TrainingPipeline:
         self.lora = {name: {k: t.detach().to(self.device, torch.float32).requires_grad_()
                             for k, t in ab.items()} for name, ab in lora.items()}
         model.attach_lora(self.lora)
-        lora_params = [t for ab in self.lora.values() for t in ab.values()]
-        self.opt_g = config.build_optimizer(0, lora_params)
+        self.opt_g = config.build_optimizer(0, self._lora_leaves())
         disc = model.discriminator
         self.opt_d = None
         if disc is not None:
             disc.float().requires_grad_(True).train()
             self.opt_d = config.build_optimizer(1, list(disc.parameters()))
+        self.ema = init_ema(self.lora) if config.ema_decay else None
         self.is_wgan = model.config.gan_loss_type == "wgan"
+        self.alternating = model.config.gan_update_mode == "alternating"
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.data_wait_s = 0.0  # seconds fit waited on its data iterator
+        self.offload_moves = []  # seconds of each host → device move of the towers
+        self.last_val: Dict[str, float] = {}
+        self.text_encoder_offload = int(text_encoder_offload)
+        self._towers = []  # (tensor, its host copy) while offloaded
+        if self.text_encoder_offload and model.conditioner is not None:
+            with torch.no_grad():
+                for t in itertools.chain(model.conditioner.parameters(), model.conditioner.buffers()):
+                    host = t.detach().to("cpu", copy=True)
+                    t.data = host
+                    self._towers.append((t, host))
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    # ------------------------------------------------------------------
+    def _lora_leaves(self):
+        return [t for ab in self.lora.values() for t in ab.values()]
+
+    def _generator(self, step: int, stream: int) -> torch.Generator:
+        """The staging generator of ``step``: stream 0 the conditioning's
+        unconditional drops, 1 the VAE encode's noise."""
+        seed = (((self.config.seed ^ 0x5EED) << 32) + 2 * int(step) + stream) % (2 ** 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Arrays and tensors on the device, floats as fp32 and integers as
+        int64; other entries (captions) as they are."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, (np.ndarray, torch.Tensor)):
-                v = torch.as_tensor(v, device=self.device)
+                v = torch.as_tensor(v).to(self.device, non_blocking=True)
                 out[k] = v.float() if v.is_floating_point() else v.long()
             else:
                 out[k] = v
         return out
 
-    def stage_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """The batch on the device with ``__conds`` and ``__z`` staged."""
+    # ------------------------------------------------------------------ offload
+    def _place_towers(self) -> None:
+        t0 = time.perf_counter()
+        for t, host in self._towers:
+            t.data = host.to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.offload_moves.append(time.perf_counter() - t0)
+
+    def _release_towers(self) -> None:
+        for t, host in self._towers:
+            t.data = host
+
+    @contextlib.contextmanager
+    def sampling_frozen(self):
+        """The text towers on the device for the block: with the offload on,
+        they are placed on entry and go back to the host on exit."""
+        if not self._towers:
+            yield
+            return
+        self._place_towers()
+        try:
+            yield
+        finally:
+            self._release_towers()
+
+    def _bursts(self, batches: Iterator, step0: int, callbacks=()):
+        """(host batch, its conditioning) with the conditioning computed in
+        bursts of ``text_encoder_offload`` batches, the towers on the device
+        only while a burst encodes."""
+        step, key = step0, self.model.config.input_key
+        while True:
+            chunk = list(itertools.islice(batches, self.text_encoder_offload))
+            if not chunk:
+                return
+            out = []
+            with self.sampling_frozen(), record_function("fdt.train.encode"), torch.no_grad():
+                for b in chunk:
+                    ids = self.to_device({k: v for k, v in b.items() if k != key})
+                    out.append((b, self.model._conditionings(ids, self._generator(step, 0))))
+                    step += 1
+            for cb in callbacks:
+                if hasattr(cb, "after_burst"):
+                    cb.after_burst(self)
+            yield from out
+
+    # ------------------------------------------------------------------ step
+    def stage_batch(self, batch: Dict[str, Any], step: Optional[int] = None, conds=None) -> Dict[str, Any]:
+        """The batch on the device with ``__conds`` (``conds`` when given)
+        and ``__z`` staged, from the generators of ``step`` (the trainer's
+        step by default)."""
         model = self.model
-        batch = self._to_device(batch)
+        step = self.step if step is None else step
+        batch = self.to_device(batch)
         with record_function("fdt.train.encode"), torch.no_grad():
-            if model.conditioner is not None:
-                batch["__conds"] = model._conditionings(batch, self.generator)
+            if conds is not None:
+                batch["__conds"] = conds
+            elif model.conditioner is not None:
+                batch["__conds"] = model._conditionings(batch, self._generator(step, 0))
             if model.vae is not None:
-                x = batch[model.config.input_key]
-                vcfg = model.vae.config
-                f = 2 ** (len(vcfg.block_out_channels) - 1)
-                noise = torch.randn((x.shape[0], x.shape[1] // f, x.shape[2] // f, vcfg.latent_channels),
-                                    generator=self.generator, device=self.device)
-                batch["__z"] = model._encode(batch, noise)
+                batch["__z"] = self._encode(batch, self._generator(step, 1))
         return batch
 
-    def train_step(self, batch: Dict[str, Any], stage: int) -> Dict[str, Any]:
-        """One simultaneous step on a staged batch: losses, one backward of
-        loss_G + loss_D, both updates."""
+    def _encode(self, batch: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
         model = self.model
+        x = batch[model.config.input_key]
+        vcfg = model.vae.config
+        f = 2 ** (len(vcfg.block_out_channels) - 1)
+        noise = torch.randn((x.shape[0], x.shape[1] // f, x.shape[2] // f, vcfg.latent_channels),
+                            generator=generator, device=self.device)
+        return model._encode(batch, noise)
+
+    def _set_trainable(self, lora: bool, disc: bool) -> None:
+        for t in self._lora_leaves():
+            t.requires_grad_(lora)
+        if self.model.discriminator is not None:
+            self.model.discriminator.requires_grad_(disc)
+
+    def train_step(self, batch: Dict[str, Any], stage: int, phase: Optional[str] = None) -> Dict[str, Any]:
+        """One step on a staged batch: ``losses``, one backward, the updates
+        of ``phase`` (None: both; ``"g"``: the LoRA's; ``"d"``: the
+        discriminator's), the EMA when the LoRA's optimizer applied one."""
+        model = self.model
+        g_on = phase != "d"
+        d_on = phase != "g" and self.opt_d is not None
         draws = model.draw(self.generator, stage, batch["__z"])
         self.opt_g.zero_grad()
         if self.opt_d is not None:
             self.opt_d.zero_grad()
-        total, aux = model.losses(batch, draws, stage)
-        with record_function("fdt.train.backward"):
-            total.backward()
+        self._set_trainable(g_on, d_on)
+        try:
+            total, aux = model.losses(batch, draws, stage)
+            with record_function("fdt.train.backward"):
+                if total.requires_grad:
+                    total.backward()
+        finally:
+            self._set_trainable(True, True)
         with record_function("fdt.train.optimizer"):
-            self.opt_g.step()
-            if self.opt_d is not None:
+            applied = self.opt_g.step() if g_on else False
+            if d_on:
                 self.opt_d.step()
                 if self.is_wgan:
                     clip_disc_weights(model.discriminator, self.config.wgan_clip)
+            if self.ema is not None and applied:
+                update_ema(self.ema, self.lora, self.config.ema_decay)
         self.step += 1
         return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
 
-    def fit(self, data: Iterable[Dict[str, Any]], max_steps: Optional[int] = None) -> Dict[str, Any]:
-        """Train on ``data`` (dicts with ``image`` [B, H, W, 3] in [-1, 1] and
-        ``text_ids``) until ``max_steps``; returns the last step's aux."""
-        cfg = self.config
-        max_steps = max_steps or cfg.max_steps or sum(self.model.config.num_iterations_per_K)
-        aux: Dict[str, Any] = {}
-        t0 = time.perf_counter()
-        batches = iter(data)
-        while self.step < max_steps:
+    # ------------------------------------------------------------------ eval
+    @torch.no_grad()
+    def evaluate(self, data: Iterable[Dict[str, Any]], stage: int = 0, max_batches: int = 8) -> Dict[str, float]:
+        """Scalar loss aux averaged over up to ``max_batches`` held-out
+        batches, no update; every batch staged and drawn from the same fixed
+        generators (seeds 0, 1 and 0, as JAX's fixed keys)."""
+        model, sums, n = self.model, {}, 0
+        with self.sampling_frozen():
+            for i, batch in enumerate(data):
+                if i >= max_batches:
+                    break
+                batch = self.to_device(batch)
+                fixed = lambda s: torch.Generator(device=self.device).manual_seed(s)
+                if model.conditioner is not None:
+                    batch["__conds"] = model._conditionings(batch, fixed(0))
+                if model.vae is not None:
+                    batch["__z"] = self._encode(batch, fixed(1))
+                _, aux = model.losses(batch, model.draw(fixed(0), stage, batch["__z"]), stage)
+                for k, v in aux.items():
+                    if np.ndim(v) == 0:
+                        sums[k] = sums.get(k, 0.0) + float(v)
+                n += 1
+        return {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
+
+    # ------------------------------------------------------------------ state
+    def state_dict(self) -> Dict[str, Any]:
+        """The trainable state: LoRA, discriminator, both optimizers, EMA,
+        step and the step generator's state (tensors referenced)."""
+        disc = self.model.discriminator
+        return {
+            "lora": {name: dict(ab) for name, ab in self.lora.items()},
+            "disc": disc.state_dict() if disc is not None else {},
+            "opt_g": self.opt_g.state_dict(),
+            "opt_d": self.opt_d.state_dict() if self.opt_d is not None else None,
+            "ema": self.ema,
+            "step": self.step,
+            "generator": self.generator.get_state(),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for name, ab in self.lora.items():
+            for k, t in ab.items():
+                t.copy_(state["lora"][name][k])
+        if self.model.discriminator is not None:
+            self.model.discriminator.load_state_dict(state["disc"])
+        self.opt_g.load_state_dict(state["opt_g"])
+        if self.opt_d is not None:
+            self.opt_d.load_state_dict(state["opt_d"])
+        if (self.ema is None) != (state["ema"] is None):
+            raise ValueError("the checkpoint's EMA and this trainer's ema_decay disagree")
+        if self.ema is not None:
+            for name, ab in self.ema.items():
+                for k, t in ab.items():
+                    t.copy_(state["ema"][name][k])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+
+    # ------------------------------------------------------------------ fit
+    def _timed(self, batches: Iterator) -> Iterator:
+        while True:
+            t0 = time.perf_counter()
             batch = next(batches, None)
+            self.data_wait_s += time.perf_counter() - t0
             if batch is None:
+                return
+            yield batch
+
+    def fit(self, data: Iterable[Dict[str, Any]], max_steps: Optional[int] = None, callbacks=(),
+            eval_data=None) -> Dict[str, Any]:
+        """Train on ``data`` (dicts with ``image`` [B, H, W, 3] in [-1, 1] and
+        the token ids) from the trainer's step (a restored one included)
+        until ``max_steps`` micro-steps; ``callbacks`` are called after each
+        step; with ``eval_data`` (a factory of fresh iterators) and
+        ``val_every_n_steps``, ``evaluate`` runs at that cadence
+        (``last_val``). Returns the last step's aux."""
+        cfg, model = self.config, self.model
+        max_steps = max_steps or cfg.max_steps or sum(model.config.num_iterations_per_K)
+        batches = self._timed(iter(data))
+        if self._towers:
+            items = self._bursts(batches, self.step, callbacks)
+        else:
+            items = ((b, None) for b in batches)
+        aux: Dict[str, Any] = {}
+        prev_stage = model.stage_for_iteration(max(self.step, 1))
+        t0 = time.perf_counter()
+        while self.step < max_steps:
+            item = next(items, None)
+            if item is None:
                 break
-            stage = self.model.stage_for_iteration(self.step + 1)
-            aux = self.train_step(self.stage_batch(batch), stage)
+            batch, conds = item
+            step = self.step
+            stage = model.stage_for_iteration(step + 1)
+            if (stage != prev_stage and model.config.switch_teacher
+                    and model.config.K[stage] != model.config.K[prev_stage]):
+                model.merge_lora_into_teacher(self.lora)
+                logger.info("stage %d: switched teacher to merged student", stage)
+            prev_stage = stage
+            phase = ("g" if step % 2 == 0 else "d") if self.alternating else None
+            aux = self.train_step(self.stage_batch(batch, step, conds), stage, phase)
             if self.step % cfg.log_every_n_steps == 0:
                 metrics = {k: float(v) for k, v in aux.items()}
                 logger.info("step %d stage %d %.3f s/step %s", self.step, stage,
                             (time.perf_counter() - t0) / cfg.log_every_n_steps, metrics)
                 t0 = time.perf_counter()
+            if eval_data is not None and cfg.val_every_n_steps and self.step % cfg.val_every_n_steps == 0:
+                self.last_val = self.evaluate(eval_data(), stage, max_batches=cfg.val_batches)
+                logger.info("step %d %s", self.step, self.last_val)
+            for cb in callbacks:
+                cb(self, aux, self.step)
         return aux

@@ -327,7 +327,9 @@ def test_side_path_grads_match_jax_student_forward(jax_ref):
 # ---------------------------------------------------------------- trainer
 def test_adamw_matches_optax(jax_ref):
     """Two steps of the port's AdamW (bf16 first moment, weight decay 1e-4,
-    a global-norm clip) vs optax on the same params and grads; 1e-6."""
+    a global-norm clip) vs optax compiled by ``jax.jit``, as the JAX
+    trainer's step runs it (XLA keeps b1·μ unrounded in fp32), on the same
+    params and grads; 1e-6."""
     import optax
 
     rng = np.random.default_rng(20)
@@ -340,7 +342,7 @@ def test_adamw_matches_optax(jax_ref):
     opt = TrainingConfig(learning_rates=[1e-3, 1e-3], gradient_clip_norm=4.0).build_optimizer(0, tp)
     assert opt.mu[0].dtype == torch.bfloat16 and opt.weight_decay == 1e-4
     for gs in grads:
-        up, state = tx.update([jnp.asarray(g) for g in gs], state, jp)
+        up, state = jax.jit(tx.update)([jnp.asarray(g) for g in gs], state, jp)
         jp = [p + u for p, u in zip(jp, up)]
         for p, g in zip(tp, gs):
             p.grad = t_(g)
