@@ -250,13 +250,19 @@ each phase's seconds:
    weights, the 16-channel VAE, K = 32 with the flow-match Euler teacher on
    float timesteps, l2 distill, DMD over the full flow schedule, lsgan over
    the post-mid features, rank-64 LoRA, the 4-stage 64-feature
-   discriminator), every step in stage 1, then ``fit`` on synthetic batches
-   of 2 at 1024² (CLIP and T5 ids): 1 warm and 3 timed steps, each printed
-   with its start index and teacher forwards; checked as 7c (K2, K3, K6, K7
-   and the GroupNorm kernels launched, every launched (kernel, shape) among
-   phase 2's: the joint attention and its backward at kv_valid 4250; every
-   LoRA B but the final block's inert ``add_q_proj`` pair, whose B stays
-   0, changed); warm s/step (median), images/s, peak memory;
+   discriminator), every step in stage 1, the yaml's
+   ``TEXT_ENCODER_OFFLOAD`` 4 honoured (the towers on the host, moved to
+   the card for one encode burst of the 4 batches), then ``fit`` on
+   synthetic batches of 2 at 1024² (CLIP and T5 ids): 1 warm and 3 timed
+   steps, each printed with its start index and teacher forwards; then one
+   ``SampleLogger`` call (the student, 4 steps, the yaml's prompt) under
+   ``sampling_frozen``, its PNG decoded; checked as 7c (K2, K3, K6, K7 and
+   the GroupNorm kernels launched, every launched (kernel, shape) among
+   phase 2's: the joint attention and its backward at kv_valid 4250, the
+   sampling at batch 1; every LoRA B but the final block's inert
+   ``add_q_proj`` pair, whose B stays 0, changed); warm s/step (median),
+   images/s, the seconds of each move of the towers, peak memory over the
+   phase and over the training steps alone (reset after the burst);
 9b. SD3 training reference at 256², as 5b (K = [4], batch 2, non-zero LoRA
    B, a 3-stage discriminator: 4 stages would reduce the 32² features below
    the 4×4 head), the flow-match rollout from ``TRAIN_REF_START`` 1: the
@@ -264,14 +270,38 @@ each phase's seconds:
    never run, in place of T5-XXL; 5b's tolerances, but the distill and DMD
    losses held to 0.1 (``TRAIN_REF_LOSS_TOL``: bf16 alone, with no kernel,
    puts them ~5% from fp32); every (kernel, shape) the card's side launched
-   among phase 2's; its seconds printed.
+   among phase 2's; its seconds printed;
+10. the SD1.5 training run, after the SD3 trainers are freed
+   (``run_training_run``): 3 training shards of 12 JPEGs (512–768 a side)
+   and an eval shard of 8, written from seeds 0 and 1, a quarter of the
+   scores below ``MIN_AESTHETIC_SCORE`` (the kept and dropped counts
+   printed); ``build_trainer("sd15")`` with ``flash_sd.yaml`` stage 1,
+   ``EMA_DECAY`` 0.999, ``GRADIENT_ACCUMULATION_STEPS`` 2,
+   ``VAL_EVERY_N_STEPS`` and ``CKPT_EVERY_N_STEPS`` 4; ``build_data`` (two
+   thread workers) and ``tokenize_batches`` behind ``prefetch_to_device``;
+   ``fit`` of 4 micro-steps with ``MetricLogger``, ``CheckpointCallback``,
+   a ``SampleLogger`` (the yaml's 2 prompts, 1, 2 and 4 steps, the
+   teacher's Euler-ancestral samples at CFG 5) and ``eval_data``. After
+   micro-step 1 the LoRA, the discriminator and the EMA are unchanged;
+   after micro-step 2 all moved, the EMA = 0.999·EMA₀ + 0.001·LoRA to fp32
+   rounding; the validation finite; every sample PNG decodes; the
+   checkpoint of step 4 restored by a fresh trainer bit for bit (the
+   generator included), two more micro-steps on both with the same batches
+   drawing the same starts, their LoRAs within a relative L2 of 1e-3;
+   two steps in the alternating mode (``"g"`` moves only the LoRA, ``"d"``
+   only the discriminator); the EMA exported as a PEFT file, read back
+   equal, and ``build_pipeline("sd15", lora=...)`` generating 4 finite
+   images. K1, K2, K3, K6, K7, K8 and the GroupNorm kernels launched, every
+   launched (kernel, shape) among phase 2's (the validation batch at B = 2
+   and 2B = 4, the eval batch, the training shapes); warm s/micro-step,
+   the seconds ``fit`` waited on its data iterator, peak memory.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
 paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
 ``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
-8t as ``sd3_t5``, 9 as ``train_sd3``; ``ms``, ``plain_ms``,
+8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -530,22 +560,41 @@ GN_SHAPES_SD3_TRAIN = [((2, 128, 32, 32), torch.float32, 4), ((2, 256, 16, 16), 
 GN_REFERENCES_SD3_TRAIN = [((2, c, hw, hw), torch.bfloat16, None) for c, hw in (
     (128, 256), (128, 128), (256, 128), (256, 64), (512, 64), (512, 32))]
 GN_REFERENCES_SD3_TRAIN += [((2, 128, 8, 8), torch.float32, 4), ((2, 256, 4, 4), torch.float32, 4)]
+# the SD1.5 training run (phase 10) at 512², batch 4: the rollout's, DMD's
+# and the GAN's 2B = 8 forward (BH 64; 4 the eval pass's too) and the
+# validation student at B = 2 (BH 16; its teacher at 2B = 4 is BH 32,
+# sampling's), at every UNet level
+ATTENTION_SHAPES_TRAIN_RUN = [(bh, sq, kv, d, None) for bh in (16, 64) for sq, kv, d in BWD_LEVELS]
+LAYER_NORM_SHAPES_TRAIN_RUN = [(rows, c, torch.bfloat16) for rows, c in (
+    (8 * 4096, 320), (2 * 4096, 320), (2 * 1024, 640), (8 * 64, 1280), (2 * 64, 1280))]
+GN_SHAPES_TRAIN_RUN = [((b, c, hw, hw), torch.bfloat16, None) for b, c, hw in (
+    (2, 320, 32), (2, 640, 16), (2, 960, 32), (2, 1280, 8), (2, 1280, 16), (2, 1920, 16), (2, 2560, 8),
+    (2, 2560, 16), (4, 320, 32), (4, 640, 16), (4, 960, 32), (4, 1920, 16), (4, 2560, 8), (4, 2560, 16),
+    (8, 320, 32), (8, 320, 64), (8, 640, 16), (8, 640, 32), (8, 640, 64), (8, 960, 32), (8, 960, 64),
+    (8, 1280, 8), (8, 1280, 16), (8, 1280, 32), (8, 1920, 16), (8, 1920, 32), (8, 2560, 8), (8, 2560, 16))]
+# phase 9's sampling callback: SD3 at 1024², batch 1 (the joint attention
+# at BH 24, the VAE decoder with its single-head mid-attention)
+ATTENTION_SHAPES_SD3_SAMPLE = [(24, 4352, 4352, 64, 4250), (1, 16384, 16384, 512, None)]
+LAYER_NORM_SHAPES_SD3_SAMPLE = [(4096, 1536, torch.bfloat16), (256, 1536, torch.bfloat16)]
+GN_SHAPES_SD3_SAMPLE = [((1, c, hw, hw), torch.bfloat16, None) for c, hw in (
+    (128, 1024), (256, 512), (256, 1024), (512, 128), (512, 256), (512, 512))]
 # The paths' shapes of each check (timed), read at call time so that a
 # caller may narrow the lists above; GroupNorm cases are (shape, dtype,
 # the path's group count or None)
 def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
-            + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN)
+            + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN + ATTENTION_SHAPES_SD3_SAMPLE
+            + ATTENTION_SHAPES_TRAIN_RUN)
 
 
 def layer_norm_main():
     return (LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
-            + LAYER_NORM_SHAPES_SD3_TRAIN)
+            + LAYER_NORM_SHAPES_SD3_TRAIN + LAYER_NORM_SHAPES_SD3_SAMPLE + LAYER_NORM_SHAPES_TRAIN_RUN)
 
 
 def gn_main():
     return ([(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
-            + GN_SHAPES_SD3_TRAIN)
+            + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN)
 
 
 def bwd_main():
@@ -1057,9 +1106,9 @@ def check_group_norm(norms, results, timed=True):
             y, mean, inv = norms.group_norm_forward(x, groups, gw, gb, 1e-5)
             y_act = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
             again = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
-            alone = norms.group_norm(x[1:2], groups, gw, gb, 1e-5, act="silu")
+            alone = norms.group_norm(x[-1:], groups, gw, gb, 1e-5, act="silu")  # the last sample alone
             torch.cuda.synchronize()
-            gn_exact = torch.equal(again, y_act) and torch.equal(alone[0], y_act[1])
+            gn_exact = torch.equal(again, y_act) and torch.equal(alone[0], y_act[-1])
             layout_ok = y.stride() == x.stride() and y_act.stride() == x.stride()
             stats = norms.group_norm_errors((y, y_act, mean, inv), want, want64)
             gate_ok, report = norms.group_norm_gate(stats)
@@ -1067,10 +1116,10 @@ def check_group_norm(norms, results, timed=True):
             del y, y_act, again, alone, mean, inv
             s, ss = norms.group_norm_stats(x)
             again = norms.group_norm_stats(x)
-            alone = norms.group_norm_stats(x[1:2])
+            alone = norms.group_norm_stats(x[-1:])
             torch.cuda.synchronize()
-            exact = (torch.equal(again[0], s) and torch.equal(again[1], ss) and torch.equal(alone[0][0], s[1])
-                     and torch.equal(alone[1][0], ss[1]))
+            exact = (torch.equal(again[0], s) and torch.equal(again[1], ss) and torch.equal(alone[0][0], s[-1])
+                     and torch.equal(alone[1][0], ss[-1]))
             del again, alone
             stats_ok = bool(((s.double() - rs).abs() <= GN_STATS_TOL * mag).all()
                             and ((ss.double() - rss).abs() <= GN_STATS_TOL * rss).all())
@@ -1740,11 +1789,12 @@ def check_pngs(paths, logger, size):
 
 class StepTimer:
     """A ``fit`` callback: each step's wall seconds (the device synchronized
-    at both ends), printed with its stage, start index and losses; with
-    ``check_stage``, a step outside it or a non-finite loss fails."""
+    at both ends), printed with its stage, start index and losses; a step
+    outside stage 1 (where ``TRAIN_OVERRIDES`` puts every step) or a
+    non-finite loss fails."""
 
-    def __init__(self, label, check_stage=None):
-        self.label, self.check_stage, self.times = label, check_stage, []
+    def __init__(self, label):
+        self.label, self.times = label, []
         self.mark()
 
     def mark(self):
@@ -1762,8 +1812,7 @@ class StepTimer:
         start = fl.stage_schedules[stage].timesteps.index(aux["start_timestep"])
         print(f"{self.label} step {step} (stage {stage}, start index {start}: {fl.config.K[stage] - start} teacher "
               f"forwards): {dt:.3f} s; " + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
-        if (self.check_stage is not None and stage != self.check_stage) or not all(map(math.isfinite,
-                                                                                          losses.values())):
+        if stage != 1 or not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"{self.label} step {step}: stage {stage}, losses {losses}")
 
 
@@ -1817,7 +1866,7 @@ def run_training(model, counters, card, required, gated=None):
     lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
     disc = snapshot([fl.discriminator])
     data = synthetic_batches(batch, size, seed=0, model=model)
-    timer, bursts = StepTimer(model, check_stage=1), BurstWatch()
+    timer, bursts = StepTimer(model), BurstWatch()
     reset(counters)
     torch.cuda.synchronize()
     timer.mark()
@@ -2008,7 +2057,7 @@ def run_training_run(counters, card, required, gated):
                            out_dir=os.path.join(root, "samples"), every_n_steps=4, num_steps=cfg["NUM_STEPS"],
                            log_teacher_samples=True, teacher_guidance_scale=5.0)
     ckpt = os.path.join(root, "checkpoints")
-    timer, metrics = StepTimer("sd15 run", check_stage=1), MetricLogger(1)
+    timer, metrics = StepTimer("sd15 run"), MetricLogger(1)
     callbacks = [timer, metrics, CheckpointCallback(ckpt, 4), samples]
     batches = iter(data)
     checked = []

@@ -5,10 +5,13 @@ It mirrors the JAX package's module names; every Pallas kernel on a ported
 path is a hand-written CUDA kernel under ``csrc/``, built at first use.
 Ported so far: 4-step text-to-image sampling of SD1.5 at 512², SDXL,
 Pixart-α and SD3-medium at 1024² (the text towers → LCM, or SD3's Flash
-flow matching → UNet, DiT or MMDiT → VAE decode), the SD1.5, SDXL and
-Pixart-α distillation steps, and serving (``serving.py``, ``serve.py``)
-with LoRA hot swap and the int8 W8A8 mode (``quant.py``). Imports
-``torch`` and never ``jax``.
+flow matching → UNet, DiT or MMDiT → VAE decode), the SD1.5, SDXL,
+Pixart-α and SD3 distillation steps and the training run around them
+(``trainer/``: tar-shard data from ``data/``, EMA, gradient accumulation,
+the alternating GAN mode, validation sampling, checkpoints and resume,
+text-encoder offload, PEFT export), and serving (``serving.py``,
+``serve.py``) with LoRA hot swap and the int8 W8A8 mode (``quant.py``).
+Imports ``torch`` and never ``jax``.
 """
 
 from .pipelines import FlashPipeline

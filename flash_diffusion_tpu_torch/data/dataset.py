@@ -47,23 +47,19 @@ class DataModuleConfig(BaseConfig):
     worker_backend: str = "thread"  # thread | process
     shuffle_buffer_size: int = 100
     shuffle_shards: bool = True
-    # pil: images decoded to PIL; raw: bytes for everything; raw_image:
-    # JPEG bytes, the rest decoded
-    decoder: str = "pil"
+    decoder: str = "pil"  # pil: images decoded to PIL; raw: bytes for every member
     seed: int = 0
     drop_last: bool = True
-    prefetch: int = 2
     # member-name rewrite of extensions before grouping (rename_files_fn)
     rename_files: Optional[Dict[str, str]] = None
     # JPEG draft decode: libjpeg decodes at the smallest DCT scale whose
     # result still covers (size, size); None decodes at full size
     decode_draft_size: Optional[int] = None
-    aspect_bucketing: bool = False  # not ported: DataPipeline refuses it
 
 
 def _decode_member(name: str, data: bytes, decoder: str, draft_size: Optional[int] = None) -> Any:
     ext = name.rsplit(".", 1)[-1].lower()
-    if decoder == "raw" or (decoder == "raw_image" and ext in ("jpg", "jpeg")):
+    if decoder == "raw":
         return data
     if ext in ("jpg", "jpeg", "png", "webp"):
         from PIL import Image
@@ -236,8 +232,6 @@ class DataPipeline:
 
     def __init__(self, config: DataModuleConfig, filters_mappers: Sequence[Callable] = (),
                  process_index: Optional[int] = None, process_count: Optional[int] = None):
-        if config.aspect_bucketing:
-            raise ValueError("aspect bucketing is not ported yet (ROADMAP Queue 1 item 3)")
         self.config = config
         self.filters_mappers = list(filters_mappers)
         if process_index is None:
@@ -369,15 +363,14 @@ def _pinned(batch: Dict[str, Any], pin: bool) -> Dict[str, Any]:
     return out
 
 
-def prefetch_to_device(iterator, size: int = 2, pin: Optional[bool] = None) -> Iterator[Dict[str, Any]]:
+def prefetch_to_device(iterator, size: int = 2) -> Iterator[Dict[str, Any]]:
     """Batches of ``iterator`` read ahead by a thread (``size`` waiting), each
-    array staged as a tensor, pinned when a CUDA device is there (``pin``),
-    so that the trainer's copy to the device does not wait on the host
-    pipeline. The thread stops when the consumer abandons the iterator."""
-    if pin is None:
-        import torch
+    array staged as a tensor, pinned when a CUDA device is there, so that
+    the trainer's copy to the device does not wait on the host pipeline.
+    The thread stops when the consumer abandons the iterator."""
+    import torch
 
-        pin = torch.cuda.is_available()
+    pin = torch.cuda.is_available()
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
     end = object()

@@ -203,7 +203,7 @@ class FlashDiffusion:
                 m = self.student_module.get_submodule(name)
                 prev[name] = m.lora
                 m.lora = (ab["a"], ab["b"], float(self.lora_scaling))
-            yield self.student_module
+            yield
         finally:
             for name, v in prev.items():
                 self.student_module.get_submodule(name).lora = v
@@ -232,19 +232,16 @@ class FlashDiffusion:
             sample = mod.step(sched, pred, i, sample, noise=step_noise)
         return sample
 
-    def _sample_conds(self, batch, g_scale, uncond_batch):
-        """(cond or the 2B cond ⊕ uncond under CFG, CFG on)."""
+    def _sample_conds(self, batch, g_scale):
+        """(cond, or under CFG the 2B cond ⊕ uncond with the ``ucg_keys``
+        dropped; CFG on)."""
         do_cfg = g_scale != 1.0
         if self.conditioner is None:
             return None, do_cfg
         cond = self.conditioner(batch, set_ucg_rate_zero=True)
         if not do_cfg:
             return cond, do_cfg
-        if uncond_batch is not None:
-            uncond = self.conditioner(uncond_batch, set_ucg_rate_zero=True)
-        else:
-            uncond = self.conditioner(batch, ucg_keys=self.config.ucg_keys)
-        return _cat(cond, uncond), do_cfg
+        return _cat(cond, self.conditioner(batch, ucg_keys=self.config.ucg_keys)), do_cfg
 
     @torch.no_grad()
     def sample(
@@ -254,7 +251,6 @@ class FlashDiffusion:
         batch: Dict[str, Any],
         num_steps: int = 4,
         guidance_scale: float = 1.0,
-        uncond_batch: Optional[Dict[str, Any]] = None,
         decode: bool = True,
         use_teacher: bool = False,
         teacher_guidance_scale: float = 5.0,
@@ -282,7 +278,7 @@ class FlashDiffusion:
             stochastic = self.sampling_scheduler_name in (
                 "LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler",
                 "EulerAncestralDiscreteScheduler")
-        cond2, do_cfg = self._sample_conds(batch, g_scale, uncond_batch)
+        cond2, do_cfg = self._sample_conds(batch, g_scale)
         with self.using_lora(None if use_teacher else lora):
             sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
                                        noise, generator)

@@ -214,7 +214,6 @@ class FlashDiffusionSD3(FlashDiffusion):
         batch: Dict[str, Any],
         num_steps: int = 4,
         guidance_scale: float = 1.0,
-        uncond_batch: Optional[Dict[str, Any]] = None,
         decode: bool = True,
         use_teacher: bool = False,
         teacher_guidance_scale: float = 5.0,
@@ -231,7 +230,7 @@ class FlashDiffusionSD3(FlashDiffusion):
         else:
             module = self.student_module if lora is not None else self.teacher_module
             g_scale, mod, stochastic = guidance_scale, REGISTRY["FlashFlowMatchEulerDiscreteScheduler"], True
-        cond2, do_cfg = self._sample_conds(batch, g_scale, uncond_batch)
+        cond2, do_cfg = self._sample_conds(batch, g_scale)
         with self.using_lora(None if use_teacher else lora):
             sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
                                        noise, generator)

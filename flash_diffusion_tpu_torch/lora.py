@@ -156,8 +156,6 @@ def to_peft(lora: LoraTree, prefix: str = "unet") -> Dict[str, torch.Tensor]:
     CPU (``from_peft``'s inverse)."""
     out = {}
     for name, ab in sorted(lora.items()):
-        if ab["a"].dim() != 2:
-            raise ValueError(f"{name}: only dense (2-D) LoRA pairs are ported, got shape {tuple(ab['a'].shape)}")
         out[f"{prefix}.{name}.lora_A.weight"] = ab["a"].detach().float().t().contiguous().cpu()
         out[f"{prefix}.{name}.lora_B.weight"] = ab["b"].detach().float().t().contiguous().cpu()
     return out

@@ -117,7 +117,10 @@ def main():
 
         if args.model not in train.MODELS:
             raise SystemExit(f"profile: training of {args.model!r} is not ported (one of {train.MODELS})")
-        cfg = {**train.load_config(train.CONFIGS[args.model]), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
+        # the towers resident: a step alone, without an offload burst of 4
+        # batches' encode and the towers' move inside the window
+        cfg = {**train.load_config(train.CONFIGS[args.model]), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000],
+               "TEXT_ENCODER_OFFLOAD": 0}
         batch, size = args.batch or cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"]
         trainer = train.build_trainer(args.model, device="cuda", config=cfg)
         data = train.synthetic_batches(batch, size, model=args.model)

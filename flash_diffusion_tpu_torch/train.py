@@ -18,11 +18,12 @@ schedule, losses, loss scales, mode probabilities and learning rates; then
 ``TrainingPipeline.fit(batches, max_steps=n)`` runs the training run: the
 simultaneous (or, with ``GAN_UPDATE_MODE: alternating``, the alternating)
 step, ``EMA_DECAY``, ``GRADIENT_ACCUMULATION_STEPS``, ``VAL_EVERY_N_STEPS``
-over ``EVAL_SHARDS_PATH_OR_URLS``, ``SWITCH_TEACHER``, checkpoints every
+over ``EVAL_SHARDS_PATH_OR_URLS``, checkpoints every
 ``CKPT_EVERY_N_STEPS`` under ``<output-dir>/checkpoints`` (``--resume``
 restores the latest), and at the end the LoRA student (the EMA one when
 tracked) as ``<output-dir>/pytorch_lora_weights.safetensors`` (PEFT names,
-the ``unet`` or ``transformer`` prefix).
+the ``unet`` or ``transformer`` prefix); the CLI also checkpoints the last
+step, so that ``--resume`` continues any run.
 By model (its default yaml in ``CONFIGS``):
 
 - ``sd15``: SD1.5 UNet, SD VAE, CLIP-L (its last hidden state); mid block
@@ -109,7 +110,15 @@ from .sample import (
     t5_tokenizer,
 )
 from .schedulers import SchedulerConfig
-from .trainer import CheckpointCallback, MetricLogger, TrainingConfig, TrainingPipeline, export_lora, restore_state
+from .trainer import (
+    CheckpointCallback,
+    TrainingConfig,
+    TrainingPipeline,
+    export_lora,
+    latest_step,
+    restore_state,
+    save_state,
+)
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
 CONFIGS = {model: os.path.join(_CONFIG_DIR, name) for model, name in (
@@ -377,7 +386,6 @@ def build_trainer(
         use_teacher_as_real=cfg.get("USE_TEACHER_AS_REAL", False),
         use_empty_prompt=cfg["USE_EMPTY_PROMPT"],
         gan_update_mode=cfg.get("GAN_UPDATE_MODE", "simultaneous"),
-        switch_teacher=bool(cfg.get("SWITCH_TEACHER", False)),
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
     modules = dict(vae=vae, conditioner=make_conditioner(model, conditioners), discriminator=disc, lpips=lpips,
@@ -459,9 +467,12 @@ def main():
             logger.warning("--resume: no checkpoint under %s, starting fresh", tc.checkpoint_dir)
         else:
             logger.info("resumed from step %d", step)
-    callbacks = [MetricLogger(tc.log_every_n_steps), CheckpointCallback(tc.checkpoint_dir, tc.checkpoint_every_n_steps)]
+    callbacks = [CheckpointCallback(tc.checkpoint_dir, tc.checkpoint_every_n_steps)]  # fit logs each step
     aux = trainer.fit(data, max_steps=args.max_steps, callbacks=callbacks, eval_data=eval_data)
     print({k: float(v) for k, v in aux.items()})
+    if trainer.step and latest_step(tc.checkpoint_dir) != trainer.step:  # so that --resume continues this run
+        save_state(tc.checkpoint_dir, trainer.step, trainer.state_dict())
+        logger.info("step %d: checkpoint saved to %s", trainer.step, tc.checkpoint_dir)
     out = os.path.join(args.output_dir, "pytorch_lora_weights.safetensors")
     save_peft_safetensors(out, export_lora(trainer), prefix=LORA_PREFIX[args.model])
     print("saved", out)

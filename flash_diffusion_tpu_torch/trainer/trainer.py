@@ -193,9 +193,9 @@ class TrainingPipeline:
 
     # ------------------------------------------------------------------ step
     def stage_batch(self, batch: Dict[str, Any], step: Optional[int] = None, conds=None) -> Dict[str, Any]:
-        """The batch on the device with ``__conds`` (``conds`` when given)
-        and ``__z`` staged, from the generators of ``step`` (the trainer's
-        step by default)."""
+        """The batch on the device with ``__conds`` (``conds`` when given;
+        offloaded towers are placed for the encode) and ``__z`` staged, from
+        the generators of ``step`` (the trainer's step by default)."""
         model = self.model
         step = self.step if step is None else step
         batch = self.to_device(batch)
@@ -203,7 +203,8 @@ class TrainingPipeline:
             if conds is not None:
                 batch["__conds"] = conds
             elif model.conditioner is not None:
-                batch["__conds"] = model._conditionings(batch, self._generator(step, 0))
+                with self.sampling_frozen():
+                    batch["__conds"] = model._conditionings(batch, self._generator(step, 0))
             if model.vae is not None:
                 batch["__z"] = self._encode(batch, self._generator(step, 1))
         return batch

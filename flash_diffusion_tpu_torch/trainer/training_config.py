@@ -151,10 +151,6 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
-    def current_lr(self) -> float:
-        """The learning rate of the next applied update."""
-        return self.schedule(self.count) if self.schedule is not None else self.lr
-
     @torch.no_grad()
     def step(self) -> bool:
         """Take this micro-step's gradients; True when it applied an update."""
@@ -171,7 +167,7 @@ class Optimizer:
             if not norm < self.clip_norm:
                 grads = [g / norm.to(g.dtype) * self.clip_norm for g in grads]
         updates = self._rule(grads)
-        scale = -self.current_lr()
+        scale = -(self.schedule(self.count) if self.schedule is not None else self.lr)
         if self.name == "RMSprop" and self.momentum is not None:  # optax traces after the scaling
             updates = self._trace([u * scale for u in updates])
             scale = None

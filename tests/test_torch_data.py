@@ -187,7 +187,8 @@ def test_pipe_shards_and_collation(shards):
 def test_prefetch_stages_tensors_and_stops(shards):
     """``prefetch_to_device`` yields the batches in order with arrays as
     tensors (unpinned without CUDA), captions untouched, and stops its
-    thread when the consumer leaves early."""
+    thread when the consumer leaves early; ``DataModule`` gives the train
+    pipeline's batches, and the eval pipeline's when it has one."""
     import torch
 
     _, paths = shards
@@ -203,3 +204,55 @@ def test_prefetch_stages_tensors_and_stops(shards):
     it = tdata.prefetch_to_device(iter(pipe), size=1)
     next(it)
     it.close()
+    module = tdata.DataModule(pipe.config, chain(tdata))
+    assert module.eval_dataloader() is None
+    first = next(module.train_dataloader())
+    np.testing.assert_array_equal(first["image"], want[0]["image"])
+    module = tdata.DataModule(pipe.config, chain(tdata), pipe.config, chain(tdata))
+    assert [b["text"] for b in module.eval_pipeline.batches(0)] == [w["text"] for w in want]
+
+
+def test_process_workers_give_the_thread_workers_samples(shards):
+    """Two process workers (``spawn``: ``build_data``'s chain pickles) give
+    the same samples, as a set, as one thread worker."""
+    root, _ = shards
+    cfg = {"SHARDS_PATH_OR_URLS": [os.path.join(root, "{000000..000002}.tar")], "IMAGE_SIZE": 16, "BATCH_SIZE": 2,
+           "SHUFFLE_BUFFER_SIZE": 1}
+    procs = list(train.build_data(cfg, num_workers=2, worker_backend="process").samples())
+    threads = list(train.build_data(cfg, num_workers=1).samples())
+    assert len(threads) == 10
+    assert_same_samples(procs, threads, ordered=False)
+
+
+def test_key_mappers_and_filters_match_jax(jax_ref):
+    """The key mappers and filters on one sample against JAX's: a
+    conditional rename (its else map too), select, remove, set, JSON keys
+    (a missing key raises when strict), the key and condition filters and
+    their AND."""
+    sample = {"jpg": 1, "txt": "a", "json": json.dumps({"caption": "c", "score": 7}), "extra": 3}
+    cases = [
+        ("KeyRenameMapper", dict(key_map={"jpg": "image"}, condition_key="extra", else_key_map={"txt": "text"}),
+         (lambda v: v > 2,), None),
+        ("KeyRenameMapper", dict(key_map={"jpg": "image"}, condition_key="extra", else_key_map={"txt": "text"}),
+         (lambda v: v > 5,), None),
+        ("SelectKeysMapper", dict(keys=["jpg", "missing", "txt"]), (), None),
+        ("RemoveKeysMapper", dict(keys=["extra", "json"]), (), None),
+        ("SetValueMapper", dict(key="flag", value=[1, 2]), (), None),
+        ("KeysFromJSONMapper", dict(key="json", keys_to_extract=["caption", "score"], remove_original=True), (), None),
+        ("KeysFromJSONMapper", dict(key="json", keys_to_extract=["caption", "nope"], strict=True), (), KeyError),
+    ]
+    for name, kw, extra, raises in cases:
+        make = lambda pkg: getattr(pkg, name)(getattr(pkg, name + "Config")(**kw), *extra)
+        if raises:
+            for pkg in (tdata, jdata):
+                with pytest.raises(raises):
+                    make(pkg)(dict(sample))
+            continue
+        assert make(tdata)(dict(sample)) == make(jdata)(dict(sample)), name
+    for pkg in (tdata, jdata):
+        key = pkg.KeyFilter(pkg.KeyFilterConfig(keys=["jpg", "txt"]))
+        cond = pkg.FilterOnCondition(pkg.FilterOnConditionConfig(condition_key="extra"), lambda v: v >= 3)
+        loose = pkg.FilterOnCondition(pkg.FilterOnConditionConfig(condition_key="none", strict=False), bool)
+        both = pkg.FilterWrapper([key, cond, loose])
+        assert (key(sample), cond(sample), loose(sample), both(sample), both({"jpg": 1})) == (
+            True, True, True, True, False)

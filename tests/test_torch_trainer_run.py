@@ -251,27 +251,34 @@ def sample_models():
     return jmodel, {"teacher": uparams, "vae": vparams}, lora, tmodel, lora_from_jax(lora, UNetConfig(**UNET_KW))
 
 
-@pytest.mark.parametrize("who,decode", [("student", False), ("teacher", True)])
+@pytest.mark.parametrize("who,decode", [("student", False), ("teacher", True), ("teacher-dpm", False)])
 def test_flash_sample_matches_jax(jax_ref, who, decode):
     """``FlashDiffusion.sample``: the LCM student (4 steps over the DDPM
     teacher's trailing timesteps, guidance 1, a LoRA other than the one
     attached, the step noise injected from JAX's key splits; latents out)
     or the teacher (Euler ancestral, 2 steps, CFG 5 as one 2B forward;
-    through the tiny VAE decode), against JAX ``sample``: 1e-4. The
+    through the tiny VAE decode; or DPM-Solver++ 2M, Pixart's, its
+    multistep carry through 3 steps), against JAX ``sample``: 1e-4. The
     attached tree is back afterwards."""
     jmodel, frozen, jl, tmodel, tl = sample_models()
     rng = np.random.default_rng(3)
     z = rng.standard_normal((B, HW, HW, C)).astype(np.float32)
     ctx = rng.standard_normal((B, 8, 16)).astype(np.float32)
     key = jax.random.PRNGKey(4)
-    teacher = who == "teacher"
-    steps = 2 if teacher else 4
+    teacher = who.startswith("teacher")
+    steps = 3 if who == "teacher-dpm" else 2 if teacher else 4
+    if who == "teacher-dpm":
+        saved = jmodel.teacher_sampling_sched_mod, tmodel.teacher_sampling_sched_mod
+        jmodel.teacher_sampling_sched_mod = JREGISTRY["DPMSolverMultistepScheduler"]
+        tmodel.teacher_sampling_sched_mod = REGISTRY["DPMSolverMultistepScheduler"]
     want = jmodel.sample(frozen, None if teacher else jl, jnp.asarray(z), {"crossattn": jnp.asarray(ctx)},
                          num_steps=steps, decode=decode, use_teacher=teacher, teacher_guidance_scale=5.0, rng=key)
     attached = {name: m.lora for name, m in tmodel.student_module.named_modules() if getattr(m, "lora", None)}
     got = tmodel.sample(None if teacher else tl, t_(z), {"crossattn": t_(ctx)}, num_steps=steps, decode=decode,
                         use_teacher=teacher, teacher_guidance_scale=5.0,
                         noise=None if teacher else jax_step_noise(key, z.shape, steps))
+    if who == "teacher-dpm":
+        jmodel.teacher_sampling_sched_mod, tmodel.teacher_sampling_sched_mod = saved
     close(got, want, 1e-4)
     assert all(tmodel.student_module.get_submodule(n).lora is v for n, v in attached.items())
 
@@ -536,7 +543,8 @@ def test_offload_matches_resident():
     """Text towers on the host between bursts of 2 batches against resident
     ones, 3 steps: the same losses and the same LoRA, bit for bit; two
     bursts moved the towers; ``sampling_frozen`` moves them once more and
-    hands them back to their host storage."""
+    hands them back to their host storage; ``stage_batch`` outside ``fit``
+    places them for its encode and stages what the resident trainer does."""
     data = tiny_batches(3)
     res, off = tiny_trainer(), tiny_trainer(offload=2)
     losses = {}
@@ -552,6 +560,10 @@ def test_offload_matches_resident():
     with off.sampling_frozen():
         assert len(off.offload_moves) == 3
     assert w.data_ptr() == host and w.device.type == "cpu"
+    staged = [tr.stage_batch(data[0], step=7) for tr in (res, off)]  # outside fit: the towers placed for it
+    assert len(off.offload_moves) == 4
+    assert all(torch.equal(a["cond"][k], b["cond"][k]) for a, b in zip(*(s["__conds"] for s in staged))
+               for k in a["cond"])
 
 
 def test_checkpoint_round_trip_and_resume(tmp_path):
