@@ -10,8 +10,10 @@ Flash distillation step of SD1.5 at 512² and of SDXL at 1024², SDXL 1024²
 served over HTTP in int8 W8A8 with a merged LoRA, 4-step sampling of
 Pixart-α at 1024² (T5-XXL, the DiT) in bf16 and in int8, Pixart's
 distillation step at 512², 4-step sampling of SD3-medium at 1024² (the
-MMDiT, dual-CLIP and with T5-XXL) in bf16 and in int8, and SD3's
-distillation step at 1024². It fails unless every phase passes, and prints
+MMDiT, dual-CLIP and with T5-XXL) in bf16 and in int8, SD3's
+distillation step at 1024², the SD1.5 training run on JPEG shards, the
+Canny T2I-Adapter distillation run of SD1.5 at 512², and the DPT depth
+model (ViT-L/16) at 384². It fails unless every phase passes, and prints
 each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
@@ -294,14 +296,43 @@ each phase's seconds:
    images. K1, K2, K3, K6, K7, K8 and the GroupNorm kernels launched, every
    launched (kernel, shape) among phase 2's (the validation batch at B = 2
    and 2B = 4, the eval batch, the training shapes); warm s/micro-step,
-   the seconds ``fit`` waited on its data iterator, peak memory.
+   the seconds ``fit`` waited on its data iterator, peak memory;
+11. the Canny T2I-Adapter run (``run_canny_training``), on phase 10's JPEG
+   shards: ``build_trainer("sd15-canny")`` with
+   ``flash_canny_adapter.yaml`` stage 1 (K = 16 DDPM teacher, l2, DMD,
+   hinge, rank-128 LoRA, the frozen bf16 adapter over [320, 640, 1280,
+   1280] made from the seed), ``build_data`` with the Canny mapper (two
+   thread workers) behind ``prefetch_to_device``, zero text ids; ``fit`` of
+   4 steps (1 warm, 3 timed), then a 5th under ``torch.profiler`` for the
+   device-busy time (its share of that step and of the warm median).
+   Every loss finite; the LoRA moved; the adapter
+   bit-identical and in no optimizer; then ``FlashDiffusion.sample`` of 4
+   images at 512² from one batch's edge maps at
+   ``adapter_conditioning_scale`` 1 and 0 (same latents and noise), finite
+   and apart by ``CANNY_SCALE_MIN_DIFF`` at least; the LoRA exported as a
+   PEFT file and read back equal. K1, K2, K3, K6, K7, K8 and the GroupNorm
+   kernels launched, every launched (kernel, shape) among phase 2's; warm
+   s/step (median), peak memory, the busy time, the seconds ``fit`` waited
+   on data and the Canny mapper's ms a 512² image on the host;
+11b. its training reference at 256², as 5b (K = [4], batch 2, non-zero
+   LoRA B, 0 discriminator stages), the rollout from ``TRAIN_REF_START``
+   2, the adapter's residuals (bf16 on the card, fp32 on the CPU copy) in
+   every UNet call; 5b's tolerances;
+11c. the DPT (``DPTDepth()``: ViT-L/16 at 384², dim 1024, 24 blocks of 16
+   heads, 256 features; random weights from seed 0, the head's last bias
+   1 so that its final ReLU leaves the map live), bf16 on the card
+   against its fp32 CPU copy on one image, relative L2 within
+   ``DPT_REL_L2_TOL``; then ``DepthMapper(make_depth_fn(...))`` over 4
+   images of 512²: [512, 512, 3] maps in [0, 1], K1 launched at [16, 577,
+   577, 64] (24 a map), gated; ms a map.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
 paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
 ``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
-8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``; ``ms``, ``plain_ms``,
+8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``, 11 as
+``train_canny``, 11c as ``depth``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -572,6 +603,11 @@ GN_SHAPES_TRAIN_RUN = [((b, c, hw, hw), torch.bfloat16, None) for b, c, hw in (
     (2, 2560, 16), (4, 320, 32), (4, 640, 16), (4, 960, 32), (4, 1920, 16), (4, 2560, 8), (4, 2560, 16),
     (8, 320, 32), (8, 320, 64), (8, 640, 16), (8, 640, 32), (8, 640, 64), (8, 960, 32), (8, 960, 64),
     (8, 1280, 8), (8, 1280, 16), (8, 1280, 32), (8, 1920, 16), (8, 1920, 32), (8, 2560, 8), (8, 2560, 16))]
+# the DPT's self-attention at 384² (phase 11c): ViT-L/16 over 576 patches
+# and the class token, 16 heads of D = 64, one image a call; K1's one-shot
+# plan at 64 q rows (align128(577) = 640 > 256 keeps it off the packed K4).
+# The Canny adapter run (phase 11) launches the training run's shapes
+ATTENTION_SHAPES_DPT = [(16, 577, 577, 64, None)]
 # phase 9's sampling callback: SD3 at 1024², batch 1 (the joint attention
 # at BH 24, the VAE decoder with its single-head mid-attention)
 ATTENTION_SHAPES_SD3_SAMPLE = [(24, 4352, 4352, 64, 4250), (1, 16384, 16384, 512, None)]
@@ -584,7 +620,7 @@ GN_SHAPES_SD3_SAMPLE = [((1, c, hw, hw), torch.bfloat16, None) for c, hw in (
 def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
             + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN + ATTENTION_SHAPES_SD3_SAMPLE
-            + ATTENTION_SHAPES_TRAIN_RUN)
+            + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT)
 
 
 def layer_norm_main():
@@ -683,7 +719,9 @@ TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
 # SD3: K − 3, three flow-match Euler steps from the σ-interpolation (the
 # rollout is deterministic; start 0, pure noise, is held against JAX in
 # tests/test_torch_sd3_train.py)
-TRAIN_REF_START = {"sdxl": 1, "pixart": 2, "sd3": 1}
+# SD1.5 with the Canny adapter (11b): K − 2, two noised DDPM steps, to
+# bound the CPU copy's time
+TRAIN_REF_START = {"sdxl": 1, "pixart": 2, "sd3": 1, "sd15-canny": 2}
 # phase 7d: the models whose reference holds the discriminator's outputs on
 # the card's features (its inputs, each call's, handed to the CPU copy's
 # discriminator, as 7d hands over the card's ``__conds``) and prints them
@@ -1988,10 +2026,11 @@ def lora_vector(tree):
     return torch.cat([t.detach().float().reshape(-1) for ab in tree.values() for t in ab.values()])
 
 
-def run_training_run(counters, card, required, gated):
+def run_training_run(counters, card, required, gated, root):
     """Phase 10: the SD1.5 training run at 512² through the user's entry
     points: 3 training shards and 1 eval shard of JPEGs (512–768 a side,
-    every fourth score below ``MIN_AESTHETIC_SCORE``) written from seed 0;
+    every fourth score below ``MIN_AESTHETIC_SCORE``) written from seed 0
+    under ``root`` (``train/``, ``eval/``; phase 11 reads them again);
     ``build_trainer("sd15")`` with ``flash_sd.yaml`` stage 1 and
     ``RUN_OVERRIDES`` (EMA 0.999, accumulation 2, validation and
     checkpoints every 4 micro-steps); ``build_data`` (thread workers) and
@@ -2031,8 +2070,6 @@ def run_training_run(counters, card, required, gated):
         restore_state,
     )
 
-    work = tempfile.TemporaryDirectory()
-    root = work.name
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     os.makedirs(os.path.join(root, "train"))
@@ -2155,7 +2192,205 @@ def run_training_run(counters, card, required, gated):
           f"{len(checked)} batches; fit waited {fit_wait:.3f} s on the data iterator; validation "
           + ", ".join(f"{k} {v:.5g}" for k, v in val.items())
           + f"; {len(pngs)} sample grids; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    work.cleanup()
+    return launches
+
+
+# phase 11: the sampled images at adapter_conditioning_scale 1 and 0 (same
+# latents and noise) must differ by this relative L2 at least: the edge
+# map conditions the student
+CANNY_SCALE_MIN_DIFF = 1e-2
+
+
+def busy_share(fn):
+    """(wall seconds, device-busy seconds) of ``fn()`` under
+    ``torch.profiler``: the kernels' summed device time (the port runs on
+    one stream; ``profiling.py``'s count), None where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0 and str(e.device_type).endswith("CUDA")
+               and not e.key.startswith("fdt.")) / 1e6
+    return wall, busy or None
+
+
+def run_canny_training(counters, card, required, gated, root):
+    """Phase 11: the Canny T2I-Adapter distillation run at 512² through the
+    user's entry points, on phase 10's JPEG shards under ``root``:
+    ``build_trainer("sd15-canny")`` with ``flash_canny_adapter.yaml`` stage
+    1, ``build_data`` with the Canny mapper (``train.data_mappers``) and the
+    zero text ids behind ``prefetch_to_device``; ``fit`` of 4 steps (1 warm,
+    3 timed), a 5th under the profiler (the busy time); the adapter
+    unchanged and in no optimizer, the LoRA moved; the student's samples at
+    ``adapter_conditioning_scale`` 1 and 0 apart; the PEFT export read back
+    equal. Counts reset just before the first step and read after the
+    export; the required kernels launched and every (kernel, shape) among
+    phase 2's."""
+    from flash_diffusion_tpu_torch.data import prefetch_to_device
+    from flash_diffusion_tpu_torch.lora import load_peft_safetensors, save_peft_safetensors
+    from flash_diffusion_tpu_torch.train import (
+        CONFIGS,
+        build_data,
+        build_trainer,
+        data_mappers,
+        load_config,
+        make_tokenizer,
+        tokenize_batches,
+    )
+    from flash_diffusion_tpu_torch.trainer import export_lora
+
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = {**load_config(CONFIGS["sd15-canny"]), **TRAIN_OVERRIDES,
+           "SHARDS_PATH_OR_URLS": [os.path.join(root, "train", "{000000..%06d}.tar" % (RUN_SHARDS[0] - 1))]}
+    size, batch = cfg["IMAGE_SIZE"], cfg["BATCH_SIZE"]
+    t0 = time.perf_counter()
+    trainer = build_trainer("sd15-canny", device="cuda", seed=0, config=cfg)
+    fl = trainer.model
+    adapter = fl.adapter
+    print(f"build_trainer('sd15-canny'): {time.perf_counter() - t0:.2f} s; adapter "
+          f"{sum(p.numel() for p in adapter.parameters())} parameters ({adapter.config.channels}, "
+          f"{next(adapter.parameters()).dtype}), scale {fl.config.adapter_conditioning_scale}, input "
+          f"{fl.config.adapter_input_key!r}; K = {fl.config.K[1]} {cfg['TEACHER_SCHEDULER']}; LoRA {len(trainer.lora)} "
+          f"pairs of rank {cfg['LORA_RANK']}; discriminator {fl.discriminator.config.num_stages} stages")
+    held = {id(p) for opt in (trainer.opt_g, trainer.opt_d) for p in opt.params}
+    if held & {id(p) for p in adapter.parameters()} or any(p.requires_grad for p in adapter.parameters()):
+        raise AssertionError("the adapter is trainable or held by an optimizer")
+    frozen = snapshot([adapter, fl.teacher_module, fl.vae, fl.conditioner])
+    lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
+    canny = data_mappers("sd15-canny")[0]
+    img = np.random.default_rng(0).uniform(-1.0, 1.0, (size, size, 3)).astype(np.float32)
+    canny_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        canny({"image": img})
+        canny_s.append(time.perf_counter() - t0)
+    tok = make_tokenizer("sd15-canny", cfg)
+    data = prefetch_to_device(tokenize_batches(build_data(cfg, data_mappers("sd15-canny"), num_workers=2), tok,
+                                               "sd15-canny", size))
+    stream = iter(data)
+    timer = StepTimer("sd15-canny")
+    reset(counters)
+    timer.mark()
+    trainer.fit(stream, max_steps=4, callbacks=[timer])
+    timed, fit_wait = timer.times[1:], trainer.data_wait_s
+    peak = torch.cuda.max_memory_allocated()
+    profiled_s, busy = busy_share(lambda: trainer.fit(stream, max_steps=5))
+    if not all(torch.equal(a, b) for a, b in zip(frozen, snapshot([adapter, fl.teacher_module, fl.vae,
+                                                                     fl.conditioner]))):
+        raise AssertionError("the adapter, the teacher, the VAE or CLIP changed")
+    if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
+        raise AssertionError("a LoRA B factor did not change")
+    host = next(stream)
+    edge = np.asarray(host["edge"])
+    if edge.shape != (batch, size, size, 3) or not set(np.unique(edge)) <= {0.0, 1.0} or not 0 < edge.mean() < 0.5:
+        raise AssertionError(f"Canny edge maps {edge.shape}, values {np.unique(edge)[:4]}, mean {edge.mean():.3f}")
+    staged = trainer.stage_batch(host)
+    z = torch.randn((batch, size // 8, size // 8, 4), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    images = [fl.sample(trainer.lora, z, staged, num_steps=4, generator=torch.Generator("cuda").manual_seed(4),
+                        adapter_conditioning_scale=scale) for scale in (1.0, 0.0)]
+    torch.cuda.synchronize()
+    diff = rel_l2(images[0].float(), images[1].float())
+    print(f"sd15-canny samples (student, 4 steps, {batch} edge maps of {size}², edge density {edge.mean():.3f}): "
+          f"scale 1 vs 0 rel L2 {diff:.3e} (at least {CANNY_SCALE_MIN_DIFF})")
+    if not (all(tuple(im.shape) == (batch, size, size, 3) and bool(torch.isfinite(im).all()) for im in images)
+            and diff >= CANNY_SCALE_MIN_DIFF):
+        raise AssertionError("the adapter's samples are malformed, or scale 1 and 0 give the same images")
+    path = os.path.join(root, "canny_lora.safetensors")
+    save_peft_safetensors(path, export_lora(trainer), prefix="unet")
+    back, _ = load_peft_safetensors(path)
+    if not all(torch.equal(back[n][k], trainer.lora[n][k].detach().cpu()) for n in trainer.lora for k in ("a", "b")):
+        raise AssertionError("the exported PEFT file does not read back as the LoRA")
+    data.close()
+    launches = totals(counters)
+    print(f"sd15-canny launches {dict(launches)}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the sd15-canny run never launched {missing}")
+    check_gated("sd15-canny training", counters, gated)
+    per_step = statistics.median(timed)
+    print(f"sd15-canny Flash distillation {size}² batch {batch} on {card}: warm {per_step:.4f} s/step (median of "
+          f"{[round(t, 4) for t in timed]}), {batch / per_step:.3f} images/s; fit waited {fit_wait:.3f} s on data "
+          f"over 4 steps (the Canny mapper alone: {1e3 * min(canny_s):.1f} ms a {size}² image on the host); peak "
+          f"memory {peak / 2**30:.2f} GiB; step 5 under the profiler {profiled_s:.3f} s, device busy "
+          + ("not measured" if busy is None else f"{busy:.3f} s ({100 * busy / profiled_s:.1f}% of it, "
+             f"{100 * busy / per_step:.1f}% of the warm step)") + "; PEFT export "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB; {time.perf_counter() - started:.1f} s")
+    del trainer, fl, adapter, staged, images
+    return launches
+
+
+# phase 11c: the DPT in bf16 on the card against its fp32 CPU copy (relative
+# L2 of the depth map), and the depth maps' images
+DPT_REL_L2_TOL = 0.05
+DEPTH_IMAGES = 4
+
+
+def check_depth(counters, card, required, gated):
+    """Phase 11c: ``DPTDepth()`` (ViT-L/16 at 384², random weights from seed
+    0, the head's last bias 1) in bf16 on the card against its fp32 CPU copy on one image (relative
+    L2 within ``DPT_REL_L2_TOL``); then ``DepthMapper(make_depth_fn(...))``
+    over ``DEPTH_IMAGES`` images of 512² (smooth gradients and discs with
+    noise), counts reset just before and read just after: [512, 512, 3]
+    maps in [0, 1], the required kernels launched, every (kernel, shape)
+    among phase 2's; ms a map."""
+    from flash_diffusion_tpu_torch.data import DepthMapper, DepthMapperConfig
+    from flash_diffusion_tpu_torch.models import DPTDepth, make_depth_fn
+
+    started = time.perf_counter()
+    with torch.random.fork_rng(devices=[0]):
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            net = DPTDepth()
+        # random weights leave the head's last output about as often below 0
+        # as above, and its ReLU then zeroes the map: a bias of 1 keeps it live
+        net.scratch.output_conv[4].bias.data.fill_(1.0)
+    net = net.to(torch.bfloat16).eval()
+    with torch.device("meta"):
+        meta = DPTDepth()
+    ref = cpu_fp32_copy(net.state_dict(), meta)
+    x = torch.rand((1, 384, 384, 3), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        got = net(x.cuda()).cpu()
+        want = ref(x)
+    err = rel_l2(got, want)
+    print(f"DPT (ViT-L/16, {sum(p.numel() for p in net.parameters())} parameters) at 384², 1 image: bf16 on the card "
+          f"vs fp32 on the CPU rel L2 {err:.3e} (tol {DPT_REL_L2_TOL}), max|err| {(got - want).abs().max().item():.3e}, "
+          f"depth range [{want.min().item():.4g}, {want.max().item():.4g}], positive {(want > 0).float().mean():.3f}")
+    if not (torch.isfinite(got).all() and err <= DPT_REL_L2_TOL and (want > 0).any()):
+        raise AssertionError("the card's DPT disagrees with its fp32 reference")
+    del ref, meta
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:512, 0:512]
+    images = [np.clip(np.stack([xx * 0.4 + 40 * i, yy * 0.4, ((xx - 256 - 40 * i) ** 2 + (yy - 256) ** 2 < 150 ** 2)
+                                * 200.0], -1) + rng.normal(0, 10, (512, 512, 3)), 0, 255).astype(np.float32)
+              for i in range(DEPTH_IMAGES)]
+    mapper = DepthMapper(DepthMapperConfig(), make_depth_fn(net))
+    reset(counters)
+    times, maps = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        maps.append(mapper({"image": img})["depth"])  # the map comes back to the host: synchronized
+        times.append(time.perf_counter() - t0)
+    launches = totals(counters)
+    print(f"depth launches {dict(launches)}")
+    if not all(m.shape == (512, 512, 3) and np.isfinite(m).all() and 0 <= m.min() and m.max() <= 1 for m in maps):
+        raise AssertionError("a depth map is malformed")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the depth path never launched {missing}")
+    check_gated("depth", counters, gated)
+    print(f"DepthMapper(make_depth_fn(DPTDepth bf16)) on {card}: {DEPTH_IMAGES} images of 512², "
+          f"{1e3 * statistics.median(times[1:]):.2f} ms a map warm (median of "
+          f"{[round(1e3 * t, 2) for t in times[1:]]}; the first {1e3 * times[0]:.2f}); "
+          f"{time.perf_counter() - started:.1f} s")
+    del net, mapper
     return launches
 
 
@@ -2212,7 +2447,7 @@ def no_random_init():
 
 
 def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=None, gated=None):
-    """Phases 5b, 5d, 7d and 9b: one ``losses`` and backward of the trainer
+    """Phases 5b, 5d, 7d, 9b and 11b: one ``losses`` and backward of the trainer
     at 256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
     paths) with its state dicts, on the same staged batch (the conditioning
     the card's) and draws (SDXL, Pixart and SD3 from ``TRAIN_REF_START``,
@@ -2235,7 +2470,7 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
         ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
-        for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator"):
+        for name in ("teacher_module", "vae", "conditioner", "lpips", "discriminator", "adapter"):
             if getattr(ref.model, name) is not None and not (name == "conditioner" and fed):
                 getattr(ref.model, name).load_state_dict(getattr(dev.model, name).state_dict())
         for name, ab in dev.lora.items():
@@ -2273,6 +2508,8 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
             bf16_aux = ref.model.losses(to_cpu(staged), to_cpu(draws), 0)[1]
     ref.model.teacher_module.float()  # the student shares these parameters
     ref.model.vae.float()
+    if ref.model.adapter is not None:
+        ref.model.adapter.float()
     if diagnostics:
         probes.append(probe(ref, *to_cpu(args)))
     with torch.no_grad():
@@ -2628,11 +2865,29 @@ def main():
     # (shards, EMA, accumulation, validation, samples, checkpoint and
     # resume, the alternating mode, the LoRA export served), every launched
     # shape among phase 2's
-    by_path["train_run"] = run_training_run(counters, card, (
-        "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq",
-        "flash_bwd_oneshot", *gn), gated_shapes())
+    run_root = tempfile.TemporaryDirectory()
+    train_kernels = ("flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq",
+                     "flash_bwd_oneshot", *gn)
+    by_path["train_run"] = run_training_run(counters, card, train_kernels, gated_shapes(), run_root.name)
     torch.cuda.empty_cache()
     mark("10")
+
+    # phases 11 and 11b: the Canny T2I-Adapter run on phase 10's shards
+    # (the Canny mapper in the data chain, the frozen adapter's residuals
+    # in every UNet call), every launched shape among phase 2's, then its
+    # step against the fp32 plain reference on a small input; 11c: the DPT
+    # depth model against its fp32 copy, then the depth mapper over 512²
+    # images, its K1 launches at 577 keys gated
+    by_path["train_canny"] = run_canny_training(counters, card, train_kernels, gated_shapes(), run_root.name)
+    run_root.cleanup()
+    torch.cuda.empty_cache()
+    mark("11")
+    check_training_reference("sd15-canny")
+    torch.cuda.empty_cache()
+    mark("11b")
+    by_path["depth"] = check_depth(counters, card, ("flash_fwd_oneshot",), gated_shapes())
+    torch.cuda.empty_cache()
+    mark("11c")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

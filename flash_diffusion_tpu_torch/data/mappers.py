@@ -1,9 +1,11 @@
 """Sample mappers: host-side transforms of the streaming pipeline.
 
-Port of ``flash_diffusion_tpu/data/mappers.py:26-216``: key renaming
+Port of ``flash_diffusion_tpu/data/mappers.py:26-313``: key renaming
 (with a condition and an else map), image transforms on PIL/numpy (NHWC
 float outputs), [0, 1] → [-1, 1], JSON key extraction, key select, remove
-and set. The Canny and depth mappers wait for the adapters.
+and set; the Canny edge map (numpy: 5×5 Gaussian, Sobel, non-maximum
+suppression, hysteresis) and the depth map of an injected ``depth_fn``
+(``models/depth.py make_depth_fn``), both as 3-channel [0, 1] images.
 """
 
 from __future__ import annotations
@@ -198,4 +200,102 @@ class SetValueMapper(BaseMapper):
     def __call__(self, sample):
         out = dict(sample)
         out[self.config.key] = self.config.value
+        return out
+
+
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class CannyEdgeMapperConfig(BaseMapperConfig):
+    key: str = "image"
+    output_key: str = "edge"
+    low_threshold: float = 0.1
+    high_threshold: float = 0.2
+
+
+class CannyEdgeMapper(BaseMapper):
+    """Canny edges of ``sample[key]`` (HWC or HW; values above 1.5 read as
+    0–255) as a 3-channel {0, 1} float32 map under ``output_key``: grey
+    (BT.601), 5×5 binomial blur, Sobel, magnitude over its max, non-maximum
+    suppression in 4 directions, hysteresis between the two thresholds
+    (8 growth rounds), as JAX's."""
+
+    def __call__(self, sample):
+        cfg = self.config
+        img = np.asarray(sample[cfg.key], np.float32)
+        if img.max() > 1.5:
+            img = img / 255.0
+        gray = img @ np.array([0.299, 0.587, 0.114], np.float32) if img.ndim == 3 else img
+        k = np.array([1, 4, 6, 4, 1], np.float32)
+        g = _conv2(gray, np.outer(k, k) / 256.0)
+        gx = _conv2(g, np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32))
+        gy = _conv2(g, np.array([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], np.float32))
+        mag = np.hypot(gx, gy)
+        mag = mag / (mag.max() + 1e-8)
+        ang = np.rad2deg(np.arctan2(gy, gx)) % 180
+        nms = _nms(mag, ang)
+        strong = nms >= cfg.high_threshold
+        weak = (nms >= cfg.low_threshold) & ~strong
+        out = dict(sample)
+        out[cfg.output_key] = np.repeat(_hysteresis(strong, weak)[..., None].astype(np.float32), 3, axis=-1)
+        return out
+
+
+def _conv2(x, k):
+    """Correlation of a 2-D array with ``k``, edge-padded to its size."""
+    ph, pw = k.shape[0] // 2, k.shape[1] // 2
+    windows = np.lib.stride_tricks.sliding_window_view(np.pad(x, ((ph, ph), (pw, pw)), mode="edge"), k.shape)
+    return np.einsum("ijkl,kl->ij", windows, k)
+
+
+def _nms(mag, ang):
+    """Non-maximum suppression along the gradient, its angle in 45° buckets
+    (neighbours by wrap-around roll, as JAX's)."""
+    out = np.zeros_like(mag)
+    shifted = {
+        0: (np.roll(mag, 1, 1), np.roll(mag, -1, 1)),
+        45: (np.roll(np.roll(mag, 1, 0), -1, 1), np.roll(np.roll(mag, -1, 0), 1, 1)),
+        90: (np.roll(mag, 1, 0), np.roll(mag, -1, 0)),
+        135: (np.roll(np.roll(mag, 1, 0), 1, 1), np.roll(np.roll(mag, -1, 0), -1, 1)),
+    }
+    bucket = (np.round(ang / 45.0) % 4) * 45
+    for b, (a, c) in shifted.items():
+        m = bucket == b
+        out[m] = np.where((mag[m] >= a[m]) & (mag[m] >= c[m]), mag[m], 0.0)
+    return out
+
+
+def _hysteresis(strong, weak, iters: int = 8):
+    """Strong edges grown into 8-connected weak ones, ``iters`` rounds at most."""
+    edges = strong.copy()
+    for _ in range(iters):
+        grown = edges.copy()
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                grown |= np.roll(np.roll(edges, dy, 0), dx, 1)
+        new = grown & weak & ~edges
+        if not new.any():
+            break
+        edges |= new
+    return edges
+
+
+@dataclasses.dataclass
+class DepthMapperConfig(BaseMapperConfig):
+    key: str = "image"
+    output_key: str = "depth"
+
+
+class DepthMapper(BaseMapper):
+    """Depth conditioning: ``depth_fn(image HWC float32) → HW`` (e.g.
+    ``models/depth.py make_depth_fn``, the DPT) repeated to 3 channels
+    under ``output_key``."""
+
+    def __init__(self, config: DepthMapperConfig, depth_fn: Callable[[np.ndarray], np.ndarray]):
+        super().__init__(config)
+        self.depth_fn = depth_fn
+
+    def __call__(self, sample):
+        out = dict(sample)
+        d = self.depth_fn(np.asarray(sample[self.config.key], np.float32))
+        out[self.config.output_key] = np.repeat(d[..., None], 3, axis=-1)
         return out

@@ -1,6 +1,6 @@
-"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5, SDXL, Pixart-α).
+"""FlashDiffusion — the distillation algorithm (ε-prediction family: SD1.5, SDXL, Pixart-α, T2I-Adapter).
 
-Port of ``flash_diffusion_tpu/distill/flash.py:52-519`` (``losses`` and
+Port of ``flash_diffusion_tpu/distill/flash.py:52-662`` (``losses`` and
 its parts). One loss computation per step, as in JAX: the teacher's K-step
 CFG rollout (cond and uncond folded into one 2B-batched forward per step)
 from a host-side start index, the student's one-step prediction, the
@@ -34,6 +34,14 @@ return_features)`` whose conditioning dict (``crossattn``, ``vector``,
 Batch convention: ``image`` [B, H, W, 3] in [-1, 1] (NHWC, as JAX) and
 ``text_ids``; the pre-staged ``__z`` (the VAE encode) and ``__conds`` (the
 three conditioner passes) entries are used when present, as in JAX.
+
+Adapter (the Canny T2I-Adapter run): with an ``adapter`` module and
+``config.adapter_input_key``, the frozen adapter runs without gradients on
+``batch[adapter_input_key]`` (NHWC), each level's residual scaled by
+``adapter_conditioning_scale``, and the residuals reach the student, the
+teacher rollout, DMD's real and fake scores and the GAN's teacher pass; a
+2B-batched call (CFG, the GAN's fake ⊕ real) gets them twice
+(``distill/flash.py:261-289``, ``:335-403``).
 ``record_function`` spans (``fdt.train.*``) mark the stages.
 
 Validation (``distill/flash.py:522-662``): ``sample`` runs the student (the
@@ -84,6 +92,8 @@ class FlashDiffusionConfig(BaseConfig):
     timestep_distribution: str = "mixture"  # gaussian | uniform | mixture
     mixture_num_components: Union[int, List[int]] = 4
     mixture_var: Union[float, List[float]] = 0.5
+    adapter_conditioning_scale: float = 1.0
+    adapter_input_key: Optional[str] = None
     use_dmd_loss: bool = False
     dmd_loss_scale: Union[float, List[float]] = 1.0
     distill_loss_scale: Union[float, List[float]] = 1.0
@@ -129,6 +139,17 @@ def _cat(a: Dict, b: Dict) -> Dict:
     return {"cond": {k: torch.cat([v, b["cond"][k]]) for k, v in a["cond"].items()}}
 
 
+def _dup(res: Optional[List[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
+    """Adapter residuals for a 2B-batched call."""
+    return [torch.cat([r, r]) for r in res] if res else None
+
+
+def _adapter_kw(res) -> Dict[str, Any]:
+    """``adapter_residuals`` only when there are some: the DiT and the
+    MMDiT take no such argument."""
+    return {"adapter_residuals": res} if res else {}
+
+
 class FlashDiffusion:
     """Holds the modules and the per-stage tables; ``losses`` is the step's
     loss computation. ``attach_lora`` makes the student."""
@@ -146,8 +167,10 @@ class FlashDiffusion:
         discriminator=None,  # ConvDiscriminator
         lpips=None,  # LPIPS
         lora_scaling: float = 1.0,
+        adapter=None,  # T2IAdapter: NHWC control image → per-level residuals
     ):
         self.config = config
+        self.adapter = adapter
         self.teacher_module = teacher_module
         self.student_module = None
         self.lora_scaling = lora_scaling
@@ -208,19 +231,22 @@ class FlashDiffusion:
             for name, v in prev.items():
                 self.student_module.get_submodule(name).lora = v
 
-    def _sample_loop(self, module, mod, sched, z, cond2, g_scale, do_cfg, stochastic, noise, generator):
+    def _sample_loop(self, module, mod, sched, z, cond2, g_scale, do_cfg, stochastic, noise, generator,
+                     adapter2=None):
         """The sampling steps: CFG as one 2B forward; a stochastic step takes
-        ``noise[i]`` or a draw from ``generator`` (zeros when neither)."""
+        ``noise[i]`` or a draw from ``generator`` (zeros when neither).
+        ``adapter2``: the adapter residuals, already doubled under CFG."""
         b, dev = z.shape[0], z.device
         sample = z * sched.init_noise_sigma
         state = mod.init_state(sample) if hasattr(mod, "init_state") else None
+        kw = _adapter_kw(adapter2)
         for i, t in enumerate(sched.timesteps):
             inp = mod.scale_model_input(sched, sample, i)
             if do_cfg:
-                pc, pu = module(torch.cat([inp, inp]), torch.full((2 * b,), t, device=dev), cond2).chunk(2)
+                pc, pu = module(torch.cat([inp, inp]), torch.full((2 * b,), t, device=dev), cond2, **kw).chunk(2)
                 pred = g_scale * pc + (1.0 - g_scale) * pu
             else:
-                pred = module(inp, torch.full((b,), t, device=dev), cond2)
+                pred = module(inp, torch.full((b,), t, device=dev), cond2, **kw)
             if state is not None:
                 sample, state = mod.step(sched, pred, i, sample, state)
                 continue
@@ -256,13 +282,16 @@ class FlashDiffusion:
         teacher_guidance_scale: float = 5.0,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
+        adapter_conditioning_scale: float = 1.0,
     ) -> torch.Tensor:
         """Few-step sampling from latents ``z`` [B, h, w, C] (JAX
         ``sample``): the student with ``lora`` (None: the teacher's weights)
         on the sampling scheduler over the teacher's trailing timesteps, or
         with ``use_teacher`` the teacher on ``teacher_sampling_scheduler``
         at ``teacher_guidance_scale``; a guidance of 1.0 skips the uncond
-        forward. Decoded to [B, H, W, 3] unless ``decode`` is False."""
+        forward. With an adapter and ``batch[adapter_input_key]``, its
+        residuals scaled by ``adapter_conditioning_scale`` condition every
+        step. Decoded to [B, H, W, 3] unless ``decode`` is False."""
         if use_teacher:
             mod, module, g_scale = self.teacher_sampling_sched_mod, self.teacher_module, teacher_guidance_scale
             sched = mod.set_timesteps(self.sched_config, num_steps)
@@ -279,9 +308,12 @@ class FlashDiffusion:
                 "LCMScheduler", "FlashFlowMatchEulerDiscreteScheduler", "DDPMScheduler",
                 "EulerAncestralDiscreteScheduler")
         cond2, do_cfg = self._sample_conds(batch, g_scale)
+        res = None
+        if self.adapter is not None and self.config.adapter_input_key in batch:
+            res = self._adapter_residuals(batch, adapter_conditioning_scale, z.device)
         with self.using_lora(None if use_teacher else lora):
             sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
-                                       noise, generator)
+                                       noise, generator, _dup(res) if do_cfg else res)
         if decode and self.vae is not None:
             return self.vae.decode_latents(sample)
         return sample
@@ -301,7 +333,8 @@ class FlashDiffusion:
         """Sample grids (JAX ``log_samples``): for each step count, latents
         of ``input_shape`` (h, w, C) for the first ``max_samples`` of the
         batch, the student's samples and with ``log_teacher_samples`` the
-        teacher's from the same latents; the draws from ``generator``."""
+        teacher's from the same latents; the draws from ``generator``. The
+        batch's adapter input, where it has one, conditions both."""
         num_steps = [num_steps] if isinstance(num_steps, int) else list(num_steps)
         n = min(max_samples, next(iter(batch.values())).shape[0])
         small = {k: v[:n] for k, v in batch.items()}
@@ -341,8 +374,20 @@ class FlashDiffusion:
         lo, hi = cfg.guidance_scale_min[stage], cfg.guidance_scale_max[stage]
         return u.float() * (hi - lo) + lo
 
-    def _student_forward(self, x, t, cond):
-        return self.student_module(x, t, cond)
+    def _student_forward(self, x, t, cond, adapter_res=None):
+        return self.student_module(x, t, cond, **_adapter_kw(adapter_res))
+
+    @torch.no_grad()
+    def _adapter_residuals(self, batch: Dict[str, Any], scale: Optional[float] = None, device=None):
+        """The frozen adapter's residuals of ``batch[adapter_input_key]``,
+        each scaled by ``scale`` (the config's by default); None without an
+        adapter or an input key."""
+        key = self.config.adapter_input_key
+        if self.adapter is None or key is None:
+            return None
+        scale = self.config.adapter_conditioning_scale if scale is None else scale
+        x = torch.as_tensor(batch[key], device=device or next(self.adapter.parameters()).device)
+        return [r * scale for r in self.adapter(x)]
 
     def _conditionings(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
         """(cond, student_cond, uncond), as the JAX ``_conditionings``."""
@@ -369,7 +414,8 @@ class FlashDiffusion:
         return self.vae.encode(x, noise)
 
     @torch.no_grad()
-    def _teacher_rollout(self, noisy, start_idx: int, cond, uncond, guidance, stage: int, step_noise):
+    def _teacher_rollout(self, noisy, start_idx: int, cond, uncond, guidance, stage: int, step_noise,
+                         adapter_res=None):
         """The K-step CFG rollout from position ``start_idx``, 2B-batched. A
         multistep scheduler (one with ``init_state``: DPM) threads its carry
         from a fresh one, so its first executed step is first order whatever
@@ -377,12 +423,13 @@ class FlashDiffusion:
         ``step_noise``, one draw per step from ``start_idx``."""
         sched, mod = self.stage_schedules[stage], self.teacher_sched_mod
         cond2 = _cat(cond, uncond) if cond is not None else None
+        kw = _adapter_kw(_dup(adapter_res))
         sample, b = noisy, noisy.shape[0]
         state = mod.init_state(sample) if self._sched_has_carry else None
         for n, i in enumerate(range(start_idx, self.config.K[stage])):
             t2 = torch.full((2 * b,), sched.timesteps[i], device=sample.device, dtype=torch.long)
             inp = mod.scale_model_input(sched, sample, i)
-            pred_c, pred_u = self.teacher_module(torch.cat([inp, inp]), t2, cond2).chunk(2)
+            pred_c, pred_u = self.teacher_module(torch.cat([inp, inp]), t2, cond2, **kw).chunk(2)
             pred = guidance * pred_c + (1.0 - guidance) * pred_u
             if state is not None:
                 sample, state = mod.step(sched, pred, i, sample, state)
@@ -412,7 +459,7 @@ class FlashDiffusion:
             return checkpoint(lp, s, t, use_reentrant=False)
         raise ValueError(cfg.distill_loss_type)
 
-    def _dmd(self, student_output, cond, student_cond, uncond, stage: int, draws):
+    def _dmd(self, student_output, cond, student_cond, uncond, stage: int, draws, adapter_res=None):
         """DMD: re-noise the student output at a random t, query the teacher
         (CFG) and the student without gradients, score difference."""
         t = draws["dmd_t"]
@@ -421,14 +468,15 @@ class FlashDiffusion:
         noisy = add_noise(sched, student_output.detach(), draws["dmd_noise"], t)
         with torch.no_grad():
             cond2 = _cat(cond, uncond) if cond is not None else None
-            real_c, real_u = self.teacher_module(torch.cat([noisy, noisy]), torch.cat([t, t]), cond2).chunk(2)
-            fake = self._student_forward(noisy, t, student_cond)
+            real_c, real_u = self.teacher_module(torch.cat([noisy, noisy]), torch.cat([t, t]), cond2,
+                                                 **_adapter_kw(_dup(adapter_res))).chunk(2)
+            fake = self._student_forward(noisy, t, student_cond, adapter_res)
         g = self._guidance(draws["dmd_guidance"], stage)
         real = g * real_c + (1.0 - g) * real_u
         pred_x0 = predicted_x0_eps(real, t, noisy, self.sqrt_acp, self.sqrt_1macp, student_output.detach())
         return dmd_loss(student_output, real, fake, pred_x0, self.alphas_cumprod.to(t.device)[t], weighted=True)
 
-    def _gan(self, z, student_output, teacher_output, cond, draws):
+    def _gan(self, z, student_output, teacher_output, cond, draws, adapter_res=None):
         """GAN branch: noise fake and real at the fixed timesteps, tap the
         teacher's features (``return_features``) on the 2B batch, both
         losses at once."""
@@ -440,7 +488,8 @@ class FlashDiffusion:
         sched = self.stage_schedules[0]
         both = torch.cat([add_noise(sched, student_output, noise, ts), add_noise(sched, real, noise, ts)])
         cond2 = _cat(cond, cond) if cond is not None else None
-        _, feats = self.teacher_module(both, torch.cat([ts, ts]), cond2, return_features=True)
+        _, feats = self.teacher_module(both, torch.cat([ts, ts]), cond2, return_features=True,
+                                       **_adapter_kw(_dup(adapter_res)))
         f_fake, f_real = feats.chunk(2)
         return gan_losses(self.discriminator, f_fake, f_real, cfg.gan_loss_type)
 
@@ -455,6 +504,8 @@ class FlashDiffusion:
             z = self._encode(batch, draws.get("vae_noise"))
         pre = batch.get("__conds")
         cond, student_cond, uncond = pre if pre is not None else self._conditionings(batch)
+        with record_function("fdt.train.adapter"):
+            res = self._adapter_residuals(batch, device=z.device)
 
         b = z.shape[0]
         start_idx = int(draws["start_idx"])
@@ -464,7 +515,7 @@ class FlashDiffusion:
         noisy_init = noise * sched.init_noise_sigma if start_idx == 0 else add_noise(sched, z, noise, t_b)
         noisy_in = self.teacher_sched_mod.scale_model_input(sched, noisy_init, start_idx)
         with record_function("fdt.train.student"):
-            student_pred = self._student_forward(noisy_in, t_b, student_cond)
+            student_pred = self._student_forward(noisy_in, t_b, student_cond, res)
         c_skip, c_out = boundary_scalings(t_b, cfg.sigma_data, cfg.timestep_scaling)
         student_x0 = predicted_x0_eps(student_pred, t_b, noisy_init, self.sqrt_acp, self.sqrt_1macp, z)
         student_output = c_skip.reshape(-1, 1, 1, 1) * noisy_init + c_out.reshape(-1, 1, 1, 1) * student_x0
@@ -472,20 +523,20 @@ class FlashDiffusion:
         g = self._guidance(draws["guidance"], stage)
         with record_function("fdt.train.rollout"):
             teacher_output = self._teacher_rollout(
-                noisy_init.detach(), start_idx, cond, uncond, g, stage, draws["rollout_noise"])
+                noisy_init.detach(), start_idx, cond, uncond, g, stage, draws["rollout_noise"], res)
         with record_function("fdt.train.distill"):
             distill = self._distill_loss(student_output, teacher_output)
         loss_g = distill * cfg.distill_loss_scale[stage]
         aux = {"loss/distill": distill, "start_timestep": start_t, "guidance": g}
         if cfg.use_dmd_loss:
             with record_function("fdt.train.dmd"):
-                dmd = self._dmd(student_output, cond, student_cond, uncond, stage, draws)
+                dmd = self._dmd(student_output, cond, student_cond, uncond, stage, draws, res)
             loss_g = loss_g + dmd * cfg.dmd_loss_scale[stage]
             aux["loss/dmd"] = dmd
         loss_d = torch.zeros((), device=z.device)
         if self.use_adversarial_loss:
             with record_function("fdt.train.gan"):
-                loss_g_adv, loss_d = self._gan(z, student_output, teacher_output, cond, draws)
+                loss_g_adv, loss_d = self._gan(z, student_output, teacher_output, cond, draws, res)
             loss_g = loss_g + cfg.adversarial_loss_scale[stage] * loss_g_adv
             aux["loss/gan_g"] = loss_g_adv
             aux["loss/gan_d"] = loss_d

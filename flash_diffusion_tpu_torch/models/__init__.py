@@ -1,5 +1,7 @@
-"""Model bodies of the PyTorch port (SD1.5, SDXL, Pixart-α and SD3 text-to-image slices)."""
+"""Model bodies of the PyTorch port (SD1.5, SDXL, Pixart-α and SD3 text-to-image slices; the T2I-Adapter and the DPT depth model)."""
 
+from .adapters import T2IAdapter, T2IAdapterConfig, pixel_unshuffle
+from .depth import DPTDepth, import_dpt_large, make_depth_fn
 from .dit import DiT, DiTConfig, pixart_config
 from .mmdit import MMDiT, MMDiTConfig, sd3_medium_config
 from .text_encoders import (
@@ -19,17 +21,23 @@ __all__ = [
     "AutoencoderKLConfig",
     "CLIPTextConfig",
     "CLIPTextModel",
+    "DPTDepth",
     "DiT",
     "DiTConfig",
     "MMDiT",
     "MMDiTConfig",
     "T5Config",
+    "T2IAdapter",
+    "T2IAdapterConfig",
     "T5Encoder",
     "UNet2DCondition",
     "UNetConfig",
     "clip_g_config",
     "clip_l_config",
+    "import_dpt_large",
+    "make_depth_fn",
     "pixart_config",
+    "pixel_unshuffle",
     "sd15_unet_config",
     "sd3_medium_config",
     "sd3_vae_config",

@@ -16,6 +16,9 @@ import torch.nn as nn
 
 from ...config import BaseConfig
 
+# the conditioning type of an output by its rank (JAX ``embedders/base.py``)
+DIM2CONDITIONING = {2: "vector", 3: "crossattn", 4: "concat"}
+
 
 @dataclasses.dataclass
 class BaseConditionerConfig(BaseConfig):

@@ -17,8 +17,14 @@ added to the time embedding. ``return_features=True`` also returns the
 mid block's output (the GAN's tap), and ``config.remat`` recomputes each
 resnet and spatial transformer in the backward (``torch.utils.checkpoint``,
 non-reentrant; the JAX ``nn.remat`` of the same blocks) whenever autograd
-records. Not ported yet: ``AttnDownBlock2D``, adapter residuals and the
-``concat`` conditioning.
+records. ``adapter_residuals`` (a T2I-Adapter's NHWC features, one per
+level) are added after each down level's last resnet/attention pair,
+before its downsample and into its skip, as in JAX (``unet.py:181-182``);
+``conditioning["cond"]["concat"]`` [B, H, W, c] is concatenated to the
+latents' channels before ``conv_in``, whose input is then
+``in_channels + concat_channels`` wide (JAX's infers it; widen a
+checkpoint's with ``trainer/checkpoint.py adapt_state_dict``). Not ported
+yet: ``AttnDownBlock2D``.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ class UNetConfig(BaseConfig):
     projection_class_embeddings_input_dim: Optional[int] = None
     use_linear_projection: bool = False
     remat: bool = False
+    concat_channels: int = 0  # channels of a ``concat`` conditioning
 
     def __post_init__(self):
         super().__post_init__()
@@ -147,7 +154,7 @@ class UNet2DCondition(nn.Module):
                 use_linear_projection=cfg.use_linear_projection,
             )
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.conv_in = nn.Conv2d(cfg.in_channels + cfg.concat_channels, b0, 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(b0, temb_dim)
         if cfg.class_embed_type == "projection":
             self.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb_dim)
@@ -202,12 +209,15 @@ class UNet2DCondition(nn.Module):
         timestep: torch.Tensor,
         conditioning: Dict[str, Dict[str, torch.Tensor]],
         return_features: bool = False,
+        adapter_residuals: Optional[List[torch.Tensor]] = None,
     ):
         """``conditioning["cond"]["crossattn"]``: the text context [B, T, C];
         ``conditioning["cond"]["vector"]`` (SDXL): [B, 2816], added to the
-        time embedding through ``add_embedding``. Returns fp32 [B, H, W, C],
-        or (that, the mid block's output [B, h, w, C] in the compute dtype,
-        the JAX layout) with ``return_features``."""
+        time embedding through ``add_embedding``; ``["concat"]``: [B, H, W,
+        concat_channels]. ``adapter_residuals``: [B, h, w, C] for each down
+        level, at its resolution and width. Returns fp32 [B, H, W, C], or
+        (that, the mid block's output [B, h, w, C] in the compute dtype, the
+        JAX layout) with ``return_features``."""
         dtype = self.conv_in.weight.dtype
         cond = conditioning["cond"]
         context = cond["crossattn"].to(dtype)
@@ -217,13 +227,17 @@ class UNet2DCondition(nn.Module):
         if hasattr(self, "add_embedding") and cond.get("vector") is not None:
             temb = temb + self.add_embedding(cond["vector"].to(dtype))
 
+        if cond.get("concat") is not None:
+            sample = torch.cat([sample, cond["concat"].to(sample.dtype)], dim=-1)
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [h]
-        for block in self.down_blocks:
+        for lvl, block in enumerate(self.down_blocks):
             for j, resnet in enumerate(block.resnets):
                 h = self._block(resnet, h, temb)
                 if block.attentions is not None:
                     h = self._block(block.attentions[j], h, context)
+                if j == len(block.resnets) - 1 and adapter_residuals is not None:
+                    h = h + adapter_residuals[lvl].permute(0, 3, 1, 2).to(h.dtype)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)

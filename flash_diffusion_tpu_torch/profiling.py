@@ -3,7 +3,7 @@ time by stage and by kernel.
 
     python -m flash_diffusion_tpu_torch.profiling [--model sd15|sdxl|pixart|sd3] [--batch 4] [--int8] [--t5]
         [--trace trace.json]
-    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart|sd3] [--batch n]
+    python -m flash_diffusion_tpu_torch.profiling --train [--model sd15|sdxl|pixart|sd3|sd15-canny] [--batch n]
 
 Builds the pipeline as ``sample.build_pipeline(model)`` does (random bf16
 weights; SD1.5 at 512², SDXL, Pixart-α and SD3 at 1024²; ``--t5``: SD3
@@ -14,7 +14,9 @@ int8 mode, ``FlashPipeline.quantize("int8")``, the counterpart of the JAX
 ``train.build_trainer(model)`` builds it (the model's yaml: SD1.5
 ``flash_sd.yaml`` at 512², batch 4; SDXL ``flash_sdxl.yaml`` at 1024², batch
 2; Pixart ``flash_pixart.yaml`` at 512², batch 4; SD3 ``flash_sd3.yaml`` at
-1024², batch 2, with T5-XXL; every step in stage 1)
+1024², batch 2, with T5-XXL; SD1.5 with the Canny T2I-Adapter
+``flash_canny_adapter.yaml`` at 512², batch 4, its synthetic batches with
+their edge maps; every step in stage 1)
 and one ``fit`` step on a synthetic batch of the yaml's size (``--batch``
 overrides its batch) instead. Prints the
 wall time, the device's busy share (summed kernel time over wall time; the
@@ -45,6 +47,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .sample import MODELS, build_pipeline
+from .train import MODELS as TRAIN_MODELS
 
 _PROMPTS = ["a photograph of an astronaut riding a horse"]
 
@@ -103,7 +106,7 @@ _ROUTES = (
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="sd15", choices=MODELS)
+    ap.add_argument("--model", default="sd15", choices=list(dict.fromkeys(MODELS + TRAIN_MODELS)))
     ap.add_argument("--batch", type=int, default=None, help="default 4; with --train the yaml's BATCH_SIZE")
     ap.add_argument("--int8", action="store_true", help="serve in the W8A8 int8 mode")
     ap.add_argument("--t5", action="store_true", help="sd3: add T5-XXL to the two CLIP towers")
@@ -112,11 +115,11 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
+    if args.model not in (TRAIN_MODELS if args.train else MODELS):
+        raise SystemExit(f"profile: {args.model!r} is a training configuration: add --train")
     if args.train:
         from . import train
 
-        if args.model not in train.MODELS:
-            raise SystemExit(f"profile: training of {args.model!r} is not ported (one of {train.MODELS})")
         # the towers resident: a step alone, without an offload burst of 4
         # batches' encode and the towers' move inside the window
         cfg = {**train.load_config(train.CONFIGS[args.model]), "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000],

@@ -1,13 +1,14 @@
-"""Flash distillation of SD1.5, SDXL, Pixart-α and SD3 with the PyTorch port: build_trainer and CLI.
+"""Flash distillation of SD1.5, SDXL, Pixart-α and SD3, and of SD1.5 with a Canny T2I-Adapter, with the PyTorch port: build_trainer and CLI.
 
-    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart|sd3] \\
+    python -m flash_diffusion_tpu_torch.train [--model sd15|sdxl|pixart|sd3|sd15-canny] \\
         [--config examples/configs/flash_sd.yaml] --max-steps 10 [--weights-root /weights/sd15] \\
         [--random-init] [--device cuda] [--shards /data/{000000..000010}.tar] \\
         [--eval-shards /data/eval/{00000..00003}.tar] [--output-dir runs] [--resume]
 
 ``build_trainer(model, device=...)`` is the port's counterpart of
 ``examples/train_flash_sd.py``, ``train_flash_sdxl.py``,
-``train_flash_pixart.py`` and ``train_flash_sd3.py``. The teacher, VAE and
+``train_flash_pixart.py``, ``train_flash_sd3.py`` and
+``train_flash_canny_adapter.py``. The teacher, VAE and
 conditioner come from
 ``sample.build_modules(model)`` with the denoiser's ``remat`` on; a LoRA
 student over the teacher, LPIPS-VGG16 when the distill loss is ``lpips``,
@@ -53,7 +54,18 @@ By model (its default yaml in ``CONFIGS``):
   text key (``UCG_KEYS``: ``text`` and ``t5_text``). The yaml's
   ``TEXT_ENCODER_OFFLOAD`` (4) keeps the text towers on the host between
   bursts of that many batches, whose conditioning is computed while they
-  are on the card (T5-XXL in fp32 takes ≈ 19 GB of it).
+  are on the card (T5-XXL in fp32 takes ≈ 19 GB of it);
+- ``sd15-canny``: ``sd15``'s modules and a frozen bf16 T2I-Adapter
+  (``T2IAdapterConfig()``: channels [320, 640, 1280, 1280]) whose
+  residuals, from the batch's Canny ``edge`` map at
+  ``ADAPTER_CONDITIONING_SCALE``, condition every UNet call;
+  ``flash_canny_adapter.yaml``: 512², batch 4, K = 16, LoRA rank 128, DDPM
+  teacher, l2 distill, DMD, hinge GAN, the empty-prompt uncond. Its data
+  chain ends in ``CannyEdgeMapper`` (``data_mappers``) and its text ids
+  are zeros (``make_tokenizer``), as the JAX example's. The adapter's
+  weights come from the seed, never zeros (JAX's example freezes an
+  all-zero adapter, whose residuals are 0): no published adapter fits its
+  architecture.
 
 Weights are random, made from ``seed``, unless ``weights_root`` holds a
 local diffusers layout (``unet/``, ``vae/``, ``text_encoder/`` and, for
@@ -98,6 +110,7 @@ from .distill import (
     sd3_discriminator_config,
 )
 from .lora import init_lora, lora_scaling, save_peft_safetensors
+from .models import T2IAdapter, T2IAdapterConfig
 from .sample import (
     PIXART_SCHEDULER,
     SD3_SCHEDULER_CONFIG,
@@ -123,12 +136,14 @@ from .trainer import (
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "configs")
 CONFIGS = {model: os.path.join(_CONFIG_DIR, name) for model, name in (
     ("sd15", "flash_sd.yaml"), ("sdxl", "flash_sdxl.yaml"), ("pixart", "flash_pixart.yaml"),
-    ("sd3", "flash_sd3.yaml"))}
+    ("sd3", "flash_sd3.yaml"), ("sd15-canny", "flash_canny_adapter.yaml"))}
 MODELS = tuple(CONFIGS)
 # by UNet model: (pixels per mid-block position, discriminator features);
 # the mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in
 # SDXL's three
-_MID = {"sd15": (64, 64), "sdxl": (32, 256)}
+_MID = {"sd15": (64, 64), "sdxl": (32, 256), "sd15-canny": (64, 64)}
+# the denoiser family of each trained model (``sample.build_modules``')
+FAMILY = {"sd15-canny": "sd15"}
 # by model, what a yaml may leave out: the JAX examples' defaults
 # (examples/train_flash_sd.py, train_flash_sdxl.py, train_flash_sd3.py,
 # common.py)
@@ -143,9 +158,12 @@ DEFAULTS = {
     "sd3": {"IMAGE_SIZE": 1024, "BATCH_SIZE": 2, "LORA_RANK": 64, "USE_T5": True, "T5_MAX_LENGTH": 77,
             "USE_EMPTY_PROMPT": False, "TEACHER_SCHEDULER": "FlowMatchEulerDiscreteScheduler",
             "DISTILL_LOSS_TYPE": "l2"},
+    "sd15-canny": {"IMAGE_SIZE": 512, "BATCH_SIZE": 4, "LORA_RANK": 128, "USE_EMPTY_PROMPT": True,
+                   "TEACHER_SCHEDULER": "DDPMScheduler", "TEACHER_SAMPLING_SCHEDULER": "EulerDiscreteScheduler",
+                   "ADAPTER_CONDITIONING_SCALE": 1.0},
 }
 # the PEFT prefix of each family's denoiser (``sample.build_pipeline``'s)
-LORA_PREFIX = {"sd15": "unet", "sdxl": "unet", "pixart": "transformer", "sd3": "transformer"}
+LORA_PREFIX = {"sd15": "unet", "sdxl": "unet", "pixart": "transformer", "sd3": "transformer", "sd15-canny": "unet"}
 logger = logging.getLogger(__name__)
 
 
@@ -178,8 +196,11 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
     1.0], as ``train_flash_pixart.py`` makes them. For ``sd3``, the CLIP
     ids and, unless ``t5_max_length`` is None (no T5 tower), T5-style
     ``t5_text_ids`` of that length with ``t5_text_mask``, as
-    ``train_flash_sd3.py`` tokenizes them."""
+    ``train_flash_sd3.py`` tokenizes them. For ``sd15-canny``, zero text
+    ids and the images' Canny ``edge`` maps, as
+    ``train_flash_canny_adapter.py`` feeds them."""
     rng = np.random.default_rng(seed)
+    canny = data_mappers(model)
     pixart = model == "pixart"
     max_length = max_length or (120 if pixart else 77)
     while True:
@@ -200,6 +221,9 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
             batch.update(size_cond_fn(batch_size, image_size, image_size))
         if model == "sd3" and t5_max_length:
             batch["t5_text_ids"], batch["t5_text_mask"] = _t5_ids(rng, batch_size, t5_max_length)
+        if canny:
+            batch["text_ids"] = np.zeros_like(ids)
+            batch["edge"] = np.stack([canny[0]({"image": im})["edge"] for im in image])
         yield batch
 
 
@@ -211,6 +235,16 @@ class _AtLeast:
 
     def __call__(self, value) -> bool:
         return value >= self.threshold
+
+
+def data_mappers(model: str) -> list:
+    """The mappers a model's data chain ends in: ``sd15-canny``'s Canny edge
+    map of the image (the JAX example's ``CannyEdgeMapper``, key ``edge``)."""
+    if model != "sd15-canny":
+        return []
+    from .data import CannyEdgeMapper, CannyEdgeMapperConfig
+
+    return [CannyEdgeMapper(CannyEdgeMapperConfig(key="image"))]
 
 
 def build_data(cfg: Dict[str, Any], extra_filters_mappers=(), num_workers: Optional[int] = None,
@@ -281,8 +315,11 @@ def make_tokenizer(model: str, cfg: Dict[str, Any], weights_root: str = ""):
     and (with ``USE_T5``) T5 ids for SD3; a local tokenizer under
     ``weights_root`` (``tokenizer/``, SD3's T5 ``tokenizer_3/``), else zero
     ids (an all-ones T5 mask), as the JAX examples fall back; what ``cfg``
-    leaves out comes from ``DEFAULTS``."""
+    leaves out comes from ``DEFAULTS``. ``sd15-canny``: zero CLIP ids
+    whatever the text, as ``train_flash_canny_adapter.py`` sets them."""
     cfg = {**DEFAULTS[model], **cfg}
+    if model == "sd15-canny":
+        return lambda texts: {"text_ids": np.zeros((len(texts), 77), np.int64)}
     if model == "pixart":
         return t5_tokenizer(weights_root, cfg["T5_MAX_LENGTH"])
     if model == "sd3":
@@ -343,7 +380,8 @@ def build_trainer(
     """The Flash trainer of ``model`` on ``device`` from a yaml config (a
     path or its dict; the model's ``CONFIGS`` entry by default); ``seed``
     defaults to the config's ``SEED``; the frozen modules are stored in
-    bf16, as the JAX examples store them. Sets
+    bf16, as the JAX examples store them (the adapter of ``sd15-canny``
+    too, made from the seed after the other modules). Sets
     ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False, as ``build_pipeline``."""
     if model not in MODELS:
@@ -355,16 +393,18 @@ def build_trainer(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = cfg["LORA_RANK"]
+    family = FAMILY.get(model, model)
     sd3 = model == "sd3"
     t5 = {"t5": bool(cfg["USE_T5"]), "t5_max_length": cfg["T5_MAX_LENGTH"]} if sd3 else {}
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         with device:
-            denoiser, vae, conditioners, towers, _ = build_modules(model, remat=True, **t5)
+            denoiser, vae, conditioners, towers, _ = build_modules(family, remat=True, **t5)
             disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"])
             lpips = LPIPS() if cfg["DISTILL_LOSS_TYPE"] == "lpips" else None
+            adapter = T2IAdapter(T2IAdapterConfig()) if model == "sd15-canny" else None
         if weights_root:
-            load_weights(model, weights_root, denoiser, vae, towers)
+            load_weights(family, weights_root, denoiser, vae, towers)
         generator = torch.Generator(device=device).manual_seed(seed)
         lora = init_lora(denoiser, rank, generator, device=device)
     kw = dict(
@@ -388,7 +428,9 @@ def build_trainer(
         gan_update_mode=cfg.get("GAN_UPDATE_MODE", "simultaneous"),
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
-    modules = dict(vae=vae, conditioner=make_conditioner(model, conditioners), discriminator=disc, lpips=lpips,
+    if adapter is not None:
+        kw.update(adapter_input_key="edge", adapter_conditioning_scale=float(cfg["ADAPTER_CONDITIONING_SCALE"]))
+    modules = dict(vae=vae, conditioner=make_conditioner(family, conditioners), discriminator=disc, lpips=lpips,
                    lora_scaling=lora_scaling(rank))
     if sd3:
         flash = FlashDiffusionSD3(
@@ -400,7 +442,7 @@ def build_trainer(
             scheduler_config=PIXART_SCHEDULER if model == "pixart" else SchedulerConfig(),
             teacher_scheduler=cfg["TEACHER_SCHEDULER"],
             sampling_scheduler=cfg.get("SAMPLING_SCHEDULER", "LCMScheduler"),
-            teacher_sampling_scheduler=cfg["TEACHER_SAMPLING_SCHEDULER"], **modules)
+            teacher_sampling_scheduler=cfg["TEACHER_SAMPLING_SCHEDULER"], adapter=adapter, **modules)
     ema = cfg.get("EMA_DECAY")
     train_cfg = TrainingConfig(
         learning_rates=[float(cfg["LR"]), float(cfg.get("LR_DISCRIMINATOR", cfg["LR"]))], seed=seed,
@@ -447,7 +489,8 @@ def main():
         from .data import prefetch_to_device
 
         tokenizer = make_tokenizer(args.model, cfg, root)
-        data = prefetch_to_device(tokenize_batches(build_data(cfg), tokenizer, args.model, size))
+        data = prefetch_to_device(tokenize_batches(build_data(cfg, data_mappers(args.model)), tokenizer, args.model,
+                                                   size))
         logger.info("data: shards %s", cfg["SHARDS_PATH_OR_URLS"])
     else:
         if args.model == "sd3":
@@ -458,7 +501,8 @@ def main():
         logger.info("data: synthetic batches from seed %d (no shard at %s)", seed, cfg.get("SHARDS_PATH_OR_URLS"))
     eval_data = None
     if _shards_present(cfg.get("EVAL_SHARDS_PATH_OR_URLS")):
-        eval_pipe = build_data({**cfg, "SHARDS_PATH_OR_URLS": cfg["EVAL_SHARDS_PATH_OR_URLS"]})
+        eval_pipe = build_data({**cfg, "SHARDS_PATH_OR_URLS": cfg["EVAL_SHARDS_PATH_OR_URLS"]},
+                               data_mappers(args.model))
         eval_tok = make_tokenizer(args.model, cfg, root)
         eval_data = lambda: tokenize_batches(eval_pipe.batches(epoch=0), eval_tok, args.model, size)
     if args.resume:

@@ -2,9 +2,10 @@
 
 Port of ``flash_diffusion_tpu/trainer/trainer.py:48-491``:
 
-- the frozen modules (teacher UNet, DiT or MMDiT, VAE, text conditioner,
-  LPIPS) are stored in ``frozen_dtype`` (bf16); the denoiser and the VAE
-  compute in it, as their JAX modules do (dtype=bf16); CLIP, T5 and LPIPS
+- the frozen modules (teacher UNet, DiT or MMDiT, VAE, T2I-Adapter, text
+  conditioner, LPIPS) are stored in ``frozen_dtype`` (bf16); the denoiser,
+  the VAE and the adapter compute in it, as their JAX modules do
+  (dtype=bf16), and the adapter is in no optimizer; CLIP, T5 and LPIPS
   are fp32 flax modules in JAX that promote the bf16-stored weights at use,
   so here their weights are rounded through ``frozen_dtype`` and kept in
   fp32, the same numbers (SD3's CLIP-L, CLIP-G and T5-XXL inside its
@@ -84,13 +85,14 @@ class TrainingPipeline:
         self.model, self.config = model, config
         self.device = torch.device(device) if device is not None else next(
             model.teacher_module.parameters()).device
-        for m in (model.teacher_module, model.vae, model.conditioner, model.lpips):
+        adapter = model.adapter
+        for m in (model.teacher_module, model.vae, adapter, model.conditioner, model.lpips):
             if m is not None:
                 m.requires_grad_(False).eval()
         if frozen_dtype is not None:
-            model.teacher_module.to(frozen_dtype)
-            if model.vae is not None:
-                model.vae.to(frozen_dtype)
+            for m in (model.teacher_module, model.vae, adapter):
+                if m is not None:
+                    m.to(frozen_dtype)
             with torch.no_grad():  # fp32 modules over bf16-rounded weights
                 for m in (model.conditioner, model.lpips):
                     for p in (m.parameters() if m is not None else ()):

@@ -19,7 +19,10 @@ They cover the SD1.5 and SDXL UNets, the Pixart DiT (its per-chunk vector
 MLPs as ``adaln_single.emb.vector_embedders.<i>``), the SD3 MMDiT (the
 inverse of ``import_sd3_mmdit``), the SD VAE and SD3's (no quant convs), the CLIP-L,
 OpenCLIP-bigG and T5 text towers, and for training the LoRA tree, the conv
-discriminator and LPIPS (whose JAX param names are the port's).
+discriminator and LPIPS (whose JAX param names are the port's); the
+T2I-Adapter (JAX's names), ``ModuleEmbedder``'s layers, and the DPT (JAX
+names → MiDaS's, its ConvTranspose kernels flipped: flax's does not flip,
+torch's does).
 
 Imports no JAX: the tree arrives as numpy.
 """
@@ -51,7 +54,8 @@ def _lin(sd: StateDict, key: str, p) -> None:
 
 def _conv(sd: StateDict, key: str, p) -> None:
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _norm(sd: StateDict, key: str, p) -> None:
@@ -371,4 +375,71 @@ def lpips_from_jax(params: Dict[str, Any]) -> StateDict:
     for name, lin in p.items():
         if name.startswith("lin_"):
             sd[f"{name}.weight"] = _t(np.asarray(lin["kernel"]).transpose(3, 2, 0, 1))
+    return sd
+
+
+def adapter_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``T2IAdapter`` params → port ``T2IAdapter`` state dict (the same
+    names: ``conv_in``, ``down_{lvl}``, ``res_{lvl}_{j}.block1/2``)."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    for lvl in range(len(config.channels)):
+        name = "conv_in" if lvl == 0 else f"down_{lvl}"
+        _conv(sd, name, p[name])
+        for j in range(config.num_res_blocks):
+            for blk in ("block1", "block2"):
+                _conv(sd, f"res_{lvl}_{j}.{blk}", p[f"res_{lvl}_{j}"][blk])
+    return sd
+
+
+def module_embedder_from_jax(params: Dict[str, Any]) -> StateDict:
+    """JAX ``ModuleEmbedder`` params (``layer_{i}`` of its ``_Stack``) → the
+    port's: a Conv's kernel [*k, I, O] → ``layers.layer_{i}.conv.weight``
+    [O, I, *k], a Dense's → ``layers.layer_{i}.weight``."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    for name, layer in p.items():
+        kernel = np.asarray(layer["kernel"])
+        key = f"layers.{name}" if kernel.ndim == 2 else f"layers.{name}.conv"
+        sd[f"{key}.weight"] = _t(kernel.T if kernel.ndim == 2 else kernel.transpose(
+            kernel.ndim - 1, kernel.ndim - 2, *range(kernel.ndim - 2)))
+        if "bias" in layer:
+            sd[f"{key}.bias"] = _t(layer["bias"])
+    return sd
+
+
+def dpt_from_jax(params: Dict[str, Any], depth: int) -> StateDict:
+    """JAX ``DPTDepth`` params → port ``DPTDepth`` state dict (MiDaS names).
+    ``up_0``/``up_1``: a flax ``ConvTranspose`` kernel [kh, kw, I, O] is
+    applied unflipped, so the torch weight [I, O, kh, kw] is its spatial
+    flip; the port then computes what JAX computes."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    bb, post = "pretrained.model", "pretrained.act_postprocess"
+    _conv(sd, f"{bb}.patch_embed.proj", p["patch_embed"])
+    sd[f"{bb}.cls_token"], sd[f"{bb}.pos_embed"] = _t(p["cls_token"]), _t(p["pos_embed"])
+    for i in range(depth):
+        blk, key = p[f"block_{i}"], f"{bb}.blocks.{i}"
+        for jax_name, name in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _lin(sd, f"{key}.{name}", blk[jax_name])
+        _norm(sd, f"{key}.norm1", blk["norm1"])
+        _norm(sd, f"{key}.norm2", blk["norm2"])
+    for lvl in range(4):
+        _lin(sd, f"{post}{lvl + 1}.0.project.0", p[f"readout_{lvl}"])
+        _conv(sd, f"{post}{lvl + 1}.3", p[f"proj_{lvl}"])
+    for lvl in range(2):
+        up = p[f"up_{lvl}"]
+        sd[f"{post}{lvl + 1}.4.weight"] = _t(np.asarray(up["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        sd[f"{post}{lvl + 1}.4.bias"] = _t(up["bias"])
+    _conv(sd, f"{post}4.4", p["down_3"])
+    for i in range(1, 5):
+        _conv(sd, f"scratch.layer{i}_rn", p[f"layer{i}_rn"])
+        fusion = p[f"refinenet{i}"]
+        _conv(sd, f"scratch.refinenet{i}.out_conv", fusion["out_conv"])
+        for unit in ("resConfUnit1", "resConfUnit2"):
+            if unit in fusion:
+                for c in ("conv1", "conv2"):
+                    _conv(sd, f"scratch.refinenet{i}.{unit}.{c}", fusion[unit][c])
+    for jax_name, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+        _conv(sd, f"scratch.output_conv.{idx}", p[jax_name])
     return sd
