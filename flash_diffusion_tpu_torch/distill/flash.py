@@ -310,7 +310,7 @@ class FlashDiffusion:
         cond2, do_cfg = self._sample_conds(batch, g_scale)
         res = None
         if self.adapter is not None and self.config.adapter_input_key in batch:
-            res = self._adapter_residuals(batch, adapter_conditioning_scale, z.device)
+            res = self._adapter_residuals(batch, adapter_conditioning_scale)
         with self.using_lora(None if use_teacher else lora):
             sample = self._sample_loop(module, mod, sched, z.float(), cond2, g_scale, do_cfg, stochastic,
                                        noise, generator, _dup(res) if do_cfg else res)
@@ -378,15 +378,15 @@ class FlashDiffusion:
         return self.student_module(x, t, cond, **_adapter_kw(adapter_res))
 
     @torch.no_grad()
-    def _adapter_residuals(self, batch: Dict[str, Any], scale: Optional[float] = None, device=None):
-        """The frozen adapter's residuals of ``batch[adapter_input_key]``,
-        each scaled by ``scale`` (the config's by default); None without an
-        adapter or an input key."""
+    def _adapter_residuals(self, batch: Dict[str, Any], scale: Optional[float] = None):
+        """The frozen adapter's residuals of ``batch[adapter_input_key]`` (on
+        the adapter's device), each scaled by ``scale`` (the config's by
+        default); None without an adapter or an input key."""
         key = self.config.adapter_input_key
         if self.adapter is None or key is None:
             return None
         scale = self.config.adapter_conditioning_scale if scale is None else scale
-        x = torch.as_tensor(batch[key], device=device or next(self.adapter.parameters()).device)
+        x = torch.as_tensor(batch[key], device=next(self.adapter.parameters()).device)
         return [r * scale for r in self.adapter(x)]
 
     def _conditionings(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
@@ -505,7 +505,7 @@ class FlashDiffusion:
         pre = batch.get("__conds")
         cond, student_cond, uncond = pre if pre is not None else self._conditionings(batch)
         with record_function("fdt.train.adapter"):
-            res = self._adapter_residuals(batch, device=z.device)
+            res = self._adapter_residuals(batch)
 
         b = z.shape[0]
         start_idx = int(draws["start_idx"])
