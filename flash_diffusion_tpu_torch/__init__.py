@@ -9,7 +9,9 @@ flow matching → UNet, DiT or MMDiT → VAE decode), the SD1.5, SDXL,
 Pixart-α and SD3 distillation steps and the training run around them
 (``trainer/``: tar-shard data from ``data/``, EMA, gradient accumulation,
 the alternating GAN mode, validation sampling, checkpoints and resume,
-text-encoder offload, PEFT export), and serving (``serving.py``,
+text-encoder offload, PEFT export), the Canny T2I-Adapter distillation of
+SD1.5 (``models/adapters.py``) and the DPT depth model (``models/depth.py``),
+and serving (``serving.py``,
 ``serve.py``) with LoRA hot swap and the int8 W8A8 mode (``quant.py``).
 Imports ``torch`` and never ``jax``.
 """

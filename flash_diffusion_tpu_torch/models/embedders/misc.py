@@ -127,7 +127,7 @@ class _FlaxDense(nn.Linear):
         super().__init__(in_channels, features, bias=use_bias)
 
 
-def build_stack(specs: Sequence[dict], in_channels: int) -> nn.ModuleList:
+def _build_stack(specs: Sequence[dict], in_channels: int) -> nn.ModuleDict:
     """The parametrized layers of ``specs`` (``{"layer": "Conv" | "Dense" |
     "silu" | "relu" | "gelu", ...flax arguments}``) on ``in_channels``
     input channels: each Conv or Dense under ``layer_{i}`` (its index in the
@@ -175,7 +175,7 @@ class ModuleEmbedder(Conditioner):
     def build(self, in_channels: int) -> None:
         """The layers over ``in_channels`` input channels (once)."""
         if self.layers is None:
-            self.layers = build_stack(self.specs, in_channels).to(self._device_anchor.device)
+            self.layers = _build_stack(self.specs, in_channels).to(self._device_anchor.device)
 
     def embed(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         x = torch.as_tensor(batch[self.input_key], dtype=torch.float32, device=self._device_anchor.device)
