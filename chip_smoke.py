@@ -53,7 +53,8 @@ each phase's seconds:
    sums), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
-   events around 10 queued calls, median of 5 runs) and the bound: the
+   events around 10 queued calls, 2 for calls of 1 ms or more, median of 5
+   runs) and the bound: the
    larger of the bytes the function moves over 3.35 TB/s and its operations
    (as the JAX ``pl.CostEstimate`` counts them) over 989 TFLOP/s in bf16
    (67 TFLOP/s fp32 for the norms). The library calls are yardsticks only:
@@ -822,10 +823,17 @@ def card_line() -> str:
 
 def median_ms(fn, reps: int = 5, calls: int = 10) -> float:
     """Device time of one call: CUDA events around ``calls`` back-to-back
-    calls, queued behind a GPU sleep so that host launch overhead does not
-    show; the median over ``reps`` such runs, divided by ``calls``."""
+    calls (2 where the warm-up call took 1 ms or more: the events' and the
+    gaps' share is then below 0.1%), queued behind a GPU sleep so that host
+    launch overhead does not show; the median over ``reps`` such runs,
+    divided by ``calls``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     fn()
+    end.record()
     torch.cuda.synchronize()
+    if start.elapsed_time(end) >= 1.0:
+        calls = min(calls, 2)
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
