@@ -318,14 +318,18 @@ each phase's seconds:
 11b. its training reference at 256², as 5b (K = [4], batch 2, non-zero
    LoRA B, 0 discriminator stages), the rollout from ``TRAIN_REF_START``
    3, the adapter's residuals (bf16 on the card, fp32 on the CPU copy) in
-   every UNet call; 5b's tolerances;
+   every UNet call; 5b's tolerances; every launched (kernel, shape) among
+   phase 2's;
 11c. the DPT (``DPTDepth()``: ViT-L/16 at 384², dim 1024, 24 blocks of 16
-   heads, 256 features; random weights from seed 0, the head's last bias
-   1 so that its final ReLU leaves the map live), bf16 on the card
-   against its fp32 CPU copy on one image, relative L2 within
-   ``DPT_REL_L2_TOL``; then ``DepthMapper(make_depth_fn(...))`` over 4
-   images of 512²: [512, 512, 3] maps in [0, 1], K1 launched at [16, 577,
-   577, 64] (24 a map), gated; ms a map.
+   heads, 256 features; random weights from seed 0, q and k scaled so that
+   the attention is sharp, the head's last conv so that the map varies by
+   about 1: ``calibrate_dpt``), bf16 on the card against its fp32 CPU copy
+   on one image: the four hook taps and the depth map, each less its mean,
+   within ``DPT_REL_L2_TOL`` (relative L2), and the same readings with the
+   attention zeroed or its values one key on outside it; then
+   ``DepthMapper(make_depth_fn(...))`` over 4 images of 512²: [512, 512, 3]
+   maps in [0, 1], the first within the same tolerance of the fp32 copy's,
+   K1 launched at [16, 577, 577, 64] (24 a map), gated; ms a map.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -344,6 +348,7 @@ this file, it exits non-zero and prints no result.
 import base64
 import collections
 import contextlib
+import copy
 import ctypes
 import json
 import math
@@ -609,6 +614,18 @@ GN_SHAPES_TRAIN_RUN = [((b, c, hw, hw), torch.bfloat16, None) for b, c, hw in (
 # plan at 64 q rows (align128(577) = 640 > 256 keeps it off the packed K4).
 # The Canny adapter run (phase 11) launches the training run's shapes
 ATTENTION_SHAPES_DPT = [(16, 577, 577, 64, None)]
+# the Canny adapter's training reference at 256², batch 2 (phase 11b; gated
+# and timed, outside the paths' sums): SD1.5's UNet at 32², 16², 8² and 4²
+# latents in the student's B = 2 (BH 16) and the 2B = 4 passes (BH 32), the
+# backward of both, their LayerNorms and GroupNorms; the rest of its shapes
+# are the paths'
+LEVELS_256 = ((1024, 1024, 40), (1024, 77, 40), (256, 256, 80), (256, 77, 80), (16, 16, 160), (16, 77, 160))
+ATTENTION_REFERENCES_CANNY = [(bh, sq, kv, d, None) for bh in (16, 32) for sq, kv, d in LEVELS_256]
+BWD_REFERENCES_CANNY = ATTENTION_REFERENCES_CANNY + [(16, 64, 64, 160, None), (16, 64, 77, 160, None)]
+LAYER_NORM_REFERENCES_CANNY = [(rows, c, torch.bfloat16) for rows, c in (
+    (4096, 320), (2048, 320), (1024, 640), (512, 640), (64, 1280), (32, 1280))]
+GN_REFERENCES_CANNY = [((b, c, hw, hw), torch.bfloat16, None) for b in (2, 4) for c, hw in (
+    (320, 16), (960, 16), (640, 8), (1920, 8), (1280, 4), (2560, 4))]
 # phase 9's sampling callback: SD3 at 1024², batch 1 (the joint attention
 # at BH 24, the VAE decoder with its single-head mid-attention)
 ATTENTION_SHAPES_SD3_SAMPLE = [(24, 4352, 4352, 64, 4250), (1, 16384, 16384, 512, None)]
@@ -654,12 +671,22 @@ def int8_main():
 def attention_unmain():
     """The forward attention cases phase 2 checks untimed."""
     return ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES + ATTENTION_REFERENCES_SD3 + \
-        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN
+        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN + ATTENTION_REFERENCES_CANNY
+
+
+def bwd_unmain():
+    """The attention backward cases phase 2 checks outside the paths' sums."""
+    return BWD_RAGGED + BWD_REFERENCES_SD3 + BWD_REFERENCES_CANNY
+
+
+def layer_norm_unmain():
+    """The LayerNorm cases phase 2 checks outside the paths' sums."""
+    return LAYER_NORM_RAGGED + LAYER_NORM_REFERENCES_SD3 + LAYER_NORM_REFERENCES_CANNY
 
 
 def gn_unmain():
     """The GroupNorm cases phase 2 checks untimed."""
-    return [(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN
+    return [(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN + GN_REFERENCES_CANNY
 
 
 def int8_extra():
@@ -683,7 +710,7 @@ def gated_shapes():
     resident and statistics kernels with the group count (None: the
     statistics alone), the apply kernel without."""
     fwd = set(attention_main() + attention_unmain())
-    bwd = set(bwd_main() + BWD_RAGGED + BWD_REFERENCES_SD3)
+    bwd = set(bwd_main() + bwd_unmain())
     cases = gn_main() + gn_unmain()
     gn = {(shape, dtype, gn_groups(shape, groups)) for shape, dtype, groups in cases}
     gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
@@ -692,8 +719,7 @@ def gated_shapes():
             "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_RAGGED),
             "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
-            "layer_norm": set(layer_norm_main() + LAYER_NORM_RAGGED + LAYER_NORM_SMALL_VAR
-                              + LAYER_NORM_REFERENCES_SD3),
+            "layer_norm": set(layer_norm_main() + layer_norm_unmain() + LAYER_NORM_SMALL_VAR),
             "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn,
             "int8_gemm": set(int8_main() + [case[:3] for case in int8_extra()])}
 
@@ -823,28 +849,25 @@ def card_line() -> str:
 
 def median_ms(fn, reps: int = 5, calls: int = 10) -> float:
     """Device time of one call: CUDA events around ``calls`` back-to-back
-    calls (2 where the warm-up call took 1 ms or more: the events' and the
-    gaps' share is then below 0.1%), queued behind a GPU sleep so that host
-    launch overhead does not show; the median over ``reps`` such runs,
-    divided by ``calls``."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    if start.elapsed_time(end) >= 1.0:
-        calls = min(calls, 2)
-    times = []
-    for _ in range(reps):
+    calls, queued behind a GPU sleep so that host launch overhead does not
+    show; the median over ``reps`` such runs, divided by ``calls``. After a
+    warm-up call, one call queued the same way sets ``calls`` to 2 where it
+    took 1 ms or more (the events' and the gaps' share is then below 0.1%)."""
+    def queued(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(20_000_000)  # ~10 ms of GPU cycles while the host queues the calls
         start.record()
-        for _ in range(calls):
+        for _ in range(n):
             fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+        return start.elapsed_time(end) / n
+
+    fn()
+    torch.cuda.synchronize()
+    if queued(1) >= 1.0:
+        calls = min(calls, 2)
+    return statistics.median(queued(calls) for _ in range(reps))
 
 
 def library_ms(make):
@@ -1066,7 +1089,7 @@ def check_layer_norm(norms, results, timed=True):
     (x read and y written once, the affine once)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     main_shapes, refs = layer_norm_main(), references()
-    cases = [(s, 2.0, 0.5) for s in main_shapes + LAYER_NORM_RAGGED + LAYER_NORM_REFERENCES_SD3]
+    cases = [(s, 2.0, 0.5) for s in main_shapes + layer_norm_unmain()]
     cases += [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
     failed = []
     for (rows, c, dtype), scale, offset in cases:
@@ -1334,7 +1357,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(3)
     failed = []
     refs = references()
-    for shape in bwd_main() + BWD_RAGGED + BWD_REFERENCES_SD3:
+    for shape in bwd_main() + bwd_unmain():
         bh, sq, skv, d, kv_valid = shape
         q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                        for s in (sq, skv, skv, sq))
@@ -2344,46 +2367,150 @@ def run_canny_training(counters, card, required, gated, root):
     return launches
 
 
-# phase 11c: the DPT in bf16 on the card against its fp32 CPU copy (relative
-# L2 of the depth map), and the depth maps' images
+# phase 11c: the DPT in bf16 on the card against its fp32 CPU copy, then the
+# depth maps' images. Random init leaves the DPT nearly inert where the
+# check looks: the softmax near uniform over the 577 keys (where any
+# attention gives about mean(v)) and the head's map flat to a few
+# thousandths, which its ReLU cuts to 0 about half the time.
+# ``calibrate_dpt`` scales q and k of every block by DPT_QK_SCALE, so that
+# the attention is sharp as a trained ViT's, and the head's last 1×1 conv so
+# that the map varies by about 1 around 3 on the check's image. What is
+# compared is what varies: each hook tap (the backbone's tokens) less its
+# mean over tokens, the depth map and the DepthMapper's map less their mean
+# over pixels, as a relative L2 (``centered_rel_l2``), within
+# DPT_REL_L2_TOL. The faults of DPT_FAULTS, run on the card, must fall
+# outside it, so that the check is seen to fail a wrong attention
+DPT_QK_SCALE = 3.0
 DPT_REL_L2_TOL = 0.05
+DPT_FAULTS = {
+    "attention zeroed": lambda attend, q, k, v: torch.zeros_like(q),
+    "values one key on": lambda attend, q, k, v: attend(q, k, v.roll(1, 1)),
+}
 DEPTH_IMAGES = 4
 
 
-def check_depth(counters, card, required, gated):
-    """Phase 11c: ``DPTDepth()`` (ViT-L/16 at 384², random weights from seed
-    0, the head's last bias 1) in bf16 on the card against its fp32 CPU copy on one image (relative
-    L2 within ``DPT_REL_L2_TOL``); then ``DepthMapper(make_depth_fn(...))``
-    over ``DEPTH_IMAGES`` images of 512² (smooth gradients and discs with
-    noise), counts reset just before and read just after: [512, 512, 3]
-    maps in [0, 1], the required kernels launched, every (kernel, shape)
-    among phase 2's; ms a map."""
-    from flash_diffusion_tpu_torch.data import DepthMapper, DepthMapperConfig
-    from flash_diffusion_tpu_torch.models import DPTDepth, make_depth_fn
+def calibrate_dpt(net, x):
+    """Scale q and k of every block of ``net`` by ``DPT_QK_SCALE``, then its
+    head's last 1×1 conv so that the map of ``x`` has mean 3 and std 1
+    before the ReLU."""
+    last = net.scratch.output_conv[4]
+    feats = []
+    handle = last.register_forward_hook(lambda _m, inputs, _out: feats.append(inputs[0]))
+    with torch.inference_mode():
+        for block in net.pretrained.model.blocks:
+            block.attn.qkv.weight[:2 * net.dim] *= DPT_QK_SCALE
+            block.attn.qkv.bias[:2 * net.dim] *= DPT_QK_SCALE
+        try:
+            net(x)
+        finally:
+            handle.remove()
+        m = F.conv2d(feats[0].float(), last.weight.float())
+        scale = 1.0 / m.std().item()
+        last.weight *= scale
+        last.bias.fill_(3.0 - m.mean().item() * scale)
 
-    started = time.perf_counter()
+
+def dpt_readings(net, x):
+    """(the four hook taps [B, 577, dim], the depth map [B, H, W]) of ``net``
+    on ``x``, fp32 on the CPU."""
+    taps = []
+    blocks = net.pretrained.model.blocks
+    handles = [blocks[i].register_forward_hook(lambda _m, _a, out: taps.append(out.float().cpu()))
+               for i in net.hooks]
+    try:
+        with torch.inference_mode():
+            depth = net(x.to(next(net.parameters()).device)).cpu()
+    finally:
+        for h in handles:
+            h.remove()
+    return taps, depth
+
+
+def centered_rel_l2(got, want, dims):
+    """Relative L2 of what varies over ``dims``: each less its own mean there."""
+    got, want = got - got.mean(dims, keepdim=True), want - want.mean(dims, keepdim=True)
+    return ((got - want).norm() / want.norm()).item()
+
+
+def dpt_errors(got, want):
+    """{reading: centered relative L2 of ``got`` against ``want``}, both
+    ``dpt_readings``: each tap over its tokens, the depth map over its pixels."""
+    errs = {f"tap {i}": centered_rel_l2(g, w, 1) for i, (g, w) in enumerate(zip(got[0], want[0]))}
+    errs["depth"] = centered_rel_l2(got[1], want[1], (1, 2))
+    return errs
+
+
+@contextlib.contextmanager
+def dpt_attention_fault(fault):
+    """The DPT's attention as ``fault(attend, q, k, v)`` inside the block."""
+    from flash_diffusion_tpu_torch.models import depth
+
+    attend = depth.dot_product_attention
+    depth.dot_product_attention = lambda q, k, v: fault(attend, q, k, v)
+    try:
+        yield
+    finally:
+        depth.dot_product_attention = attend
+
+
+def check_dpt(cpu_bf16=False):
+    """Phase 11c's comparison: ``DPTDepth()`` (ViT-L/16 at 384², random
+    weights from seed 0, ``calibrate_dpt``) in bf16 on the card against its
+    fp32 CPU copy on one image, every reading of ``dpt_errors`` within
+    ``DPT_REL_L2_TOL``, each fault of ``DPT_FAULTS`` outside it. With
+    ``cpu_bf16`` (``train_ref_precision.py --model dpt``), also the CPU copy
+    in bf16 (the plain attention, no kernel) against fp32 and the card
+    against it, printed, ungated: the bf16 floor. Returns (the card's net,
+    the fp32 copy)."""
+    from flash_diffusion_tpu_torch.models import DPTDepth
+
+    x = torch.rand((1, 384, 384, 3), generator=torch.Generator().manual_seed(0))
     with torch.random.fork_rng(devices=[0]):
         torch.manual_seed(0)
         with torch.device("cuda"):
             net = DPTDepth()
-        # random weights leave the head's last output about as often below 0
-        # as above, and its ReLU then zeroes the map: a bias of 1 keeps it live
-        net.scratch.output_conv[4].bias.data.fill_(1.0)
     net = net.to(torch.bfloat16).eval()
+    calibrate_dpt(net, x.cuda())
     with torch.device("meta"):
         meta = DPTDepth()
     ref = cpu_fp32_copy(net.state_dict(), meta)
-    x = torch.rand((1, 384, 384, 3), generator=torch.Generator().manual_seed(0))
-    with torch.inference_mode():
-        got = net(x.cuda()).cpu()
-        want = ref(x)
-    err = rel_l2(got, want)
-    print(f"DPT (ViT-L/16, {sum(p.numel() for p in net.parameters())} parameters) at 384², 1 image: bf16 on the card "
-          f"vs fp32 on the CPU rel L2 {err:.3e} (tol {DPT_REL_L2_TOL}), max|err| {(got - want).abs().max().item():.3e}, "
-          f"depth range [{want.min().item():.4g}, {want.max().item():.4g}], positive {(want > 0).float().mean():.3f}")
-    if not (torch.isfinite(got).all() and err <= DPT_REL_L2_TOL and (want > 0).any()):
+    got, want = dpt_readings(net, x), dpt_readings(ref, x)
+    errs = dpt_errors(got, want)
+    faulted = {}
+    for name, fault in DPT_FAULTS.items():
+        with dpt_attention_fault(fault):
+            faulted[name] = dpt_errors(dpt_readings(net, x), want)
+    fmt = lambda e: ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+    print(f"DPT (ViT-L/16, {sum(p.numel() for p in net.parameters())} parameters, q and k × {DPT_QK_SCALE}) at "
+          f"384², 1 image: bf16 on the card vs fp32 on the CPU, centered rel L2 (tol {DPT_REL_L2_TOL}): "
+          f"{fmt(errs)}; depth mean {want[1].mean().item():.4g}, std {want[1].std().item():.4g}, positive "
+          f"{(want[1] > 0).float().mean().item():.4f}")
+    for name, e in faulted.items():
+        print(f"  the card with its attention faulted ({name}): {fmt(e)}")
+    if cpu_bf16:
+        low = dpt_readings(copy.deepcopy(ref).to(torch.bfloat16), x)
+        print(f"  the CPU copy in bf16 (plain attention) vs fp32: {fmt(dpt_errors(low, want))}")
+        print(f"  the card vs the CPU copy in bf16: {fmt(dpt_errors(got, low))}")
+    if not (torch.isfinite(got[1]).all() and max(errs.values()) <= DPT_REL_L2_TOL):
         raise AssertionError("the card's DPT disagrees with its fp32 reference")
-    del ref, meta
+    passed = [name for name, e in faulted.items() if max(e.values()) <= DPT_REL_L2_TOL]
+    if passed:
+        raise AssertionError(f"the DPT check passes a faulted attention: {passed}")
+    return net, ref
+
+
+def check_depth(counters, card, required, gated):
+    """Phase 11c: ``check_dpt``; then ``DepthMapper(make_depth_fn(...))``
+    over ``DEPTH_IMAGES`` images of 512² (smooth gradients and discs with
+    noise), counts reset just before and read just after: [512, 512, 3]
+    maps in [0, 1], the first within ``DPT_REL_L2_TOL`` (centered) of the
+    fp32 copy's, the required kernels launched, every (kernel, shape) among
+    phase 2's; ms a map."""
+    from flash_diffusion_tpu_torch.data import DepthMapper, DepthMapperConfig
+    from flash_diffusion_tpu_torch.models import make_depth_fn
+
+    started = time.perf_counter()
+    net, ref = check_dpt()
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:512, 0:512]
     images = [np.clip(np.stack([xx * 0.4 + 40 * i, yy * 0.4, ((xx - 256 - 40 * i) ** 2 + (yy - 256) ** 2 < 150 ** 2)
@@ -2404,11 +2531,17 @@ def check_depth(counters, card, required, gated):
     if missing:
         raise AssertionError(f"the depth path never launched {missing}")
     check_gated("depth", counters, gated)
+    want = DepthMapper(DepthMapperConfig(), make_depth_fn(ref))({"image": images[0]})["depth"]
+    err = centered_rel_l2(torch.from_numpy(maps[0]), torch.from_numpy(want), (0, 1))
+    print(f"DepthMapper's first map, the card vs the fp32 copy: centered rel L2 {err:.3e} (tol {DPT_REL_L2_TOL}); "
+          f"its std {want.std():.4f}")
+    if err > DPT_REL_L2_TOL:
+        raise AssertionError("the card's depth map disagrees with its fp32 reference")
     print(f"DepthMapper(make_depth_fn(DPTDepth bf16)) on {card}: {DEPTH_IMAGES} images of 512², "
           f"{1e3 * statistics.median(times[1:]):.2f} ms a map warm (median of "
           f"{[round(1e3 * t, 2) for t in times[1:]]}; the first {1e3 * times[0]:.2f}); "
           f"{time.perf_counter() - started:.1f} s")
-    del net, mapper
+    del net, ref, mapper
     return launches
 
 
@@ -2902,7 +3035,7 @@ def main():
     run_root.cleanup()
     torch.cuda.empty_cache()
     mark("11")
-    check_training_reference("sd15-canny")
+    check_training_reference("sd15-canny", counters=counters, gated=gated_shapes())
     torch.cuda.empty_cache()
     mark("11b")
     by_path["depth"] = check_depth(counters, card, ("flash_fwd_oneshot",), gated_shapes())

@@ -20,6 +20,13 @@ and CPU bf16 against CPU fp32). Prints the card's name and power limit
 first.
 Exits non-zero without a GPU; a reference outside 5b's tolerances is a
 reading, printed, not a failure.
+
+    python3 train_ref_precision.py --model dpt
+
+runs phase 11c's DPT comparison (``chip_smoke.check_dpt``) with the CPU
+copy also in bf16: each reading's centered relative L2 of the card, of the
+faulted attentions and of CPU bf16 against fp32, and of the card against
+CPU bf16 (the bf16 floor that ``DPT_REL_L2_TOL`` sits above).
 """
 
 import argparse
@@ -31,12 +38,19 @@ import chip_smoke
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="pixart", choices=("pixart", "sd3", "sd15"))
+    ap.add_argument("--model", default="pixart", choices=("pixart", "sd3", "sd15", "dpt"))
     ap.add_argument("--starts", type=int, nargs="+", default=[0], help="rollout start indices, one run each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_ref_precision: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
     print(f"card: {chip_smoke.card_line()}")
+    if args.model == "dpt":
+        try:
+            chip_smoke.check_dpt(cpu_bf16=True)
+            print(f"DPT: within DPT_REL_L2_TOL {chip_smoke.DPT_REL_L2_TOL}, every fault outside it")
+        except AssertionError as e:
+            print(f"DPT: the check fails ({e})")
+        return
     for start in args.starts:
         try:
             chip_smoke.check_training_reference(args.model, start=start, cpu_bf16=True,
