@@ -141,9 +141,14 @@ MODELS = tuple(CONFIGS)
 # by UNet model: (pixels per mid-block position, discriminator features);
 # the mid block runs at latent / 8 in SD1.5's four levels, latent / 4 in
 # SDXL's three
-_MID = {"sd15": (64, 64), "sdxl": (32, 256), "sd15-canny": (64, 64)}
-# the denoiser family of each trained model (``sample.build_modules``')
+_MID = {"sd15": (64, 64), "sdxl": (32, 256)}
+# the denoiser family of each trained model (``sample.build_modules``'),
+# which keys ``_MID`` and ``LORA_PREFIX``
 FAMILY = {"sd15-canny": "sd15"}
+# the T2I-Adapter runs: model → the batch key of the frozen adapter's input,
+# made by the data chain's last mapper (``data_mappers``); their text ids
+# are zeros, as ``train_flash_canny_adapter.py`` feeds them
+ADAPTER_INPUT = {"sd15-canny": "edge"}
 # by model, what a yaml may leave out: the JAX examples' defaults
 # (examples/train_flash_sd.py, train_flash_sdxl.py, train_flash_sd3.py,
 # common.py)
@@ -163,7 +168,7 @@ DEFAULTS = {
                    "ADAPTER_CONDITIONING_SCALE": 1.0},
 }
 # the PEFT prefix of each family's denoiser (``sample.build_pipeline``'s)
-LORA_PREFIX = {"sd15": "unet", "sdxl": "unet", "pixart": "transformer", "sd3": "transformer", "sd15-canny": "unet"}
+LORA_PREFIX = {"sd15": "unet", "sdxl": "unet", "pixart": "transformer", "sd3": "transformer"}
 logger = logging.getLogger(__name__)
 
 
@@ -200,7 +205,7 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
     ids and the images' Canny ``edge`` maps, as
     ``train_flash_canny_adapter.py`` feeds them."""
     rng = np.random.default_rng(seed)
-    canny = data_mappers(model)
+    mappers = data_mappers(model)
     pixart = model == "pixart"
     max_length = max_length or (120 if pixart else 77)
     while True:
@@ -221,9 +226,10 @@ def synthetic_batches(batch_size: int = 4, image_size: int = 512, seed: int = 0,
             batch.update(size_cond_fn(batch_size, image_size, image_size))
         if model == "sd3" and t5_max_length:
             batch["t5_text_ids"], batch["t5_text_mask"] = _t5_ids(rng, batch_size, t5_max_length)
-        if canny:
+        if model in ADAPTER_INPUT:
+            key = ADAPTER_INPUT[model]
             batch["text_ids"] = np.zeros_like(ids)
-            batch["edge"] = np.stack([canny[0]({"image": im})["edge"] for im in image])
+            batch[key] = np.stack([mappers[-1]({"image": im})[key] for im in image])
         yield batch
 
 
@@ -240,7 +246,7 @@ class _AtLeast:
 def data_mappers(model: str) -> list:
     """The mappers a model's data chain ends in: ``sd15-canny``'s Canny edge
     map of the image (the JAX example's ``CannyEdgeMapper``, key ``edge``)."""
-    if model != "sd15-canny":
+    if model not in ADAPTER_INPUT:
         return []
     from .data import CannyEdgeMapper, CannyEdgeMapperConfig
 
@@ -318,7 +324,7 @@ def make_tokenizer(model: str, cfg: Dict[str, Any], weights_root: str = ""):
     leaves out comes from ``DEFAULTS``. ``sd15-canny``: zero CLIP ids
     whatever the text, as ``train_flash_canny_adapter.py`` sets them."""
     cfg = {**DEFAULTS[model], **cfg}
-    if model == "sd15-canny":
+    if model in ADAPTER_INPUT:
         return lambda texts: {"text_ids": np.zeros((len(texts), 77), np.int64)}
     if model == "pixart":
         return t5_tokenizer(weights_root, cfg["T5_MAX_LENGTH"])
@@ -364,7 +370,7 @@ def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
         fit = int(math.log2(max(size // 8 // 4, 1)))
         return ConvDiscriminator(sd3_discriminator_config(num_stages=min(4, fit)),
                                  in_channels=denoiser.config.in_channels)
-    per_mid, features = _MID[model]
+    per_mid, features = _MID[FAMILY.get(model, model)]
     num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
     return ConvDiscriminator(DiscriminatorConfig(feature_dim=features, num_stages=num_stages),
                              in_channels=denoiser.config.block_out_channels[-1])
@@ -402,7 +408,7 @@ def build_trainer(
             denoiser, vae, conditioners, towers, _ = build_modules(family, remat=True, **t5)
             disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"])
             lpips = LPIPS() if cfg["DISTILL_LOSS_TYPE"] == "lpips" else None
-            adapter = T2IAdapter(T2IAdapterConfig()) if model == "sd15-canny" else None
+            adapter = T2IAdapter(T2IAdapterConfig()) if model in ADAPTER_INPUT else None
         if weights_root:
             load_weights(family, weights_root, denoiser, vae, towers)
         generator = torch.Generator(device=device).manual_seed(seed)
@@ -429,7 +435,7 @@ def build_trainer(
         **({"lpips_crop": cfg["LPIPS_CROP"]} if "LPIPS_CROP" in cfg else {}),
     )
     if adapter is not None:
-        kw.update(adapter_input_key="edge", adapter_conditioning_scale=float(cfg["ADAPTER_CONDITIONING_SCALE"]))
+        kw.update(adapter_input_key=ADAPTER_INPUT[model], adapter_conditioning_scale=float(cfg["ADAPTER_CONDITIONING_SCALE"]))
     modules = dict(vae=vae, conditioner=make_conditioner(family, conditioners), discriminator=disc, lpips=lpips,
                    lora_scaling=lora_scaling(rank))
     if sd3:
@@ -518,7 +524,7 @@ def main():
         save_state(tc.checkpoint_dir, trainer.step, trainer.state_dict())
         logger.info("step %d: checkpoint saved to %s", trainer.step, tc.checkpoint_dir)
     out = os.path.join(args.output_dir, "pytorch_lora_weights.safetensors")
-    save_peft_safetensors(out, export_lora(trainer), prefix=LORA_PREFIX[args.model])
+    save_peft_safetensors(out, export_lora(trainer), prefix=LORA_PREFIX[FAMILY.get(args.model, args.model)])
     print("saved", out)
 
 

@@ -54,7 +54,7 @@ from flash_diffusion_tpu_torch.utils import (
     module_embedder_from_jax,
     unet_from_jax,
 )
-from test_torch_train import B, HW, UNET_KW, jax_step_draws, jax_unet, perturbed, port_unet, t_
+from test_torch_train import B, HW, UNET_KW, jax_step_draws, perturbed, port_unet, t_
 
 try:  # the JAX reference; absent where only the port is installed
     import jax
@@ -92,6 +92,32 @@ def close(got, want, tol, msg=""):
     np.testing.assert_allclose(got, want, atol=tol * max(1.0, float(np.abs(want).max())), rtol=0, err_msg=msg)
 
 
+def flax_params(module, seed, *args):
+    """``module.init(key, *args)``'s tree filled as flax fills it, from a
+    numpy seed (kernels and embeddings N(0, 1/fan-in), biases 0, norm
+    scales 1), then ``perturbed``: the shapes from ``jax.eval_shape``, so
+    that no init is compiled or run."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = getattr(path[-1], "key", "")
+        if name in ("bias", "scale"):
+            return np.full(leaf.shape, float(name == "scale"), np.float32)
+        fan_in = max(1, int(np.prod(leaf.shape[:-1])))
+        return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+    return perturbed(jax.tree_util.tree_map_with_path(fill, shapes), seed + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_unet(seed=0):
+    """The tiny JAX UNet of test_torch_train and its ``flax_params``."""
+    net = jm.UNet2DCondition(jm.UNetConfig(**UNET_KW))
+    return net, flax_params(net, seed, jnp.zeros((1, HW, HW, C)), jnp.zeros((1,)),
+                            {"cond": {"crossattn": jnp.zeros((1, 8, 16))}})
+
+
 def edges(seed, b=B, hw=8 * HW):
     return (np.random.default_rng(seed).random((b, hw, hw, 3)) > 0.8).astype(np.float32)
 
@@ -112,8 +138,7 @@ def test_pixel_unshuffle_matches_jax_not_torch(jax_ref):
 def jax_adapter(num_res_blocks=1, seed=0):
     cfg = jadapters.T2IAdapterConfig(channels=[16, 32], num_res_blocks=num_res_blocks)
     net = jadapters.T2IAdapter(cfg)
-    params = jax.jit(net.init)(jax.random.PRNGKey(seed), jnp.zeros((1, 8 * HW, 8 * HW, 3)))
-    return net, perturbed(params, seed + 1)
+    return net, flax_params(net, seed, jnp.zeros((1, 8 * HW, 8 * HW, 3)))
 
 
 def port_adapter(params, num_res_blocks=1):
@@ -204,7 +229,7 @@ EMBEDDER_CASES = {
 def _jax_embedder(shape, specs, key="cond_in", seed=0):
     emb = jemb.ModuleEmbedder(jemb.ModuleEmbedderConfig(input_key=key, layers=specs))
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    params = perturbed(emb.init(jax.random.PRNGKey(seed), {key: jnp.asarray(x)}), seed + 1)
+    params = flax_params(emb, seed, {key: jnp.asarray(x)})
     return emb, params, x
 
 
@@ -275,9 +300,8 @@ def tiny_dpt_kw():
 def jax_dpt(seed=0):
     """The tiny JAX DPT's jitted apply and its perturbed params."""
     net = jdepth.DPTDepth(patch=16, **tiny_dpt_kw())
-    params = jax.tree_util.tree_map(np.asarray, perturbed(
-        jax.jit(net.init)(jax.random.PRNGKey(seed), jnp.zeros((1, 32, 32, 3))), seed + 1))
-    params["params"]["head_conv3"]["bias"] = params["params"]["head_conv3"]["bias"] + 1.0  # depth mostly > 0
+    params = flax_params(net, seed, jnp.zeros((1, 32, 32, 3)))
+    params["params"]["head_conv3"]["bias"] = params["params"]["head_conv3"]["bias"] + 3.0  # depth mostly > 0
     return jax.jit(net.apply), params
 
 
@@ -397,7 +421,7 @@ def adapter_models():
     net, uparams = jax_unet()
     anet, aparams = jax_adapter()
     jdisc = JConvDiscriminator(JDiscriminatorConfig(feature_dim=8, num_stages=1))
-    dparams = perturbed(jdisc.init(jax.random.PRNGKey(3), jnp.zeros((B, HW // 2, HW // 2, 32))), 4)
+    dparams = flax_params(jdisc, 3, jnp.zeros((B, HW // 2, HW // 2, 32)))
     lora = perturbed(jlora.init_lora(uparams, 2, jax.random.PRNGKey(5)), 6)
     jmodel = JFlashDiffusion(JFlashDiffusionConfig(**STEP_KW), student_module=net, teacher_module=net, adapter=anet,
                              conditioner=_JCond(), discriminator=jdisc, lora_scaling=0.5)
@@ -520,7 +544,7 @@ def test_build_trainer_sd15_canny_reads_the_yaml(monkeypatch, tmp_path):
     assert mc.adversarial_loss_scale == yaml_cfg["ADVERSARIAL_LOSS_SCALE"]
     assert fl.teacher_sched_mod is REGISTRY["DDPMScheduler"]
     assert fl.teacher_sampling_sched_mod is REGISTRY["EulerDiscreteScheduler"]
-    assert fl.discriminator.config.num_stages == 0 and train.LORA_PREFIX["sd15-canny"] == "unet"
+    assert fl.discriminator.config.num_stages == 0 and train.LORA_PREFIX[train.FAMILY["sd15-canny"]] == "unet"
     adapter = fl.adapter
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in adapter.parameters())
     assert any(p.abs().max() > 0 for p in adapter.parameters())  # from the seed, never the JAX example's zeros
