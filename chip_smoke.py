@@ -12,8 +12,10 @@ Pixart-α at 1024² (T5-XXL, the DiT) in bf16 and in int8, Pixart's
 distillation step at 512², 4-step sampling of SD3-medium at 1024² (the
 MMDiT, dual-CLIP and with T5-XXL) in bf16 and in int8, SD3's
 distillation step at 1024², the SD1.5 training run on JPEG shards, the
-Canny T2I-Adapter distillation run of SD1.5 at 512², and the DPT depth
-model (ViT-L/16) at 384². It fails unless every phase passes, and prints
+Canny T2I-Adapter distillation run of SD1.5 at 512², the DPT depth
+model (ViT-L/16) at 384², the eval path (SD1.5 samples scored by CLIP-FID
+with ViT-L/14, Inception FID and CLIPScore through ``eval_coco``), and the
+weights-free toy distillation proofs. It fails unless every phase passes, and prints
 each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
@@ -330,6 +332,25 @@ each phase's seconds:
    ``DepthMapper(make_depth_fn(...))`` over 4 images of 512²: [512, 512, 3]
    maps in [0, 1], the first within the same tolerance of the fp32 copy's,
    K1 launched at [16, 577, 577, 64] (24 a map), gated; ms a map.
+12. the eval path (``run_eval``): a seeded full CLIP ViT-L/14 file (both
+   towers and projections, transformers' names; q and k of the vision
+   layers × 3) under ``image_encoder/`` and a seeded InceptionV3 file
+   (torchvision's names, named ``pt_inception-2015-12-05…``: the FID
+   blocks; BatchNorm statistics from one batch of real images), then
+   ``eval_coco.main`` (``--model sd15 --random-init``, batch 4, 2 batches)
+   over phase 10's JPEG + caption shards: finite fid, clip_fid and
+   clip_score in [0, 100] over 8 samples, K1 launched at the ViT's [64, 257,
+   257, 64] and K3 at [1028, 1024] (24 and 50 a ViT pass), every launched
+   (kernel, shape) among phase 2's; then on one batch of 4 real images the
+   ViT's image_embeds (bf16) and InceptionV3's pool3 (fp32) against their
+   fp32 CPU copies, each within its tolerance, the ViT with its attention
+   zeroed outside it, the card-vs-CPU Fréchet distance printed beside the
+   real-vs-fake one; ms an image of each extractor;
+12b. the toy distillation proofs (``run_toy``): ``toy_quality.main`` and
+   ``toy_quality_rf.main`` at 20 teacher and 5 distill steps, batch and
+   n_eval 48: every FD finite, K1 and K8 at D = 32 over 64 tokens, K3 at
+   width 64 and the GroupNorm (8 groups) launched, every launched (kernel,
+   shape) among phase 2's.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -337,7 +358,7 @@ paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
 ``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
 8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``, 11 as
-``train_canny``, 11c as ``depth``; ``ms``, ``plain_ms``,
+``train_canny``, 11c as ``depth``, 12 as ``eval``, 12b as ``toy``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -626,6 +647,29 @@ LAYER_NORM_REFERENCES_CANNY = [(rows, c, torch.bfloat16) for rows, c in (
     (4096, 320), (2048, 320), (1024, 640), (512, 640), (64, 1280), (32, 1280))]
 GN_REFERENCES_CANNY = [((b, c, hw, hw), torch.bfloat16, None) for b in (2, 4) for c, hw in (
     (320, 16), (960, 16), (640, 8), (1920, 8), (1280, 4), (2560, 4))]
+# the eval path (phase 12): CLIP ViT-L/14 at 224² over the eval batch of 4,
+# 256 patches and the class token, 16 heads of D = 64 (align128(257) = 384 >
+# 256 keeps it off the packed K4: K1's one-shot plan), its 50 LayerNorms a
+# pass over [4·257, 1024] and the pooled [4, 1024]; [16, 257, 257, 64] is
+# one image's. SD1.5 sampling at batch 4 launches phase 3's shapes, the
+# CLIP text tower for CLIPScore phase 3's fp32 LayerNorm
+EVAL_BATCH = 4
+ATTENTION_SHAPES_EVAL = [(EVAL_BATCH * 16, 257, 257, 64, None)]
+ATTENTION_EVAL_SINGLE = [(16, 257, 257, 64, None)]
+LAYER_NORM_SHAPES_EVAL = [(EVAL_BATCH * 257, 1024, torch.bfloat16), (EVAL_BATCH, 1024, torch.bfloat16)]
+# the toy proofs (phase 12b) under bf16 autocast: the toy UNet's attention,
+# 2 heads of D = 32 over its 8² level, at batch 48 (teacher steps, the
+# student, the evaluation's samples) and 2B = 96 (the rollout's, DMD's and
+# the GAN's calls), forward and backward; in fp32, as autocast runs
+# normalizations, its LayerNorms at width 64 and its GroupNorms (8 groups)
+# over 32–128 channels at 16² and 8²
+TOY_STEPS, TOY_BATCH = (20, 5), 48
+TOY_BATCHES = (TOY_BATCH, 2 * TOY_BATCH)
+ATTENTION_SHAPES_TOY = [(2 * b, 64, 64, 32, None) for b in TOY_BATCHES]
+BWD_SHAPES_TOY = ATTENTION_SHAPES_TOY
+LAYER_NORM_SHAPES_TOY = [(64 * b, 64, torch.float32) for b in TOY_BATCHES]
+GN_SHAPES_TOY = [((b, c, hw, hw), torch.float32, 8) for b in TOY_BATCHES for c, hw in (
+    (32, 16), (64, 16), (96, 16), (32, 8), (64, 8), (96, 8), (128, 8))]
 # phase 9's sampling callback: SD3 at 1024², batch 1 (the joint attention
 # at BH 24, the VAE decoder with its single-head mid-attention)
 ATTENTION_SHAPES_SD3_SAMPLE = [(24, 4352, 4352, 64, 4250), (1, 16384, 16384, 512, None)]
@@ -638,21 +682,22 @@ GN_SHAPES_SD3_SAMPLE = [((1, c, hw, hw), torch.bfloat16, None) for c, hw in (
 def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
             + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN + ATTENTION_SHAPES_SD3_SAMPLE
-            + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT)
+            + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT + ATTENTION_SHAPES_EVAL + ATTENTION_SHAPES_TOY)
 
 
 def layer_norm_main():
     return (LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
-            + LAYER_NORM_SHAPES_SD3_TRAIN + LAYER_NORM_SHAPES_SD3_SAMPLE + LAYER_NORM_SHAPES_TRAIN_RUN)
+            + LAYER_NORM_SHAPES_SD3_TRAIN + LAYER_NORM_SHAPES_SD3_SAMPLE + LAYER_NORM_SHAPES_TRAIN_RUN
+            + LAYER_NORM_SHAPES_EVAL + LAYER_NORM_SHAPES_TOY)
 
 
 def gn_main():
     return ([(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
-            + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN)
+            + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN + GN_SHAPES_TOY)
 
 
 def bwd_main():
-    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART + BWD_SHAPES_SD3
+    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART + BWD_SHAPES_SD3 + BWD_SHAPES_TOY
 
 
 def references():
@@ -671,7 +716,7 @@ def int8_main():
 def attention_unmain():
     """The forward attention cases phase 2 checks untimed."""
     return ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES + ATTENTION_REFERENCES_SD3 + \
-        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN + ATTENTION_REFERENCES_CANNY
+        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN + ATTENTION_REFERENCES_CANNY + ATTENTION_EVAL_SINGLE
 
 
 def bwd_unmain():
@@ -738,17 +783,18 @@ TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
 # phases 5d and 7d: the rollout start of the SDXL and Pixart references.
 # SDXL: with lower_order_final a start at K − 2 runs only first-order steps,
 # so K − 3: a first-order step, a second-order one, the final one. Pixart:
-# K − 2, two noised DDPM steps. From its starts 0 and 1 (t = 999, 749) the
+# K − 1, one noised DDPM step (K − 2's second such step cost the CPU copy
+# time that phase 12 now takes). From its starts 0 and 1 (t = 999, 749) the
 # random teacher's x̂₀ is (x − √(1−ᾱ)·ε)/√ᾱ with 1/√ᾱ = 156 and 17 on linear
 # betas, and the DMD loss, a squared difference of two nearly equal bf16
 # DiT forwards, then falls to ~2e-4 and differs from fp32 by ~0.13 relative:
 # bf16 rounding at that conditioning, with or without a kernel
-# SD3: K − 3, three flow-match Euler steps from the σ-interpolation (the
-# rollout is deterministic; start 0, pure noise, is held against JAX in
-# tests/test_torch_sd3_train.py)
+# SD3: K − 2, two flow-match Euler steps from the σ-interpolation (the
+# rollout is deterministic, every step the same first-order step; start 0,
+# pure noise, is held against JAX in tests/test_torch_sd3_train.py)
 # SD1.5 with the Canny adapter (11b): K − 1, one noised DDPM step, to bound
 # the CPU copy's time
-TRAIN_REF_START = {"sdxl": 1, "pixart": 2, "sd3": 1, "sd15-canny": 3}
+TRAIN_REF_START = {"sdxl": 1, "pixart": 3, "sd3": 2, "sd15-canny": 3}
 # phase 7d: the models whose reference holds the discriminator's outputs on
 # the card's features (its inputs, each call's, handed to the CPU copy's
 # discriminator, as 7d hands over the card's ``__conds``) and prints them
@@ -847,7 +893,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 5, calls: int = 10) -> float:
+def median_ms(fn, reps: int = 3, calls: int = 10) -> float:
     """Device time of one call: CUDA events around ``calls`` back-to-back
     calls, queued behind a GPU sleep so that host launch overhead does not
     show; the median over ``reps`` such runs, divided by ``calls``. After a
@@ -1138,8 +1184,9 @@ def check_group_norm(norms, results, timed=True):
     against fp64 (GN_STATS_TOL), alone == batched and run == run. The apply
     kernel alone (``group_norm_apply``, SiLU) within one bf16 ulp of the
     plain apply on the same scale and shift. Every case printed, then a
-    raise listing the failures. With ``timed``, at the paths' shapes:
-    statistics, apply and the whole op's time (plain, library
+    raise listing the failures. With ``timed``, at the paths' shapes in
+    the paths' layout (channels-last): statistics, apply and the whole op's
+    time (plain, library
     ``torch.var_mean`` and ``F.silu(F.group_norm(...))``), and the bounds:
     the statistics read x and write two [B, C] fp32, the apply reads x, w
     and shift and writes y, the whole op reads x and writes y at least once
@@ -1201,7 +1248,7 @@ def check_group_norm(norms, results, timed=True):
             apply_err = (y.float() - ref.float()).abs().max().item()
             del y, ref
             times = ""
-            if timed and main:
+            if timed and main and layout == "NHWC":  # the paths' layout: the rows of the kernels line
                 ms_s = median_ms(lambda: norms.group_norm_stats(x))
                 ms_a = median_ms(lambda: norms.group_norm_apply(x, w, shift, "silu"))
                 whole = median_ms(lambda: norms.group_norm(x, groups, gw, gb, 1e-5, act="silu"))
@@ -1211,7 +1258,6 @@ def check_group_norm(norms, results, timed=True):
                 times = (f"; statistics {ms_s:.4f} ms (plain {plain_s:.4f}), apply+SiLU {ms_a:.4f} ms "
                          f"(plain {plain_a:.4f}), kernel {whole:.4f} ms the whole group_norm+SiLU "
                          f"(plain {plain_w:.4f})")
-            if timed and main and layout == "NHWC":  # the paths' layout: the rows of the kernels line
                 lib_s = library_ms(lambda: lambda: torch.var_mean(x.reshape(b, c, n), dim=-1))
                 lib_a = library_ms(lambda: lambda: F.silu(F.group_norm(x, groups, gw, gb, 1e-5)))
                 nbytes = x.numel() * x.element_size()
@@ -2545,6 +2591,205 @@ def check_depth(counters, card, required, gated):
     return launches
 
 
+# phase 12: the eval path. The seeded CLIP-L/14 (both towers and both
+# projections, transformers' names) has q and k of every vision layer × 3
+# (as ``calibrate_dpt``: a random ViT's attention is near uniform over its
+# 257 keys, where any attention gives about mean(v)); the seeded
+# InceptionV3 (torchvision's names, pt_inception's file name: the FID
+# blocks) has its BatchNorm statistics set from one batch of real images,
+# so that every layer's output is O(1). The fidelity check compares the
+# card's features with their fp32 CPU copies on one batch of 4 real images:
+# the ViT's image_embeds in bf16 within VIT_REL_L2_TOL (this phase read
+# 1.143e-02 on an H100, 8.782e-01 with the attention zeroed, which must
+# fall outside it); InceptionV3's pool3 in fp32 (cuDNN's convolutions, TF32
+# off: 8.735e-04) within INCEPTION_REL_L2_TOL
+VIT_QK_SCALE = 3.0
+VIT_REL_L2_TOL = 3e-2
+INCEPTION_REL_L2_TOL = 1e-2
+VIT_FAULTS = {"attention zeroed": lambda attend, q, k, v: torch.zeros_like(q)}
+
+
+def write_eval_weights(root, real_images):
+    """(weights root, Inception file) under ``root``: ``image_encoder/
+    model.safetensors``, a full CLIP ViT-L/14 from seed 0 (q, k × 3), and
+    ``pt_inception-2015-12-05-smoke.pth``, InceptionV3 from seed 0 with the
+    FID blocks, BatchNorm statistics from ``real_images`` and a 1008-class
+    fc beside, as the published file holds."""
+    from safetensors.torch import save_file
+
+    from flash_diffusion_tpu_torch.models import (
+        CLIPTextModel, CLIPVisionModel, InceptionV3Pool3, clip_l_config, clip_vit_l14_config)
+    from flash_diffusion_tpu_torch.models.inception import preprocess
+
+    with torch.random.fork_rng(devices=[0]):
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            vision, text = CLIPVisionModel(clip_vit_l14_config()), CLIPTextModel(clip_l_config(projection_dim=768))
+            incep = InceptionV3Pool3(fid_variant=True)
+    with torch.no_grad():
+        for layer in vision.vision_model.encoder.layers:
+            for proj in (layer.self_attn.q_proj, layer.self_attn.k_proj):
+                proj.weight *= VIT_QK_SCALE
+                proj.bias *= VIT_QK_SCALE
+        for m in incep.modules():  # one batch's statistics: momentum 1 keeps the last batch's
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.momentum = 1.0
+        incep.train()
+        incep(preprocess(real_images.cuda()))
+        incep.eval()
+    weights = os.path.join(root, "weights")
+    os.makedirs(os.path.join(weights, "image_encoder"))
+    clip = {k: v.contiguous() for k, v in {**vision.state_dict(), **text.state_dict()}.items()}
+    save_file({**clip, "logit_scale": torch.tensor(4.6052)}, os.path.join(weights, "image_encoder/model.safetensors"))
+    incep_file = os.path.join(weights, "pt_inception-2015-12-05-smoke.pth")
+    torch.save({**incep.state_dict(), "fc.weight": torch.zeros(1008, 2048), "fc.bias": torch.zeros(1008)},
+               incep_file)
+    return weights, incep_file
+
+
+@contextlib.contextmanager
+def vit_attention_fault(fault):
+    """The CLIP vision tower's attention as ``fault(attend, q, k, v)``."""
+    from flash_diffusion_tpu_torch.models import vision
+
+    attend = vision.dot_product_attention
+    vision.dot_product_attention = lambda q, k, v: fault(attend, q, k, v)
+    try:
+        yield
+    finally:
+        vision.dot_product_attention = attend
+
+
+def extractor_ms(embed, images, reps=5):
+    """Warm ms an image of ``embed`` over ``images`` (host timing around a
+    synchronized call: the preprocessing's resize included)."""
+    embed(images)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embed(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times) / images.shape[0]
+
+
+def check_eval_fidelity(weights, incep_file, real_images, card):
+    """The card's CLIP image_embeds (bf16) and InceptionV3 pool3 (fp32) on
+    ``real_images`` against their fp32 CPU copies from the same files, each
+    within its tolerance; the ViT with its attention zeroed outside; the
+    Fréchet distance of the card's features to the CPU's printed; ms an
+    image of each extractor."""
+    from flash_diffusion_tpu_torch.eval import clip_embed_fn, fid_from_features, inception_embed_fn
+    from flash_diffusion_tpu_torch.eval_coco import clip_extractors
+    from flash_diffusion_tpu_torch.models import load_inception_v3
+
+    clip_file = os.path.join(weights, "image_encoder/model.safetensors")
+    zeros = lambda texts: {"text_ids": np.zeros((len(texts), 77), np.int64)}
+    vit = clip_extractors(clip_file, zeros, torch.device("cuda"))[0]
+    vit_ref = clip_extractors(clip_file, zeros, torch.device("cpu"))[0]
+    incep, incep_ref = (load_inception_v3(incep_file, True, dev) for dev in ("cuda", "cpu"))
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 extractors would not run in fp32")
+    feats = {}
+    for name, embed, ref in (("clip", clip_embed_fn(vit), clip_embed_fn(vit_ref)),
+                             ("inception", inception_embed_fn(incep), inception_embed_fn(incep_ref))):
+        feats[name] = (embed(real_images).cpu(), ref(real_images))
+        ms = extractor_ms(embed, real_images.cuda())
+        print(f"  {name} extractor on {card}: {ms:.3f} ms an image warm, batch {real_images.shape[0]}")
+    errs = {name: rel_l2(*pair) for name, pair in feats.items()}
+    faulted = {}
+    for name, fault in VIT_FAULTS.items():
+        with vit_attention_fault(fault):
+            faulted[name] = rel_l2(clip_embed_fn(vit)(real_images).cpu(), feats["clip"][1])
+    fds = {name: fid_from_features(got.double().numpy(), want.double().numpy()) for name, (got, want) in feats.items()}
+    tols = {"clip": VIT_REL_L2_TOL, "inception": INCEPTION_REL_L2_TOL}
+    print("eval extractors, the card vs their fp32 CPU copies on 4 real images, rel L2 (tol): " + ", ".join(
+        f"{k} {e:.3e} ({tols[k]})" for k, e in errs.items()) + "; Fréchet distance card vs CPU: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in fds.items()) + "; the ViT with its attention faulted: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in faulted.items()))
+    if not all(math.isfinite(e) and e <= tols[k] for k, e in errs.items()):
+        raise AssertionError("an eval extractor on the card disagrees with its fp32 reference")
+    passed = [name for name, e in faulted.items() if e <= VIT_REL_L2_TOL]
+    if passed:
+        raise AssertionError(f"the ViT check passes a faulted attention: {passed}")
+    return fds
+
+
+def run_eval(counters, card, required, gated, root):
+    """Phase 12: seeded extractor files (``write_eval_weights``), then
+    ``eval_coco.main`` over phase 10's JPEG + caption shards under ``root``
+    (``--model sd15 --random-init``, batch 4, 2 batches), counts reset just
+    before and read just after: finite fid, clip_fid and clip_score in
+    [0, 100] over 8 samples, the required kernels launched (K1 at the ViT's
+    [64, 257, 257, 64], K3 at [1028, 1024]), every (kernel, shape) among
+    phase 2's; then ``check_eval_fidelity``."""
+    from flash_diffusion_tpu_torch import eval_coco
+    from flash_diffusion_tpu_torch.data import DataModuleConfig, DataPipeline
+
+    started = time.perf_counter()
+    shards = sorted(os.path.join(root, "train", f) for f in os.listdir(os.path.join(root, "train")))
+    data = DataPipeline(DataModuleConfig(shards_path_or_urls=shards, per_worker_batch_size=EVAL_BATCH,
+                                         num_workers=1, shuffle_buffer_size=1, shuffle_shards=False),
+                        eval_coco.data_chain(512))
+    real = torch.from_numpy(np.asarray(next(iter(data.batches(epoch=0)))["image"]))
+    weights, incep_file = write_eval_weights(root, real)
+    print(f"eval weights written in {time.perf_counter() - started:.1f} s")
+    reset(counters)
+    t0 = time.perf_counter()
+    metrics = eval_coco.main(["--model", "sd15", "--random-init", "--weights-root", weights, "--shards", *shards,
+                              "--inception", incep_file, "--batch-size", str(EVAL_BATCH), "--max-batches", "2",
+                              "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    launches = totals(counters)
+    print(f"eval launches {dict(launches)}")
+    ok = (metrics.get("num_samples") == 2 * EVAL_BATCH and all(
+        math.isfinite(metrics.get(k, math.nan)) for k in ("fid", "clip_fid", "clip_score"))
+        and 0 <= metrics["clip_score"] <= 100)
+    if not ok:
+        raise AssertionError(f"eval_coco printed a malformed result: {metrics}")
+    missing = [k for k in required if launches[k] == 0]
+    for kernel, shape in (("flash_fwd_oneshot", ATTENTION_SHAPES_EVAL[0]), ("layer_norm", LAYER_NORM_SHAPES_EVAL[0])):
+        if counters[0 if kernel.startswith("flash") else 1][kernel, shape] == 0:
+            missing.append(f"{kernel} at {shape}")
+    if missing:
+        raise AssertionError(f"the eval path never launched {missing}")
+    check_gated("eval", counters, gated)
+    fds = check_eval_fidelity(weights, incep_file, real, card)
+    print(f"eval_coco (sd15 4 steps at 512², CLIP-L/14 bf16, InceptionV3 fp32) on {card}: {metrics}; "
+          f"{seconds:.1f} s for {metrics['num_samples']} samples ({seconds / metrics['num_samples']:.3f} s a "
+          f"sample, the pipeline's build included); real-vs-fake clip_fid {metrics['clip_fid']:.4g} and fid "
+          f"{metrics['fid']:.4g} beside the card-vs-CPU {fds['clip']:.4g} and {fds['inception']:.4g}; "
+          f"{time.perf_counter() - started:.1f} s")
+    return launches
+
+
+def run_toy(counters, card, required, gated):
+    """Phase 12b: ``toy_quality.main`` and ``toy_quality_rf.main`` at
+    ``TOY_STEPS`` teacher and distill steps, batch and n_eval
+    ``TOY_BATCH``, counts reset just before the first and read after the
+    second: every FD finite, the required kernels launched, every (kernel,
+    shape) among phase 2's."""
+    from flash_diffusion_tpu_torch import toy_quality, toy_quality_rf
+
+    reset(counters)
+    args = ["--teacher-steps", str(TOY_STEPS[0]), "--distill-steps", str(TOY_STEPS[1]), "--batch",
+            str(TOY_BATCH), "--n-eval", str(TOY_BATCH), "--device", "cuda"]
+    outs = {name: mod.main(args) for name, mod in (("eps", toy_quality), ("rf", toy_quality_rf))}
+    launches = totals(counters)
+    print(f"toy launches {dict(launches)}")
+    for name, out in outs.items():
+        print(f"toy proof {name} at {TOY_STEPS[0]}/{TOY_STEPS[1]} steps, batch and n_eval {TOY_BATCH} "
+              f"on {card}: {out}")
+        if not all(math.isfinite(v) for v in out.values()):
+            raise AssertionError(f"the {name} toy proof gave an FD that is not finite: {out}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the toy proofs never launched {missing}")
+    check_gated("toy", counters, gated)
+    return launches
+
+
 def to_cpu(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().float() if x.is_floating_point() else x.cpu()
@@ -3032,7 +3277,6 @@ def main():
     # depth model against its fp32 copy, then the depth mapper over 512²
     # images, its K1 launches at 577 keys gated
     by_path["train_canny"] = run_canny_training(counters, card, train_kernels, gated_shapes(), run_root.name)
-    run_root.cleanup()
     torch.cuda.empty_cache()
     mark("11")
     check_training_reference("sd15-canny", counters=counters, gated=gated_shapes())
@@ -3041,6 +3285,20 @@ def main():
     by_path["depth"] = check_depth(counters, card, ("flash_fwd_oneshot",), gated_shapes())
     torch.cuda.empty_cache()
     mark("11c")
+
+    # phase 12: the eval path through eval_coco over phase 10's shards
+    # (SD1.5 samples, CLIP-FID, Inception FID, CLIPScore), every launched
+    # shape among phase 2's, then the extractors against their fp32 copies;
+    # 12b: the toy distillation proofs at a few steps
+    by_path["eval"] = run_eval(counters, card, ("flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", *gn),
+                               gated_shapes(), run_root.name)
+    run_root.cleanup()
+    torch.cuda.empty_cache()
+    mark("12")
+    by_path["toy"] = run_toy(counters, card, ("flash_fwd_oneshot", "flash_bwd_oneshot", "layer_norm",
+                                              "group_norm_fused"), gated_shapes())
+    torch.cuda.empty_cache()
+    mark("12b")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

@@ -25,7 +25,8 @@ flow-matching deltas against the ε family:
 - the GAN noises fake and real at the tail of that schedule
   (``timesteps[-i]`` for i in ``gan_tail_indices``; their sigmas are
   ``sigmas[-i − 1]``, since the sigmas carry the terminal 0) and reads the
-  MMDiT's ``return_features="post_mid"``.
+  teacher's own tap, ``return_features=True``: the MMDiT's post-mid stream,
+  a UNet's mid block (the toy proof of ``toy_quality_rf.py``).
 
 Draws (``draw``): ``start_idx``, ``noise``, ``guidance``; ``dmd_idx`` [B]
 (into ``full_schedule``), ``dmd_noise``, ``dmd_guidance``; ``gan_idx`` [B]
@@ -67,7 +68,7 @@ class FlashDiffusionSD3(FlashDiffusion):
     def __init__(
         self,
         config: FlashDiffusionSD3Config,
-        teacher_module,  # MMDiT: (sample, t, cond, return_features)
+        teacher_module,  # MMDiT (or a UNet): (sample, t, cond, return_features)
         scheduler_config: Optional[SchedulerConfig] = None,
         vae=None,
         conditioner=None,  # SD3Conditioner
@@ -142,7 +143,7 @@ class FlashDiffusionSD3(FlashDiffusion):
 
     def _gan(self, z, student_output, teacher_output, cond, draws):
         """GAN branch: fake and real noised at the schedule's tail with one
-        noise, the teacher's post-mid features on the 2B batch, both losses
+        noise, the teacher's features (its tap) on the 2B batch, both losses
         at once (the generator's gradient flows through the teacher's first
         depth // 2 blocks into ``student_output``)."""
         cfg = self.config
@@ -154,7 +155,7 @@ class FlashDiffusionSD3(FlashDiffusion):
         both = torch.cat([flow_match.add_noise(self.full_schedule, student_output, noise, sigma),
                           flow_match.add_noise(self.full_schedule, real, noise, sigma)])
         cond2 = _cat(cond, cond) if cond is not None else None
-        _, feats = self.teacher_module(both, torch.cat([ts, ts]), cond2, return_features="post_mid")
+        _, feats = self.teacher_module(both, torch.cat([ts, ts]), cond2, return_features=True)
         f_fake, f_real = feats.chunk(2)
         return gan_losses(self.discriminator, f_fake, f_real, cfg.gan_loss_type)
 

@@ -269,20 +269,24 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LN→self-attn →LN→cross-attn →LN→GEGLU FF, all residual."""
+    """LN→self-attn →LN→cross-attn →LN→GEGLU FF, all residual; without
+    ``context_dim`` no cross-attention (no ``norm2``/``attn2``, the JAX
+    ``cross_attention=False``), and ``context`` is not read."""
 
-    def __init__(self, dim: int, num_heads: int, context_dim: int):
+    def __init__(self, dim: int, num_heads: int, context_dim: Optional[int]):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, num_heads)
-        self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, num_heads, context_dim=context_dim)
+        if context_dim is not None:
+            self.norm2 = LayerNorm(dim)
+            self.attn2 = Attention(dim, num_heads, context_dim=context_dim)
         self.norm3 = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context):
+    def forward(self, x, context=None):
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context=context)
+        if hasattr(self, "attn2"):
+            x = x + self.attn2(self.norm2(x), context=context)
         return x + self.ff(self.norm3(x))
 
 
@@ -294,7 +298,7 @@ class SpatialTransformer(nn.Module):
     or, with ``use_linear_projection``, linear layers (SDXL); either way they
     run as the JAX ``LoraDense`` on the tokens, through ``lora_dense``."""
 
-    def __init__(self, channels: int, num_heads: int, context_dim: int, groups: int = 32,
+    def __init__(self, channels: int, num_heads: int, context_dim: Optional[int], groups: int = 32,
                  depth: int = 1, use_linear_projection: bool = False):
         super().__init__()
         proj = (lambda: LoraLinear(channels, channels)) if use_linear_projection else (
@@ -306,7 +310,7 @@ class SpatialTransformer(nn.Module):
         )
         self.proj_out = proj()
 
-    def forward(self, x, context):
+    def forward(self, x, context=None):
         b, c, hh, ww = x.shape
         to_tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2).contiguous()  # h-major
         to_image = lambda t: t.transpose(1, 2).reshape(b, c, hh, ww)

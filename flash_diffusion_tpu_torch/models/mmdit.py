@@ -39,8 +39,10 @@ kernel at 1024², 4250 of 4352 keys valid; the one-shot kernel at small
 sizes), the affine-free LayerNorms to the LayerNorm kernel. For training
 (the next slice): ``config.remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, non-reentrant) whenever autograd records;
-``return_features="post_mid"`` also returns the latent stream after the
-middle block through the shared output head (the discriminator's tap).
+``return_features`` (True, or JAX's ``"post_mid"``) also returns the
+latent stream after the middle block through the shared output head (the
+discriminator's tap: a distillation step asks any denoiser for its own
+tap with ``return_features=True``).
 """
 
 from __future__ import annotations
@@ -218,10 +220,11 @@ class MMDiT(nn.Module):
         sample: torch.Tensor,
         timestep: torch.Tensor,
         conditioning: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-        return_features: Optional[str] = None,
+        return_features=False,
     ):
-        """fp32 [B, H, W, out]; with ``return_features="post_mid"`` also the
-        latent stream after block depth // 2 − 1 through the output head."""
+        """fp32 [B, H, W, out]; with ``return_features`` (True or
+        ``"post_mid"``) also the latent stream after block depth // 2 − 1
+        through the output head."""
         cfg = self.config
         dtype = self.proj_out.weight.dtype
         cond = (conditioning or {}).get("cond", {})
@@ -263,7 +266,7 @@ class MMDiT(nn.Module):
                 x, c = checkpoint(block, x, c, temb, kv_valid, use_reentrant=False)
             else:
                 x, c = block(x, c, temb, kv_valid)
-            if return_features == "post_mid" and i == cfg.depth // 2 - 1:
+            if return_features and i == cfg.depth // 2 - 1:
                 features = head(x)[..., : cfg.in_channels]
         out = head(x)[..., : min(in_ch, cfg.out_channels)]
-        return (out, features) if return_features is not None else out
+        return (out, features) if return_features else out

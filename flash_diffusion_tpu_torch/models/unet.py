@@ -23,8 +23,14 @@ before its downsample and into its skip, as in JAX (``unet.py:181-182``);
 ``conditioning["cond"]["concat"]`` [B, H, W, c] is concatenated to the
 latents' channels before ``conv_in``, whose input is then
 ``in_channels + concat_channels`` wide (JAX's infers it; widen a
-checkpoint's with ``trainer/checkpoint.py adapt_state_dict``). Not ported
-yet: ``AttnDownBlock2D``.
+checkpoint's with ``trainer/checkpoint.py adapt_state_dict``).
+``AttnDownBlock2D`` levels (JAX ``unet.py:163-164,209-210``) take the
+spatial transformer of a cross-attention level without ``attn2``/``norm2``
+(self-attention and feed-forward: the JAX ``cross_attention=False``
+block, which diffusers' own ``AttnDownBlock2D`` is not), and with
+``cross_attention_dim=None`` the mid block's is such a block too and the
+conditioning may be None: the weights-free toy UNet of
+``toy_quality.py``.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ class UNetConfig(BaseConfig):
     layers_per_block: int = 2
     transformer_layers_per_block: List[int] = field(default_factory=lambda: [1, 1, 1, 1])
     num_heads: List[int] = field(default_factory=lambda: [8, 8, 8, 8])
-    cross_attention_dim: int = 768
+    cross_attention_dim: Optional[int] = 768  # None: no cross-attention anywhere
     norm_num_groups: int = 32
     class_embed_type: Optional[str] = None  # None | "projection"
     projection_class_embeddings_input_dim: Optional[int] = None
@@ -83,9 +89,11 @@ class UNetConfig(BaseConfig):
             raise ValueError("down_block_types and num_heads need one entry per level")
         if len(self.transformer_layers_per_block) < n:  # the mid block takes the last, as in JAX
             raise ValueError("transformer_layers_per_block needs an entry per level")
-        unknown = set(self.down_block_types) - {"CrossAttnDownBlock2D", "DownBlock2D"}
+        unknown = set(self.down_block_types) - {"CrossAttnDownBlock2D", "AttnDownBlock2D", "DownBlock2D"}
         if unknown:
             raise ValueError(f"block types not ported yet: {sorted(unknown)}")
+        if self.cross_attention_dim is None and "CrossAttnDownBlock2D" in self.down_block_types:
+            raise ValueError("CrossAttnDownBlock2D needs cross_attention_dim")
         if self.class_embed_type not in (None, "projection"):
             raise ValueError(f"class_embed_type {self.class_embed_type!r} not ported yet")
         if self.class_embed_type and not self.projection_class_embeddings_input_dim:
@@ -147,12 +155,18 @@ class UNet2DCondition(nn.Module):
         temb_dim = b0 * 4
         n = len(cfg.block_out_channels)
 
-        def attn(lvl, ch, depth=None):
+        def attn(lvl, ch, depth=None, cross=True):
             return SpatialTransformer(
-                ch, cfg.num_heads[lvl], cfg.cross_attention_dim, g,
+                ch, cfg.num_heads[lvl], cfg.cross_attention_dim if cross else None, g,
                 depth=depth or cfg.transformer_layers_per_block[lvl],
                 use_linear_projection=cfg.use_linear_projection,
             )
+
+        def level_attns(btype, lvl, ch):
+            """The attention of one resnet of a level: cross, self-only or none."""
+            if btype == "DownBlock2D":
+                return []
+            return [attn(lvl, ch, cross=btype == "CrossAttnDownBlock2D")]
 
         self.conv_in = nn.Conv2d(cfg.in_channels + cfg.concat_channels, b0, 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(b0, temb_dim)
@@ -168,8 +182,7 @@ class UNet2DCondition(nn.Module):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
                 resnets.append(ResnetBlock2D(ch_in, ch, temb_dim, g))
-                if btype == "CrossAttnDownBlock2D":
-                    attns.append(attn(lvl, ch))
+                attns += level_attns(btype, lvl, ch)
                 ch_in = ch
                 skips.append(ch)
             sampler = Downsample2D(ch) if lvl < n - 1 else None
@@ -180,7 +193,7 @@ class UNet2DCondition(nn.Module):
         ch = cfg.block_out_channels[-1]
         self.mid_block = _Block(
             [ResnetBlock2D(ch, ch, temb_dim, g), ResnetBlock2D(ch, ch, temb_dim, g)],
-            [attn(n - 1, ch, depth=cfg.transformer_layers_per_block[-1])],
+            [attn(n - 1, ch, depth=cfg.transformer_layers_per_block[-1], cross=cfg.cross_attention_dim is not None)],
         )
 
         self.up_blocks = nn.ModuleList()
@@ -189,8 +202,7 @@ class UNet2DCondition(nn.Module):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
                 resnets.append(ResnetBlock2D(ch_in + skips.pop(), ch, temb_dim, g))
-                if cfg.down_block_types[lvl] == "CrossAttnDownBlock2D":
-                    attns.append(attn(lvl, ch))
+                attns += level_attns(cfg.down_block_types[lvl], lvl, ch)
                 ch_in = ch
             sampler = Upsample2D(ch) if lvl > 0 else None
             self.up_blocks.append(_Block(resnets, attns, sampler, "upsamplers"))
@@ -207,20 +219,23 @@ class UNet2DCondition(nn.Module):
         self,
         sample: torch.Tensor,
         timestep: torch.Tensor,
-        conditioning: Dict[str, Dict[str, torch.Tensor]],
+        conditioning: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         return_features: bool = False,
         adapter_residuals: Optional[List[torch.Tensor]] = None,
     ):
         """``conditioning["cond"]["crossattn"]``: the text context [B, T, C];
         ``conditioning["cond"]["vector"]`` (SDXL): [B, 2816], added to the
         time embedding through ``add_embedding``; ``["concat"]``: [B, H, W,
-        concat_channels]. ``adapter_residuals``: [B, h, w, C] for each down
+        concat_channels]; None without cross-attention. ``adapter_residuals``: [B, h, w, C] for each down
         level, at its resolution and width. Returns fp32 [B, H, W, C], or
         (that, the mid block's output [B, h, w, C] in the compute dtype, the
-        JAX layout) with ``return_features``."""
+        JAX layout) with ``return_features`` (any true value: the mid block
+        is this module's GAN tap, as the MMDiT's is its post-mid stream)."""
         dtype = self.conv_in.weight.dtype
-        cond = conditioning["cond"]
-        context = cond["crossattn"].to(dtype)
+        cond = (conditioning or {}).get("cond", {})
+        context = cond.get("crossattn")
+        if context is not None:
+            context = context.to(dtype)
         timestep = torch.as_tensor(timestep, device=sample.device).reshape(-1)
         temb = timestep_embedding(timestep, self.config.block_out_channels[0])
         temb = self.time_embedding(temb.to(dtype))

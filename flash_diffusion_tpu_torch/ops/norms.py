@@ -196,6 +196,19 @@ class LayerNormFunction(torch.autograd.Function):
         return dx, dw.to(weight.dtype) if need_w else None, db, None
 
 
+def _autocast_on(x: torch.Tensor) -> bool:
+    return x.device.type in ("cuda", "cpu") and torch.is_autocast_enabled(x.device.type)
+
+
+def _fp32_under_autocast(norm, x, *args):
+    """``norm(x, *args)`` with autocast off and every tensor in fp32:
+    ``torch.autocast`` runs its own normalizations (``F.layer_norm``,
+    ``F.group_norm``) in fp32, and so do these ops when a caller autocasts
+    (the toy proofs of ``toy_quality.py`` on the card)."""
+    with torch.autocast(x.device.type, enabled=False):
+        return norm(*(a.float() if isinstance(a, torch.Tensor) else a for a in (x, *args)))
+
+
 def layer_norm(
     x: torch.Tensor,
     weight: Optional[torch.Tensor] = None,
@@ -205,7 +218,10 @@ def layer_norm(
     """LayerNorm over the last dim, fp32 statistics, optional affine.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel; under
-    a gradient either goes through ``LayerNormFunction``."""
+    a gradient either goes through ``LayerNormFunction``. Under
+    ``torch.autocast`` it runs in fp32 (``_fp32_under_autocast``)."""
+    if _autocast_on(x):
+        return _fp32_under_autocast(layer_norm, x, weight, bias, eps)
     params = [t for t in (x, weight, bias) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         return LayerNormFunction.apply(x, weight, bias, eps)
@@ -650,7 +666,10 @@ def group_norm(
 
     CPU tensors take the plain versions; CUDA tensors launch the GroupNorm
     kernels (one launch or two, ``group_norm_plan``); under a gradient
-    either goes through ``GroupNormFunction``, with the SiLU after it."""
+    either goes through ``GroupNormFunction``, with the SiLU after it. Under
+    ``torch.autocast`` it runs in fp32 (``_fp32_under_autocast``)."""
+    if _autocast_on(x):
+        return _fp32_under_autocast(group_norm, x, num_groups, weight, bias, eps, act)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         y = GroupNormFunction.apply(x, weight, bias, num_groups, eps)
         return F.silu(y) if act == "silu" else y

@@ -1,7 +1,7 @@
 """Training of the PyTorch port: the Flash training run."""
 
 from .checkpoint import adapt_state_dict, latest_step, rename_keys, restore_state, save_state
-from .loggers import CheckpointCallback, MetricLogger, SampleLogger, make_grid, save_png
+from .loggers import CheckpointCallback, MetricLogger, QualityValidator, SampleLogger, make_grid, save_png
 from .trainer import TrainingPipeline, export_lora
 from .training_config import OPTIMIZERS, SCHEDULES, Optimizer, TrainingConfig
 
@@ -11,6 +11,7 @@ __all__ = [
     "CheckpointCallback",
     "MetricLogger",
     "Optimizer",
+    "QualityValidator",
     "SampleLogger",
     "TrainingConfig",
     "TrainingPipeline",

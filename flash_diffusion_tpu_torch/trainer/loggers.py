@@ -7,15 +7,17 @@ tracked) and optionally of the teacher, as image grids ([-1, 1] → uint8,
 (``sample.png_bytes``), beside the input grid and the captions; scalar
 metrics to the ``logging`` module; checkpoints through ``save_state``. A
 callback is called as ``callback(pipeline, aux, step)`` after every step
-(``step`` counts micro-steps from 1). Not ported: wandb and
-``QualityValidator``, which needs the eval package.
+(``step`` counts micro-steps from 1). ``QualityValidator``
+(``loggers.py:128-200``): every N steps, few-step samples of held-out
+batches against their images, the Fréchet distance of an embedding of both
+and optionally CLIPScore. Not ported: wandb.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +113,74 @@ class SampleLogger:
             save_png(path, make_grid(images))
             self.written.append(path)
         logger.info("step %d: wrote %d sample grids to %s", step, len(logs), step_dir)
+
+
+class QualityValidator:
+    """Every ``every_n_steps``: for each of the first ``num_batches``
+    batches of ``batch_provider()`` (held out, with "image" [-1, 1] NHWC),
+    the student's (the EMA student's with ``use_ema``, where it is tracked)
+    few-step samples from latents of ``input_shape`` drawn from a generator
+    seeded by (step, i), and the Fréchet distance between ``embed_fn`` of
+    the reals and of the samples (``val/feature_fd``), plus CLIPScore
+    (``val/clip_score``) against ``text_embed_fn(batch)`` when given.
+    ``embed_fn``: [-1, 1] NHWC images → [B, D] features (``eval.
+    clip_embed_fn`` of the CLIP vision tower, ``eval.inception_embed_fn``,
+    or any cheap feature net). Metrics go to the log and to ``history``
+    [(step, {name: value})]."""
+
+    def __init__(
+        self,
+        batch_provider: Callable[[], Iterator[Dict]],
+        input_shape: Sequence[int],  # latent (h, w, C)
+        embed_fn: Callable,
+        every_n_steps: int = 1000,
+        num_batches: int = 4,
+        num_steps: int = 4,
+        guidance_scale: float = 1.0,
+        text_embed_fn: Optional[Callable] = None,
+        use_ema: bool = True,
+    ):
+        self.batch_provider, self.input_shape, self.embed_fn = batch_provider, tuple(input_shape), embed_fn
+        self.every_n_steps, self.num_batches = every_n_steps, num_batches
+        self.num_steps, self.guidance_scale = num_steps, guidance_scale
+        self.text_embed_fn, self.use_ema = text_embed_fn, use_ema
+        self.history: List[Tuple[int, Dict[str, float]]] = []
+
+    @staticmethod
+    def seed(step: int, i: int) -> int:
+        """The latents' seed of batch ``i`` at ``step``."""
+        return int(np.random.SeedSequence([step, i]).generate_state(1)[0])
+
+    def __call__(self, pipeline, aux, step: int) -> None:
+        if step % self.every_n_steps:
+            return
+        from ..eval.metrics import FIDStats, clip_score, frechet_distance
+
+        lora = pipeline.ema if self.use_ema and pipeline.ema is not None else pipeline.lora
+        real_s, fake_s = FIDStats(), FIDStats()
+        scores = []
+        with pipeline.sampling_frozen():
+            for i, batch in enumerate(self.batch_provider()):
+                if i >= self.num_batches:
+                    break
+                n = batch["image"].shape[0]
+                cond_batch = {k: v for k, v in pipeline.to_device(batch).items()
+                              if isinstance(v, torch.Tensor) and k != "image"}
+                z = torch.randn((n, *self.input_shape), device=pipeline.device,
+                                generator=torch.Generator(device=pipeline.device).manual_seed(self.seed(step, i)))
+                fake = pipeline.model.sample(
+                    lora, z, cond_batch, num_steps=self.num_steps, guidance_scale=self.guidance_scale,
+                    generator=torch.Generator(device=pipeline.device).manual_seed(i))
+                real_emb, fake_emb = self.embed_fn(batch["image"]), self.embed_fn(fake)
+                real_s.update(real_emb)
+                fake_s.update(fake_emb)
+                if self.text_embed_fn is not None:
+                    scores.append(float(clip_score(fake_emb, self.text_embed_fn(batch))))
+        metrics = {"val/feature_fd": frechet_distance(*real_s.finalize(), *fake_s.finalize())}
+        if scores:
+            metrics["val/clip_score"] = float(np.mean(scores))
+        self.history.append((step, metrics))
+        logger.info("step %d quality %s", step, metrics)
 
 
 class MetricLogger:

@@ -6,6 +6,7 @@ from .convert import (
     dit_from_jax,
     discriminator_from_jax,
     dpt_from_jax,
+    inception_from_jax,
     lora_from_jax,
     lpips_from_jax,
     mmdit_from_jax,
@@ -13,6 +14,7 @@ from .convert import (
     t5_from_jax,
     unet_from_jax,
     vae_from_jax,
+    vision_from_jax,
 )
 
 __all__ = [
@@ -21,6 +23,7 @@ __all__ = [
     "dit_from_jax",
     "discriminator_from_jax",
     "dpt_from_jax",
+    "inception_from_jax",
     "lora_from_jax",
     "lpips_from_jax",
     "mmdit_from_jax",
@@ -28,4 +31,5 @@ __all__ = [
     "t5_from_jax",
     "unet_from_jax",
     "vae_from_jax",
+    "vision_from_jax",
 ]

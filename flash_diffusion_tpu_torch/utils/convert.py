@@ -22,7 +22,9 @@ OpenCLIP-bigG and T5 text towers, and for training the LoRA tree, the conv
 discriminator and LPIPS (whose JAX param names are the port's); the
 T2I-Adapter (JAX's names), ``ModuleEmbedder``'s layers, and the DPT (JAX
 names → MiDaS's, its ConvTranspose kernels flipped: flax's does not flip,
-torch's does).
+torch's does); the CLIP vision tower (transformers' names) and
+InceptionV3 (torchvision's names, its folded BatchNorms as BatchNorms that
+apply the fold).
 
 Imports no JAX: the tree arrives as numpy.
 """
@@ -94,7 +96,7 @@ def _spatial_transformer(sd: StateDict, key: str, p, linear: bool) -> None:
     depth = sum(1 for name in p if name.startswith("blocks_"))
     for k in range(depth):
         blk, tkey = p[f"blocks_{k}"], f"{key}.transformer_blocks.{k}"
-        for i in ("1", "2"):
+        for i in ("1", "2") if "attn2" in blk else ("1",):  # no attn2: a self-only block
             _norm(sd, f"{tkey}.norm{i}", blk[f"norm{i}"])
             _attention(sd, f"{tkey}.attn{i}", blk[f"attn{i}"])
         _norm(sd, f"{tkey}.norm3", blk["norm3"])
@@ -442,4 +444,54 @@ def dpt_from_jax(params: Dict[str, Any], depth: int) -> StateDict:
                     _conv(sd, f"scratch.refinenet{i}.{unit}.{c}", fusion[unit][c])
     for jax_name, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
         _conv(sd, f"scratch.output_conv.{idx}", p[jax_name])
+    return sd
+
+
+def vision_from_jax(params: Dict[str, Any], config) -> StateDict:
+    """JAX ``CLIPVisionModel`` params → port ``CLIPVisionModel`` state dict
+    (transformers' names; the inverse of JAX ``import_clip_vision``)."""
+    p = _unwrap(params)
+    vm = "vision_model"
+    sd: StateDict = {
+        f"{vm}.embeddings.class_embedding": _t(p["class_embedding"]),
+        f"{vm}.embeddings.position_embedding.weight": _t(p["position_embedding"]),
+        f"{vm}.pre_layrnorm.weight": _t(p["pre_ln_scale"]),
+        f"{vm}.pre_layrnorm.bias": _t(p["pre_ln_bias"]),
+        f"{vm}.post_layernorm.weight": _t(p["post_ln_scale"]),
+        f"{vm}.post_layernorm.bias": _t(p["post_ln_bias"]),
+    }
+    _conv(sd, f"{vm}.embeddings.patch_embedding", p["patch_embedding"])
+    for i in range(config.num_layers):
+        lp, k = p[f"layer_{i}"], f"{vm}.encoder.layers.{i}"
+        for ln in ("1", "2"):
+            sd[f"{k}.layer_norm{ln}.weight"] = _t(lp[f"ln{ln}_scale"])
+            sd[f"{k}.layer_norm{ln}.bias"] = _t(lp[f"ln{ln}_bias"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(sd, f"{k}.self_attn.{name}", lp[name])
+        _lin(sd, f"{k}.mlp.fc1", lp["fc1"])
+        _lin(sd, f"{k}.mlp.fc2", lp["fc2"])
+    if "visual_projection" in p:
+        _lin(sd, "visual_projection", p["visual_projection"])
+    return sd
+
+
+def inception_from_jax(params: Dict[str, Any], eps: float = 1e-3) -> StateDict:
+    """JAX ``InceptionV3Pool3`` params (each BatchNorm folded into a
+    per-channel scale and bias) → port ``InceptionV3Pool3`` state dict
+    (torchvision's names): the conv kernels, and a BatchNorm that applies
+    the fold, weight = scale, bias = bias, mean 0 and variance 1 − eps."""
+    sd: StateDict = {}
+
+    def walk(node, prefix):
+        if "conv" in node and "scale" in node:
+            _conv(sd, f"{prefix}.conv", node["conv"])
+            sd[f"{prefix}.bn.weight"], sd[f"{prefix}.bn.bias"] = _t(node["scale"]), _t(node["bias"])
+            sd[f"{prefix}.bn.running_mean"] = torch.zeros(len(node["scale"]))
+            sd[f"{prefix}.bn.running_var"] = torch.full((len(node["scale"]),), 1.0 - eps)
+            sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+            return
+        for name, child in node.items():
+            walk(child, f"{prefix}.{name}" if prefix else name)
+
+    walk(_unwrap(params), "")
     return sd

@@ -850,6 +850,7 @@ def test_bwd_wrapper_refuses_devices_without_a_kernel():
     (2, 130, 2000, 160, 1999), (4, 200, 4096, 40, None), (2, 77, 700, 8, None),
     (2, 100, 1500, 200, 1400), (1, 64, 4096, 512, None),
     (3, 1000, 1100, 64, 1037), (2, 700, 1500, 72, 1433), (2, 130, 333, 128, 301),
+    (96, 64, 64, 32, None), (64, 257, 257, 64, None),  # the toy proofs' D = 32, the eval ViT's 257 keys
 ])
 def test_attention_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
     """bf16 kernel vs the plain version on the same inputs in fp32, held to
@@ -875,6 +876,7 @@ def test_attention_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
 @pytest.mark.parametrize("rows,c,dtype", [
     (4 * 4096, 320, torch.bfloat16), (4 * 1024 + 3, 640, torch.bfloat16),
     (4 * 64, 1280, torch.bfloat16), (4 * 77, 768, torch.float32), (37, 100, torch.bfloat16),
+    (4 * 257, 1024, torch.bfloat16), (3072, 64, torch.bfloat16),  # the eval ViT's, the toy UNet's
 ])
 def test_layer_norm_kernel_matches_plain_on_card(cuda, rows, c, dtype):
     """The kernel against the plain version in fp32 on the same inputs, held
@@ -980,7 +982,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("bh,sq,skv,d,kv_valid", [
     (4, 512, 512, 40, None), (4, 300, 77, 40, None), (2, 200, 77, 80, 70), (1, 130, 77, 160, None),
     (2, 64, 64, 160, None), (2, 256, 256, 160, None), (1, 1000, 1024, 80, 900), (2, 128, 128, 512, 100),
-    (1, 4000, 77, 40, None), (3, 300, 260, 40, 200),
+    (1, 4000, 77, 40, None), (3, 300, 260, 40, 200), (96, 64, 64, 32, None), (192, 64, 64, 32, None),
 ])
 def test_attention_bwd_kernels_match_plain_on_card(cuda, bh, sq, skv, d, kv_valid):
     """K6+K7 or K8 (bf16) vs the plain backward in fp32 on the same inputs,
