@@ -15,7 +15,8 @@ distillation step at 1024², the SD1.5 training run on JPEG shards, the
 Canny T2I-Adapter distillation run of SD1.5 at 512², the DPT depth
 model (ViT-L/16) at 384², the eval path (SD1.5 samples scored by CLIP-FID
 with ViT-L/14, Inception FID and CLIPScore through ``eval_coco``), and the
-weights-free toy distillation proofs. It fails unless every phase passes, and prints
+weights-free toy distillation proofs, the native JPEG decoder, and SDXL's
+distillation on aspect buckets with its kohya export. It fails unless every phase passes, and prints
 each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
@@ -72,7 +73,8 @@ each phase's seconds:
    order), also on rows of small variance where eps shows. The whole
    GroupNorm (``group_norm``: the resident kernel in one launch, or K9's
    statistics with the fold, then the apply) is held to ``group_norm_gate``
-   at every GroupNorm shape of the paths, in both layouts, with and without
+   at every GroupNorm shape of the paths, in both layouts (phase 13's in
+   channels-last alone), with and without
    SiLU (relative to the plain version in fp32; mean and inv to fp64), and
    bit-equal for a sample alone and in its batch and from run to run; K9's
    own entry (``group_norm_stats``) in fp64 (Σx to 1e-5 of Σ|x|, Σx² to
@@ -159,7 +161,7 @@ each phase's seconds:
    with ``remat``, CLIP-L + bigG, the SDXL VAE, K = 32 with the DPM-Solver++
    2M teacher, LPIPS distill, DMD, lsgan, rank-64 LoRA, a 3-stage
    discriminator), every step in stage 1, then ``fit`` on synthetic batches
-   of 2 at 1024² with the size tuples: 1 warm and 3 timed steps, each
+   of 2 at 1024² with the size tuples: 1 warm and 2 timed steps, each
    printed with its start index and teacher forwards (K − start); checked
    as phase 5 (K4 launched too), and every (kernel, shape) the steps
    launched (the keys of the kernels' ``LAUNCHES``, cleared just before;
@@ -168,7 +170,9 @@ each phase's seconds:
 5d. SDXL training reference at 256², as 5b (K = [4], ``LPIPS_CROP`` 16,
    batch 2, non-zero LoRA B, the discriminator's 1 stage on the 8² mid
    features), the DPM rollout from ``TRAIN_REF_START`` 1 (first-order,
-   second-order and final steps), 5b's tolerances; its seconds printed;
+   second-order and final steps), the UNet with 2 of level 2's 10
+   transformer blocks on both sides (``REF_DEPTH``), 5b's tolerances; its
+   seconds printed;
 6. int8 serving, after the training pipelines are freed: ``build_pipeline(
    "sdxl", device="cuda")``, a random rank-64 LoRA over the default targets
    written as a PEFT file and loaded through ``pipe.lora_loader``, then
@@ -222,7 +226,8 @@ each phase's seconds:
    LoRA B, the discriminator's 3 stages down to its 4×4 head), the DDPM
    rollout from ``TRAIN_REF_START`` 2 (two noised steps): the CPU copy is
    fed the card's staged ``__conds`` and holds a 1-layer stand-in T5, never
-   run, in place of T5-XXL; 5b's tolerances, the discriminator's outputs
+   run, in place of T5-XXL; the DiT at 7 of its 28 blocks on both sides
+   (``REF_DEPTH``); 5b's tolerances, the discriminator's outputs
    held on the card's features (``DISC_ON_CARD_FEATURES``), end to end
    printed beside; its seconds printed;
 8. SD3-medium, after the Pixart trainers are freed: ``build_pipeline("sd3",
@@ -272,7 +277,8 @@ each phase's seconds:
    B, a 3-stage discriminator: 4 stages would reduce the 32² features below
    the 4×4 head), the flow-match rollout from ``TRAIN_REF_START`` 1: the
    CPU copy is fed the card's staged ``__conds`` and holds a stand-in T5,
-   never run, in place of T5-XXL; 5b's tolerances, but the distill and DMD
+   never run, in place of T5-XXL; the MMDiT at 4 of its 24 joint blocks on
+   both sides (``REF_DEPTH``); 5b's tolerances, but the distill and DMD
    losses held to 0.1 (``TRAIN_REF_LOSS_TOL``: bf16 alone, with no kernel,
    puts them ~5% from fp32); every (kernel, shape) the card's side launched
    among phase 2's; its seconds printed;
@@ -300,6 +306,14 @@ each phase's seconds:
    launched (kernel, shape) among phase 2's (the validation batch at B = 2
    and 2B = 4, the eval batch, the training shapes); warm s/micro-step,
    the seconds ``fit`` waited on its data iterator, peak memory;
+10b. the native JPEG decoder on the card's host (``check_native_decoder``):
+   its g++ build from ``data/native/fastjpeg.cpp`` and the seconds, or,
+   where it does not build, a line saying so and nothing checked; then
+   ``build_data`` over phase 10's shards with ``DECODER: native`` and with
+   PIL (2 thread workers), ms an image of each; the native call against
+   the mapper's PIL path on the same images within a calibrated mean
+   |diff| (phase 10's images and smooth ones, where faulted outputs read
+   outside it);
 11. the Canny T2I-Adapter run (``run_canny_training``), on phase 10's JPEG
    shards: ``build_trainer("sd15-canny")`` with
    ``flash_canny_adapter.yaml`` stage 1 (K = 16 DDPM teacher, l2, DMD,
@@ -351,6 +365,23 @@ each phase's seconds:
    n_eval 48: every FD finite, K1 and K8 at D = 32 over 64 tokens, K3 at
    width 64 and the GroupNorm (8 groups) launched, every launched (kernel,
    shape) among phase 2's.
+13. SDXL distillation on aspect buckets (``run_bucketed_training``): a
+   shard of seeded JPEGs sized for three buckets of 1024²'s ladder ((1344,
+   768), its transpose, (1088, 960)); ``build_trainer("sdxl")`` with
+   ``ASPECT_BUCKETING`` (batch 2, stage 1; the discriminator's 2 stages
+   from the ladder's shortest side, where JAX's example rule takes 3, too
+   many for non-square buckets), ``build_data`` (one bucket a batch, the
+   real SDXL size tuples) behind ``prefetch_to_device``, ``fit`` of a warm
+   and a timed step in each bucket: every batch a bucket with its tuples,
+   the losses finite, the LoRA and discriminator moved, K1, K2, K3, K4,
+   K6, K7, K8 and the GroupNorm launched, every launched (kernel, shape)
+   among phase 2's (``bucket_train_shapes``); s/step by bucket, data wait,
+   peak memory; then the kohya export (``save_kohya_safetensors``) read
+   back by ``from_kohya`` equal to the LoRA bit for bit;
+13b. the SDXL training reference, as 5d (its depth cut too), on the
+   (192, 320) bucket of 256²'s ladder (its discriminator sized by the
+   ladder's rule: 0 stages on the 6 × 10 mid features; the batch's real
+   size tuples), from rollout start K − 1.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -358,7 +389,8 @@ paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``sdxl_packed_fused`` and ``sdxl_down_gemm``, 5c as ``train_sdxl``, 7e as
 ``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
 8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``, 11 as
-``train_canny``, 11c as ``depth``, 12 as ``eval``, 12b as ``toy``; ``ms``, ``plain_ms``,
+``train_canny``, 11c as ``depth``, 12 as ``eval``, 12b as ``toy``, 13 as
+``train_sdxl_buckets``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -676,28 +708,92 @@ ATTENTION_SHAPES_SD3_SAMPLE = [(24, 4352, 4352, 64, 4250), (1, 16384, 16384, 512
 LAYER_NORM_SHAPES_SD3_SAMPLE = [(4096, 1536, torch.bfloat16), (256, 1536, torch.bfloat16)]
 GN_SHAPES_SD3_SAMPLE = [((1, c, hw, hw), torch.bfloat16, None) for c, hw in (
     (128, 1024), (256, 512), (256, 1024), (512, 128), (512, 256), (512, 512))]
+# phase 13: SDXL training at batch 2 on aspect buckets of the 1024² ladder
+# (``ASPECT_BUCKETING``, max aspect 2): a tall bucket and its transpose (the
+# same token counts, H and W swapped in every reshape) and (1088, 960),
+# whose 34 × 30 mid features JAX's example rule (3 stages) cannot take.
+# Each bucket's source images (h, w) need a real resize and a crop that is
+# not at (0, 0) (``BucketAssignMapper``'s cover-resize of 1400 × 790 gives
+# 1361 × 768, cropped at top 8)
+BUCKET_BATCH = 2
+BUCKET_SOURCES = {(1344, 768): (1400, 790), (768, 1344): (790, 1400), (1088, 960): (1150, 1010)}
+BUCKETS = list(BUCKET_SOURCES)
+
+
+def bucket_train_shapes(h, w, b=BUCKET_BATCH):
+    """The kernel cases of one SDXL training step at batch ``b`` on an
+    h × w bucket (phase 5c's families at the bucket's sizes): the UNet's
+    attention at level 1 (10 heads over (h/16)·(w/16) tokens) and level 2
+    and mid (20 heads over (h/32)·(w/32)), D = 64, at B (the student, under
+    a gradient) and 2B (the GAN's teacher pass under a gradient: K1 for the
+    77 text keys, K2; the rollout and DMD's teacher without: K4, K2), DMD's
+    student at B on K4; their backward (K6 + K7, K8); the VAE encoder's
+    mid-attention over (h/8)·(w/8) tokens (one head of D = 512); the
+    LayerNorms of the levels' tokens at B and 2B; the UNet's GroupNorms at
+    B and 2B over each level's channels (up blocks' concatenations
+    included), the VAE encoder's over the image's levels (the LPIPS
+    decoder's over its 64² latent crops are phase 5c's) and the
+    discriminator's (2 stages, fp32, 4 groups) over the mid features
+    halved twice. Returns (attention, packed, backward, layer norm, group
+    norm) cases."""
+    lh, lw = h // 8, w // 8
+    s1, s2 = (lh // 2) * (lw // 2), (lh // 4) * (lw // 4)
+    attention = [(10 * m, s1, kv, 64, None) for m in (b, 2 * b) for kv in (77, s1)]
+    attention += [(20 * m, s2, kv, 64, None) for m in (b, 2 * b) for kv in (77, s2)]
+    attention.append((b, lh * lw, lh * lw, 512, None))
+    packed = [(m, s, 77, heads, 64) for m in (2 * b, b) for s, heads in ((s1, 10), (s2, 20))]
+    bwd = [case for case in attention if case[3] == 64]
+    layer_norm = [(m * s, c, torch.bfloat16) for m in (b, 2 * b) for s, c in ((s1, 640), (s2, 1280))]
+    gn = [((m, c, lh // f, lw // f), torch.bfloat16, None) for m in (b, 2 * b) for c, f in (
+        (320, 1), (640, 1), (960, 1), (320, 2), (640, 2), (960, 2), (1280, 2), (1920, 2),
+        (640, 4), (1280, 4), (1920, 4), (2560, 4))]
+    gn += [((b, c, h // f, w // f), torch.bfloat16, None) for c, f in (
+        (128, 1), (128, 2), (256, 2), (256, 4), (512, 4), (512, 8))]
+    gn.append(((b, 512, h // 32 // 4, w // 32 // 4), torch.float32, 4))
+    return attention, packed, bwd, layer_norm, gn
+
+
+_BUCKET_CASES = [bucket_train_shapes(h, w) for h, w in BUCKETS]
+ATTENTION_SHAPES_BUCKET, PACKED_SHAPES_BUCKET, BWD_SHAPES_BUCKET, LAYER_NORM_SHAPES_BUCKET, GN_SHAPES_BUCKET = (
+    list(dict.fromkeys(case for cases in _BUCKET_CASES for case in cases[i])) for i in range(5))
+BUCKET_CASES = set(ATTENTION_SHAPES_BUCKET + PACKED_SHAPES_BUCKET + BWD_SHAPES_BUCKET + LAYER_NORM_SHAPES_BUCKET
+                   + GN_SHAPES_BUCKET)
+
+
+def draw_order(cases, *more):
+    """A check's cases in the order their inputs are drawn from its one
+    generator: ``cases`` and ``more`` as the earlier phases listed them,
+    then phase 13's, so that adding those left every other case's inputs
+    as they were (the GroupNorm gate's per-element bound sits within a few
+    percent of the plain bf16 version's own error at some draws: ROADMAP
+    Queue 3)."""
+    cases = list(cases) + [c for m in more for c in m]
+    return [c for c in cases if c not in BUCKET_CASES] + [c for c in cases if c in BUCKET_CASES]
+
+
 # The paths' shapes of each check (timed), read at call time so that a
 # caller may narrow the lists above; GroupNorm cases are (shape, dtype,
 # the path's group count or None)
 def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
             + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN + ATTENTION_SHAPES_SD3_SAMPLE
-            + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT + ATTENTION_SHAPES_EVAL + ATTENTION_SHAPES_TOY)
+            + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT + ATTENTION_SHAPES_EVAL + ATTENTION_SHAPES_TOY
+            + ATTENTION_SHAPES_BUCKET)
 
 
 def layer_norm_main():
     return (LAYER_NORM_SHAPES + LAYER_NORM_SHAPES_XL + LAYER_NORM_SHAPES_PIXART + LAYER_NORM_SHAPES_SD3
             + LAYER_NORM_SHAPES_SD3_TRAIN + LAYER_NORM_SHAPES_SD3_SAMPLE + LAYER_NORM_SHAPES_TRAIN_RUN
-            + LAYER_NORM_SHAPES_EVAL + LAYER_NORM_SHAPES_TOY)
+            + LAYER_NORM_SHAPES_EVAL + LAYER_NORM_SHAPES_TOY + LAYER_NORM_SHAPES_BUCKET)
 
 
 def gn_main():
     return ([(s, torch.bfloat16, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
-            + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN + GN_SHAPES_TOY)
+            + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN + GN_SHAPES_TOY + GN_SHAPES_BUCKET)
 
 
 def bwd_main():
-    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART + BWD_SHAPES_SD3 + BWD_SHAPES_TOY
+    return BWD_SHAPES + BWD_SHAPES_XL + BWD_SHAPES_PIXART + BWD_SHAPES_SD3 + BWD_SHAPES_TOY + BWD_SHAPES_BUCKET
 
 
 def references():
@@ -761,7 +857,7 @@ def gated_shapes():
     gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
     gn_apply = {(shape, dtype) for shape, dtype, _ in cases}
     return {"flash_fwd_oneshot": fwd, "flash_fwd_stream": fwd,
-            "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_RAGGED),
+            "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_SHAPES_BUCKET + PACKED_RAGGED),
             "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
             "layer_norm": set(layer_norm_main() + layer_norm_unmain() + LAYER_NORM_SMALL_VAR),
@@ -795,6 +891,14 @@ TRAIN_REF_LORA_B_STD = 1e-3  # B ≠ 0, so that A has a gradient too
 # SD1.5 with the Canny adapter (11b): K − 1, one noised DDPM step, to bound
 # the CPU copy's time
 TRAIN_REF_START = {"sdxl": 1, "pixart": 3, "sd3": 2, "sd15-canny": 3}
+# phase 13b: the SDXL reference on a non-square bucket of 256²'s ladder
+# (latents 24 × 40, mid features 6 × 10: the ladder's rule gives the
+# discriminator 0 stages), its rollout from K − 1 (5d runs DPM's second-order
+# step), the size tuples of an image cut from 400 × 660 at (4, 10)
+BUCKET_REF = (192, 320)
+BUCKET_REF_START = 3
+BUCKET_REF_TUPLES = {"original_size_as_tuple": (400, 660), "crop_coords_top_left": (4, 10),
+                     "target_size_as_tuple": BUCKET_REF}
 # phase 7d: the models whose reference holds the discriminator's outputs on
 # the card's features (its inputs, each call's, handed to the CPU copy's
 # discriminator, as 7d hands over the card's ``__conds``) and prints them
@@ -813,6 +917,15 @@ DISC_ON_CARD_FEATURES = ("pixart",)
 # losses are squares of small differences of 24-block bf16 MMDiT outputs,
 # the teacher's under CFG 3–7. 0.1 leaves 1.8× the floor at start 1
 TRAIN_REF_LOSS_TOL = {"sd3": 0.1}
+# phases 5d, 7d, 9b and 13b: the reference's denoiser, on the card and in
+# the CPU copy alike, cut in depth to pay for phases 13 and 13b's time (in
+# a 745.2 s run without them on an H100 80GB HBM3 at 700 W, 5c + 5d took
+# 72.2 s, 7c + 7d 58.5, 9b 101.3): SD3's MMDiT at 4 of its 24 joint blocks (the last
+# still context_pre_only), Pixart's DiT at 7 of 28, SDXL's UNet with 2 of
+# level 2's 10 transformer blocks (levels 0 and 1 whole). Phases 5c, 7c, 9
+# and 13 run them whole; ``train_ref_precision.py`` too
+REF_DEPTH = {"sdxl": ("sdxl_unet_config", {"transformer_layers_per_block": [1, 2, 2]}),
+             "pixart": ("pixart_config", {"depth": 7}), "sd3": ("sd3_medium_config", {"depth": 4})}
 # LoRA pairs that no loss reaches, whose B stays at its 0 (their gradient is
 # exactly 0, as in JAX): the MMDiT's final block runs context_pre_only, so
 # its context queries (add_q_proj) feed only the context rows it drops
@@ -965,7 +1078,7 @@ def check_attention(attention, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(0)
     failed = []
     main_shapes, refs = attention_main(), references()
-    for shape in main_shapes + attention_unmain():
+    for shape in draw_order(main_shapes, attention_unmain()):
         bh, sq, skv, d, kv_valid = shape
         q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, skv, skv))
@@ -1026,7 +1139,7 @@ def check_packed(attention, results, name, shapes, ragged, seed, timed=True):
     kernel = attention.flash_attention_packed_stream if name == "flash_fwd_packed" else attention.flash_attention_packed
     g = torch.Generator(device="cuda").manual_seed(seed)
     failed = []
-    for b, sq, kv, h, d in shapes + ragged:
+    for b, sq, kv, h, d in draw_order(shapes, ragged):
         main = (b, sq, kv, h, d) in shapes
         q, k, v = (torch.randn(b, s, h * d, generator=g, device="cuda").to(torch.bfloat16)
                    for s in (sq, kv, kv))
@@ -1137,6 +1250,7 @@ def check_layer_norm(norms, results, timed=True):
     main_shapes, refs = layer_norm_main(), references()
     cases = [(s, 2.0, 0.5) for s in main_shapes + layer_norm_unmain()]
     cases += [(s, 3e-3, 0.0) for s in LAYER_NORM_SMALL_VAR]
+    cases = sorted(cases, key=lambda case: case[0] in BUCKET_CASES)  # stable: draw_order's
     failed = []
     for (rows, c, dtype), scale, offset in cases:
         x = (torch.randn(rows, c, generator=g, device="cuda") * scale + offset).to(dtype)
@@ -1174,7 +1288,8 @@ def check_group_norm(norms, results, timed=True):
     """The whole GroupNorm (``group_norm``: K9's statistics, the fold, the
     apply, SiLU or not) at every GroupNorm shape of the paths and the
     ragged ones, in both layouts the kernels take (contiguous NCHW and
-    channels-last, the layout the paths' convolutions hand on), held to
+    channels-last, the layout the paths' convolutions hand on; phase 13's
+    cases in channels-last alone), held to
     ``group_norm_gate``: y with and without SiLU against the plain version
     in fp32 from the same x, weight and bias (bf16: every element within
     2⁻⁸·|y| + 2⁻⁷·max|y|, relative L2 within 7.5e-3, mean signed error within
@@ -1195,7 +1310,7 @@ def check_group_norm(norms, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(6)
     failed = []
     main_cases = gn_main()
-    for case in main_cases + gn_unmain():
+    for case in draw_order(main_cases, gn_unmain()):
         shape, dtype, groups = case
         main = case in main_cases
         b, c = shape[:2]
@@ -1217,7 +1332,9 @@ def check_group_norm(norms, results, timed=True):
         want64 = (mean64, inv64)
         want = [norms.group_norm_reference(x0.float(), groups, gw.float(), gb.float(), 1e-5, act)[0]
                 for act in (None, "silu")]
-        for layout in ("NCHW", "NHWC"):
+        # phase 13's cases in the layout its convolutions hand on alone, to
+        # bound phase 2's time
+        for layout in ("NHWC",) if case in BUCKET_CASES else ("NCHW", "NHWC"):
             x = x0 if layout == "NCHW" else x0.to(memory_format=torch.channels_last)
             y, mean, inv = norms.group_norm_forward(x, groups, gw, gb, 1e-5)
             y_act = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
@@ -1403,7 +1520,7 @@ def check_attention_bwd(attention, kernels, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(3)
     failed = []
     refs = references()
-    for shape in bwd_main() + bwd_unmain():
+    for shape in draw_order(bwd_main(), bwd_unmain()):
         bh, sq, skv, d, kv_valid = shape
         q, k, v, do = (torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
                        for s in (sq, skv, skv, sq))
@@ -1949,11 +2066,11 @@ class BurstWatch:
         torch.cuda.reset_peak_memory_stats()
 
 
-def run_training(model, counters, card, required, gated=None):
+def run_training(model, counters, card, required, gated=None, steps=4):
     """Phases 5, 5c, 7c and 9: ``build_trainer(model)`` with its yaml, every
-    step in stage 1, then one ``fit`` of 4 steps on synthetic batches of the
-    yaml's batch size at its image size, 1 warm and 3 timed (a callback
-    times each); counts reset just before the first step and read after the
+    step in stage 1, then one ``fit`` of ``steps`` steps on synthetic
+    batches of the yaml's batch size at its image size, 1 warm and the rest
+    timed (a callback times each); counts reset just before the first step and read after the
     last. With ``gated``, every (kernel, shape) the steps launched must be
     among phase 2's. SD3 (phase 9) honours ``TEXT_ENCODER_OFFLOAD`` (4: one
     burst): the seconds of each move of the towers to the card, the peak
@@ -1985,7 +2102,7 @@ def run_training(model, counters, card, required, gated=None):
     reset(counters)
     torch.cuda.synchronize()
     timer.mark()
-    trainer.fit(data, max_steps=4, callbacks=[bursts, timer])
+    trainer.fit(data, max_steps=steps, callbacks=[bursts, timer])
     timed = timer.times[1:]
     train_peak = torch.cuda.max_memory_allocated()
     sampled = None
@@ -2002,7 +2119,7 @@ def run_training(model, counters, card, required, gated=None):
             check_pngs(pngs, logger, size)
         sampled = (time.perf_counter() - t0, pngs)
     launches = totals(counters)
-    print(f"{model} training launches over 4 steps {dict(launches)} (the forward kernels' counts include the "
+    print(f"{model} training launches over {steps} steps {dict(launches)} (the forward kernels' counts include the "
           f"recompute of remat and of the checkpointed LPIPS decode in the backward"
           + ("; and the sampling callback's" if sampled else "") + ")")
     missing = [k for k in required if launches[k] == 0]
@@ -2025,7 +2142,7 @@ def run_training(model, counters, card, required, gated=None):
           f"{max([train_peak] + bursts.peaks) / 2**30:.2f} GiB")
     if trainer.text_encoder_offload:
         if len(bursts.moves) != 1:
-            raise AssertionError(f"{model}: {len(bursts.moves)} encode bursts in 4 steps, not 1")
+            raise AssertionError(f"{model}: {len(bursts.moves)} encode bursts in {steps} steps, not 1")
         print(f"{model} text-encoder offload: host → card moves of the towers {[round(t, 3) for t in trainer.offload_moves]} "
               f"s (the burst's, then the sampling callback's); peak memory over the whole phase "
               f"{max([train_peak, torch.cuda.max_memory_allocated()] + bursts.peaks) / 2**30:.2f} GiB, up to the end "
@@ -2269,6 +2386,239 @@ def run_training_run(counters, card, required, gated, root):
           f"{len(checked)} batches; fit waited {fit_wait:.3f} s on the data iterator; validation "
           + ", ".join(f"{k} {v:.5g}" for k, v in val.items())
           + f"; {len(pngs)} sample grids; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+# phase 10b: the native JPEG decoder against PIL (the mapper's PIL path:
+# the same cover-resize and center crop) on the same images; the resize
+# kernels differ (libjpeg's DCT prescale and a point bilinear against PIL's
+# antialiased bilinear), so the two are not bit-equal. Calibrated with this
+# check's own readings on an x86 host where the decoder builds (the card
+# stubbed out): phase 10's noise JPEGs read a mean |native − PIL|
+# of 0.1364 (per image 0.0090–0.2321), where an all-zero output reads
+# 0.229; the smooth images 0.0101 (at most 0.0147), where the output
+# mirrored, its channels reversed, shifted 8 pixels or zero reads 0.085 or
+# more
+NATIVE_NOISE_TOL = 0.2
+NATIVE_SMOOTH_TOL = 0.03
+
+
+def smooth_jpegs(seed, n=8):
+    """Seeded JPEGs of smooth colour waves, 512–1024 a side."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(512, 1025, 2))
+        y, x = np.mgrid[0:h, 0:w] / max(h, w)
+        f, ph = rng.uniform(1, 4, (3, 2)), rng.uniform(0, 6.3, 3)
+        img = np.stack([127.5 + 120 * np.sin(2 * np.pi * (f[c, 0] * y + f[c, 1] * x) + ph[c]) for c in range(3)], -1)
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def check_native_decoder(root):
+    """Phase 10b: the native JPEG decoder on the card's host. Its build
+    (``data/native_decode.py``: g++ and libjpeg) and its seconds; where it
+    does not build, a line saying so with the compiler's first error, and
+    nothing checked. Else ``build_data`` over phase 10's training shards
+    (``root/train``) with ``DECODER: native`` and with PIL, two thread
+    workers as phase 10's, the ms an image of each (wall time over every
+    image decoded, the filter's drops included); then the native call
+    against the mapper's PIL path on the same images: the mean |diff| over
+    phase 10's images within ``NATIVE_NOISE_TOL`` and over
+    ``smooth_jpegs(0)`` within ``NATIVE_SMOOTH_TOL``, which a mirrored,
+    channel-reversed, shifted or zero output exceeds."""
+    import io
+
+    from PIL import Image
+
+    from flash_diffusion_tpu_torch.data import iter_tar_samples, native_decode
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_data, load_config
+
+    t0 = time.perf_counter()
+    if not native_decode.is_available():
+        print(f"native decoder: unavailable ({native_decode.BUILD_INFO.get('error')})")
+        return
+    info = native_decode.BUILD_INFO
+    print(f"native decoder: available, g++ {' '.join(['-O3', *info['flags']])} {info['seconds']:.2f} s "
+          f"({time.perf_counter() - t0:.2f} s to load) -> {info['path']}")
+    train_dir = os.path.join(root, "train")
+    shards = sorted(os.path.join(train_dir, f) for f in os.listdir(train_dir) if f.endswith(".tar"))
+    cfg = {**load_config(CONFIGS["sd15"]), "SHARDS_PATH_OR_URLS": shards}
+    size = cfg["IMAGE_SIZE"]
+    images = [s["jpg"] for shard in shards for s in iter_tar_samples(shard, decoder="raw")]
+    ms = {}
+    for decoder in ("native", "pil"):
+        pipe = build_data({**cfg, "DECODER": decoder}, num_workers=2)
+        t0 = time.perf_counter()
+        kept = sum(1 for _ in pipe.samples(0))
+        ms[decoder] = (time.perf_counter() - t0) / len(images) * 1e3
+        print(f"  build_data DECODER {decoder}: {ms[decoder]:.2f} ms an image ({len(images)} JPEGs of 512–768 a "
+              f"side to {size}², 2 thread workers, {kept} kept)")
+    mapper = native_decode.NativeDecodeMapper(native_decode.NativeDecodeMapperConfig(key="jpg", height=size,
+                                                                                     width=size))
+
+    def pair(data):
+        native = mapper({"jpg": data})["jpg"]
+        return native, mapper({"jpg": Image.open(io.BytesIO(data)).convert("RGB")})["jpg"]
+
+    noise = [float(np.abs(a - b).mean()) for a, b in map(pair, images)]
+    smooth, faults = [], {"mirrored": [], "channels reversed": [], "shifted 8 px": [], "zero": []}
+    for data in smooth_jpegs(0):
+        a, b = pair(data)
+        smooth.append(float(np.abs(a - b).mean()))
+        for name, bad in (("mirrored", a[:, ::-1]), ("channels reversed", a[..., ::-1]),
+                          ("shifted 8 px", np.roll(a, 8, 1)), ("zero", np.zeros_like(a))):
+            faults[name].append(float(np.abs(bad - b).mean()))
+    print(f"  native vs PIL, mean |diff|: phase 10's {len(noise)} images {np.mean(noise):.4e} (per image "
+          f"{min(noise):.4e}–{max(noise):.4e}; tol {NATIVE_NOISE_TOL}); {len(smooth)} smooth images "
+          f"{np.mean(smooth):.4e} (at most {max(smooth):.4e}; tol {NATIVE_SMOOTH_TOL}); faulted outputs on the "
+          f"smooth images " + ", ".join(f"{k} ≥ {min(v):.4e}" for k, v in faults.items()))
+    if not (np.mean(noise) <= NATIVE_NOISE_TOL and max(smooth) <= NATIVE_SMOOTH_TOL
+            and min(min(v) for v in faults.values()) > NATIVE_SMOOTH_TOL):
+        raise AssertionError("the native decoder disagrees with PIL, or the check cannot tell a faulted output")
+    return ms
+
+
+def write_bucket_shards(root, per_bucket, seed):
+    """One webdataset shard of ``.jpg`` + ``.json`` (every score kept) from
+    ``seed``: ``per_bucket`` images of each ``BUCKET_SOURCES`` size, smooth
+    colour waves with noise."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    path = os.path.join(root, "000000.tar")
+    with tarfile.open(path, "w") as tf:
+        for idx, (h, w) in enumerate([hw for hw in BUCKET_SOURCES.values() for _ in range(per_bucket)]):
+            y, x = np.mgrid[0:h, 0:w] / max(h, w)
+            f, ph = rng.uniform(1, 4, (3, 2)), rng.uniform(0, 6.3, 3)
+            img = np.stack([110 * np.sin(2 * np.pi * (f[c, 0] * y + f[c, 1] * x) + ph[c]) for c in range(3)], -1)
+            img = np.clip(127.5 + img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            meta = json.dumps({"caption": f"a wave, sample {idx}", "aesthetic_score": 6.5}).encode()
+            for name, payload in ((f"{idx:06d}.jpg", buf.getvalue()), (f"{idx:06d}.json", meta)):
+                info = tarfile.TarInfo(name)
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+    return path
+
+
+def run_bucketed_training(counters, card, required, gated, root):
+    """Phase 13: SDXL distillation on aspect buckets through the user's
+    entry points: a shard of seeded JPEGs (2 batches of each
+    ``BUCKET_SOURCES`` size) under ``root``; ``build_trainer("sdxl")``
+    (random init, ``flash_sdxl.yaml`` stage 1, batch 2, ``ASPECT_BUCKETING``:
+    the discriminator's 2 stages from the ladder's shortest side);
+    ``build_data`` (``BucketAssignMapper``, one bucket a batch) and
+    ``tokenize_batches`` (keeping the batches' own size tuples) behind
+    ``prefetch_to_device``; ``fit`` of 6 steps, a warm and a timed one in
+    each bucket. Checks: every batch of one of ``BUCKETS``, its size
+    tuples the real geometry (the source's size, a crop off (0, 0), the
+    bucket); every step's losses finite (``StepTimer``); the LoRA and the
+    discriminator moved; K1, K2, K3, K4, K6, K7, K8 and the GroupNorm
+    launched and every launched (kernel, shape) among phase 2's; then the
+    LoRA written as a kohya file (``save_kohya_safetensors``, ComfyUI's
+    names) and read back with ``from_kohya`` equal to it bit for bit, at
+    scaling 1. Prints s/step per bucket, the peak memory, the data wait and
+    each batch's size tuples."""
+    from safetensors.torch import load_file
+
+    from flash_diffusion_tpu_torch.data import prefetch_to_device
+    from flash_diffusion_tpu_torch.lora import from_kohya, save_kohya_safetensors
+    from flash_diffusion_tpu_torch.train import (
+        CONFIGS,
+        build_data,
+        build_trainer,
+        load_config,
+        make_tokenizer,
+        tokenize_batches,
+    )
+    from flash_diffusion_tpu_torch.trainer import export_lora
+
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(root, "buckets"))
+    shard = write_bucket_shards(os.path.join(root, "buckets"), 2 * BUCKET_BATCH, seed=3)
+    cfg = {**load_config(CONFIGS["sdxl"]), **TRAIN_OVERRIDES, "SHARDS_PATH_OR_URLS": [shard],
+           "ASPECT_BUCKETING": True, "BATCH_SIZE": BUCKET_BATCH}
+    size = cfg["IMAGE_SIZE"]
+    t0 = time.perf_counter()
+    trainer = build_trainer("sdxl", device="cuda", seed=0, config=cfg)
+    stages = trainer.model.discriminator.config.num_stages
+    print(f"build_trainer('sdxl') with ASPECT_BUCKETING: {time.perf_counter() - t0:.2f} s; discriminator {stages} "
+          f"stages (the JAX example's rule takes {int(math.log2(size // 32 // 4))} from IMAGE_SIZE, which the "
+          f"(1088, 960) bucket's 34 × 30 mid features cannot take)")
+    if stages != 2:
+        raise AssertionError(f"the bucketed discriminator has {stages} stages, not 2")
+    tok = make_tokenizer("sdxl", cfg)
+    seen = []
+
+    def logged(batches):  # the batches in the order fit takes them (prefetch keeps it)
+        for b in batches:
+            seen.append({k: b[k].tolist() for k in ("original_size_as_tuple", "crop_coords_top_left",
+                                                     "target_size_as_tuple")} | {"hw": b["image"].shape[1:3]})
+            yield b
+
+    data = prefetch_to_device(logged(tokenize_batches(build_data(cfg, num_workers=1), tok, "sdxl", size)))
+    lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
+    disc = snapshot([trainer.model.discriminator])
+    timer = StepTimer("sdxl bucketed")
+    steps = 2 * len(BUCKETS)
+    reset(counters)
+    timer.mark()
+    trainer.fit(data, max_steps=steps, callbacks=[timer])
+    data.close()
+    peak = torch.cuda.max_memory_allocated()
+    launches = totals(counters)
+    print(f"sdxl bucketed training launches over {steps} steps {dict(launches)}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the bucketed sdxl training path never launched {missing}")
+    check_gated("sdxl bucketed training", counters, gated)
+    for i, b in enumerate(seen[:steps]):
+        print(f"  step {i}: batch {tuple(b['hw'])}, original {b['original_size_as_tuple']}, crop "
+              f"{b['crop_coords_top_left']}, target {b['target_size_as_tuple']}: {timer.times[i]:.3f} s")
+        want = BUCKET_SOURCES.get(tuple(b["hw"]))
+        if (want is None or any(o != list(want) for o in b["original_size_as_tuple"])
+                or any(t != list(b["hw"]) for t in b["target_size_as_tuple"])
+                or not all(any(c) for c in b["crop_coords_top_left"])):
+            raise AssertionError(f"step {i}: batch {b} is not a bucket with its real size tuples")
+    per_bucket = {}
+    for i, b in enumerate(seen[:steps]):
+        per_bucket.setdefault(tuple(b["hw"]), []).append(timer.times[i])
+    if sorted(per_bucket) != sorted(BUCKETS) or any(len(v) != 2 for v in per_bucket.values()):
+        raise AssertionError(f"the steps' buckets {per_bucket}, not a warm and a timed step in each of {BUCKETS}")
+    if not all(not torch.equal(lora_b[k], ab["b"]) for k, ab in trainer.lora.items()):
+        raise AssertionError("a LoRA B factor did not change")
+    if all(torch.equal(a, b) for a, b in zip(disc, snapshot([trainer.model.discriminator]))):
+        raise AssertionError("the discriminator did not change")
+    print(f"sdxl bucketed Flash distillation batch {BUCKET_BATCH} on {card}: warm s/step by bucket "
+          + ", ".join(f"{hw} {v[1]:.4f} (first {v[0]:.4f})" for hw, v in per_bucket.items())
+          + f"; fit waited {trainer.data_wait_s:.3f} s on the data iterator; peak memory {peak / 2**30:.2f} GiB")
+    path = os.path.join(root, "comfy", "FlashSDXL.safetensors")
+    os.makedirs(os.path.dirname(path))
+    t0 = time.perf_counter()
+    lora = export_lora(trainer)
+    save_kohya_safetensors(path, lora)
+    tensors = load_file(path)
+    back, scaling = from_kohya(tensors, trainer.model.teacher_module)
+    exact = back.keys() == lora.keys() and all(
+        torch.equal(back[n][k], lora[n][k].detach().float().cpu()) for n in lora for k in ("a", "b"))
+    print(f"kohya export: {len(tensors)} tensors ({len(lora)} pairs, lora_down/lora_up/alpha), "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB, written and read back in {time.perf_counter() - t0:.2f} s; "
+          f"from_kohya equal to the LoRA bit for bit: {exact}, scaling {scaling}")
+    if not exact or scaling != 1.0:
+        raise AssertionError("the kohya file does not read back as the trainer's LoRA")
+    del trainer
     return launches
 
 
@@ -2842,8 +3192,26 @@ def no_random_init():
             setattr(torch.nn.init, name, fn)
 
 
+@contextlib.contextmanager
+def denoiser_config(cut):
+    """``sample``'s config function ``cut[0]`` with the overrides ``cut[1]``
+    inside the block (``REF_DEPTH``); a no-op for None."""
+    if cut is None:
+        yield
+        return
+    from flash_diffusion_tpu_torch import sample
+
+    name, overrides = cut
+    saved = getattr(sample, name)
+    setattr(sample, name, lambda **kw: saved(**{**kw, **overrides}))
+    try:
+        yield
+    finally:
+        setattr(sample, name, saved)
+
+
 def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=None, gated=None,
-                             diagnostics=False):
+                             diagnostics=False, bucket=None, depth=None):
     """Phases 5b, 5d, 7d, 9b and 11b: one ``losses`` and backward of the trainer
     at 256² on the card (bf16, kernels) vs an fp32 copy on the CPU (plain
     paths) with its state dicts, on the same staged batch (the conditioning
@@ -2857,14 +3225,27 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
     With ``cpu_bf16`` (``train_ref_precision.py``), also the losses of the
     CPU copy in bf16 (the plain paths, no kernel) on the same inputs,
     printed beside the card's, ungated: whether bf16 itself, kernels or not,
-    puts a loss as far from fp32 as the card."""
-    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
+    puts a loss as far from fp32 as the card.
+    With ``bucket`` (h, w) (phase 13b), the step of ``ASPECT_BUCKETING``
+    at 256²'s ladder: the discriminator sized by the ladder's rule, the
+    batch's images h × w with ``BUCKET_REF_TUPLES``. ``depth``: a cut of
+    the denoiser on both sides (``denoiser_config``)."""
+    from flash_diffusion_tpu_torch.train import (
+        CONFIGS,
+        bucket_ladder,
+        build_trainer,
+        load_config,
+        synthetic_batches,
+    )
 
     started = time.perf_counter()
-    cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES}
-    dev = build_trainer(model, device="cuda", seed=0, config=cfg)
+    cfg = {**load_config(CONFIGS[model]), **TRAIN_REF_OVERRIDES, **({"ASPECT_BUCKETING": True} if bucket else {})}
+    if bucket is not None and tuple(bucket) not in bucket_ladder(cfg):
+        raise ValueError(f"{bucket} is not a bucket of {bucket_ladder(cfg)}")
+    with denoiser_config(depth):
+        dev = build_trainer(model, device="cuda", seed=0, config=cfg)
     fed = model in ("pixart", "sd3")  # the CPU copy takes the card's __conds: a stand-in T5, never run
-    with t5_stand_in() if fed else contextlib.nullcontext(), no_random_init():
+    with t5_stand_in() if fed else contextlib.nullcontext(), no_random_init(), denoiser_config(depth):
         ref = build_trainer(model, device="cpu", seed=0, config=cfg)  # bf16 until the probe has run
     g = torch.Generator(device="cuda").manual_seed(11)
     with torch.no_grad():
@@ -2876,9 +3257,13 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
             for k in ("a", "b"):
                 ref.lora[name][k].copy_(ab[k])
     size = cfg["IMAGE_SIZE"]
+    img_h, img_w = bucket or (size, size)
     batch = next(synthetic_batches(2, size, seed=5, model=model))
+    if bucket is not None:
+        batch["image"] = np.random.default_rng(5).uniform(-1.0, 1.0, (2, img_h, img_w, 3)).astype(np.float32)
+        batch.update({k: np.tile(np.asarray(v, np.float32), (2, 1)) for k, v in BUCKET_REF_TUPLES.items()})
     channels = dev.model.vae.config.latent_channels
-    noise = torch.randn(2, size // 8, size // 8, channels, generator=g, device="cuda")
+    noise = torch.randn(2, img_h // 8, img_w // 8, channels, generator=g, device="cuda")
     if gated is not None:
         reset(counters)
     staged = dev.stage_batch(batch)
@@ -2892,8 +3277,8 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
     flat = lambda gs: torch.cat([gr.detach().float().cpu().reshape(-1) for gr in gs])
     # the student's own backward: LoRA gradients of <student(x), w>, on the
     # card, then on the CPU in bf16 (plain paths) and in fp32
-    x, w = (torch.randn(2, size // 8, size // 8, 4, generator=g, device="cuda") for _ in range(2))
-    args = (x, torch.full((2,), 500, device="cuda"), staged["__conds"][1], w)
+    x, proj = (torch.randn(2, img_h // 8, img_w // 8, 4, generator=g, device="cuda") for _ in range(2))
+    args = (x, torch.full((2,), 500, device="cuda"), staged["__conds"][1], proj)
 
     def probe(tr, x, t, cond, w):
         out = tr.model._student_forward(x, t, cond).float()
@@ -2960,7 +3345,8 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
             "lora grads": 0.1, "disc grads": 0.1, "vae encode": 0.1}
     if model in TRAIN_REF_LOSS_TOL:
         tols.update(dict.fromkeys(("loss/distill", "loss/dmd"), TRAIN_REF_LOSS_TOL[model]))
-    print(f"{model} training reference at {size}², batch 2, {cfg['TEACHER_SCHEDULER']} from start index "
+    where = f"{size}²" if bucket is None else f"the {img_h} × {img_w} bucket of {size}²'s ladder"
+    print(f"{model} training reference at {where}, batch 2, {cfg['TEACHER_SCHEDULER']} from start index "
           f"{draws['start_idx']} of K = {cfg['K'][0]}, discriminator {dev.model.discriminator.config.num_stages} "
           f"stages: card " + ", ".join(f"{k} {num(v):.5g}" for k, v in aux.items()) + "; CPU fp32 "
           + ", ".join(f"{k} {num(v):.5g}" for k, v in ref_aux.items()) + "; errors (tol) "
@@ -3135,7 +3521,8 @@ def main():
     }
     # phase 2: kernels vs plain at the main paths' shapes
     check_attention(attention, results)
-    check_packed(attention, results, "flash_fwd_oneshot_packed", PACKED_SHAPES, PACKED_RAGGED, 2)
+    check_packed(attention, results, "flash_fwd_oneshot_packed", PACKED_SHAPES + PACKED_SHAPES_BUCKET, PACKED_RAGGED,
+                 2)
     check_packed(attention, results, "flash_fwd_packed", PACKED_STREAM_SHAPES, PACKED_STREAM_RAGGED, 10)
     check_layer_norm(norms, results)
     check_group_norm(norms, results)
@@ -3184,9 +3571,9 @@ def main():
     mark("5, 5b")
     by_path["train_sdxl"] = run_training("sdxl", counters, card, (
         "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "flash_bwd_dkv",
-        "flash_bwd_dq", "flash_bwd_oneshot", *gn), gated_shapes())
+        "flash_bwd_dq", "flash_bwd_oneshot", *gn), gated_shapes(), steps=3)
     torch.cuda.empty_cache()
-    check_training_reference("sdxl")
+    check_training_reference("sdxl", depth=REF_DEPTH["sdxl"])
     torch.cuda.empty_cache()
     mark("5c, 5d")
 
@@ -3220,7 +3607,7 @@ def main():
     by_path["train_pixart"] = run_training("pixart", counters, card, (
         "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes())
     torch.cuda.empty_cache()
-    check_training_reference("pixart")
+    check_training_reference("pixart", depth=REF_DEPTH["pixart"])
     torch.cuda.empty_cache()
     mark("7c, 7d")
 
@@ -3255,7 +3642,7 @@ def main():
         "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes())
     torch.cuda.empty_cache()
     mark("9")
-    check_training_reference("sd3", counters=counters, gated=gated_shapes())
+    check_training_reference("sd3", counters=counters, gated=gated_shapes(), depth=REF_DEPTH["sd3"])
     torch.cuda.empty_cache()
     mark("9b")
 
@@ -3269,6 +3656,11 @@ def main():
     by_path["train_run"] = run_training_run(counters, card, train_kernels, gated_shapes(), run_root.name)
     torch.cuda.empty_cache()
     mark("10")
+
+    # phase 10b: the native JPEG decoder on the card's host, over phase 10's
+    # shards: its build, ms an image against PIL, agreement with PIL
+    check_native_decoder(run_root.name)
+    mark("10b")
 
     # phases 11 and 11b: the Canny T2I-Adapter run on phase 10's shards
     # (the Canny mapper in the data chain, the frozen adapter's residuals
@@ -3299,6 +3691,21 @@ def main():
                                               "group_norm_fused"), gated_shapes())
     torch.cuda.empty_cache()
     mark("12b")
+
+    # phases 13 and 13b: SDXL training on aspect buckets through the user's
+    # entry points (the bucketed data, the ladder's discriminator, a warm
+    # and a timed step in each of three buckets, the kohya export read back
+    # exactly), every launched shape among phase 2's; then a bucketed step
+    # against the fp32 plain reference on a small non-square input
+    with tempfile.TemporaryDirectory() as bucket_root:
+        by_path["train_sdxl_buckets"] = run_bucketed_training(counters, card, (
+            "flash_fwd_oneshot", "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "flash_bwd_dkv",
+            "flash_bwd_dq", "flash_bwd_oneshot", *gn), gated_shapes(), bucket_root)
+    torch.cuda.empty_cache()
+    mark("13")
+    check_training_reference("sdxl", start=BUCKET_REF_START, bucket=BUCKET_REF, depth=REF_DEPTH["sdxl"])
+    torch.cuda.empty_cache()
+    mark("13b")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

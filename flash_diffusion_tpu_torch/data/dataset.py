@@ -3,7 +3,8 @@
 Port of ``flash_diffusion_tpu/data/dataset.py:39-474``: shard list (brace
 expansion) → shuffle → split by host → split by worker → tar → samples
 grouped by file stem → decode → filters and mappers → shuffle buffer →
-batches. A shard is a local path, a ``file://`` or ``http(s)://`` URL, or a
+batches (one aspect bucket a batch with ``aspect_bucketing``). A shard is
+a local path, a ``file://`` or ``http(s)://`` URL, or a
 ``pipe:`` command (``gs://`` and ``s3://`` through ``gsutil`` and ``aws``).
 A corrupt member, shard or mapper input logs a warning and is skipped
 (webdataset's ``warn_and_continue``). Workers are threads sharing one
@@ -47,7 +48,10 @@ class DataModuleConfig(BaseConfig):
     worker_backend: str = "thread"  # thread | process
     shuffle_buffer_size: int = 100
     shuffle_shards: bool = True
-    decoder: str = "pil"  # pil: images decoded to PIL; raw: bytes for every member
+    # pil: images decoded to PIL; raw: bytes for every member; raw_image:
+    # JPEG members stay bytes (for ``native_decode.NativeDecodeMapper``),
+    # other images decode to PIL, JSON and text as with pil
+    decoder: str = "pil"  # pil | raw | raw_image
     seed: int = 0
     drop_last: bool = True
     # member-name rewrite of extensions before grouping (rename_files_fn)
@@ -55,11 +59,15 @@ class DataModuleConfig(BaseConfig):
     # JPEG draft decode: libjpeg decodes at the smallest DCT scale whose
     # result still covers (size, size); None decodes at full size
     decode_draft_size: Optional[int] = None
+    # aspect-ratio bucketing (``data/bucketing.py``): with a
+    # ``BucketAssignMapper`` in the chain, ``batches`` groups samples by
+    # their ``__bucket__`` so that each batch has one (h, w)
+    aspect_bucketing: bool = False
 
 
 def _decode_member(name: str, data: bytes, decoder: str, draft_size: Optional[int] = None) -> Any:
     ext = name.rsplit(".", 1)[-1].lower()
-    if decoder == "raw":
+    if decoder == "raw" or (decoder == "raw_image" and ext in ("jpg", "jpeg")):
         return data
     if ext in ("jpg", "jpeg", "png", "webp"):
         from PIL import Image
@@ -314,6 +322,11 @@ class DataPipeline:
 
     def batches(self, epoch: int = 0) -> Iterator[Dict[str, Any]]:
         cfg = self.config
+        if cfg.aspect_bucketing:
+            from .bucketing import bucket_batches
+
+            yield from bucket_batches(self.samples(epoch), cfg.per_worker_batch_size, drop_last=cfg.drop_last)
+            return
         batch: List[Dict[str, Any]] = []
         for sample in self.samples(epoch):
             batch.append(sample)

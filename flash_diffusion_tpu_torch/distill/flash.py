@@ -8,9 +8,11 @@ distill loss (LPIPS through a checkpointed decode), DMD, and both GAN losses
 from one shared computation, summed as loss_G + loss_D so that one backward
 updates the LoRA factors and the discriminator (``distill/losses.py``).
 
-The student is the teacher's modules plus the LoRA side path
+The student is the teacher's modules plus the LoRA pairs
 (``lora.shared_copy`` + ``lora.attach_lora``, built by ``attach_lora``
-below): no merged weights. The teacher rollout and the DMD forwards run
+below): a dense-only tree on the side path, with no merged weights; a tree
+with a conv pair (a resnet convolution, say) on weights that read W +
+scaling·Δ(A, B) at each use, JAX's merged-weights path. The teacher rollout and the DMD forwards run
 under ``torch.no_grad()``.
 
 Randomness: ``jax.random`` and ``torch.Generator`` never agree, so every
@@ -71,7 +73,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
-from ..lora import LoraTree, attach_lora, lora_is_dense_only, shared_copy
+from ..lora import LoraTree, attach_lora, lora_delta, lora_slot, shared_copy
 from ..schedulers import REGISTRY, SchedulerConfig, add_noise, training_tables
 from .common import boundary_scalings, predicted_x0_eps, sample_start_index, stage_index, timestep_pdf
 from .losses import center_crop, dmd_loss, gan_losses, huber_loss, l1_loss, l2_loss
@@ -197,10 +199,10 @@ class FlashDiffusion:
         ]
 
     def attach_lora(self, lora: LoraTree) -> None:
-        """The student: the teacher's modules, shared, with ``lora`` attached
-        (dense pairs only: the side path, as JAX takes for such trees)."""
-        if not lora_is_dense_only(lora):
-            raise ValueError("the port's LoRA trees are dense-only (1×1 convs included)")
+        """The student: the teacher's modules, shared, with ``lora`` attached:
+        a dense-only tree on the side path, a tree with a conv pair as merged
+        weights W + scaling·Δ(A, B) (``lora.attach_lora``), as JAX's
+        ``_student_forward`` chooses (``flash.py:214-240``)."""
         self.student_module = attach_lora(shared_copy(self.teacher_module), lora, self.lora_scaling)
 
     def stage_for_iteration(self, iter_step: int) -> int:
@@ -213,23 +215,22 @@ class FlashDiffusion:
         ``_merged_teacher``). The student shares the weights."""
         for name, ab in lora.items():
             w = self.teacher_module.get_submodule(name).weight
-            delta = (ab["a"].detach().float() @ ab["b"].detach().float()).t() * self.lora_scaling
-            w.copy_((w.float() + delta.reshape(w.shape)).to(w.dtype))
+            w.copy_((w.float() + self.lora_scaling * lora_delta(ab["a"], ab["b"], w.shape)).to(w.dtype))
 
     @contextlib.contextmanager
     def using_lora(self, lora: Optional[LoraTree]):
-        """The student with ``lora``'s tensors on its side path for the
+        """The student with ``lora``'s tensors in place of its pairs for the
         block (the EMA tree, say); the trained tree is back on exit."""
         prev = {}
         try:
             for name, ab in (lora or {}).items():
-                m = self.student_module.get_submodule(name)
-                prev[name] = m.lora
-                m.lora = (ab["a"], ab["b"], float(self.lora_scaling))
+                slot = lora_slot(self.student_module, name)
+                prev[name] = slot.lora
+                slot.lora = (ab["a"], ab["b"], float(self.lora_scaling))
             yield
         finally:
             for name, v in prev.items():
-                self.student_module.get_submodule(name).lora = v
+                lora_slot(self.student_module, name).lora = v
 
     def _sample_loop(self, module, mod, sched, z, cond2, g_scale, do_cfg, stochastic, noise, generator,
                      adapter2=None):

@@ -209,7 +209,7 @@ def import_inception_v3(sd: StateDict) -> StateDict:
     return {k: torch.as_tensor(v) for k, v in sd.items() if not k.startswith(("fc.", "AuxLogits."))}
 
 
-def load_inception_v3(path: str, fid_variant: bool = False, device="cpu") -> InceptionV3Pool3:
+def load_inception_v3(path: str, fid_variant: bool = False, device="cuda") -> InceptionV3Pool3:
     """``InceptionV3Pool3`` on ``device`` from a local torchvision-named
     checkpoint (``.pth`` or ``.safetensors``); no network access."""
     if path.endswith(".safetensors"):

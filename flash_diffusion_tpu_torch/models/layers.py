@@ -81,6 +81,15 @@ def _dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
                       getattr(layer, SCALE_KEY, None))
 
 
+class DenseConv1x1(nn.Conv2d):
+    """A 1×1 convolution (the checkpoint's layout: SD1.5's ``proj_in`` and
+    ``proj_out``) that runs as the JAX ``LoraDense`` on the tokens, through
+    ``_dense``: a LoRA over it is a dense pair (``lora.py``)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 1)
+
+
 class LoraLinear(nn.Linear):
     """``nn.Linear`` (same parameters and state-dict keys) whose forward is
     ``lora_dense``: ``self.lora`` holds an attached factor pair, or None."""
@@ -302,7 +311,7 @@ class SpatialTransformer(nn.Module):
                  depth: int = 1, use_linear_projection: bool = False):
         super().__init__()
         proj = (lambda: LoraLinear(channels, channels)) if use_linear_projection else (
-            lambda: nn.Conv2d(channels, channels, 1))
+            lambda: DenseConv1x1(channels))
         self.norm = GroupNorm(channels, groups, eps=1e-6)
         self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(

@@ -24,7 +24,9 @@ over ``EVAL_SHARDS_PATH_OR_URLS``, checkpoints every
 restores the latest), and at the end the LoRA student (the EMA one when
 tracked) as ``<output-dir>/pytorch_lora_weights.safetensors`` (PEFT names,
 the ``unet`` or ``transformer`` prefix); the CLI also checkpoints the last
-step, so that ``--resume`` continues any run.
+step, so that ``--resume`` continues any run, and for ``sdxl`` writes a
+kohya-format copy for ComfyUI, ``<output-dir>/comfy/FlashSDXL.safetensors``
+(``lora.save_kohya_safetensors``).
 By model (its default yaml in ``CONFIGS``):
 
 - ``sd15``: SD1.5 UNet, SD VAE, CLIP-L (its last hidden state); mid block
@@ -77,7 +79,9 @@ repository). Data: ``build_data(cfg)`` streams local (or URL, or ``pipe:``)
 webdataset shards of ``.jpg`` + ``.json`` (``caption``,
 ``aesthetic_score``), kept at ``MIN_AESTHETIC_SCORE`` and above, each image
 resized and center-cropped to ``IMAGE_SIZE`` square and scaled to
-[-1, 1], as ``examples/common.py`` builds it; ``tokenize_batches`` adds the
+[-1, 1], as ``examples/common.py`` builds it (``ASPECT_BUCKETING``: batches
+of one aspect bucket each, with their real SDXL size tuples; ``DECODER:
+native``: the native JPEG decoder); ``tokenize_batches`` adds the
 token ids (a local tokenizer under ``weights_root``, else zero ids, as in
 JAX). Without a shard, ``synthetic_batches`` makes batches from a seed, and
 the CLI logs which source it used. Batch layout at the boundary: ``image`` [B, H, W, 3] fp32 in [-1, 1] (NHWC, as the JAX
@@ -109,7 +113,7 @@ from .distill import (
     FlashDiffusionSD3Config,
     sd3_discriminator_config,
 )
-from .lora import init_lora, lora_scaling, save_peft_safetensors
+from .lora import init_lora, lora_scaling, save_kohya_safetensors, save_peft_safetensors
 from .models import T2IAdapter, T2IAdapterConfig
 from .sample import (
     PIXART_SCHEDULER,
@@ -256,14 +260,27 @@ def data_mappers(model: str) -> list:
 def build_data(cfg: Dict[str, Any], extra_filters_mappers=(), num_workers: Optional[int] = None,
                worker_backend: str = "thread"):
     """The training ``DataPipeline`` over ``cfg["SHARDS_PATH_OR_URLS"]``, the
-    port of ``examples/common.py:119-226`` with the PIL decoder: samples
-    with ``jpg`` and ``json``, ``caption`` → ``text`` and ``aesthetic_score``
-    read from the JSON, ``jpg`` → ``image`` resized to ``IMAGE_SIZE``
-    square, center-cropped and scaled to [-1, 1], kept when the score is at
-    least ``MIN_AESTHETIC_SCORE`` (6.0) or absent; batches of
-    ``BATCH_SIZE``. ``ASPECT_BUCKETING`` and ``DECODER: native`` are not
-    ported and raise."""
+    port of ``examples/common.py:119-226``: samples with ``jpg`` and
+    ``json``, ``caption`` → ``text`` and ``aesthetic_score`` read from the
+    JSON, ``jpg`` → ``image`` in [-1, 1], kept when the score is at least
+    ``MIN_AESTHETIC_SCORE`` (6.0) or absent; batches of ``BATCH_SIZE``. The
+    image, by the config:
+
+    - by default resized to ``IMAGE_SIZE`` square and center-cropped (PIL);
+    - with ``ASPECT_BUCKETING``, fitted by ``BucketAssignMapper`` to the
+      nearest bucket of ``make_buckets(IMAGE_SIZE, BUCKET_STRIDE (64),
+      BUCKET_MAX_ASPECT (2.0))``, cropped at ``BUCKET_CROP`` (center), with
+      the real SDXL size tuples; a batch holds one bucket, and the draft
+      decode covers ``IMAGE_SIZE · BUCKET_MAX_ASPECT`` unless
+      ``DECODE_DRAFT_SIZE`` says otherwise;
+    - with ``DECODER: native`` (and no bucketing), decoded, resized,
+      cropped and scaled in one call of the native decoder
+      (``data/native_decode.py``; JPEG members stay bytes), or by PIL as
+      above where that decoder does not build (``is_available()``), as the
+      JAX example falls back. The log says which decoder runs."""
     from .data import (
+        BucketAssignMapper,
+        BucketAssignMapperConfig,
         DataModuleConfig,
         DataPipeline,
         FilterOnCondition,
@@ -280,24 +297,37 @@ def build_data(cfg: Dict[str, Any], extra_filters_mappers=(), num_workers: Optio
         RescaleMapper,
         RescaleMapperConfig,
     )
+    from .data import native_decode
 
-    if cfg.get("ASPECT_BUCKETING", False):
-        raise ValueError("ASPECT_BUCKETING is not ported yet (ROADMAP Queue 1 item 3)")
-    if cfg.get("DECODER", "pil") == "native":
-        raise ValueError("DECODER: native is not ported yet (ROADMAP Queue 1 item 3)")
     size = cfg.get("IMAGE_SIZE", 512)
+    bucketing = bool(cfg.get("ASPECT_BUCKETING", False))
+    native = cfg.get("DECODER", "pil") == "native" and not bucketing  # the native path is square
+    if native and not native_decode.is_available():
+        logger.warning("data: DECODER native is unavailable here (%s); decoding with PIL",
+                       native_decode.BUILD_INFO.get("error"))
+        native = False
+    logger.info("data: %s decoder%s", "native" if native else "PIL",
+                ", aspect buckets" if bucketing else f", {size}² center crops")
+    if bucketing:
+        image_mapper = BucketAssignMapper(BucketAssignMapperConfig(
+            key="image", buckets=bucket_ladder(cfg), crop=cfg.get("BUCKET_CROP", "center")))
+    elif native:
+        image_mapper = native_decode.NativeDecodeMapper(
+            native_decode.NativeDecodeMapperConfig(key="image", height=size, width=size))
+    else:
+        image_mapper = ImageTransformMapper(ImageTransformMapperConfig(key="image", transforms=[
+            {"name": "Resize", "size": [size, size]},
+            {"name": "CenterCrop", "size": [size, size]},
+            {"name": "ToTensor"},
+        ]))
     chain = [
         KeyFilter(KeyFilterConfig(keys=["jpg", "json"])),
         MapperWrapper([
             KeysFromJSONMapper(KeysFromJSONMapperConfig(
                 key="json", keys_to_extract=["caption", "aesthetic_score"], remove_original=True, strict=False)),
             KeyRenameMapper(KeyRenameMapperConfig(key_map={"jpg": "image", "caption": "text"})),
-            ImageTransformMapper(ImageTransformMapperConfig(key="image", transforms=[
-                {"name": "Resize", "size": [size, size]},
-                {"name": "CenterCrop", "size": [size, size]},
-                {"name": "ToTensor"},
-            ])),
-            RescaleMapper(RescaleMapperConfig(key="image")),
+            image_mapper,
+            *([] if native else [RescaleMapper(RescaleMapperConfig(key="image"))]),  # native gives [-1, 1]
         ]),
         FilterOnCondition(FilterOnConditionConfig(condition_key="aesthetic_score", strict=False),
                           _AtLeast(cfg.get("MIN_AESTHETIC_SCORE", 6.0))),
@@ -309,7 +339,11 @@ def build_data(cfg: Dict[str, Any], extra_filters_mappers=(), num_workers: Optio
         num_workers=cfg.get("NUM_WORKERS", 2) if num_workers is None else num_workers,
         worker_backend=worker_backend,
         shuffle_buffer_size=cfg.get("SHUFFLE_BUFFER_SIZE", 100),
-        decode_draft_size=cfg.get("DECODE_DRAFT_SIZE", size),
+        # with buckets the draft decode must cover the longest bucket side
+        decode_draft_size=cfg.get("DECODE_DRAFT_SIZE",
+                                  int(size * cfg.get("BUCKET_MAX_ASPECT", 2.0)) if bucketing else size),
+        aspect_bucketing=bucketing,
+        decoder="raw_image" if native else "pil",
         seed=cfg.get("SEED", 0),
     )
     return DataPipeline(data_cfg, chain)
@@ -335,13 +369,15 @@ def make_tokenizer(model: str, cfg: Dict[str, Any], weights_root: str = ""):
 
 def tokenize_batches(batches, tokenizer, model: str = "sd15", image_size: int = 512):
     """Each batch with ``tokenizer(batch["text"])``'s ids added, and the
-    family's extras: SDXL's size tuples (``image_size`` square, crop (0, 0))
-    and Pixart's ``resolution_ar``."""
+    family's extras: SDXL's size tuples where the batch has none
+    (``image_size`` square, crop (0, 0)), as ``train_flash_sdxl.py:195-203``
+    makes them (a bucketed batch carries its own), and Pixart's
+    ``resolution_ar``."""
     for batch in batches:
         batch = dict(batch)
         batch.update(tokenizer(list(batch["text"])))
         n = len(batch["text"])
-        if model == "sdxl":
+        if model == "sdxl" and "original_size_as_tuple" not in batch:
             batch.update(size_cond_fn(n, image_size, image_size))
         elif model == "pixart":
             batch["resolution_ar"] = np.tile([float(image_size), float(image_size), 1.0], (n, 1)).astype(np.float32)
@@ -356,13 +392,30 @@ def _shards_present(specs) -> bool:
                for s in expand_shards(specs or []))
 
 
-def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
+def bucket_ladder(cfg: Dict[str, Any]):
+    """The (h, w) buckets of ``ASPECT_BUCKETING`` (``build_data``'s ladder),
+    or None without it."""
+    if not cfg.get("ASPECT_BUCKETING", False):
+        return None
+    from .data import make_buckets
+
+    return make_buckets(cfg["IMAGE_SIZE"], cfg.get("BUCKET_STRIDE", 64), cfg.get("BUCKET_MAX_ASPECT", 2.0))
+
+
+def _discriminator(model: str, denoiser, size: int, buckets=None) -> ConvDiscriminator:
     """Pixart's 64-feature, 3-stage discriminator over the DiT's 4-channel
     output latents, fixed as ``train_flash_pixart.py`` fixes it; SD3's over
     the MMDiT's 16-channel post-mid features (latent-sized: size / 8),
     ``train_flash_sd3.py``'s 4 stages or as many as leave the 4×4 head; a
     UNet's over its mid features, with as many stages as the mid block's
-    size leaves the 4×4 head."""
+    size leaves the 4×4 head. With ``buckets`` (the ladder of
+    ``ASPECT_BUCKETING``, ``bucket_ladder``) the UNet's count comes from the
+    shortest side of the buckets' mid features, so that every bucket
+    reaches the head (at 1024² with max aspect 2: 704 / 32 = 22, 2 stages).
+    Here the port leaves the JAX example's rule
+    (``train_flash_sdxl.py:85-89``, from ``IMAGE_SIZE`` alone: 3 stages at
+    1024²), which reduces every non-square bucket's mid features below the
+    head: 34×30 at the (1088, 960) bucket becomes 4×3."""
     if model == "pixart":
         return ConvDiscriminator(DiscriminatorConfig(feature_dim=64, num_stages=3),
                                  in_channels=denoiser.config.in_channels)
@@ -371,7 +424,8 @@ def _discriminator(model: str, denoiser, size: int) -> ConvDiscriminator:
         return ConvDiscriminator(sd3_discriminator_config(num_stages=min(4, fit)),
                                  in_channels=denoiser.config.in_channels)
     per_mid, features = _MID[FAMILY.get(model, model)]
-    num_stages = max(0, int(math.log2(max(size // per_mid // 4, 1))))
+    side = min(min(hw) for hw in buckets) if buckets else size
+    num_stages = max(0, int(math.log2(max(side // per_mid // 4, 1))))
     return ConvDiscriminator(DiscriminatorConfig(feature_dim=features, num_stages=num_stages),
                              in_channels=denoiser.config.block_out_channels[-1])
 
@@ -406,7 +460,7 @@ def build_trainer(
         torch.manual_seed(seed)
         with device:
             denoiser, vae, conditioners, towers, _ = build_modules(family, remat=True, **t5)
-            disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"])
+            disc = _discriminator(model, denoiser, cfg["IMAGE_SIZE"], bucket_ladder(cfg))
             lpips = LPIPS() if cfg["DISTILL_LOSS_TYPE"] == "lpips" else None
             adapter = T2IAdapter(T2IAdapterConfig()) if model in ADAPTER_INPUT else None
         if weights_root:
@@ -524,8 +578,14 @@ def main():
         save_state(tc.checkpoint_dir, trainer.step, trainer.state_dict())
         logger.info("step %d: checkpoint saved to %s", trainer.step, tc.checkpoint_dir)
     out = os.path.join(args.output_dir, "pytorch_lora_weights.safetensors")
-    save_peft_safetensors(out, export_lora(trainer), prefix=LORA_PREFIX[FAMILY.get(args.model, args.model)])
+    lora = export_lora(trainer)
+    save_peft_safetensors(out, lora, prefix=LORA_PREFIX[FAMILY.get(args.model, args.model)])
     print("saved", out)
+    if args.model == "sdxl":  # a kohya-format copy for ComfyUI, as train_flash_sdxl.py:231-236 writes
+        comfy = os.path.join(args.output_dir, "comfy", "FlashSDXL.safetensors")
+        os.makedirs(os.path.dirname(comfy), exist_ok=True)
+        save_kohya_safetensors(comfy, lora)
+        print("saved", comfy)
 
 
 if __name__ == "__main__":

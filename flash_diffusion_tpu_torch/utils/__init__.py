@@ -8,6 +8,7 @@ from .convert import (
     dpt_from_jax,
     inception_from_jax,
     lora_from_jax,
+    lora_to_jax,
     lpips_from_jax,
     mmdit_from_jax,
     module_embedder_from_jax,
@@ -25,6 +26,7 @@ __all__ = [
     "dpt_from_jax",
     "inception_from_jax",
     "lora_from_jax",
+    "lora_to_jax",
     "lpips_from_jax",
     "mmdit_from_jax",
     "module_embedder_from_jax",

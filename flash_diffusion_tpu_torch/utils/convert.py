@@ -301,8 +301,12 @@ def lora_path_to_port(path: str, config) -> Optional[str]:
     ``transformer_blocks.3.ff.net.0.proj``) or, for an MMDiT ``config``
     (one with ``joint_attention_dim``), of the MMDiT (``block_3/to_q/kernel``
     → ``transformer_blocks.3.attn.to_q``, ``block_3/ff_context_out/kernel``
-    → ``transformer_blocks.3.ff_context.net.2``); None for the DiT's or the
-    MMDiT's inert root ``proj_out``."""
+    → ``transformer_blocks.3.ff_context.net.2``); a UNet's convolutions
+    too, for conv pairs (``up_1_resnet_2/conv1/kernel`` →
+    ``up_blocks.0.resnets.2.conv1`` in a 2-level UNet,
+    ``down_0_downsample/conv/kernel`` → ``down_blocks.0.downsamplers.0.conv``,
+    ``mid_resnet_1/conv2/kernel``, ``conv_in/kernel``); None for the DiT's
+    or the MMDiT's inert root ``proj_out``."""
     parts = path.split("/")
     if parts[0] == "params":
         parts = parts[1:]
@@ -318,6 +322,18 @@ def lora_path_to_port(path: str, config) -> Optional[str]:
         leaf = _DIT_LORA_LEAVES.get(rest[-1], rest[-1])
         return ".".join(["transformer_blocks", m.group(1), *rest[:-1], leaf])
     n = len(config.block_out_channels)
+    if top in ("conv_in", "conv_out") and not rest:
+        return top
+    m = re.fullmatch(r"(down|up)_(\d+)_(resnet_(\d+)|downsample|upsample)", top) or re.fullmatch(
+        r"mid_(resnet)_(\d+)", top)
+    if m:  # the convolutions (and time_emb_proj) of a resnet, a down- or upsampler
+        if top.startswith("mid_"):
+            return f"mid_block.resnets.{m.group(2)}.{'.'.join(rest)}"
+        lvl = int(m.group(2))
+        block = f"down_blocks.{lvl}" if m.group(1) == "down" else f"up_blocks.{n - 1 - lvl}"
+        if m.group(4) is not None:
+            return f"{block}.resnets.{m.group(4)}.{'.'.join(rest)}"
+        return f"{block}.{m.group(3)}rs.0.{'.'.join(rest)}"
     m = re.fullmatch(r"(down|up)_(\d+)_attn_(\d+)", top)
     if m:
         lvl, j = int(m.group(2)), int(m.group(3))
@@ -338,8 +354,9 @@ def lora_path_to_port(path: str, config) -> Optional[str]:
 
 def lora_from_jax(lora: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``init_lora`` tree of the UNet, the DiT or the MMDiT → the port's
-    ``{module name: {"a": [in, r], "b": [r, out]}}`` (the same layouts),
-    without the inert root pair (``DIT_INERT_LORA``)."""
+    ``{module name: {"a": [in, r], "b": [r, out]}}`` (the same layouts; a
+    conv pair's ``a`` [kh, kw, in, r]), without the inert root pair
+    (``DIT_INERT_LORA``)."""
     out = {}
 
     def walk(tree, path):
@@ -352,6 +369,25 @@ def lora_from_jax(lora: Dict[str, Any], config) -> Dict[str, Dict[str, torch.Ten
             walk(v, path + [k])
 
     walk(lora, [])
+    return out
+
+
+def lora_to_jax(lora: Dict[str, Dict[str, torch.Tensor]], config, paths) -> Dict[str, Any]:
+    """``lora_from_jax``'s inverse: a port LoRA tree → the JAX ``init_lora``
+    tree (nested dicts of numpy arrays, the same layouts), over ``paths``,
+    JAX ``lora_paths`` of the same model (each mapped by
+    ``lora_path_to_port``); every pair of ``lora`` must have its path."""
+    by_name = {lora_path_to_port(p, config): p for p in paths}
+    missing = sorted(set(lora) - set(by_name))
+    if missing:
+        raise KeyError(f"no JAX path for the port's LoRA pairs {missing}")
+    out: Dict[str, Any] = {}
+    for name, ab in lora.items():
+        node = out
+        for part in by_name[name].split("/"):
+            node = node.setdefault(part, {})
+        for k in ("a", "b"):
+            node[k] = ab[k].detach().float().cpu().numpy()
     return out
 
 

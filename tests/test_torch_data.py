@@ -117,7 +117,10 @@ def test_pipeline_matches_jax_sample_for_sample(jax_ref, shards, ext):
 def test_build_data_matches_the_jax_example(jax_ref, shards):
     """``train.build_data`` against ``examples/common.py``'s ``build_data``
     (one worker each, the same seed): the same batches, images [B, 16, 16, 3]
-    in [-1, 1], captions as ``text``, scores below 6 dropped."""
+    in [-1, 1], captions as ``text``, scores below 6 dropped; the same with
+    ``ASPECT_BUCKETING`` (a 32² budget at stride 8: buckets (40, 24), (32,
+    32), (24, 40); each batch of one bucket, its SDXL size tuples equal)
+    and with ``DECODER: native`` (the native decoder, bit-equal)."""
     root, _ = shards
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
     try:
@@ -134,10 +137,26 @@ def test_build_data_matches_the_jax_example(jax_ref, shards):
         np.testing.assert_array_equal(g["image"], w["image"])
         assert g["image"].min() >= -1.0 and g["image"].max() <= 1.0
         assert all(s >= 6.0 for s in g["aesthetic_score"])
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        train.build_data({**cfg, "ASPECT_BUCKETING": True})
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        train.build_data({**cfg, "DECODER": "native"})
+    bucketed = {**cfg, "IMAGE_SIZE": 32, "ASPECT_BUCKETING": True, "BUCKET_STRIDE": 8}
+    got = list(train.build_data(bucketed).batches(0))
+    want = list(jcommon.build_data(bucketed).batches(0))
+    assert len(got) == len(want) >= 3
+    shapes = {g["image"].shape[1:3] for g in got}
+    assert len(shapes) >= 2 and shapes <= {(40, 24), (32, 32), (24, 40)}
+    keys = ("image", "original_size_as_tuple", "crop_coords_top_left", "target_size_as_tuple", "aesthetic_score")
+    for g, w in zip(got, want):
+        assert g["text"] == w["text"] and g.keys() == w.keys()
+        for k in keys:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+        assert (g["target_size_as_tuple"] == g["image"].shape[1:3]).all()
+        assert g["image"].min() >= -1.0 and g["image"].max() <= 1.0
+    native = {**cfg, "DECODER": "native"}
+    got = list(train.build_data(native).batches(0))
+    want = list(jcommon.build_data(native).batches(0))
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g["text"] == w["text"] and g["image"].shape == (2, 16, 16, 3)
+        np.testing.assert_array_equal(g["image"], w["image"])
 
 
 def test_brace_expansion_matches_jax(jax_ref):

@@ -14,7 +14,10 @@
   ``vector`` conditioning, a discriminator over the UNet's mid features)
   against ``jax.value_and_grad(FlashDiffusion.losses)``, with the draws
   made from a JAX key whose start index lets a second-order step run, to
-  1e-4 (``tests/test_torch_train.py`` holds SD1.5 so);
+  1e-4 (``tests/test_torch_train.py`` holds SD1.5 so); the same step
+  (``build_sdxl_step``) on a non-square bucket's latent with the real size
+  tuples' embeddings, and with a conv LoRA pair on a resnet conv (JAX's
+  merged-weights path; the port's parametrized weights under ``remat``);
 - ``build_trainer("sdxl")`` on ``flash_sdxl.yaml`` with tiny modules, one
   ``fit`` step of it, ``synthetic_batches``' size keys and the LoRA tree's
   names against JAX ``lora_paths``.
@@ -37,7 +40,7 @@ from flash_diffusion_tpu_torch.schedulers import REGISTRY, SchedulerConfig, dpm
 from flash_diffusion_tpu_torch.utils import discriminator_from_jax, lora_from_jax, unet_from_jax
 from flash_diffusion_tpu_torch.utils.convert import lora_path_to_port
 from golden.diffusers_port import GoldenDPMSolverMultistep
-from test_torch_pipeline import CLIP_KW, SDXL_UNET_KW, VAE_KW
+from test_torch_pipeline import CLIP_KW, SDXL_UNET_KW, SIZE_CHANNELS, VAE_KW
 from test_torch_train import close, jax_step_draws, perturbed, t_
 
 try:  # the JAX reference; absent where only the port is installed
@@ -211,35 +214,50 @@ def test_dpm_teacher_rollout_matches_jax(rollouts, start_idx):
 
 
 # ---------------------------------------------------------------- the step
-@pytest.fixture(scope="module")
-def sdxl_step(sdxl_unet):
+def build_sdxl_step(sdxl_unet, hw=(HW, HW), targets=None, size_part=None, remat=False):
     """The tiny SDXL FlashDiffusion in both packages (DPM teacher, K = [4],
     l2 distill (the LPIPS one is held in tests/test_torch_train.py), DMD,
-    lsgan, a one-stage
-    discriminator over the mid features), perturbed weights, a non-zero
-    LoRA B, pre-staged ``__z``/``__conds``, and a JAX key whose start index
-    is 1: its rollout runs a first-order, a second-order and the final
-    step."""
+    lsgan, a one-stage discriminator over the mid features), perturbed
+    weights, a non-zero LoRA B, pre-staged ``__z``/``__conds``, and a JAX key
+    whose start index is 1: its rollout runs a first-order, a second-order
+    and the final step. ``hw``: the latent's (h, w); ``targets``: JAX
+    ``init_lora``'s (a conv target gives the merged-weights path);
+    ``size_part``: the conditioning vector's size embeddings [B, 48] (the
+    three SDXL size tuples'), else random; ``remat``: the port's UNet
+    recomputes its blocks in the backward."""
     net, uparams, unet = sdxl_unet
+    h, w = hw
     jdisc = JConvDiscriminator(JDiscriminatorConfig(feature_dim=8, num_stages=1))
-    dparams = perturbed(jdisc.init(jax.random.PRNGKey(3), jnp.zeros((B, HW // 2, HW // 2, MID_C))), 4)
-    lora = perturbed(jlora.init_lora(uparams, 2, jax.random.PRNGKey(5)), 6)
+    dparams = perturbed(jdisc.init(jax.random.PRNGKey(3), jnp.zeros((B, h // 2, w // 2, MID_C))), 4)
+    lora = perturbed(jlora.init_lora(uparams, 2, jax.random.PRNGKey(5), *([targets] if targets else [])), 6)
     kw = _flash_kw(distill_loss_type="l2", use_dmd_loss=True, gan_loss_type="lsgan", adversarial_loss_scale=0.5,
                    dmd_loss_scale=0.3)
     frozen = {"teacher": uparams}
     jmodel = JFlashDiffusion(JFlashDiffusionConfig(**kw), student_module=net, teacher_module=net,
                              teacher_scheduler=DPM, discriminator=jdisc, lora_scaling=0.5)
-    z = np.random.default_rng(18).standard_normal((B, HW, HW, C)).astype(np.float32)
+    z = np.random.default_rng(18).standard_normal((B, h, w, C)).astype(np.float32)
     conds = _conds(19)
+    if size_part is not None:
+        for c in conds:
+            c["vector"][:, 24:] = size_part
     stage = 0
     key = next(k for k in map(jax.random.PRNGKey, range(100))
                if int(jcommon.sample_start_index(jax.random.split(k, 8)[3], jmodel.stage_pdfs[stage])) == 1)
     jbatch = {"__z": jnp.asarray(z), "__conds": tuple({"cond": {k: jnp.asarray(v) for k, v in c.items()}}
                                                       for c in conds)}
     loss_fn = lambda tr: jmodel.losses(tr, frozen, jbatch, key, stage)
-    (total, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))({"lora": lora, "disc": dparams})
+    trainable = {"lora": lora, "disc": dparams}
+    # compiled without XLA's backend optimizations: a quarter less compile
+    # time, the same arithmetic
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(trainable).compile(
+        compiler_options={"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    (total, aux), grads = step(trainable)
 
     ucfg = unet.config
+    if remat:
+        unet = UNet2DCondition(UNetConfig(**SDXL_UNET_KW, use_linear_projection=True, remat=True))
+        unet.load_state_dict(unet_from_jax(uparams, ucfg))
+        unet.requires_grad_(False)
     dcfg = DiscriminatorConfig(feature_dim=8, num_stages=1)
     disc = ConvDiscriminator(dcfg, in_channels=MID_C)
     disc.load_state_dict(discriminator_from_jax(dparams, dcfg))
@@ -254,11 +272,10 @@ def sdxl_step(sdxl_unet):
     return tmodel, tl, tbatch, draws, stage, want
 
 
-def test_sdxl_flash_step_losses_and_grads_match_jax(sdxl_step):
+def check_sdxl_step(step):
     """``losses`` and the LoRA and discriminator gradients of one backward
-    vs ``jax.value_and_grad(FlashDiffusion.losses)``, DPM teacher from
-    start index 1 (no rollout noise drawn). Tolerance 1e-4."""
-    tmodel, tl, batch, draws, stage, want = sdxl_step
+    of a ``build_sdxl_step`` vs JAX's, to 1e-4."""
+    tmodel, tl, batch, draws, stage, want = step
     assert draws["start_idx"] == 1 and not tmodel._sched_stochastic
     total, aux = tmodel.losses(batch, draws, stage)
     total.backward()
@@ -271,6 +288,73 @@ def test_sdxl_flash_step_losses_and_grads_match_jax(sdxl_step):
             close(ab[k].grad, want["lora"][name][k], 1e-4, f"{name}.{k}")
     for name, p in tmodel.discriminator.named_parameters():
         close(p.grad, want["disc"][name], 1e-4, name)
+
+
+@pytest.fixture(scope="module")
+def sdxl_step(sdxl_unet):
+    """``build_sdxl_step`` at the square 16² latent."""
+    return build_sdxl_step(sdxl_unet)
+
+
+# a 128 × 192 bucket's latent, its image cut from a 300 × 450 original at
+# (top, left) = (10, 4), as ``BucketAssignMapper`` emits the tuples
+BUCKET_HW, BUCKET_TUPLES = (16, 24), {"original_size_as_tuple": (300, 450), "crop_coords_top_left": (10, 4),
+                                       "target_size_as_tuple": (128, 192)}
+
+
+def test_sdxl_flash_step_losses_and_grads_match_jax(sdxl_step):
+    """``losses`` and the LoRA and discriminator gradients of one backward
+    vs ``jax.value_and_grad(FlashDiffusion.losses)``, DPM teacher from
+    start index 1 (no rollout noise drawn). Tolerance 1e-4."""
+    check_sdxl_step(sdxl_step)
+
+
+def size_embeddings(tuples):
+    """The three SDXL size keys' sinusoidal embeddings ([B, 48]: 2 values ×
+    ``SIZE_CHANNELS`` each) through the port's ``TimestepsEmbedder`` and the
+    JAX one, which must agree."""
+    from flash_diffusion_tpu.models.embedders import TimestepsEmbedder as JEmbedder
+    from flash_diffusion_tpu.models.embedders import TimestepsEmbedderConfig as JEmbedderConfig
+    from flash_diffusion_tpu_torch.models.embedders import TimestepsEmbedder, TimestepsEmbedderConfig
+
+    got, want = [], []
+    for key in SIZE_KEYS:
+        batch = {key: np.tile(np.asarray(tuples[key], np.float32), (B, 1))}
+        port = TimestepsEmbedder(TimestepsEmbedderConfig(input_key=key, num_channels=SIZE_CHANNELS))
+        jemb = JEmbedder(JEmbedderConfig(input_key=key, num_channels=SIZE_CHANNELS))
+        got.append(port.embed(batch)["vector"].numpy())
+        want.append(np.asarray(jemb.embed({}, batch)["vector"]))
+    np.testing.assert_allclose(np.concatenate(got, 1), np.concatenate(want, 1), atol=1e-6)
+    return np.concatenate(want, 1)
+
+
+def test_sdxl_flash_step_on_a_non_square_bucket_matches_jax(sdxl_unet):
+    """The step of ``test_sdxl_flash_step_losses_and_grads_match_jax`` on a
+    non-square bucket's 16 × 24 latent (mid features 8 × 12, a transposed
+    token reshape would show), its conditioning vector carrying the
+    bucket's real size tuples: losses and gradients to 1e-4."""
+    step = build_sdxl_step(sdxl_unet, hw=BUCKET_HW, size_part=size_embeddings(BUCKET_TUPLES))
+    assert step[2]["__z"].shape[1:3] == BUCKET_HW
+    check_sdxl_step(step)
+
+
+def test_sdxl_flash_step_with_a_conv_pair_matches_jax(sdxl_unet):
+    """The step with a LoRA pair on a resnet's 3×3 convolution besides the
+    default targets: JAX merges the whole tree into the weights
+    (``lora_is_dense_only`` is False), the port's student reads merged
+    weights through a parametrization, here under ``remat`` (the backward
+    recomputes each block and must see the same merged weight): losses and
+    gradients, the conv pair's included, to 1e-4; the teacher's weights
+    untouched."""
+    targets = (*jlora.DEFAULT_TARGETS, r".*down_0_resnet_0/conv1/kernel$")
+    step = build_sdxl_step(sdxl_unet, targets=targets, remat=True)
+    tmodel, tl = step[0], step[1]
+    conv = "down_blocks.0.resnets.0.conv1"
+    assert tl[conv]["a"].shape == (3, 3, 32, 2) and tl[conv]["b"].shape == (2, 32)
+    before = tmodel.teacher_module.get_submodule(conv).weight.clone()
+    check_sdxl_step(step)
+    assert torch.equal(tmodel.teacher_module.get_submodule(conv).weight, before)
+    assert tmodel.teacher_module.get_submodule(conv).weight.grad is None
 
 
 def test_sdxl_lora_tree_maps_one_to_one_onto_jax_lora_paths(sdxl_unet):
