@@ -15,9 +15,10 @@ distillation step at 1024², the SD1.5 training run on JPEG shards, the
 Canny T2I-Adapter distillation run of SD1.5 at 512², the DPT depth
 model (ViT-L/16) at 384², the eval path (SD1.5 samples scored by CLIP-FID
 with ViT-L/14, Inception FID and CLIPScore through ``eval_coco``), and the
-weights-free toy distillation proofs, the native JPEG decoder, and SDXL's
-distillation on aspect buckets with its kohya export. It fails unless every phase passes, and prints
-each phase's seconds:
+weights-free toy distillation proofs, the native JPEG decoder, SDXL's
+distillation on aspect buckets with its kohya export, the SDXL VAE's tiled
+decode and SDXL in int8 with its convolutions on the int8 GEMM kernel. It
+fails unless every phase passes, and prints each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of the kernels from ``flash_diffusion_tpu_torch/csrc`` (one nvcc
@@ -30,7 +31,8 @@ each phase's seconds:
    and on 132, and at each split), and no K1, K2, K4, K5, K6, K7, K8, K10,
    K11 or K12 instantiation may spill (the packed K4 and K5, K11's and K12's
    must have a report of their own), nor may K2, K5, K10, K11 or K12 have
-   ptxas serialize their wgmma;
+   ptxas serialize their wgmma; the card's memory
+   (``utils.profiling.device_memory_stats``);
 2. kernels vs plain: each hand-written kernel against its plain PyTorch
    version at every shape the paths give it (bf16 kernel vs the plain
    version in fp32 on the same inputs; the SDXL training step's shapes at
@@ -56,8 +58,8 @@ each phase's seconds:
    sums), with ragged cases; max abs error
    against the stated tolerance; at the paths' shapes also the kernel's,
    the plain version's and the PyTorch library call's device time (CUDA
-   events around 10 queued calls, 2 for calls of 1 ms or more, median of 5
-   runs) and the bound: the
+   events around 10 queued calls, 2 for calls of 1 ms or more, the median
+   of 2 runs) and the bound: the
    larger of the bytes the function moves over 3.35 TB/s and its operations
    (as the JAX ``pl.CostEstimate`` counts them) over 989 TFLOP/s in bf16
    (67 TFLOP/s fp32 for the norms). The library calls are yardsticks only:
@@ -67,7 +69,11 @@ each phase's seconds:
    ``F.layer_norm`` for K3, ``torch._int_mm`` and the same dequant for the
    int8 GEMM (K11, whose bound counts int8 operations at 1979 TOP/s and whose
    int32 sums are checked equal to the plain version's, its bf16 output to
-   one ulp, at every case, each printed with its plan). K3 (LayerNorm) is
+   one ulp, at every case, each printed with its plan; phase 14b's 23 conv
+   products too, each with the im2col's time apart from K11's; phase 14's
+   K2 at [36 and 25, 4096, 4096, 512] and [1, 65536, 65536, 512] and its
+   GroupNorms at the stacked tiles' batches, drawn after every earlier
+   case). K3 (LayerNorm) is
    held to ``ops/norms.py layer_norm_gate`` (bf16: every element within
    2^-8·|y| + 2^-16·max|y|, relative L2 within 4e-3; fp32: the summation
    order), also on rows of small variance where eps shows. The whole
@@ -185,7 +191,9 @@ each phase's seconds:
    (``batch_occupancy`` 1.0) are checked, and the int8 GEMM kernel's
    launches, reset just before, must be 2888 per batch-4 dispatch (722
    products × 4 steps), with K2, K3, K4 and the GroupNorm kernels launched
-   too. Then warm s/batch
+   too. Then ``POST /profile`` for 3 s around one more dispatch of 4
+   requests, its ``trace.json`` ranked by ``trace_top --parse``: K11 must
+   be among the 10 kernels with the most device time. Then warm s/batch
    (median of 3 ``generate`` calls), images/s, the 64 requests' latency
    p50/p95 (the server's, and the clients' with PNG and HTTP) and peak
    memory;
@@ -304,7 +312,8 @@ each phase's seconds:
    equal, and ``build_pipeline("sd15", lora=...)`` generating 4 finite
    images. K1, K2, K3, K6, K7, K8 and the GroupNorm kernels launched, every
    launched (kernel, shape) among phase 2's (the validation batch at B = 2
-   and 2B = 4, the eval batch, the training shapes); warm s/micro-step,
+   and 2B = 4, the eval batch, the training shapes); warm s/micro-step
+   (and ``utils.profiling.StepTimer``'s reading of each, one a window),
    the seconds ``fit`` waited on its data iterator, peak memory;
 10b. the native JPEG decoder on the card's host (``check_native_decoder``):
    its g++ build from ``data/native/fastjpeg.cpp`` and the seconds, or,
@@ -331,11 +340,13 @@ each phase's seconds:
    kernels launched, every launched (kernel, shape) among phase 2's; warm
    s/step (median), peak memory, the busy time, the seconds ``fit`` waited
    on data and the Canny mapper's ms a 512² image on the host;
-11b. its training reference at 256², as 5b (K = [4], batch 2, non-zero
-   LoRA B, 0 discriminator stages), the rollout from ``TRAIN_REF_START``
-   3, the adapter's residuals (bf16 on the card, fp32 on the CPU copy) in
-   every UNet call; 5b's tolerances; every launched (kernel, shape) among
-   phase 2's;
+11b. (cut from the run to keep it well inside its time limit;
+   ``check_training_reference("sd15-canny", ...)`` still runs it alone) its
+   training reference at 256², as 5b (K = [4], batch 2, non-zero LoRA B, 0
+   discriminator stages), the rollout from ``TRAIN_REF_START`` 3, the
+   adapter's residuals (bf16 on the card, fp32 on the CPU copy) in every
+   UNet call; 5b's tolerances; every launched (kernel, shape) among phase
+   2's;
 11c. the DPT (``DPTDepth()``: ViT-L/16 at 384², dim 1024, 24 blocks of 16
    heads, 256 features; random weights from seed 0, q and k scaled so that
    the attention is sharp, the head's last conv so that the map varies by
@@ -382,6 +393,23 @@ each phase's seconds:
    (192, 320) bucket of 256²'s ladder (its discriminator sized by the
    ladder's rule: 0 stages on the 6 × 10 mid features; the batch's real
    size tuples), from rollout start K − 1.
+14. (run right after 4c, on phase 3b's pipeline) the SDXL VAE's
+   ``tiled_decode`` (tiles of 64² latents overlapping by 8, stacked into one
+   decode): 3b's 1024² latents at batch 4 (3 × 3 tiles each, 36 stacked)
+   and a seeded 2048² latent (5 × 5, 25 stacked), each beside the untiled
+   ``decode_latents`` (at 2048² K2 over 65536 tokens): ms an image and the
+   peak memory above the resident pipeline of each; K2 and the GroupNorm
+   launched, every launched (kernel, shape) among phase 2's; then a 2 × 2
+   and a 3 × 2 grid at a cut tile size (16² latents), the last tiles
+   clamped, against the fp32 CPU copy of the VAE: images to 0.1;
+14b. the same pipeline with ``quant.quantize_dense(state, convs=True)``
+   through ``apply_weights`` (722 dense layers and 49 convs: 47 through
+   ``int8_conv`` on K11, the 2 upsamplers dequantized), after its
+   dense-only int8 for a warm s/batch in the same call; ``generate`` as
+   3b: K11 launched exactly (722 + 47) × 4 times, every launched (kernel,
+   shape) among phase 2's; warm s/batch beside the dense-only one, the
+   images' rel. L2 to 3b's bf16 images of the same draw; then its 128²
+   reference against the fp32 CPU copy with the same int8 weights, as 6b.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -390,7 +418,8 @@ paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 ``pixart_int8``, 7c as ``train_pixart``, 8 as ``sd3``, 8e as ``sd3_int8``,
 8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``, 11 as
 ``train_canny``, 11c as ``depth``, 12 as ``eval``, 12b as ``toy``, 13 as
-``train_sdxl_buckets``; ``ms``, ``plain_ms``,
+``train_sdxl_buckets``, 14 as ``tiled_decode``, 14b as
+``sdxl_int8_convs``; ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -760,15 +789,90 @@ BUCKET_CASES = set(ATTENTION_SHAPES_BUCKET + PACKED_SHAPES_BUCKET + BWD_SHAPES_B
                    + GN_SHAPES_BUCKET)
 
 
+def vae_decode_gn_shapes(b, h, w, channels=(128, 256, 512, 512)):
+    """Every GroupNorm shape (bf16, 32 groups) of the SD VAE decoder over b
+    latents of h × w: the mid block's and each up block's, whose first
+    resnet normalizes the previous block's width at its own size."""
+    ch, shapes = channels[-1], [(b, channels[-1], h, w)]
+    for i, out in enumerate(reversed(channels)):
+        shapes += [(b, ch, h << i, w << i), (b, out, h << i, w << i)]
+        ch = out
+    return [(shape, torch.bfloat16, None) for shape in dict.fromkeys(shapes)]
+
+
+def unet_int8_convs(b, h, channels=(320, 640, 1280), layers=2, min_dim=128):
+    """The convs of a UNet forward over b latents of h × h (SDXL's levels by
+    default) that ``quantize_dense(convs=True)`` quantizes, in the order the
+    forward runs them: ([(b, cin, res, cout, k, stride)] through
+    ``int8_conv`` on K11, [(b, ch, res)] of the upsamplers' convs,
+    dequantized, at the upsampled size). Each resnet: conv1 (cin → cout),
+    conv2, and a 1×1 shortcut where cin ≠ cout; a down level's stride-2
+    conv; the up levels' resnets over the skip concatenation."""
+    convs, ups, skips = [], [], [channels[0]]
+    ch, res = channels[0], h
+
+    def resnet(cin, cout):
+        convs.extend([(b, cin, res, cout, 3, 1), (b, cout, res, cout, 3, 1)]
+                     + ([(b, cin, res, cout, 1, 1)] if cin != cout else []))
+
+    for i, out in enumerate(channels):
+        for _ in range(layers):
+            resnet(ch, out)
+            ch = out
+            skips.append(ch)
+        if i < len(channels) - 1:
+            convs.append((b, ch, res, ch, 3, 2))
+            res //= 2
+            skips.append(ch)
+    resnet(ch, ch)
+    resnet(ch, ch)
+    for i, out in enumerate(reversed(channels)):
+        for _ in range(layers + 1):
+            resnet(ch + skips.pop(), out)
+            ch = out
+        if i < len(channels) - 1:
+            res *= 2
+            ups.append((b, ch, res))
+    return [c for c in convs if min(c[1], c[3]) >= min_dim], [u for u in ups if u[1] >= min_dim]
+
+
+def conv_gemm(conv):
+    """(M, K, N) of a conv's product on K11: B·Ho·Wo rows, kh·kw·Cin."""
+    b, cin, res, cout, k, stride = conv
+    return b * (res // stride) ** 2, k * k * cin, cout
+
+
+# phase 14: the SDXL VAE's tiled decode (tiles of 64² latents overlapping
+# by 8): phase 3b's 1024² latents at batch 4 (3 × 3 tiles each, 36 stacked)
+# and one 2048² latent (5 × 5 tiles, 25 stacked), each beside its untiled
+# decode (at 2048² the mid-attention over 65536 tokens: K2 at D = 512)
+TILED_DECODES = ((1024, 4), (2048, 1))  # (image side, batch)
+TILE_BATCHES = (36, 25)
+# 14's cut-size reference against the fp32 CPU copy: tiles of 16² latents
+# overlapping by 4 (a step of 12), a 2 × 2 grid over 27 × 27 and a 3 × 2
+# grid over 38 × 27, the last row and column clamped (origins 11 and 22)
+TILED_REF_TILE, TILED_REF_OVERLAP = (16, 16), (4, 4)
+TILED_REF_LATENTS = ((27, 27), (38, 27))
+_TILED_OLD = {case[0] for case in [(s, None, None) for s in GN_SHAPES] + GN_SHAPES_XL_TRAIN + GN_SHAPES_PIXART_TRAIN
+              + GN_SHAPES_SD3_TRAIN + GN_SHAPES_SD3_SAMPLE + GN_SHAPES_TRAIN_RUN + GN_SHAPES_TOY + GN_SHAPES_BUCKET}
+# the new (kernel, shape) pairs of phase 14 that no earlier list has
+ATTENTION_SHAPES_TILED = [(b, 4096, 4096, 512, None) for b in TILE_BATCHES] + [(1, 65536, 65536, 512, None)]
+GN_SHAPES_TILED = [case for case in dict.fromkeys(
+    [c for b in TILE_BATCHES for c in vae_decode_gn_shapes(b, 64, 64)] + vae_decode_gn_shapes(1, 256, 256))
+    if case[0] not in _TILED_OLD]
+TILED_CASES = set(ATTENTION_SHAPES_TILED + GN_SHAPES_TILED)
+
+
 def draw_order(cases, *more):
     """A check's cases in the order their inputs are drawn from its one
     generator: ``cases`` and ``more`` as the earlier phases listed them,
-    then phase 13's, so that adding those left every other case's inputs
-    as they were (the GroupNorm gate's per-element bound sits within a few
-    percent of the plain bf16 version's own error at some draws: ROADMAP
-    Queue 3)."""
+    then phase 13's, then phase 14's, so that adding those left every
+    other case's inputs as they were (the GroupNorm gate's per-element
+    bound sits within a few percent of the plain bf16 version's own error
+    at some draws: ROADMAP Queue 3)."""
     cases = list(cases) + [c for m in more for c in m]
-    return [c for c in cases if c not in BUCKET_CASES] + [c for c in cases if c in BUCKET_CASES]
+    rank = lambda c: 2 if c in TILED_CASES else 1 if c in BUCKET_CASES else 0
+    return [c for r in range(3) for c in cases if rank(c) == r]
 
 
 # The paths' shapes of each check (timed), read at call time so that a
@@ -778,7 +882,7 @@ def attention_main():
     return (ATTENTION_SHAPES + ATTENTION_SHAPES_XL + ATTENTION_SHAPES_PIXART + ATTENTION_SHAPES_XL_TRAIN
             + ATTENTION_SHAPES_SD3 + ATTENTION_SHAPES_SD3_TRAIN + ATTENTION_SHAPES_SD3_SAMPLE
             + ATTENTION_SHAPES_TRAIN_RUN + ATTENTION_SHAPES_DPT + ATTENTION_SHAPES_EVAL + ATTENTION_SHAPES_TOY
-            + ATTENTION_SHAPES_BUCKET)
+            + ATTENTION_SHAPES_BUCKET + ATTENTION_SHAPES_TILED)
 
 
 def layer_norm_main():
@@ -826,13 +930,22 @@ def layer_norm_unmain():
 
 
 def gn_unmain():
-    """The GroupNorm cases phase 2 checks untimed."""
-    return [(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN + GN_REFERENCES_CANNY
+    """The GroupNorm cases phase 2 checks untimed (phase 14's stacked tiles
+    and 2048² decode among them, in channels-last alone, to bound phase 2's
+    time)."""
+    return ([(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN + GN_REFERENCES_CANNY
+            + GN_SHAPES_TILED)
 
 
 def int8_extra():
     """The int8 cases phase 2 checks untimed (M, K, N, bias + gelu)."""
     return INT8_EXTRA + INT8_REFERENCES_SD3
+
+
+def int8_conv_main():
+    """Phase 14b's conv products on K11 (M, K, N), checked and timed after
+    the earlier int8 cases."""
+    return INT8_SHAPES_CONV
 
 
 def gn_groups(shape, groups=None):
@@ -862,7 +975,7 @@ def gated_shapes():
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
             "layer_norm": set(layer_norm_main() + layer_norm_unmain() + LAYER_NORM_SMALL_VAR),
             "group_norm_stats": gn_stats, "group_norm_apply": gn_apply, "group_norm_fused": gn,
-            "int8_gemm": set(int8_main() + [case[:3] for case in int8_extra()])}
+            "int8_gemm": set(int8_main() + [case[:3] for case in int8_extra()] + int8_conv_main())}
 
 
 # the training phases: every step in stage 1 of the yaml's four
@@ -954,6 +1067,18 @@ INT8_REFERENCES_SD3 = [(m, k, n, False) for m in (64, 192) for k, n in ((1536, 1
 # epilogue with bias and tanh-gelu, K not a multiple of the 64-byte step
 INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10240, True),
               (300, 96, 130, True)]
+# phase 14b: SDXL 1024² at batch 4 with its 49 resnet and sampler convs in
+# int8 too (``quantize_dense(convs=True)``, as the root ``bench.py --int8
+# --int8-convs``): 47 on K11 over an im2col, the 2 upsamplers' dequantized;
+# INT8_SHAPES_CONV their K11 products no earlier list has, each with the
+# first conv that gives it (the im2col's timing in phase 2)
+INT8_CONVS_SDXL, INT8_UPSAMPLERS_SDXL = unet_int8_convs(4, 128)
+SDXL_INT8_CONVS = 49
+_INT8_OLD = set(INT8_SHAPES + INT8_SHAPES_PIXART + INT8_SHAPES_SD3) | {c[:3] for c in INT8_EXTRA + INT8_REFERENCES_SD3}
+INT8_CONV_OF = {}
+for _conv in INT8_CONVS_SDXL:
+    INT8_CONV_OF.setdefault(conv_gemm(_conv), _conv)
+INT8_SHAPES_CONV = [mkn for mkn in INT8_CONV_OF if mkn not in _INT8_OLD]
 # phase 6: the LoRA (B ~ N(0, 0.01) changes the attention and feed-forward
 # weights by ~14%), the batcher's linger window (long enough for the 4
 # clients a dispatch answers to send their next requests), and the load: 8
@@ -961,6 +1086,9 @@ INT8_EXTRA = [(77, 2048, 640, False), (4001, 1280, 1000, False), (4096, 1280, 10
 # 64 latencies (the 61st) and not the slowest of a few
 SERVE_LORA_RANK, SERVE_LORA_B_STD, SERVE_LINGER_MS = 64, 0.01, 1000.0
 SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT = 8, 8
+# phase 6's POST /profile: a window of this many seconds around one more
+# dispatch of 4 requests, its trace ranked by trace_top, K11 among the top
+PROFILE_SECONDS, PROFILE_TOP = 3.0, 10
 SERVE_INT8_LAYERS = 722  # 70 transformer blocks × 10 + 11 spatial transformers × 2
 PIXART_INT8_LAYERS = 280  # 28 DiT blocks × 10
 SD3_INT8_LAYERS = 213  # 23 joint blocks × 9 + the final block's 6
@@ -1006,7 +1134,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 3, calls: int = 10) -> float:
+def median_ms(fn, reps: int = 2, calls: int = 10) -> float:
     """Device time of one call: CUDA events around ``calls`` back-to-back
     calls, queued behind a GPU sleep so that host launch overhead does not
     show; the median over ``reps`` such runs, divided by ``calls``. After a
@@ -1332,9 +1460,10 @@ def check_group_norm(norms, results, timed=True):
         want64 = (mean64, inv64)
         want = [norms.group_norm_reference(x0.float(), groups, gw.float(), gb.float(), 1e-5, act)[0]
                 for act in (None, "silu")]
-        # phase 13's cases in the layout its convolutions hand on alone, to
-        # bound phase 2's time
-        for layout in ("NHWC",) if case in BUCKET_CASES else ("NCHW", "NHWC"):
+        # phase 13's and 14's cases in the layout their convolutions hand on
+        # alone, to bound phase 2's time
+        layouts = ("NHWC",) if case in BUCKET_CASES or case in TILED_CASES else ("NCHW", "NHWC")
+        for layout in layouts:
             x = x0 if layout == "NCHW" else x0.to(memory_format=torch.channels_last)
             y, mean, inv = norms.group_norm_forward(x, groups, gw, gb, 1e-5)
             y_act = norms.group_norm(x, groups, gw, gb, 1e-5, act="silu")
@@ -1344,6 +1473,8 @@ def check_group_norm(norms, results, timed=True):
             gn_exact = torch.equal(again, y_act) and torch.equal(alone[0], y_act[-1])
             layout_ok = y.stride() == x.stride() and y_act.stride() == x.stride()
             stats = norms.group_norm_errors((y, y_act, mean, inv), want, want64)
+            if layout == layouts[-1]:
+                want = None  # the plain outputs' fp32 copies, freed before the checks below
             gate_ok, report = norms.group_norm_gate(stats)
             kind = norms.group_norm_plan(x.shape, groups, layout == "NHWC", dtype)[0]
             del y, y_act, again, alone, mean, inv
@@ -1410,29 +1541,40 @@ def check_group_norm(norms, results, timed=True):
         raise AssertionError(f"GroupNorm disagrees with its plain version at {failed}")
 
 
-def within_bf16_ulp(got, want, floor=0.0) -> bool:
-    """|got − want| ≤ one bf16 ulp of ``want`` (or ``floor``, where larger)."""
-    w = want.float()
-    _, e = torch.frexp(w)
-    ulp = torch.where(w == 0, torch.zeros_like(w), torch.ldexp(torch.ones_like(w), e - 8))
-    return bool(((got.float() - w).abs() <= torch.clamp(ulp, min=floor)).all())
+def within_bf16_ulp(got, want, floor=0.0, chunk=1 << 27) -> bool:
+    """|got − want| ≤ one bf16 ulp of ``want`` (or ``floor``, where larger),
+    over slices of the leading dim of at most ``chunk`` elements (phase 14's
+    stacked VAE activations hold billions)."""
+    step = max(1, chunk // max(1, want[:1].numel()))
+    for i in range(0, want.shape[0], step):
+        w = want[i:i + step].float()
+        _, e = torch.frexp(w)
+        ulp = torch.where(w == 0, torch.zeros_like(w), torch.ldexp(torch.ones_like(w), e - 8))
+        if not bool(((got[i:i + step].float() - w).abs() <= torch.clamp(ulp, min=floor)).all()):
+            return False
+    return True
 
 
 def check_int8_gemm(gemm, results, timed=True):
-    """K11 at every int8 shape of the SDXL path and the extra cases: its
-    int32 sums (the raw-sums epilogue) equal the plain version's; its bf16
-    output within one ulp of the plain version's (the epilogue runs in the
-    same fp32 order, so exactly equal without gelu; with tanh-gelu, 1e-6
-    absolute where 1 + tanh(u) cancels in the negative tail). Every case
-    printed with its plan, then a raise listing the failures. With
-    ``timed``, the kernel's time, and at the path's shapes the plain
-    version's, the library's and the bound: 2·M·K·N int8 operations at
-    1979 TOP/s, or xq, wq, the two scales read and the bf16 output written
-    once at 3.35 TB/s."""
+    """K11 at every int8 shape of the SDXL path and the extra cases, then at
+    phase 14b's conv products: its int32 sums (the raw-sums epilogue) equal
+    the plain version's bit for bit; its bf16 output within one ulp of the
+    plain version's (the epilogue runs in the same fp32 order, so exactly
+    equal without gelu; with tanh-gelu, 1e-6 absolute where 1 + tanh(u)
+    cancels in the negative tail). Every case printed with its plan, then a
+    raise listing the failures. With ``timed``, the kernel's time, and at
+    the paths' shapes the plain version's, the library's and the bound:
+    2·M·K·N int8 operations at 1979 TOP/s, or xq, wq, the two scales read
+    and the bf16 output written once at 3.35 TB/s; at a conv's product also
+    the im2col's time (``quant.im2col`` of int8 codes [B, Cin, H, W],
+    channels-last, into the product's [M, K] rows), apart from K11's."""
+    from flash_diffusion_tpu_torch.quant import im2col
+
     g = torch.Generator(device="cuda").manual_seed(4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    for m, k, n, epilogue in [(*s, False) for s in int8_main()] + int8_extra():
+    convs = int8_conv_main()
+    for m, k, n, epilogue in [(*s, False) for s in int8_main()] + int8_extra() + [(*s, False) for s in convs]:
         xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
         wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
         sx = torch.rand(m, generator=g, device="cuda") * 1e-3 + 1e-5
@@ -1445,7 +1587,8 @@ def check_int8_gemm(gemm, results, timed=True):
         sums_equal = torch.equal(sums, gemm.int8_sums_reference(xq, wq))
         close = within_bf16_ulp(y, ref, 1e-6 if act else 0.0)
         err = (y.float() - ref.float()).abs().max().item()
-        main = (m, k, n) in int8_main() and not epilogue
+        conv = (m, k, n) in convs and not epilogue
+        main = ((m, k, n) in int8_main() or conv) and not epilogue
         plan = gemm.int8_gemm_plan(m, k, n, sms)
         times = f"; plan split {plan.split}"
         if timed:
@@ -1457,8 +1600,19 @@ def check_int8_gemm(gemm, results, timed=True):
                 torch.bfloat16))
             bnd = bound(2 * m * k * n, m * k + k * n + 4 * (m + n) + 2 * m * n, INT8_OPS_PER_S)
             times += f", plain {plain:.4f} ms, library {fmt_ms(library)} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+        if timed and conv:
+            b, cin, res, _, kk, stride = INT8_CONV_OF[(m, k, n)]
+            codes = torch.randint(-127, 128, (b, cin, res, res), generator=g, device="cuda", dtype=torch.int8
+                                  ).contiguous(memory_format=torch.channels_last)
+            args = ((kk, kk), (stride, stride), (kk // 2, kk // 2))
+            if im2col(codes, *args).shape != (m, k):
+                raise AssertionError(f"the im2col of {INT8_CONV_OF[(m, k, n)]} is not [{m}, {k}]")
+            cols_ms = median_ms(lambda: im2col(codes, *args))
+            times += (f"; conv {kk}x{kk}/{stride} of [{b}, {cin}, {res}, {res}] -> {n}: im2col {cols_ms:.4f} ms "
+                      f"({m * k / 2**20:.1f} MiB of int8 rows written)")
+            del codes
         ok = sums_equal and close
-        print(f"int8_gemm M={m:5d} K={k:4d} N={n:5d}{' bias+gelu' if epilogue else ''}: {'pass' if ok else 'FAIL'}: "
+        print(f"int8_gemm M={m:5d} K={k:5d} N={n:5d}{' bias+gelu' if epilogue else ''}: {'pass' if ok else 'FAIL'}: "
               f"int32 sums equal {sums_equal}; bf16 max|err| {err:.3e} (within one ulp{' or 1e-6' if act else ''}: "
               f"{close}){times}")
         if not ok:
@@ -1839,9 +1993,11 @@ def run_int8_serving(counters, card, required):
         wall = time.perf_counter() - t0
         launches = totals(counters)
         metrics, health, loras = get("/metrics"), get("/healthz"), get("/loras")
+        trace_dir = profile_served(url)  # after the counts: its dispatch is outside them
     finally:
         server.shutdown()
         thread.join(60)
+    rank_served_trace(trace_dir)
     print(f"sdxl int8 serving: {SERVE_CLIENTS} clients × {SERVE_REQUESTS_PER_CLIENT} requests in {wall:.3f} s; "
           f"launches {dict(launches)}; /metrics {metrics}; /healthz {health}; /loras {loras}")
     sizes = [png_pixels(base64.b64decode(p)) for r in replies if r for p in r["images_png_b64"]]
@@ -1878,6 +2034,46 @@ def run_int8_serving(counters, card, required):
           f"{launches['int8_gemm'] // metrics['batches_dispatched']}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, pipe
+
+
+def profile_served(url):
+    """``POST /profile`` for ``PROFILE_SECONDS`` while 4 more requests make
+    one dispatch inside the window; returns the trace's directory."""
+    trace_dir = tempfile.mkdtemp(prefix="serve_trace_")
+    post = lambda path, body: json.loads(urllib.request.urlopen(urllib.request.Request(
+        url + path, data=json.dumps(body).encode(), method="POST"), timeout=600).read())
+    reply = {}
+    window = threading.Thread(target=lambda: reply.update(post("/profile", {"seconds": PROFILE_SECONDS,
+                                                                          "dir": trace_dir})))
+    window.start()
+    time.sleep(0.5)
+    requests = [threading.Thread(target=post, args=("/generate", {"prompt": PROMPTS[i], "seed": 100 + i,
+                                                                    "format": "json"})) for i in range(4)]
+    for r in requests:
+        r.start()
+    for r in requests:
+        r.join(600)
+    window.join(600)
+    if reply.get("trace_dir") != trace_dir:
+        raise AssertionError(f"POST /profile answered {reply}")
+    return trace_dir
+
+
+def rank_served_trace(trace_dir):
+    """Phase 6's ``/profile`` trace ranked by ``trace_top --parse``: K11
+    must be among its ``PROFILE_TOP`` kernels with the most device time."""
+    from flash_diffusion_tpu_torch import trace_top
+
+    path = os.path.join(trace_dir, "trace.json")
+    print(f"sdxl int8 serving: POST /profile wrote {path} ({os.path.getsize(path) / 2**20:.1f} MiB); "
+          f"trace_top --parse:")
+    ranking = trace_top.parse_trace(path, top=15)
+    top = [row.kernel for row in ranking.rows[:PROFILE_TOP]]
+    print(f"sdxl int8 serving trace: {ranking.on} time {ranking.total_ms:.3f} ms; K-tags of the top {PROFILE_TOP}: "
+          f"{top}")
+    if ranking.on != "device" or "K11" not in top:
+        raise AssertionError(f"the /profile trace's top {PROFILE_TOP} kernels hold no K11: {top}")
+    os.remove(path)
 
 
 def check_batch_invariance(pipe):
@@ -1997,6 +2193,167 @@ def run_int8_path(pipe, model, n_layers, counters, card, required, gated):
                              f"{n_layers * 4}")
     check_gated(f"{model} int8", counters, gated)
     del images
+    return launches
+
+
+def decode_reading(fn, reps=3):
+    """(the output of ``fn``, its warm seconds (median of ``reps`` after a
+    first run), its peak device memory above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    warm = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    return out, statistics.median(warm), peak
+
+
+def run_tiled_decode(pipe, counters, card, required, gated):
+    """Phase 14: the SDXL VAE's ``tiled_decode`` at full width on phase 3b's
+    pipeline: the 1024² latents of 3b's first batch (its seed, decode
+    skipped) at batch 4, 3 × 3 tiles each, and one 2048² latent (seeded
+    noise) at batch 1, 5 × 5 tiles, each against its untiled
+    ``decode_latents``: ms an image and the peak memory above the resident
+    pipeline of each, and the tiled images' rel. L2 to the untiled ones (the
+    tiles' mid-attention sees only its tile, so they differ). Counts reset
+    just before and read after: K2 at D = 512 and the GroupNorm kernels
+    launched, every launched (kernel, shape) among phase 2's. Then
+    ``check_tiled_reference``. Returns the launches."""
+    from flash_diffusion_tpu_torch.models.vae import tiled_decode
+
+    captured = []
+    decode = pipe._decode
+    pipe._decode = lambda sample: captured.append(sample) or sample  # the latents, not the images
+    try:
+        pipe.generate(PROMPTS, num_inference_steps=4, guidance_scale=0.0, seed=0)
+    finally:
+        pipe._decode = decode
+    g = torch.Generator(device="cuda").manual_seed(14)
+    f, (th, tw), (oh, ow) = pipe.vae_scale_factor, pipe.vae.config.tiling_size, pipe.vae.config.tiling_overlap
+    reset(counters)
+    lines = []
+    with torch.inference_mode():
+        for side, batch in TILED_DECODES:
+            z = captured[0] if side == pipe.latent_shape[0] * f else torch.randn(
+                batch, side // f, side // f, pipe.latent_shape[-1], generator=g, device="cuda")
+            tiles = max(1, -(-(z.shape[1] - oh) // (th - oh))) * max(1, -(-(z.shape[2] - ow) // (tw - ow)))
+            tiled, t_s, t_peak = decode_reading(lambda: tiled_decode(pipe.vae, z))
+            whole, w_s, w_peak = decode_reading(lambda: pipe.vae.decode_latents(z))
+            if tuple(tiled.shape) != (batch, side, side, 3) or not (torch.isfinite(tiled).all()
+                                                                    and torch.isfinite(whole).all()):
+                raise AssertionError(f"tiled decode at {side}²: {tuple(tiled.shape)}, finite "
+                                     f"{torch.isfinite(tiled).all().item()}")
+            lines.append(f"sdxl VAE decode {side}² batch {batch} on {card}: tiled ({tiles} tiles of {th}² latents a "
+                         f"sample, {tiles * batch} stacked) {1e3 * t_s / batch:.2f} ms an image, peak +"
+                         f"{t_peak / 2**30:.2f} GiB; untiled {1e3 * w_s / batch:.2f} ms an image, peak +"
+                         f"{w_peak / 2**30:.2f} GiB; tiled vs untiled images rel L2 {rel_l2(tiled, whole):.3e}")
+            del tiled, whole
+            torch.cuda.empty_cache()
+    launches = totals(counters)
+    print("\n".join(lines))
+    print(f"sdxl tiled decode launches {dict(launches)}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing or not any(launches[k] for k in ("group_norm_stats", "group_norm_apply", "group_norm_fused")):
+        raise AssertionError(f"the tiled decode never launched {missing or 'a GroupNorm kernel'}")
+    check_gated("sdxl tiled decode", counters, gated)
+    check_tiled_reference(pipe)
+    return launches
+
+
+def check_tiled_reference(pipe):
+    """Phase 14's reference: ``tiled_decode`` of the card's VAE (bf16, the
+    kernels) against its fp32 CPU copy (the plain paths) at a cut tile size
+    (``TILED_REF_TILE``, overlap ``TILED_REF_OVERLAP``): a 2 × 2 and a 3 × 2
+    grid, the last row and column clamped; images within 0.1 rel. L2, as
+    4b's."""
+    from flash_diffusion_tpu_torch.models import AutoencoderKL
+    from flash_diffusion_tpu_torch.models.vae import tiled_decode
+
+    with torch.device("meta"):
+        meta = AutoencoderKL(pipe.vae.config)
+    ref = cpu_fp32_copy(pipe.vae.state_dict(), meta)
+    g = torch.Generator().manual_seed(15)
+    for h, w in TILED_REF_LATENTS:
+        z = torch.randn(1, h, w, 4, generator=g)
+        with torch.inference_mode():
+            got = tiled_decode(pipe.vae, z.cuda(), TILED_REF_TILE, TILED_REF_OVERLAP).cpu()
+            want = tiled_decode(ref, z, TILED_REF_TILE, TILED_REF_OVERLAP)
+        step = TILED_REF_TILE[0] - TILED_REF_OVERLAP[0]
+        grid = (-(-(h - TILED_REF_OVERLAP[0]) // step), -(-(w - TILED_REF_OVERLAP[1]) // step))
+        err = rel_l2(got, want)
+        print(f"sdxl tiled decode reference, {grid[0]} x {grid[1]} tiles of {TILED_REF_TILE[0]}² over a {h} x {w} "
+              f"latent (last origins {min((grid[0] - 1) * step, h - TILED_REF_TILE[0])}, "
+              f"{min((grid[1] - 1) * step, w - TILED_REF_TILE[1])}): images (bf16 on the card vs fp32 on the CPU) "
+              f"rel L2 err {err:.3e} (tol 0.1), max|err| {(got - want).abs().max().item():.3e}")
+        if not (err <= 0.1 and torch.isfinite(got).all()):
+            raise AssertionError("the card's tiled decode disagrees with the fp32 reference")
+    del ref
+
+
+def run_int8_convs(pipe, counters, card, required, gated, bf16_images):
+    """Phase 14b: phase 3b's SDXL pipeline with ``quant.quantize_dense(state,
+    convs=True)`` applied by ``apply_weights`` (722 dense layers and 49
+    convs: 47 on K11 through ``int8_conv``, the 2 upsamplers dequantized),
+    after its dense-only int8 (``quantize_dense(state)``, phase 6's mode
+    without the LoRA) for a warm s/batch in the same call; then
+    ``generate`` of 4 prompts × 4 steps at 1024² through ``run_path``: K11
+    launched exactly (722 + 47) × 4 times, every launched (kernel, shape)
+    among phase 2's; warm s/batch beside the dense-only one; the images'
+    rel. L2 to the bf16 images of the same draw (3b's first batch); then
+    its 128² reference against the fp32 CPU copy with the same int8 weights,
+    as 6b. The pipeline is left in bf16. Returns the launches."""
+    from flash_diffusion_tpu_torch.quant import apply_weights, quantize_dense
+
+    try:
+        state, n_dense = quantize_dense(pipe.base_state)
+        apply_weights(pipe.denoiser, state)
+        pipe.state = state
+        pipe.generate(PROMPTS, seed=0)
+        warm = []
+        for seed in (1, 2, 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.generate(PROMPTS, seed=seed)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        dense_s = statistics.median(warm)
+        del state
+        t0 = time.perf_counter()
+        state, n = quantize_dense(pipe.base_state, convs=True)
+        apply_weights(pipe.denoiser, state)
+        pipe.state = state
+        torch.cuda.synchronize()
+        convs = [k for k, t in state.items() if t.dtype == torch.int8 and t.dim() == 4
+                 and not k.endswith(("proj_in.weight", "proj_out.weight"))]
+        dequantized = [k for k in convs if ".upsamplers." in k]
+        print(f"sdxl int8 convs: quantize_dense(convs=True) {time.perf_counter() - t0:.2f} s; {n} int8 layers: "
+              f"{n_dense} dense, {len(convs)} convs ({len(convs) - len(dequantized)} on K11 through int8_conv, "
+              f"{len(dequantized)} upsamplers dequantized on the fly: {dequantized}); device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if (n_dense, len(convs), len(dequantized)) != (SERVE_INT8_LAYERS, SDXL_INT8_CONVS, len(INT8_UPSAMPLERS_SDXL)):
+            raise AssertionError(f"quantize_dense(convs=True) made {n_dense} dense and {len(convs)} conv layers "
+                                 f"({len(dequantized)} upsamplers), not {SERVE_INT8_LAYERS}, {SDXL_INT8_CONVS} and "
+                                 f"{len(INT8_UPSAMPLERS_SDXL)}")
+        launches, images = run_path(pipe, "sdxl int8 + int8 convs", 1024, counters, card, required)
+        per_batch = (SERVE_INT8_LAYERS + len(INT8_CONVS_SDXL)) * 4
+        if launches["int8_gemm"] != per_batch:
+            raise AssertionError(f"int8 GEMM launched {launches['int8_gemm']} times in a 4-step batch, not "
+                                 f"{per_batch}")
+        check_gated("sdxl int8 convs", counters, gated)
+        print(f"sdxl int8 convs 1024² batch 4 on {card}: dense-only int8 {dense_s:.4f} s/batch (median of "
+              f"{[round(t, 4) for t in warm]}) in the same call; images rel L2 to the bf16 images of the same "
+              f"draw {rel_l2(images.float().cpu(), bf16_images.float().cpu()):.3e}")
+        del images
+        check_reference(pipe, "sdxl", "sdxl int8 + int8 convs")
+    finally:
+        apply_weights(pipe.denoiser, pipe.base_state)
+        pipe.state = pipe.base_state
     return launches
 
 
@@ -2263,6 +2620,7 @@ def run_training_run(counters, card, required, gated, root):
         latest_step,
         restore_state,
     )
+    from flash_diffusion_tpu_torch.utils import profiling
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2289,7 +2647,8 @@ def run_training_run(counters, card, required, gated, root):
                            log_teacher_samples=True, teacher_guidance_scale=5.0)
     ckpt = os.path.join(root, "checkpoints")
     timer, metrics = StepTimer("sd15 run"), MetricLogger(1)
-    callbacks = [timer, metrics, CheckpointCallback(ckpt, 4), samples]
+    windows = profiling.StepTimer(window=1, name="sd15 run")  # the library's timer, one reading a micro-step
+    callbacks = [timer, windows, metrics, CheckpointCallback(ckpt, 4), samples]
     batches = iter(data)
     checked = []
 
@@ -2385,7 +2744,12 @@ def run_training_run(counters, card, required, gated, root):
           f"(median of {[round(t, 4) for t in timed]}; step 4 with the validation pass), {sum(checked)} images over "
           f"{len(checked)} batches; fit waited {fit_wait:.3f} s on the data iterator; validation "
           + ", ".join(f"{k} {v:.5g}" for k, v in val.items())
-          + f"; {len(pngs)} sample grids; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          + f"; {len(pngs)} sample grids; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"utils.profiling.StepTimer (s/micro-step after the first call, which starts its clock): "
+          f"{[(step, round(dt, 4)) for step, dt in windows.history]}")
+    if len(windows.history) != len(timer.times) - 1:
+        raise AssertionError(f"utils.profiling.StepTimer read {len(windows.history)} windows over "
+                             f"{len(timer.times)} micro-steps")
     return launches
 
 
@@ -3381,6 +3745,7 @@ def main():
         os.environ.pop(k, None)
     from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
     from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.utils.profiling import device_memory_stats
 
     # phase 1: device and build
     started = time.perf_counter()
@@ -3399,6 +3764,7 @@ def main():
     lib = kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc {kernels.BUILD_INFO['seconds']:.2f} s "
           f"-> {kernels.BUILD_INFO['path']}")
+    print(f"device memory (utils.profiling.device_memory_stats): {device_memory_stats()}")
     entry, entries, spill_report, serialized = "", set(), [], []
     if kernels.BUILD_INFO["log"] == "(cached)":
         print("  no ptxas report: the library was built before this run (delete build/kernels to see it)")
@@ -3456,7 +3822,7 @@ def main():
             if tuple(got) != tuple(want):
                 raise AssertionError(f"K12 plan at K={k} N={n} ({bn}, {cluster}): kernel {tuple(got)}, plan {want}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for m, k, n, *_ in [(*s, False) for s in int8_main()] + int8_extra():  # K11's plan, here and on 132 SMs
+    for m, k, n, *_ in [(*s, False) for s in int8_main() + int8_conv_main()] + int8_extra():  # K11's plan
         for on, split in [(c, None) for c in (sms, 132)] + [(sms, s) for s in (1, 2, 4, 8)]:
             want, got = gemm.int8_gemm_plan(m, k, n, on, split), (ctypes.c_int * 6)()
             kernels.check(lib.fdt_int8_gemm_plan(m, n, k, on, split or 0, got), "fdt_int8_gemm_plan")
@@ -3552,11 +3918,21 @@ def main():
                                        ("flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", *gn))
     check_reference(pipe, "sdxl")
     by_path.update(run_modes(pipe, images, counters, card))
-    del images
     check_mode_references(pipe, counters)
-    del pipe
-    torch.cuda.empty_cache()
     mark("3b, 4b, 3c, 4c")
+
+    # phases 14 and 14b, on the same pipeline: the VAE's tiled decode of
+    # 3b's latents and of a 2048² latent beside the untiled decode, then its
+    # reference at a cut tile size; the UNet with its convs in int8 too
+    # (K11 over an im2col), then its reference
+    by_path["tiled_decode"] = run_tiled_decode(pipe, counters, card, ("flash_fwd_stream",), gated_shapes())
+    torch.cuda.empty_cache()
+    mark("14")
+    by_path["sdxl_int8_convs"] = run_int8_convs(pipe, counters, card, (
+        "flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", "int8_gemm", *gn), gated_shapes(), images)
+    del images, pipe
+    torch.cuda.empty_cache()
+    mark("14b")
 
     # phases 5 and 5b: the SD1.5 training step through the user's entry
     # point, then its agreement with the fp32 plain reference on a small
@@ -3662,18 +4038,15 @@ def main():
     check_native_decoder(run_root.name)
     mark("10b")
 
-    # phases 11 and 11b: the Canny T2I-Adapter run on phase 10's shards
-    # (the Canny mapper in the data chain, the frozen adapter's residuals
-    # in every UNet call), every launched shape among phase 2's, then its
-    # step against the fp32 plain reference on a small input; 11c: the DPT
-    # depth model against its fp32 copy, then the depth mapper over 512²
-    # images, its K1 launches at 577 keys gated
+    # phase 11: the Canny T2I-Adapter run on phase 10's shards (the Canny
+    # mapper in the data chain, the frozen adapter's residuals in every
+    # UNet call), every launched shape among phase 2's (11b, its step
+    # against the fp32 plain reference, is cut from the run for time); 11c:
+    # the DPT depth model against its fp32 copy, then the depth mapper over
+    # 512² images, its K1 launches at 577 keys gated
     by_path["train_canny"] = run_canny_training(counters, card, train_kernels, gated_shapes(), run_root.name)
     torch.cuda.empty_cache()
     mark("11")
-    check_training_reference("sd15-canny", counters=counters, gated=gated_shapes())
-    torch.cuda.empty_cache()
-    mark("11b")
     by_path["depth"] = check_depth(counters, card, ("flash_fwd_oneshot",), gated_shapes())
     torch.cuda.empty_cache()
     mark("11c")

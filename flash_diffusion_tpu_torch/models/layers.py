@@ -25,6 +25,16 @@ time (default ``"0"``, as there; ``layers.py:458-476``):
 dequantized in fp32, then cast), and ``FLASH_TPU_FFN_DOWN_GEMM=1`` sends
 the gated product of a float ``proj_out`` to ``ops.down_proj_gemm`` (K10).
 Both add a LoRA pair of ``proj_out`` after the product, bias included.
+
+The convolutions the JAX package builds as ``QConv`` (ResnetBlock2D's
+``conv1``, ``conv2``, ``conv_shortcut``, Downsample2D's ``conv``) are
+``QConv2d``: with an int8 weight (``quant.quantize_dense(...,
+convs=True)``) they take ``quant.int8_conv``, the product on the int8 GEMM
+kernel over an im2col, then the bias in the output dtype
+(``flash_diffusion_tpu/models/layers.py:164-210``). Upsample2D's int8
+weight is dequantized in fp32 and cast, as the JAX folded upsampler does
+(``layers.py:298-303``; JAX's default path would use the codes without
+their scale).
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ import torch.nn.functional as F
 
 from ..ops import dot_product_attention, group_norm, layer_norm
 from ..ops.gemm import down_proj_gemm, geglu_down_proj, geglu_h
-from ..quant import SCALE_KEY, int8_matmul
+from ..quant import SCALE_KEY, int8_conv, int8_matmul
 
 
 def lora_dense(
@@ -162,6 +172,20 @@ class LayerNorm(nn.Module):
         return layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)
 
 
+class QConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and state-dict keys) with the JAX
+    ``QConv``'s int8 W8A8 branch: when the layer holds a ``weight_scale``
+    (its weight int8, ``quant.apply_weights``), ``quant.int8_conv`` and
+    then the bias in the output dtype."""
+
+    def forward(self, x):
+        scale = getattr(self, SCALE_KEY, None)
+        if scale is None:
+            return super().forward(x)
+        y = int8_conv(x, self.weight, scale, self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
+
+
 class ResnetBlock2D(nn.Module):
     """GN→SiLU→conv3x3 →(+time)→ GN→SiLU→conv3x3 (+skip 1x1 when widening)."""
 
@@ -169,12 +193,12 @@ class ResnetBlock2D(nn.Module):
                  groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.norm1 = GroupNorm(in_channels, groups, eps, act="silu")
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = QConv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels) if temb_dim else None
         self.norm2 = GroupNorm(out_channels, groups, eps, act="silu")
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = QConv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+            QConv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
     def forward(self, x, temb=None):
@@ -190,21 +214,27 @@ class ResnetBlock2D(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = QConv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
 
 
 class Upsample2D(nn.Module):
-    """Nearest ×2 upsampling, then a 3×3 conv."""
+    """Nearest ×2 upsampling, then a 3×3 conv; an int8 weight dequantized
+    on the fly (codes · scale in fp32, then the compute dtype)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        scale = getattr(self.conv, SCALE_KEY, None)
+        if scale is None:
+            return self.conv(x)
+        w = (self.conv.weight.float() * scale[:, None, None, None]).to(x.dtype)
+        return F.conv2d(x, w, self.conv.bias.to(x.dtype), padding=1)
 
 
 class Attention(nn.Module):

@@ -12,15 +12,17 @@ checkpoints) and a shift: ``encode`` gives (z − shift)·scaling and
 ``decode_latents`` un-scales z / scaling + shift (with per-channel
 ``latents_mean``/``latents_std``, where given, z·std / scaling + mean). The
 mid-block attention is single-head with D = C (512 at full width; 16384
-tokens at 1024²), which runs on the streaming flash kernels. Not ported
-yet: tiled decode.
+tokens at 1024²), which runs on the streaming flash kernels.
+``tiled_decode`` decodes a latent larger than ``tiling_size`` in
+overlapping tiles stacked into one batched ``decode_latents`` call, blended
+with pyramid weights (JAX ``vae.py:191-243``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -47,6 +49,13 @@ class AutoencoderKLConfig(BaseConfig):
     # SD1.5/SDXL carry 1×1 quant/post-quant convs around the latent; SD3's
     # VAE has neither
     use_quant_conv: bool = True
+    # tiled decode (``tiled_decode``): latent tile and overlap, (h, w)
+    tiling_size: Tuple[int, int] = (64, 64)
+    tiling_overlap: Tuple[int, int] = (8, 8)
+
+    @property
+    def downsampling_factor(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
 
 
 def sd_vae_config(**overrides) -> AutoencoderKLConfig:
@@ -231,3 +240,43 @@ class AutoencoderKL(nn.Module):
             z = z / cfg.scaling_factor
         h = self.post_quant_conv(z.to(dtype).permute(0, 3, 1, 2))
         return self.decoder(h).float().permute(0, 2, 3, 1).contiguous()
+
+
+def tiled_decode(vae: AutoencoderKL, z: torch.Tensor, tile: Optional[Tuple[int, int]] = None,
+                 overlap: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Decode NHWC latents ``z`` [B, h, w, C] in overlapping tiles (JAX
+    ``tiled_decode``): fp32 NHWC images, as ``decode_latents``.
+
+    A latent that fits one tile (``tile``, default the config's
+    ``tiling_size``) decodes whole. Else tiles of ``tile`` step by tile −
+    ``overlap`` (default ``tiling_overlap``), ceil((h − oh) / step) rows
+    of them by ceil((w − ow) / step) columns; a tile starts at min(i·step,
+    h − th), so the last one is clamped to the edge. The tiles, stacked
+    tile-major ([tile, sample] order), go through one ``decode_latents``
+    call; each decoded tile is weighted by a pyramid over the whole tile,
+    min(i + 1, n − i) along each axis of its n pixels (the smaller of the
+    two), summed into place, and the sum divided by the summed weights
+    (floored at 1e-8)."""
+    cfg = vae.config
+    th, tw = tile or cfg.tiling_size
+    oh, ow = overlap or cfg.tiling_overlap
+    b, h, w, _ = z.shape
+    if h <= th and w <= tw:
+        return vae.decode_latents(z)
+    f = cfg.downsampling_factor
+    step_h, step_w = th - oh, tw - ow
+    rows = max(1, -(-(h - oh) // step_h))
+    cols = max(1, -(-(w - ow) // step_w))
+    coords = [(min(i * step_h, max(h - th, 0)), min(j * step_w, max(w - tw, 0)))
+              for i in range(rows) for j in range(cols)]
+    decoded = vae.decode_latents(torch.cat([z[:, y:y + th, x:x + tw] for y, x in coords]))
+    ph, pw = decoded.shape[1:3]  # th·f and tw·f, or less where the latent is smaller than a tile
+    ramp = lambda n: torch.minimum(torch.arange(n, device=z.device) + 1,
+                                   torch.arange(n, device=z.device).flip(0) + 1).float()
+    wmask = torch.minimum(ramp(ph)[:, None], ramp(pw)[None, :])[None, :, :, None]
+    out = torch.zeros(b, h * f, w * f, cfg.out_channels, device=z.device)
+    weight = torch.zeros(1, h * f, w * f, 1, device=z.device)
+    for idx, (y, x) in enumerate(coords):
+        out[:, y * f:y * f + ph, x * f:x * f + pw] += decoded[idx * b:(idx + 1) * b] * wmask
+        weight[:, y * f:y * f + ph, x * f:x * f + pw] += wmask
+    return out / weight.clamp_min(1e-8)

@@ -107,12 +107,22 @@ def layer_norm_reference(
     return y.to(x.dtype)
 
 
-def _y_errors(y: torch.Tensor, ref: torch.Tensor, rel: float) -> dict:
-    r = ref.double()
-    e = y.double() - r
-    return {"excess": (e.abs() - rel * r.abs()).max().item(), "max_err": e.abs().max().item(),
-            "max_ref": r.abs().max().item(), "rel_l2": (e.norm() / r.norm()).item(), "mean_err": e.mean().item(),
-            "rms_ref": r.square().mean().sqrt().item()}
+def _y_errors(y: torch.Tensor, ref: torch.Tensor, rel: float, chunk: int = 1 << 27) -> dict:
+    """The error statistics of ``y`` against ``ref`` in fp64, over slices of
+    the leading dim of at most ``chunk`` elements each (a whole fp64 copy of
+    a stacked VAE activation would not fit beside it on the card)."""
+    step = max(1, chunk // max(1, y[:1].numel()))
+    excess, max_err, max_ref, e2, r2, e1 = float("-inf"), 0.0, 0.0, 0.0, 0.0, 0.0
+    for i in range(0, y.shape[0], step):
+        r = ref[i:i + step].double()
+        e = y[i:i + step].double() - r
+        excess = max(excess, (e.abs() - rel * r.abs()).max().item())
+        max_err, max_ref = max(max_err, e.abs().max().item()), max(max_ref, r.abs().max().item())
+        e2, r2, e1 = e2 + e.square().sum().item(), r2 + r.square().sum().item(), e1 + e.sum().item()
+        del r, e
+    n = y.numel()
+    return {"excess": excess, "max_err": max_err, "max_ref": max_ref, "rel_l2": (e2 / r2) ** 0.5,
+            "mean_err": e1 / n, "rms_ref": (r2 / n) ** 0.5}
 
 
 def _y_gate(s: dict, rel: float, floor: float, l2: float, bias: float) -> tuple:

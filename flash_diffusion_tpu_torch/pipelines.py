@@ -14,9 +14,11 @@ a sequence of seeds (then sample j's latent and step noise depend on
 ``seed[j]`` alone, whatever its slot or the batch size); tests inject
 ``latents`` and the per-step ``noise`` instead. The stages run in
 ``record_function`` spans (``fdt.encode``, ``fdt.denoise``, ``fdt.decode``)
-that ``profiling.py`` reads. ``size_cond_fn`` (SDXL) adds the size
-conditions of a batch to the conditioner's inputs, for the negative prompts
-too; ``decode_chunk`` decodes the batch in serial chunks.
+that ``profiling.py`` and ``trace_top.py`` read. ``size_cond_fn`` (SDXL)
+adds the size conditions of a batch of prompts to the conditioner's
+inputs, for the negative prompts too; ``decode_chunk`` decodes the batch
+in serial chunks. ``generate`` also takes a pre-tokenized batch: a dict of
+the conditioners' inputs (token ids, masks, vectors), used as it is.
 
 LoRA and quantization (``pipelines.py:66-129``, ``:165-172``): the UNet's
 float weights stay resident as ``base_state``; ``load_lora``,
@@ -27,13 +29,14 @@ quantizing the merged weights (``quant.quantize_dense``). A rebuild is
 computed aside and swapped in whole under a lock that ``generate`` holds
 for its whole call: a generate in flight (the serving batcher's thread)
 finishes with the weights it started with, and none ever sees a half-merged
-or half-quantized set. Not ported yet: tensor-parallel placement.
+or half-quantized set. Not ported yet: tensor-parallel placement
+(JAX ``shard_tp``).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -165,7 +168,7 @@ class FlashPipeline:
     @torch.inference_mode()
     def generate(
         self,
-        prompts: Sequence[str],
+        prompts: Sequence[str] | Dict[str, Any],
         num_inference_steps: int = 4,
         guidance_scale: float = 0.0,
         negative_prompts: Optional[Sequence[str]] = None,
@@ -177,7 +180,14 @@ class FlashPipeline:
     ) -> torch.Tensor:
         """Images in [-1, 1], NHWC fp32.
 
-        ``seed`` is one seed, or one per sample. ``latents`` ([B, H, W, C])
+        ``prompts`` is a list of strings, tokenized by ``tokenizer_fn``, or
+        a pre-tokenized batch: a dict of the conditioners' inputs (token
+        ids, masks, vectors; arrays, tensors or lists), whose batch is the
+        length of its first list or tensor value. A dict is used as it is:
+        ``size_cond_fn`` is not applied to it (the caller gives the size
+        conditions), and the unconditional branch of guidance zeroes its
+        conditioners (``ucg_keys``), as in JAX. ``seed`` is one seed, or
+        one per sample. ``latents`` ([B, H, W, C])
         and ``noise`` (one [B, H, W, C] tensor per step) replace the draws.
         ``height``/``width`` (pixels, both or neither, multiples of
         8·vae_scale_factor) override the default resolution.
@@ -203,8 +213,13 @@ class FlashPipeline:
 
     def _generate(self, prompts, num_inference_steps, guidance_scale, negative_prompts, seed,
                   latents, noise, height, width):
-        batch_inputs = dict(self.tokenizer_fn(list(prompts)))
-        batch = len(prompts)
+        if isinstance(prompts, dict):  # pre-tokenized (JAX pipelines.py:295-300)
+            batch_inputs = dict(prompts)
+            batch = next(len(v) if isinstance(v, (list, tuple)) else v.shape[0]
+                         for v in prompts.values() if isinstance(v, (list, tuple)) or hasattr(v, "shape"))
+        else:
+            batch_inputs = dict(self.tokenizer_fn(list(prompts)))
+            batch = len(prompts)
         if (height is None) != (width is None):
             raise ValueError("pass both height and width, or neither")
         lshape = self.latent_shape
@@ -215,7 +230,7 @@ class FlashPipeline:
                 raise ValueError(f"height/width must be positive multiples of {align}")
             lshape = (height // f, width // f, self.latent_shape[-1])
         h_px, w_px = lshape[0] * self.vae_scale_factor, lshape[1] * self.vae_scale_factor
-        if self.size_cond_fn is not None:
+        if self.size_cond_fn is not None and not isinstance(prompts, dict):
             batch_inputs.update(self.size_cond_fn(batch, h_px, w_px))
 
         do_cfg = guidance_scale not in (0.0, 1.0)

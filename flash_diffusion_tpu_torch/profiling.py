@@ -48,59 +48,26 @@ from torch.profiler import ProfilerActivity, profile
 
 from .sample import MODELS, build_pipeline
 from .train import MODELS as TRAIN_MODELS
+from .utils.profiling import kernel_category, kernel_id
 
 _PROMPTS = ["a photograph of an astronaut riding a horse"]
 
 
-def _category(name: str) -> str:
-    low = name.lower()
-    for key, cat in (
-        ("flash_fwd", "attention kernels"), ("flash_bwd", "attention kernels"),
-        ("layer_norm_", "layer_norm kernel"), ("int8_gemm_kernel", "int8 gemm kernel"),
-        ("gemm_sm90_kernel", "ffn gemm kernels"),
-        ("gn_stats", "group_norm kernels"), ("gn_apply", "group_norm kernels"), ("gn_resident", "group_norm kernels"),
-        ("fprop", "convolution"), ("conv", "convolution"), ("gemm", "gemm (linear)"),
-        ("nvjet", "gemm (linear)"), ("cutlass", "gemm (linear)"),
-        ("reduce", "reduction"), ("elementwise", "elementwise"), ("vectorized", "elementwise"),
-        ("copy", "copy / layout"), ("cat", "copy / layout"),
-    ):
-        if key in low:
-            return cat
-    return "other"
-
-
-def _packed(name: str) -> bool:
-    """Whether a kernel is a packed [B, S, H·D] attention forward: an
-    instantiation with kPacked = true (K4 of K1's kernel, K5 of K2's), or a
-    kernel of its own (``flash_fwd_oneshot_packed_kernel``,
-    ``flash_fwd_packed_kernel``), so that a tree of either kind profiles
-    alike."""
-    return ", true>" in name or "_packed_kernel" in name
-
-
-def _geglu(name: str) -> bool:
-    """Whether a kernel is K12: K10's kernel instantiated with kGeglu =
-    true (``gemm_sm90_kernel<BN, kCluster, true>``)."""
-    return "gemm_sm90_kernel" in name and ", true>" in name
-
-
-# (label, the kernels it sums by name)
+# (label, the kernels it sums by their ``utils.profiling.kernel_id`` tag)
 _ROUTES = (
-    ("streaming forward (K2)", lambda n: ("flash_fwd_wgmma_kernel" in n or "flash_fwd_mma_kernel" in n)
-     and not _packed(n)),
-    ("packed streaming forward (K5)", lambda n: _packed(n) and ("flash_fwd_wgmma_kernel" in n
-                                                                  or "flash_fwd_packed_kernel" in n)),
-    ("down-projection GEMM (K10)", lambda n: "gemm_sm90_kernel" in n and not _geglu(n)),
-    ("GEGLU down projection (K12)", _geglu),
-    ("int8 GEMM (K11)", lambda n: "int8_gemm_kernel" in n),
-    ("one-shot forward (K1)", lambda n: "flash_fwd_oneshot_kernel" in n and not _packed(n)),
-    ("packed one-shot forward (K4)", lambda n: _packed(n) and "flash_fwd_oneshot" in n),
-    ("one-shot backward (K8 + its reduce)", lambda n: "flash_bwd_oneshot" in n),
-    ("attention backward pair (K6 + K7)", lambda n: "flash_bwd_dkv" in n or "flash_bwd_dq" in n),
-    ("LayerNorm (K3)", lambda n: "layer_norm_" in n and "kernel" in n),
-    ("GroupNorm resident (K9 + fold + apply, one launch)", lambda n: "gn_resident" in n),
-    ("GroupNorm statistics (K9, + fold)", lambda n: "gn_stats" in n),
-    ("GroupNorm apply", lambda n: "gn_apply" in n),
+    ("streaming forward (K2)", ("K2",)),
+    ("packed streaming forward (K5)", ("K5",)),
+    ("down-projection GEMM (K10)", ("K10",)),
+    ("GEGLU down projection (K12)", ("K12",)),
+    ("int8 GEMM (K11)", ("K11",)),
+    ("one-shot forward (K1)", ("K1",)),
+    ("packed one-shot forward (K4)", ("K4",)),
+    ("one-shot backward (K8 + its reduce)", ("K8",)),
+    ("attention backward pair (K6 + K7)", ("K6", "K7")),
+    ("LayerNorm (K3)", ("K3",)),
+    ("GroupNorm resident (K9 + fold + apply, one launch)", ("K9 fused",)),
+    ("GroupNorm statistics (K9, + fold)", ("K9",)),
+    ("GroupNorm apply", ("GN apply",)),
 )
 
 
@@ -185,11 +152,11 @@ def main():
                   f"device busy {stage_ms:9.2f} ms of a {(hi - lo) / 1e3:9.2f} ms span, {count} kernels")
     cats = defaultdict(float)
     for e in kernels:
-        cats[_category(e.key)] += e.self_device_time_total / 1e3
+        cats[kernel_category(e.key)] += e.self_device_time_total / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:20s} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time)")
-    for label, takes in _ROUTES:
-        found = [e for e in kernels if takes(e.key)]
+    for label, tags in _ROUTES:
+        found = [e for e in kernels if kernel_id(e.key) in tags]
         if found:
             ms = sum(e.self_device_time_total for e in found) / 1e3
             print(f"  {label} {ms:9.2f} ms ({100 * ms / busy_ms:5.1f}% of device time), "

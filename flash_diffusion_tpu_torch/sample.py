@@ -1,7 +1,7 @@
 """Few-step text-to-image sampling with the PyTorch port: build_pipeline and CLI.
 
     python -m flash_diffusion_tpu_torch.sample --model sdxl --prompt "A raccoon reading a book" \
-        --steps 4 --out sample.png [--weights-root /weights/sdxl]
+        --steps 4 --out sample.png [--weights-root /weights/sdxl] [--lora a.safetensors [--lora-scale 1.0]]
 
 ``build_pipeline(model, device=...)`` is the port's counterpart of the sd15,
 sdxl, pixart and sd3 branches of ``examples/sample.py::build_pipeline``,
@@ -336,6 +336,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="sd15", choices=MODELS)
     ap.add_argument("--weights-root", default="")
+    ap.add_argument("--lora", default=None, help="PEFT safetensors adapter to merge")
+    ap.add_argument("--lora-scale", type=float, default=1.0)
     ap.add_argument("--prompt", action="append", required=True)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--guidance-scale", type=float, default=0.0)
@@ -350,7 +352,7 @@ def main():
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
     pipe = build_pipeline(args.model, args.weights_root, device=args.device, seed=args.seed, t5=args.t5,
-                          t5_max_length=args.t5_max_length)
+                          t5_max_length=args.t5_max_length, lora=args.lora, lora_scale=args.lora_scale)
     images = pipe.generate(
         args.prompt, num_inference_steps=args.steps,
         guidance_scale=args.guidance_scale, seed=args.seed,

@@ -208,6 +208,16 @@ def _to_png_bytes(image: np.ndarray) -> bytes:
     return png_bytes(arr)
 
 
+def _all_threads():
+    """The profiler's setting that records every thread's ops, not only the
+    caller's (the batcher runs ``generate`` on its own thread), where this
+    PyTorch has it; else None."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
 class InferenceServer:
     """HTTP front end over a FlashPipeline and a DynamicBatcher."""
 
@@ -309,9 +319,11 @@ class InferenceServer:
         }
 
     def handle_profile(self, body: Dict[str, Any]) -> Dict[str, Any]:
-        """A ``torch.profiler`` trace (host ops, and the card's kernels on
+        """A ``torch.profiler`` trace (host ops of every thread, the
+        batcher's with its ``fdt.*`` stage spans, and the card's kernels on
         CUDA) of live traffic: POST /profile {"seconds": 5, "dir": ...}
-        blocks for the window and writes ``trace.json`` into the directory."""
+        blocks for the window and writes ``trace.json`` into the directory,
+        which ``trace_top.py --parse`` ranks."""
         seconds = float(body.get("seconds", 5.0))
         out_dir = body.get("dir") or os.path.join(tempfile.gettempdir(), "flash_serve_trace")
         if seconds <= 0 or seconds > 120:
@@ -321,7 +333,7 @@ class InferenceServer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         try:
             os.makedirs(out_dir, exist_ok=True)
-            with torch.profiler.profile(activities=activities) as prof:
+            with torch.profiler.profile(activities=activities, experimental_config=_all_threads()) as prof:
                 time.sleep(seconds)
             prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
         except (OSError, RuntimeError) as e:

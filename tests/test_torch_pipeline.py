@@ -253,6 +253,43 @@ def test_sdxl_slice_matches_jax_generate(jax_sdxl_pipeline, guidance_scale, nega
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("family,guidance_scale", [("sd15", 2.0), ("sdxl", 0.0)])
+def test_dict_prompts_match_jax_generate(request, family, guidance_scale):
+    """A pre-tokenized batch (a dict of token ids; for SDXL with the caller's
+    own size conditions, which ``size_cond_fn`` must not replace) against
+    the JAX ``generate`` of the same dict: SD1.5 at guidance 2.0, whose
+    unconditional branch zeroes the conditioners by ``ucg_keys``, and SDXL
+    at guidance 0; fp32, 1e-3 as the slices above."""
+    jpipe, uparams, vparams, cparams = request.getfixturevalue(
+        "jax_pipeline" if family == "sd15" else "jax_sdxl_pipeline")
+    prompts = {**tokenizer_fn(["a raccoon reading a book", "an astronaut"])}
+    if family == "sdxl":
+        prompts.update(size_cond_fn(2, 24, 40))
+    want = np.asarray(jpipe.generate(prompts, num_inference_steps=4, guidance_scale=guidance_scale, seed=5))
+    latents, noise = jax_draws(5, 2, 4)
+    port = (port_pipeline if family == "sd15" else port_sdxl_pipeline)(uparams, vparams, cparams)
+    got = port.generate(prompts, num_inference_steps=4, guidance_scale=guidance_scale, latents=latents, noise=noise)
+    assert got.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_dict_prompts_are_taken_as_they_are():
+    """A dict with the tokenizer's ids and the default size conditions gives
+    the string path's images bit for bit, with tensors or lists as values;
+    the batch is the first list's or tensor's length; other size conditions
+    in the dict reach the UNet (``size_cond_fn`` is not applied to a dict)."""
+    pipe = tiny_sdxl_port_pipeline()
+    texts = ["x", "a longer prompt", "z"]
+    want = pipe.generate(texts, seed=3)
+    batch = {**tokenizer_fn(texts), **size_cond_fn(3, 16, 16)}
+    assert torch.equal(pipe.generate(batch, seed=3), want)
+    as_tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+    assert torch.equal(pipe.generate(as_tensors, seed=3), want)
+    assert torch.equal(pipe.generate({k: v.tolist() for k, v in batch.items()}, seed=3), want)
+    other = {**batch, **size_cond_fn(3, 64, 16)}
+    assert not torch.equal(pipe.generate(other, seed=3), want)
+
+
 # SDXL-shaped with one 512-channel level of 8 heads of 64 over a 36×36
 # latent: 1296 tokens, past the 1024 keys JAX's one-shot kernels take, so
 # that under FLASH_TPU_ATTN_PACKED=1 its self-attention streams (K5), and
