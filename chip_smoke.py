@@ -17,7 +17,9 @@ model (ViT-L/16) at 384², the eval path (SD1.5 samples scored by CLIP-FID
 with ViT-L/14, Inception FID and CLIPScore through ``eval_coco``), and the
 weights-free toy distillation proofs, the native JPEG decoder, SDXL's
 distillation on aspect buckets with its kohya export, the SDXL VAE's tiled
-decode and SDXL in int8 with its convolutions on the int8 GEMM kernel. It
+decode and SDXL in int8 with its convolutions on the int8 GEMM kernel,
+and the parallel paths (SDXL served at TP = 2, the SD1.5 step data
+parallel and under FSDP2, one rank over NCCL). It
 fails unless every phase passes, and prints each phase's seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
@@ -410,6 +412,28 @@ fails unless every phase passes, and prints each phase's seconds:
    shape) among phase 2's; warm s/batch beside the dense-only one, the
    images' rel. L2 to 3b's bf16 images of the same draw; then its 128²
    reference against the fp32 CPU copy with the same int8 weights, as 6b.
+15. the parallel paths (``parallel/``), each rank a process on cuda:0
+   through ``parallel.spawn`` (one card: NCCL refuses two ranks on one
+   device, so the world-size-2 paths run over gloo, which carries CUDA
+   tensors for all-reduce and broadcast; their times check the paths and
+   are no speed of TP or DP across cards). 15a: SDXL 1024² served at
+   TP = 2 (``FlashPipeline.shard_tp``, ``serving.serve_tp_rank``: rank 0's
+   HTTP server and batcher, the spec of each dispatch over the ordered
+   channel), a cold request of 3b's prompt ``TP_SLOT`` at seed
+   ``TP_SLOT``, batch 1, through ``handle_generate``: its image against
+   slot ``TP_SLOT`` of 3b's pipeline at per-sample seeds within
+   ``BATCH_INVARIANCE_TOL``; then the same request warm over HTTP, its PNG
+   within one uint8 step of that image; warm s/image; K2, K4 and K3 launched;
+   each rank's (kernel, shape) counts, reset just before serving, summed
+   and held to phase 2's. 15b and 15c side by side: phase 5's SD1.5 step
+   (``flash_sd.yaml`` stage 1, 512², the global batch of 4) on two gloo
+   ranks (2 + 2 rows, the global batch's draws), against one process at
+   the global batch in a world-size-1 NCCL group with the frozen modules
+   under FSDP2: the distill, DMD and D losses to a relative 0.05 and the
+   LoRA gradients to a relative L2 of 0.1 (5b's bounds), the two ranks'
+   LoRA after the update bit-equal; the NCCL process then runs
+   ``generate`` of phase 3's prompts after ``shard_tp``; every launched
+   (kernel, shape) among phase 2's.
 
 The second-to-last line of output is the card's name and power limit; the
 line before it lists the kernels as JSON (``launches``: the count over the
@@ -419,7 +443,8 @@ paths' runs, ``launches_by_path`` each, the modes of 3c as the paths
 8t as ``sd3_t5``, 9 as ``train_sd3``, 10 as ``train_run``, 11 as
 ``train_canny``, 11c as ``depth``, 12 as ``eval``, 12b as ``toy``, 13 as
 ``train_sdxl_buckets``, 14 as ``tiled_decode``, 14b as
-``sdxl_int8_convs``; ``ms``, ``plain_ms``,
+``sdxl_int8_convs``, 15a as ``tp_serve``, 15b as ``dp_train``, 15c as
+``fsdp_train_nccl`` and ``tp_generate_nccl``: the ranks' launches summed); ``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``: sums over the paths' shapes, ``bound_by`` the
 bound of the largest share; for K6 and K7 ``plain_ms`` and ``library_ms``
 are those of the whole backward, dq, dk and dv); the last line is
@@ -863,16 +888,29 @@ GN_SHAPES_TILED = [case for case in dict.fromkeys(
 TILED_CASES = set(ATTENTION_SHAPES_TILED + GN_SHAPES_TILED)
 
 
+# phase 15's new (kernel, shape) pairs, checked untimed: SDXL at TP = 2,
+# 1024², batch 1 (K2 and K4 at 5 and 10 heads a rank; the UNet's GroupNorms
+# at batch 1), and the data-parallel SD1.5 step's backward at 2 rows a rank
+# (BH 16)
+ATTENTION_SHAPES_TP = [(5, 4096, 4096, 64, None), (10, 1024, 1024, 64, None)]
+PACKED_SHAPES_TP = [(1, 4096, 77, 5, 64), (1, 1024, 77, 10, 64)]
+GN_SHAPES_TP = [((1, c, hw, hw), torch.bfloat16, None) for c, hw in (
+    (320, 128), (640, 128), (960, 128), (320, 64), (640, 64), (960, 64), (1280, 64), (1920, 64), (640, 32),
+    (1280, 32), (1920, 32), (2560, 32))]
+BWD_SHAPES_DP = [(16, sq, kv, d, None) for sq, kv, d in BWD_LEVELS if sq >= 256]
+PARALLEL_CASES = set(ATTENTION_SHAPES_TP + PACKED_SHAPES_TP + GN_SHAPES_TP + BWD_SHAPES_DP)
+
+
 def draw_order(cases, *more):
     """A check's cases in the order their inputs are drawn from its one
     generator: ``cases`` and ``more`` as the earlier phases listed them,
-    then phase 13's, then phase 14's, so that adding those left every
-    other case's inputs as they were (the GroupNorm gate's per-element
-    bound sits within a few percent of the plain bf16 version's own error
-    at some draws: ROADMAP Queue 3)."""
+    then phase 13's, then phase 14's, then phase 15's, so that adding those
+    left every other case's inputs as they were (the GroupNorm gate's
+    per-element bound sits within a few percent of the plain bf16 version's
+    own error at some draws: ROADMAP Queue 3)."""
     cases = list(cases) + [c for m in more for c in m]
-    rank = lambda c: 2 if c in TILED_CASES else 1 if c in BUCKET_CASES else 0
-    return [c for r in range(3) for c in cases if rank(c) == r]
+    rank = lambda c: 3 if c in PARALLEL_CASES else 2 if c in TILED_CASES else 1 if c in BUCKET_CASES else 0
+    return [c for r in range(4) for c in cases if rank(c) == r]
 
 
 # The paths' shapes of each check (timed), read at call time so that a
@@ -916,12 +954,13 @@ def int8_main():
 def attention_unmain():
     """The forward attention cases phase 2 checks untimed."""
     return ATTENTION_RAGGED + ATTENTION_V_SHIFTED + ATTENTION_REFERENCES + ATTENTION_REFERENCES_SD3 + \
-        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN + ATTENTION_REFERENCES_CANNY + ATTENTION_EVAL_SINGLE
+        ATTENTION_RAGGED_SD3 + ATTENTION_REFERENCES_SD3_TRAIN + ATTENTION_REFERENCES_CANNY + ATTENTION_EVAL_SINGLE + \
+        ATTENTION_SHAPES_TP
 
 
 def bwd_unmain():
     """The attention backward cases phase 2 checks outside the paths' sums."""
-    return BWD_RAGGED + BWD_REFERENCES_SD3 + BWD_REFERENCES_CANNY
+    return BWD_RAGGED + BWD_REFERENCES_SD3 + BWD_REFERENCES_CANNY + BWD_SHAPES_DP
 
 
 def layer_norm_unmain():
@@ -932,9 +971,9 @@ def layer_norm_unmain():
 def gn_unmain():
     """The GroupNorm cases phase 2 checks untimed (phase 14's stacked tiles
     and 2048² decode among them, in channels-last alone, to bound phase 2's
-    time)."""
+    time; phase 15's UNet at batch 1)."""
     return ([(shape, dtype, None) for shape, dtype in GN_RAGGED] + GN_REFERENCES_SD3_TRAIN + GN_REFERENCES_CANNY
-            + GN_SHAPES_TILED)
+            + GN_SHAPES_TILED + GN_SHAPES_TP)
 
 
 def int8_extra():
@@ -970,7 +1009,7 @@ def gated_shapes():
     gn_stats = gn | {(shape, dtype, None) for shape, dtype, _ in cases}
     gn_apply = {(shape, dtype) for shape, dtype, _ in cases}
     return {"flash_fwd_oneshot": fwd, "flash_fwd_stream": fwd,
-            "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_SHAPES_BUCKET + PACKED_RAGGED),
+            "flash_fwd_oneshot_packed": set(PACKED_SHAPES + PACKED_SHAPES_BUCKET + PACKED_RAGGED + PACKED_SHAPES_TP),
             "flash_fwd_packed": set(PACKED_STREAM_SHAPES + PACKED_STREAM_RAGGED),
             "flash_bwd_oneshot": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd,
             "layer_norm": set(layer_norm_main() + layer_norm_unmain() + LAYER_NORM_SMALL_VAR),
@@ -3738,6 +3777,306 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
         raise AssertionError(f"the card's {model} training step disagrees with the fp32 reference on a small input")
 
 
+# phase 15: the port's parallel paths on one card. 15a: SDXL served at
+# TP = 2, two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+# device), one 1024² request of 3b's prompt TP_SLOT at seed TP_SLOT, batch
+# 1; its image against slot TP_SLOT of 3b's pipeline at per-sample seeds
+# (TP_REFERENCE) within the alone-vs-batched contract. 15b: one SD1.5
+# flash_sd.yaml step at phase 5's size, the global batch of 4 split 2 + 2
+# over two gloo ranks on cuda:0, against one process at the global batch
+# (15c) with the same draws, to 5b's bounds; the ranks' LoRA bit-equal
+# after the step. 15c: that one process, in a world-size-1 NCCL group
+# (``initialize_distributed(backend="nccl")``), steps with the frozen
+# modules under FSDP2 and then runs ``generate`` after ``shard_tp``. The
+# gloo figures check the paths; they are no speed of TP or DP across cards.
+TP_SLOT = 1
+TP_WARM_REQUESTS = 1  # each ≈ 7.4 s over gloo, measured on one H100
+# the same request at TP = 2 run straight through ``generate`` after
+# serving: sound, then with one collective misplaced at a time
+# (``plant_tp_fault``). The sound run's ranks hold bit-equal final latents,
+# within TP_LATENT_TOL (rel. L2) of the request alone in the whole
+# pipeline; each fault must break one of the two. 3b's image bound does not
+# see a skipped all-reduce: on one H100 (700 W) sound 9.073e-03, the last
+# row layer's all-reduce skipped 1.188e-02, the middle one's 9.174e-03; in
+# the latents 3.085e-03, 7.322e-03 and 3.351e-03, the bias on both ranks
+# 1.995e-02 (its image 2.886e-02).
+TP_FAULTS = ("none", "bias on both ranks", "mid all-reduce skipped", "last all-reduce skipped")
+TP_LATENT_TOL = 1e-2
+DP_LOSS_TOL, DP_GRAD_TOL = 0.05, 0.1  # 5b's bounds
+PARALLEL_JOIN_S = 600
+
+
+def png_rgb(png: bytes) -> np.ndarray:
+    """The [H, W, 3] uint8 pixels of a PNG from the port's writer (8-bit RGB,
+    one IDAT, filter 0 on every row)."""
+    width, height = png_pixels(png)
+    at = png.index(b"IDAT")
+    raw = zlib.decompress(png[at + 4: at + 4 + struct.unpack(">I", png[at - 4: at])[0]])
+    rows = np.frombuffer(raw, np.uint8).reshape(height, 1 + 3 * width)
+    if rows[:, 0].any():
+        raise AssertionError("a PNG row with a filter other than 0")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def rank_counters():
+    from flash_diffusion_tpu_torch.ops import attention, gemm, norms
+
+    return attention.LAUNCHES, norms.LAUNCHES, gemm.LAUNCHES
+
+
+def merged_counts(ranks_counts):
+    """One set of ``LaunchCounts`` summing the ranks' (kernel, shape) counts."""
+    from flash_diffusion_tpu_torch.ops.kernels import LaunchCounts
+
+    out = [LaunchCounts() for _ in ranks_counts[0]]
+    for counts in ranks_counts:
+        for merged, c in zip(out, counts):
+            merged.update(c)
+    return out
+
+
+def plant_tp_fault(pipe, fault):
+    """Misplace one collective of a pipeline after ``shard_tp``; returns the
+    undo. "bias on both ranks": every row-parallel layer's bias also enters
+    the sum on each rank (twice in all); "mid"/"last all-reduce skipped":
+    the middle or the last row-parallel layer of the denoiser keeps the
+    rank's partial product, never summed."""
+    from flash_diffusion_tpu_torch.models import layers
+
+    if fault == "none":
+        return lambda: None
+    if fault == "bias on both ranks":
+        plain = layers.lora_dense
+
+        def biased(x, weight, bias, lora=None, weight_scale=None, group=None):
+            y = plain(x, weight, bias, lora, weight_scale, group)
+            return y if group is None or bias is None else y + bias.to(y.dtype)
+
+        layers.lora_dense = biased
+        return lambda: setattr(layers, "lora_dense", plain)
+    rows = [m for _, m in pipe.denoiser.named_modules() if getattr(m, "tp_group", None) is not None]
+    layer = rows[len(rows) // 2] if fault.startswith("mid") else rows[-1]
+    layer.forward = lambda x: F.linear(x, layer.weight, None if layer.bias is None else layer.bias.to(x.dtype))
+    return lambda: delattr(layer, "forward")
+
+
+def run_tp_faults(pipe, run):
+    """{fault: ``run()`` with the fault planted} over ``TP_FAULTS``."""
+    out = {}
+    for fault in TP_FAULTS:
+        undo = plant_tp_fault(pipe, fault)
+        try:
+            out[fault] = run()
+        finally:
+            undo()
+    return out
+
+
+def tp_fault_caught(lat, other_rank_lat, alone):
+    """15a's checks on one TP run's final latents: (caught, the ranks' max
+    |diff|, rel. L2 from the request alone in the whole pipeline)."""
+    apart, off = float((other_rank_lat - lat).abs().max()), rel_l2(lat, alone)
+    return apart > 0 or not off <= TP_LATENT_TOL, apart, off
+
+
+def tp_serve_rank(rank, world, slot):
+    """15a, one rank: the SDXL pipeline of 3b's seed, ``shard_tp`` over the
+    group, ``serve_tp_rank``; rank 0 sends one cold request of 3b's prompt
+    ``slot`` at seed ``slot`` through ``handle_generate`` (the float image
+    back), then the same ``TP_WARM_REQUESTS`` times over HTTP (warm, timed,
+    a PNG back). Launch counts reset just before serving and read after.
+    Before ``shard_tp`` rank 0 runs the request alone in the whole
+    pipeline; after serving both ranks run it under each of ``TP_FAULTS``
+    (final latents, and rank 0's decode)."""
+    from flash_diffusion_tpu_torch.parallel import build_kernels_once
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.serving import ServingConfig, serve_tp_rank
+
+    build_kernels_once()
+    t0 = time.perf_counter()
+    pipe = build_pipeline("sdxl", device="cuda", seed=0)
+    built = time.perf_counter() - t0
+    run = lambda: pipe.generate([PROMPTS[slot]], num_inference_steps=4, guidance_scale=0.0, seed=[slot],
+                                decode=False)
+    decode = lambda lat: pipe._decode(lat)[0].float().cpu() if rank == 0 else None
+    with torch.inference_mode():
+        alone = run() if rank == 0 else None
+        alone = None if alone is None else (alone[0].float().cpu(), decode(alone))
+    t0 = time.perf_counter()
+    pipe.shard_tp()
+    torch.cuda.synchronize()
+    built += time.perf_counter() - t0
+    counters = rank_counters()
+    got = {}
+
+    def drive(server):
+        request = {"prompt": PROMPTS[slot], "seed": slot, "steps": 4}
+        t = time.perf_counter()
+        out = server.handle_generate(request, timeout=300)  # the batcher and the channel, not the socket
+        got["seconds"] = [time.perf_counter() - t]
+        got["image"] = torch.from_numpy(out["images"][0])
+        url = "http://%s:%d/generate" % server.address
+        for _ in range(TP_WARM_REQUESTS):
+            t = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url, json.dumps({**request, "format": "json"}).encode()), timeout=300) as r:
+                got["png"] = base64.b64decode(json.loads(r.read())["images_png_b64"][0])
+            got["seconds"].append(time.perf_counter() - t)
+
+    reset(counters)
+    # float images on the request (the first, compared), PNGs over HTTP (the warm ones, timed)
+    config = ServingConfig(port=0, max_batch=1, batch_sizes=(1,), linger_ms=1.0, uint8_images=False)
+    serve_tp_rank(pipe, config, on_ready=drive)
+    torch.cuda.synchronize()
+    counts = [dict(c) for c in counters]
+    with torch.inference_mode():  # rank 0 alone decodes
+        faults = {f: (lat[0].float().cpu(), decode(lat)) for f, lat in run_tp_faults(pipe, run).items()}
+    return {**got, "counts": counts, "built": built, "alone": alone, "faults": faults,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dp_train_rank(rank, world, frozen_sharding):
+    """15b (two gloo ranks) or 15c (one NCCL rank): ``build_trainer("sd15")``
+    at phase 5's settings in the group, one ``fit`` step on the first
+    synthetic global batch of 4 (the rank's rows); the step's (group mean)
+    losses, the averaged LoRA gradients and a digest of the LoRA after the
+    update; at world size 1 also ``generate`` of phase 3's prompts after
+    ``shard_tp``. Counts reset just before each and read after."""
+    import hashlib
+
+    from flash_diffusion_tpu_torch.parallel import build_kernels_once, shard_batch
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
+
+    build_kernels_once()
+    cfg = {**load_config(CONFIGS["sd15"]), **TRAIN_OVERRIDES}
+    trainer = build_trainer("sd15", device="cuda", seed=0, config=cfg, frozen_sharding=frozen_sharding)
+    batch = next(synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed=0, model="sd15"))
+    counters = rank_counters()
+    reset(counters)
+    t0 = time.perf_counter()
+    aux = trainer.fit([shard_batch(batch)], max_steps=1)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "aux": {k: float(v) for k, v in aux.items()},
+           "counts": [dict(c) for c in counters], "backend": torch.distributed.get_backend(),
+           "rows": len(shard_batch(batch)["image"])}
+    leaves = [t for ab in trainer.lora.values() for t in ab.values()]
+    out["grad"] = torch.cat([(t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1).float()
+                             for t in leaves]).cpu()
+    digest = hashlib.sha256()
+    for t in leaves:
+        digest.update(t.detach().cpu().numpy().tobytes())
+    out["lora_sha256"] = digest.hexdigest()
+    if world == 1:
+        del trainer
+        torch.cuda.empty_cache()
+        pipe = build_pipeline("sd15", device="cuda", seed=0)
+        pipe.shard_tp()
+        reset(counters)
+        images = pipe.generate(PROMPTS, num_inference_steps=4, guidance_scale=0.0, seed=0)
+        torch.cuda.synchronize()
+        out["generate"] = {"shape": tuple(images.shape), "finite": bool(torch.isfinite(images).all()),
+                           "counts": [dict(c) for c in counters]}
+    return out
+
+
+def run_parallel(card, reference, gated):
+    """Phase 15 (15a, then 15b and 15c side by side): returns {path: the
+    ranks' summed launches by kernel}. ``reference``: 3b's image of prompt
+    and seed ``TP_SLOT`` at per-sample seeds, on the CPU."""
+    torch.cuda.empty_cache()
+    return {**run_tp_serving(card, reference, gated), **run_dp_training(gated)}
+
+
+def run_tp_serving(card, reference, gated):
+    """15a: {"tp_serve": the ranks' summed launches by kernel}."""
+    from flash_diffusion_tpu_torch.parallel import spawn
+    from flash_diffusion_tpu_torch.serving import _device_uint8
+
+    by_path = {}
+
+    t0 = time.perf_counter()
+    ranks = spawn(tp_serve_rank, 2, "gloo", args=(TP_SLOT,), timeout=PARALLEL_JOIN_S)
+    image, png = ranks[0]["image"].float(), png_rgb(ranks[0]["png"])
+    counts = merged_counts([r["counts"] for r in ranks])
+    by_path["tp_serve"] = totals(counts)
+    err = rel_l2(image, reference)
+    png_off = int((torch.from_numpy(png).int() - _device_uint8(image[None])[0].int()).abs().max())
+    secs = ranks[0]["seconds"]
+    print(f"15a: SDXL 1024² served at TP = 2 (2 gloo ranks on cuda:0 of {card}): cold {secs[0]:.3f} s, warm "
+          f"{statistics.median(secs[1:]):.3f} s/image ({[round(x, 3) for x in secs[1:]]} over HTTP; a check of the "
+          f"path, not a speed of TP across cards); build + shard_tp {ranks[0]['built']:.1f} s; peak memory a rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches {dict(by_path['tp_serve'])}")
+    print(f"15a: the TP = 2 image vs 3b's slot {TP_SLOT}, rel L2 {err:.3e} (tol {BATCH_INVARIANCE_TOL}); the warm "
+          f"requests' PNG against the first image as uint8, max |diff| {png_off}")
+    if tuple(image.shape) != (1024, 1024, 3) or not err <= BATCH_INVARIANCE_TOL or png_off > 1:
+        raise AssertionError(f"the TP = 2 image differs from 3b's by {err:.3e} (shape {tuple(image.shape)}), or the "
+                             f"served PNG from it by {png_off}")
+    missing = [k for k in ("flash_fwd_stream", "flash_fwd_oneshot_packed", "layer_norm") if by_path["tp_serve"][k] == 0]
+    if missing:
+        raise AssertionError(f"the TP serving path never launched {missing}")
+    check_gated("15a TP serving", counts, gated)
+    alone_lat, alone_img = ranks[0]["alone"]
+    caught = {}
+    for fault in TP_FAULTS:
+        (lat, img), (lat1, _) = ranks[0]["faults"][fault], ranks[1]["faults"][fault]
+        caught[fault], apart, off = tp_fault_caught(lat, lat1, alone_lat)
+        print(f"15a: TP = 2 with {fault!r}: the ranks' final latents apart by {apart:.3e} (max |diff|); latents "
+              f"{off:.3e} (tol {TP_LATENT_TOL}) and image {rel_l2(img, alone_img):.3e} rel L2 from the request alone "
+              f"in the whole pipeline, image {rel_l2(img, reference):.3e} from 3b's: "
+              f"{'caught' if caught[fault] else 'passes'}")
+    missed = [f for f in TP_FAULTS[1:] if not caught[f]]
+    if caught["none"] or missed:
+        raise AssertionError(f"the sound TP = 2 run fails 15a's checks ({caught['none']}), or they miss the planted "
+                             f"faults {missed}")
+    print(f"15a: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def run_dp_training(gated):
+    """15b and 15c side by side: {path: the ranks' summed launches by kernel}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flash_diffusion_tpu_torch.parallel import spawn
+
+    by_path = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        dp_f = pool.submit(spawn, dp_train_rank, 2, "gloo", args=("replicated",), timeout=PARALLEL_JOIN_S)
+        one_f = pool.submit(spawn, dp_train_rank, 1, "nccl", args=("fsdp",), timeout=PARALLEL_JOIN_S)
+        dp, (one,) = dp_f.result(), one_f.result()
+    counts = merged_counts([r["counts"] for r in dp])
+    by_path["dp_train"] = totals(counts)
+    check_gated("15b DP training", counts, gated)
+    one_counts = merged_counts([one["counts"]])
+    by_path["fsdp_train_nccl"] = totals(one_counts)
+    check_gated("15c FSDP training (NCCL)", one_counts, gated)
+    gen_counts = merged_counts([one["generate"]["counts"]])
+    by_path["tp_generate_nccl"] = totals(gen_counts)
+    check_gated("15c shard_tp generate (NCCL)", gen_counts, gated)
+    losses = {k: (dp[0]["aux"][k], one["aux"][k]) for k in ("loss/distill", "loss/dmd", "loss/gan_d")}
+    loss_err = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in losses.items()}
+    grad_err = rel_l2(dp[0]["grad"], one["grad"])
+    same = dp[0]["lora_sha256"] == dp[1]["lora_sha256"]
+    print(f"15b: SD1.5 512² step, global batch 4 as {[r['rows'] for r in dp]} rows on 2 gloo ranks of cuda:0 "
+          f"({[round(r['seconds'], 2) for r in dp]} s, cold) vs one NCCL process at batch {one['rows']} under FSDP "
+          f"({one['seconds']:.2f} s, cold): losses {({k: (round(a, 5), round(b, 5)) for k, (a, b) in losses.items()})}, "
+          f"rel err {({k: f'{v:.2e}' for k, v in loss_err.items()})} (tol {DP_LOSS_TOL}); LoRA gradients rel L2 "
+          f"{grad_err:.3e} (tol {DP_GRAD_TOL}); the ranks' LoRA after the step bit-equal: {same}")
+    print(f"15c: backend {one['backend']}, FSDP step launches {dict(by_path['fsdp_train_nccl'])}; shard_tp generate "
+          f"{one['generate']['shape']}, finite {one['generate']['finite']}, launches {dict(by_path['tp_generate_nccl'])}")
+    if not same or any(v > DP_LOSS_TOL for v in loss_err.values()) or not grad_err <= DP_GRAD_TOL:
+        raise AssertionError("the data-parallel step is off the one-process step, or its ranks differ")
+    if one["backend"] != "nccl" or one["generate"]["shape"] != (4, 512, 512, 3) or not one["generate"]["finite"]:
+        raise AssertionError(f"the NCCL run: backend {one['backend']}, images {one['generate']}")
+    for path in ("dp_train", "fsdp_train_nccl"):
+        missing = [k for k in ("flash_bwd_dkv", "flash_fwd_stream", "layer_norm") if by_path[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path never launched {missing}")
+    print(f"15b, 15c: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
@@ -3887,8 +4226,8 @@ def main():
     }
     # phase 2: kernels vs plain at the main paths' shapes
     check_attention(attention, results)
-    check_packed(attention, results, "flash_fwd_oneshot_packed", PACKED_SHAPES + PACKED_SHAPES_BUCKET, PACKED_RAGGED,
-                 2)
+    check_packed(attention, results, "flash_fwd_oneshot_packed", PACKED_SHAPES + PACKED_SHAPES_BUCKET,
+                 PACKED_RAGGED + PACKED_SHAPES_TP, 2)
     check_packed(attention, results, "flash_fwd_packed", PACKED_STREAM_SHAPES, PACKED_STREAM_RAGGED, 10)
     check_layer_norm(norms, results)
     check_group_norm(norms, results)
@@ -3916,6 +4255,9 @@ def main():
     pipe = build_pipeline("sdxl", device="cuda", seed=0)
     by_path["sdxl"], images = run_path(pipe, "sdxl", 1024, counters, card,
                                        ("flash_fwd_stream", "layer_norm", "flash_fwd_oneshot_packed", *gn))
+    # phase 15a's reference: 3b's pipeline at per-sample seeds, the contract's batch of 4
+    tp_reference = pipe.generate(PROMPTS, num_inference_steps=4, guidance_scale=0.0,
+                                 seed=list(range(len(PROMPTS))))[TP_SLOT].float().cpu()
     check_reference(pipe, "sdxl")
     by_path.update(run_modes(pipe, images, counters, card))
     check_mode_references(pipe, counters)
@@ -4079,6 +4421,14 @@ def main():
     check_training_reference("sdxl", start=BUCKET_REF_START, bucket=BUCKET_REF, depth=REF_DEPTH["sdxl"])
     torch.cuda.empty_cache()
     mark("13b")
+
+    # phase 15: the parallel paths, each rank a process on cuda:0: 15a SDXL
+    # served at TP = 2 over gloo, 15b the SD1.5 step data-parallel over two
+    # gloo ranks against 15c, one NCCL process at the global batch under
+    # FSDP2, which then runs a shard_tp generate; every rank's launched
+    # (kernel, shape) among phase 2's
+    by_path.update(run_parallel(card, tp_reference, gated_shapes()))
+    mark("15")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")
     for name, r in results.items():

@@ -212,10 +212,17 @@ class FlashDiffusion:
     def merge_lora_into_teacher(self, lora: LoraTree) -> None:
         """W ← W + scaling·(A·B)ᵀ on the teacher's targeted layers, in fp32,
         rounded back to W's dtype, in place (``switch_teacher``; JAX
-        ``_merged_teacher``). The student shares the weights."""
+        ``_merged_teacher``). The student shares the weights. A weight
+        sharded by FSDP (a ``DTensor``) takes the delta's matching shards,
+        as JAX re-shards the merged tree."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
         for name, ab in lora.items():
             w = self.teacher_module.get_submodule(name).weight
-            w.copy_((w.float() + self.lora_scaling * lora_delta(ab["a"], ab["b"], w.shape)).to(w.dtype))
+            delta = self.lora_scaling * lora_delta(ab["a"], ab["b"], w.shape)
+            if isinstance(w, DTensor):
+                delta = distribute_tensor(delta, w.device_mesh, w.placements)
+            w.copy_((w.float() + delta).to(w.dtype))
 
     @contextlib.contextmanager
     def using_lora(self, lora: Optional[LoraTree]):

@@ -43,11 +43,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torch.utils.checkpoint import checkpoint
-
 from ..config import BaseConfig
 from ..ops import layer_norm, modulate
-from .layers import Attention, LoraLinear, TimestepEmbedMLP, timestep_embedding
+from .layers import Attention, LoraLinear, TimestepEmbedMLP, remat_call, timestep_embedding
 
 
 @dataclasses.dataclass
@@ -255,7 +253,7 @@ class DiT(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
             if remat:
-                x = checkpoint(block, x, mod6, context, context_bias, use_reentrant=False)
+                x = remat_call(block, x, mod6, context, context_bias)
             else:
                 x = block(x, mod6, context, context_bias)
 

@@ -39,22 +39,60 @@ their scale).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import dot_product_attention, group_norm, layer_norm
 from ..ops.gemm import down_proj_gemm, geglu_down_proj, geglu_h
+from ..parallel.mesh import all_reduce_
 from ..quant import SCALE_KEY, int8_conv, int8_matmul
+
+
+class _LoraSwitch(threading.local):
+    off = 0  # > 0 inside ``lora_disabled()`` on this thread
+
+
+_LORA = _LoraSwitch()
+
+
+@contextlib.contextmanager
+def lora_disabled():
+    """On this thread, every layer runs without its attached LoRA pair: the
+    teacher's forward through a module that the student shares whole (the
+    trainer's FSDP mode, where one sharded module serves both). Another
+    thread's forwards keep their pairs."""
+    _LORA.off += 1
+    try:
+        yield
+    finally:
+        _LORA.off -= 1
+
+
+def _lora_of(layer: nn.Module):
+    return getattr(layer, "lora", None) if _LORA.off == 0 else None
+
+
+def remat_call(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` whose
+    recompute in the backward, on whichever thread autograd runs it, has
+    the LoRA pairs on or off as the forward did (``lora_disabled``)."""
+    off = _LORA.off > 0
+    ctx = lambda: (contextlib.nullcontext(), lora_disabled() if off else contextlib.nullcontext())
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
 
 
 def lora_dense(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], lora=None,
-    weight_scale: Optional[torch.Tensor] = None,
+    weight_scale: Optional[torch.Tensor] = None, group=None,
 ) -> torch.Tensor:
     """``x·Wᵀ (+ bias)`` over the last dim, plus the LoRA side path of the JAX
     ``LoraDense`` when ``lora`` = (A [in, r], B [r, out], scaling) is given:
@@ -64,15 +102,23 @@ def lora_dense(
     ``weight_scale`` [out] takes ``quant.int8_matmul`` for ``x·Wᵀ``; x
     arrives in the compute dtype (the UNet casts its inputs), and the bias
     is added in the output dtype after the product, not in the kernel's
-    epilogue, as JAX adds it."""
+    epilogue, as JAX adds it.
+
+    With a tensor-parallel ``group`` the layer is row-parallel
+    (``parallel/tp.py``): x, W and A hold the rank's part of the input
+    features, the partial ``x·Wᵀ + (x·A)·B`` is summed over the group, and
+    the bias is added once, after the sum (an int8 layer's per-token scale
+    is the group's amax)."""
     weight = weight.reshape(weight.shape[0], weight.shape[1])
     if weight.dtype == torch.int8:
-        y = int8_matmul(x, weight, weight_scale)
-    elif lora is None:
+        y = int8_matmul(x, weight, weight_scale, group)
+    elif lora is None and group is None:
         return F.linear(x, weight, bias)
     else:
         y = F.linear(x, weight)
     y = _lora_side(x, y, lora)
+    if group is not None:
+        all_reduce_(y, "sum", group)
     return y if bias is None else y + bias.to(y.dtype)
 
 
@@ -87,8 +133,8 @@ def _lora_side(x: torch.Tensor, y: torch.Tensor, lora) -> torch.Tensor:
 
 def _dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``lora_dense`` with a layer's weight, bias, LoRA pair and int8 scale."""
-    return lora_dense(x, layer.weight, layer.bias, getattr(layer, "lora", None),
-                      getattr(layer, SCALE_KEY, None))
+    return lora_dense(x, layer.weight, layer.bias, _lora_of(layer),
+                      getattr(layer, SCALE_KEY, None), getattr(layer, "tp_group", None))
 
 
 class DenseConv1x1(nn.Conv2d):
@@ -238,7 +284,10 @@ class Upsample2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head attention (self or cross) over token sequences [B, S, C]."""
+    """Multi-head attention (self or cross) over token sequences [B, S, C].
+    Under tensor parallelism ``num_heads`` is the rank's and the projections
+    hold its heads (``parallel/tp.py``): the heads reshape reads the head
+    dim off the shard."""
 
     def __init__(self, query_dim: int, num_heads: int, context_dim: Optional[int] = None,
                  qkv_bias: bool = False):
@@ -292,19 +341,26 @@ class GEGLUFeedForward(nn.Module):
 
     def forward(self, x):
         out = self.net[2]
-        lora = getattr(out, "lora", None)
-        x2k = self.net[0].proj(x)
+        lora = _lora_of(out)
+        group = getattr(out, "tp_group", None)  # row-parallel: only rank 0 adds the bias in the epilogue
+        bias = out.bias if group is None or dist.get_rank(group) == 0 else None
+        x2k = self.net[0].proj(x)  # [a | g], the rank's halves under tensor parallelism
         if os.environ.get("FLASH_TPU_FFN_FUSED", "0") == "1" and x2k.dtype == torch.bfloat16:
             w = out.weight
             if w.dtype == torch.int8:  # dequantized on the fly, as JAX does (not K11)
                 w = w.float() * getattr(out, SCALE_KEY)[:, None]
-            y = geglu_down_proj(x2k, w.to(x2k.dtype), out.bias.to(x2k.dtype))
-            return _lora_side(geglu_h(x2k), y, lora) if lora is not None else y
+            y = geglu_down_proj(x2k, w.to(x2k.dtype), None if bias is None else bias.to(x2k.dtype))
+            return _row_sum(_lora_side(geglu_h(x2k), y, lora), group)
         a, gate = x2k.chunk(2, dim=-1)
         h = a * _gate_gelu(gate)
         if os.environ.get("FLASH_TPU_FFN_DOWN_GEMM", "0") == "1" and out.weight.dtype != torch.int8:
-            return _lora_side(h, down_proj_gemm(h, out.weight, out.bias), lora)  # the bias in K10's epilogue
+            return _row_sum(_lora_side(h, down_proj_gemm(h, out.weight, bias), lora), group)  # the bias in K10's epilogue
         return out(h)
+
+
+def _row_sum(y: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel layer's partial products summed over its group."""
+    return y if group is None else all_reduce_(y, "sum", group)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -53,12 +53,11 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
 from ..ops import dot_product_attention, layer_norm, modulate
 from .dit import _FeedForward, get_2d_sincos_pos_embed
-from .layers import LoraLinear, TimestepEmbedMLP, timestep_embedding
+from .layers import LoraLinear, TimestepEmbedMLP, remat_call, timestep_embedding
 
 
 @dataclasses.dataclass
@@ -140,7 +139,7 @@ class JointBlock(nn.Module):
             self.ff_context = _FeedForward(d, inner)
 
     def forward(self, x, c, temb, kv_valid: Optional[int] = None):
-        b, sx, d = x.shape
+        b, sx, _ = x.shape
         s = sx + c.shape[1]
         h = self.num_heads
         act = F.silu(temb)
@@ -154,11 +153,11 @@ class JointBlock(nn.Module):
 
         a = self.attn
         # the streams joined on [B, S, C], then the heads reshape
-        joint = lambda px, pc: torch.cat([px(xn), pc(cn)], dim=1).reshape(b, s, h, d // h)
+        joint = lambda px, pc: torch.cat([px(xn), pc(cn)], dim=1).reshape(b, s, h, -1)  # h: the rank's heads
         q, k, v = joint(a.to_q, a.add_q_proj), joint(a.to_k, a.add_k_proj), joint(a.to_v, a.add_v_proj)
         if self.qk_norm:
             q, k = a.norm_q(q), a.norm_k(k)
-        attn = dot_product_attention(q, k, v, kv_valid=kv_valid).reshape(b, s, d)
+        attn = dot_product_attention(q, k, v, kv_valid=kv_valid).reshape(b, s, -1)
         ax, ac = attn[:, :sx], attn[:, sx:]
 
         x = x + g_msa[:, None] * a.to_out[0](ax)
@@ -263,7 +262,7 @@ class MMDiT(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer_blocks):
             if remat:
-                x, c = checkpoint(block, x, c, temb, kv_valid, use_reentrant=False)
+                x, c = remat_call(block, x, c, temb, kv_valid)
             else:
                 x, c = block(x, c, temb, kv_valid)
             if return_features and i == cfg.depth // 2 - 1:

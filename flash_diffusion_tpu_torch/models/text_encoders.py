@@ -12,6 +12,12 @@ LayerNorms take the LayerNorm kernel on the card, T5's RMS norms are plain.
 CLIP-L (quick-gelu) and OpenCLIP-bigG (exact gelu, text projection) for
 SD1.5 and SDXL; T5-v1.1-XXL (unscaled attention, gated tanh-gelu MLP) for
 Pixart-α.
+
+Under tensor parallelism (``parallel/tp.py``) the attention and MLP
+projections split Megatron-style: the row-parallel ``out_proj``/``fc2``
+and ``o``/``wo`` are ``LoraLinear`` layers, which sum their partial
+products over the group; the head counts become the rank's, and T5's
+relative-position table, split by heads, gives the rank's bias.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 
 from ..config import BaseConfig
 from ..ops import dot_product_attention
-from .layers import LayerNorm
+from .layers import LayerNorm, LoraLinear
 
 
 @dataclasses.dataclass
@@ -61,19 +67,22 @@ def clip_g_config(**overrides) -> CLIPTextConfig:
 
 
 class _SelfAttention(nn.Module):
+    """``heads`` is the rank's head count under tensor parallelism
+    (``parallel/tp.py``): the head dim is read off the projections."""
+
     def __init__(self, d: int, heads: int):
         super().__init__()
         self.heads = heads
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
-        self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
+        self.v_proj, self.out_proj = nn.Linear(d, d), LoraLinear(d, d)
 
     def forward(self, x, bias):
-        b, s, d = x.shape
-        split = lambda t: t.reshape(b, s, self.heads, d // self.heads)
+        b, s, _ = x.shape
+        split = lambda t: t.reshape(b, s, self.heads, -1)
         out = dot_product_attention(
             split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x)), bias=bias
         )
-        return self.out_proj(out.reshape(b, s, d))
+        return self.out_proj(out.reshape(b, s, -1))
 
 
 class _MLP(nn.Module):
@@ -83,7 +92,7 @@ class _MLP(nn.Module):
     def __init__(self, d: int, inner: int, act: str):
         super().__init__()
         self.act = act
-        self.fc1, self.fc2 = nn.Linear(d, inner), nn.Linear(inner, d)
+        self.fc1, self.fc2 = nn.Linear(d, inner), LoraLinear(inner, d)
 
     def forward(self, x):
         h = self.fc1(x)
@@ -228,7 +237,7 @@ class _T5Attention(nn.Module):
         inner = cfg.num_heads * cfg.d_kv
         self.heads, self.d_kv = cfg.num_heads, cfg.d_kv
         self.q, self.k = nn.Linear(cfg.d_model, inner, bias=False), nn.Linear(cfg.d_model, inner, bias=False)
-        self.v, self.o = nn.Linear(cfg.d_model, inner, bias=False), nn.Linear(inner, cfg.d_model, bias=False)
+        self.v, self.o = nn.Linear(cfg.d_model, inner, bias=False), LoraLinear(inner, cfg.d_model, bias=False)
         if has_bias:
             self.relative_attention_bias = nn.Embedding(cfg.relative_buckets, cfg.num_heads)
 
@@ -256,7 +265,7 @@ class _T5GatedGelu(nn.Module):
         super().__init__()
         self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
         self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        self.wo = LoraLinear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))

@@ -41,7 +41,6 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
 from .layers import (
@@ -51,6 +50,7 @@ from .layers import (
     SpatialTransformer,
     TimestepEmbedMLP,
     Upsample2D,
+    remat_call,
     timestep_embedding,
 )
 
@@ -212,7 +212,7 @@ class UNet2DCondition(nn.Module):
 
     def _block(self, block: nn.Module, *args):
         if self.config.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            return remat_call(block, *args)
         return block(*args)
 
     def forward(

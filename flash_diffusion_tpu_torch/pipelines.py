@@ -29,8 +29,19 @@ quantizing the merged weights (``quant.quantize_dense``). A rebuild is
 computed aside and swapped in whole under a lock that ``generate`` holds
 for its whole call: a generate in flight (the serving batcher's thread)
 finishes with the weights it started with, and none ever sees a half-merged
-or half-quantized set. Not ported yet: tensor-parallel placement
-(JAX ``shard_tp``).
+or half-quantized set.
+
+Tensor-parallel serving (``shard_tp``, JAX ``pipelines.py:131-162``): each
+rank of a ``torch.distributed`` group keeps its Megatron shard of the
+denoiser's (and by default the text towers') attention and feed-forward
+weights (``parallel/tp.py``); the VAE stays whole. ``base_state`` becomes
+the rank's shard, and a rebuild merges each adapter's matching part
+(``parallel/tp.py shard_lora``) at full precision into it, so that a rank
+holds its shard of the merged set; int8 quantizes the shards, a
+row-parallel weight with the group's per-channel amax. Every rank must
+call ``generate``, ``load_lora``, ``quantize`` … in the same order with
+the same arguments (``serving.TPChannel`` sees to it when serving); a
+follower may skip the decode (``decode=False``).
 """
 
 from __future__ import annotations
@@ -40,9 +51,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
-from .lora import LoraTree, merge_lora
+from .lora import LoraTree, load_peft_safetensors, merge_lora
+from .parallel.tp import shard_lora
 from .quant import apply_weights, quantize_dense
 from .schedulers import REGISTRY, SchedulerConfig
 from .schedulers import step_noise as draw_step_noise
@@ -108,6 +121,7 @@ class FlashPipeline:
         self._quant: Tuple[Optional[str], int] = (None, 256)  # (mode, min_dim)
         self._weights_lock = threading.Lock()  # held by generate; a swap waits for it
         self._refresh_lock = threading.Lock()  # one rebuild at a time
+        self._tp = None  # (group, plan, rank, world size) once shard_tp ran
 
     # -- LoRA and quantization --------------------------------------------
     @property
@@ -126,6 +140,33 @@ class FlashPipeline:
 
     def unload_lora(self, name: str = "default"):
         self._refresh(lambda a: {k: v for k, v in a.items() if k != name})
+
+    def load_lora_file(self, path: str, scale: float = 1.0, name: str = "default"):
+        """``load_lora`` of an adapter file read by ``lora_loader`` (PEFT
+        safetensors by default), at its own scaling times ``scale``."""
+        tree, scaling = (self.lora_loader or load_peft_safetensors)(path)
+        self.load_lora(tree, scaling * scale, name)
+
+    def shard_tp(self, group=None, shard_conditioners: bool = True):
+        """Tensor-parallel placement over ``group`` (the default group when
+        None): the denoiser's, and with ``shard_conditioners`` the text
+        towers', attention and feed-forward weights keep this rank's
+        Megatron shard (``parallel/tp.py shard_params_tp``; raises when a
+        head count or width does not divide), the VAE stays whole, and the
+        served weights are rebuilt from the sharded base with the current
+        adapters and quantization. Every rank of the group calls it."""
+        from .parallel import rank, shard_params_tp, world_size
+
+        with self._refresh_lock:
+            with self._weights_lock:
+                apply_weights(self.denoiser, self.base_state)  # the float base back in the modules
+                plan = shard_params_tp(self.denoiser, group)
+                if shard_conditioners and self.conditioner is not None:
+                    shard_params_tp(self.conditioner, group)
+                self.base_state = dict(self.denoiser.state_dict())
+                self.state = self.base_state
+                self._tp = (group, plan, rank(group), world_size(group))
+        self._refresh(lambda a: a)
 
     def quantize(self, mode: str = "int8", min_dim: int = 256):
         """W8A8 int8 serving mode (``quant.py``), or back to float with
@@ -146,18 +187,53 @@ class FlashPipeline:
             mode, min_dim = quant or self._quant
             state = self.base_state
             for lora, scaling in adapters.values():
+                if self._tp is not None:  # the rank's part of each pair, merged into its shard
+                    lora = shard_lora(lora, self._tp[1], self._tp[2], self._tp[3])
                 state = merge_lora(state, lora, scaling)
             if mode == "int8":
-                state, n = quantize_dense(state, min_dim=min_dim)
+                state, n = quantize_dense(state, min_dim=min_dim, tp=self._quant_tp())
                 if n == 0:
                     raise ValueError("int8 quantization matched no dense layer")
             with self._weights_lock:
                 apply_weights(self.denoiser, state)
                 self.state, self._adapters, self._quant = state, adapters, (mode, min_dim)
 
+    def _quant_tp(self):
+        """``quantize_dense``'s ``tp`` for the sharded state: {layer: (split
+        dim, world size, the group of a row-parallel layer)}, or None."""
+        if self._tp is None:
+            return None
+        group, plan, _, n = self._tp
+        group = group if group is not None else dist.group.WORLD
+        return {name: (0, n, None) if s.kind == "column" else (1, n, group)
+                for name, s in plan.items() if s.kind != "table"}
+
     # -- generation ---------------------------------------------------------
     def _embed(self, batch_inputs, ucg_keys=None):
         return self.conditioner(batch_inputs, ucg_keys=ucg_keys, set_ucg_rate_zero=True)
+
+    def _latent_shape(self, height: Optional[int], width: Optional[int]) -> Tuple[int, int, int]:
+        if (height is None) != (width is None):
+            raise ValueError("pass both height and width, or neither")
+        if height is None:
+            return self.latent_shape
+        f = self.vae_scale_factor
+        align = 8 * f
+        if height <= 0 or width <= 0 or height % align or width % align:
+            raise ValueError(f"height/width must be positive multiples of {align}")
+        return (height // f, width // f, self.latent_shape[-1])
+
+    def encode_prompts(self, prompts: Sequence[str], height: Optional[int] = None,
+                       width: Optional[int] = None) -> Dict[str, Any]:
+        """The pre-tokenized batch that ``generate`` makes of ``prompts`` at
+        that size (the token ids and, with ``size_cond_fn``, the size
+        conditions): ``generate`` of it gives the images of ``prompts``."""
+        lshape = self._latent_shape(height, width)
+        batch_inputs = dict(self.tokenizer_fn(list(prompts)))
+        if self.size_cond_fn is not None:
+            f = self.vae_scale_factor
+            batch_inputs.update(self.size_cond_fn(len(prompts), lshape[0] * f, lshape[1] * f))
+        return batch_inputs
 
     def _decode(self, sample: torch.Tensor) -> torch.Tensor:
         dc, batch = self.decode_chunk, sample.shape[0]
@@ -177,8 +253,10 @@ class FlashPipeline:
         noise: Optional[Sequence[torch.Tensor]] = None,
         height: Optional[int] = None,
         width: Optional[int] = None,
+        decode: bool = True,
     ) -> torch.Tensor:
-        """Images in [-1, 1], NHWC fp32.
+        """Images in [-1, 1], NHWC fp32 (the final latents with
+        ``decode=False``).
 
         ``prompts`` is a list of strings, tokenized by ``tokenizer_fn``, or
         a pre-tokenized batch: a dict of the conditioners' inputs (token
@@ -209,29 +287,19 @@ class FlashPipeline:
         tests hold images to 1.5e-2."""
         with self._weights_lock:
             return self._generate(prompts, num_inference_steps, guidance_scale, negative_prompts,
-                                  seed, latents, noise, height, width)
+                                  seed, latents, noise, height, width, decode)
 
     def _generate(self, prompts, num_inference_steps, guidance_scale, negative_prompts, seed,
-                  latents, noise, height, width):
+                  latents, noise, height, width, decode=True):
         if isinstance(prompts, dict):  # pre-tokenized (JAX pipelines.py:295-300)
             batch_inputs = dict(prompts)
             batch = next(len(v) if isinstance(v, (list, tuple)) else v.shape[0]
                          for v in prompts.values() if isinstance(v, (list, tuple)) or hasattr(v, "shape"))
         else:
-            batch_inputs = dict(self.tokenizer_fn(list(prompts)))
+            batch_inputs = self.encode_prompts(prompts, height, width)
             batch = len(prompts)
-        if (height is None) != (width is None):
-            raise ValueError("pass both height and width, or neither")
-        lshape = self.latent_shape
-        if height is not None:
-            f = self.vae_scale_factor
-            align = 8 * f
-            if height <= 0 or width <= 0 or height % align or width % align:
-                raise ValueError(f"height/width must be positive multiples of {align}")
-            lshape = (height // f, width // f, self.latent_shape[-1])
+        lshape = self._latent_shape(height, width)
         h_px, w_px = lshape[0] * self.vae_scale_factor, lshape[1] * self.vae_scale_factor
-        if self.size_cond_fn is not None and not isinstance(prompts, dict):
-            batch_inputs.update(self.size_cond_fn(batch, h_px, w_px))
 
         do_cfg = guidance_scale not in (0.0, 1.0)
         with record_function("fdt.encode"):
@@ -281,5 +349,7 @@ class FlashPipeline:
                     step_noise = draw_step_noise(sample, generator)
                 sample = mod.step(sched, pred, i, sample, noise=step_noise)
 
+        if not decode:
+            return sample
         with record_function("fdt.decode"):
             return self._decode(sample)

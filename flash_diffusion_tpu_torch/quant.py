@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from .ops.gemm import int8_gemm
+from .parallel.mesh import all_reduce_
 
 # state-dict name of a quantized layer's per-output-channel weight scale,
 # a buffer beside its int8 ``weight``
@@ -53,15 +54,19 @@ DENSE_INCLUDE = (r"\.(to_q|to_k|to_v|to_out\.0|to_add_out|proj_in|proj_out|ff\.n
 CONV_INCLUDE = r"(^|\.)(conv1|conv2|conv_shortcut|conv)$"
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float weight [out, in] or a conv's [out, in, kh, kw] → (int8 codes
     of the same shape, fp32 scale [out]), w ≈ codes · scale. Reduces over
     every dim but the output channels, as JAX reduces its [in, out] or HWIO
     kernel over all but the last. A conv's codes are laid out channels-last
     (strides of [out, kh, kw, in]), so that ``int8_conv`` reads them as the
-    GEMM's [out, kh·kw·in] in JAX's (kh, kw, in) order without a copy."""
+    GEMM's [out, kh·kw·in] in JAX's (kh, kw, in) order without a copy.
+    With a tensor-parallel ``group`` ``w`` is a row-parallel shard [out,
+    in / n], and the amax is the group's: the scale of the whole weight."""
     wf = w.float()
     amax = wf.abs().amax(dim=tuple(range(1, w.dim())))
+    if group is not None:
+        all_reduce_(amax, "max", group)
     scale = amax.clamp_min(1e-8) / 127.0
     q = torch.round(wf / scale.reshape(-1, *(1,) * (w.dim() - 1))).clamp(-127, 127).to(torch.int8)
     if w.dim() == 4 and w.shape[2:] != (1, 1):
@@ -69,21 +74,29 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token dynamic quantization of ``x`` [..., K]: (int8 codes
     [..., K], fp32 scale [..., 1]). A division, not a multiplication by a
-    reciprocal, and round half to even, as ``jnp.round(xf / s_x)``."""
+    reciprocal, and round half to even, as ``jnp.round(xf / s_x)``. With a
+    tensor-parallel ``group`` ``x`` holds the rank's K / n features of
+    each token, and the per-token amax is the group's (an all-reduce of
+    the max), so that the codes are the slice of the whole K's codes."""
     xf = x.float()
-    s_x = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        all_reduce_(amax, "max", group)
+    s_x = amax.clamp_min(1e-8) / 127.0
     return torch.round(xf / s_x).clamp(-127, 127).to(torch.int8), s_x
 
 
-def int8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, group=None) -> torch.Tensor:
     """W8A8 product ``x [..., K] · wq [N, K]ᵀ`` in x's dtype: the
     activations quantized per token, the int8 product and its dequant on
     the kernel (bf16 out). An fp32 ``x`` gets fp32 out, as on JAX's XLA
-    route; only the plain version (the CPU) computes that."""
-    xq, s_x = quantize_activation(x)
+    route; only the plain version (the CPU) computes that. ``group``: a
+    row-parallel layer's (``quantize_activation``); the caller sums the
+    partial products."""
+    xq, s_x = quantize_activation(x, group)
     k, n = x.shape[-1], wq.shape[0]
     out_dtype = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     y = int8_gemm(xq.reshape(-1, k), s_x.reshape(-1), wq, w_scale, out_dtype=out_dtype)
@@ -93,6 +106,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -> tor
 def quantize_dense(
     state: Dict[str, torch.Tensor], min_dim: int = 256, include: Optional[str] = DENSE_INCLUDE,
     convs: bool = False, conv_min_dim: int = 128, conv_include: Optional[str] = CONV_INCLUDE,
+    tp: Optional[Dict[str, Tuple[int, int, object]]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Quantize the eligible weights of a state dict; returns (new state,
     number quantized). A ``<layer>.weight`` is eligible when it is float,
@@ -103,7 +117,12 @@ def quantize_dense(
     as JAX picks its ``QConv`` kernels (a 1×1 conv matched by ``include``
     stays a dense layer). Each gets int8 codes in place of its weight and a
     ``<layer>.weight_scale``; every other entry passes through as the same
-    tensor."""
+    tensor. ``tp``: {layer name: (split dim, world size, group)} of the
+    layers of a tensor-parallel shard (``pipelines.FlashPipeline.shard_tp``):
+    eligibility reads the whole weight's dims, and a row-parallel layer
+    (split dim 1, with its group) takes the group's per-channel amax
+    (``quantize_weight``); a column-parallel shard holds whole rows, so its
+    scales are those rows' scales of the whole weight."""
     inc = re.compile(include) if include else None
     cinc = re.compile(conv_include) if conv_include else None
     out, count = dict(state), 0
@@ -111,14 +130,17 @@ def quantize_dense(
         name, _, leaf = key.rpartition(".")
         if leaf != "weight" or not w.is_floating_point() or w.dim() not in (2, 4):
             continue
+        split, n, group = (tp or {}).get(name, (0, 1, None))
+        dims = [w.shape[0], w.shape[1]]
+        dims[split] *= n  # the whole weight's
         dense = w.dim() == 2 or (tuple(w.shape[2:]) == (1, 1) and (inc is None or bool(inc.search(name))))
         if dense:
-            if min(w.shape[0], w.shape[1]) < min_dim or (inc is not None and not inc.search(name)):
+            if min(dims) < min_dim or (inc is not None and not inc.search(name)):
                 continue
         elif not convs or min(w.shape[0], w.shape[1]) < conv_min_dim or (cinc is not None
                                                                           and not cinc.search(name)):
             continue
-        out[key], out[f"{name}.{SCALE_KEY}"] = quantize_weight(w)
+        out[key], out[f"{name}.{SCALE_KEY}"] = quantize_weight(w, group)
         count += 1
     return out, count
 

@@ -25,6 +25,26 @@ Images leave the card as uint8 (``_device_uint8``), 4× fewer bytes than
 fp32, and are encoded with the port's stdlib PNG writer
 (``sample.png_bytes``). One process, one pipeline; scale-out is replicas
 behind a load balancer.
+
+Tensor-parallel serving (``serve.py --tp N``; JAX ``examples/serve.py:
+72-118``): every rank holds its shard of one pipeline
+(``FlashPipeline.shard_tp``). Rank 0 runs the HTTP front end and the
+batcher over a ``TPPipeline``, which sends each command that touches the
+weights or the group over one ordered channel (``TPChannel``, a broadcast
+from rank 0) before running it itself: a dispatch's spec (the
+pre-tokenized batch that ``generate`` takes, seeds, steps, guidance,
+height, width) and every ``/loras`` change, so that all ranks run the same
+``generate`` calls in lockstep and swap weights at the same dispatch
+boundary. The followers run ``TPChannel.follow`` and skip the decode.
+While idle rank 0 sends a no-op every few seconds, within the group's
+timeout. An error in a dispatch leaves the ranks out of step: the
+batcher's error boundary then stops the server (``InferenceServer.fatal``)
+and ``serve.py`` exits non-zero; a follower's error ends its process, and
+rank 0's next collective (a heartbeat while idle) fails within the group's
+timeout and stops the server too. A ``/loras`` change that fails on some
+ranks only stops it at once; one that fails on every rank alike (a bad
+file) leaves the weights as they were and the server up. ``/profile``,
+``/metrics`` and ``/healthz`` are rank 0's.
 """
 
 from __future__ import annotations
@@ -43,8 +63,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .lora import load_peft_safetensors
+from .parallel.mesh import DEFAULT_TIMEOUT_S, broadcast_object, rank, world_size
 from .sample import png_bytes
 
 
@@ -81,11 +102,15 @@ class _Request:
 
 
 class DynamicBatcher:
-    """Coalesces generate requests into fixed-shape pipeline dispatches."""
+    """Coalesces generate requests into fixed-shape pipeline dispatches.
+    ``on_fatal``: None, or a callable that a dispatch error is handed to
+    after its callers are told, when the pipeline cannot go on after one
+    (a ``TPPipeline``)."""
 
     def __init__(self, pipeline, config: ServingConfig):
         self.pipeline = pipeline
         self.config = config
+        self.on_fatal = None
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         # key mismatches pulled while lingering: first in line next time, so
         # a stream of another key's traffic cannot starve them
@@ -193,6 +218,8 @@ class DynamicBatcher:
             for r in batch:
                 r.error = f"{type(e).__name__}: {e}"
                 r.event.set()
+            if getattr(self.pipeline, "fatal_errors", False) and self.on_fatal is not None:
+                self.on_fatal(e)  # the tensor-parallel ranks are out of step: stop serving
 
 
 def _device_uint8(images: torch.Tensor) -> torch.Tensor:
@@ -231,6 +258,17 @@ class InferenceServer:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self.ready = threading.Event()  # set once the socket is bound
         self.address = None  # (host, port) once bound
+        self.fatal: Optional[BaseException] = None  # the error that stopped a tensor-parallel server
+        self.batcher.on_fatal = self._stop_on
+
+    def _stop_on(self, error: BaseException) -> None:
+        """Stop serving after ``error`` (from the batcher's, an HTTP
+        handler's or the heartbeat's thread); the first error is kept."""
+        if self.fatal is None:
+            self.fatal = error
+        self.batcher._stop.set()
+        if self._httpd is not None:
+            threading.Thread(target=self._httpd.shutdown, daemon=True).start()
 
     def _count(self, errors: int = 0, latency: Optional[float] = None) -> None:
         with self._lock:
@@ -283,10 +321,7 @@ class InferenceServer:
         action = body.get("action", "list")
         try:
             if action == "load":
-                loader = pipe.lora_loader or load_peft_safetensors
-                tree, scaling = loader(body["path"])
-                pipe.load_lora(tree, scaling=scaling * float(body.get("scale", 1.0)),
-                               name=body.get("name", "default"))
+                pipe.load_lora_file(body["path"], float(body.get("scale", 1.0)), body.get("name", "default"))
             elif action == "scale":
                 pipe.set_adapter_scale(body["name"], float(body["scale"]))
             elif action == "unload":
@@ -425,7 +460,8 @@ class InferenceServer:
         self.address = self._httpd.server_address[:2]
         self.ready.set()
         try:
-            self._httpd.serve_forever()
+            if self.fatal is None:  # else stopped while starting (``_stop_on`` found no socket)
+                self._httpd.serve_forever()
         finally:
             self._httpd.server_close()
             self.batcher.stop()
@@ -435,3 +471,194 @@ class InferenceServer:
         if self._httpd is not None:
             self._httpd.shutdown()
         self.batcher.stop()
+
+
+# ---------------------------------------------------------------- tensor parallel
+class OutOfStep(RuntimeError):
+    """A command that failed on some ranks of a tensor-parallel group only."""
+
+
+class TPChannel:
+    """The ordered command channel of a tensor-parallel server: rank 0's
+    ``send`` broadcasts a command to the group and runs it itself, under one
+    lock, so that commands (and the collectives they make) never overlap;
+    the followers' ``follow`` runs each in the order sent. A command is
+    (name, keyword arguments) of ``COMMANDS``. After a ``/loras`` command
+    the ranks compare their outcomes: one that failed on some ranks only
+    raises on all. While idle, rank 0 sends a no-op every ``heartbeat_s``
+    seconds, so that a follower's wait stays within the group's timeout.
+    A command out of step, or a broadcast that fails (a lost rank), closes
+    the channel and is handed to ``on_fatal`` (rank 0's server stops)."""
+
+    COMMANDS = ("generate", "load_lora_file", "set_adapter_scale", "unload_lora", "noop", "stop")
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.lock = threading.Lock()
+        self.heartbeat_s = DEFAULT_TIMEOUT_S / 6
+        self._last = time.monotonic()
+        self._closed = threading.Event()
+        self._beat = None
+        self.on_fatal = None
+
+    def start(self):
+        """Rank 0: start the heartbeat."""
+        self._beat = threading.Thread(target=self._heartbeat, daemon=True)
+        self._beat.start()
+        return self
+
+    def _heartbeat(self):
+        while not self._closed.wait(self.heartbeat_s / 4):
+            if time.monotonic() - self._last >= self.heartbeat_s and self.lock.acquire(blocking=False):
+                try:
+                    if not self._closed.is_set():
+                        self._broadcast(("noop", {}))
+                except Exception as e:  # the group is broken
+                    self._fail(e)
+                    return
+                finally:
+                    self.lock.release()
+
+    def _fail(self, error: BaseException) -> None:
+        """The ranks are out of step or the group is broken: no command
+        goes out any more, and rank 0's server stops."""
+        self._closed.set()
+        if self.on_fatal is not None:
+            self.on_fatal(error)
+
+    def _broadcast(self, cmd):
+        out = broadcast_object(cmd)
+        self._last = time.monotonic()
+        return out
+
+    def _run(self, command: str, kw: Dict[str, Any]):
+        pipe = self.pipeline
+        if command == "generate":
+            return pipe.generate(**kw)
+        if command in ("noop", "stop"):
+            return None
+        error = None
+        try:
+            getattr(pipe, command)(**kw)
+        except Exception as e:  # the same bad file on every rank leaves the weights as they were
+            error = e
+        outcomes = [None] * world_size()
+        dist.all_gather_object(outcomes, error is None)
+        if len(set(outcomes)) > 1:
+            raise OutOfStep(f"{command} failed on some ranks only ({outcomes}): the ranks' weights differ")
+        if error is not None:
+            raise error
+
+    def send(self, command: str, **kw):
+        """Rank 0: broadcast the command, then run it here."""
+        if command not in self.COMMANDS:
+            raise ValueError(command)
+        with self.lock:
+            if self._closed.is_set():
+                raise RuntimeError("the tensor-parallel channel is closed")
+            try:
+                self._broadcast((command, kw))
+            except Exception as e:
+                self._fail(e)
+                raise
+            if command == "stop":
+                self._closed.set()
+            try:
+                return self._run(command, kw)
+            except OutOfStep as e:
+                self._fail(e)
+                raise
+
+    def follow(self) -> None:
+        """A follower: run rank 0's commands until ``stop``. Errors of a
+        ``generate`` propagate (the process ends); a ``/loras`` command that
+        failed on every rank is left as it is, as on rank 0."""
+        while True:
+            command, kw = self._broadcast(None)
+            if command == "stop":
+                return
+            if command == "generate":
+                self._run(command, {**kw, "decode": False})  # rank 0 alone decodes
+                continue
+            try:
+                self._run(command, kw)
+            except OutOfStep:
+                raise
+            except Exception:  # failed alike on rank 0, which reports it
+                pass
+
+    def close(self) -> None:
+        """Rank 0: tell the followers to stop (once)."""
+        if not self._closed.is_set():
+            self.send("stop")
+        self._closed.set()
+
+
+class TPPipeline:
+    """Rank 0's view of a tensor-parallel ``FlashPipeline`` for the server:
+    ``generate`` (prompts pre-tokenized here) and the adapter changes go
+    through the ``TPChannel``; every other attribute is the pipeline's."""
+
+    fatal_errors = True  # an error in a dispatch leaves the ranks out of step
+
+    def __init__(self, pipeline, channel: TPChannel):
+        self._pipe, self.channel = pipeline, channel
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
+
+    def generate(self, prompts, num_inference_steps: int = 4, guidance_scale: float = 0.0,
+                 negative_prompts=None, seed=0, height=None, width=None):
+        if not isinstance(prompts, dict):
+            prompts = self._pipe.encode_prompts(prompts, height, width)
+        seed = [int(s) for s in seed] if isinstance(seed, (list, tuple, np.ndarray)) else int(seed)
+        return self.channel.send("generate", prompts=prompts, num_inference_steps=num_inference_steps,
+                                 guidance_scale=guidance_scale, negative_prompts=negative_prompts, seed=seed,
+                                 height=height, width=width)
+
+    def load_lora_file(self, path: str, scale: float = 1.0, name: str = "default"):
+        self.channel.send("load_lora_file", path=path, scale=scale, name=name)
+
+    def set_adapter_scale(self, name: str, scaling: float):
+        self.channel.send("set_adapter_scale", name=name, scaling=scaling)
+
+    def unload_lora(self, name: str = "default"):
+        self.channel.send("unload_lora", name=name)
+
+
+def serve_tp_rank(pipeline, config: ServingConfig, on_ready=None) -> Optional["InferenceServer"]:
+    """Run one rank of a tensor-parallel server over a pipeline already
+    placed with ``shard_tp`` over the default group: rank 0 serves HTTP until shut down
+    (``on_ready(server)`` is called from a thread once the socket is bound,
+    e.g. to drive it) and then stops the followers; the others follow.
+    Returns rank 0's server. Raises on rank 0 when the server stopped on an
+    error (``InferenceServer.fatal``): a dispatch that raised, a ``/loras``
+    change that failed on some ranks only, a heartbeat that failed."""
+    channel = TPChannel(pipeline)
+    if rank() != 0:
+        channel.follow()
+        return None
+    server = InferenceServer(TPPipeline(pipeline, channel), config)
+    channel.on_fatal = server._stop_on
+    channel.start()
+    errors = []
+    if on_ready is not None:
+        def drive():
+            server.ready.wait()
+            try:
+                on_ready(server)
+            except BaseException as e:  # re-raised below, on the serving thread
+                errors.append(e)
+            finally:
+                server.shutdown()
+        threading.Thread(target=drive, daemon=True).start()
+    try:
+        server.serve_forever()
+    finally:
+        if server.fatal is None:  # after a fatal error the followers are out of step: no stop to send
+            channel.close()
+    if errors:
+        raise errors[0]
+    if server.fatal is not None:
+        raise RuntimeError(f"the tensor-parallel server stopped: {server.fatal!r}") from server.fatal
+    return server

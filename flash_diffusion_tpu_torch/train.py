@@ -4,6 +4,17 @@
         [--config examples/configs/flash_sd.yaml] --max-steps 10 [--weights-root /weights/sd15] \\
         [--random-init] [--device cuda] [--shards /data/{000000..000010}.tar] \\
         [--eval-shards /data/eval/{00000..00003}.tar] [--output-dir runs] [--resume]
+    torchrun --nproc-per-node N -m flash_diffusion_tpu_torch.train ... \
+        [--dist-backend nccl|gloo] [--frozen-sharding replicated|fsdp]
+
+Under torchrun each process is a data-parallel rank on ``cuda:LOCAL_RANK``
+(``parallel.initialize_distributed``; rank 0 builds the kernels, the
+others wait): the yaml's ``BATCH_SIZE`` is the global batch, each rank
+reads its own shards (or its rows of each synthetic batch), the gradients
+are averaged over the group (``TrainingPipeline``), and rank 0 alone logs
+to the file, checkpoints and writes the exports; every rank restores
+with ``--resume``. ``--frozen-sharding fsdp`` shards the frozen modules
+(FSDP2).
 
 ``build_trainer(model, device=...)`` is the port's counterpart of
 ``examples/train_flash_sd.py``, ``train_flash_sdxl.py``,
@@ -114,6 +125,15 @@ from .distill import (
     sd3_discriminator_config,
 )
 from .lora import init_lora, lora_scaling, save_kohya_safetensors, save_peft_safetensors
+from .parallel.mesh import (
+    BACKENDS,
+    build_kernels_once,
+    initialize_distributed,
+    is_main,
+    local_batch_slice,
+    shard_batch,
+    world_size,
+)
 from .models import T2IAdapter, T2IAdapterConfig
 from .sample import (
     PIXART_SCHEDULER,
@@ -436,6 +456,7 @@ def build_trainer(
     device: Union[str, torch.device] = "cuda",
     seed: Optional[int] = None,
     config: Union[str, Dict[str, Any], None] = None,
+    frozen_sharding: str = "replicated",
 ) -> TrainingPipeline:
     """The Flash trainer of ``model`` on ``device`` from a yaml config (a
     path or its dict; the model's ``CONFIGS`` entry by default); ``seed``
@@ -443,7 +464,11 @@ def build_trainer(
     bf16, as the JAX examples store them (the adapter of ``sd15-canny``
     too, made from the seed after the other modules). Sets
     ``torch.backends.cuda.matmul.allow_tf32`` and
-    ``torch.backends.cudnn.allow_tf32`` to False, as ``build_pipeline``."""
+    ``torch.backends.cudnn.allow_tf32`` to False, as ``build_pipeline``.
+    In a ``torch.distributed`` group (the default one) the
+    trainer is data-parallel over it, the config's ``BATCH_SIZE`` the
+    global batch; ``frozen_sharding="fsdp"`` shards the frozen modules
+    (``TrainingPipeline``)."""
     if model not in MODELS:
         raise ValueError(f"training of {model!r} is not ported yet (one of {MODELS})")
     config = CONFIGS[model] if config is None else config
@@ -511,7 +536,8 @@ def build_trainer(
         gradient_accumulation_steps=int(cfg.get("GRADIENT_ACCUMULATION_STEPS", 1)),
         val_every_n_steps=cfg.get("VAL_EVERY_N_STEPS"))
     offload = int(cfg.get("TEXT_ENCODER_OFFLOAD", 0) or 0) if sd3 else 0
-    return TrainingPipeline(flash, train_cfg, lora, device=device, text_encoder_offload=offload)
+    return TrainingPipeline(flash, train_cfg, lora, device=device, text_encoder_offload=offload,
+                            frozen_sharding=frozen_sharding)
 
 
 def main():
@@ -527,12 +553,22 @@ def main():
     ap.add_argument("--eval-shards", nargs="+", default=None, help="validation shards (VAL_EVERY_N_STEPS)")
     ap.add_argument("--output-dir", default="runs", help="checkpoints, the log and the LoRA file")
     ap.add_argument("--resume", action="store_true", help="restore the latest checkpoint of --output-dir")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="the data-parallel group's backend under torchrun (gloo for ranks that share a card)")
+    ap.add_argument("--frozen-sharding", default="replicated", choices=("replicated", "fsdp"),
+                    help="fsdp: shard the frozen modules over the ranks (FSDP2)")
     args = ap.parse_args()
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
-    os.makedirs(args.output_dir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s", handlers=[
-        logging.StreamHandler(), logging.FileHandler(os.path.join(args.output_dir, "train.log"))])
+    initialize_distributed(args.dist_backend)  # under torchrun; a no-op without a launcher
+    if torch.device(args.device).type == "cuda":
+        build_kernels_once()
+    main_rank = is_main()
+    if main_rank:
+        os.makedirs(args.output_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(asctime)s %(name)s: %(message)s", handlers=[logging.StreamHandler()] + (
+                            [logging.FileHandler(os.path.join(args.output_dir, "train.log"))] if main_rank else []))
     cfg = {**DEFAULTS[args.model], **load_config(args.config or CONFIGS[args.model])}
     if args.shards:
         cfg["SHARDS_PATH_OR_URLS"] = args.shards
@@ -541,7 +577,9 @@ def main():
     root = "" if args.random_init else (args.weights_root or cfg.get("WEIGHTS_ROOT", ""))
     root = root if root and os.path.isdir(root) else ""
     seed = cfg.get("SEED", 0) if args.seed is None else args.seed
-    trainer = build_trainer(args.model, root, device=args.device, seed=seed, config=cfg)
+    trainer = build_trainer(args.model, root, device=args.device, seed=seed, config=cfg,
+                            frozen_sharding=args.frozen_sharding)
+    n_ranks = world_size()
     tc = trainer.config
     tc.log_every_n_steps, tc.checkpoint_dir = 1, os.path.join(args.output_dir, "checkpoints")
     size = cfg["IMAGE_SIZE"]
@@ -549,7 +587,9 @@ def main():
         from .data import prefetch_to_device
 
         tokenizer = make_tokenizer(args.model, cfg, root)
-        data = prefetch_to_device(tokenize_batches(build_data(cfg, data_mappers(args.model)), tokenizer, args.model,
+        rows = local_batch_slice(cfg["BATCH_SIZE"])  # each rank reads its own shards (data/dataset.py)
+        local = {**cfg, "BATCH_SIZE": rows.stop - rows.start}
+        data = prefetch_to_device(tokenize_batches(build_data(local, data_mappers(args.model)), tokenizer, args.model,
                                                    size))
         logger.info("data: shards %s", cfg["SHARDS_PATH_OR_URLS"])
     else:
@@ -558,6 +598,8 @@ def main():
                                      t5_max_length=cfg["T5_MAX_LENGTH"] if cfg["USE_T5"] else None)
         else:
             data = synthetic_batches(cfg["BATCH_SIZE"], size, seed, cfg.get("T5_MAX_LENGTH"), args.model)
+        if n_ranks > 1:  # the rank's rows of each global batch
+            data = (shard_batch(b) for b in data)
         logger.info("data: synthetic batches from seed %d (no shard at %s)", seed, cfg.get("SHARDS_PATH_OR_URLS"))
     eval_data = None
     if _shards_present(cfg.get("EVAL_SHARDS_PATH_OR_URLS")):
@@ -573,6 +615,8 @@ def main():
             logger.info("resumed from step %d", step)
     callbacks = [CheckpointCallback(tc.checkpoint_dir, tc.checkpoint_every_n_steps)]  # fit logs each step
     aux = trainer.fit(data, max_steps=args.max_steps, callbacks=callbacks, eval_data=eval_data)
+    if not main_rank:  # rank 0 alone writes the checkpoint and the exports
+        return
     print({k: float(v) for k, v in aux.items()})
     if trainer.step and latest_step(tc.checkpoint_dir) != trainer.step:  # so that --resume continues this run
         save_state(tc.checkpoint_dir, trainer.step, trainer.state_dict())

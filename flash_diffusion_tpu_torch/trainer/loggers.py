@@ -10,7 +10,10 @@ callback is called as ``callback(pipeline, aux, step)`` after every step
 (``step`` counts micro-steps from 1). ``QualityValidator``
 (``loggers.py:128-200``): every N steps, few-step samples of held-out
 batches against their images, the Fréchet distance of an embedding of both
-and optionally CLIPScore. Not ported: wandb.
+and optionally CLIPScore. Under data parallelism the callbacks write on
+rank 0 alone (JAX gates them on process 0); the samplers run on rank 0,
+or on every rank under FSDP, whose forwards gather over the group. Not
+ported: wandb.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import is_main
 from .checkpoint import save_state
 
 logger = logging.getLogger(__name__)
@@ -47,6 +51,13 @@ def save_png(path: str, array: np.ndarray) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png_bytes(np.ascontiguousarray(array)))
+
+
+def _samples_here(pipeline) -> bool:
+    """Whether this rank runs a sampling callback: rank 0 (JAX gates them
+    on process 0), and under FSDP every rank, whose gathers the sampler's
+    forwards join (only rank 0 writes)."""
+    return is_main() or getattr(pipeline, "frozen_sharding", "replicated") == "fsdp"
 
 
 class SampleLogger:
@@ -80,10 +91,20 @@ class SampleLogger:
         self.nonfinite: List[str] = []
 
     def __call__(self, pipeline, aux, step: int) -> None:
-        if step % self.every_n_steps:
+        if step % self.every_n_steps or not _samples_here(pipeline):
             return
         batch = self.batch_provider()
         lora = pipeline.ema if self.use_ema and pipeline.ema is not None else pipeline.lora
+        cond_batch = {k: v for k, v in pipeline.to_device(batch).items()
+                      if isinstance(v, torch.Tensor) and k != "image"}
+        generator = torch.Generator(device=pipeline.device).manual_seed(step)
+        with pipeline.sampling_frozen():
+            logs = pipeline.model.log_samples(
+                lora, cond_batch, self.input_shape, num_steps=self.num_steps, guidance_scale=self.guidance_scale,
+                log_teacher_samples=self.log_teacher_samples, teacher_guidance_scale=self.teacher_guidance_scale,
+                generator=generator)
+        if not is_main():
+            return
         step_dir = os.path.join(self.out_dir, f"step{step:08d}")
         self.written = []
         if hasattr(batch.get("image"), "shape"):
@@ -97,14 +118,6 @@ class SampleLogger:
             with open(path, "w") as f:
                 f.write("\n".join(str(t) for t in texts))
             self.written.append(path)
-        cond_batch = {k: v for k, v in pipeline.to_device(batch).items()
-                      if isinstance(v, torch.Tensor) and k != "image"}
-        generator = torch.Generator(device=pipeline.device).manual_seed(step)
-        with pipeline.sampling_frozen():
-            logs = pipeline.model.log_samples(
-                lora, cond_batch, self.input_shape, num_steps=self.num_steps, guidance_scale=self.guidance_scale,
-                log_teacher_samples=self.log_teacher_samples, teacher_guidance_scale=self.teacher_guidance_scale,
-                generator=generator)
         self.nonfinite = [name for name, images in logs.items() if not bool(torch.isfinite(images).all())]
         if self.nonfinite:
             logger.warning("step %d: samples with values that are not finite: %s", step, self.nonfinite)
@@ -152,7 +165,7 @@ class QualityValidator:
         return int(np.random.SeedSequence([step, i]).generate_state(1)[0])
 
     def __call__(self, pipeline, aux, step: int) -> None:
-        if step % self.every_n_steps:
+        if step % self.every_n_steps or not _samples_here(pipeline):
             return
         from ..eval.metrics import FIDStats, clip_score, frechet_distance
 
@@ -176,6 +189,8 @@ class QualityValidator:
                 fake_s.update(fake_emb)
                 if self.text_embed_fn is not None:
                     scores.append(float(clip_score(fake_emb, self.text_embed_fn(batch))))
+        if not is_main():
+            return
         metrics = {"val/feature_fd": frechet_distance(*real_s.finalize(), *fake_s.finalize())}
         if scores:
             metrics["val/clip_score"] = float(np.mean(scores))
@@ -192,7 +207,7 @@ class MetricLogger:
         self.history: List[Tuple[int, Dict[str, float]]] = []
 
     def __call__(self, pipeline, aux, step: int) -> None:
-        if step % self.every_n_steps:
+        if step % self.every_n_steps or not is_main():
             return
         scalars = {k: float(v) for k, v in aux.items() if np.ndim(v) == 0}
         self.history.append((step, scalars))
@@ -207,7 +222,7 @@ class CheckpointCallback:
         self.directory, self.every_n_steps, self.keep = directory, every_n_steps, keep
 
     def __call__(self, pipeline, aux, step: int) -> None:
-        if step % self.every_n_steps:
+        if step % self.every_n_steps or not is_main():
             return
         path = save_state(self.directory, step, pipeline.state_dict(), keep=self.keep)
         logger.info("step %d: checkpoint saved to %s", step, path)

@@ -41,6 +41,33 @@ Port of ``flash_diffusion_tpu/trainer/trainer.py:48-491``:
 The step runs eagerly; the stages are ``record_function`` spans
 (``fdt.train.encode``/``.backward``/``.optimizer`` here, the loss stages in
 ``distill/flash.py``), read by ``profiling.py --train``.
+
+Data parallel (JAX ``trainer.py:77-121``: a data axis over the mesh), one
+process per GPU in the default ``torch.distributed`` group (``parallel/mesh.py``):
+each rank steps on its rows of the global batch (the yaml's
+``BATCH_SIZE``), the LoRA and discriminator gradients are averaged over
+the group after the backward and before the optimizers' ``step`` (one
+all-reduce of the flattened gradients), so that accumulation, the EMA,
+WGAN clipping and ``switch_teacher`` run alike on every rank; the step's
+scalar losses are the group's mean. Every random draw is the global
+batch's, from the generators every rank holds alike, sliced to the rank's
+rows: ``draw`` (step-level scalars as they are, per-sample tensors cut)
+and the VAE encode's noise (the conditioning's drops are one scalar a
+conditioner). So N ranks step as one process at the global batch. The LoRA
+and the discriminator are broadcast from rank 0 at the start. Only rank 0
+logs; the callbacks write on rank 0 (``loggers.py``).
+
+``frozen_sharding="fsdp"`` (JAX ``shard_params_fsdp`` of the frozen trees)
+shards the frozen modules with FSDP2 (``torch.distributed.fsdp.
+fully_shard``: the parameters split over the group, gathered for each
+forward): the denoiser (block by block), the VAE, the text conditioner,
+LPIPS and the adapter. The student then shares the sharded denoiser as
+one module: the LoRA pairs attach to it, and the teacher is the same
+module under ``models/layers.py lora_disabled()`` (``TeacherView``; a
+checkpointed block's recompute keeps its forward's setting), so that
+``switch_teacher``'s merge writes the shards the student reads. Only
+dense LoRA trees (the side path) take this mode, and not with the text
+towers' offload (raises).
 """
 
 from __future__ import annotations
@@ -57,10 +84,36 @@ from torch.profiler import record_function
 
 from ..distill.losses import clip_disc_weights
 from ..lora import LoraTree
+from ..models.layers import lora_disabled
+from ..parallel.mesh import all_reduce_, is_main, rank, replicate, world_size
 from ..utils.ema import init_ema, update_ema
 from .training_config import TrainingConfig
 
 logger = logging.getLogger(__name__)
+
+
+def _fsdp_blocks():
+    from ..models.dit import PixartBlock
+    from ..models.layers import BasicTransformerBlock, ResnetBlock2D, SpatialTransformer
+    from ..models.mmdit import JointBlock
+
+    return (BasicTransformerBlock, ResnetBlock2D, SpatialTransformer, PixartBlock, JointBlock)
+
+
+class TeacherView:
+    """The teacher of the FSDP mode: the student's sharded denoiser called
+    with its LoRA pairs off (``lora_disabled``); every other attribute is
+    the module's."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.module = module
+
+    def __call__(self, *args, **kwargs):
+        with lora_disabled():
+            return self.module(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
 
 
 def export_lora(pipeline: "TrainingPipeline") -> LoraTree:
@@ -81,10 +134,17 @@ class TrainingPipeline:
         frozen_dtype: Optional[torch.dtype] = torch.bfloat16,
         device=None,
         text_encoder_offload: int = 0,
+        frozen_sharding: str = "replicated",
     ):
         self.model, self.config = model, config
         self.device = torch.device(device) if device is not None else next(
             model.teacher_module.parameters()).device
+        if frozen_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"frozen_sharding is replicated or fsdp, not {frozen_sharding!r}")
+        if frozen_sharding == "fsdp" and text_encoder_offload:
+            raise ValueError("text-encoder offload together with frozen_sharding='fsdp' is not ported")
+        self.world, self.rank = world_size(), rank()
+        self.frozen_sharding = frozen_sharding
         adapter = model.adapter
         for m in (model.teacher_module, model.vae, adapter, model.conditioner, model.lpips):
             if m is not None:
@@ -99,12 +159,17 @@ class TrainingPipeline:
                         p.copy_(p.to(frozen_dtype))
         self.lora = {name: {k: t.detach().to(self.device, torch.float32).requires_grad_()
                             for k, t in ab.items()} for name, ab in lora.items()}
-        model.attach_lora(self.lora)
+        replicate(self._lora_leaves())
+        if frozen_sharding == "fsdp":
+            self._shard_frozen()
+        else:
+            model.attach_lora(self.lora)
         self.opt_g = config.build_optimizer(0, self._lora_leaves())
         disc = model.discriminator
         self.opt_d = None
         if disc is not None:
             disc.float().requires_grad_(True).train()
+            replicate(disc)
             self.opt_d = config.build_optimizer(1, list(disc.parameters()))
         self.ema = init_ema(self.lora) if config.ema_decay else None
         self.is_wgan = model.config.gan_loss_type == "wgan"
@@ -128,6 +193,54 @@ class TrainingPipeline:
     # ------------------------------------------------------------------
     def _lora_leaves(self):
         return [t for ab in self.lora.values() for t in ab.values()]
+
+    def _shard_frozen(self) -> None:
+        """FSDP2 over the frozen modules; the student is the sharded
+        denoiser with the LoRA attached, the teacher its ``TeacherView``."""
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+        from ..lora import attach_lora, lora_is_dense_only
+
+        model = self.model
+        if not lora_is_dense_only(self.lora):
+            raise ValueError("frozen_sharding='fsdp' takes dense LoRA pairs only (the side path)")
+        mesh = init_device_mesh(self.device.type, (self.world,))
+        denoiser = model.teacher_module
+        for m in reversed(list(denoiser.modules())):  # block by block, the innermost first
+            if isinstance(m, _fsdp_blocks()):  # each called through its forward, which gathers it
+                fully_shard(m, mesh=mesh)
+        fully_shard(denoiser, mesh=mesh)
+        for m in (model.vae, model.conditioner, model.lpips, model.adapter):
+            if m is not None and any(True for _ in m.parameters()):
+                fully_shard(m, mesh=mesh)
+        if model.vae is not None:
+            for method in ("encode", "decode_latents"):
+                register_fsdp_forward_method(model.vae, method)
+        model.student_module = attach_lora(denoiser, self.lora, model.lora_scaling)
+        model.teacher_module = TeacherView(denoiser)
+
+    def _draw(self, generator: torch.Generator, stage: int, z: torch.Tensor) -> Dict[str, Any]:
+        """``model.draw`` of the global batch, cut to this rank's rows."""
+        if self.world == 1:
+            return self.model.draw(generator, stage, z)
+        b = z.shape[0]
+        draws = self.model.draw(generator, stage, z.new_empty((b * self.world, *z.shape[1:])))
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        cut = lambda v: v[rows] if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == b * self.world else v
+        return {k: [cut(x) for x in v] if isinstance(v, list) else cut(v) for k, v in draws.items()}
+
+    def _average(self, tensors) -> None:
+        """Average the tensors over the group in place (one all-reduce)."""
+        tensors = list(tensors)
+        if self.world == 1 or not tensors:
+            return
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        all_reduce_(flat, "avg")
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at: at + t.numel()].view_as(t))
+            at += t.numel()
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """The staging generator of ``step``: stream 0 the conditioning's
@@ -216,8 +329,9 @@ class TrainingPipeline:
         x = batch[model.config.input_key]
         vcfg = model.vae.config
         f = 2 ** (len(vcfg.block_out_channels) - 1)
-        noise = torch.randn((x.shape[0], x.shape[1] // f, x.shape[2] // f, vcfg.latent_channels),
-                            generator=generator, device=self.device)
+        b = x.shape[0]  # the global batch's noise, this rank's rows
+        noise = torch.randn((b * self.world, x.shape[1] // f, x.shape[2] // f, vcfg.latent_channels),
+                            generator=generator, device=self.device)[self.rank * b:(self.rank + 1) * b]
         return model._encode(batch, noise)
 
     def _set_trainable(self, lora: bool, disc: bool) -> None:
@@ -233,7 +347,7 @@ class TrainingPipeline:
         model = self.model
         g_on = phase != "d"
         d_on = phase != "g" and self.opt_d is not None
-        draws = model.draw(self.generator, stage, batch["__z"])
+        draws = self._draw(self.generator, stage, batch["__z"])
         self.opt_g.zero_grad()
         if self.opt_d is not None:
             self.opt_d.zero_grad()
@@ -245,6 +359,13 @@ class TrainingPipeline:
                     total.backward()
         finally:
             self._set_trainable(True, True)
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        if self.world > 1:
+            with record_function("fdt.train.all_reduce"), torch.no_grad():
+                params = (self._lora_leaves() if g_on else []) + (
+                    list(model.discriminator.parameters()) if d_on else [])
+                self._average(p.grad for p in params if p.grad is not None)
+                self._average(v for v in aux.values() if isinstance(v, torch.Tensor) and v.dim() == 0)
         with record_function("fdt.train.optimizer"):
             applied = self.opt_g.step() if g_on else False
             if d_on:
@@ -254,7 +375,7 @@ class TrainingPipeline:
             if self.ema is not None and applied:
                 update_ema(self.ema, self.lora, self.config.ema_decay)
         self.step += 1
-        return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        return aux
 
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
@@ -278,6 +399,11 @@ class TrainingPipeline:
                     if np.ndim(v) == 0:
                         sums[k] = sums.get(k, 0.0) + float(v)
                 n += 1
+        if self.world > 1:  # the group's mean over every rank's batches
+            keys = sorted(sums)
+            t = torch.tensor([sums[k] for k in keys] + [float(n)], dtype=torch.float64, device=self.device)
+            all_reduce_(t, "sum")
+            sums, n = dict(zip(keys, t[:-1].tolist())), t[-1].item()
         return {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
 
     # ------------------------------------------------------------------ state
@@ -352,18 +478,20 @@ class TrainingPipeline:
             if (stage != prev_stage and model.config.switch_teacher
                     and model.config.K[stage] != model.config.K[prev_stage]):
                 model.merge_lora_into_teacher(self.lora)
-                logger.info("stage %d: switched teacher to merged student", stage)
+                if is_main():
+                    logger.info("stage %d: switched teacher to merged student", stage)
             prev_stage = stage
             phase = ("g" if step % 2 == 0 else "d") if self.alternating else None
             aux = self.train_step(self.stage_batch(batch, step, conds), stage, phase)
-            if self.step % cfg.log_every_n_steps == 0:
+            if self.step % cfg.log_every_n_steps == 0 and is_main():
                 metrics = {k: float(v) for k, v in aux.items()}
                 logger.info("step %d stage %d %.3f s/step %s", self.step, stage,
                             (time.perf_counter() - t0) / cfg.log_every_n_steps, metrics)
                 t0 = time.perf_counter()
             if eval_data is not None and cfg.val_every_n_steps and self.step % cfg.val_every_n_steps == 0:
                 self.last_val = self.evaluate(eval_data(), stage, max_batches=cfg.val_batches)
-                logger.info("step %d %s", self.step, self.last_val)
+                if is_main():
+                    logger.info("step %d %s", self.step, self.last_val)
             for cb in callbacks:
                 cb(self, aux, self.step)
         return aux
