@@ -457,6 +457,7 @@ import collections
 import contextlib
 import copy
 import ctypes
+import gc
 import json
 import math
 import os
@@ -470,6 +471,7 @@ import threading
 import time
 import urllib.request
 import zlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2462,7 +2464,48 @@ class BurstWatch:
         torch.cuda.reset_peak_memory_stats()
 
 
-def run_training(model, counters, card, required, gated=None, steps=4):
+class FirstStep:
+    """A ``fit`` callback: the first step's losses and LoRA gradients (host
+    copies) in ``record``."""
+
+    def __init__(self):
+        self.record = {}
+
+    def __call__(self, trainer, aux, step):
+        if not self.record:
+            self.record.update(aux={k: float(v) for k, v in aux.items()}, grad=lora_grad(trainer))
+
+
+def lora_grad(trainer) -> torch.Tensor:
+    """The LoRA leaves' gradients, flat, in fp32 on the host (zeros where a
+    leaf has none)."""
+    leaves = [t for ab in trainer.lora.values() for t in ab.values()]
+    return torch.cat([(t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1).float()
+                      for t in leaves]).cpu()
+
+
+def sample_sd3(trainer, cfg):
+    """One ``SampleLogger`` call (the student, 4 steps, the yaml's first
+    prompt; the towers under ``sampling_frozen``), its PNG decoded and
+    finite: (seconds, PNG paths)."""
+    from flash_diffusion_tpu_torch.train import make_tokenizer
+    from flash_diffusion_tpu_torch.trainer import SampleLogger
+
+    size = cfg["IMAGE_SIZE"]
+    prompts = cfg["VALIDATION_PROMPTS"][:1]
+    tok = make_tokenizer("sd3", cfg)
+    with tempfile.TemporaryDirectory() as out_dir:
+        logger = SampleLogger(lambda: {"text": prompts, **tok(prompts)}, (size // 8, size // 8, 16),
+                              out_dir=out_dir, every_n_steps=1, num_steps=[4])
+        t0 = time.perf_counter()
+        logger(trainer, {}, trainer.step)
+        torch.cuda.synchronize()
+        pngs = [p for p in logger.written if p.endswith(".png")]
+        check_pngs(pngs, logger, size)
+    return time.perf_counter() - t0, pngs
+
+
+def run_training(model, counters, card, required, gated=None, steps=4, first_step=None):
     """Phases 5, 5c, 7c and 9: ``build_trainer(model)`` with its yaml, every
     step in stage 1, then one ``fit`` of ``steps`` steps on synthetic
     batches of the yaml's batch size at its image size, 1 warm and the rest
@@ -2473,9 +2516,9 @@ def run_training(model, counters, card, required, gated=None, steps=4):
     memory over the whole phase and over the training steps alone (reset
     after the burst), then one ``SampleLogger`` call (the student, 4 steps,
     the yaml's first prompt) under ``sampling_frozen``, its PNG decoded and
-    finite."""
-    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, make_tokenizer, synthetic_batches
-    from flash_diffusion_tpu_torch.trainer import SampleLogger
+    finite. ``first_step``: a dict that takes the first step's losses and
+    LoRA gradients (phase 15d's reference)."""
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
 
     cfg = {**load_config(CONFIGS[model]), **TRAIN_OVERRIDES}
     batch, size = cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"]
@@ -2494,26 +2537,16 @@ def run_training(model, counters, card, required, gated=None, steps=4):
     lora_b = {k: ab["b"].detach().clone() for k, ab in trainer.lora.items()}
     disc = snapshot([fl.discriminator])
     data = synthetic_batches(batch, size, seed=0, model=model)
-    timer, bursts = StepTimer(model), BurstWatch()
+    timer, bursts, first = StepTimer(model), BurstWatch(), FirstStep()
     reset(counters)
     torch.cuda.synchronize()
     timer.mark()
-    trainer.fit(data, max_steps=steps, callbacks=[bursts, timer])
+    trainer.fit(data, max_steps=steps, callbacks=[bursts, timer] + ([first] if first_step is not None else []))
+    if first_step is not None:
+        first_step.update(first.record)
     timed = timer.times[1:]
     train_peak = torch.cuda.max_memory_allocated()
-    sampled = None
-    if model == "sd3":
-        prompts = cfg["VALIDATION_PROMPTS"][:1]
-        tok = make_tokenizer(model, cfg)
-        with tempfile.TemporaryDirectory() as out_dir:
-            logger = SampleLogger(lambda: {"text": prompts, **tok(prompts)}, (size // 8, size // 8, 16),
-                                  out_dir=out_dir, every_n_steps=1, num_steps=[4])
-            t0 = time.perf_counter()
-            logger(trainer, {}, trainer.step)
-            torch.cuda.synchronize()
-            pngs = [p for p in logger.written if p.endswith(".png")]
-            check_pngs(pngs, logger, size)
-        sampled = (time.perf_counter() - t0, pngs)
+    sampled = sample_sd3(trainer, cfg) if model == "sd3" else None
     launches = totals(counters)
     print(f"{model} training launches over {steps} steps {dict(launches)} (the forward kernels' counts include the "
           f"recompute of remat and of the checkpointed LPIPS decode in the backward"
@@ -3787,8 +3820,14 @@ def check_training_reference(model="sd15", start=None, cpu_bf16=False, counters=
 # (15c) with the same draws, to 5b's bounds; the ranks' LoRA bit-equal
 # after the step. 15c: that one process, in a world-size-1 NCCL group
 # (``initialize_distributed(backend="nccl")``), steps with the frozen
-# modules under FSDP2 and then runs ``generate`` after ``shard_tp``. The
-# gloo figures check the paths; they are no speed of TP or DP across cards.
+# modules under FSDP2, then steps over a tree with conv pairs (the student
+# on merged weights) replicated and under FSDP, held to each other to 5b's
+# bounds, and runs ``generate`` after ``shard_tp``. 15d: SD3 training under
+# FSDP2 with the text towers offloaded in another world-size-1 NCCL
+# process: one burst and one step against phase 9's first step at the same
+# seed and draws, to 5b's bounds, the towers' bytes off the card after the
+# burst, then one SampleLogger call. The gloo figures check the paths; they
+# are no speed of TP or DP across cards.
 TP_SLOT = 1
 TP_WARM_REQUESTS = 1  # each ≈ 7.4 s over gloo, measured on one H100
 # the same request at TP = 2 run straight through ``generate`` after
@@ -3804,6 +3843,14 @@ TP_FAULTS = ("none", "bias on both ranks", "mid all-reduce skipped", "last all-r
 TP_LATENT_TOL = 1e-2
 DP_LOSS_TOL, DP_GRAD_TOL = 0.05, 0.1  # 5b's bounds
 PARALLEL_JOIN_S = 600
+# 15c's second tree: the dense targets and a pair on every resnet
+# convolution of the UNet, B drawn N(0, CONV_LORA_B_STD²) from CONV_LORA_SEED
+CONV_LORA_TARGETS = (r".*\.(to_q|to_k|to_v|to_out\.0|proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$",
+                     r".*resnets\.\d+\.(conv1|conv2)$")
+CONV_LORA_SEED, CONV_LORA_B_STD = 3, 1e-3
+# 15d: after a burst the card must hold less than during it by at least this
+# share of the text towers' bytes
+OFFLOAD_DROP = 0.9
 
 
 def png_rgb(png: bytes) -> np.ndarray:
@@ -3935,41 +3982,69 @@ def tp_serve_rank(rank, world, slot):
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def dp_train_rank(rank, world, frozen_sharding):
-    """15b (two gloo ranks) or 15c (one NCCL rank): ``build_trainer("sd15")``
-    at phase 5's settings in the group, one ``fit`` step on the first
-    synthetic global batch of 4 (the rank's rows); the step's (group mean)
-    losses, the averaged LoRA gradients and a digest of the LoRA after the
-    update; at world size 1 also ``generate`` of phase 3's prompts after
-    ``shard_tp``. Counts reset just before each and read after."""
+def conv_lora(model, rank, generator=None, device=None, **_):
+    """``init_lora`` over ``CONV_LORA_TARGETS`` from ``generator`` (a tree with
+    conv pairs: the student on merged weights), B then drawn from
+    N(0, ``CONV_LORA_B_STD``²) by a generator seeded ``CONV_LORA_SEED``, so
+    that the pairs move the forward and A has a gradient."""
+    from flash_diffusion_tpu_torch.lora import init_lora
+
+    lora = init_lora(model, rank, generator, targets=CONV_LORA_TARGETS, device=device)
+    g = torch.Generator(device=device).manual_seed(CONV_LORA_SEED)
+    for ab in lora.values():
+        ab["b"].normal_(0.0, CONV_LORA_B_STD, generator=g)
+    return lora
+
+
+def sd15_step(cfg, frozen_sharding, counters, conv=False):
+    """``build_trainer("sd15")`` (``conv``: over ``conv_lora``'s tree) in the
+    group and one ``fit`` step on the first synthetic global batch (the
+    rank's rows), counts reset just before it: the step's (group mean)
+    losses, the averaged LoRA gradients, a digest of the LoRA after the
+    update."""
     import hashlib
 
-    from flash_diffusion_tpu_torch.parallel import build_kernels_once, shard_batch
-    from flash_diffusion_tpu_torch.sample import build_pipeline
-    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
+    from flash_diffusion_tpu_torch import train
+    from flash_diffusion_tpu_torch.parallel import shard_batch
 
-    build_kernels_once()
-    cfg = {**load_config(CONFIGS["sd15"]), **TRAIN_OVERRIDES}
-    trainer = build_trainer("sd15", device="cuda", seed=0, config=cfg, frozen_sharding=frozen_sharding)
-    batch = next(synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed=0, model="sd15"))
-    counters = rank_counters()
+    with mock.patch.object(train, "init_lora", conv_lora) if conv else contextlib.nullcontext():
+        trainer = train.build_trainer("sd15", device="cuda", seed=0, config=cfg, frozen_sharding=frozen_sharding)
+    batch = next(train.synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed=0, model="sd15"))
     reset(counters)
     t0 = time.perf_counter()
     aux = trainer.fit([shard_batch(batch)], max_steps=1)
     torch.cuda.synchronize()
     out = {"seconds": time.perf_counter() - t0, "aux": {k: float(v) for k, v in aux.items()},
-           "counts": [dict(c) for c in counters], "backend": torch.distributed.get_backend(),
-           "rows": len(shard_batch(batch)["image"])}
-    leaves = [t for ab in trainer.lora.values() for t in ab.values()]
-    out["grad"] = torch.cat([(t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1).float()
-                             for t in leaves]).cpu()
+           "counts": [dict(c) for c in counters], "rows": len(shard_batch(batch)["image"]), "grad": lora_grad(trainer),
+           "merged": trainer.model.merged_student, "pairs": len(trainer.lora),
+           "conv_pairs": sum(ab["a"].dim() == 4 for ab in trainer.lora.values())}
     digest = hashlib.sha256()
-    for t in leaves:
+    for t in (t for ab in trainer.lora.values() for t in ab.values()):
         digest.update(t.detach().cpu().numpy().tobytes())
     out["lora_sha256"] = digest.hexdigest()
+    del trainer
+    gc.collect()  # FSDP's hooks hold the modules in reference cycles
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_train_rank(rank, world, frozen_sharding):
+    """15b (two gloo ranks) or 15c (one NCCL rank): ``sd15_step`` at phase
+    5's settings; at world size 1 also the same step over ``conv_lora``'s
+    tree, replicated and then under FSDP, and ``generate`` of phase 3's
+    prompts after ``shard_tp``. Counts reset just before each and read
+    after."""
+    from flash_diffusion_tpu_torch.parallel import build_kernels_once
+    from flash_diffusion_tpu_torch.sample import build_pipeline
+    from flash_diffusion_tpu_torch.train import CONFIGS, load_config
+
+    build_kernels_once()
+    cfg = {**load_config(CONFIGS["sd15"]), **TRAIN_OVERRIDES}
+    counters = rank_counters()
+    out = sd15_step(cfg, frozen_sharding, counters)
+    out["backend"] = torch.distributed.get_backend()
     if world == 1:
-        del trainer
-        torch.cuda.empty_cache()
+        out["conv"] = {sharding: sd15_step(cfg, sharding, counters, conv=True) for sharding in ("replicated", "fsdp")}
         pipe = build_pipeline("sd15", device="cuda", seed=0)
         pipe.shard_tp()
         reset(counters)
@@ -3980,12 +4055,88 @@ def dp_train_rank(rank, world, frozen_sharding):
     return out
 
 
-def run_parallel(card, reference, gated):
-    """Phase 15 (15a, then 15b and 15c side by side): returns {path: the
-    ranks' summed launches by kernel}. ``reference``: 3b's image of prompt
-    and seed ``TP_SLOT`` at per-sample seeds, on the CPU."""
+def fsdp_offload_rank(rank, world):
+    """15d (one NCCL rank): ``build_trainer("sd3")`` at phase 9's settings
+    under FSDP2, the towers offloaded; one ``fit`` of one step on phase 9's
+    data (one burst of the yaml's 4 encodes, then the step), the card's
+    allocated bytes before, during (at each encode) and after the burst,
+    the step's peak, its losses and LoRA gradients; then ``sample_sd3``.
+    Counts reset just before the fit and read after the sampling."""
+    from flash_diffusion_tpu_torch.parallel import build_kernels_once
+    from flash_diffusion_tpu_torch.train import CONFIGS, build_trainer, load_config, synthetic_batches
+
+    build_kernels_once()
+    t0 = time.perf_counter()
+    cfg = {**load_config(CONFIGS["sd3"]), **TRAIN_OVERRIDES}
+    trainer = build_trainer("sd3", device="cuda", seed=0, config=cfg, frozen_sharding="fsdp")
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    cond = trainer.model.conditioner
+    tower_bytes = sum(t.numel() * t.element_size() for t in (*cond.parameters(), *cond.buffers()))
+    watch = OffloadWatch(trainer)
+    counters = rank_counters()
+    reset(counters)
+    watch.start()
+    trainer.fit(synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], seed=0, model="sd3"), max_steps=1,
+                callbacks=[watch])
+    moves_fit = list(trainer.offload_moves)
+    sampled = sample_sd3(trainer, cfg)
+    return {"built": built, "seconds": time.perf_counter() - t0, "tower_bytes": tower_bytes,
+            "offload_bytes": trainer._towers.nbytes, "moves_fit": moves_fit, "moves": list(trainer.offload_moves),
+            "counts": [dict(c) for c in counters], "sampled": (sampled[0], len(sampled[1])),
+            "backend": torch.distributed.get_backend(), **watch.record}
+
+
+class OffloadWatch:
+    """15d's ``fit`` callback on ``trainer``: the allocated bytes at each
+    encode of a burst (the towers on the card; ``_conditionings`` wrapped)
+    and after it, the burst's and the step's seconds, the step's peak (reset
+    after the burst), its losses and LoRA gradients."""
+
+    def __init__(self, trainer):
+        self.mem, self.during = {}, []
+        encode = trainer.model._conditionings
+
+        def watched(*args, **kw):
+            self.during.append(torch.cuda.memory_allocated())
+            return encode(*args, **kw)
+
+        trainer.model._conditionings = watched
+
+    def start(self):
+        """Before ``fit``: the allocated bytes, the burst's clock."""
+        torch.cuda.synchronize()
+        self.mem["before"] = torch.cuda.memory_allocated()
+        self.t = time.perf_counter()
+
+    def after_burst(self, trainer):
+        torch.cuda.synchronize()
+        self.mem["after"] = torch.cuda.memory_allocated()
+        self.burst_s = time.perf_counter() - self.t
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def __call__(self, trainer, aux, step):
+        torch.cuda.synchronize()
+        self.step_s = time.perf_counter() - self.t
+        self.peak = torch.cuda.max_memory_allocated()
+        self.aux, self.grad = {k: float(v) for k, v in aux.items()}, lora_grad(trainer)
+
+    @property
+    def record(self):
+        return {"mem": {**self.mem, "during": max(self.during)}, "encodes": len(self.during), "burst_s": self.burst_s,
+                "step_s": self.step_s, "peak": self.peak, "aux": self.aux, "grad": self.grad}
+
+
+def run_parallel(card, reference, gated, sd3_first_step):
+    """Phase 15 (15a, then 15b and 15c side by side, then 15d): returns
+    {path: the ranks' summed launches by kernel}. ``reference``: 3b's image
+    of prompt and seed ``TP_SLOT`` at per-sample seeds, on the CPU;
+    ``sd3_first_step``: phase 9's first step (``FirstStep``)."""
     torch.cuda.empty_cache()
-    return {**run_tp_serving(card, reference, gated), **run_dp_training(gated)}
+    by_path = {**run_tp_serving(card, reference, gated), **run_dp_training(gated)}
+    torch.cuda.empty_cache()
+    return {**by_path, **run_fsdp_offload(card, gated, sd3_first_step)}
 
 
 def run_tp_serving(card, reference, gated):
@@ -4054,13 +4205,11 @@ def run_dp_training(gated):
     gen_counts = merged_counts([one["generate"]["counts"]])
     by_path["tp_generate_nccl"] = totals(gen_counts)
     check_gated("15c shard_tp generate (NCCL)", gen_counts, gated)
-    losses = {k: (dp[0]["aux"][k], one["aux"][k]) for k in ("loss/distill", "loss/dmd", "loss/gan_d")}
-    loss_err = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in losses.items()}
-    grad_err = rel_l2(dp[0]["grad"], one["grad"])
+    loss_err, grad_err = step_errors(dp[0], one)
     same = dp[0]["lora_sha256"] == dp[1]["lora_sha256"]
     print(f"15b: SD1.5 512² step, global batch 4 as {[r['rows'] for r in dp]} rows on 2 gloo ranks of cuda:0 "
           f"({[round(r['seconds'], 2) for r in dp]} s, cold) vs one NCCL process at batch {one['rows']} under FSDP "
-          f"({one['seconds']:.2f} s, cold): losses {({k: (round(a, 5), round(b, 5)) for k, (a, b) in losses.items()})}, "
+          f"({one['seconds']:.2f} s, cold): losses {({k: (round(dp[0]['aux'][k], 5), round(one['aux'][k], 5)) for k in loss_err})}, "
           f"rel err {({k: f'{v:.2e}' for k, v in loss_err.items()})} (tol {DP_LOSS_TOL}); LoRA gradients rel L2 "
           f"{grad_err:.3e} (tol {DP_GRAD_TOL}); the ranks' LoRA after the step bit-equal: {same}")
     print(f"15c: backend {one['backend']}, FSDP step launches {dict(by_path['fsdp_train_nccl'])}; shard_tp generate "
@@ -4069,12 +4218,74 @@ def run_dp_training(gated):
         raise AssertionError("the data-parallel step is off the one-process step, or its ranks differ")
     if one["backend"] != "nccl" or one["generate"]["shape"] != (4, 512, 512, 3) or not one["generate"]["finite"]:
         raise AssertionError(f"the NCCL run: backend {one['backend']}, images {one['generate']}")
-    for path in ("dp_train", "fsdp_train_nccl"):
+    rep, fsdp = one["conv"]["replicated"], one["conv"]["fsdp"]
+    conv_counts = merged_counts([fsdp["counts"]])
+    by_path["fsdp_train_conv_nccl"] = totals(conv_counts)
+    check_gated("15c FSDP training over conv pairs (NCCL)", conv_counts, gated)
+    conv_loss_err, conv_grad_err = step_errors(rep, fsdp)
+    print(f"15c: a tree of {fsdp['pairs']} pairs, {fsdp['conv_pairs']} of them on resnet convolutions (the student on "
+          f"merged weights: {rep['merged']}, {fsdp['merged']}), replicated ({rep['seconds']:.2f} s) vs under FSDP "
+          f"({fsdp['seconds']:.2f} s): losses rel err {({k: f'{v:.2e}' for k, v in conv_loss_err.items()})} (tol "
+          f"{DP_LOSS_TOL}); LoRA gradients rel L2 {conv_grad_err:.3e} (tol {DP_GRAD_TOL}); launches "
+          f"{dict(by_path['fsdp_train_conv_nccl'])}")
+    if (not (rep["merged"] and fsdp["merged"] and fsdp["conv_pairs"]) or not conv_grad_err <= DP_GRAD_TOL
+            or any(v > DP_LOSS_TOL for v in conv_loss_err.values())):
+        raise AssertionError("the FSDP step over conv pairs is off the replicated step")
+    for path in ("dp_train", "fsdp_train_nccl", "fsdp_train_conv_nccl"):
         missing = [k for k in ("flash_bwd_dkv", "flash_fwd_stream", "layer_norm") if by_path[path][k] == 0]
         if missing:
             raise AssertionError(f"the {path} path never launched {missing}")
     print(f"15b, 15c: {time.perf_counter() - t0:.1f} s")
     return by_path
+
+
+def step_errors(got, want):
+    """({loss: relative error}, the LoRA gradients' rel L2) of a step
+    against a reference step."""
+    keys = ("loss/distill", "loss/dmd", "loss/gan_d")
+    loss_err = {k: abs(got["aux"][k] - want["aux"][k]) / max(abs(want["aux"][k]), 1e-12) for k in keys}
+    return loss_err, rel_l2(got["grad"], want["grad"])
+
+
+def run_fsdp_offload(card, gated, reference):
+    """15d: ``fsdp_offload_rank`` in one NCCL process, held to phase 9's
+    first step (``reference``): {path: its launches by kernel}."""
+    from flash_diffusion_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    (one,) = spawn(fsdp_offload_rank, 1, "nccl", timeout=PARALLEL_JOIN_S)
+    counts = merged_counts([one["counts"]])
+    launches = totals(counts)
+    check_gated("15d SD3 FSDP training, towers offloaded (NCCL)", counts, gated)
+    loss_err, grad_err = step_errors(one, reference)
+    mem, gib = one["mem"], 2 ** 30
+    drop = mem["during"] - mem["after"]
+    print(f"15d: SD3 1024² batch 2 under FSDP (backend {one['backend']}), T5-XXL and both CLIPs offloaded: towers "
+          f"{one['tower_bytes'] / gib:.3f} GiB by their modules ({one['offload_bytes'] / gib:.3f} GiB moved: this rank's "
+          f"shards and buffers); build_trainer {one['built']:.1f} s; the burst ({one['encodes']} encodes) "
+          f"{one['burst_s']:.3f} s, the step {one['step_s']:.3f} s (cold), peak over the step "
+          f"{one['peak'] / gib:.2f} GiB")
+    print(f"15d: allocated before the burst {mem['before'] / gib:.3f} GiB, during it {mem['during'] / gib:.3f}, after "
+          f"it {mem['after'] / gib:.3f}: {drop / gib:.3f} GiB off the card (≥ {OFFLOAD_DROP} × the towers' "
+          f"{one['tower_bytes'] / gib:.3f}); host → card moves {[round(t, 3) for t in one['moves']]} s (the burst's, "
+          f"then the sampling callback's)")
+    print(f"15d: against phase 9's first step (replicated, the same seed and draws): losses "
+          f"{({k: (round(one['aux'][k], 5), round(reference['aux'][k], 5)) for k in loss_err})}, rel err "
+          f"{({k: f'{v:.2e}' for k, v in loss_err.items()})} (tol {DP_LOSS_TOL}); LoRA gradients rel L2 "
+          f"{grad_err:.3e} (tol {DP_GRAD_TOL}); SampleLogger under sampling_frozen {one['sampled'][0]:.2f} s, "
+          f"{one['sampled'][1]} PNG decoded; launches {dict(launches)}")
+    if (one["backend"] != "nccl" or len(one["moves_fit"]) != 1 or len(one["moves"]) != 2
+            or not drop >= OFFLOAD_DROP * one["tower_bytes"]):
+        raise AssertionError(f"15d: backend {one['backend']}, moves {one['moves_fit']} then {one['moves']}, "
+                             f"{drop} bytes off the card after the burst")
+    if any(v > DP_LOSS_TOL for v in loss_err.values()) or not grad_err <= DP_GRAD_TOL:
+        raise AssertionError("15d: the FSDP step with the towers offloaded is off phase 9's first step")
+    missing = [k for k in ("flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", "group_norm_stats",
+                           "group_norm_apply", "group_norm_fused") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"15d never launched {missing}")
+    print(f"15d: {time.perf_counter() - t0:.1f} s")
+    return {"train_sd3_fsdp_offload": launches}
 
 
 def main():
@@ -4356,8 +4567,10 @@ def main():
     # (the joint attention's backward masked at kv_valid 4250), its launched
     # shapes all among phase 2's, then its agreement with the fp32 plain
     # reference on a small input, whose launched shapes are gated too
+    sd3_first_step = {}
     by_path["train_sd3"] = run_training("sd3", counters, card, (
-        "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes())
+        "flash_fwd_stream", "layer_norm", "flash_bwd_dkv", "flash_bwd_dq", *gn), gated_shapes(),
+        first_step=sd3_first_step)
     torch.cuda.empty_cache()
     mark("9")
     check_training_reference("sd3", counters=counters, gated=gated_shapes(), depth=REF_DEPTH["sd3"])
@@ -4425,9 +4638,11 @@ def main():
     # phase 15: the parallel paths, each rank a process on cuda:0: 15a SDXL
     # served at TP = 2 over gloo, 15b the SD1.5 step data-parallel over two
     # gloo ranks against 15c, one NCCL process at the global batch under
-    # FSDP2, which then runs a shard_tp generate; every rank's launched
-    # (kernel, shape) among phase 2's
-    by_path.update(run_parallel(card, tp_reference, gated_shapes()))
+    # FSDP2, which then steps over a tree with conv pairs replicated and
+    # under FSDP2 and runs a shard_tp generate; 15d SD3 training under FSDP2
+    # with the towers offloaded against phase 9's first step; every rank's
+    # launched (kernel, shape) among phase 2's
+    by_path.update(run_parallel(card, tp_reference, gated_shapes(), sd3_first_step))
     mark("15")
 
     print(f"every phase passed in {time.perf_counter() - started:.1f} s (the kernels' build included)")

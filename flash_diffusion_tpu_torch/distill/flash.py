@@ -10,10 +10,15 @@ updates the LoRA factors and the discriminator (``distill/losses.py``).
 
 The student is the teacher's modules plus the LoRA pairs
 (``lora.shared_copy`` + ``lora.attach_lora``, built by ``attach_lora``
-below): a dense-only tree on the side path, with no merged weights; a tree
-with a conv pair (a resnet convolution, say) on weights that read W +
-scaling·Δ(A, B) at each use, JAX's merged-weights path. The teacher rollout and the DMD forwards run
-under ``torch.no_grad()``.
+below), as JAX's ``_student_forward`` chooses (``flash.py:213-240``): with
+``lora_mode="sidepath"`` (the default) a dense-only tree on the side path,
+with no merged weights; with ``lora_mode="merge"``, or a tree with a conv
+pair (a resnet convolution, say), on weights that read W + scaling·Δ(A, B)
+at each use, JAX's merged-weights path. ``remat_student_merge`` then runs
+the student's forward, the merges included, as one checkpointed segment
+(JAX's ``jax.checkpoint(f)``), recomputed in the backward with its
+forward's LoRA setting (``models/layers.py remat_call``). The teacher
+rollout and the DMD forwards run under ``torch.no_grad()``.
 
 Randomness: ``jax.random`` and ``torch.Generator`` never agree, so every
 random draw of ``losses`` comes from one ``draws`` dict (``draw`` fills it
@@ -73,7 +78,8 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import BaseConfig
-from ..lora import LoraTree, attach_lora, lora_delta, lora_slot, shared_copy
+from ..lora import LoraTree, attach_lora, base_weight, lora_delta, lora_slot, shared_copy, uses_merge
+from ..models.layers import remat_call
 from ..schedulers import REGISTRY, SchedulerConfig, add_noise, training_tables
 from .common import boundary_scalings, predicted_x0_eps, sample_start_index, stage_index, timestep_pdf
 from .losses import center_crop, dmd_loss, gan_losses, huber_loss, l1_loss, l2_loss
@@ -114,6 +120,11 @@ class FlashDiffusionConfig(BaseConfig):
     # at a stage boundary where K changes, the teacher becomes the merged
     # student (the trainer does it between stages)
     switch_teacher: bool = False
+    # "sidepath": a dense-only tree's pairs beside each layer's product;
+    # "merge": the merged weights W + scaling·Δ (a conv pair forces them)
+    lora_mode: str = "sidepath"
+    # the merged student's forward as one checkpointed segment
+    remat_student_merge: bool = False
 
     def __post_init__(self):
         super().__post_init__()
@@ -128,6 +139,8 @@ class FlashDiffusionConfig(BaseConfig):
         self.adversarial_loss_scale = bc(self.adversarial_loss_scale)
         if self.mode_probs is None:
             self.mode_probs = [[1.0 / m] * m for m in self.mixture_num_components]
+        if self.lora_mode not in ("sidepath", "merge"):
+            raise ValueError(f"lora_mode {self.lora_mode!r}: sidepath or merge")
         if self.gan_update_mode not in ("simultaneous", "alternating"):
             raise ValueError(f"gan_update_mode {self.gan_update_mode!r}: simultaneous or alternating")
         if len(self.num_iterations_per_K) != n or len(self.mode_probs) != n:
@@ -175,6 +188,7 @@ class FlashDiffusion:
         self.adapter = adapter
         self.teacher_module = teacher_module
         self.student_module = None
+        self.merged_student = False  # the student on merged weights (``attach_lora``)
         self.lora_scaling = lora_scaling
         self.vae, self.conditioner = vae, conditioner
         self.discriminator, self.lpips = discriminator, lpips
@@ -198,12 +212,15 @@ class FlashDiffusion:
             for s in range(len(config.K))
         ]
 
-    def attach_lora(self, lora: LoraTree) -> None:
-        """The student: the teacher's modules, shared, with ``lora`` attached:
-        a dense-only tree on the side path, a tree with a conv pair as merged
-        weights W + scaling·Δ(A, B) (``lora.attach_lora``), as JAX's
-        ``_student_forward`` chooses (``flash.py:214-240``)."""
-        self.student_module = attach_lora(shared_copy(self.teacher_module), lora, self.lora_scaling)
+    def attach_lora(self, lora: LoraTree, module=None) -> None:
+        """The student: ``module`` (by default a shared copy of the teacher's
+        modules) with ``lora`` attached: a dense-only tree on the side path
+        under ``lora_mode="sidepath"``, else merged weights W + scaling·Δ(A,
+        B) (``lora.attach_lora``), as JAX's ``_student_forward`` chooses
+        (``flash.py:213-240``)."""
+        self.merged_student = uses_merge(lora, self.config.lora_mode == "merge")
+        module = shared_copy(self.teacher_module) if module is None else module
+        self.student_module = attach_lora(module, lora, self.lora_scaling, merge=self.merged_student)
 
     def stage_for_iteration(self, iter_step: int) -> int:
         return stage_index(iter_step, self.config.num_iterations_per_K)
@@ -218,7 +235,7 @@ class FlashDiffusion:
         from torch.distributed.tensor import DTensor, distribute_tensor
 
         for name, ab in lora.items():
-            w = self.teacher_module.get_submodule(name).weight
+            w = base_weight(self.teacher_module.get_submodule(name))
             delta = self.lora_scaling * lora_delta(ab["a"], ab["b"], w.shape)
             if isinstance(w, DTensor):
                 delta = distribute_tensor(delta, w.device_mesh, w.placements)
@@ -383,6 +400,8 @@ class FlashDiffusion:
         return u.float() * (hi - lo) + lo
 
     def _student_forward(self, x, t, cond, adapter_res=None):
+        if self.merged_student and self.config.remat_student_merge and torch.is_grad_enabled():
+            return remat_call(lambda x_, t_: self.student_module(x_, t_, cond, **_adapter_kw(adapter_res)), x, t)
         return self.student_module(x, t, cond, **_adapter_kw(adapter_res))
 
     @torch.no_grad()

@@ -4,8 +4,10 @@ Port of ``flash_diffusion_tpu/distill/flash_sd3.py:46-253`` (the config,
 ``__init__``, the teacher rollout, ``losses`` and its DMD and GAN parts) on
 the skeleton of the port's ``FlashDiffusion`` (``distill/flash.py``): one
 ``draws`` dict for every random draw, the student as the teacher's modules
-plus the LoRA side path, ``record_function`` spans ``fdt.train.*``. The
-flow-matching deltas against the ε family:
+plus the LoRA (the side path, or merged weights under ``lora_mode=
+"merge"`` or with a conv pair, optionally rematerialized with
+``remat_student_merge``: JAX ``flash_sd3.py:136-150``), ``record_function``
+spans ``fdt.train.*``. The flow-matching deltas against the ε family:
 
 - timesteps are floats (σ·T) everywhere: the rollout, the student, DMD and
   the GAN keep them in fp32 (the base class casts its integer DDPM

@@ -16,13 +16,17 @@ second module tree that shares every parameter and buffer with the teacher
 takes the side path: each targeted layer gets its pair, which
 ``models/layers.py lora_dense`` applies as ``x·W + (x·A)·B`` (the JAX
 ``LoraDense``, with the ``lora_collection`` scaling folded into B). A tree
-with a conv pair takes JAX's merged-weights path (``distill/flash.py:
+with a conv pair, or any tree with ``merge=True`` (JAX's ``lora_mode=
+"merge"``), takes JAX's merged-weights path (``distill/flash.py:
 214-240``): every targeted layer's weight reads W + scaling·Δ(A, B) in W's
 dtype, a ``torch.nn.utils.parametrize`` parametrization over the shared W,
 evaluated at each read, so that the UNet's ``remat`` recompute in the
 backward sees the same merged weight and gradients reach A and B (the
-teacher's weights are not touched). Gradients reach A and B only when the
-base weights are frozen.
+teacher's weights are not touched). Under ``models/layers.py
+lora_disabled()`` the parametrization gives W alone: the teacher's view of
+a module the student shares whole (the trainer's FSDP mode, where W is the
+weight FSDP gathered for the forward). ``base_weight`` is a layer's W
+either way. Gradients reach A and B only when the base weights are frozen.
 
 SD1.5's ``proj_in``/``proj_out`` are 1×1 convolutions in the port (the
 checkpoint's layout) but ``LoraDense`` layers in JAX: they are
@@ -58,7 +62,7 @@ import torch
 import torch.nn as nn
 from torch.nn.utils import parametrize
 
-from .models.layers import DenseConv1x1
+from .models.layers import DenseConv1x1, lora_enabled
 
 LoraTree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -136,14 +140,17 @@ def lora_delta(a: torch.Tensor, b: torch.Tensor, shape) -> torch.Tensor:
 
 class _MergedLora(nn.Module):
     """The parametrization W → W + scaling·Δ(A, B), in W's dtype (JAX
-    ``merge_lora``'s rounding); ``lora`` = (A, B, scaling) is held by
-    reference, so optimizer updates and ``using_lora`` swaps show at once."""
+    ``merge_lora``'s rounding), or W under ``lora_disabled``; ``lora`` =
+    (A, B, scaling) is held by reference, so optimizer updates and
+    ``using_lora`` swaps show at once."""
 
     def __init__(self, lora):
         super().__init__()
         self.lora = lora
 
     def forward(self, w):
+        if not lora_enabled():
+            return w
         a, b, scaling = self.lora
         return (w.float() + scaling * lora_delta(a, b, w.shape)).to(w.dtype)
 
@@ -154,21 +161,36 @@ def shared_copy(model: nn.Module) -> nn.Module:
     return copy.deepcopy(model, memo)
 
 
-def attach_lora(model: nn.Module, lora: LoraTree, scaling: float = 1.0) -> nn.Module:
+def uses_merge(lora: LoraTree, merge: bool = False) -> bool:
+    """The merged-weights path: asked for, or forced by a conv pair (JAX
+    ``_student_forward``'s rule)."""
+    return merge or not lora_is_dense_only(lora)
+
+
+def attach_lora(model: nn.Module, lora: LoraTree, scaling: float = 1.0, merge: bool = False) -> nn.Module:
     """Hand each named layer its (A, B, scaling): on the side path of
-    ``lora_dense`` for a dense-only tree, else as the merged-weights
-    parametrization of every named layer's weight. The tensors are
-    referenced, not copied, so optimizer updates show at once. Use it on a
-    ``shared_copy``: the merged path parametrizes the modules it is given."""
-    dense = lora_is_dense_only(lora)
+    ``lora_dense`` for a dense-only tree, else (or with ``merge``) as the
+    merged-weights parametrization of every named layer's weight. The
+    tensors are referenced, not copied, so optimizer updates show at once.
+    Use it on a ``shared_copy``: the merged path parametrizes the modules
+    it is given."""
+    merged = uses_merge(lora, merge)
     for name, ab in lora.items():
         m = model.get_submodule(name)
-        if dense:
+        if not merged:
             m.lora = (ab["a"], ab["b"], float(scaling))
         else:
             parametrize.register_parametrization(m, "weight", _MergedLora((ab["a"], ab["b"], float(scaling))),
                                                  unsafe=True)
     return model
+
+
+def base_weight(module: nn.Module) -> torch.Tensor:
+    """A layer's own weight W: under the merged-weights parametrization its
+    original (an FSDP shard included), else ``module.weight``."""
+    if parametrize.is_parametrized(module, "weight"):
+        return module.parametrizations.weight.original
+    return module.weight
 
 
 def lora_slot(model: nn.Module, name: str):

@@ -77,8 +77,13 @@ def lora_disabled():
         _LORA.off -= 1
 
 
+def lora_enabled() -> bool:
+    """False inside ``lora_disabled()`` on this thread."""
+    return _LORA.off == 0
+
+
 def _lora_of(layer: nn.Module):
-    return getattr(layer, "lora", None) if _LORA.off == 0 else None
+    return getattr(layer, "lora", None) if lora_enabled() else None
 
 
 def remat_call(fn, *args):

@@ -77,6 +77,8 @@ class UNetConfig(BaseConfig):
     use_linear_projection: bool = False
     remat: bool = False
     concat_channels: int = 0  # channels of a ``concat`` conditioning
+    # False: no attention in the mid block (diffusers' mid_block_add_attention)
+    mid_block_attn: bool = True
 
     def __post_init__(self):
         super().__post_init__()
@@ -191,10 +193,10 @@ class UNet2DCondition(nn.Module):
             self.down_blocks.append(_Block(resnets, attns, sampler))
 
         ch = cfg.block_out_channels[-1]
-        self.mid_block = _Block(
-            [ResnetBlock2D(ch, ch, temb_dim, g), ResnetBlock2D(ch, ch, temb_dim, g)],
-            [attn(n - 1, ch, depth=cfg.transformer_layers_per_block[-1], cross=cfg.cross_attention_dim is not None)],
-        )
+        mid_resnets = [ResnetBlock2D(ch, ch, temb_dim, g), ResnetBlock2D(ch, ch, temb_dim, g)]
+        mid_attns = [attn(n - 1, ch, depth=cfg.transformer_layers_per_block[-1],
+                          cross=cfg.cross_attention_dim is not None)] if cfg.mid_block_attn else None
+        self.mid_block = _Block(mid_resnets, mid_attns)
 
         self.up_blocks = nn.ModuleList()
         for lvl in reversed(range(n)):
@@ -259,7 +261,8 @@ class UNet2DCondition(nn.Module):
                 skips.append(h)
 
         h = self._block(self.mid_block.resnets[0], h, temb)
-        h = self._block(self.mid_block.attentions[0], h, context)
+        if self.mid_block.attentions is not None:
+            h = self._block(self.mid_block.attentions[0], h, context)
         h = self._block(self.mid_block.resnets[1], h, temb)
         mid_features = h.permute(0, 2, 3, 1)
 

@@ -49,6 +49,8 @@ class AutoencoderKLConfig(BaseConfig):
     # SD1.5/SDXL carry 1×1 quant/post-quant convs around the latent; SD3's
     # VAE has neither
     use_quant_conv: bool = True
+    # False: no attention in the mid blocks (diffusers' mid_block_add_attention)
+    mid_block_attn: bool = True
     # tiled decode (``tiled_decode``): latent tile and overlap, (h, w)
     tiling_size: Tuple[int, int] = (64, 64)
     tiling_overlap: Tuple[int, int] = (8, 8)
@@ -95,15 +97,19 @@ class _UpBlock(nn.Module):
 
 
 class _MidBlock(nn.Module):
-    def __init__(self, ch: int, groups: int):
+    def __init__(self, ch: int, groups: int, attn: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList(
             [ResnetBlock2D(ch, ch, None, groups, eps=1e-6) for _ in range(2)]
         )
-        self.attentions = nn.ModuleList([_AttnBlock(ch, groups)])
+        if attn:
+            self.attentions = nn.ModuleList([_AttnBlock(ch, groups)])
 
     def forward(self, h):
-        return self.resnets[1](self.attentions[0](self.resnets[0](h)))
+        h = self.resnets[0](h)
+        if hasattr(self, "attentions"):
+            h = self.attentions[0](h)
+        return self.resnets[1](h)
 
 
 class _Downsample(nn.Module):
@@ -143,7 +149,7 @@ class Encoder(nn.Module):
                 resnets.append(ResnetBlock2D(ch, out_ch, None, g, eps=1e-6))
                 ch = out_ch
             self.down_blocks.append(_DownBlock(resnets, _Downsample(ch) if lvl < n - 1 else None))
-        self.mid_block = _MidBlock(ch, g)
+        self.mid_block = _MidBlock(ch, g, cfg.mid_block_attn)
         self.conv_norm_out = GroupNorm(ch, g, eps=1e-6, act="silu")
         self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
 
@@ -167,7 +173,7 @@ class Decoder(nn.Module):
         n = len(cfg.block_out_channels)
         ch = cfg.block_out_channels[-1]
         self.conv_in = nn.Conv2d(cfg.latent_channels, ch, 3, padding=1)
-        self.mid_block = _MidBlock(ch, g)
+        self.mid_block = _MidBlock(ch, g, cfg.mid_block_attn)
         self.up_blocks = nn.ModuleList()
         for i, lvl in enumerate(reversed(range(n))):
             out_ch = cfg.block_out_channels[lvl]

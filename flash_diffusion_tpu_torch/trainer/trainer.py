@@ -31,9 +31,13 @@ Port of ``flash_diffusion_tpu/trainer/trainer.py:48-491``:
 - text-encoder offload (``text_encoder_offload`` = n): the towers live on
   the host and move to the device once for each burst of n batches, whose
   conditioning is computed then; callbacks that sample use
-  ``sampling_frozen()``, which places them for the block. Their host copies
-  are pageable: the pinned allocator rounds every tensor up to a power of
-  two (T5-XXL's 19 GB would pin ~30 GB);
+  ``sampling_frozen()``, which places them for the block. The host copies
+  are packed into pinned chunks (``parallel/offload.py HostOffload``); one
+  placement is one entry of ``offload_moves``. Under FSDP the towers are
+  sharded block by block and a rank's shards are what moves: during a
+  burst each block is gathered from them in its own forward, as JAX places
+  the offloaded towers with the FSDP sharding at each burst
+  (``trainer.py:305-330``);
 - ``evaluate``: averaged loss aux over held-out batches with fixed
   generators, from ``fit`` every ``val_every_n_steps``; ``state_dict`` and
   ``load_state_dict`` carry the trainable state (``checkpoint.py``).
@@ -60,14 +64,17 @@ logs; the callbacks write on rank 0 (``loggers.py``).
 ``frozen_sharding="fsdp"`` (JAX ``shard_params_fsdp`` of the frozen trees)
 shards the frozen modules with FSDP2 (``torch.distributed.fsdp.
 fully_shard``: the parameters split over the group, gathered for each
-forward): the denoiser (block by block), the VAE, the text conditioner,
+forward): the denoiser and the text towers block by block, the VAE,
 LPIPS and the adapter. The student then shares the sharded denoiser as
-one module: the LoRA pairs attach to it, and the teacher is the same
-module under ``models/layers.py lora_disabled()`` (``TeacherView``; a
-checkpointed block's recompute keeps its forward's setting), so that
-``switch_teacher``'s merge writes the shards the student reads. Only
-dense LoRA trees (the side path) take this mode, and not with the text
-towers' offload (raises).
+one module: the LoRA pairs attach to it before it is sharded, and the
+teacher is the same module under ``models/layers.py lora_disabled()``
+(``TeacherView``; a checkpointed block's recompute keeps its forward's
+setting), so that ``switch_teacher``'s merge writes the shards the
+student reads. On the side path the pairs sit beside the gathered
+weights; on the merged path (``lora_mode="merge"``, or a conv pair) each
+targeted weight's parametrization merges W + scaling·Δ on the weight FSDP
+gathered for the forward, and gives W alone to the teacher, as GSPMD
+partitions JAX's merge over the sharded tree (``parallel/mesh.py:91-116``).
 """
 
 from __future__ import annotations
@@ -86,18 +93,27 @@ from ..distill.losses import clip_disc_weights
 from ..lora import LoraTree
 from ..models.layers import lora_disabled
 from ..parallel.mesh import all_reduce_, is_main, rank, replicate, world_size
+from ..parallel.offload import HostOffload
 from ..utils.ema import init_ema, update_ema
 from .training_config import TrainingConfig
 
 logger = logging.getLogger(__name__)
 
 
-def _fsdp_blocks():
+def _fsdp_units(module: torch.nn.Module):
+    """The submodules of ``module`` to shard as units of their own, the
+    innermost first: the denoisers' blocks, the text towers and their
+    layers. T5's first block stays in its encoder's unit: ``T5Encoder``
+    reads its relative-position table before the blocks run."""
     from ..models.dit import PixartBlock
     from ..models.layers import BasicTransformerBlock, ResnetBlock2D, SpatialTransformer
     from ..models.mmdit import JointBlock
+    from ..models.text_encoders import CLIPTextModel, T5Encoder, _CLIPLayer, _T5Block
 
-    return (BasicTransformerBlock, ResnetBlock2D, SpatialTransformer, PixartBlock, JointBlock)
+    units = (BasicTransformerBlock, ResnetBlock2D, SpatialTransformer, PixartBlock, JointBlock, _CLIPLayer,
+             _T5Block, CLIPTextModel, T5Encoder)
+    first_t5 = {id(m.encoder.block[0]) for m in module.modules() if isinstance(m, T5Encoder)}
+    return [m for m in reversed(list(module.modules())) if isinstance(m, units) and id(m) not in first_t5]
 
 
 class TeacherView:
@@ -141,8 +157,6 @@ class TrainingPipeline:
             model.teacher_module.parameters()).device
         if frozen_sharding not in ("replicated", "fsdp"):
             raise ValueError(f"frozen_sharding is replicated or fsdp, not {frozen_sharding!r}")
-        if frozen_sharding == "fsdp" and text_encoder_offload:
-            raise ValueError("text-encoder offload together with frozen_sharding='fsdp' is not ported")
         self.world, self.rank = world_size(), rank()
         self.frozen_sharding = frozen_sharding
         adapter = model.adapter
@@ -180,13 +194,9 @@ class TrainingPipeline:
         self.offload_moves = []  # seconds of each host → device move of the towers
         self.last_val: Dict[str, float] = {}
         self.text_encoder_offload = int(text_encoder_offload)
-        self._towers = []  # (tensor, its host copy) while offloaded
+        self._towers = None  # HostOffload of the conditioner while offloaded
         if self.text_encoder_offload and model.conditioner is not None:
-            with torch.no_grad():
-                for t in itertools.chain(model.conditioner.parameters(), model.conditioner.buffers()):
-                    host = t.detach().to("cpu", copy=True)
-                    t.data = host
-                    self._towers.append((t, host))
+            self._towers = HostOffload(model.conditioner, self.device)
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
 
@@ -196,28 +206,25 @@ class TrainingPipeline:
 
     def _shard_frozen(self) -> None:
         """FSDP2 over the frozen modules; the student is the sharded
-        denoiser with the LoRA attached, the teacher its ``TeacherView``."""
+        denoiser with the LoRA attached (before the sharding, so that FSDP
+        manages a merged layer's own weight), the teacher its
+        ``TeacherView``."""
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
-        from ..lora import attach_lora, lora_is_dense_only
-
         model = self.model
-        if not lora_is_dense_only(self.lora):
-            raise ValueError("frozen_sharding='fsdp' takes dense LoRA pairs only (the side path)")
         mesh = init_device_mesh(self.device.type, (self.world,))
         denoiser = model.teacher_module
-        for m in reversed(list(denoiser.modules())):  # block by block, the innermost first
-            if isinstance(m, _fsdp_blocks()):  # each called through its forward, which gathers it
-                fully_shard(m, mesh=mesh)
-        fully_shard(denoiser, mesh=mesh)
-        for m in (model.vae, model.conditioner, model.lpips, model.adapter):
-            if m is not None and any(True for _ in m.parameters()):
-                fully_shard(m, mesh=mesh)
+        model.attach_lora(self.lora, module=denoiser)
+        for m in (denoiser, model.vae, model.conditioner, model.lpips, model.adapter):
+            if m is None or not any(True for _ in m.parameters()):
+                continue
+            for unit in _fsdp_units(m):  # each called through its forward, which gathers it
+                fully_shard(unit, mesh=mesh)
+            fully_shard(m, mesh=mesh)
         if model.vae is not None:
             for method in ("encode", "decode_latents"):
                 register_fsdp_forward_method(model.vae, method)
-        model.student_module = attach_lora(denoiser, self.lora, model.lora_scaling)
         model.teacher_module = TeacherView(denoiser)
 
     def _draw(self, generator: torch.Generator, stage: int, z: torch.Tensor) -> Dict[str, Any]:
@@ -261,30 +268,23 @@ class TrainingPipeline:
         return out
 
     # ------------------------------------------------------------------ offload
-    def _place_towers(self) -> None:
-        t0 = time.perf_counter()
-        for t, host in self._towers:
-            t.data = host.to(self.device, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.offload_moves.append(time.perf_counter() - t0)
-
-    def _release_towers(self) -> None:
-        for t, host in self._towers:
-            t.data = host
-
     @contextlib.contextmanager
     def sampling_frozen(self):
         """The text towers on the device for the block: with the offload on,
-        they are placed on entry and go back to the host on exit."""
-        if not self._towers:
+        they are placed on entry (one entry of ``offload_moves``, its
+        seconds) and go back to the host on exit."""
+        if self._towers is None:
             yield
             return
-        self._place_towers()
+        t0 = time.perf_counter()
+        self._towers.place()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.offload_moves.append(time.perf_counter() - t0)
         try:
             yield
         finally:
-            self._release_towers()
+            self._towers.release()
 
     def _bursts(self, batches: Iterator, step0: int, callbacks=()):
         """(host batch, its conditioning) with the conditioning computed in
@@ -461,7 +461,7 @@ class TrainingPipeline:
         cfg, model = self.config, self.model
         max_steps = max_steps or cfg.max_steps or sum(model.config.num_iterations_per_K)
         batches = self._timed(iter(data))
-        if self._towers:
+        if self._towers is not None:
             items = self._bursts(batches, self.step, callbacks)
         else:
             items = ((b, None) for b in batches)

@@ -127,7 +127,8 @@ def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
             _conv(sd, f"down_blocks.{lvl}.downsamplers.0.conv", p[f"down_{lvl}_downsample"]["conv"])
     _resnet(sd, "mid_block.resnets.0", p["mid_resnet_0"])
     _resnet(sd, "mid_block.resnets.1", p["mid_resnet_1"])
-    _spatial_transformer(sd, "mid_block.attentions.0", p["mid_attn"], linear)
+    if config.mid_block_attn:
+        _spatial_transformer(sd, "mid_block.attentions.0", p["mid_attn"], linear)
     for ui, lvl in enumerate(reversed(range(n))):
         for j in range(config.layers_per_block + 1):
             _resnet(sd, f"up_blocks.{ui}.resnets.{j}", p[f"up_{lvl}_resnet_{j}"])
@@ -142,11 +143,12 @@ def unet_from_jax(params: Dict[str, Any], config) -> StateDict:
     return sd
 
 
-def _vae_mid(sd: StateDict, key: str, p) -> None:
+def _vae_mid(sd: StateDict, key: str, p, attn: bool) -> None:
     _resnet(sd, f"{key}.mid_block.resnets.0", p["mid_resnet_0"])
     _resnet(sd, f"{key}.mid_block.resnets.1", p["mid_resnet_1"])
-    _norm(sd, f"{key}.mid_block.attentions.0.group_norm", p["mid_attn"]["group_norm"])
-    _attention(sd, f"{key}.mid_block.attentions.0", p["mid_attn"]["attention"])
+    if attn:
+        _norm(sd, f"{key}.mid_block.attentions.0.group_norm", p["mid_attn"]["group_norm"])
+        _attention(sd, f"{key}.mid_block.attentions.0", p["mid_attn"]["attention"])
 
 
 def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
@@ -162,13 +164,13 @@ def vae_from_jax(params: Dict[str, Any], config) -> StateDict:
             _resnet(sd, f"encoder.down_blocks.{lvl}.resnets.{j}", enc[f"down_{lvl}_resnet_{j}"])
         if lvl < n - 1:
             _conv(sd, f"encoder.down_blocks.{lvl}.downsamplers.0.conv", enc[f"down_{lvl}_downsample"])
-    _vae_mid(sd, "encoder", enc)
+    _vae_mid(sd, "encoder", enc, config.mid_block_attn)
     _norm(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
     _conv(sd, "encoder.conv_out", enc["conv_out"])
     if "quant_conv" in p:  # SD3's VAE has no quant convs
         _conv(sd, "quant_conv", p["quant_conv"])
     _conv(sd, "decoder.conv_in", dec["conv_in"])
-    _vae_mid(sd, "decoder", dec)
+    _vae_mid(sd, "decoder", dec, config.mid_block_attn)
     for ui, lvl in enumerate(reversed(range(n))):
         for j in range(config.layers_per_block + 1):
             _resnet(sd, f"decoder.up_blocks.{ui}.resnets.{j}", dec[f"up_{lvl}_resnet_{j}"])

@@ -2,6 +2,7 @@
 """Device times of the redesigned kernels in two trees on one card, in turns.
 
     python3 kernel_times.py --base DIR [--order base,this,this,base] [--kernels k1,k2,k3,k4,k5,k8,k9,k10,k11,k12] [--sweep]
+    python3 kernel_times.py --order this --cases GN_SHAPES_TILED,GN_REFERENCES_SD3_TRAIN,ATTENTION_EVAL_SINGLE
 
 For each tree of ``--order`` in turn (``this``: the checkout; ``base``:
 another checkout of the repo, such as a parent commit unpacked with ``git
@@ -32,6 +33,11 @@ asked for:
 - ``k9``: ``check_group_norm`` at ``GN_SHAPES``; the table takes the whole
   ``group_norm`` with SiLU in channels-last (K9's statistics, the fold and
   the apply: one launch or two), the paths' layout.
+
+``--cases`` names lists of ``chip_smoke.py`` (GroupNorm cases, or forward
+attention shapes) that phase 2 checks untimed, or times without the
+library call and the bound: they are checked and timed as the paths'
+shapes are, in place of the shapes of ``--kernels``.
 
 Each process builds that tree's kernels. With ``--sweep``, the checkout's
 process also times K10 at every tile width it is built for (112, 128, 160,
@@ -173,13 +179,15 @@ def sweep(cs, attention, gemm, kernels, which):
                   f"{' <- plan' if gemm.gemm_plan(k, n).bn == bn else ''}")
 
 
-def child(root: str, which: str, do_sweep: bool) -> None:
+def child(root: str, which: str, do_sweep: bool, cases=()) -> None:
     sys.path.insert(0, root)  # that tree's port and chip_smoke before the checkout's
     import chip_smoke as cs
     from flash_diffusion_tpu_torch.ops import attention, gemm, kernels, norms
 
     kernels.library()
     print(f"card: {cs.card_line()}")
+    if cases:
+        return time_cases(cs, attention, norms, cases)
     fwd = lambda kind: [s for s in cs.attention_main() if attention.attention_plan(s[2], s[3])[0] == kind]
     shapes = {"k1": fwd("flash_fwd_oneshot") if "k1" in which else [],
               "k2": fwd("flash_fwd_stream") if "k2" in which else []}
@@ -220,6 +228,23 @@ def child(root: str, which: str, do_sweep: bool) -> None:
         sweep(cs, attention, gemm, kernels, which)
 
 
+def time_cases(cs, attention, norms, names) -> None:
+    """``check_attention`` and ``check_group_norm`` over the cases of the
+    lists ``names``, each as a path's shape (timed with the library call
+    and the bound), no other case."""
+    cases = [c for name in names for c in getattr(cs, name)]
+    gn = [c for c in cases if isinstance(c[0], tuple)]  # (shape, dtype, groups)
+    attn = [c for c in cases if not isinstance(c[0], tuple)]  # (bh, sq, kv, d, kv_valid)
+    cs.gn_main, cs.gn_unmain = (lambda: gn), (lambda: [])
+    cs.attention_main, cs.attention_unmain, cs.references = (lambda: attn), (lambda: []), (lambda: set())
+    results = {n: cs.new_row("cuda", "", "") for n in ("flash_fwd_oneshot", "flash_fwd_stream", "group_norm_stats",
+                                                         "group_norm_apply", "group_norm_fused")}
+    if attn:
+        cs.check_attention(attention, results)
+    if gn:
+        cs.check_group_norm(norms, results)
+
+
 def kernel_ms(lines):
     """{(kind, shape text): kernel ms} from the checks' printed lines."""
     out = {}
@@ -258,11 +283,14 @@ def main() -> None:
     ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k8,k9,k10,k11,k12")
     ap.add_argument("--sweep", action="store_true",
                     help="also sweep K10's tile width, K4's q tile, K11's, K12's and the GroupNorm's plans in this tree")
+    ap.add_argument("--cases", default="",
+                    help="chip_smoke lists whose cases to time as the paths' shapes, in place of --kernels'")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     which = set(args.kernels.split(","))
+    cases = [c for c in args.cases.split(",") if c]
     if args.child:
-        return child(args.child, which, args.sweep)
+        return child(args.child, which, args.sweep, cases)
     import torch
 
     if not torch.cuda.is_available():
@@ -270,7 +298,7 @@ def main() -> None:
     roots = {"this": str(ROOT), "base": str(Path(args.base).resolve()) if args.base else None}
     table, failed, swept = {}, False, False
     for i, tree in enumerate(args.order.split(",")):
-        cmd = [sys.executable, __file__, "--child", roots[tree], "--kernels", args.kernels]
+        cmd = [sys.executable, __file__, "--child", roots[tree], "--kernels", args.kernels, "--cases", args.cases]
         if args.sweep and tree == "this" and not swept:
             cmd.append("--sweep")
             swept = True

@@ -18,7 +18,11 @@ of ``tests/torch_parallel_workers.py``; JAX runs here alone. fp32:
   losses too;
 - FSDP (``frozen_sharding="fsdp"``, the frozen modules sharded over the
   group) steps as the replicated trainer does, and ``switch_teacher``'s
-  merge into the sharded teacher equals the replicated merge;
+  merge into the sharded teacher equals the replicated merge; so too with
+  the text towers offloaded (their shards on the host between bursts), on
+  a tree with conv pairs and with ``lora_mode="merge"`` (the merged-weights
+  student over the sharded denoiser), and ``build_trainer("sd3")`` on
+  ``flash_sd3.yaml`` (T5, the towers offloaded) at tiny width;
 - the teacher's ``lora_disabled`` holds on its own thread and in a
   checkpoint's recompute only.
 """
@@ -45,6 +49,7 @@ try:  # the JAX reference; absent where only the port is installed
     from flash_diffusion_tpu.distill import FlashDiffusionConfig as JFlashDiffusionConfig
     from flash_diffusion_tpu.distill.discriminator import ConvDiscriminator as JConvDiscriminator
     from flash_diffusion_tpu.distill.discriminator import DiscriminatorConfig as JDiscriminatorConfig
+    from test_torch_sd3_train import SD3_TINY
     from test_torch_train import jax_step_draws
 except ImportError:
     jax = None
@@ -110,7 +115,7 @@ def dp_run():
     spec = dict(unet_kw=W.DP_UNET_KW, unet=unet_from_jax(uparams, ucfg), disc_kw=DISC_KW, disc_in=32,
                 disc=discriminator_from_jax(dparams, dcfg), flash_kw=FLASH_KW, lora=lora_from_jax(lora, ucfg),
                 draws=jax_step_draws(jmodel, key, stage, z), z=torch.from_numpy(z),
-                conds=[torch.from_numpy(c) for c in conds], stage=stage)
+                conds=[torch.from_numpy(c) for c in conds], stage=stage, sd3=SD3_TINY)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, W.dp_all, 2, "gloo", args=(spec,), timeout=JOIN)
         loss_fn = lambda tr: jmodel.losses(tr, {"teacher": uparams}, jbatch, key, stage)
@@ -158,6 +163,15 @@ def assert_same_state(got, want, atol, what):
             close(got[k], want[k], atol, f"{what} {k}")
 
 
+def assert_same_losses(got, want, what):
+    """The logged losses by step, each within 1e-5 of max(1, |want|)."""
+    assert len(got) == len(want), what
+    for step, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys(), what
+        for k, v in w.items():
+            assert abs(g[k] - v) <= 1e-5 * max(1.0, abs(v)), (what, step, k, g[k], v)
+
+
 @pytest.mark.parametrize("mode,cfg_kw,train_kw", [
     ("simultaneous", None, None),
     ("alternating", {"gan_update_mode": "alternating"}, {"gradient_accumulation_steps": 2}),
@@ -198,6 +212,66 @@ def test_switch_teacher_merge_under_fsdp_equals_replicated(dp_fits):
         close(merged[k], want[k], 1e-6, k)
     base = W.tiny_trainer().model.teacher_module.state_dict()
     assert any(not torch.allclose(want[k], base[k]) for k in want)
+
+
+def test_fsdp_with_offloaded_towers_equals_replicated(dp_fits):
+    """Three steps with the text towers offloaded in bursts of 2 under FSDP
+    equal the replicated offloaded steps (LoRA and discriminator within
+    1e-6, bit-equal across the ranks): two moves, one a burst; in each
+    encode the towers' parameters are FSDP shards (a rank's local shard is
+    at most half of the tensor, the two ranks' make it whole) lying in the
+    offload's device copy, and after the fit on the host copy."""
+    a, b = dp_fits
+    rep, fsdp = a["offload_replicated"], a["offload_fsdp"]
+    assert_same_state(fsdp["state"], b["offload_fsdp"]["state"], 0, "fsdp offload")
+    assert_same_state(fsdp["state"], rep["state"], 1e-6, "fsdp offload vs replicated offload")
+    assert_same_losses(fsdp["losses"], rep["losses"], "offload")
+    assert len(fsdp["losses"]) == 3
+    assert rep["moves"] == fsdp["moves"] == 2
+    for r in (a, b):
+        seen = r["offload_fsdp"]["seen"]
+        assert len(seen) == 3 and all(s["placed"] for s in seen) and r["offload_fsdp"]["released"]
+        assert all(local == whole for s in r["offload_replicated"]["seen"] for local, whole in s["sizes"])
+    for sa, sb in zip(a["offload_fsdp"]["seen"], b["offload_fsdp"]["seen"]):
+        for (la, whole), (lb, _) in zip(sa["sizes"], sb["sizes"]):
+            assert la + lb == whole and max(la, lb) <= -(-whole // 2)
+    assert sum(whole > 1 for _, whole in a["offload_fsdp"]["seen"][0]["sizes"]) > 10
+
+
+@pytest.mark.parametrize("tree", ["conv", "merge"])
+def test_fsdp_over_merged_weights_equals_replicated(dp_fits, tree):
+    """The student on merged weights over the sharded denoiser (``conv``: a
+    tree with a pair on every resnet convolution; ``merge``: the dense tree
+    under ``lora_mode="merge"``): one step equals the replicated step
+    (within 1e-6, bit-equal across the ranks), and ``switch_teacher``'s
+    merge into the sharded teacher equals the replicated merge; the PEFT
+    and kohya exports read back bit for bit (kohya's names resolved
+    against the sharded student)."""
+    a, b = dp_fits
+    rep, fsdp = a[f"{tree}_replicated"], a[f"{tree}_fsdp"]
+    assert rep["merged_student"] and fsdp["merged_student"] and rep["exports"] and fsdp["exports"]
+    assert_same_state(fsdp["state"], b[f"{tree}_fsdp"]["state"], 0, tree)
+    assert_same_state(fsdp["state"], rep["state"], 1e-6, f"{tree}: fsdp vs replicated")
+    assert_same_losses(fsdp["losses"], rep["losses"], tree)
+    assert fsdp["merged"].keys() == rep["merged"].keys()
+    for k in rep["merged"]:
+        close(fsdp["merged"][k], rep["merged"][k], 1e-6, k)
+    if tree == "conv":
+        assert any(k.startswith("lora.") and "resnets" in k for k in rep["state"])
+
+
+def test_sd3_trainer_under_fsdp_equals_replicated(dp_fits):
+    """``build_trainer("sd3", frozen_sharding="fsdp")`` on ``flash_sd3.yaml``
+    (T5 on, the towers offloaded in bursts of 4) over tiny modules steps as
+    the replicated trainer does: the LoRA within 1e-6 and bit-equal across
+    the ranks, one move for the one burst."""
+    a, b = dp_fits
+    rep, fsdp = a["sd3"]["replicated"], a["sd3"]["fsdp"]
+    assert rep["offload"] == fsdp["offload"] == 4 and rep["moves"] == fsdp["moves"] == 1
+    assert_same_state(fsdp["lora"], b["sd3"]["fsdp"]["lora"], 0, "sd3 fsdp")
+    assert_same_state(fsdp["lora"], rep["lora"], 1e-6, "sd3: fsdp vs replicated")
+    assert_same_losses(fsdp["losses"], rep["losses"], "sd3")
+    assert len(fsdp["losses"]) == 1
 
 
 def test_lora_disabled_holds_on_its_own_thread_only():

@@ -209,6 +209,48 @@ def test_vae_decode_matches_jax(jax_ref):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
+def test_unet_and_vae_without_mid_block_attention_match_jax(jax_ref):
+    """``mid_block_attn=False`` (diffusers' ``mid_block_add_attention=False``)
+    as the JAX package's own tests configure it (``tests/test_distill_paths.
+    py``): no mid-block attention in the module or its state dict, and a
+    self-attention-only UNet's forward and the VAE's moments and decode
+    equal JAX's through ``unet_from_jax``/``vae_from_jax`` to 1e-4."""
+    from test_torch_adapters import flax_params
+
+    ukw = dict(in_channels=4, out_channels=4, block_out_channels=[8, 16],
+               down_block_types=["AttnDownBlock2D", "DownBlock2D"], layers_per_block=1,
+               transformer_layers_per_block=[1, 1], num_heads=[2, 2], cross_attention_dim=None, norm_num_groups=4,
+               mid_block_attn=False)
+    vkw = dict(block_out_channels=[4, 8], layers_per_block=1, norm_num_groups=2, latent_channels=4,
+               mid_block_attn=False)
+    net, jvae = jm.UNet2DCondition(jm.UNetConfig(**ukw)), jm.AutoencoderKL(jm.AutoencoderKLConfig(**vkw))
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    t = np.array([999, 259], np.int32)
+    img = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    uparams = flax_params(net, 11, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)), None)
+    vparams = flax_params(jvae, 12, jnp.zeros((1, 16, 16, 3)))
+    assert "mid_attn" not in uparams["params"] and "mid_attn" not in vparams["params"]["decoder"]
+
+    @jax.jit
+    def forwards(up, vp):
+        mean, logvar = jvae.apply(vp, jnp.asarray(img), method=jvae.moments)
+        dec = jvae.apply(vp, jnp.asarray(x), method=jvae.decode_latents)
+        return net.apply(up, jnp.asarray(x), jnp.asarray(t), None), mean, logvar, dec
+
+    want = forwards(uparams, vparams)
+    ucfg, vcfg = UNetConfig(**ukw), AutoencoderKLConfig(**vkw)
+    unet = port(UNet2DCondition(ucfg), unet_from_jax(uparams, ucfg))
+    tvae = port(AutoencoderKL(vcfg), vae_from_jax(vparams, vcfg))
+    assert unet.mid_block.attentions is None and not any("mid_block.attentions" in k for k in unet.state_dict())
+    assert not any("mid_block.attentions" in k for k in tvae.state_dict())
+    with torch.no_grad():
+        got = (unet(torch.from_numpy(x), torch.from_numpy(t)), *tvae.moments(torch.from_numpy(img)),
+               tvae.decode_latents(torch.from_numpy(x)))
+    for name, g, w in zip(("unet", "mean", "logvar", "decode"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
 def test_clip_text_matches_jax(jax_ref):
     net, params = jax_clip()
     ids = np.random.default_rng(2).integers(0, 99, (2, 16)).astype(np.int32)

@@ -35,12 +35,12 @@ from flash_diffusion_tpu_torch.distill import (
     FlashDiffusionSD3Config,
 )
 from flash_diffusion_tpu_torch.lora import init_lora, lora_scaling
-from flash_diffusion_tpu_torch.models import MMDiT, MMDiTConfig, sd3_vae_config
+from flash_diffusion_tpu_torch.models import MMDiT, MMDiTConfig
 from flash_diffusion_tpu_torch.models.embedders import ClipEmbedder, SD3Conditioner, T5AsSD3Embedder
-from flash_diffusion_tpu_torch.models.embedders import T5TextEmbedderConfig
 from flash_diffusion_tpu_torch.schedulers import flow_match
 from flash_diffusion_tpu_torch.utils import discriminator_from_jax, lora_from_jax, mmdit_from_jax
-from test_torch_train import jax_step_draws, perturbed, t_
+import torch_parallel_workers as W
+from test_torch_train import check_merge_step, jax_step_draws, perturbed, t_
 
 try:  # the JAX reference; absent where only the port is installed
     import jax
@@ -246,6 +246,13 @@ def test_sd3_flash_step_losses_and_grads_match_jax(sd3_step):
         close(p.grad, want["disc"][name], 1e-4, name)
 
 
+def test_sd3_merge_step_matches_jax(sd3_step):
+    """SD3's student on merged weights (``lora_mode="merge"``) over the
+    dense tree: JAX's step to 1e-4, and ``remat_student_merge`` bit-equal."""
+    s = sd3_step
+    check_merge_step(s["tmodel"], s["tl"], s["batch"], s["draws"], s["stage"], s["want"], close)
+
+
 # ---------------------------------------------------------------- build_trainer
 CLIP_KW = dict(vocab_size=49408, hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2, max_positions=77)
 CLIP_G_KW = dict(CLIP_KW, hidden_size=48, intermediate_size=96, num_layers=3, hidden_act="gelu")
@@ -253,21 +260,16 @@ T5_KW = dict(vocab_size=32128, d_model=JOINT_DIM, d_ff=64, d_kv=16, num_layers=1
 VAE_KW = dict(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=8)
 
 
+SD3_TINY = dict(mmdit=MMDIT_KW, vae=VAE_KW, clip=CLIP_KW, clip_g=CLIP_G_KW, t5=T5_KW, joint=JOINT_DIM)
+
+
 def tiny_sd3_modules(monkeypatch):
     """``sample``'s SD3 configs replaced by tiny ones: the MMDiT above, the
     2-level SD3 VAE (latents / 2), CLIP-L and CLIP-G of 32 and 48 wide over
     the full CLIP vocabulary (projections 16 and 32: the 48-wide vector),
     a 1-layer T5 of the joint width, and that width for the conditioner."""
-    from flash_diffusion_tpu_torch import sample
-
-    clip = sample._sd3_clip
-    monkeypatch.setattr(sample, "_sd3_clip", lambda **kw: clip(**(
-        dict(CLIP_G_KW, projection_dim=32) if kw.get("hidden_size") == 1280 else dict(CLIP_KW, projection_dim=16))))
-    monkeypatch.setattr(sample, "sd3_medium_config", lambda **kw: MMDiTConfig(**MMDIT_KW, **kw))
-    monkeypatch.setattr(sample, "sd3_vae_config", lambda **kw: sd3_vae_config(**VAE_KW, **kw))
-    monkeypatch.setattr(sample, "T5TextEmbedderConfig",
-                        lambda **kw: T5TextEmbedderConfig(**kw, text_embedder_config=T5_KW))
-    monkeypatch.setattr(sample, "SD3_JOINT_DIM", JOINT_DIM)
+    for obj, name, value in W.tiny_sd3_patches(SD3_TINY):
+        monkeypatch.setattr(obj, name, value)
 
 
 @pytest.mark.parametrize("use_t5", [True, False])

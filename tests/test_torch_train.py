@@ -205,6 +205,60 @@ def test_flash_step_losses_and_grads_match_jax(step_setup):
         close(p.grad, want["disc"][name], 1e-4, name)
 
 
+def lora_step(tmodel, tl, batch, draws, stage, **cfg):
+    """``losses`` and the gradients of the LoRA leaves (by name) and of the
+    discriminator with ``tmodel.config``'s fields set to ``cfg`` and fresh
+    copies of ``tl`` attached; ``tmodel`` as it was after."""
+    saved = {k: getattr(tmodel.config, k) for k in cfg}
+    copies = {n: {k: v.detach().clone().requires_grad_() for k, v in ab.items()} for n, ab in tl.items()}
+    leaves = [(f"{n}.{k}", v) for n, ab in copies.items() for k, v in ab.items()]
+    disc = list(tmodel.discriminator.named_parameters())
+    try:
+        for k, v in cfg.items():
+            setattr(tmodel.config, k, v)
+        tmodel.attach_lora(copies)
+        merged = tmodel.merged_student
+        total, aux = tmodel.losses(batch, draws, stage)
+        grads = torch.autograd.grad(total, [v for _, v in leaves + disc], allow_unused=True)
+    finally:
+        for k, v in saved.items():
+            setattr(tmodel.config, k, v)
+        tmodel.attach_lora(tl)
+    grads = [torch.zeros_like(v) if g is None else g for (_, v), g in zip(leaves + disc, grads)]
+    return dict(total=total.detach(), aux={k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items()},
+                grads=dict(zip([n for n, _ in leaves + disc], grads)), merged=merged, n_lora=len(leaves))
+
+
+def check_merge_step(tmodel, tl, batch, draws, stage, want, cmp=close):
+    """``lora_mode="merge"`` on the dense tree equals JAX's side-path step
+    (the same function) to 1e-4 (``cmp``, the file's own comparison);
+    ``remat_student_merge`` is bit-equal to it."""
+    merge = lora_step(tmodel, tl, batch, draws, stage, lora_mode="merge")
+    assert merge["merged"] and not tmodel.merged_student
+    cmp(merge["total"], want["total"], 1e-4, "total")
+    for k in ("loss/distill", "loss/dmd", "loss/gan_g", "loss/gan_d", "loss/generator"):
+        cmp(merge["aux"][k], want["aux"][k], 1e-4, k)
+    names = list(merge["grads"])
+    for name in names[:merge["n_lora"]]:
+        layer, k = name.rsplit(".", 1)
+        cmp(merge["grads"][name], want["lora"][layer][k], 1e-4, name)
+    for name in names[merge["n_lora"]:]:
+        cmp(merge["grads"][name], want["disc"][name], 1e-4, name)
+    remat = lora_step(tmodel, tl, batch, draws, stage, lora_mode="merge", remat_student_merge=True)
+    assert torch.equal(remat["total"], merge["total"])
+    assert all(torch.equal(torch.as_tensor(remat["aux"][k]), torch.as_tensor(v)) for k, v in merge["aux"].items())
+    assert all(torch.equal(remat["grads"][n], g) for n, g in merge["grads"].items())
+
+
+def test_flash_merge_step_matches_jax(step_setup):
+    """The student on merged weights W + s·Δ (``lora_mode="merge"``, JAX's
+    merge path) over the dense tree: the losses and gradients equal
+    JAX's step to 1e-4, and ``remat_student_merge`` (the student's forward
+    one checkpointed segment) leaves them bit for bit."""
+    tmodel, tl, batch, draws, stage, want = step_setup
+    check_merge_step(tmodel, tl, batch, draws, stage, want)
+
+
 def test_flash_step_gradients_partition(step_setup):
     """loss_G puts no gradient into the discriminator, loss_D none into LoRA."""
     tmodel, tl, batch, draws, stage, _ = step_setup

@@ -307,14 +307,16 @@ def dp_grads(rank_, world, spec):
             "disc": {n: p.grad for n, p in tr.model.discriminator.named_parameters()}}
 
 
-def tiny_trainer(cfg_kw=None, train_kw=None, frozen_sharding="replicated", seed=0):
+def tiny_trainer(cfg_kw=None, train_kw=None, frozen_sharding="replicated", seed=0, offload=0, targets=None):
     """The tiny SD1.5-shaped trainer of ``tests/test_torch_trainer_run.py``
     (``remat``, a VAE, a 1-layer CLIP, a 1-stage discriminator; l2, DMD,
     hinge GAN, K = [2, 2]) with SGD, fp32, from ``seed``; data-parallel
-    over the default group when there is one."""
+    over the default group when there is one. ``offload``: the text
+    towers' bursts; ``targets``: the LoRA's (``CONV_TARGETS``: conv pairs
+    too)."""
     from flash_diffusion_tpu_torch.distill import ConvDiscriminator, DiscriminatorConfig, FlashDiffusion, \
         FlashDiffusionConfig
-    from flash_diffusion_tpu_torch.lora import init_lora
+    from flash_diffusion_tpu_torch.lora import DEFAULT_TARGETS, init_lora
     from flash_diffusion_tpu_torch.models import AutoencoderKL, AutoencoderKLConfig, UNet2DCondition, UNetConfig
     from flash_diffusion_tpu_torch.models.embedders import ClipEmbedder, ClipEmbedderConfig, ConditionerWrapper
     from flash_diffusion_tpu_torch.trainer import TrainingConfig, TrainingPipeline
@@ -329,17 +331,21 @@ def tiny_trainer(cfg_kw=None, train_kw=None, frozen_sharding="replicated", seed=
     kw = {**dict(K=[2, 2], num_iterations_per_K=[2, 2], distill_loss_type="l2", mixture_num_components=2,
                  use_dmd_loss=True, adversarial_loss_scale=0.5), **(cfg_kw or {})}
     model = FlashDiffusion(FlashDiffusionConfig(**kw), unet, vae=vae, conditioner=clip, discriminator=disc)
-    lora = init_lora(unet, 2, torch.Generator().manual_seed(1))
+    lora = init_lora(unet, 2, torch.Generator().manual_seed(1), targets=targets or DEFAULT_TARGETS)
     for ab in lora.values():  # B ≠ 0: A has a gradient too
         ab["b"].normal_(0.0, 0.05, generator=torch.Generator().manual_seed(2))
     tc = TrainingConfig(optimizers_name=["SGD", "SGD"], learning_rates=[1e-2, 1e-2], seed=seed, **(train_kw or {}))
-    return TrainingPipeline(model, tc, lora, device="cpu", frozen_dtype=None, frozen_sharding=frozen_sharding)
+    return TrainingPipeline(model, tc, lora, device="cpu", frozen_dtype=None, frozen_sharding=frozen_sharding,
+                            text_encoder_offload=offload)
 
 
 DP_UNET_KW = dict(in_channels=4, out_channels=4, block_out_channels=[16, 32],
                   down_block_types=["CrossAttnDownBlock2D", "DownBlock2D"], layers_per_block=1,
                   transformer_layers_per_block=[1, 1], num_heads=[2, 2], cross_attention_dim=16, norm_num_groups=8)
 DP_BATCH, DP_HW = 4, 32
+# the dense targets and every resnet convolution: a tree with conv pairs
+CONV_TARGETS = (r".*\.(to_q|to_k|to_v|to_out\.0|proj_in|proj_out|ff\.net\.0\.proj|ff\.net\.2)$",
+                r".*resnets\.\d+\.(conv1|conv2)$")
 
 
 def global_batches(n, seed=21):
@@ -355,34 +361,106 @@ def trainable(tr):
 
 
 def teacher_weights(tr):
-    """The teacher's state, whole (an FSDP shard gathered)."""
+    """The teacher's state, whole (an FSDP shard gathered), by the layers'
+    own names (a merged-weights layer's W under ``weight``)."""
     from torch.distributed.tensor import DTensor
 
-    return {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach().clone()
+    return {k.replace("parametrizations.weight.original", "weight"):
+            (v.full_tensor() if isinstance(v, DTensor) else v).detach().clone()
             for k, v in tr.model.teacher_module.state_dict().items()}
 
 
-def run_fit(cfg_kw=None, train_kw=None, frozen_sharding="replicated", steps=2, sharded=True):
-    """``fit`` of ``tiny_trainer`` over ``global_batches`` (each rank's rows
-    when ``sharded``): the trainable state and the logged losses by step."""
+def in_chunks(t: torch.Tensor, chunks) -> bool:
+    """Whether ``t``'s data lies in one of the byte ``chunks``."""
+    p = t.data_ptr()
+    return any(c.data_ptr() <= p < c.data_ptr() + c.numel() for c in chunks)
+
+
+def watch_towers(tr):
+    """Wrap ``tr``'s conditioning so that each call records, for every text
+    tower parameter, (its local numel, its numel) and whether its local
+    data lies in the offload's device copy; returns the record."""
+    seen, encode = [], tr.model._conditionings
+
+    def watched(*args, **kw):
+        local = _locals(tr.model.conditioner)
+        seen.append({"sizes": [(t.numel(), p.numel()) for t, p in zip(local, tr.model.conditioner.parameters())],
+                     "placed": all(in_chunks(t, tr._towers._device_chunks) for t in local if t.numel())})
+        return encode(*args, **kw)
+
+    tr.model._conditionings = watched
+    return seen
+
+
+def run_fit(cfg_kw=None, train_kw=None, frozen_sharding="replicated", steps=2, sharded=True, **kw):
+    """``fit`` of ``tiny_trainer`` (``kw``: its ``offload`` and ``targets``)
+    over ``global_batches`` (each rank's rows when ``sharded``): the
+    trainable state and the logged losses by step."""
     from flash_diffusion_tpu_torch.trainer import MetricLogger
 
-    tr = tiny_trainer(cfg_kw, train_kw, frozen_sharding)
+    tr = tiny_trainer(cfg_kw, train_kw, frozen_sharding, **kw)
     data = global_batches(steps)
     hist = MetricLogger(1)
     tr.fit([shard_batch(b) for b in data] if sharded else data, max_steps=steps, callbacks=[hist])
     return tr, {"state": trainable(tr), "losses": [h for _, h in hist.history]}
 
 
+def tiny_sd3_patches(kw):
+    """``sample``'s SD3 configs replaced by tiny ones (``kw``: the MMDiT's,
+    the VAE's, the CLIP-L, CLIP-G and T5 towers' and the joint width, as
+    ``tests/test_torch_sd3_train.py`` sets them): (module, name, value)."""
+    from flash_diffusion_tpu_torch import sample
+    from flash_diffusion_tpu_torch.models import MMDiTConfig, sd3_vae_config
+    from flash_diffusion_tpu_torch.models.embedders import T5TextEmbedderConfig
+
+    clip = sample._sd3_clip
+    return [
+        (sample, "_sd3_clip", lambda **k: clip(**(dict(kw["clip_g"], projection_dim=32) if k.get("hidden_size") == 1280
+                                                  else dict(kw["clip"], projection_dim=16)))),
+        (sample, "sd3_medium_config", lambda **k: MMDiTConfig(**kw["mmdit"], **k)),
+        (sample, "sd3_vae_config", lambda **k: sd3_vae_config(**kw["vae"], **k)),
+        (sample, "T5TextEmbedderConfig", lambda **k: T5TextEmbedderConfig(**k, text_embedder_config=kw["t5"])),
+        (sample, "SD3_JOINT_DIM", kw["joint"]),
+    ]
+
+
+def sd3_fit(kw, frozen_sharding):
+    """One ``fit`` step of ``build_trainer("sd3")`` on ``flash_sd3.yaml`` (T5
+    on, the towers offloaded in bursts of the yaml's 4) at 64², stage 1, K
+    = 4, over tiny modules, each rank on its rows of the yaml's global
+    batch of 2: the LoRA after the step, the logged losses and the moves."""
+    from flash_diffusion_tpu_torch import train
+    from flash_diffusion_tpu_torch.trainer import MetricLogger
+
+    cfg = {**train.load_config(train.CONFIGS["sd3"]), "LORA_RANK": 4, "IMAGE_SIZE": 64, "K": [4] * 4,
+           "NUM_ITERATIONS_PER_K": [0, 5000, 5000, 5000]}
+    with contextlib.ExitStack() as stack:
+        for obj, name, value in tiny_sd3_patches(kw):
+            stack.enter_context(_patched(obj, name, value))
+        tr = train.build_trainer("sd3", device="cpu", config=cfg, frozen_sharding=frozen_sharding)
+    hist = MetricLogger(1)
+    data = train.synthetic_batches(cfg["BATCH_SIZE"], cfg["IMAGE_SIZE"], model="sd3")
+    tr.fit((shard_batch(b) for b in data), max_steps=1, callbacks=[hist])
+    return {"lora": {f"{n}.{k}": v.detach().clone() for n, ab in tr.lora.items() for k, v in ab.items()},
+            "losses": [h for _, h in hist.history], "moves": len(tr.offload_moves),
+            "offload": tr.text_encoder_offload}
+
+
 def dp_all(rank_, world, spec):
     """``dp_grads`` then ``dp_fits`` in one group."""
-    return {"grads": dp_grads(rank_, world, spec), "fits": dp_fits(rank_, world)}
+    return {"grads": dp_grads(rank_, world, spec), "fits": dp_fits(rank_, world, spec["sd3"])}
 
 
-def dp_fits(rank_, world):
+def dp_fits(rank_, world, sd3_kw):
     """Two steps of the simultaneous mode, two of the alternating mode with
     accumulation 2, one step under FSDP beside one replicated; then
-    ``switch_teacher``'s merge under both."""
+    ``switch_teacher``'s merge under both. Then FSDP beside replicated with
+    the text towers offloaded (bursts of 2, 3 steps, the towers watched in
+    each encode), on a tree with conv pairs and with ``lora_mode="merge"``
+    on the dense tree (each merged into the teacher after the step), and
+    ``build_trainer("sd3")``'s step (``sd3_fit``)."""
+    from flash_diffusion_tpu_torch.trainer import MetricLogger
+
     out = {}
     _, out["simultaneous"] = run_fit()
     _, out["alternating"] = run_fit({"gan_update_mode": "alternating"}, {"gradient_accumulation_steps": 2})
@@ -391,5 +469,40 @@ def dp_fits(rank_, world):
     for name, tr in (("replicated", rep), ("fsdp", fsdp)):
         tr.model.merge_lora_into_teacher(tr.lora)
         out[f"merged_{name}"] = teacher_weights(tr)
+    for sharding in ("replicated", "fsdp"):
+        tr = tiny_trainer(frozen_sharding=sharding, offload=2)
+        seen = watch_towers(tr)
+        data = [shard_batch(b) for b in global_batches(3)]
+        hist = MetricLogger(1)
+        tr.fit(data, max_steps=3, callbacks=[hist])
+        out[f"offload_{sharding}"] = {
+            "state": trainable(tr), "losses": [h for _, h in hist.history], "moves": len(tr.offload_moves),
+            "seen": seen, "released": all(in_chunks(t, tr._towers._host) for t in _locals(tr.model.conditioner))}
+    for tree, kw in (("conv", dict(targets=CONV_TARGETS)), ("merge", dict(cfg_kw={"lora_mode": "merge"}))):
+        for sharding in ("replicated", "fsdp"):
+            tr, out[f"{tree}_{sharding}"] = run_fit(frozen_sharding=sharding, steps=1, **kw)
+            out[f"{tree}_{sharding}"]["merged_student"] = tr.model.merged_student
+            out[f"{tree}_{sharding}"]["exports"] = exports_round_trip(tr)
+            tr.model.merge_lora_into_teacher(tr.lora)
+            out[f"{tree}_{sharding}"]["merged"] = teacher_weights(tr)
+    out["sd3"] = {sharding: sd3_fit(sd3_kw, sharding) for sharding in ("replicated", "fsdp")}
     out["rank"] = rank()
     return out
+
+
+def exports_round_trip(tr) -> bool:
+    """The trained tree read back bit for bit from its PEFT and kohya
+    exports, the kohya names resolved against the (sharded) student."""
+    from flash_diffusion_tpu_torch.lora import from_kohya, from_peft, to_kohya, to_peft
+
+    want = {n: {k: v.detach() for k, v in ab.items()} for n, ab in tr.lora.items()}
+    peft, _ = from_peft(to_peft(want))
+    kohya, _ = from_kohya(to_kohya(want), tr.model.student_module)
+    return all(torch.equal(back[n][k], want[n][k]) for back in (peft, kohya) for n in want for k in ("a", "b"))
+
+
+def _locals(module):
+    """Each parameter's local data (an FSDP shard's, or the tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    return [p.to_local() if isinstance(p, DTensor) else p for p in module.parameters()]
